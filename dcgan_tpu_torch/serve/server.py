@@ -1,0 +1,420 @@
+"""The sampler server: queue -> continuous batches -> bucketed dispatch (the
+counterpart of `dcgan_tpu/serve/server.py`).
+
+Callers `submit()` generation requests from any thread; one dispatch thread
+(worker.py) assembles them into dynamic batches, snaps each batch UP to the
+nearest bucket (buckets.py), runs the sampler at that bucket, and resolves
+each request's `Response` with its images and latency accounting.
+
+Batching policy, as in the JAX package:
+- a flush happens when the pending work fills the LARGEST bucket or when
+  the OLDEST pending request has waited `max_wait_ms` (the deadline flush);
+- requests coalesce in FIFO order; a request larger than the top bucket is
+  chunked across consecutive dispatches, never reordered against later
+  arrivals (drain-on-stop keeps the same order);
+- when the queue is full the OLDEST never-dispatched request is shed and
+  its Response fails with `ServeOverloadError` (drop-oldest backpressure).
+
+`report()` emits the same `serve/*` metric keys as the JAX server.
+Weight promotion and the replica fleet are later items of the port.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from dcgan_tpu_torch.serve.buckets import BucketLadder, build_ladder
+
+#: default request-queue bound: deep enough to absorb a burst several
+#: buckets long, shallow enough that a wedged device sheds load quickly
+DEFAULT_MAX_QUEUE = 256
+
+
+class ServeError(RuntimeError):
+    """The serving plane failed (startup, dispatch, or shutdown)."""
+
+
+class ServeOverloadError(ServeError):
+    """This request was shed by drop-oldest backpressure. `queue_depth` is
+    the pending-request count at shed time and `oldest_wait_ms` how long
+    the head of the queue had been waiting."""
+
+    def __init__(self, msg: str, *, queue_depth: int = 0,
+                 oldest_wait_ms: float = 0.0):
+        super().__init__(msg)
+        self.queue_depth = queue_depth
+        self.oldest_wait_ms = oldest_wait_ms
+
+
+class Response:
+    """Future-like handle for one request, resolved by the dispatch thread.
+    `meta` carries the latency accounting: queue_ms (submit -> first
+    dispatch), infer_ms (dispatch + host copy, summed over chunks),
+    total_ms (submit -> resolve), and the bucket size(s) it rode in."""
+
+    def __init__(self) -> None:
+        self._ev = threading.Event()
+        self.images: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+        self.meta: Dict[str, Any] = {}
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("request not resolved within timeout")
+        if self.error is not None:
+            raise self.error
+        return self.images
+
+    # -- dispatch-thread side ---------------------------------------------
+
+    def _resolve(self, images: np.ndarray, meta: Dict[str, Any]) -> None:
+        self.images = images
+        self.meta.update(meta)
+        self._ev.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self.error = err
+        self._ev.set()
+
+
+class _Pending:
+    """One queued request, tracked by the batcher."""
+
+    __slots__ = ("num_images", "z", "seed", "serial", "resp",
+                 "t_submit", "t_first_dispatch", "remaining", "delivered",
+                 "parts", "buckets", "infer_ms", "cursor")
+
+    def __init__(self, num_images: int, z: Optional[np.ndarray],
+                 seed: Optional[int], serial: int):
+        self.num_images = num_images
+        self.z = z
+        self.seed = seed
+        self.serial = serial
+        self.resp = Response()
+        self.t_submit = time.monotonic()
+        self.t_first_dispatch: Optional[float] = None
+        self.remaining = num_images   # rows not yet taken into a batch
+        self.delivered = 0            # rows already returned by dispatches
+        self.parts: List[np.ndarray] = []
+        self.buckets: List[int] = []
+        self.infer_ms = 0.0
+        self.cursor = 0               # next z row to hand to a batch
+
+    def take_z(self, take: int, z_dim: int, base_seed: int) -> np.ndarray:
+        """The next `take` latent rows: the caller-provided z, or rows drawn
+        once per request from a deterministic per-request numpy stream (the
+        JAX server's stream exactly, so one seed gives one z in both)."""
+        if self.z is None:
+            seed = self.seed if self.seed is not None \
+                else (base_seed, self.serial)
+            rng = np.random.default_rng(seed)
+            self.z = rng.uniform(-1.0, 1.0, (self.num_images, z_dim)) \
+                .astype(np.float32)
+        rows = self.z[self.cursor:self.cursor + take]
+        self.cursor += take
+        return rows
+
+
+class SamplerServer:
+    """Continuous-batching generation server over one weight source.
+
+    Lifecycle: `start()` spawns the dispatch thread, which cold-starts
+    (weight load + one primed dispatch per bucket) and flips warm;
+    `submit()` enqueues from any thread (accepted during cold start);
+    `stop(drain=True)` stops intake, lets the worker drain the queue in
+    FIFO order, and joins it. A worker failure fails the in-flight requests
+    and poisons the server (later submits are rejected, `stop()` re-raises).
+    """
+
+    def __init__(self, source, *, buckets: Optional[Sequence[int]] = None,
+                 max_batch: int = 64,
+                 max_queue: int = DEFAULT_MAX_QUEUE,
+                 max_wait_ms: float = 10.0,
+                 seed: int = 0):
+        if max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if max_wait_ms < 0:
+            raise ValueError(
+                f"max_wait_ms must be >= 0, got {max_wait_ms}")
+        self.source = source
+        self.max_batch = max_batch
+        self.max_queue = max_queue
+        self.max_wait_ms = max_wait_ms
+        self.seed = seed
+        self._explicit_buckets = tuple(buckets) if buckets else None
+        self.ladder: Optional[BucketLadder] = None   # set at cold start
+
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._queue: "collections.deque[_Pending]" = collections.deque()
+        self._draining = False
+        self._started = False
+        self._ready = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._worker = None
+
+        # counters, mutated under _lock
+        self.submitted = 0
+        self.completed = 0
+        self.dropped = 0
+        self.batches = 0
+        self.images_out = 0
+        self.padded_rows = 0
+        self.dispatched_rows = 0
+        self.queue_depth_max = 0
+        self._serial = 0
+        self._latencies_ms: List[float] = []
+
+        # cold-start accounting, filled by the worker
+        self.meta: Dict[str, Any] = {}
+        self.cold_ms: Dict[str, float] = {}
+        self._t_warm: Optional[float] = None
+        self._t_drained: Optional[float] = None
+
+        from dcgan_tpu_torch.utils.metrics import CounterRegistry
+
+        self.registry = CounterRegistry()
+        self.registry.provide("serve_requests", lambda: self.submitted)
+        self.registry.provide("serve_completed", lambda: self.completed)
+        self.registry.provide("serve_dropped", lambda: self.dropped)
+        self.registry.provide("serve_batches", lambda: self.batches)
+        self.registry.provide("serve_queue", lambda: len(self._queue))
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self, timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Spawn the dispatch thread and block until the plane is warm;
+        returns the source metadata. Raises the cold-start error if startup
+        failed."""
+        from dcgan_tpu_torch.serve.worker import ServeWorker
+
+        with self._lock:
+            if self._started:
+                raise ServeError("server already started")
+            self._started = True
+        self._worker = ServeWorker(self)
+        self._worker.start()
+        if not self._ready.wait(timeout):
+            raise TimeoutError("serve cold start did not finish in time")
+        self.raise_if_failed()
+        return dict(self.meta)
+
+    def submit(self, num_images: int = 1, *,
+               z: Optional[np.ndarray] = None,
+               seed: Optional[int] = None) -> Response:
+        """Enqueue one generation request; returns its Response. Never
+        blocks on a full queue: the oldest never-dispatched request is shed
+        instead, and a stopped/poisoned server fails the Response at once."""
+        if z is not None:
+            z = np.asarray(z, np.float32)
+            if z.ndim != 2:
+                raise ValueError(f"z must be [n, z_dim], got {z.shape}")
+            # z_dim is 0 until the cold start resolves it; the worker
+            # re-checks at assembly so a cold-start-window submit with the
+            # wrong width fails ITS response, not the server
+            if self.source.z_dim and z.shape[1] != self.source.z_dim:
+                raise ValueError(
+                    f"z width {z.shape[1]} != source z_dim "
+                    f"{self.source.z_dim}")
+            num_images = z.shape[0]
+        if num_images < 1:
+            raise ValueError(f"num_images must be >= 1, got {num_images}")
+        fail_after: List[Tuple[Response, BaseException]] = []
+        with self._lock:
+            if self._draining or self._error is not None:
+                p = _Pending(num_images, z, seed, -1)
+                fail_after.append((p.resp, ServeError(
+                    "server is stopped" if self._error is None else
+                    f"server failed: {self._error!r}")))
+            else:
+                p = _Pending(num_images, z, seed, self._serial)
+                self._serial += 1
+                self.submitted += 1
+                rejected = False
+                while len(self._queue) >= self.max_queue:
+                    # shed the oldest NEVER-DISPATCHED request: a partly
+                    # dispatched head already has device work banked. With
+                    # nothing undispatched to shed, the NEW request is the
+                    # one rejected.
+                    depth = len(self._queue)
+                    oldest_ms = (time.monotonic()
+                                 - self._queue[0].t_submit) * 1e3
+                    overload = ServeOverloadError(
+                        f"request shed by drop-oldest backpressure "
+                        f"(queue full at {self.max_queue}; depth {depth},"
+                        f" oldest waited {oldest_ms:.1f}ms)",
+                        queue_depth=depth, oldest_wait_ms=oldest_ms)
+                    victim = next(
+                        (q for q in self._queue if q.delivered == 0), None)
+                    self.dropped += 1
+                    if victim is None:
+                        fail_after.append((p.resp, overload))
+                        rejected = True
+                        break
+                    self._queue.remove(victim)
+                    fail_after.append((victim.resp, overload))
+                if not rejected:
+                    self._queue.append(p)
+                    self.queue_depth_max = max(self.queue_depth_max,
+                                               len(self._queue))
+                    self._work.notify_all()
+        for resp, err in fail_after:
+            resp._fail(err)
+        return p.resp
+
+    def stop(self, drain: bool = True, timeout: float = 120.0) -> None:
+        """Stop intake; with drain=True the worker finishes every queued
+        request in FIFO order first. Joins the worker and re-raises its
+        failure, if any. Safe to call twice. A drain that outlives `timeout`
+        raises TimeoutError."""
+        fail_after: List[Tuple[Any, BaseException]] = []
+        with self._lock:
+            if not self._started:
+                return
+            self._draining = True
+            if not drain:
+                err = ServeError("server stopped before dispatch")
+                while self._queue:
+                    fail_after.append((self._queue.popleft().resp, err))
+            self._work.notify_all()
+        for fut, err in fail_after:
+            fut._fail(err)
+        if self._worker is not None:
+            self._worker.join(timeout)
+            if self._worker.is_alive():
+                raise TimeoutError(
+                    f"serve drain did not finish within {timeout}s; the "
+                    "dispatch thread is still running and requests are NOT "
+                    "all resolved")
+        self.raise_if_failed()
+
+    def poisoned(self) -> bool:
+        """Whether the dispatch thread died."""
+        return self._error is not None
+
+    def raise_if_failed(self) -> None:
+        err = self._error
+        if err is not None:
+            raise ServeError(f"serve dispatch thread failed: {err!r}") \
+                from err
+
+    # -- reporting ----------------------------------------------------------
+
+    def counters(self):
+        """One coherent CounterSnapshot."""
+        return self.registry.snapshot()
+
+    def report(self) -> Dict[str, float]:
+        """The serve/* metric row: request, latency and throughput
+        accounting plus the cold-start breakdown."""
+        with self._lock:
+            lat = sorted(self._latencies_ms)
+            out: Dict[str, float] = {
+                "serve/requests": float(self.submitted),
+                "serve/completed": float(self.completed),
+                "serve/dropped": float(self.dropped),
+                "serve/batches": float(self.batches),
+                "serve/images": float(self.images_out),
+                "serve/queue_depth_max": float(self.queue_depth_max),
+                "serve/pad_frac": (self.padded_rows
+                                   / max(1, self.dispatched_rows)),
+            }
+            end = self._t_drained if self._t_drained is not None \
+                else time.monotonic()
+            if self._t_warm is not None and end > self._t_warm:
+                out["serve/samples_per_sec"] = \
+                    self.images_out / (end - self._t_warm)
+        if lat:
+            out["serve/p50_ms"] = _percentile(lat, 50.0)
+            out["serve/p99_ms"] = _percentile(lat, 99.0)
+            out["serve/mean_ms"] = float(np.mean(lat))
+        for key, src in (("serve/restore_ms", "restore_ms"),
+                         ("serve/warmup_ms", "warmup_ms"),
+                         ("serve/cold_start_ms", "cold_start_ms")):
+            if src in self.cold_ms:
+                out[key] = self.cold_ms[src]
+        return out
+
+    # -- worker side (dispatch thread only) ---------------------------------
+
+    def _resolve_ladder(self) -> BucketLadder:
+        """The bucket ladder for this run: the explicit buckets, else the
+        default doubling ladder under max_batch."""
+        granule = self.source.granule
+        if self._explicit_buckets is None:
+            return build_ladder(self.max_batch, granule)
+        return BucketLadder(
+            buckets=tuple(sorted(set(self._explicit_buckets))),
+            granule=granule)
+
+    def _next_batch(self):
+        """Block until work is due, then return a `(spans, total)` request
+        batch (full top bucket, deadline, or drain), or None once draining
+        and empty: the worker's exit signal."""
+        with self._lock:
+            while True:
+                if not self._queue:
+                    if self._draining:
+                        self._t_drained = time.monotonic()
+                        return None
+                    self._work.wait(0.1)
+                    continue
+                total = sum(p.remaining for p in self._queue)
+                top = self.ladder.max_bucket
+                now = time.monotonic()
+                deadline = self._queue[0].t_submit + self.max_wait_ms / 1e3
+                if total >= top or now >= deadline or self._draining:
+                    return self._pop_spans(top)
+                self._work.wait(min(deadline - now, 0.1))
+
+    def _pop_spans(self, top: int) -> Tuple[List[Tuple[_Pending, int]],
+                                            int]:
+        spans: List[Tuple[_Pending, int]] = []
+        total = 0
+        while self._queue and total < top:
+            p = self._queue[0]
+            take = min(p.remaining, top - total)
+            p.remaining -= take
+            if p.remaining == 0:
+                self._queue.popleft()
+            spans.append((p, take))
+            total += take
+        return spans, total
+
+    def _record_batch(self, bucket: int, pad: int) -> None:
+        with self._lock:
+            self.batches += 1
+            self.padded_rows += pad
+            self.dispatched_rows += bucket
+
+    def _record_done(self, p: _Pending, total_ms: float) -> None:
+        with self._lock:
+            self.completed += 1
+            self.images_out += p.num_images
+            self._latencies_ms.append(total_ms)
+
+    def _fail_all(self, err: BaseException) -> None:
+        """Worker death: fail everything still queued and poison intake."""
+        victims: List[Any] = []
+        with self._lock:
+            self._error = err
+            while self._queue:
+                victims.append(self._queue.popleft().resp)
+            self._work.notify_all()
+        for fut in victims:
+            fut._fail(err)
+
+
+def _percentile(sorted_ms: List[float], pct: float) -> float:
+    """Nearest-rank percentile over an ascending list."""
+    idx = min(len(sorted_ms) - 1,
+              max(0, int(round(pct / 100.0 * (len(sorted_ms) - 1)))))
+    return sorted_ms[idx]

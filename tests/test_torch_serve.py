@@ -1,0 +1,285 @@
+"""The port's serving plane on the CPU: ladder, batcher, drain, backpressure,
+and served images against the JAX generator on the same numpy z rows."""
+
+import json
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dcgan_tpu.config import ModelConfig as JModelConfig
+from dcgan_tpu.models import dcgan as jdcgan
+from dcgan_tpu.serve import buckets as jbuckets
+from dcgan_tpu_torch import convert
+from dcgan_tpu_torch.config import ModelConfig
+from dcgan_tpu_torch.serve import __main__ as serve_main
+from dcgan_tpu_torch.serve.buckets import BucketLadder, build_ladder, \
+    parse_buckets
+from dcgan_tpu_torch.serve.server import SamplerServer, ServeError, \
+    ServeOverloadError
+from dcgan_tpu_torch.serve.sources import WeightsSource
+
+TIMEOUT = 60.0
+
+
+class FakeSource:
+    """Echoes each dispatched batch's z rows back as its "images" and
+    records the bucket of every dispatch."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, z_dim=4):
+        self.z_dim = z_dim
+        self.num_classes = 0
+        self.granule = 1
+        self.dispatches = []
+        self._rungs = ()
+
+    def prepare(self):
+        return {"source": "fake", "step": None, "weights": "-",
+                "device": "cpu"}
+
+    def bucket_plan(self, ladder):
+        return tuple(ladder.buckets)
+
+    def bind(self, rungs):
+        self._rungs = tuple(rungs)
+
+    def compiled_buckets(self):
+        return self._rungs
+
+    def sample(self, bucket, z, labels=None):
+        assert bucket in self._rungs and z.shape == (bucket, self.z_dim)
+        self.dispatches.append((bucket, z.copy()))
+        return z.copy()
+
+
+@pytest.fixture
+def servers():
+    """Servers a test creates; stopped at teardown so no dispatch thread
+    outlives its test."""
+    made = []
+    yield made
+    for s in made:
+        try:
+            s.stop(drain=False, timeout=TIMEOUT)
+        except ServeError:
+            pass
+
+
+def _z(seed, n, z_dim=4):
+    return np.random.default_rng(seed).uniform(-1, 1, (n, z_dim)) \
+        .astype(np.float32)
+
+
+class TestBucketLadder:
+    @pytest.mark.parametrize("max_batch,granule", [
+        (64, 1), (1, 1), (48, 1), (64, 8), (20, 8), (7, 2)])
+    def test_matches_jax_ladder(self, max_batch, granule):
+        assert build_ladder(max_batch, granule).buckets == \
+            jbuckets.build_ladder(max_batch, granule).buckets
+
+    def test_snap_and_parse(self):
+        ladder = build_ladder(64)
+        assert ladder.buckets == (1, 2, 4, 8, 16, 32, 64)
+        assert [ladder.snap(n) for n in (1, 3, 8, 9, 64, 100)] == \
+            [1, 4, 8, 16, 64, 64]
+        assert parse_buckets("8,2,4,,8").buckets == (2, 4, 8)
+        with pytest.raises(ValueError):
+            parse_buckets("2,x")
+        with pytest.raises(ValueError):
+            ladder.snap(0)
+
+    @pytest.mark.parametrize("rungs,granule", [((), 1), ((4, 2), 1),
+                                               ((2, 3), 2), ((0, 1), 1)])
+    def test_invalid_ladders_raise(self, rungs, granule):
+        with pytest.raises(ValueError):
+            BucketLadder(buckets=rungs, granule=granule)
+
+
+class TestBatcher:
+    def test_padding_to_the_snapped_bucket(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(2, 4, 8), max_wait_ms=0.0)
+        servers.append(s)
+        z = _z(0, 3)
+        s.start(timeout=TIMEOUT)
+        out = s.submit(z=z).result(TIMEOUT)
+        np.testing.assert_array_equal(out, z)
+        bucket, sent = src.dispatches[-1]
+        assert bucket == 4
+        np.testing.assert_array_equal(sent[3:], 0.0)   # the pad row
+        s.stop()
+        rep = s.report()
+        assert rep["serve/pad_frac"] == 1 / 4
+        assert rep["serve/completed"] == 1.0
+
+    def test_fifo_drain_and_chunking(self, servers):
+        """Requests queued before the warm start drain in FIFO order; one
+        larger than the top bucket is chunked without reordering."""
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2, 4), max_wait_ms=1e4)
+        servers.append(s)
+        zs = [_z(i, n) for i, n in enumerate((3, 6, 1, 2))]
+        resps = [s.submit(z=z) for z in zs]
+        s.start(timeout=TIMEOUT)
+        s.stop(drain=True, timeout=TIMEOUT)
+        for z, r in zip(zs, resps):
+            np.testing.assert_array_equal(r.result(0), z)
+        rows = np.concatenate([z for _, z in src.dispatches])
+        # dispatched rows, minus the warm-up and pad rows (all zero), are
+        # the requests' rows in submission order
+        kept = rows[np.any(rows != 0.0, axis=1)]
+        np.testing.assert_array_equal(kept, np.concatenate(zs))
+        # 3+6+1+2 rows over a top bucket of 4: the 6-row request is split
+        # across all three batches, each full or snapped to 4
+        assert resps[1].meta["buckets"] == [4, 4, 4]
+        assert [b for b, _ in src.dispatches][-3:] == [4, 4, 4]
+
+    def test_drop_oldest_never_dispatched(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2), max_queue=2)
+        servers.append(s)
+        a, b, c = (s.submit(z=_z(i, 1)) for i in range(3))
+        assert a.done() and isinstance(a.error, ServeOverloadError)
+        assert a.error.queue_depth == 2
+        assert not b.done() and not c.done()
+        s.start(timeout=TIMEOUT)
+        s.stop(drain=True, timeout=TIMEOUT)
+        np.testing.assert_array_equal(b.result(0), _z(1, 1))
+        np.testing.assert_array_equal(c.result(0), _z(2, 1))
+        assert s.report()["serve/dropped"] == 1.0
+        assert s.counters().serve_dropped == 1
+
+    def test_deadline_flush_below_top_bucket(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2, 4, 8), max_wait_ms=5.0)
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        out = s.submit(2).result(TIMEOUT)    # never fills the top bucket
+        assert out.shape == (2, 4)
+        assert src.dispatches[-1][0] == 2
+
+    def test_stopped_server_rejects_and_bad_z_raises(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2))
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        with pytest.raises(ValueError, match="z width"):
+            s.submit(z=np.zeros((1, 3), np.float32))
+        s.stop()
+        r = s.submit(1)
+        assert r.done() and isinstance(r.error, ServeError)
+
+    def test_dispatch_failure_poisons_the_server(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2))
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        src._rungs = ()   # the next dispatch hits an unbound rung
+        r = s.submit(1)
+        with pytest.raises(AssertionError):
+            r.result(TIMEOUT)
+        assert s.poisoned()
+        with pytest.raises(ServeError):
+            s.stop()
+
+    def test_requests_from_many_threads(self, servers):
+        src = FakeSource()
+        s = SamplerServer(src, buckets=(1, 2, 4, 8), max_wait_ms=1.0)
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        out = {}
+
+        def client(i):
+            out[i] = s.submit(z=_z(100 + i, 1 + i % 3))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(TIMEOUT)
+            assert not t.is_alive()
+        s.stop(drain=True, timeout=TIMEOUT)
+        for i, r in out.items():
+            np.testing.assert_array_equal(r.result(0), _z(100 + i, 1 + i % 3))
+        assert s.report()["serve/completed"] == 16.0
+
+
+def _weights(tmp_path, **cfg_kw):
+    """JAX-initialized generator weights (numpy) with nontrivial BN
+    statistics, written through convert.save_weights."""
+    rng = np.random.default_rng(3)
+    jcfg = JModelConfig(**cfg_kw)
+    params, state = jdcgan.generator_init(jax.random.key(3), jcfg)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = {name: {"mean": rng.normal(0, 0.05, s["mean"].shape)
+                    .astype(np.float32),
+                    "var": rng.uniform(0.002, 0.02, s["var"].shape)
+                    .astype(np.float32)}
+             for name, s in state.items()}
+    tp, ts = convert.generator_from_jax(params, state, device="cpu")
+    path = convert.save_weights(str(tmp_path / "g.npz"),
+                                ModelConfig(**cfg_kw), tp, ts)
+    return path, params, state, jcfg
+
+
+class TestServedImages:
+    CFG = dict(output_size=16, gf_dim=8, compute_dtype="float32",
+               use_pallas=True, pallas_fused=True)
+
+    def test_seeded_request_equals_jax_generator(self, tmp_path, servers):
+        """The response to seed=s is the JAX generator on the same numpy z
+        rows (the server's per-request stream): f32, 1e-4."""
+        path, params, state, jcfg = _weights(tmp_path, **self.CFG)
+        s = SamplerServer(WeightsSource(path, device="cpu"), max_batch=8,
+                          max_wait_ms=1.0)
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        got = {seed: s.submit(n, seed=seed) for seed, n in ((11, 3),
+                                                             (12, 10))}
+        s.stop(drain=True, timeout=TIMEOUT)
+        for seed, r in got.items():
+            img = r.result(0)
+            n = img.shape[0]
+            z = np.random.default_rng(seed).uniform(
+                -1.0, 1.0, (n, jcfg.z_dim)).astype(np.float32)
+            want, _ = jdcgan.generator_apply(params, state, jnp.asarray(z),
+                                             cfg=jcfg, train=False)
+            want = np.asarray(want)
+            assert img.shape == (n, 16, 16, 3) and img.dtype == np.float32
+            assert want.std() > 0.05
+            np.testing.assert_allclose(img, want, rtol=0, atol=1e-4)
+        assert got[12].result(0).shape[0] == 10   # chunked over bucket 8
+
+    def test_unbound_bucket_and_wrong_z_raise(self, tmp_path):
+        path, *_ = _weights(tmp_path, **self.CFG)
+        src = WeightsSource(path, device="cpu")
+        src.prepare()
+        src.bind((1, 2))
+        assert src.compiled_buckets() == (1, 2)
+        with pytest.raises(KeyError):
+            src.sample(4, np.zeros((4, 100), np.float32))
+        with pytest.raises(ValueError):
+            src.sample(2, np.zeros((2, 99), np.float32))
+
+    def test_cli_report_keys(self, tmp_path):
+        path, *_ = _weights(tmp_path, **self.CFG)
+        report = tmp_path / "report.json"
+        row, responses = serve_main.run([
+            "--weights", path, "--device", "cpu", "--max_batch", "4",
+            "--demo_requests", "6", "--demo_rps", "500",
+            "--demo_max_images", "3", "--report", str(report)])
+        assert row["completed"] == 6 and row["failed"] == 0
+        assert all(r.result(0).shape[1:] == (16, 16, 3) for r in responses)
+        saved = json.loads(report.read_text())
+        for key in ("serve/p50_ms", "serve/p99_ms", "serve/samples_per_sec",
+                    "serve/pad_frac", "serve/cold_start_ms",
+                    "serve/warmup_ms", "serve/restore_ms"):
+            assert key in saved, key
+        assert saved["buckets"] == [1, 2, 4]
+        assert saved["device"] == "cpu"
