@@ -6,12 +6,14 @@
 Run from the root of a checkout on a machine with a Hopper GPU (sm_90a) and
 nvcc. Needs one card; no network. Phases, each fatal on failure:
 
-1. build: every CUDA kernel of the served path, from dcgan_tpu_torch/csrc
-   (nvcc, one process per source, all at once);
+1. build: every CUDA kernel of the served and the training path, from
+   dcgan_tpu_torch/csrc (nvcc, one process per source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the same card
-   tensors at the shapes the served path gives it (celeba64, batch 64), in
-   bf16 and f32, plus ragged shapes; then timed with CUDA events beside its
-   bound, its plain version and a library call;
+   tensors at the shapes the served path (kernels 2, 5) and the training
+   step (kernels 1, 3, 4) give it (celeba64, batch 64), in bf16 and f32,
+   plus ragged shapes, kernels 1, 3, 4 also launched twice to show they
+   repeat bit for bit; then timed with CUDA events beside its bound, its
+   plain version and a library call;
 3. serve: seeded celeba64 weights (use_pallas + pallas_fused, BN running
    statistics calibrated on a batch and perturbed with numpy noise) are
    written with convert.save_weights and served through
@@ -22,11 +24,24 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
    requests match a direct sampler call on the same z rows; one batch
    matches the cuDNN + torch-BN route (use_pallas=False), in bf16 and, with
    TF32 off, in f32; then one bf16 sampler call at batch 64 is timed on
-   both routes.
+   both routes;
+5. train: `python -m dcgan_tpu_torch.train`'s entry point (train.cli.main,
+   --preset celeba64 --use_pallas --pallas_fused --synthetic, batch 64) for
+   TRAIN_STEPS steps on cuda, the launch counters set to 0 just before and
+   read just after: each kernel must have launched exactly its per-step
+   count times the steps; the losses are finite and every parameter and
+   BN running statistic moved from the seeded init;
+6. train outputs: the losses and both nets' gradients at the seeded
+   state on the kernel route and on the cuDNN + torch-BN route, same
+   images and z, within TRAIN_ROUTE_TOL and, leaf by leaf,
+   TRAIN_GRAD_TOL in bf16 and (TF32 off) f32; one bf16 step per route
+   checked for host-device synchronizations, timed on the host clock, and
+   profiled with torch.profiler: device busy time by kernel family, the
+   idle share and the costliest kernels.
 
-Stdout ends with the serve report, the sampler timing, the card's name
-and power limit
-(nvidia-smi), one JSON line {"kernels": [...]} and, last, one JSON line
+Stdout ends with the serve report, the sampler timing, the train report,
+the card's name and power limit (nvidia-smi), one JSON line
+{"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
 """
@@ -40,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over HBM bandwidth and its operations over these rates
@@ -64,6 +80,36 @@ ROUTE_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # Served request vs a direct sampler call on its z rows: the same route;
 # only cuBLAS/cuDNN algorithm choice at another batch size may differ.
 SERVED_TOL = 2e-2
+# The four losses at the seeded state, kernel route vs cuDNN + torch-BN
+# route, same state, images and z, as (rtol, atol) on |kernel - cudnn| <=
+# rtol * |cudnn| + atol: in bf16 the routes round at different points
+# through G and D (BN in bf16 op by op vs f32 with one rounding), at most
+# two bf16 ulps relative (measured 0.28 % on an H100 at 700 W); in f32
+# with TF32 off only the summation order differs (measured 4.4e-7
+# relative).
+TRAIN_ROUTE_TOL = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-5, 1e-6)}
+# The gradients at the seeded state, per leaf of each net, kernel route vs
+# cuDNN + torch-BN route: |g_kernel - g_cudnn| <= rtol * |g_cudnn| + atol *
+# (the net's largest leaf norm), norms over the leaf. The atol term covers
+# the biases that feed a BatchNorm, whose true gradient is 0 (their
+# gradient is rounding noise, as large as itself on either route). G's
+# gradients pass back through D and G, so bf16 rounding reaches them
+# amplified: the routes measured 19 % apart on G's leaves and 10 % on D's
+# in bf16, 0.24 % in f32 (H100 at 700 W). Broken backwards measured: dscale
+# zeroed, 100-137 % on every BN scale; gemm_bias_moments' E[u^2] cotangent
+# dropped, 40-200 % on the BN leaves; dscale 2 % off, 2-2.6 % on the BN
+# scales in f32; channel_moments' E[x^2] cotangent dropped, 5.1 % on G's
+# proj in f32. `broken_backwards` injects the first two in bf16 and the
+# last two in f32, and the run fails unless the comparison catches each.
+TRAIN_GRAD_TOL = {"bfloat16": (0.3, 1e-2), "float32": (1e-2, 1e-5)}
+TRAIN_STEPS = 10
+# launches per training step (n_critic 1, sequential): G runs forward
+# twice (D step, G step) and D three times (real and fake in the D step,
+# fake in the G step); backward passes run D's stages three times and G's
+# once (bn0 + its 3 fused stages)
+PER_STEP = {"channel_moments": 2, "scale_shift_act": 17,
+            "scale_shift_act_bwd": 13, "gemm_bias_moments": 15,
+            "gemm_bias_scale_act": 0}
 
 
 def fail(msg: str) -> None:
@@ -92,8 +138,9 @@ def time_ms(torch, fn, iters: int, warmup: int = 2):
     call_ms = (time.perf_counter() - t0) * 1e3 / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # cycles >= the enqueue time at clocks up to 2 GHz, plus 2 ms
-    torch.cuda._sleep(int((call_ms * iters + 2.0) * 2e6))
+    # cycles >= twice the enqueue time at clocks up to 2 GHz, plus 5 ms:
+    # a host-bound fn() enqueues about as slowly as the first loop ran
+    torch.cuda._sleep(int((2.0 * call_ms * iters + 5.0) * 2e6))
     start.record()
     for _ in range(iters):
         fn()
@@ -277,6 +324,300 @@ def check_kernels(torch, cfg):
     return [ssa, gemm]
 
 
+def train_shapes(cfg, batch):
+    """The fused stages of one training step: G's deconv1..k-1 and D's
+    conv1..k-1, as dicts of name, transpose, act, GEMM M/K/C, the input
+    map's resolution and channels, and launches per step (G forwards twice
+    per step, D three times)."""
+    out = [dict(name=f"G {name}", transpose=True, act="relu", m=m, k=k,
+                c=c, res=res, in_ch=in_ch, fwd=2, bwd=1)
+           for name, m, k, c, res, in_ch in stage_shapes(cfg, batch)]
+    for i in range(1, cfg.num_up_layers):
+        in_ch = cfg.df_dim * 2 ** (i - 1)
+        out_res = cfg.output_size >> (i + 1)
+        out.append(dict(name=f"D conv{i}", transpose=False, act="lrelu",
+                        m=batch * out_res * out_res,
+                        k=in_ch * cfg.kernel_size ** 2,
+                        c=cfg.df_dim * 2 ** i, res=cfg.output_size >> i,
+                        in_ch=in_ch, fwd=3, bwd=3))
+    return out
+
+
+def moments_bound(n, c, itemsize):
+    t_bytes = (itemsize * n * c + 2 * 4 * c) / HBM_BYTES_PER_S
+    t_ops = 3.0 * n * c / F32_FLOPS
+    return t_bytes, t_ops
+
+
+def ssa_bwd_bound(n, c, itemsize):
+    # reads x and g, writes dx; reads scale/shift, writes dscale/dshift
+    t_bytes = (3 * itemsize * n * c + 4 * 4 * c) / HBM_BYTES_PER_S
+    t_ops = 8.0 * n * c / F32_FLOPS
+    return t_bytes, t_ops
+
+
+def gbm_bound(m, k, c, itemsize):
+    # reads P, W and b, writes u (f32) and the two moment vectors
+    bytes_ = itemsize * (m * k + k * c) + 4 * c + 4 * m * c + 2 * 4 * c
+    rate = BF16_TENSOR_FLOPS if itemsize == 2 else F32_FLOPS
+    return bytes_ / HBM_BYTES_PER_S, 2.0 * m * k * c / rate \
+        + 4.0 * m * c / F32_FLOPS
+
+
+def column_sum_close(torch, name, got, want, terms):
+    """A column sum taken in another order: within 1e-5 of the sum of the
+    terms' magnitudes, plus 1e-6. Returns max |got - want|."""
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite kernel output")
+    bad = err > 1e-5 * terms + 1e-6
+    if bool(bad.any()):
+        fail(f"{name}: {int(bad.sum())} column(s) outside 1e-5 * "
+             f"sum|terms| + 1e-6; max |err| {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def same_bits(torch, name, a, b):
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{name}: two launches on the same inputs differ")
+
+
+def weighted(entries, key):
+    """Launch-weighted sum over shapes: the time per training step."""
+    return sum(e[key] * e["per_step"] for e in entries)
+
+
+def check_train_kernels(torch, cfg, ssa_entry):
+    """Phase 2, the training step's kernels: channel_moments (1),
+    scale_shift_act's backward (3) and gemm_bias_moments (4) against their
+    plain versions at every batch-64 shape of the step, in bf16 and f32,
+    each launched twice to show the bits repeat; then timed. Kernel 2's
+    forward is also timed at the training shapes (into `ssa_entry`)."""
+    import torch.nn.functional as F
+
+    from dcgan_tpu_torch.ops.activations import ACTS, act_fwd
+    from dcgan_tpu_torch.ops.fused import conv_patches, gemm_bias_moments, \
+        gemm_bias_moments_plain, w_to_gemm
+    from dcgan_tpu_torch.ops.kernels import channel_moments, \
+        channel_moments_plain, scale_shift_act, scale_shift_act_bwd, \
+        scale_shift_act_bwd_plain, scale_shift_act_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    top = cfg.gf_dim * 2 ** (cfg.num_up_layers - 1)
+    n0 = BATCH * cfg.base_size ** 2
+    stages = train_shapes(cfg, BATCH)
+
+    # ---- kernel 1: channel_moments at G's bn0 [16 B, 512] ----------------
+    k1 = {"name": "channel_moments", "route": "cuda",
+          "source": "dcgan_tpu_torch/csrc/channel_moments.cu",
+          "replaces": "dcgan_tpu/ops/pallas_kernels.py:80", "shapes": []}
+    errs = {}
+    for dt_name, dt in dtypes:
+        for shape in ((n0, top), (37, 70), (5, 3)):
+            x = rand(*shape, lo=-2.0, hi=2.0).to(dt)
+            got, again = channel_moments(x), channel_moments(x)
+            want = channel_moments_plain(x)
+            torch.cuda.synchronize()
+            same_bits(torch, f"channel_moments {dt_name} {shape}", got, again)
+            xf = x.float()
+            err = max(column_sum_close(
+                torch, f"channel_moments {dt_name} {shape} {i}", a, w, t)
+                for i, (a, w, t) in enumerate(zip(
+                    got, want, (xf.abs().mean(0), (xf * xf).mean(0)))))
+            if shape == (n0, top):
+                errs[dt_name] = err
+    x = rand(n0, top, lo=-2.0, hi=2.0).to(torch.bfloat16)
+    shape = {"stage": "G bn0", "n": n0, "c": top, "per_step": 2}
+    shape["ms"], shape["call_ms"] = time_ms(
+        torch, lambda: channel_moments(x), 200)
+    shape["plain_ms"], _ = time_ms(torch, lambda: channel_moments_plain(x),
+                                   100)
+    shape["library_ms"], _ = time_ms(torch, lambda: (
+        x.float().mean(0), (x.float() ** 2).mean(0)), 100)
+    t_bytes, t_ops = moments_bound(n0, top, 2)
+    shape["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    k1["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    k1["shapes"].append(shape)
+    k1["max_abs_err"], k1["max_abs_err_f32"] = errs["bfloat16"], \
+        errs["float32"]
+    log(f"channel_moments matches its plain version and repeats bitwise "
+        f"(max |err| bf16 {errs['bfloat16']:.3g}, f32 "
+        f"{errs['float32']:.3g}); {shape['ms']:.4f} ms vs bound "
+        f"{shape['bound_ms']:.5f} ms")
+
+    # ---- kernels 3 and 2 at every BN epilogue of the step ----------------
+    k3 = {"name": "scale_shift_act_bwd", "route": "cuda",
+          "source": "dcgan_tpu_torch/csrc/scale_shift_act.cu",
+          "replaces": "dcgan_tpu/ops/pallas_kernels.py:180", "shapes": []}
+    epilogues = [("G bn0", n0, top, "relu", 2, 1)] + [
+        (s["name"], s["m"], s["c"], s["act"], s["fwd"], s["bwd"])
+        for s in stages]
+    for act in ACTS:   # ragged shapes: the masked edges, every activation
+        for dt_name, dt in dtypes:
+            x, gr = rand(37, 70, lo=-2.0, hi=2.0).to(dt), rand(37, 70).to(dt)
+            scale, shift = rand(70, lo=0.5, hi=1.5), rand(70)
+            got = scale_shift_act_bwd(x, scale, shift, gr, act)
+            want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
+            check_close(torch, f"scale_shift_act_bwd ragged {dt_name} {act}",
+                        got[0], want[0], dt_name)
+    fwd_shapes = []
+    errs = {}
+    for name, n, c, act, fwd, bwd in epilogues:
+        for dt_name, dt in dtypes:
+            x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
+            gr = rand(n, c).to(dt)
+            scale, shift = rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
+            got = scale_shift_act_bwd(x, scale, shift, gr, act)
+            again = scale_shift_act_bwd(x, scale, shift, gr, act)
+            want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
+            torch.cuda.synchronize()
+            same_bits(torch, f"scale_shift_act_bwd {name} {dt_name}", got,
+                      again)
+            ga, xa = gr.float().abs(), x.float().abs()
+            err = max(check_close(torch, f"scale_shift_act_bwd {name} "
+                                  f"{dt_name} dx", got[0], want[0], dt_name),
+                      column_sum_close(torch, f"scale_shift_act_bwd {name} "
+                                       f"{dt_name} dscale", got[1], want[1],
+                                       (ga * xa).sum(0)),
+                      column_sum_close(torch, f"scale_shift_act_bwd {name} "
+                                       f"{dt_name} dshift", got[2], want[2],
+                                       ga.sum(0)))
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            if dt is not torch.bfloat16:
+                continue
+            e = {"stage": name, "n": n, "c": c, "per_step": bwd}
+            e["ms"], e["call_ms"] = time_ms(torch, lambda: scale_shift_act_bwd(
+                x, scale, shift, gr, act), 50)
+            e["plain_ms"], _ = time_ms(
+                torch, lambda: scale_shift_act_bwd_plain(
+                    x, scale, shift, gr, act), 20)
+            # the library yardstick: torch's own autograd of the expression
+            xl, sl, tl = (x.detach().requires_grad_(True),
+                          scale.detach().requires_grad_(True),
+                          shift.detach().requires_grad_(True))
+            lib_act = F.relu if act == "relu" else \
+                (lambda v: F.leaky_relu(v, cfg.leak))
+            y = lib_act(xl.float() * sl + tl).to(dt)
+            e["library_ms"], _ = time_ms(torch, lambda: torch.autograd.grad(
+                y, (xl, sl, tl), gr, retain_graph=True), 20)
+            del y
+            t_bytes, t_ops = ssa_bwd_bound(n, c, 2)
+            e["bound_ms"] = max(t_bytes, t_ops) * 1e3
+            e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            k3["shapes"].append(e)
+            # kernel 2, the same epilogue's forward, at the training shape
+            f = {"stage": name, "n": n, "c": c, "per_step": fwd}
+            f["ms"], _ = time_ms(torch, lambda: scale_shift_act(
+                x, scale, shift, act), 50)
+            f["plain_ms"], _ = time_ms(torch, lambda: scale_shift_act_plain(
+                x, scale, shift, act), 20)
+            f["library_ms"], _ = time_ms(torch, lambda: act_fwd(
+                x.float() * scale + shift, act, cfg.leak).to(dt), 20)
+            tb, to = ssa_bound(n, c)
+            f["bound_ms"] = max(tb, to) * 1e3
+            fwd_shapes.append(f)
+        log(f"scale_shift_act_bwd {name} [{n}, {c}] {act} matches its plain "
+            f"version and repeats bitwise; {k3['shapes'][-1]['ms']:.4f} ms "
+            f"vs bound {k3['shapes'][-1]['bound_ms']:.5f} ms")
+    k3["max_abs_err"], k3["max_abs_err_f32"] = errs["bfloat16"], \
+        errs["float32"]
+    k3["bound_by"] = "bytes" if all(e["bound_by"] == "bytes"
+                                    for e in k3["shapes"]) else "operations"
+    ssa_entry["train_step"] = {
+        key: weighted(fwd_shapes, key)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    ssa_entry["train_step"]["shapes"] = fwd_shapes
+
+    # ---- kernel 4: gemm_bias_moments at every fused stage ----------------
+    k4 = {"name": "gemm_bias_moments", "route": "cuda",
+          "source": "dcgan_tpu_torch/csrc/gemm_bias_moments.cu",
+          "replaces": "dcgan_tpu/ops/pallas_fused.py:144", "shapes": []}
+    for dt_name, dt in dtypes:   # ragged M, K, C: the masked load path
+        p, w = rand(100, 37).to(dt), (0.1 * rand(37, 70)).to(dt)
+        b = rand(70, lo=-0.1, hi=0.1)
+        got = gemm_bias_moments(p, w, b, dt)
+        want = gemm_bias_moments_plain(p, w, b, dt)
+        check_close(torch, f"gemm_bias_moments ragged {dt_name} u", got[0],
+                    want[0], "float32")
+    errs = {}
+    for st in stages:
+        name, m, k, c = st["name"], st["m"], st["k"], st["c"]
+        e = {"stage": name, "m": m, "k": k, "c": c, "per_step": st["fwd"]}
+        for dt_name, dt in dtypes:
+            # operands as the step builds them: post-activation maps
+            # through the (dilated) im2col, HWIO weights reshaped
+            h = act_fwd(rand(BATCH, st["res"], st["res"], st["in_ch"]),
+                        st["act"], cfg.leak).to(dt)
+            p2d, _ = conv_patches(h, cfg.kernel_size, 2, st["transpose"])
+            w2d = w_to_gemm(0.02 * torch.randn(
+                (cfg.kernel_size, cfg.kernel_size, st["in_ch"], c),
+                generator=g, device=dev)).to(dt)
+            b = rand(c, lo=-0.1, hi=0.1)
+            if tuple(p2d.shape) != (m, k):
+                fail(f"{name}: patches {tuple(p2d.shape)} != {(m, k)}")
+            got = gemm_bias_moments(p2d, w2d, b, dt)
+            again = gemm_bias_moments(p2d, w2d, b, dt)
+            u_want = gemm_bias_moments_plain(p2d, w2d, b, dt)[0]
+            torch.cuda.synchronize()
+            same_bits(torch, f"gemm_bias_moments {name} {dt_name}", got, again)
+            # u is f32 in both dtypes: the f32 tolerance
+            err = check_close(torch, f"gemm_bias_moments {name} {dt_name} u",
+                              got[0], u_want, "float32")
+            # the moments against those of the kernel's own u, in the
+            # compute dtype: only the summation order differs
+            v = got[0].to(dt).float()
+            err = max(err, column_sum_close(
+                torch, f"gemm_bias_moments {name} {dt_name} mean", got[1],
+                v.mean(0), v.abs().mean(0)), column_sum_close(
+                torch, f"gemm_bias_moments {name} {dt_name} mean_sq", got[2],
+                (v * v).mean(0), (v * v).mean(0)))
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            del got, again, u_want, v
+            if dt is torch.bfloat16:
+                e["ms"], e["call_ms"] = time_ms(
+                    torch, lambda: gemm_bias_moments(p2d, w2d, b, dt), 20)
+                e["plain_ms"], _ = time_ms(
+                    torch, lambda: gemm_bias_moments_plain(p2d, w2d, b, dt),
+                    10)
+
+                def library():
+                    u = torch.matmul(p2d, w2d).float() + b
+                    vv = u.to(dt).float()
+                    return u, vv.mean(0), (vv * vv).mean(0)
+                e["library_ms"], _ = time_ms(torch, library, 20)
+                # the im2col that feeds the kernel in the step
+                e["im2col_ms"], _ = time_ms(torch, lambda: conv_patches(
+                    h, cfg.kernel_size, 2, st["transpose"]), 10)
+                t_bytes, t_ops = gbm_bound(m, k, c, 2)
+                e["bound_ms"] = max(t_bytes, t_ops) * 1e3
+                e["bound_by"] = "bytes" if t_bytes >= t_ops \
+                    else "operations"
+            del h, p2d, w2d
+            torch.cuda.empty_cache()
+        log(f"gemm_bias_moments {name} M={m} K={k} C={c} matches its plain "
+            f"version and repeats bitwise; {e['ms']:.4f} ms vs bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}); library "
+            f"{e['library_ms']:.4f} ms; its im2col {e['im2col_ms']:.4f} ms")
+        k4["shapes"].append(e)
+    k4["max_abs_err"], k4["max_abs_err_f32"] = errs["bfloat16"], \
+        errs["float32"]
+    k4["bound_by"] = "bytes" if all(e["bound_by"] == "bytes"
+                                    for e in k4["shapes"]) else "operations"
+    k4["im2col_ms"] = weighted(k4["shapes"], "im2col_ms")
+
+    # per training step at batch 64: the launch-weighted sums
+    for entry in (k1, k3, k4):
+        for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
+            entry[key] = weighted(entry["shapes"], key)
+    return [k1, k3, k4]
+
+
 def calibrated_weights(torch, np, cfg):
     """Seeded params with BN running statistics set from one batch through
     the plain route, then perturbed by numpy noise, so every stage's scale
@@ -324,16 +665,14 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     """Phases 3 and 4."""
     from dcgan_tpu_torch.convert import load_weights, save_weights
     from dcgan_tpu_torch.models.dcgan import sampler_apply
-    from dcgan_tpu_torch.ops.fused import gemm_bias_scale_act
-    from dcgan_tpu_torch.ops.kernels import scale_shift_act
     from dcgan_tpu_torch.serve import __main__ as serve_main
 
     params, state = calibrated_weights(torch, np, cfg)
     path = save_weights(os.path.join(workdir, "celeba64.npz"), cfg, params,
                         state)
     report_path = os.path.join(workdir, "serve_report.json")
-    wrappers = {"scale_shift_act": scale_shift_act,
-                "gemm_bias_scale_act": gemm_bias_scale_act}
+    wrappers = all_wrappers()
+    served = ("scale_shift_act", "gemm_bias_scale_act")
 
     for fn in wrappers.values():
         fn.launches = 0
@@ -345,10 +684,11 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        entry.setdefault("launches_by_path", {})["serve"] = \
+            launches[entry["name"]]
     log(f"served path launches: {launches}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in served:
+        if launches[name] < 1:
             fail(f"kernel {name} was not launched on the served path")
 
     if row["completed"] != N_REQUESTS or row["serve/dropped"] != 0:
@@ -415,6 +755,298 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     return row, timing
 
 
+def grad_gaps(convert, got, want, rtol, atol):
+    """Leaf -> |got - want| / (rtol * |want| + atol * the net's largest
+    leaf norm), norms over the leaf; the gradients agree where every gap
+    is <= 1."""
+    gaps = {}
+    for net in ("gen", "disc"):
+        g, w = convert.flatten(got[net]), convert.flatten(want[net])
+        top = max(float(x.norm()) for x in w.values())
+        for path, x in w.items():
+            gaps[f"{net}/{path}"] = float((g[path] - x).norm()) / (
+                rtol * float(x.norm()) + atol * top)
+    return gaps
+
+
+def broken_backwards(dt_name):
+    """(name, patch) pairs, each breaking one backward on purpose, that the
+    gradient comparison in `dt_name` must catch: a patch is a context
+    manager that swaps an autograd.Function's backward for the run."""
+    import contextlib
+
+    from dcgan_tpu_torch.ops import fused, kernels
+
+    @contextlib.contextmanager
+    def swap(fn_cls, make):
+        orig = fn_cls.backward
+        fn_cls.backward = staticmethod(make(orig))
+        try:
+            yield
+        finally:
+            fn_cls.backward = staticmethod(orig)
+
+    def dscale_times(f):
+        def make(orig):
+            def bwd(ctx, g):
+                dx, dscale, *rest = orig(ctx, g)
+                return (dx, dscale * f, *rest)
+            return bwd
+        return swap(kernels._ScaleShiftAct, make)
+
+    def moments_cotangent_dropped(fn_cls):
+        def make(orig):
+            def bwd(ctx, *cotangents):
+                g_msq = cotangents[-1]
+                return orig(ctx, *cotangents[:-1], g_msq * 0)
+            return bwd
+        return swap(fn_cls, make)
+
+    if dt_name == "bfloat16":
+        return [("scale_shift_act_bwd dscale zeroed", dscale_times(0.0)),
+                ("gemm_bias_moments E[u^2] cotangent dropped",
+                 moments_cotangent_dropped(fused._GemmBiasMoments))]
+    return [("scale_shift_act_bwd dscale 2 % off", dscale_times(1.02)),
+            ("channel_moments E[x^2] cotangent dropped",
+             moments_cotangent_dropped(kernels._ChannelMoments))]
+
+
+def all_wrappers():
+    from dcgan_tpu_torch.ops.fused import gemm_bias_moments, \
+        gemm_bias_scale_act
+    from dcgan_tpu_torch.ops.kernels import channel_moments, \
+        scale_shift_act, scale_shift_act_bwd
+
+    return {"channel_moments": channel_moments,
+            "scale_shift_act": scale_shift_act,
+            "scale_shift_act_bwd": scale_shift_act_bwd,
+            "gemm_bias_moments": gemm_bias_moments,
+            "gemm_bias_scale_act": gemm_bias_scale_act}
+
+
+def profile_split(torch, fn, steps: int = 3):
+    """Device time of `steps` calls of fn() by kernel family, from
+    torch.profiler's per-kernel self device times, and the share of the
+    window the card sat idle. None if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = {"port kernels": ("gbm_", "ssa_", "moments_partial",
+                                 "finish_column_partials", "gbsa_"),
+                "library GEMM and conv": ("gemm", "cutlass", "sm90_",
+                                          "xmma", "conv", "cudnn", "cublas",
+                                          "wgrad", "dgrad", "implicit"),
+                "im2col backward (unfold_backward)": ("unfold",)}
+    split = {name: 0.0 for name in families}
+    split["other (elementwise, copies, reductions)"] = 0.0
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or e.device_type.name != "CUDA":
+            continue
+        ms = us / 1e3 / steps
+        top.append((ms, e.count / steps, e.key[:120]))
+        key = e.key.lower()
+        for name, marks in families.items():
+            if any(mark in key for mark in marks):
+                split[name] += ms
+                break
+        else:
+            split["other (elementwise, copies, reductions)"] += ms
+    busy = sum(split.values())
+    if busy <= 0.0:
+        return None
+    top.sort(reverse=True)
+    return {"ms_per_step": split, "busy_ms": busy,
+            "launches_per_step": sum(n for _, n, _ in top),
+            "wall_ms": wall_ms / steps,
+            "idle_share": max(0.0, 1.0 - busy / (wall_ms / steps)),
+            "top_kernels": [{"ms": ms, "calls": n, "name": name}
+                            for ms, n, name in top[:15]]}
+
+
+def train_and_check(torch, np, workdir, kernels):
+    """Phases 5 and 6: the trainer's entry point on cuda, launches read
+    around it, then the route comparison and timings of one step."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.data.synthetic import synthetic_batches
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.steps import init_train_state, make_train_step
+
+    argv = ["--preset", "celeba64", "--use_pallas", "--pallas_fused",
+            "--synthetic", "--max_steps", str(TRAIN_STEPS),
+            "--batch_size", str(BATCH), "--device", "cuda",
+            "--checkpoint_dir", workdir, "--seed", str(SEED)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"train path launches over {TRAIN_STEPS} steps: {launches}")
+    for name, per_step in PER_STEP.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"kernel {name}: {launches[name]} launches on the train "
+                 f"path, expected {per_step} per step x {TRAIN_STEPS}")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["train"] = \
+            launches[entry["name"]]
+
+    with open(os.path.join(workdir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    if [e["step"] for e in events] != list(range(1, TRAIN_STEPS + 1)):
+        fail(f"events.jsonl steps {[e['step'] for e in events]}")
+    for e in events:
+        vals = [e["values"][k] for k in ("d_loss", "d_loss_real",
+                                         "d_loss_fake", "g_loss")]
+        if e["kind"] != "scalars" or not all(np.isfinite(vals)):
+            fail(f"step {e['step']}: losses {vals}")
+    last = events[-1]["values"]
+    log(f"trained {TRAIN_STEPS} steps in {train_s:.1f} s (first step "
+        f"included); last d_loss {last['d_loss']:.5f} g_loss "
+        f"{last['g_loss']:.5f}, steady step "
+        f"{last.get('perf/step_ms_mean', float('nan')):.2f} ms host clock")
+
+    # every parameter and BN running statistic moved from the seeded init
+    init = init_train_state(cfg, device="cuda")
+    for group in ("params", "bn"):
+        for net in ("gen", "disc"):
+            after = convert.flatten(state[group][net])
+            for path, a in convert.flatten(init[group][net]).items():
+                if torch.equal(a, after[path]):
+                    fail(f"{group}/{net}/{path} did not move in "
+                         f"{TRAIN_STEPS} steps")
+    if int(state["step"]) != TRAIN_STEPS:
+        fail(f"state step {int(state['step'])} != {TRAIN_STEPS}")
+    log("every parameter and BN running statistic moved from the init")
+
+    # from the seeded state, kernel route vs cuDNN + torch-BN route on the
+    # same images and z: the losses, and every leaf's gradient for both
+    # nets (those the fused update mode applies), so that the kernels'
+    # backward is held against the library's and not only the forward
+    images = torch.from_numpy(next(synthetic_batches(
+        BATCH, cfg.model.output_size, cfg.model.c_dim,
+        seed=SEED + 3))).cuda()
+    z = torch.rand((BATCH, cfg.model.z_dim), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       SEED + 4)) * 2.0 - 1.0
+    report = {"steps": TRAIN_STEPS, "batch": BATCH, "train_s": train_s,
+              "last_losses": {k: last[k] for k in ("d_loss", "g_loss")},
+              "launches": launches}
+    steps_by_route = {}
+    for dt_name in ("bfloat16", "float32"):
+        losses, grads = {}, {}
+        for route, flags in (("kernel", {}),
+                             ("cudnn", {"use_pallas": False,
+                                        "pallas_fused": False})):
+            rcfg = dc.replace(cfg, model=dc.replace(
+                cfg.model, compute_dtype=dt_name, **flags))
+            fns = make_train_step(rcfg)
+            grads[route], metrics = fns.grads(init, images, z)
+            losses[route] = {k: float(v) for k, v in metrics.items()}
+            if dt_name == "bfloat16":
+                steps_by_route[route] = fns.train_step
+        rtol, atol = TRAIN_ROUTE_TOL[dt_name]
+        err = max(abs(losses["kernel"][k] - losses["cudnn"][k])
+                  for k in losses["kernel"])
+        bad = [k for k in losses["kernel"]
+               if abs(losses["kernel"][k] - losses["cudnn"][k])
+               > rtol * abs(losses["cudnn"][k]) + atol]
+        if not all(np.isfinite(list(losses["kernel"].values()))) or bad:
+            fail(f"train losses, kernel route vs cuDNN route ({dt_name}): "
+                 f"losses {losses}, outside rtol={rtol} atol={atol}: {bad}")
+        report[f"route_err_{dt_name}"] = err
+        log(f"train losses, kernel route vs cuDNN + torch-BN route in "
+            f"{dt_name}: max |err| {err:.3g} within rtol={rtol} atol={atol} "
+            f"({losses['kernel']} vs {losses['cudnn']})")
+
+        rtol, atol = TRAIN_GRAD_TOL[dt_name]
+        gaps = grad_gaps(convert, grads["kernel"], grads["cudnn"], rtol,
+                         atol)
+        bad = {k: v for k, v in gaps.items() if not v <= 1.0}
+        if bad:
+            fail(f"train gradients, kernel route vs cuDNN route "
+                 f"({dt_name}), outside rtol={rtol} atol={atol}, gap / "
+                 f"limit: {bad}")
+        worst = max(gaps, key=gaps.get)
+        report[f"grad_gap_{dt_name}"] = gaps[worst]
+        log(f"train gradients, kernel route vs cuDNN + torch-BN route in "
+            f"{dt_name}: {len(gaps)} leaves within rtol={rtol} "
+            f"atol={atol} x the net's largest leaf norm; the closest to "
+            f"its limit is {worst} at {gaps[worst]:.3g} of it")
+        # the comparison must fail a backward that is broken on purpose
+        kernel_fns = make_train_step(dc.replace(cfg, model=dc.replace(
+            cfg.model, compute_dtype=dt_name)))
+        for name, patch in broken_backwards(dt_name):
+            with patch:
+                broken, _ = kernel_fns.grads(init, images, z)
+            gaps = grad_gaps(convert, broken, grads["cudnn"], rtol, atol)
+            worst = max(gaps, key=gaps.get)
+            if not gaps[worst] > 1.0:
+                fail(f"train gradients ({dt_name}): a broken backward "
+                     f"({name}) stays within the limits (largest gap "
+                     f"{gaps[worst]:.3g} of the limit, at {worst})")
+            report.setdefault("broken_backward_gap", {})[
+                f"{name} ({dt_name})"] = gaps[worst]
+            log(f"broken backward caught in {dt_name}: {name}, {worst} at "
+                f"{gaps[worst]:.3g} of its limit")
+
+    for route, step in steps_by_route.items():
+        # host-device synchronizations inside one step (each stalls the
+        # host until the card drains, so the step cannot run ahead)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(init, images, z)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        report[f"{route}_step_syncs"] = len(syncs)
+        log(f"{route} route step: {len(syncs)} host-device "
+            f"synchronization(s) {syncs[:3]}")
+        # host-inclusive only: a step queues more launches than the
+        # stream's launch queue holds, so a spin-held event pair would
+        # still read the host's enqueue rate; the device time is the
+        # profiled kernel time below
+        _, report[f"{route}_step_call_ms"] = time_ms(
+            torch, lambda: step(init, images, z), 5, warmup=1)
+    for route, step in steps_by_route.items():
+        split = profile_split(torch, lambda: step(init, images, z))
+        report[f"{route}_profile"] = split if split is not None \
+            else "not measured (no device time in the trace)"
+        if split is not None:
+            log(f"{route} route step, device ms by family "
+                f"{ {k: round(v, 4) for k, v in split['ms_per_step'].items()} }"
+                f", {split['launches_per_step']:.0f} kernel launches, idle "
+                f"share {split['idle_share']:.3f}")
+    busy = {route: report[f"{route}_profile"]["busy_ms"]
+            if isinstance(report[f"{route}_profile"], dict) else float("nan")
+            for route in steps_by_route}
+    log(f"one bf16 train step at batch {BATCH}: kernel route "
+        f"{busy['kernel']:.3f} ms, cuDNN + torch-BN route "
+        f"{busy['cudnn']:.3f} ms (profiled device busy); host-inclusive "
+        f"{report['kernel_step_call_ms']:.3f} / "
+        f"{report['cudnn_step_call_ms']:.3f} ms")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -449,10 +1081,13 @@ def main() -> int:
 
     cfg = celeba64(use_pallas=True, pallas_fused=True)
     kernels = check_kernels(torch, cfg)
+    kernels[1:1] = check_train_kernels(torch, cfg, kernels[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         row, timing = serve_and_check(torch, np, cfg, workdir, kernels)
+        train_report = train_and_check(torch, np, workdir, kernels)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
+    print(json.dumps({"train": train_report}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -460,6 +1095,7 @@ def main() -> int:
         check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     for entry in kernels:
+        entry["launches"] = sum(entry["launches_by_path"].values())
         entry["kernel_ms"] = entry["ms"]
         entry["bound_us"] = entry["bound_ms"] * 1e3
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
-"""Model configuration: `dcgan_tpu/config.py::ModelConfig`, kept as a copy.
+"""Model and training configuration: copies of `dcgan_tpu/config.py`'s
+`ModelConfig` and of the `TrainConfig` fields the port serves.
 
-Same field names, defaults and dcgan-arch validation as the JAX package's
-`ModelConfig`, so a trainer's `config.json` "model" block reads here
-unchanged. This slice serves the plain DCGAN generator only; the fields that
+Same field names, defaults and validation as the JAX package's, so a
+trainer's `config.json` "model" block reads here unchanged. The port serves
+and trains the plain DCGAN (generator and discriminator); the fields that
 select anything else (another `arch`, class conditioning, attention,
-spectral norm, fp8 quantization) raise `NotImplementedError` instead of
-being silently ignored.
+spectral norm, fp8 quantization; another loss, n_critic > 1, gradient
+accumulation, a bf16/fp8 precision policy, DiffAugment) raise
+`NotImplementedError` instead of being silently ignored.
 """
 
 from __future__ import annotations
@@ -122,14 +124,116 @@ class ModelConfig:
             unserved.append(f"quant={self.quant!r}")
         if unserved:
             raise NotImplementedError(
-                "dcgan_tpu_torch serves the plain DCGAN generator only; "
-                f"not ported yet: {', '.join(unserved)}")
+                "dcgan_tpu_torch serves and trains the plain DCGAN "
+                "(generator and discriminator) only; not ported yet: "
+                f"{', '.join(unserved)}")
 
 
 def celeba64(**overrides) -> ModelConfig:
     """The model of the `celeba64` preset: DCGAN 64x64, z=100, gf_dim=64,
     bf16 compute over f32 params (the reference's headline workload)."""
     return dataclasses.replace(ModelConfig(output_size=64), **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The run knobs of the training slice, field-for-field (names and
+    defaults) the JAX `TrainConfig`'s."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    learning_rate: float = 2e-4
+    d_learning_rate: Optional[float] = None  # None = learning_rate
+    g_learning_rate: Optional[float] = None
+    lr_schedule: str = "constant"  # "constant" | "linear" | "cosine" to 0
+    warmup_steps: int = 0          # linear warmup from 0 before the schedule
+    beta1: float = 0.5
+    batch_size: int = 64
+    max_steps: int = 1_200_000
+    loss: str = "gan"              # BCE non-saturating
+    n_critic: int = 1              # D updates per G update
+    update_mode: str = "sequential"  # D step, then G against the updated D;
+                                     # "fused": both from the same params
+    grad_accum: int = 1
+    diffaug: str = ""
+    grad_clip: float = 0.0         # >0 clips each net's grads by global norm
+    label_smoothing: float = 0.0   # one-sided: D's real target 1 - eps
+    g_ema_decay: float = 0.0       # 0: ema_gen mirrors the live G weights
+    checkpoint_dir: str = "checkpoint"
+    log_every_steps: int = 1
+    seed: int = 0
+    precision: str = ""            # "" leaves the model dtypes; "f32"
+                                   # forces float32 compute and params
+
+    def __post_init__(self):
+        # the JAX package's validation of these fields, with its messages
+        if self.precision not in ("", "f32", "bf16", "fp8"):
+            raise ValueError(
+                f"precision must be one of '', 'f32', 'bf16', 'fp8', got "
+                f"{self.precision!r}")
+        if self.loss not in ("gan", "wgan-gp", "hinge"):
+            raise ValueError(f"unknown loss {self.loss!r}")
+        if self.update_mode not in ("sequential", "fused"):
+            raise ValueError(f"unknown update_mode {self.update_mode!r}")
+        if self.n_critic < 1:
+            raise ValueError(f"n_critic must be >= 1, got {self.n_critic}")
+        if self.grad_clip < 0:
+            raise ValueError(f"grad_clip must be >= 0, got {self.grad_clip}")
+        if not 0.0 <= self.label_smoothing < 0.5:
+            raise ValueError(
+                f"label_smoothing must be in [0, 0.5), got "
+                f"{self.label_smoothing}")
+        if self.label_smoothing and self.loss != "gan":
+            raise ValueError(
+                "label_smoothing targets BCE labels and applies only to "
+                f"loss='gan', got loss={self.loss!r}")
+        if not 0.0 <= self.g_ema_decay < 1.0:
+            raise ValueError(
+                f"g_ema_decay must be in [0, 1), got {self.g_ema_decay}")
+        if self.lr_schedule not in ("constant", "linear", "cosine"):
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+        if self.warmup_steps < 0:
+            raise ValueError(f"warmup_steps must be >= 0, got "
+                             f"{self.warmup_steps}")
+        if self.warmup_steps >= self.max_steps:
+            raise ValueError(
+                f"warmup_steps ({self.warmup_steps}) must be < max_steps "
+                f"({self.max_steps}) — the whole run would be warmup and the "
+                "decay schedule would never engage")
+        if self.grad_accum < 1:
+            raise ValueError(
+                f"grad_accum must be >= 1, got {self.grad_accum}")
+        if self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"batch_size ({self.batch_size}) must be a multiple of "
+                f"grad_accum ({self.grad_accum}) — microbatches are "
+                "batch_size/grad_accum")
+        if self.log_every_steps < 1:
+            raise ValueError(f"log_every_steps must be >= 1, got "
+                             f"{self.log_every_steps}")
+        # then what this slice of the port does not train yet
+        unserved = []
+        if self.loss != "gan":
+            unserved.append(f"loss={self.loss!r}")
+        if self.n_critic > 1:
+            unserved.append(f"n_critic={self.n_critic}")
+        if self.grad_accum > 1:
+            unserved.append(f"grad_accum={self.grad_accum}")
+        if self.precision not in ("", "f32"):
+            unserved.append(f"precision={self.precision!r}")
+        if self.diffaug:
+            unserved.append(f"diffaug={self.diffaug!r}")
+        if unserved:
+            raise NotImplementedError(
+                "dcgan_tpu_torch trains the BCE DCGAN step (n_critic 1, no "
+                "accumulation, model dtypes or f32, no augmentation) only; "
+                f"not ported yet: {', '.join(unserved)}")
+        if self.precision == "f32" and (self.model.compute_dtype,
+                                        self.model.param_dtype) != (
+                                            "float32", "float32"):
+            # the JAX policy normalization: precision overrides the model's
+            # dtype flags
+            object.__setattr__(self, "model", dataclasses.replace(
+                self.model, compute_dtype="float32", param_dtype="float32"))
 
 
 

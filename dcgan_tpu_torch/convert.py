@@ -5,6 +5,9 @@
   them), become the port's tensors. The trees have the same names, so this
   is a leaf-by-leaf copy; nothing is transposed (both packages keep HWIO
   kernels and `[in, out]` linear weights).
+- `train_state_from_jax(state_np)`: the JAX `init_train_state` pytree (as
+  numpy) becomes the port's training state (`train/steps.py`): params, BN
+  state, both Adam states, the EMA mirror and the step.
 - `save_weights(path, cfg, params, state)` / `load_weights(path)`: an
   `.npz` keyed by pytree path (`params/deconv1/w`, `state/bn0/mean`) with a
   `config.json` beside it, in the trainer's format (`{"model": {...}}`), so
@@ -79,6 +82,36 @@ def generator_from_jax(params_np: Pytree, state_np: Pytree, *,
     """The JAX generator's (params, bn_state) as the port's tensors."""
     dev = resolve_device(device)
     return _to_torch(params_np, dev), _to_torch(state_np, dev)
+
+
+def train_state_from_jax(state_np: Pytree, *,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> Pytree:
+    """The JAX training state as the port's.
+
+    optax's state for each net is (EmptyState(), (ScaleByAdamState(count,
+    mu, nu), ScaleByScheduleState(count))), read here by position; the
+    port keeps one count per net, which equals both of optax's."""
+    dev = resolve_device(device)
+
+    def opt(chain) -> Pytree:
+        adam, sched = chain[1][0], chain[1][1]
+        count, mu, nu = adam[0], adam[1], adam[2]
+        if int(np.asarray(count)) != int(np.asarray(sched[0])):
+            raise ValueError(f"Adam count {count} != schedule count "
+                             f"{sched[0]}")
+        return {"mu": _to_torch(mu, dev), "nu": _to_torch(nu, dev),
+                "count": torch.tensor(int(np.asarray(count)),
+                                      dtype=torch.int32, device=dev)}
+
+    return {
+        "params": _to_torch(state_np["params"], dev),
+        "bn": _to_torch(state_np["bn"], dev),
+        "opt": {net: opt(state_np["opt"][net]) for net in ("gen", "disc")},
+        "ema_gen": _to_torch(state_np["ema_gen"], dev),
+        "step": torch.tensor(int(np.asarray(state_np["step"])),
+                             dtype=torch.int32, device=dev),
+    }
 
 
 def _config_dir(path: str) -> str:

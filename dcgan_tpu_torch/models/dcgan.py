@@ -1,17 +1,27 @@
-"""DCGAN generator and sampler as init/apply functions on nested dicts of
-tensors (the counterpart of `dcgan_tpu/models/dcgan.py:129-300`).
+"""DCGAN generator, discriminator and sampler as init/apply functions on
+nested dicts of tensors (the counterpart of `dcgan_tpu/models/dcgan.py:
+129-449`).
 
 `generator(z)`: linear z -> gf*2^(k-1) * base^2, reshape to NHWC
 [B, base, base, gf*2^(k-1)], BN + relu, then k stride-2 5x5 deconv stages
 through gf*2^(k-2) .. gf with BN + relu, the last to c_dim followed by tanh.
+`discriminator(image)`: k stride-2 5x5 conv stages through df .. df*2^(k-1),
+lrelu, with BN on every stage but the first, then a linear `head` on the
+NHWC-flattened map to one logit (f32).
 
 Parameter and state names are the JAX package's: `proj`, `bn0..bn{k-1}`,
-`deconv1..deconv{k}` with leaves `w`, `b`, `scale`, `bias`, `mean`, `var`,
-so `convert.py` carries weights over by path. The stage routing is the JAX
-routing: under `pallas_fused` the interior stages 1..k-1 run as one
-`gemm_bias_scale_act` kernel each, the last deconv (to 3 channels) stays a
-cuDNN transposed conv, and under `use_pallas` BN's epilogue is the
-`scale_shift_act` kernel.
+`deconv1..deconv{k}` in G, `conv0..conv{k-1}`, `bn1..bn{k-1}`, `head` in D,
+with leaves `w`, `b`, `scale`, `bias`, `mean`, `var`, so `convert.py` carries
+weights over by path. The stage routing is the JAX routing: under
+`pallas_fused` the interior stages (G 1..k-1, D 1..k-1) run as the fused
+stage of ops/fused.py (one `gemm_bias_scale_act` kernel at inference,
+`gemm_bias_moments` + `scale_shift_act` in training); G's last deconv (to 3
+channels) and D's first conv stay cuDNN convolutions; under `use_pallas`
+BN's moments and epilogue are the `channel_moments` and `scale_shift_act`
+kernels.
+
+train=True uses batch BN statistics and returns the EMA-updated state
+(detached); train=False uses the running statistics.
 """
 
 from __future__ import annotations
@@ -23,8 +33,8 @@ import torch
 from dcgan_tpu_torch.config import ModelConfig
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.ops.fused import fused_conv_bn_act
-from dcgan_tpu_torch.ops.layers import deconv2d_apply, deconv2d_init, \
-    linear_apply, linear_init
+from dcgan_tpu_torch.ops.layers import conv2d_apply, conv2d_init, \
+    deconv2d_apply, deconv2d_init, linear_apply, linear_init, lrelu
 from dcgan_tpu_torch.ops.norm import batch_norm_apply, batch_norm_init
 
 Pytree = dict
@@ -75,35 +85,36 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool
                     ) -> Tuple[torch.Tensor, Pytree]:
-    """z [B, z_dim] -> image [B, S, S, c_dim] float32 in tanh range, on
-    z's device. train=False is the sampler path (running BN statistics,
-    state returned unchanged); train=True comes with the training slice."""
-    if train:
-        raise NotImplementedError(
-            "generator_apply(train=True) comes with the training slice")
+    """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
+    bn_state), on z's device. train=False is the sampler path (running BN
+    statistics, the state returned unchanged); train=True normalizes with
+    batch statistics and returns the updated state."""
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
+    new_state: Pytree = {}
+
+    def bn(name, h):
+        return batch_norm_apply(params[name], state[name], h, train=train,
+                                momentum=cfg.bn_momentum, eps=cfg.bn_eps,
+                                act="relu", use_pallas=cfg.bn_use_pallas)
+
     h = linear_apply(params["proj"], z.to(cdt), compute_dtype=cdt)
     h = h.reshape(-1, cfg.base_size, cfg.base_size, top_ch)
-    h, _ = batch_norm_apply(params["bn0"], state["bn0"], h, train=False,
-                            eps=cfg.bn_eps, act="relu",
-                            use_pallas=cfg.bn_use_pallas)
+    h, new_state["bn0"] = bn("bn0", h)
     for i in range(1, k + 1):
         if cfg.pallas_fused and i < k:
-            h, _ = fused_conv_bn_act(
+            h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 params[f"deconv{i}"], params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
-                train=False, eps=cfg.bn_eps, act="relu", compute_dtype=cdt)
+                train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
+                act="relu", compute_dtype=cdt)
         else:
             h = deconv2d_apply(params[f"deconv{i}"], h, compute_dtype=cdt)
             if i < k:
-                h, _ = batch_norm_apply(
-                    params[f"bn{i}"], state[f"bn{i}"], h, train=False,
-                    eps=cfg.bn_eps, act="relu",
-                    use_pallas=cfg.bn_use_pallas)
+                h, new_state[f"bn{i}"] = bn(f"bn{i}", h)
     # tanh in f32 after the last deconv, as the JAX package does
-    return torch.tanh(h.float()), state
+    return torch.tanh(h.float()), new_state
 
 
 @torch.inference_mode()
@@ -112,3 +123,79 @@ def sampler_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
     """Inference-mode generation: generator_apply(train=False)."""
     img, _ = generator_apply(params, state, z, cfg=cfg, train=False)
     return img
+
+
+# ---------------------------------------------------------------------------
+# Discriminator
+# ---------------------------------------------------------------------------
+
+def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> Tuple[Pytree, Pytree]:
+    """(params, bn_state) of D drawn from a `torch.Generator` seeded with
+    `seed`. Stage 0 has no BN, as in the JAX package (and the reference,
+    which creates a `d_bn0` it never uses)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    k = cfg.num_up_layers
+    dtype = torch_dtype(cfg.param_dtype)
+    params: Pytree = {}
+    state: Pytree = {}
+    in_ch = cfg.c_dim
+    for i in range(k):
+        out_ch = cfg.df_dim * (2 ** i)
+        params[f"conv{i}"] = conv2d_init(gen, in_ch, out_ch,
+                                         kernel=cfg.kernel_size, dtype=dtype)
+        if i > 0:
+            params[f"bn{i}"], state[f"bn{i}"] = batch_norm_init(
+                gen, out_ch, dtype=dtype)
+        in_ch = out_ch
+    flat = cfg.base_size * cfg.base_size * cfg.df_dim * (2 ** (k - 1))
+    params["head"] = linear_init(gen, flat, 1, dtype=dtype)
+    return _tree_to(params, dev), _tree_to(state, dev)
+
+
+def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
+                        *, cfg: ModelConfig, train: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
+    """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
+    bn_state)."""
+    k = cfg.num_up_layers
+    cdt = torch_dtype(cfg.compute_dtype)
+    new_state: Pytree = {}
+    h = image.to(cdt)
+    for i in range(k):
+        if cfg.pallas_fused and i > 0:
+            h, new_state[f"bn{i}"] = fused_conv_bn_act(
+                params[f"conv{i}"], params[f"bn{i}"], state[f"bn{i}"], h,
+                transpose=False, kernel=cfg.kernel_size, stride=2,
+                train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
+                act="lrelu", leak=cfg.leak, compute_dtype=cdt)
+        elif i > 0:
+            h = conv2d_apply(params[f"conv{i}"], h, compute_dtype=cdt)
+            h, new_state[f"bn{i}"] = batch_norm_apply(
+                params[f"bn{i}"], state[f"bn{i}"], h, train=train,
+                momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="lrelu",
+                leak=cfg.leak, use_pallas=cfg.bn_use_pallas)
+        else:
+            h = lrelu(conv2d_apply(params[f"conv{i}"], h, compute_dtype=cdt),
+                      cfg.leak)
+    # the head's rows are laid out for the NHWC flatten
+    h = h.reshape(h.shape[0], -1)
+    logit = linear_apply(params["head"], h, compute_dtype=cdt).float()
+    return torch.sigmoid(logit), logit, new_state
+
+
+# ---------------------------------------------------------------------------
+# Whole GAN
+# ---------------------------------------------------------------------------
+
+def gan_init(cfg: ModelConfig, *, seed: int = 0,
+             device: Union[str, torch.device] = "cuda"
+             ) -> Tuple[Pytree, Pytree]:
+    """Both nets: (params, state) = ({"gen", "disc"}, {"gen", "disc"}), G
+    drawn from `seed` and D from `seed + 1`."""
+    g_params, g_state = generator_init(cfg, seed=seed, device=device)
+    d_params, d_state = discriminator_init(cfg, seed=seed + 1, device=device)
+    return ({"gen": g_params, "disc": d_params},
+            {"gen": g_state, "disc": d_state})

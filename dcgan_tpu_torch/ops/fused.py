@@ -1,4 +1,4 @@
-"""Fused conv/deconv stage: im2col + one GEMM-epilogue kernel (the
+"""Fused conv/deconv stage: im2col + GEMM-epilogue kernels (the
 counterpart of `dcgan_tpu/ops/pallas_fused.py`).
 
 Formulation, as in the JAX package: patch extraction stays plain tensor
@@ -8,13 +8,19 @@ for a transposed conv), producing [M, Cin*k*k] rows whose GEMM against the
 channel-major (Cin slowest, then kh, kw), the order of
 `lax.conv_general_dilated_patches`.
 
-`gemm_bias_scale_act` then runs the whole inference stage,
-act((P @ W + b) * scale + shift), in one pass: on a CUDA tensor the
-`csrc/gemm_bias_scale_act.cu` kernel (which replaces the TPU kernel
-`_gemm_bias_scale_act_kernel`), on a CPU tensor `gemm_bias_scale_act_plain`.
-
-Only the inference half of `fused_conv_bn_act` is here; its train half
-(`gemm_bias_moments` + the BN epilogue) comes with the training slice.
+Two GEMM kernels, each with its plain version for CPU tensors:
+- `gemm_bias_scale_act` runs the whole inference stage,
+  act((P @ W + b) * scale + shift), in one pass: on a CUDA tensor the
+  `csrc/gemm_bias_scale_act.cu` kernel (which replaces the TPU kernel
+  `_gemm_bias_scale_act_kernel`);
+- `gemm_bias_moments` is the train stage's forward, u = P @ W + b in f32
+  with the per-channel (E[v], E[v^2]) of v = u in the compute dtype: on a
+  CUDA tensor `csrc/gemm_bias_moments.cu` (replacing
+  `_gemm_bias_moments_kernel`). It is differentiable; its backward is
+  `_gbm_vjp_bwd`'s two matmuls, which the JAX package leaves to XLA and
+  this port to `torch.matmul`.
+`fused_conv_bn_act(train=True)` follows it with BN's batch arithmetic and
+the `scale_shift_act` epilogue (ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ import torch.nn.functional as F
 
 from dcgan_tpu_torch.ops.activations import ACT_CODES, LEAK, act_fwd, \
     check_act
-from dcgan_tpu_torch.ops.kernels import DTYPE_CODES, c_function, \
-    channel_vector, check_launch, check_matrix
+from dcgan_tpu_torch.ops.kernels import DTYPE_CODES, bn_scale_shift, \
+    c_function, channel_vector, check_launch, check_matrix, \
+    scale_shift_act, sm_count, stream_of
+from dcgan_tpu_torch.ops.layers import same_pads
+from dcgan_tpu_torch.ops.norm import finish_batch_moments
 
 Pytree = dict
 
@@ -49,12 +58,6 @@ def _transpose_pads(k: int, s: int) -> Tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
-def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def conv_patches(x: torch.Tensor, kernel: int, stride: int,
                  transpose: bool) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
     """im2col rows of NHWC `x` for a strided (or transposed) SAME conv.
@@ -70,8 +73,8 @@ def conv_patches(x: torch.Tensor, kernel: int, stride: int,
         xp[:, :, pa:pa + hd:stride, pa:pa + wd:stride] = xc
         step = 1
     else:
-        (ht, hb), (wl, wr) = (_same_pads(h, kernel, stride),
-                              _same_pads(w, kernel, stride))
+        (ht, hb), (wl, wr) = (same_pads(h, kernel, stride),
+                              same_pads(w, kernel, stride))
         xp = F.pad(xc, (wl, wr, ht, hb))
         step = stride
     p = xp.unfold(2, kernel, step).unfold(3, kernel, step)  # N,C,Ho,Wo,kh,kw
@@ -99,6 +102,32 @@ def gemm_bias_scale_act_plain(p2d: torch.Tensor, w2d: torch.Tensor,
     return act_fwd(v, act, leak).to(out_dtype)
 
 
+def _check_gemm(p2d: torch.Tensor, w2d: torch.Tensor,
+                out_dtype: torch.dtype) -> None:
+    if p2d.dim() != 2 or w2d.dim() != 2 or p2d.shape[1] != w2d.shape[0]:
+        raise ValueError(f"p2d [M, K] @ w2d [K, C] expected, got "
+                         f"{tuple(p2d.shape)} @ {tuple(w2d.shape)}")
+    if p2d.dtype != w2d.dtype:
+        raise TypeError(f"operand dtypes differ: {p2d.dtype} vs "
+                        f"{w2d.dtype}")
+    if out_dtype not in DTYPE_CODES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+
+
+def _check_gemm_operands(p2d: torch.Tensor, w2d: torch.Tensor) -> None:
+    """The CUDA kernels' operand contract, past `_check_gemm`."""
+    check_matrix("p2d", p2d)
+    check_matrix("w2d", w2d)
+    if w2d.device != p2d.device:
+        raise ValueError(f"w2d is on {w2d.device}, p2d on {p2d.device}")
+    m, k = p2d.shape
+    c = w2d.shape[1]
+    if max(m, k, c) > _INT_MAX:
+        raise ValueError(f"dimension too large for the kernel: "
+                         f"M={m} K={k} C={c}")
+
+
 def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
                         b: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, act: str = "none",
@@ -112,46 +141,32 @@ def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
     (and raises if it cannot). `gemm_bias_scale_act.launches` counts
     launches."""
     check_act(act)
-    if p2d.dim() != 2 or w2d.dim() != 2 or p2d.shape[1] != w2d.shape[0]:
-        raise ValueError(f"p2d [M, K] @ w2d [K, C] expected, got "
-                         f"{tuple(p2d.shape)} @ {tuple(w2d.shape)}")
-    if p2d.dtype != w2d.dtype:
-        raise TypeError(f"operand dtypes differ: {p2d.dtype} vs "
-                        f"{w2d.dtype}")
-    if out_dtype not in DTYPE_CODES:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
-                        f"{out_dtype}")
-    m, k = p2d.shape
-    c = w2d.shape[1]
+    _check_gemm(p2d, w2d, out_dtype)
     if p2d.device.type == "cpu":
         return gemm_bias_scale_act_plain(p2d, w2d, b, scale, shift, act,
                                          leak, out_dtype)
-    check_matrix("p2d", p2d)
-    check_matrix("w2d", w2d)
-    if w2d.device != p2d.device:
-        raise ValueError(f"w2d is on {w2d.device}, p2d on {p2d.device}")
-    if max(m, k, c) > _INT_MAX:
-        raise ValueError(f"dimension too large for the kernel: "
-                         f"M={m} K={k} C={c}")
-    b = channel_vector("b", b, c, p2d.device)
-    scale = channel_vector("scale", scale, c, p2d.device)
-    shift = channel_vector("shift", shift, c, p2d.device)
+    _check_gemm_operands(p2d, w2d)
+    m, k = p2d.shape
+    c = w2d.shape[1]
+    dev = p2d.device
+    b = channel_vector("b", b, c, dev)
+    scale = channel_vector("scale", scale, c, dev)
+    shift = channel_vector("shift", shift, c, dev)
     in_code = DTYPE_CODES[p2d.dtype]
-    sms = torch.cuda.get_device_properties(p2d.device).multi_processor_count
     splits = c_function("gemm_bias_scale_act",
-                        "dcgan_gemm_bias_scale_act_splits")(m, k, c, in_code,
-                                                            sms)
-    y = torch.empty((m, c), dtype=out_dtype, device=p2d.device)
+                        "dcgan_gemm_bias_scale_act_splits")(
+        m, k, c, in_code, sm_count(dev))
+    y = torch.empty((m, c), dtype=out_dtype, device=dev)
     # split-K partial sums, summed in split order by the kernel's finish
     ws = torch.empty((splits, m, c), dtype=torch.float32,
-                     device=p2d.device) if splits > 1 else None
+                     device=dev) if splits > 1 else None
     fn = c_function("gemm_bias_scale_act", "dcgan_gemm_bias_scale_act")
-    with torch.cuda.device(p2d.device):
+    with torch.cuda.device(dev):
         err = fn(p2d.data_ptr(), w2d.data_ptr(), b.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
                  ws.data_ptr() if ws is not None else None, splits, m, k, c,
                  in_code, DTYPE_CODES[out_dtype], ACT_CODES[act],
-                 float(leak), torch.cuda.current_stream().cuda_stream)
+                 float(leak), stream_of(dev))
     check_launch("gemm_bias_scale_act", err)
     gemm_bias_scale_act.launches += 1
     return y
@@ -161,31 +176,145 @@ gemm_bias_scale_act.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# gemm_bias_moments: u = P @ W + b (f32) and the moments of u in out_dtype
+# ---------------------------------------------------------------------------
+
+def gemm_bias_moments_plain(p2d: torch.Tensor, w2d: torch.Tensor,
+                            b: torch.Tensor,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The plain PyTorch version: f32 product of the operands (exact for
+    bf16 inputs) plus the bias, and the f32 moments of u rounded to
+    `out_dtype` (the value the model goes on to see)."""
+    u = torch.matmul(p2d.float(), w2d.float()) + b.float()
+    v = u.to(out_dtype).float()
+    inv_m = 1.0 / u.shape[0]
+    return u, v.sum(0) * inv_m, (v * v).sum(0) * inv_m
+
+
+def gemm_bias_moments_launch(p2d: torch.Tensor, w2d: torch.Tensor,
+                             b: torch.Tensor,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The kernel on CUDA tensors (raises if it cannot launch)."""
+    _check_gemm_operands(p2d, w2d)
+    m, k = p2d.shape
+    c = w2d.shape[1]
+    dev = p2d.device
+    b = channel_vector("b", b, c, dev)
+    in_code = DTYPE_CODES[p2d.dtype]
+    sms = sm_count(dev)
+    splits = c_function("gemm_bias_moments",
+                        "dcgan_gemm_bias_moments_splits")(m, k, c, in_code,
+                                                          sms)
+    parts = c_function("gemm_bias_moments",
+                       "dcgan_gemm_bias_moments_parts")(m, c, in_code,
+                                                        splits, sms)
+    u = torch.empty((m, c), dtype=torch.float32, device=dev)
+    mean = torch.empty(c, dtype=torch.float32, device=dev)
+    mean_sq = torch.empty(c, dtype=torch.float32, device=dev)
+    # split-K partial products, and the partial moments of each row tile
+    # (or row chunk): both summed in a fixed order by the kernel's finish
+    ws = torch.empty((splits, m, c), dtype=torch.float32,
+                     device=dev) if splits > 1 else None
+    part = torch.empty((2, parts, c), dtype=torch.float32, device=dev)
+    fn = c_function("gemm_bias_moments", "dcgan_gemm_bias_moments")
+    with torch.cuda.device(dev):
+        err = fn(p2d.data_ptr(), w2d.data_ptr(), b.data_ptr(), u.data_ptr(),
+                 mean.data_ptr(), mean_sq.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, part.data_ptr(),
+                 splits, parts, m, k, c, in_code,
+                 int(out_dtype == torch.bfloat16), 1.0 / m, stream_of(dev))
+    check_launch("gemm_bias_moments", err)
+    gemm_bias_moments.launches += 1
+    return u, mean, mean_sq
+
+
+class _GemmBiasMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p2d, w2d, b, out_dtype):
+        if p2d.device.type == "cpu":
+            u, mean, mean_sq = gemm_bias_moments_plain(p2d, w2d, b,
+                                                       out_dtype)
+        else:
+            u, mean, mean_sq = gemm_bias_moments_launch(p2d, w2d, b,
+                                                        out_dtype)
+        ctx.save_for_backward(p2d, w2d, b, u)
+        return u, mean, mean_sq
+
+    @staticmethod
+    def backward(ctx, gu, g_mean, g_msq):
+        # `_gbm_vjp_bwd`: d mean/du = 1/M and d mean_sq/du = 2u/M fold into
+        # the GEMM cotangent; then two f32 matmuls (XLA's in JAX, outside
+        # any Pallas kernel) and a column sum
+        p2d, w2d, b, u = ctx.saved_tensors
+        m = u.shape[0]
+        du = gu.float() + (g_mean.float()[None, :]
+                           + 2.0 * u * g_msq.float()[None, :]) / m
+        need_p, need_w, need_b = ctx.needs_input_grad[:3]
+        dp = torch.matmul(du, w2d.float().t()).to(p2d.dtype) \
+            if need_p else None
+        dw = torch.matmul(p2d.float().t(), du).to(w2d.dtype) \
+            if need_w else None
+        db = du.sum(0).to(b.dtype) if need_b else None
+        return dp, dw, db, None
+
+
+def gemm_bias_moments(p2d: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused pass: u = p2d @ w2d + b (f32 accumulation) together with
+    the per-channel (E[v], E[v^2]) of v = u cast to `out_dtype`. Returns
+    (u [M, C] float32, mean [C], mean_sq [C]); differentiable in p2d, w2d
+    and b.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and raises if it cannot). `gemm_bias_moments.launches` counts
+    launches."""
+    _check_gemm(p2d, w2d, out_dtype)
+    return _GemmBiasMoments.apply(p2d, w2d, b, out_dtype)
+
+
+gemm_bias_moments.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The fused stage: deconv ⊕ bias ⊕ BN ⊕ act
 # ---------------------------------------------------------------------------
 
 def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
                       bn_state: Pytree, x: torch.Tensor, *, transpose: bool,
                       kernel: int, stride: int = 2, train: bool,
-                      eps: float = 1e-5, act: str, leak: float = LEAK,
+                      momentum: float = 0.9, eps: float = 1e-5, act: str,
+                      leak: float = LEAK,
                       compute_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[torch.Tensor, Pytree]:
-    """One G (transpose=True) or D stage as one kernel pass, returning
-    (y NHWC, bn_state) with `batch_norm_apply`'s state contract.
+    """One G (transpose=True) or D (transpose=False) stage, conv ⊕ bias ⊕
+    BN ⊕ act, returning (y NHWC, bn_state) with `batch_norm_apply`'s state
+    contract.
 
-    train=False: the running statistics are known before the GEMM, so the
-    whole stage is the single gemm_bias_scale_act kernel. The patch matrix
-    lives only inside this call."""
-    if train:
-        raise NotImplementedError(
-            "fused_conv_bn_act(train=True) comes with the training slice")
+    train=True: the gemm_bias_moments kernel, BN's batch arithmetic on the
+    [C]-sized moments, then the scale_shift_act epilogue kernel; the new
+    state is the EMA update, detached. train=False: the running statistics
+    are known before the GEMM, so the whole stage is the single
+    gemm_bias_scale_act kernel. The patch matrix lives only inside this
+    call (and in autograd's graph, for dw = P^T du)."""
     cdt = compute_dtype if compute_dtype is not None else x.dtype
     w, b = conv_params["w"], conv_params["b"]
     w2d = w_to_gemm(w.to(cdt))
     p2d, (n, ho, wo) = conv_patches(x.to(cdt), kernel, stride, transpose)
     c = w2d.shape[1]
-    inv = torch.rsqrt(bn_state["var"].float() + eps)
-    scale = bn_params["scale"].float() * inv
-    shift = bn_params["bias"].float() - bn_state["mean"].float() * scale
+    gamma, beta = bn_params["scale"], bn_params["bias"]
+    if train:
+        u, mean, mean_sq = gemm_bias_moments(p2d, w2d, b, cdt)
+        mean, var, new_state = finish_batch_moments(bn_state, mean, mean_sq,
+                                                    momentum=momentum)
+        scale, shift = bn_scale_shift(gamma, beta, mean, var, eps)
+        y2d = scale_shift_act(u.to(cdt), scale, shift, act, leak)
+        return y2d.reshape(n, ho, wo, c), new_state
+    scale, shift = bn_scale_shift(gamma, beta, bn_state["mean"],
+                                  bn_state["var"], eps)
     y2d = gemm_bias_scale_act(p2d, w2d, b, scale, shift, act, leak, cdt)
     return y2d.reshape(n, ho, wo, c), bn_state

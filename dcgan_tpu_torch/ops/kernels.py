@@ -1,14 +1,23 @@
-"""Elementwise BN-epilogue kernel and its wrapper (the counterpart of
+"""BatchNorm kernels and their wrappers (the counterpart of
 `dcgan_tpu/ops/pallas_kernels.py`).
 
-- `scale_shift_act(x2d, scale, shift, act)`: y = act(x * scale + shift) over
-  [N, C] with per-channel f32 vectors, one pass, f32 math, output in x's
-  dtype. On a CUDA tensor it launches `csrc/scale_shift_act.cu` (which
-  replaces the TPU kernel `_ssa_fwd_kernel`); on a CPU tensor it runs
-  `scale_shift_act_plain`, the same function in plain PyTorch.
-- `fused_bn_act`: inference BatchNorm + activation built on it.
+- `channel_moments(x2d)`: per-channel (E[x], E[x^2]) over [N, C] in f32,
+  the batch statistics of BN's train path. On a CUDA tensor it launches
+  `csrc/channel_moments.cu` (which replaces the TPU kernel `_moments_kernel`);
+  its backward is the broadcast expression the JAX package leaves to XLA.
+- `scale_shift_act(x2d, scale, shift, act)`: y = act(x * scale + shift)
+  over [N, C] with per-channel f32 vectors, f32 math, output in x's dtype.
+  Differentiable: its forward launches `csrc/scale_shift_act.cu`'s forward
+  (replacing `_ssa_fwd_kernel`), its backward `scale_shift_act_bwd`, the
+  same file's backward kernel (replacing `_ssa_bwd_kernel`), which returns
+  dx, dscale and dshift in one pass.
+- `fused_bn_act`: BatchNorm + activation built on `scale_shift_act`.
 
-The wrappers also hold the ctypes plumbing shared with `ops/fused.py`:
+On a CPU tensor each wrapper runs its `*_plain` version, the same function
+in plain PyTorch; on a CUDA tensor it launches the kernel or raises. Each
+wrapper counts its launches in `.launches`.
+
+The module also holds the ctypes plumbing shared with `ops/fused.py`:
 argument checks, the dtype codes of `csrc/common.cuh`, and raising on a
 launch the runtime refused.
 """
@@ -16,31 +25,46 @@ launch the runtime refused.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from dcgan_tpu_torch.ops import _build
 from dcgan_tpu_torch.ops.activations import ACT_CODES, LEAK, act_fwd, \
-    check_act
+    act_grad, check_act
 
 # csrc/common.cuh::DType
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     "dcgan_scale_shift_act": (
         # x, scale, shift, y, n, c, dtype, act, leak, stream
-        [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, _P]),
+        [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P]),
+    "dcgan_scale_shift_act_bwd": (
+        # x, scale, shift, g, dx, dscale, dshift, part, chunks, n, c, dtype,
+        # act, leak, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _F, _P]),
+    "dcgan_scale_shift_act_bwd_chunks": [_I64, _I, _I],
+    "dcgan_channel_moments": (
+        # x, mean, mean_sq, part, chunks, n, c, dtype, inv_n, stream
+        [_P, _P, _P, _P, _I, _I64, _I, _I, _F, _P]),
+    "dcgan_channel_moments_chunks": [_I64, _I, _I],
     "dcgan_gemm_bias_scale_act": (
         # p, w, bias, scale, shift, y, ws, splits, m, k, c, in_dtype,
         # out_dtype, act, leak, stream
-        [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, _P]),
-    "dcgan_gemm_bias_scale_act_splits": (
-        # m, k, c, in_dtype, sm_count
-        [ctypes.c_int] * 5),
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "dcgan_gemm_bias_scale_act_splits": [_I] * 5,   # m, k, c, in_dtype, sms
+    "dcgan_gemm_bias_moments": (
+        # p, w, bias, u, mean, mean_sq, ws, part, splits, parts, m, k, c,
+        # in_dtype, round_bf16, inv_m, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
+    "dcgan_gemm_bias_moments_splits": [_I] * 5,     # m, k, c, in_dtype, sms
+    "dcgan_gemm_bias_moments_parts": [_I] * 5,  # m, c, in_dtype, splits, sms
 }
 
 
@@ -69,6 +93,8 @@ def check_matrix(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.numel() == 0:
+        raise ValueError(f"{name} is empty, shape {tuple(t.shape)}")
 
 
 def channel_vector(name: str, t: torch.Tensor, c: int,
@@ -81,6 +107,79 @@ def channel_vector(name: str, t: torch.Tensor, c: int,
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, operands on {device}")
     return t.to(torch.float32).contiguous()
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# channel_moments: [N, C] -> (mean [C], mean_sq [C]), f32
+# ---------------------------------------------------------------------------
+
+def channel_moments_plain(x2d: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: f32 sums times 1/N."""
+    xf = x2d.float()
+    inv_n = 1.0 / x2d.shape[0]
+    return xf.sum(0) * inv_n, (xf * xf).sum(0) * inv_n
+
+
+def channel_moments_launch(x2d: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on a CUDA tensor (raises if it cannot launch)."""
+    check_matrix("x2d", x2d)
+    n, c = x2d.shape
+    dev = x2d.device
+    chunks = c_function("channel_moments", "dcgan_channel_moments_chunks")(
+        n, c, sm_count(dev))
+    mean = torch.empty(c, dtype=torch.float32, device=dev)
+    mean_sq = torch.empty(c, dtype=torch.float32, device=dev)
+    part = torch.empty((2, chunks, c), dtype=torch.float32, device=dev)
+    fn = c_function("channel_moments", "dcgan_channel_moments")
+    with torch.cuda.device(dev):
+        err = fn(x2d.data_ptr(), mean.data_ptr(), mean_sq.data_ptr(),
+                 part.data_ptr(), chunks, n, c, DTYPE_CODES[x2d.dtype],
+                 1.0 / n, stream_of(dev))
+    check_launch("channel_moments", err)
+    channel_moments.launches += 1
+    return mean, mean_sq
+
+
+class _ChannelMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d):
+        ctx.save_for_backward(x2d)
+        if x2d.device.type == "cpu":
+            return channel_moments_plain(x2d)
+        return channel_moments_launch(x2d)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_msq):
+        # d mean/dx = 1/N, d mean_sq/dx = 2x/N: `_moments_vjp_bwd`'s
+        # broadcast expression, which XLA fuses; no kernel
+        (x2d,) = ctx.saved_tensors
+        n = x2d.shape[0]
+        dx = (g_mean.float()[None, :]
+              + 2.0 * x2d.float() * g_msq.float()[None, :]) / n
+        return dx.to(x2d.dtype)
+
+
+def channel_moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (E[x], E[x^2]) over axis 0 of [N, C], f32, one pass;
+    differentiable. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (and raises if it cannot).
+    `channel_moments.launches` counts launches."""
+    if x2d.dim() != 2:
+        raise ValueError(f"x2d must be 2-D, got shape {tuple(x2d.shape)}")
+    return _ChannelMoments.apply(x2d)
+
+
+channel_moments.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -96,20 +195,13 @@ def scale_shift_act_plain(x2d: torch.Tensor, scale: torch.Tensor,
     return act_fwd(u, act, leak).to(x2d.dtype)
 
 
-def scale_shift_act(x2d: torch.Tensor, scale: torch.Tensor,
-                    shift: torch.Tensor, act: str = "none",
-                    leak: float = LEAK) -> torch.Tensor:
-    """y = act(x * scale + shift) over [N, C] with [C] scale/shift.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot). `scale_shift_act.launches` counts launches."""
+def scale_shift_act_launch(x2d: torch.Tensor, scale: torch.Tensor,
+                           shift: torch.Tensor, act: str = "none",
+                           leak: float = LEAK) -> torch.Tensor:
+    """The forward kernel on a CUDA tensor (raises if it cannot launch)."""
     check_act(act)
-    if x2d.dim() != 2:
-        raise ValueError(f"x2d must be 2-D, got shape {tuple(x2d.shape)}")
-    n, c = x2d.shape
-    if x2d.device.type == "cpu":
-        return scale_shift_act_plain(x2d, scale, shift, act, leak)
     check_matrix("x2d", x2d)
+    n, c = x2d.shape
     scale = channel_vector("scale", scale, c, x2d.device)
     shift = channel_vector("shift", shift, c, x2d.device)
     y = torch.empty_like(x2d)
@@ -117,10 +209,98 @@ def scale_shift_act(x2d: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x2d.device):
         err = fn(x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                  y.data_ptr(), n, c, DTYPE_CODES[x2d.dtype], ACT_CODES[act],
-                 float(leak), torch.cuda.current_stream().cuda_stream)
+                 float(leak), stream_of(x2d.device))
     check_launch("scale_shift_act", err)
     scale_shift_act.launches += 1
     return y
+
+
+def scale_shift_act_bwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
+                              shift: torch.Tensor, g: torch.Tensor,
+                              act: str = "none", leak: float = LEAK
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward's plain version: (dx in x's dtype, dscale f32,
+    dshift f32), `_ssa_bwd_kernel`'s arithmetic."""
+    check_act(act)
+    xf, s, t = x2d.float(), scale.float(), shift.float()
+    du = g.float() * act_grad(xf * s + t, act, leak)
+    return ((du * s).to(x2d.dtype), (du * xf).sum(0), du.sum(0))
+
+
+def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor, g: torch.Tensor,
+                        act: str = "none", leak: float = LEAK
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dshift) of y = act(x * scale + shift) for the cotangent
+    g of y: dx in x's dtype, dscale and dshift f32. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (and raises if it
+    cannot). `scale_shift_act_bwd.launches` counts launches."""
+    check_act(act)
+    if x2d.device.type == "cpu":
+        return scale_shift_act_bwd_plain(x2d, scale, shift, g, act, leak)
+    check_matrix("x2d", x2d)
+    check_matrix("g", g)
+    if g.shape != x2d.shape or g.dtype != x2d.dtype:
+        raise ValueError(f"g {tuple(g.shape)}/{g.dtype} must match x2d "
+                         f"{tuple(x2d.shape)}/{x2d.dtype}")
+    n, c = x2d.shape
+    dev = x2d.device
+    scale = channel_vector("scale", scale, c, dev)
+    shift = channel_vector("shift", shift, c, dev)
+    chunks = c_function("scale_shift_act",
+                        "dcgan_scale_shift_act_bwd_chunks")(n, c,
+                                                            sm_count(dev))
+    dx = torch.empty_like(x2d)
+    dscale = torch.empty(c, dtype=torch.float32, device=dev)
+    dshift = torch.empty(c, dtype=torch.float32, device=dev)
+    part = torch.empty((2, chunks, c), dtype=torch.float32, device=dev)
+    fn = c_function("scale_shift_act", "dcgan_scale_shift_act_bwd")
+    with torch.cuda.device(dev):
+        err = fn(x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                 g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                 dshift.data_ptr(), part.data_ptr(), chunks, n, c,
+                 DTYPE_CODES[x2d.dtype], ACT_CODES[act], float(leak),
+                 stream_of(dev))
+    check_launch("scale_shift_act_bwd", err)
+    scale_shift_act_bwd.launches += 1
+    return dx, dscale, dshift
+
+
+scale_shift_act_bwd.launches = 0
+
+
+class _ScaleShiftAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, scale, shift, act, leak):
+        ctx.save_for_backward(x2d, scale, shift)
+        ctx.act, ctx.leak = act, leak
+        if x2d.device.type == "cpu":
+            return scale_shift_act_plain(x2d, scale, shift, act, leak)
+        return scale_shift_act_launch(x2d, scale, shift, act, leak)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, scale, shift = ctx.saved_tensors
+        dx, dscale, dshift = scale_shift_act_bwd(
+            x2d, scale, shift, g.contiguous(), ctx.act, ctx.leak)
+        return (dx, dscale.to(scale.dtype), dshift.to(shift.dtype), None,
+                None)
+
+
+def scale_shift_act(x2d: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, act: str = "none",
+                    leak: float = LEAK) -> torch.Tensor:
+    """y = act(x * scale + shift) over [N, C] with [C] scale/shift;
+    differentiable in x, scale and shift.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels (and raises if it cannot). `scale_shift_act.launches` counts
+    forward launches, `scale_shift_act_bwd.launches` backward ones."""
+    check_act(act)
+    if x2d.dim() != 2:
+        raise ValueError(f"x2d must be 2-D, got shape {tuple(x2d.shape)}")
+    return _ScaleShiftAct.apply(x2d, scale, shift, act, leak)
 
 
 scale_shift_act.launches = 0
@@ -130,15 +310,24 @@ scale_shift_act.launches = 0
 # Fused BN + activation built on the kernel
 # ---------------------------------------------------------------------------
 
+def bn_scale_shift(gamma: torch.Tensor, beta: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor, eps: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN's affine folded into f32 per-channel vectors, differentiably:
+    scale = gamma * rsqrt(var + eps), shift = beta - mean * scale."""
+    inv = torch.rsqrt(var.float() + eps)
+    scale = gamma.float() * inv
+    return scale, beta.float() - mean.float() * scale
+
+
 def fused_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  mean: torch.Tensor, var: torch.Tensor, *, eps: float,
                  act: str, leak: float = LEAK) -> torch.Tensor:
     """y = act((x - mean) * rsqrt(var + eps) * gamma + beta) for NHWC (or
     [N, C]) `x`: the statistics fold into f32 scale/shift vectors, then one
-    scale_shift_act pass."""
+    scale_shift_act pass. mean/var may be batch moments (train) or running
+    statistics; gradients flow through them either way."""
     c = x.shape[-1]
-    inv = torch.rsqrt(var.float() + eps)
-    scale = gamma.float() * inv
-    shift = beta.float() - mean.float() * scale
+    scale, shift = bn_scale_shift(gamma, beta, mean, var, eps)
     y2d = scale_shift_act(x.reshape(-1, c), scale, shift, act, leak)
     return y2d.reshape(x.shape)

@@ -1,10 +1,14 @@
-"""Linear and transposed conv as init/apply pairs on plain tensors (the
-counterpart of `dcgan_tpu/ops/layers.py:46-115`).
+"""Linear, conv, transposed conv and leaky relu as init/apply pairs on
+plain tensors (the counterpart of `dcgan_tpu/ops/layers.py:46-123`).
 
 Layouts are the JAX package's at the boundary: NHWC activations, `[in, out]`
 linear weights, HWIO conv kernels. Inside `deconv2d_apply` the activation is
 viewed as NCHW with channels-last memory, the layout cuDNN prefers, so the
 views in and out cost no copy.
+
+`lax.conv_general_dilated` with SAME padding at stride 2 pads an even input
+asymmetrically, (1, 2) for k=5, so `conv2d_apply` pads explicitly and then
+convolves unpadded; the symmetric `padding=2` is a different function.
 
 `lax.conv_transpose` (the JAX deconv) does NOT flip the kernel taps and pads
 the dilated input asymmetrically, (3, 2) for k=5, s=2. Its PyTorch
@@ -16,7 +20,7 @@ is a different function (off by O(1) on random weights).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +31,23 @@ Pytree = dict
 def _normal(gen: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:
     return (stddev * torch.randn(shape, generator=gen,
                                  dtype=torch.float32)).to(dtype)
+
+
+def _truncated_normal(gen: torch.Generator, shape, stddev: float,
+                      dtype) -> torch.Tensor:
+    """stddev * N(0, 1) truncated to [-2, 2], TF's and jax's
+    truncated_normal for the conv kernels."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (stddev * t).to(dtype)
+
+
+def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's SAME padding (before, after) of one spatial dim: the output is
+    ceil(size / s) and the odd pixel of padding goes after."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +68,36 @@ def linear_apply(params: Pytree, x: torch.Tensor, *,
         x, w = x.to(compute_dtype), w.to(compute_dtype)
     # the bias is added in the compute dtype, as the JAX package does
     return torch.matmul(x, w) + b.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# conv2d (strided, SAME)
+# ---------------------------------------------------------------------------
+
+def conv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, *,
+                kernel: int = 5, stddev: float = 0.02,
+                dtype=torch.float32) -> Pytree:
+    """HWIO W ~ TruncNormal(0, stddev) at 2 sigma, b = 0."""
+    return {"w": _truncated_normal(gen, (kernel, kernel, in_ch, out_ch),
+                                   stddev, dtype),
+            "b": torch.zeros((out_ch,), dtype=dtype)}
+
+
+def conv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
+                 compute_dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
+    """NHWC [N, H, W, Cin] -> NHWC [N, ceil(H/s), ceil(W/s), Cout], the JAX
+    `lax.conv_general_dilated(..., padding="SAME")` followed by the bias."""
+    w, b = params["w"], params["b"]
+    if compute_dtype is not None:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    k = w.shape[0]
+    (top, bottom), (left, right) = (same_pads(x.shape[1], k, stride),
+                                    same_pads(x.shape[2], k, stride))
+    xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
+    y = y.permute(0, 2, 3, 1)
+    return y + b.to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -81,3 +132,12 @@ def deconv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
                            padding=(k - 1) // 2 - 1)
     y = y[..., :-1, :-1].permute(0, 2, 3, 1)
     return y + b.to(y.dtype)
+
+
+# ---------------------------------------------------------------------------
+# lrelu
+# ---------------------------------------------------------------------------
+
+def lrelu(x: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
+    """max(x, leak * x), a maximum as in JAX (ties split the gradient)."""
+    return torch.maximum(x, leak * x)

@@ -1,16 +1,23 @@
-"""BatchNorm with explicit running statistics, inference half (the
-counterpart of `dcgan_tpu/ops/norm.py:37-55,124-205`).
+"""BatchNorm with explicit running statistics (the counterpart of
+`dcgan_tpu/ops/norm.py:37-78,124-205`).
 
     params = {"scale": gamma, "bias": beta}     # gamma ~ N(1, 0.02), beta = 0
     state  = {"mean": m, "var": v}              # running statistics
 
+    y, new_state = batch_norm_apply(params, state, x, train=True)
+
+train=True normalizes with the batch moments (over every axis but the last)
+and returns the EMA-updated state; train=False uses the running statistics
+and returns the state unchanged. The new state is returned detached: in JAX
+it is an auxiliary output, never differentiated.
+
 Two routes, each rounding where the JAX package rounds:
-- plain: the normalization computes in `x.dtype` (bf16 under the default
-  policy), op by op;
-- `use_pallas`: `fused_bn_act` folds the statistics into f32 scale/shift
-  vectors and runs the `scale_shift_act` kernel, which computes in f32 and
-  casts back to `x.dtype` once.
-The train half (batch moments, EMA update) comes with the training slice.
+- plain: the moments in f32, the normalization in `x.dtype` (bf16 under
+  the default policy), op by op;
+- `use_pallas`: the moments from the `channel_moments` kernel, then
+  `fused_bn_act` folds them into f32 scale/shift vectors and runs the
+  `scale_shift_act` kernel, which computes in f32 and casts back to
+  `x.dtype` once.
 """
 
 from __future__ import annotations
@@ -38,28 +45,70 @@ def batch_norm_init(gen: torch.Generator, num_features: int, *,
     return params, state
 
 
+def finish_batch_moments(state: Pytree, mean: torch.Tensor,
+                         mean_sq: torch.Tensor, *, momentum: float = 0.9
+                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
+    """The train-path arithmetic after the raw moments, shared with the
+    fused stages (ops/fused.py): the biased variance E[x^2] - E[x]^2
+    clamped at 0 (f32 cancellation can go slightly negative), and the EMA
+    state update in the stored statistics' dtype. Returns (mean, var,
+    new_state) with mean and var f32 and differentiable, new_state
+    detached."""
+    mean = mean.float()
+    # torch.maximum, not clamp_min: like jnp.maximum it splits the gradient
+    # at a tie
+    var = torch.maximum(mean_sq.float() - torch.square(mean),
+                        torch.zeros((), dtype=torch.float32,
+                                    device=mean.device))
+    with torch.no_grad():
+        stat_dtype = state["mean"].dtype
+        new_state = {
+            "mean": momentum * state["mean"]
+                    + (1.0 - momentum) * mean.to(stat_dtype),
+            "var": momentum * state["var"]
+                   + (1.0 - momentum) * var.to(stat_dtype),
+        }
+    return mean, var, new_state
+
+
 def batch_norm_apply(params: Pytree, state: Pytree, x: torch.Tensor, *,
-                     train: bool, eps: float = 1e-5, act: str = "none",
-                     leak: float = LEAK, use_pallas: bool = False
+                     train: bool, momentum: float = 0.9, eps: float = 1e-5,
+                     act: str = "none", leak: float = LEAK,
+                     use_pallas: bool = False
                      ) -> Tuple[torch.Tensor, Pytree]:
-    """Normalize `x` over every axis but the last (channel) axis with the
-    running statistics, then apply `act`; returns (y, state) with the state
-    unchanged."""
-    if train:
-        raise NotImplementedError(
-            "batch_norm_apply(train=True) comes with the training slice")
+    """Normalize `x` over every axis but the last (channel) axis, then
+    apply `act`; returns (y, state) — the EMA-updated state when
+    train=True, `state` itself otherwise."""
     check_act(act)
-    mean, var = state["mean"], state["var"]
     if params["scale"].ndim != 1:
         raise NotImplementedError("conditional BN is not ported yet")
+    if train:
+        if use_pallas:
+            from dcgan_tpu_torch.ops.kernels import channel_moments
+
+            mean, mean_sq = channel_moments(x.reshape(-1, x.shape[-1]))
+        else:
+            # f32 moments even under bf16 activations, as the JAX package
+            # takes them
+            axes = tuple(range(x.ndim - 1))
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            mean_sq = torch.square(xf).mean(dim=axes)
+        mean, var, new_state = finish_batch_moments(state, mean, mean_sq,
+                                                    momentum=momentum)
+    else:
+        mean, var, new_state = state["mean"], state["var"], state
     if use_pallas:
         from dcgan_tpu_torch.ops.kernels import fused_bn_act
 
         return fused_bn_act(x, params["scale"], params["bias"], mean, var,
-                            eps=eps, act=act, leak=leak), state
+                            eps=eps, act=act, leak=leak), new_state
     dt = x.dtype
     scale, bias = params["scale"].to(dt), params["bias"].to(dt)
-    inv = torch.rsqrt(var.to(dt) + torch.tensor(eps, dtype=dt,
-                                                device=x.device))
+    # eps rounded to x's dtype first, as JAX's weak-typed scalar is;
+    # torch.full fills on the device (torch.tensor would copy from the
+    # host and wait for the stream)
+    inv = torch.rsqrt(var.to(dt) + torch.full((), eps, dtype=dt,
+                                              device=x.device))
     y = (x - mean.to(dt)) * inv * scale + bias
-    return act_fwd(y, act, leak), state
+    return act_fwd(y, act, leak), new_state

@@ -1,10 +1,37 @@
-"""Counter registry of the serving plane (the serve_* part of
-`dcgan_tpu/utils/metrics.py::CounterRegistry` / `CounterSnapshot`)."""
+"""Metrics plumbing (parts of `dcgan_tpu/utils/metrics.py`):
+
+- `MetricWriter`: the trainer's JSONL event stream, one
+  {"kind", "step", "time", ...payload} object per line in the JAX
+  package's format (its TensorBoard mirror is a later slice);
+- `CounterRegistry` / `CounterSnapshot`: the serving plane's counters.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Mapping
+
+
+class MetricWriter:
+    """JSONL event writer, `<logdir>/events.jsonl`, appended one event per
+    line. Not thread-safe: one writer thread at a time."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        self.path = os.path.join(logdir, "events.jsonl")
+
+    def _emit(self, kind: str, step: int, payload: Mapping[str, Any]) -> None:
+        event = {"kind": kind, "step": int(step), "time": time.time(),
+                 **payload}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(event) + "\n")
+
+    def write_scalars(self, step: int, scalars: Mapping[str, Any]) -> None:
+        self._emit("scalars", step,
+                   {"values": {k: float(v) for k, v in scalars.items()}})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -74,6 +74,7 @@ class TestNoJaxImports:
                 "subprocess.Popen = lambda *a, **k: calls.append(a)\n"
                 "import dcgan_tpu_torch.ops.fused\n"
                 "import dcgan_tpu_torch.ops.kernels\n"
+                "import dcgan_tpu_torch.train.steps\n"
                 "assert not calls, calls\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                              env=_clean_env(), capture_output=True,
@@ -124,6 +125,45 @@ class TestEntryPointsNeedTheCard:
         assert out.returncode != 0
         assert "torch.cuda.is_available() is False" in out.stderr
         assert "warm: serving" not in out.stdout
+
+
+class TestTrainerNeedsTheCard:
+    def test_entry_points_raise_without_gpu(self, no_gpu):
+        from dcgan_tpu_torch import convert
+        from dcgan_tpu_torch.config import ModelConfig, TrainConfig
+        from dcgan_tpu_torch.models.dcgan import discriminator_init, gan_init
+        from dcgan_tpu_torch.train.steps import init_train_state, \
+            make_train_step
+        from dcgan_tpu_torch.train.trainer import train
+
+        cfg = TrainConfig(model=ModelConfig(output_size=8, gf_dim=4,
+                                            df_dim=4), batch_size=2)
+        for call in (lambda: discriminator_init(cfg.model),
+                     lambda: gan_init(cfg.model),
+                     lambda: init_train_state(cfg),
+                     lambda: make_train_step(cfg).init(),
+                     lambda: convert.train_state_from_jax({}),
+                     lambda: train(cfg, synthetic_data=True, max_steps=1)):
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
+
+    def test_train_cli_refuses_without_gpu(self, no_gpu, tmp_path):
+        out = subprocess.run(
+            [sys.executable, "-m", "dcgan_tpu_torch.train", "--synthetic",
+             "--max_steps", "1", "--checkpoint_dir", str(tmp_path)],
+            cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode != 0
+        assert "torch.cuda.is_available() is False" in out.stderr
+        assert not (tmp_path / "events.jsonl").exists()
+
+    def test_train_cli_without_synthetic_names_the_missing_feed(self):
+        out = subprocess.run(
+            [sys.executable, "-m", "dcgan_tpu_torch.train", "--device",
+             "cpu", "--max_steps", "1"], cwd=ROOT, env=_clean_env(),
+            capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "data feed is not ported" in out.stderr
 
 
 class TestChipSmokeRefuses:

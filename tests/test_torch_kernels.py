@@ -1,12 +1,15 @@
-"""The two ported kernels: plain versions against the JAX kernels on the
-CPU, and the CUDA kernels against their plain versions on the card.
+"""The ported kernels: plain versions (and the autograd Functions built on
+them) against the JAX kernels and their custom VJPs on the CPU, and the
+CUDA kernels against their plain versions on the card.
 
 On the CPU the wrappers take the plain PyTorch versions (a CPU tensor is
 the only thing that selects them); the JAX side runs the Pallas kernels in
 interpret mode, as the JAX package's own tests do. Tolerances:
 - f32: 1e-5 (summation order only);
 - bf16 outputs: one bf16 ulp of each value, |a - b| <= 2^-7 |b| + 1e-6,
-  since both compute in f32 and round once, possibly to neighbours.
+  since both compute in f32 and round once, possibly to neighbours;
+- f32 column sums (moments, dscale, dshift, db): 1e-5 of the sum of the
+  terms' magnitudes, the bound of an f32 sum taken in another order.
 
 The `cuda`-marked tests need the card and skip without one; on a GPU
 machine run them with
@@ -173,11 +176,12 @@ class TestGemmBiasScaleActPlain:
         _assert_close(got, _j2np(jnp, want), tdt)
         assert state["mean"] is not None
 
-    def test_fused_train_mode_not_ported_yet(self):
-        with pytest.raises(NotImplementedError):
-            fused.fused_conv_bn_act({}, {}, {}, torch.zeros(1, 2, 2, 1),
-                                    transpose=True, kernel=5, train=True,
-                                    act="relu")
+    def test_fused_train_mode_not_ported_yet(self, jref):
+        """fused_conv_bn_act(train=True), a whole D stage in f32: output,
+        new BN state and every gradient against JAX's, 1e-5 (the name
+        dates from before the train half was ported)."""
+        _check_fused_train_stage(jref, transpose=False, act="lrelu",
+                                 tdt=torch.float32, jname="float32")
 
     def test_rejects_bad_arguments(self):
         p, w = torch.zeros(4, 3), torch.zeros(5, 2)
@@ -190,6 +194,218 @@ class TestGemmBiasScaleActPlain:
         with pytest.raises(TypeError, match="out_dtype"):
             fused.gemm_bias_scale_act(torch.zeros(4, 5), w, v, v, v,
                                       out_dtype=torch.float16)
+
+
+def _assert_sum_close(got, want, terms_abs):
+    """A column sum taken in another order: within 1e-5 of the sum of the
+    terms' magnitudes (plus 1e-6)."""
+    g = got.detach().float().cpu().numpy() if torch.is_tensor(got) else got
+    w = want.detach().float().cpu().numpy() if torch.is_tensor(want) \
+        else want
+    t = terms_abs.detach().float().cpu().numpy() \
+        if torch.is_tensor(terms_abs) else terms_abs
+    bad = np.abs(g - w) > 1e-5 * t + 1e-6
+    assert not bad.any(), (np.abs(g - w).max(), bad.sum())
+
+
+class TestChannelMomentsPlain:
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    @pytest.mark.parametrize("shape", [(24, 40), (7, 13)])
+    def test_matches_jax(self, jref, tdt, jname, shape):
+        jnp = jref.jnp
+        x = _np(70, shape, -2, 2)
+        got = kernels.channel_moments(torch.from_numpy(x).to(tdt))
+        want = jref.kernels.channel_moments(jnp.asarray(x, jnp.dtype(jname)))
+        xr = torch.from_numpy(x).to(tdt).float()
+        for g, w, t in zip(got, want, (xr.abs().mean(0),
+                                       (xr * xr).mean(0))):
+            assert g.dtype == torch.float32 and tuple(g.shape) == shape[1:]
+            _assert_sum_close(g, _j2np(jnp, w), t)
+
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    def test_vjp_matches_jax(self, jref, tdt, jname):
+        """The autograd Function's backward against `_moments_vjp_bwd`:
+        f32 1e-5, bf16 one ulp."""
+        jax, jnp = jref.jax, jref.jnp
+        x = _np(71, (24, 40), -2, 2)
+        gm, gq = _np(72, (40,)), _np(73, (40,))
+        _, vjp = jax.vjp(jref.kernels.channel_moments,
+                         jnp.asarray(x, jnp.dtype(jname)))
+        (want,) = vjp((jnp.asarray(gm), jnp.asarray(gq)))
+        tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+        (got,) = torch.autograd.grad(
+            kernels.channel_moments(tx), tx,
+            (torch.from_numpy(gm), torch.from_numpy(gq)))
+        assert got.dtype == tdt
+        _assert_close(got, _j2np(jnp, want), tdt)
+
+
+class TestScaleShiftActBackwardPlain:
+    @pytest.mark.parametrize("act", ACT_LIST)
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    def test_matches_jax_vjp(self, jref, act, tdt, jname):
+        """`scale_shift_act_bwd` (plain on the CPU) and the autograd
+        Function's gradients against jax.vjp of the Pallas kernel (its
+        backward is `_ssa_bwd_kernel`): dx f32 1e-5 / bf16 one ulp, dscale
+        and dshift as column sums."""
+        jax, jnp = jref.jax, jref.jnp
+        jdt = jnp.dtype(jname)
+        x = _np(80, (24, 40), -2, 2)
+        scale, shift = _np(81, (40,), 0.5, 1.5), _np(82, (40,))
+        g = _np(83, (24, 40))
+        _, vjp = jax.vjp(
+            lambda a, s, t: jref.kernels.scale_shift_act(a, s, t, act),
+            jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(shift))
+        want = [_j2np(jnp, v) for v in vjp(jnp.asarray(g, jdt))]
+        tx, tg = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
+        ts, tt = torch.from_numpy(scale), torch.from_numpy(shift)
+        xa, ga = tx.float().abs(), tg.float().abs()
+        bounds = (None, (ga * xa).sum(0), ga.sum(0))
+
+        direct = kernels.scale_shift_act_bwd(tx, ts, tt, tg, act)
+        leaves = [t.clone().requires_grad_(True) for t in (tx, ts, tt)]
+        via_autograd = torch.autograd.grad(
+            kernels.scale_shift_act(*leaves, act), leaves, tg)
+        for got in (direct, via_autograd):
+            assert got[0].dtype == tdt
+            _assert_close(got[0], want[0], tdt)
+            for i in (1, 2):
+                _assert_sum_close(got[i], want[i], bounds[i])
+
+
+class TestGemmBiasMomentsPlain:
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    @pytest.mark.parametrize("mkc", [(37, 29, 11), (64, 96, 16)])
+    def test_matches_jax(self, jref, tdt, jname, mkc):
+        """u (f32) to 1e-5; the moments of u in the compute dtype as
+        column sums, plus in bf16 one ulp of max|u| over M (a u that
+        rounds to the neighbouring bf16 value moves one term by an ulp)."""
+        jnp = jref.jnp
+        m, k, c = mkc
+        jdt = jnp.dtype(jname)
+        p, w = _np(90, (m, k)), _np(91, (k, c), -0.3, 0.3)
+        b = _np(92, (c,))
+        got = fused.gemm_bias_moments(torch.from_numpy(p).to(tdt),
+                                      torch.from_numpy(w).to(tdt),
+                                      torch.from_numpy(b), tdt)
+        want = [_j2np(jnp, v) for v in jref.fused.gemm_bias_moments(
+            jnp.asarray(p, jdt), jnp.asarray(w, jdt), jnp.asarray(b), jdt)]
+        assert got[0].dtype == torch.float32 and tuple(got[0].shape) == (m, c)
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-5,
+                                   atol=1e-5)
+        v = got[0].to(tdt).float()
+        flip = BF16_ULP * float(v.abs().max()) / m \
+            if tdt == torch.bfloat16 else 0.0
+        for g, wnt, t in zip(got[1:], want[1:], (v.abs().mean(0),
+                                                (v * v).mean(0))):
+            _assert_sum_close(g, wnt, t + 2 * flip * (1 + v.abs().max()))
+
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    def test_vjp_matches_jax(self, jref, tdt, jname):
+        """The autograd Function's backward against `_gbm_vjp_bwd`: dp and
+        dw in the operands' dtype (f32 1e-5, bf16 one ulp), db f32."""
+        jax, jnp = jref.jax, jref.jnp
+        jdt = jnp.dtype(jname)
+        m, k, c = 40, 24, 12
+        p, w = _np(93, (m, k)), _np(94, (k, c), -0.3, 0.3)
+        b = _np(95, (c,))
+        gu, gm, gq = _np(96, (m, c)), _np(97, (c,)), _np(98, (c,))
+        _, vjp = jax.vjp(
+            lambda a, bb, cc: jref.fused.gemm_bias_moments(a, bb, cc, jdt),
+            jnp.asarray(p, jdt), jnp.asarray(w, jdt), jnp.asarray(b))
+        want = [_j2np(jnp, v) for v in vjp(
+            (jnp.asarray(gu), jnp.asarray(gm), jnp.asarray(gq)))]
+        leaves = [torch.from_numpy(p).to(tdt).requires_grad_(True),
+                  torch.from_numpy(w).to(tdt).requires_grad_(True),
+                  torch.from_numpy(b).requires_grad_(True)]
+        got = torch.autograd.grad(
+            fused.gemm_bias_moments(*leaves, tdt), leaves,
+            tuple(torch.from_numpy(a) for a in (gu, gm, gq)))
+        assert [g.dtype for g in got] == [tdt, tdt, torch.float32]
+        for i in (0, 1):
+            _assert_close(got[i], want[i], tdt)
+        np.testing.assert_allclose(got[2].numpy(), want[2], rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("transpose,act", [(True, "relu"),
+                                               (False, "lrelu")])
+    @pytest.mark.parametrize("tdt,jname", DTYPES)
+    def test_fused_train_stage_matches_jax(self, jref, transpose, act, tdt,
+                                           jname):
+        _check_fused_train_stage(jref, transpose=transpose, act=act,
+                                 tdt=tdt, jname=jname)
+
+    def test_cpu_takes_plain_version_without_counting(self):
+        before = fused.gemm_bias_moments.launches
+        p, w = torch.ones(6, 4), torch.ones(4, 3)
+        u, mean, mean_sq = fused.gemm_bias_moments(p, w, torch.zeros(3))
+        assert fused.gemm_bias_moments.launches == before
+        torch.testing.assert_close(u, torch.full((6, 3), 4.0))
+        torch.testing.assert_close(mean_sq, torch.full((3,), 16.0))
+
+
+def _check_fused_train_stage(jref, *, transpose, act, tdt, jname):
+    """fused_conv_bn_act(train=True) against JAX: the output (f32 1e-5,
+    bf16 two ulps of the output's scale), the new BN state (1e-5 in f32;
+    bf16 moments of rounded activations, 1e-3) and the gradients of every
+    input under a random cotangent (f32: sums through BN's backward in
+    another order, rtol 1e-4 atol 5e-5 — b's gradient is 0 in exact
+    arithmetic, BN removing the bias, so both sides are the rounding noise
+    of sums of O(100) terms of O(1); bf16: 2e-2 of each gradient's
+    scale)."""
+    jax, jnp = jref.jax, jref.jnp
+    jdt = jnp.dtype(jname)
+    cin, cout = 6, 10
+    x = _np(60, (2, 4, 4, cin) if transpose else (2, 8, 8, cin), 0, 1)
+    w, b = _np(61, (5, 5, cin, cout), -0.1, 0.1), _np(62, (cout,), -0.1, 0.1)
+    gamma, beta = _np(63, (cout,), 0.5, 1.5), _np(64, (cout,))
+    mean, var = _np(65, (cout,), -0.2, 0.2), _np(66, (cout,), 0.5, 1.5)
+    out_hw = 8 if transpose else 4
+    g = _np(67, (2, out_hw, out_hw, cout))
+
+    def jf(x_, w_, b_, gamma_, beta_):
+        return jref.fused.fused_conv_bn_act(
+            {"w": w_, "b": b_}, {"scale": gamma_, "bias": beta_},
+            {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}, x_,
+            transpose=transpose, kernel=5, train=True, momentum=0.9,
+            act=act, compute_dtype=jdt)
+
+    jy, vjp, jstate = jax.vjp(jf, *(jnp.asarray(a) for a in (
+        x, w, b, gamma, beta)), has_aux=True)
+    jgrads = vjp(jnp.asarray(g, jy.dtype))
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w, b, gamma, beta)]
+    ty, tstate = fused.fused_conv_bn_act(
+        {"w": leaves[1], "b": leaves[2]},
+        {"scale": leaves[3], "bias": leaves[4]},
+        {"mean": torch.from_numpy(mean), "var": torch.from_numpy(var)},
+        leaves[0], transpose=transpose, kernel=5, train=True, momentum=0.9,
+        act=act, compute_dtype=tdt)
+    assert ty.dtype == tdt and tuple(ty.shape) == tuple(jy.shape)
+    tgrads = torch.autograd.grad(ty, leaves, torch.from_numpy(g).to(tdt))
+    yw = _j2np(jnp, jy)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(ty.detach().numpy(), yw, rtol=1e-5,
+                                   atol=1e-5)
+        stol = 1e-5
+    else:
+        err = np.abs(ty.detach().float().numpy() - yw).max()
+        assert err <= 2 * BF16_ULP * np.abs(yw).max(), err
+        stol = 1e-3
+    for key in ("mean", "var"):
+        assert not tstate[key].requires_grad
+        np.testing.assert_allclose(tstate[key].numpy(),
+                                   _j2np(jnp, jstate[key]), rtol=stol,
+                                   atol=stol)
+    for got, want in zip(tgrads, jgrads):
+        wn = _j2np(jnp, want)
+        assert tuple(got.shape) == wn.shape
+        if tdt == torch.float32:
+            np.testing.assert_allclose(got.numpy(), wn, rtol=1e-4,
+                                       atol=5e-5)
+        else:
+            err = np.abs(got.float().numpy() - wn).max()
+            assert err <= 2e-2 * max(np.abs(wn).max(), 1e-3), err
 
 
 # ---------------------------------------------------------------------------
@@ -264,3 +480,102 @@ class TestKernelsOnCard:
                                       torch.zeros(4, 2, device=cuda),
                                       torch.zeros(2), torch.zeros(2),
                                       torch.zeros(2))
+
+    @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(1024, 512), (37, 70), (5, 3),
+                                       (65536, 64)])
+    def test_channel_moments(self, cuda, tdt, shape):
+        """Kernel 1 against its plain version (column sums), and two
+        launches on the same input give the same bits."""
+        x = torch.from_numpy(_np(100, shape, -2, 2)).to(cuda, tdt)
+        before = kernels.channel_moments.launches
+        got = kernels.channel_moments(x)
+        again = kernels.channel_moments(x)
+        torch.cuda.synchronize()
+        assert kernels.channel_moments.launches == before + 2
+        xf = x.float()
+        for g, a, w, t in zip(got, again, kernels.channel_moments_plain(x),
+                              (xf.abs().mean(0), (xf * xf).mean(0))):
+            assert torch.equal(g, a)
+            _assert_sum_close(g, w, t)
+
+    @pytest.mark.parametrize("act", ACT_LIST)
+    @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(1024, 512), (37, 70), (5, 3),
+                                       (4096, 256)])
+    def test_scale_shift_act_bwd(self, cuda, act, tdt, shape):
+        """Kernel 3 against its plain version: dx elementwise, dscale and
+        dshift as column sums; bitwise repeat."""
+        x = torch.from_numpy(_np(110, shape, -2, 2)).to(cuda, tdt)
+        g = torch.from_numpy(_np(111, shape)).to(cuda, tdt)
+        scale = torch.from_numpy(_np(112, shape[1:], 0.5, 1.5)).to(cuda)
+        shift = torch.from_numpy(_np(113, shape[1:])).to(cuda)
+        before = kernels.scale_shift_act_bwd.launches
+        got = kernels.scale_shift_act_bwd(x, scale, shift, g, act)
+        again = kernels.scale_shift_act_bwd(x, scale, shift, g, act)
+        torch.cuda.synchronize()
+        assert kernels.scale_shift_act_bwd.launches == before + 2
+        want = kernels.scale_shift_act_bwd_plain(x, scale, shift, g, act)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert got[0].dtype == tdt
+        _assert_close(got[0], want[0], tdt)
+        ga, xa = g.float().abs(), x.float().abs()
+        _assert_sum_close(got[1], want[1], (ga * xa).sum(0))
+        _assert_sum_close(got[2], want[2], ga.sum(0))
+
+    @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("mkc", [(37, 29, 11), (100, 40, 72),
+                                     (300, 800, 256), (1024, 6400, 512),
+                                     (4096, 12800, 256), (200, 3000, 40)])
+    def test_gemm_bias_moments(self, cuda, tdt, mkc):
+        """Kernel 4: u against the plain product (f32 sums of up to 12800
+        products in another order, split-K at the small-M bf16 shapes:
+        1e-5 relative + 1e-4), the moments against those of the kernel's
+        own u in the compute dtype (column sums); bitwise repeat."""
+        m, k, c = mkc
+        p = torch.from_numpy(_np(120, (m, k))).to(cuda, tdt)
+        w = torch.from_numpy(_np(121, (k, c), -0.05, 0.05)).to(cuda, tdt)
+        b = torch.from_numpy(_np(122, (c,))).to(cuda)
+        before = fused.gemm_bias_moments.launches
+        got = fused.gemm_bias_moments(p, w, b, tdt)
+        again = fused.gemm_bias_moments(p, w, b, tdt)
+        torch.cuda.synchronize()
+        assert fused.gemm_bias_moments.launches == before + 2
+        assert all(torch.equal(a, bb) for a, bb in zip(got, again))
+        u_want = fused.gemm_bias_moments_plain(p, w, b, tdt)[0]
+        assert bool(((got[0] - u_want).abs()
+                     <= 1e-5 * u_want.abs() + 1e-4).all())
+        v = got[0].to(tdt).float()
+        _assert_sum_close(got[1], v.mean(0), v.abs().mean(0))
+        _assert_sum_close(got[2], (v * v).mean(0), (v * v).mean(0))
+
+    @pytest.mark.parametrize("transpose,act", [(True, "relu"),
+                                               (False, "lrelu")])
+    def test_fused_train_stage_matches_cpu(self, cuda, transpose, act):
+        """fused_conv_bn_act(train=True) on the card (kernels 4 and 2
+        forward, 3 backward) against the same call on the CPU (plain
+        versions), f32: output and state 1e-5, gradients rtol 1e-4 atol
+        5e-5 (see _check_fused_train_stage)."""
+        x = _np(130, (4, 8, 8, 16) if transpose else (4, 16, 16, 16), 0, 1)
+        arrays = (x, _np(131, (5, 5, 16, 32), -0.1, 0.1),
+                  _np(132, (32,), -0.1, 0.1), _np(133, (32,), 0.5, 1.5),
+                  _np(134, (32,)))
+        g = _np(135, (4, 16, 16, 32) if transpose else (4, 8, 8, 32))
+        results = []
+        for dev in ("cpu", cuda):
+            leaves = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                      for a in arrays]
+            y, state = fused.fused_conv_bn_act(
+                {"w": leaves[1], "b": leaves[2]},
+                {"scale": leaves[3], "bias": leaves[4]},
+                {"mean": torch.zeros(32, device=dev),
+                 "var": torch.ones(32, device=dev)}, leaves[0],
+                transpose=transpose, kernel=5, train=True, act=act,
+                compute_dtype=torch.float32)
+            grads = torch.autograd.grad(y, leaves,
+                                        torch.from_numpy(g).to(dev))
+            results.append([t.detach().cpu() for t in (
+                y, state["mean"], state["var"], *grads)])
+        for i, (a, b) in enumerate(zip(*results)):
+            tol = (1e-5, 1e-5) if i < 3 else (1e-4, 5e-5)
+            torch.testing.assert_close(b, a, rtol=tol[0], atol=tol[1])

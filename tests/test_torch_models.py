@@ -1,4 +1,5 @@
-"""The port's generator against `dcgan_tpu`'s on shared weights and z.
+"""The port's generator and discriminator against `dcgan_tpu`'s on shared
+weights and inputs.
 
 Weights come from the JAX package's own init and are carried over with
 `convert.generator_from_jax`; BN running statistics are the moments of one
@@ -7,7 +8,8 @@ the BN betas and deconv biases are drawn from numpy, so every scale and
 shift of the sampler path is nontrivial. z rows are numpy draws.
 
 Tolerances on the tanh outputs: f32 1e-4 (summation order only); bf16 2e-2
-(the frameworks round bf16 at different points through every stage).
+(the frameworks round bf16 at different points through every stage). The
+train-mode cases (batch statistics) are stated in their tests.
 """
 
 import dataclasses
@@ -116,14 +118,156 @@ class TestGeneratorParity:
             torch.testing.assert_close(out, outs[0], rtol=1e-5, atol=1e-5)
 
     def test_train_mode_not_ported_yet(self):
-        cfg = ModelConfig(output_size=8, gf_dim=4)
-        p, s = tdcgan.generator_init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tdcgan.generator_apply(p, s, torch.zeros(1, 100), cfg=cfg,
-                                   train=True)
+        """generator_apply(train=True), fused routing, f32, against JAX:
+        images 1e-4 and the new BN state 1e-5 (the name dates from before
+        train mode was ported; TestTrainMode covers the other routings)."""
+        _check_generator_train("fused", "float32")
+
+
+def _gan_numpy(output_size=16, width=8, seed=0):
+    """(params, bn) of both nets from the JAX package's gan_init, numpy."""
+    jcfg = JModelConfig(output_size=output_size, gf_dim=width, df_dim=width,
+                        z_dim=8)
+    params, bn = jdcgan.gan_init(jax.random.key(seed), jcfg)
+    return (jax.tree_util.tree_map(np.asarray, params),
+            jax.tree_util.tree_map(np.asarray, bn))
+
+
+def _mk(route, dtype):
+    return dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
+                compute_dtype=dtype, **ROUTES[route])
+
+
+def _to_t(tree):
+    return convert._to_torch(tree, torch.device("cpu"))
+
+
+def _check_generator_train(route, dtype):
+    params, bn = _gan_numpy()
+    z = np.random.default_rng(9).uniform(-1, 1, (4, 8)).astype(np.float32)
+    want, want_state = jdcgan.generator_apply(
+        params["gen"], bn["gen"], jnp.asarray(z), cfg=JModelConfig(
+            **_mk(route, dtype)), train=True)
+    got, got_state = tdcgan.generator_apply(
+        _to_t(params["gen"]), _to_t(bn["gen"]), torch.from_numpy(z),
+        cfg=ModelConfig(**_mk(route, dtype)), train=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL[dtype]
+    assert sorted(got_state) == sorted(want_state)
+    stol = 1e-5 if dtype == "float32" else 1e-3
+    for name, s in got_state.items():
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(s[key].numpy(),
+                                       np.asarray(want_state[name][key]),
+                                       rtol=stol, atol=stol)
+
+
+class TestTrainMode:
+    @pytest.mark.parametrize("route", sorted(ROUTES))
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_generator_matches_jax(self, route, dtype):
+        """Images: f32 1e-4, bf16 2e-2; new BN state: f32 1e-5, bf16 1e-3
+        (f32 moments of activations rounded at other points)."""
+        _check_generator_train(route, dtype)
+
+    @pytest.mark.parametrize("route", sorted(ROUTES))
+    @pytest.mark.parametrize("train", [True, False])
+    def test_discriminator_matches_jax(self, route, train):
+        """D on tanh-range images, f32: logits 1e-4, probabilities 1e-5,
+        new BN state 1e-5; the state is passed through at train=False."""
+        params, bn = _gan_numpy(seed=1)
+        img = np.tanh(np.random.default_rng(10).normal(
+            size=(4, 16, 16, 3))).astype(np.float32)
+        jcfg = JModelConfig(**_mk(route, "float32"))
+        tcfg = ModelConfig(**_mk(route, "float32"))
+        jp, jl, js = jdcgan.discriminator_apply(
+            params["disc"], bn["disc"], jnp.asarray(img), cfg=jcfg,
+            train=train)
+        tp, tl, ts = tdcgan.discriminator_apply(
+            _to_t(params["disc"]), _to_t(bn["disc"]), torch.from_numpy(img),
+            cfg=tcfg, train=train)
+        assert tl.dtype == torch.float32 and tuple(tl.shape) == (4, 1)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
+                                   atol=1e-5)
+        assert sorted(ts) == sorted(js) == ["bn1"]
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(ts["bn1"][key].numpy(),
+                                       np.asarray(js["bn1"][key]),
+                                       rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("route", sorted(ROUTES))
+    def test_gradients_match_jax(self, route):
+        """d/d(params) of a scalar through G then D (train mode, BN state
+        chaining from a real batch as in the D step), f32, against
+        jax.grad, for both nets: rtol 1e-3 of each leaf's largest
+        gradient plus 1e-5 (sums through two BN backwards in another
+        order; the pre-BN biases' gradients are 0 in exact arithmetic,
+        rounding noise on both sides)."""
+        params, bn = _gan_numpy(seed=2)
+        rng = np.random.default_rng(11)
+        z = rng.uniform(-1, 1, (4, 8)).astype(np.float32)
+        img = np.tanh(rng.normal(size=(4, 16, 16, 3))).astype(np.float32)
+        jcfg = JModelConfig(**_mk(route, "float32"))
+        tcfg = ModelConfig(**_mk(route, "float32"))
+
+        def jloss(p):
+            fake, _ = jdcgan.generator_apply(p["gen"], bn["gen"],
+                                             jnp.asarray(z), cfg=jcfg,
+                                             train=True)
+            _, real_l, d_bn = jdcgan.discriminator_apply(
+                p["disc"], bn["disc"], jnp.asarray(img), cfg=jcfg,
+                train=True)
+            _, fake_l, _ = jdcgan.discriminator_apply(
+                p["disc"], d_bn, fake, cfg=jcfg, train=True)
+            return jnp.mean(real_l) - jnp.mean(fake_l * fake_l)
+
+        want = jax.grad(jloss)(jax.tree_util.tree_map(jnp.asarray, params))
+        tparams = convert._to_torch(params, torch.device("cpu"))
+        flat = convert.flatten(tparams)
+        for t in flat.values():
+            t.requires_grad_(True)
+        fake, _ = tdcgan.generator_apply(tparams["gen"], _to_t(bn["gen"]),
+                                         torch.from_numpy(z), cfg=tcfg,
+                                         train=True)
+        _, real_l, d_bn = tdcgan.discriminator_apply(
+            tparams["disc"], _to_t(bn["disc"]), torch.from_numpy(img),
+            cfg=tcfg, train=True)
+        _, fake_l, _ = tdcgan.discriminator_apply(
+            tparams["disc"], d_bn, fake, cfg=tcfg, train=True)
+        loss = real_l.mean() - (fake_l * fake_l).mean()
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        wflat = convert.flatten(jax.tree_util.tree_map(np.asarray, want))
+        assert sorted(wflat) == sorted(flat)
+        for (path, _), g in zip(flat.items(), grads):
+            w = wflat[path]
+            err = np.abs(g.numpy() - w).max()
+            assert err <= 1e-3 * np.abs(w).max() + 1e-5, (path, err)
 
 
 class TestParameterTree:
+    @pytest.mark.parametrize("output_size", [16, 64])
+    def test_discriminator_names_and_shapes_equal_jax(self, output_size):
+        jcfg = JModelConfig(output_size=output_size, df_dim=8)
+        jp, js = jax.eval_shape(lambda k: jdcgan.discriminator_init(k, jcfg),
+                                jax.random.key(0))
+        tp, ts = tdcgan.discriminator_init(
+            ModelConfig(output_size=output_size, df_dim=8), device="cpu")
+        assert _paths(tp) == _paths(jp)
+        assert _paths(ts) == _paths(js)
+        assert "bn0" not in tp and "head" in tp
+
+    def test_gan_init_tree_equals_jax(self):
+        jcfg = JModelConfig(output_size=16, gf_dim=8, df_dim=8)
+        jp, js = jax.eval_shape(lambda k: jdcgan.gan_init(k, jcfg),
+                                jax.random.key(0))
+        tp, ts = tdcgan.gan_init(ModelConfig(output_size=16, gf_dim=8,
+                                             df_dim=8), device="cpu")
+        assert _paths(tp) == _paths(jp) and _paths(ts) == _paths(js)
+        assert not torch.equal(tp["disc"]["conv1"]["w"][0, 0, :4, :4],
+                               tp["gen"]["deconv2"]["w"][0, 0, :4, :4])
+
     @pytest.mark.parametrize("output_size", [16, 64])
     def test_names_and_shapes_equal_jax(self, output_size):
         jcfg = JModelConfig(output_size=output_size, gf_dim=8)
