@@ -39,8 +39,32 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
    profiled with torch.profiler: device busy time by kernel family, the
    idle share and the costliest kernels.
 
-Stdout ends with the serve report, the sampler timing, the train report,
-the card's name and power limit (nvidia-smi), one JSON line
+The sagan64 slice (attention at 32x32 in both nets on the flash kernels,
+spectral norm, hinge loss, TTUR, G EMA):
+
+7. flash kernels: the forward, dq and dkv kernels (6-8) against their
+   plain versions in bf16 and f32 at sagan64's shape (B 64, S 1024,
+   d_qk 8, d_v 32), a ragged S and d_qk 16, each launched twice to show
+   the bits repeat; at S 4096 and 16384 (sagan128's and sagan256-lc's
+   attention) launched at batch 64 and compared over a 2-row batch
+   slice; each timed beside its bound (the largest of bytes, products and
+   exponentials), its plain version and F.scaled_dot_product_attention
+   on the same q, k, v (the backend it picked named from its kernels);
+8. sagan64 train: `train.cli.main --preset sagan64 --synthetic` for
+   TRAIN_STEPS steps, the launch counters set to 0 just before and read
+   just after (exactly SAGAN_PER_STEP per step); losses finite; every
+   parameter, BN statistic and sn_* vector moved;
+9. sagan64 routes: from the seeded state with gamma = 0.5 in both
+   attention blocks, the losses and every gradient leaf on the flash
+   route against the dense route, within ATTN_ROUTE_TOL in bf16 and f32;
+   two broken backwards (dq zeroed; the delta term dropped from dkv) must
+   each be caught; one bf16 step profiled (attention share, idle share);
+10. sagan64 serve: the trained EMA G (its gamma set to 0.5) served through
+   the serve entry point with the counters reset around it; the images
+   checked as in phase 4 and against the dense route.
+
+Stdout ends with the serve reports, the sampler timing, the train
+reports, the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -48,6 +72,7 @@ Exits nonzero, printing no result, when no GPU is available.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,6 +87,8 @@ import warnings
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+# exponentials: 16 MUFU ex2 per clock per SM, 132 SMs at 1.98 GHz
+EXP_PER_S = 16 * 132 * 1.98e9
 
 BATCH = 64
 N_REQUESTS = 24
@@ -109,7 +136,29 @@ TRAIN_STEPS = 10
 # once (bn0 + its 3 fused stages)
 PER_STEP = {"channel_moments": 2, "scale_shift_act": 17,
             "scale_shift_act_bwd": 13, "gemm_bias_moments": 15,
-            "gemm_bias_scale_act": 0}
+            "gemm_bias_scale_act": 0, "flash_fwd": 0, "flash_dq": 0,
+            "flash_dkv": 0}
+# sagan64 (attention on the kernels, BN plain): G forwards twice and D three
+# times per step, one attention block each; backward passes D's block twice
+# in the D step (real, fake) and D's and G's once each in the G step
+SAGAN_PER_STEP = dict({name: 0 for name in PER_STEP}, flash_fwd=5,
+                      flash_dq=4, flash_dkv=4)
+# Flash attention on the sagan64 state (gamma 0.5), flash route vs dense
+# route, same state, images and z. Losses as (rtol, atol); gradients per
+# leaf as in TRAIN_GRAD_TOL (rtol on the leaf's norm, atol times the net's
+# largest leaf norm). The routes share every op but the attention: in
+# bf16 the flash route rounds p to bf16 before dividing by l, the dense
+# route after, so the attention output differs by ~2^-8 relative and G's
+# gradients, which pass back through D and G, by more (G's proj weights
+# measured at 0.73 of the bf16 limit, the same in two runs on an H100 at
+# 700 W). In f32 (TF32 off) only the summation order differs, but a leaf
+# whose gradient is a batch sum with cancellation carries that noise
+# amplified and varies from run to run: D's conv0 bias measured from
+# below 0.43 to 1.02 of a (1e-3, 1e-6) limit in two runs, so f32 takes the
+# celeba64 route check's limit (TRAIN_GRAD_TOL); the broken backwards
+# measured at ~900 and ~3000 times the (1e-3, 1e-6) limit.
+ATTN_ROUTE_TOL = {"bfloat16": (2.0 ** -6, 1e-3), "float32": (1e-5, 1e-6)}
+ATTN_GRAD_TOL = {"bfloat16": (0.1, 1e-3), "float32": (1e-2, 1e-5)}
 
 
 def fail(msg: str) -> None:
@@ -661,35 +710,13 @@ def calibrated_weights(torch, np, cfg):
     return params, state
 
 
-def serve_and_check(torch, np, cfg, workdir, kernels):
-    """Phases 3 and 4."""
-    from dcgan_tpu_torch.convert import load_weights, save_weights
+def check_served(torch, np, cfg, path, row, responses):
+    """The serve report and responses of one demo load: every request
+    completed, finite float32 images in [-1, 1] of the model's shape, the
+    first four equal to direct sampler calls on their z rows. Returns the
+    reloaded (params, state)."""
+    from dcgan_tpu_torch.convert import load_weights
     from dcgan_tpu_torch.models.dcgan import sampler_apply
-    from dcgan_tpu_torch.serve import __main__ as serve_main
-
-    params, state = calibrated_weights(torch, np, cfg)
-    path = save_weights(os.path.join(workdir, "celeba64.npz"), cfg, params,
-                        state)
-    report_path = os.path.join(workdir, "serve_report.json")
-    wrappers = all_wrappers()
-    served = ("scale_shift_act", "gemm_bias_scale_act")
-
-    for fn in wrappers.values():
-        fn.launches = 0
-    row, responses = serve_main.run([
-        "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
-        "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
-        "--demo_max_images", "8", "--seed", str(SEED),
-        "--report", report_path])
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    for entry in kernels:
-        entry.setdefault("launches_by_path", {})["serve"] = \
-            launches[entry["name"]]
-    log(f"served path launches: {launches}")
-    for name in served:
-        if launches[name] < 1:
-            fail(f"kernel {name} was not launched on the served path")
 
     if row["completed"] != N_REQUESTS or row["serve/dropped"] != 0:
         fail(f"served {row['completed']}/{N_REQUESTS} requests, "
@@ -722,6 +749,40 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
         fail(f"served images differ from a direct sampler call by {worst}")
     log(f"served images match direct sampler calls (max |err| {worst:.3g} "
         f"<= {SERVED_TOL})")
+    return params_l, state_l
+
+
+def serve_and_check(torch, np, cfg, workdir, kernels):
+    """Phases 3 and 4."""
+    from dcgan_tpu_torch.convert import save_weights
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+
+    params, state = calibrated_weights(torch, np, cfg)
+    path = save_weights(os.path.join(workdir, "celeba64.npz"), cfg, params,
+                        state)
+    report_path = os.path.join(workdir, "serve_report.json")
+    wrappers = all_wrappers()
+    served = ("scale_shift_act", "gemm_bias_scale_act")
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    row, responses = serve_main.run([
+        "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
+        "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
+        "--demo_max_images", "8", "--seed", str(SEED),
+        "--report", report_path])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["serve"] = \
+            launches[entry["name"]]
+    log(f"served path launches: {launches}")
+    for name in served:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the served path")
+
+    params_l, state_l = check_served(torch, np, cfg, path, row, responses)
 
     # the kernel route against the cuDNN + torch-BN route, same weights
     z = torch.from_numpy(np.random.default_rng(SEED + 2).uniform(
@@ -812,6 +873,8 @@ def broken_backwards(dt_name):
 
 
 def all_wrappers():
+    from dcgan_tpu_torch.ops.flash_attention import flash_dkv, flash_dq, \
+        flash_fwd
     from dcgan_tpu_torch.ops.fused import gemm_bias_moments, \
         gemm_bias_scale_act
     from dcgan_tpu_torch.ops.kernels import channel_moments, \
@@ -821,7 +884,9 @@ def all_wrappers():
             "scale_shift_act": scale_shift_act,
             "scale_shift_act_bwd": scale_shift_act_bwd,
             "gemm_bias_moments": gemm_bias_moments,
-            "gemm_bias_scale_act": gemm_bias_scale_act}
+            "gemm_bias_scale_act": gemm_bias_scale_act,
+            "flash_fwd": flash_fwd, "flash_dq": flash_dq,
+            "flash_dkv": flash_dkv}
 
 
 def profile_split(torch, fn, steps: int = 3):
@@ -839,7 +904,10 @@ def profile_split(torch, fn, steps: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"port kernels": ("gbm_", "ssa_", "moments_partial",
+    families = {"flash attention kernels": ("flash_fwd_kernel",
+                                            "flash_dq_kernel",
+                                            "flash_dkv_kernel"),
+                "port kernels": ("gbm_", "ssa_", "moments_partial",
                                  "finish_column_partials", "gbsa_"),
                 "library GEMM and conv": ("gemm", "cutlass", "sm90_",
                                           "xmma", "conv", "cudnn", "cublas",
@@ -875,6 +943,26 @@ def profile_split(torch, fn, steps: int = 3):
                             for ms, n, name in top[:15]]}
 
 
+def read_events(np, directory, train_s):
+    """The trainer's events.jsonl: one scalars event per step with finite
+    losses. Returns the last event's values."""
+    with open(os.path.join(directory, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    if [e["step"] for e in events] != list(range(1, TRAIN_STEPS + 1)):
+        fail(f"events.jsonl steps {[e['step'] for e in events]}")
+    for e in events:
+        vals = [e["values"][k] for k in ("d_loss", "d_loss_real",
+                                         "d_loss_fake", "g_loss")]
+        if e["kind"] != "scalars" or not all(np.isfinite(vals)):
+            fail(f"step {e['step']}: losses {vals}")
+    last = events[-1]["values"]
+    log(f"trained {TRAIN_STEPS} steps in {train_s:.1f} s (first step "
+        f"included); last d_loss {last['d_loss']:.5f} g_loss "
+        f"{last['g_loss']:.5f}, steady step "
+        f"{last.get('perf/step_ms_mean', float('nan')):.2f} ms host clock")
+    return last
+
+
 def train_and_check(torch, np, workdir, kernels):
     """Phases 5 and 6: the trainer's entry point on cuda, launches read
     around it, then the route comparison and timings of one step."""
@@ -907,20 +995,7 @@ def train_and_check(torch, np, workdir, kernels):
         entry.setdefault("launches_by_path", {})["train"] = \
             launches[entry["name"]]
 
-    with open(os.path.join(workdir, "events.jsonl")) as f:
-        events = [json.loads(line) for line in f]
-    if [e["step"] for e in events] != list(range(1, TRAIN_STEPS + 1)):
-        fail(f"events.jsonl steps {[e['step'] for e in events]}")
-    for e in events:
-        vals = [e["values"][k] for k in ("d_loss", "d_loss_real",
-                                         "d_loss_fake", "g_loss")]
-        if e["kind"] != "scalars" or not all(np.isfinite(vals)):
-            fail(f"step {e['step']}: losses {vals}")
-    last = events[-1]["values"]
-    log(f"trained {TRAIN_STEPS} steps in {train_s:.1f} s (first step "
-        f"included); last d_loss {last['d_loss']:.5f} g_loss "
-        f"{last['g_loss']:.5f}, steady step "
-        f"{last.get('perf/step_ms_mean', float('nan')):.2f} ms host clock")
+    last = read_events(np, workdir, train_s)
 
     # every parameter and BN running statistic moved from the seeded init
     init = init_train_state(cfg, device="cuda")
@@ -1047,6 +1122,493 @@ def train_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# sagan64: flash attention kernels 6-8, training, serving
+# ---------------------------------------------------------------------------
+
+FLASH_SOURCE = "dcgan_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "dcgan_tpu/ops/pallas_attention.py:166",
+                  "flash_dq": "dcgan_tpu/ops/pallas_attention.py:293",
+                  "flash_dkv": "dcgan_tpu/ops/pallas_attention.py:308"}
+# (B, S, d_qk, d_v): sagan64's attention in both nets, then a ragged S and
+# the d_qk 16 instantiation
+FLASH_SHAPES = [(BATCH, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32)]
+# sagan128's and sagan256-lc's attention: launched at batch 64 and held
+# against the plain version over the first FLASH_ROWS rows of the batch
+FLASH_LONG = (4096, 16384)
+FLASH_ROWS = 2
+
+
+def flash_bound(name, b, s, dk, dv, itemsize):
+    """(least seconds, what bounds them) for one launch: the largest of
+    the bytes each input and output needs once over HBM, the products
+    over the tensor-core rate (bf16) or the f32 rate, and one
+    exponential per score over the MUFU rate."""
+    scores = float(b) * s * s
+    rate = BF16_TENSOR_FLOPS if itemsize == 2 else F32_FLOPS
+    rows = itemsize * b * s
+    if name == "flash_fwd":
+        bytes_ = rows * (2 * dk + dv) + 4 * b * s * (dv + 1)
+        products = 2.0 * scores * (dk + dv)
+    elif name == "flash_dq":
+        bytes_ = rows * (3 * dk + 2 * dv) + 8 * b * s
+        products = 2.0 * scores * (2 * dk + dv)
+    else:
+        bytes_ = rows * (3 * dk + 3 * dv) + 8 * b * s
+        products = 2.0 * scores * (2 * dk + 2 * dv)
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S,
+             "products": products / rate,
+             "exponentials": scores / EXP_PER_S}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def flash_close(torch, name, got, want, bound):
+    """max |got - want|; fails where it is beyond `bound` (plus one bf16
+    ulp of the value for a bf16 output)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)}/{got.dtype} vs "
+             f"{tuple(want.shape)}/{want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{name}: non-finite kernel output")
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * w.abs()
+    err = (g - w).abs()
+    bad = err > bound
+    if bool(bad.any()):
+        fail(f"{name}: {int(bad.sum())} element(s) beyond the bound; max "
+             f"|err| {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def flash_round(torch, q, k, v, gout, scale, rows=None):
+    """Kernels 6-8 on (q, k, v) against their plain versions on the first
+    `rows` rows of the batch (all when None), the backward fed the plain
+    forward's lse and (do, delta) from the cotangent `gout`. Each kernel is
+    launched twice and must repeat bit for bit. Returns {name: max |err|}
+    and the backward's inputs at full batch."""
+    from dcgan_tpu_torch.ops import flash_attention as fa
+
+    n = q.shape[0] if rows is None else rows
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    again = fa.flash_fwd(q, k, v, scale)
+    do, delta = fa.bwd_stats(q, out, gout)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, scale)
+    dkv = fa.flash_dkv(q, k, v, do, lse, delta, scale)
+    again += (fa.flash_dq(q, k, v, do, lse, delta, scale),
+              *fa.flash_dkv(q, k, v, do, lse, delta, scale))
+    torch.cuda.synchronize()
+    tag = f"{tuple(q.shape)}/{tuple(v.shape)} {str(q.dtype)[6:]}"
+    same_bits(torch, f"flash kernels {tag}", (out, lse, dq, *dkv), again)
+    del again
+    sl = [t[:n] for t in (q, k, v, do, lse, delta)]
+    want_out, want_lse = fa.flash_fwd_plain(*sl[:3], scale)
+    # bounds: flash_attention.kernel_error_bounds, plus one bf16 ulp of
+    # bf16 outputs (flash_close); lse within 1e-5 (1 + |lse|)
+    bounds = fa.kernel_error_bounds(*sl, scale)
+    errs = {"flash_fwd": max(
+        flash_close(torch, f"flash_fwd out {tag}", out[:n], want_out,
+                    bounds["out"]),
+        flash_close(torch, f"flash_fwd lse {tag}", lse[:n], want_lse,
+                    1e-5 * (1.0 + want_lse.abs())))}
+    del want_out, want_lse
+    errs["flash_dq"] = flash_close(
+        torch, f"flash_dq {tag}", dq[:n], fa.flash_dq_plain(*sl, scale),
+        bounds["dq"])
+    want_dk, want_dv = fa.flash_dkv_plain(*sl, scale)
+    errs["flash_dkv"] = max(
+        flash_close(torch, f"flash_dkv dk {tag}", dkv[0][:n], want_dk,
+                    bounds["dk"]),
+        flash_close(torch, f"flash_dkv dv {tag}", dkv[1][:n], want_dv,
+                    bounds["dv"]))
+    return errs, (do, lse, delta)
+
+
+def sdpa_kernels(torch, fn):
+    """The device kernels one call of fn() ran, costliest first (the
+    backend F.scaled_dot_product_attention picked shows in their names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and e.device_type.name == "CUDA":
+            rows.append((us, e.key[:100]))
+    return [name for _, name in sorted(rows, reverse=True)[:3]]
+
+
+def time_flash(torch, q, k, v, do, lse, delta, scale, rows, iters):
+    """{name: {ms, call_ms, plain_ms, library_ms, library, bound_ms,
+    bound_by, bound_kind}} of kernels 6-8 at q's shape (bf16); the plain
+    versions timed over the first `rows` rows of the batch; the library
+    yardstick is F.scaled_dot_product_attention's forward (row 6) and its
+    whole backward, dq, dk and dv in one call (rows 7 and 8)."""
+    import torch.nn.functional as F
+
+    from dcgan_tpu_torch.ops import flash_attention as fa
+
+    b, s, dk = q.shape
+    dv = v.shape[2]
+    sl = [t[:rows] for t in (q, k, v, do, lse, delta)]
+    calls = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale),
+                           lambda: fa.flash_fwd_plain(*sl[:3], scale)),
+             "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                              scale),
+                          lambda: fa.flash_dq_plain(*sl, scale)),
+             "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                scale),
+                           lambda: fa.flash_dkv_plain(*sl, scale))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        e = {"shape": [b, s, dk, dv]}
+        e["ms"], e["call_ms"] = time_ms(torch, kernel, iters, warmup=1)
+        e["plain_ms"], _ = time_ms(torch, plain, max(1, iters // 4),
+                                   warmup=1)
+        if rows != b:
+            e["plain_rows"] = rows
+        t, kind = flash_bound(name, b, s, dk, dv, q.element_size())
+        e["bound_ms"] = t * 1e3
+        e["bound_kind"] = kind
+        e["bound_by"] = "bytes" if kind == "bytes" else "operations"
+        out[name] = e
+    q4, k4, v4 = (t.unsqueeze(1).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    try:
+        def fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        y = fwd()
+        g4 = do.unsqueeze(1).to(y.dtype)
+
+        def bwd():
+            return torch.autograd.grad(y, (q4, k4, v4), g4,
+                                       retain_graph=True)
+        lib = {"flash_fwd": (fwd, "forward"), "flash_dq": (bwd, "backward"),
+               "flash_dkv": (bwd, "backward")}
+        for name, (fn, what) in lib.items():
+            with torch.no_grad() if what == "forward" else \
+                    contextlib.nullcontext():
+                out[name]["library_ms"], _ = time_ms(torch, fn, iters,
+                                                     warmup=1)
+            out[name]["library"] = (
+                f"F.scaled_dot_product_attention {what}: "
+                f"{sdpa_kernels(torch, fn)}")
+        del y
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+        for name in out:
+            out[name]["library_ms"] = None
+            out[name]["library"] = ("F.scaled_dot_product_attention failed: "
+                                    f"{str(err).splitlines()[0][:200]}")
+    del q4, k4, v4
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_kernels(torch):
+    """Phase 7. Returns the kernels line's entries for kernels 6-8."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def qkv(b, s, dk, dv, dt):
+        q, k, v = (torch.randn((b, s, d), generator=g, device=dev).to(dt)
+                   for d in (dk, dk, dv))
+        return q, k, v, torch.randn((b, s, dv), generator=g, device=dev)
+
+    entries = {name: {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                      "replaces": FLASH_REPLACES[name], "long": []}
+               for name in FLASH_REPLACES}
+    for dt_name, dt in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        for shape in FLASH_SHAPES:
+            b, s, dk, dv = shape
+            q, k, v, gout = qkv(b, s, dk, dv, dt)
+            errs, bwd_in = flash_round(torch, q, k, v, gout, dk ** -0.5)
+            log(f"flash kernels {shape} {dt_name} match their plain "
+                f"versions and repeat bitwise (max |err| "
+                f"{ {n: float(f'{e:.3g}') for n, e in errs.items()} })")
+            if shape != FLASH_SHAPES[0]:
+                continue
+            for name, err in errs.items():
+                key = "max_abs_err" if dt_name == "bfloat16" \
+                    else "max_abs_err_f32"
+                entries[name][key] = err
+            if dt_name == "bfloat16":
+                timed = time_flash(torch, q, k, v, *bwd_in, dk ** -0.5,
+                                   rows=b, iters=20)
+                for name, e in timed.items():
+                    entries[name].update(e)
+            del q, k, v, gout, bwd_in
+            torch.cuda.empty_cache()
+    for s in FLASH_LONG:
+        dk, dv = FLASH_SHAPES[0][2:]
+        q, k, v, gout = qkv(BATCH, s, dk, dv, torch.bfloat16)
+        errs, bwd_in = flash_round(torch, q, k, v, gout, dk ** -0.5,
+                                   rows=FLASH_ROWS)
+        timed = time_flash(torch, q, k, v, *bwd_in, dk ** -0.5,
+                           rows=FLASH_ROWS, iters=5 if s <= 4096 else 2)
+        for name, e in timed.items():
+            e["max_abs_err"] = errs[name]
+            entries[name]["long"].append(e)
+            log(f"{name} at S={s}, batch {BATCH}: {e['ms']:.4f} ms vs bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_kind']}); plain over "
+                f"{FLASH_ROWS} rows {e['plain_ms']:.4f} ms; library "
+                f"{e['library_ms']} ms; max |err| over {FLASH_ROWS} rows "
+                f"{errs[name]:.3g}")
+        del q, k, v, gout, bwd_in
+        torch.cuda.empty_cache()
+    for e in entries.values():
+        log(f"{e['name']} at sagan64's shape {e['shape']}: {e['ms']:.4f} ms "
+            f"vs bound {e['bound_ms']:.4f} ms ({e['bound_kind']}); plain "
+            f"{e['plain_ms']:.4f} ms; {e['library']} {e['library_ms']} ms")
+    return list(entries.values())
+
+
+def sagan_broken_backwards():
+    """(name, patch) pairs breaking the flash backward on purpose: dq
+    zeroed, and the delta term dropped from dkv (ds = p * dp)."""
+    from dcgan_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def swap(bwd):
+        orig = fa._FlashAttention.backward
+        fa._FlashAttention.backward = staticmethod(bwd)
+        try:
+            yield
+        finally:
+            fa._FlashAttention.backward = staticmethod(orig)
+
+    orig = fa._FlashAttention.backward
+
+    def dq_zeroed(ctx, g):
+        dq, dk, dv, none = orig(ctx, g)
+        return dq * 0, dk, dv, none
+
+    def delta_dropped(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        do, delta = fa.bwd_stats(q, out, g)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta * 0,
+                              ctx.scale)
+        return dq, dk, dv, None
+
+    return [("flash dq zeroed", swap(dq_zeroed)),
+            ("flash dkv without the delta term", swap(delta_dropped))]
+
+
+def sagan_train_and_check(torch, np, workdir, kernels):
+    """Phases 8 and 9. Returns (report, trained state, TrainConfig)."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.data.synthetic import synthetic_batches
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.steps import init_train_state, \
+        make_train_step
+
+    tdir = os.path.join(workdir, "sagan64_train")
+    argv = ["--preset", "sagan64", "--synthetic", "--max_steps",
+            str(TRAIN_STEPS), "--batch_size", str(BATCH), "--device", "cuda",
+            "--checkpoint_dir", tdir, "--seed", str(SEED)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"sagan64 train path launches over {TRAIN_STEPS} steps: {launches}")
+    for name, per_step in SAGAN_PER_STEP.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"kernel {name}: {launches[name]} launches on the sagan64 "
+                 f"train path, expected {per_step} per step x {TRAIN_STEPS}")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["sagan64 train"] = \
+            launches[entry["name"]]
+    last = read_events(np, tdir, train_s)
+
+    # every parameter, BN statistic and SN vector moved (but a one-element
+    # unit vector, the head's u, which stays +-1)
+    init = init_train_state(cfg, device="cuda")
+    for group in ("params", "bn"):
+        for net in ("gen", "disc"):
+            after = convert.flatten(state[group][net])
+            for path, a in convert.flatten(init[group][net]).items():
+                if a.numel() == 1 and path.startswith("sn_"):
+                    continue
+                if torch.equal(a, after[path]):
+                    fail(f"sagan64 {group}/{net}/{path} did not move in "
+                         f"{TRAIN_STEPS} steps")
+    log("sagan64: every parameter, BN statistic and SN vector moved")
+
+    # flash route vs dense route from the seeded state with gamma = 0.5
+    for net in ("gen", "disc"):
+        init["params"][net]["attn"]["gamma"] = torch.full(
+            (), 0.5, device="cuda")
+    images = torch.from_numpy(next(synthetic_batches(
+        BATCH, cfg.model.output_size, cfg.model.c_dim,
+        seed=SEED + 3))).cuda()
+    z = torch.rand((BATCH, cfg.model.z_dim), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       SEED + 4)) * 2.0 - 1.0
+    report = {"steps": TRAIN_STEPS, "batch": BATCH, "train_s": train_s,
+              "last_losses": {k: last[k] for k in ("d_loss", "g_loss")},
+              "launches": launches}
+    steps_by_route = {}
+    for dt_name in ("bfloat16", "float32"):
+        losses, grads, fns = {}, {}, {}
+        for route, use_pallas in (("flash", True), ("dense", False)):
+            rcfg = dc.replace(cfg, model=dc.replace(
+                cfg.model, compute_dtype=dt_name, use_pallas=use_pallas))
+            fns[route] = make_train_step(rcfg)
+            grads[route], metrics = fns[route].grads(init, images, z)
+            losses[route] = {k: float(v) for k, v in metrics.items()}
+            if dt_name == "bfloat16":
+                steps_by_route[route] = fns[route].train_step
+        rtol, atol = ATTN_ROUTE_TOL[dt_name]
+        gaps = {k: abs(losses["flash"][k] - losses["dense"][k])
+                / (rtol * abs(losses["dense"][k]) + atol)
+                for k in losses["flash"]}
+        if not all(np.isfinite(list(losses["flash"].values()))) \
+                or max(gaps.values()) > 1.0:
+            fail(f"sagan64 losses, flash vs dense ({dt_name}): {losses}, "
+                 f"outside rtol={rtol} atol={atol}")
+        report[f"route_loss_gap_{dt_name}"] = max(gaps.values())
+        rtol, atol = ATTN_GRAD_TOL[dt_name]
+        gaps = grad_gaps(convert, grads["flash"], grads["dense"], rtol, atol)
+        worst = max(gaps, key=gaps.get)
+        report[f"grad_gap_{dt_name}"] = {"leaf": worst, "gap": gaps[worst]}
+        report[f"attn_grad_gaps_{dt_name}"] = {
+            k: v for k, v in gaps.items() if "/attn/" in k}
+        if gaps[worst] > 1.0:
+            fail(f"sagan64 gradients, flash vs dense ({dt_name}), outside "
+                 f"rtol={rtol} atol={atol}: "
+                 f"{ {k: v for k, v in gaps.items() if v > 1.0} }")
+        log(f"sagan64 flash route matches the dense route in {dt_name}: "
+            f"losses within {report[f'route_loss_gap_{dt_name}']:.3g} of "
+            f"their limit, {len(gaps)} gradient leaves, the closest "
+            f"{worst} at {gaps[worst]:.3g} of its limit")
+        for name, patch in sagan_broken_backwards():
+            with patch:
+                broken, _ = fns["flash"].grads(init, images, z)
+            gaps = grad_gaps(convert, broken, grads["dense"], rtol, atol)
+            worst = max(gaps, key=gaps.get)
+            report.setdefault("broken_backward_gap", {})[
+                f"{name} ({dt_name})"] = {"leaf": worst, "gap": gaps[worst]}
+            if not gaps[worst] > 1.0:
+                fail(f"sagan64 gradients ({dt_name}): a broken backward "
+                     f"({name}) stays within the limits (largest gap "
+                     f"{gaps[worst]:.3g}, at {worst})")
+            log(f"broken backward caught in {dt_name}: {name}, {worst} at "
+                f"{gaps[worst]:.3g} of its limit")
+
+    for route, step in steps_by_route.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(init, images, z)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        report[f"{route}_step_syncs"] = sum(
+            "called a synchronizing" in str(w.message) for w in caught)
+        _, report[f"{route}_step_call_ms"] = time_ms(
+            torch, lambda: step(init, images, z), 5, warmup=1)
+        split = profile_split(torch, lambda: step(init, images, z))
+        report[f"{route}_profile"] = split if split is not None \
+            else "not measured (no device time in the trace)"
+        if split is not None:
+            attn = split["ms_per_step"]["flash attention kernels"]
+            split["attention_share"] = attn / split["busy_ms"]
+            log(f"sagan64 {route} route step: busy {split['busy_ms']:.3f} "
+                f"ms, flash kernels {attn:.3f} ms "
+                f"({split['attention_share']:.3f} of busy), idle share "
+                f"{split['idle_share']:.3f}, "
+                f"{split['launches_per_step']:.0f} launches, "
+                f"{report[f'{route}_step_syncs']} synchronization(s); "
+                f"host-inclusive {report[f'{route}_step_call_ms']:.3f} ms")
+    return report, state, cfg
+
+
+def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
+    """Phase 10: the trained EMA G, gamma set to 0.5 so that the attention
+    shapes the images, served through the entry point; returns the serve
+    row and the sampler timing on both routes."""
+    from dcgan_tpu_torch.convert import save_weights
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+    from dcgan_tpu_torch.train.steps import tree_map
+
+    mcfg = cfg.model
+    params = tree_map(torch.clone, state["ema_gen"])
+    params["attn"]["gamma"] = torch.full((), 0.5, device="cuda")
+    path = save_weights(os.path.join(workdir, "sagan64_serve", "G.npz"),
+                        mcfg, params, state["bn"]["gen"])
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    row, responses = serve_main.run([
+        "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
+        "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
+        "--demo_max_images", "8", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["sagan64 serve"] = \
+            launches[entry["name"]]
+    log(f"sagan64 served path launches: {launches}")
+    if launches["flash_fwd"] < 1 or launches["flash_dq"] \
+            or launches["flash_dkv"]:
+        fail("the sagan64 served path must launch the flash forward and "
+             "no backward")
+    params_l, state_l = check_served(torch, np, mcfg, path, row, responses)
+
+    z = torch.from_numpy(np.random.default_rng(SEED + 2).uniform(
+        -1.0, 1.0, (BATCH, mcfg.z_dim)).astype(np.float32)).cuda()
+    timing = {"batch": BATCH}
+    for dt_name in ("bfloat16", "float32"):
+        flash = dataclasses.replace(mcfg, compute_dtype=dt_name)
+        dense = dataclasses.replace(flash, use_pallas=False)
+        a = sampler_apply(params_l, state_l, z, cfg=flash)
+        b = sampler_apply(params_l, state_l, z, cfg=dense)
+        err = float((a - b).abs().max())
+        if not bool(torch.isfinite(a).all()) or err > ROUTE_TOL[dt_name]:
+            fail(f"sagan64 flash route vs dense route ({dt_name}): max "
+                 f"|err| {err} > {ROUTE_TOL[dt_name]}")
+        timing[f"route_err_{dt_name}"] = err
+        log(f"sagan64 sampler, flash route matches the dense route in "
+            f"{dt_name} (max |err| {err:.3g} <= {ROUTE_TOL[dt_name]}; "
+            f"output std {float(b.std()):.3f})")
+    # spectral norm adds ~10 launches per layer, so 20 back-to-back calls
+    # overflow the launch queue and a spin-held event pair would read the
+    # enqueue rate: the device time is the profiled busy time
+    dense = dataclasses.replace(mcfg, use_pallas=False)
+    for name, route in (("flash_route", mcfg), ("dense_route", dense)):
+        def call():
+            return sampler_apply(params_l, state_l, z, cfg=route)
+        _, timing[f"{name}_call_ms"] = time_ms(torch, call, 10)
+        split = profile_split(torch, call)
+        timing[f"{name}_busy_ms"] = split["busy_ms"] if split else None
+        timing[f"{name}_flash_ms"] = \
+            split["ms_per_step"]["flash attention kernels"] if split else None
+    log(f"sagan64 sampler at batch {BATCH}, profiled device busy: flash "
+        f"route {timing['flash_route_busy_ms']} ms (flash kernel "
+        f"{timing['flash_route_flash_ms']} ms), dense route "
+        f"{timing['dense_route_busy_ms']} ms; host-inclusive "
+        f"{timing['flash_route_call_ms']:.4f} / "
+        f"{timing['dense_route_call_ms']:.4f} ms")
+    return row, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -1082,12 +1644,21 @@ def main() -> int:
     cfg = celeba64(use_pallas=True, pallas_fused=True)
     kernels = check_kernels(torch, cfg)
     kernels[1:1] = check_train_kernels(torch, cfg, kernels[0])
+    kernels += check_flash_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         row, timing = serve_and_check(torch, np, cfg, workdir, kernels)
         train_report = train_and_check(torch, np, workdir, kernels)
+        sagan_report, state, sagan_cfg = sagan_train_and_check(
+            torch, np, workdir, kernels)
+        sagan_row, sagan_timing = sagan_serve_and_check(
+            torch, np, sagan_cfg, state, workdir, kernels)
+        del state
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
+    print(json.dumps(sagan_row), flush=True)
+    print(json.dumps({"sagan64_sampler": sagan_timing}), flush=True)
+    print(json.dumps({"sagan64_train": sagan_report}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,12 @@
 """dcgan_tpu_torch: the PyTorch/CUDA port of `dcgan_tpu`, for NVIDIA Hopper.
 
-This package serves the DCGAN generator: a request queue, a continuous
-batcher, bucketed dispatch and the sampler (the generator forward pass with
-inference-mode BatchNorm). The two Pallas kernels that the JAX package runs
-on that path are hand-written CUDA kernels here (`csrc/`, built with nvcc at
-first use by `ops/_build.py`); every other op is plain PyTorch.
+This package serves and trains the DCGAN generator and discriminator on
+one GPU, plain (`celeba64`) or with the SAGAN additions (`sagan64`:
+self-attention, spectral norm, hinge loss): a request queue, a continuous
+batcher, bucketed dispatch and the sampler; the D-then-G train step and
+its trainer. Every Pallas kernel the JAX package runs on those paths is a
+hand-written CUDA kernel here (`csrc/`, built with nvcc at first use by
+`ops/_build.py`); every other op is plain PyTorch.
 
 Conventions shared with the JAX package, so the two compare like with like:
 NHWC activations, HWIO kernels, parameter trees as nested dicts with the

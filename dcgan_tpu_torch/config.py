@@ -3,11 +3,14 @@
 
 Same field names, defaults and validation as the JAX package's, so a
 trainer's `config.json` "model" block reads here unchanged. The port serves
-and trains the plain DCGAN (generator and discriminator); the fields that
-select anything else (another `arch`, class conditioning, attention,
-spectral norm, fp8 quantization; another loss, n_critic > 1, gradient
-accumulation, a bf16/fp8 precision policy, DiffAugment) raise
-`NotImplementedError` instead of being silently ignored.
+and trains the DCGAN stacks with or without the SAGAN additions (a
+self-attention block at `attn_res`, spectral norm on D or on both nets,
+the hinge loss); the fields that select anything else (another `arch`,
+class conditioning, fp8 quantization; the wgan-gp loss, n_critic > 1,
+gradient accumulation, a bf16/fp8 precision policy, DiffAugment) raise
+`NotImplementedError` instead of being silently ignored. A sequence mesh
+for the attention does not exist in the port yet: `ops/attention.py`
+refuses one.
 """
 
 from __future__ import annotations
@@ -116,16 +119,12 @@ class ModelConfig:
             unserved.append(f"arch={self.arch!r}")
         if self.num_classes:
             unserved.append(f"num_classes={self.num_classes}")
-        if self.attn_res:
-            unserved.append(f"attn_res={self.attn_res}")
-        if self.spectral_norm != "none":
-            unserved.append(f"spectral_norm={self.spectral_norm!r}")
         if self.quant:
             unserved.append(f"quant={self.quant!r}")
         if unserved:
             raise NotImplementedError(
-                "dcgan_tpu_torch serves and trains the plain DCGAN "
-                "(generator and discriminator) only; not ported yet: "
+                "dcgan_tpu_torch serves and trains the DCGAN stacks "
+                "(with attention and spectral norm) only; not ported yet: "
                 f"{', '.join(unserved)}")
 
 
@@ -149,7 +148,7 @@ class TrainConfig:
     beta1: float = 0.5
     batch_size: int = 64
     max_steps: int = 1_200_000
-    loss: str = "gan"              # BCE non-saturating
+    loss: str = "gan"              # BCE non-saturating | "hinge"
     n_critic: int = 1              # D updates per G update
     update_mode: str = "sequential"  # D step, then G against the updated D;
                                      # "fused": both from the same params
@@ -212,7 +211,7 @@ class TrainConfig:
                              f"{self.log_every_steps}")
         # then what this slice of the port does not train yet
         unserved = []
-        if self.loss != "gan":
+        if self.loss not in ("gan", "hinge"):
             unserved.append(f"loss={self.loss!r}")
         if self.n_critic > 1:
             unserved.append(f"n_critic={self.n_critic}")
@@ -224,8 +223,9 @@ class TrainConfig:
             unserved.append(f"diffaug={self.diffaug!r}")
         if unserved:
             raise NotImplementedError(
-                "dcgan_tpu_torch trains the BCE DCGAN step (n_critic 1, no "
-                "accumulation, model dtypes or f32, no augmentation) only; "
+                "dcgan_tpu_torch trains the BCE or hinge GAN step (n_critic "
+                "1, no accumulation, model dtypes or f32, no augmentation) "
+                "only; "
                 f"not ported yet: {', '.join(unserved)}")
         if self.precision == "f32" and (self.model.compute_dtype,
                                         self.model.param_dtype) != (

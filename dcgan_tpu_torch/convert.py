@@ -4,7 +4,9 @@
   and `bn` pytrees, as nested dicts of numpy arrays (`jax.device_get` of
   them), become the port's tensors. The trees have the same names, so this
   is a leaf-by-leaf copy; nothing is transposed (both packages keep HWIO
-  kernels and `[in, out]` linear weights).
+  kernels and `[in, out]` linear weights). Nested subtrees (the attention
+  block's `attn/query/w`, ...) and the spectral-norm `sn_*` state vectors
+  carry over the same way.
 - `train_state_from_jax(state_np)`: the JAX `init_train_state` pytree (as
   numpy) becomes the port's training state (`train/steps.py`): params, BN
   state, both Adam states, the EMA mirror and the step.

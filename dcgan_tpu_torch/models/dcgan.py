@@ -20,22 +20,37 @@ channels) and D's first conv stay cuDNN convolutions; under `use_pallas`
 BN's moments and epilogue are the `channel_moments` and `scale_shift_act`
 kernels.
 
+SAGAN additions (`dcgan_tpu/models/dcgan.py:64-103, 242-286, 416-421`):
+`attn_res` inserts one self-attention block (`attn`, ops/attention.py) in
+G after bn0 when attn_res == base_size, or after interior stage i when
+attn_res == base_size * 2^i, and in D after stage i when attn_res ==
+output_size >> (i + 1); under `use_pallas` it runs on the flash kernels.
+`spectral_norm` ("d": D only, "gd": both nets) divides every weight of a
+layer with a `w` (proj, deconv*, conv*, head) and of the four attention
+sublayers by its power-iterated largest singular value (ops/spectral.py);
+the u vectors are the state leaves `sn_<layer>` and `sn_attn_<sub>` beside
+the BN moments, advanced on every train=True apply.
+
 train=True uses batch BN statistics and returns the EMA-updated state
 (detached); train=False uses the running statistics.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
 
 from dcgan_tpu_torch.config import ModelConfig
 from dcgan_tpu_torch.device import resolve_device
+from dcgan_tpu_torch.ops.attention import SUBLAYERS, attn_apply, attn_init
 from dcgan_tpu_torch.ops.fused import fused_conv_bn_act
 from dcgan_tpu_torch.ops.layers import conv2d_apply, conv2d_init, \
     deconv2d_apply, deconv2d_init, linear_apply, linear_init, lrelu
 from dcgan_tpu_torch.ops.norm import batch_norm_apply, batch_norm_init
+from dcgan_tpu_torch.ops.spectral import spectral_normalize, \
+    spectral_u_init
 
 Pytree = dict
 
@@ -53,6 +68,43 @@ def torch_dtype(name: str) -> torch.dtype:
 def _tree_to(tree: Pytree, device: torch.device) -> Pytree:
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Spectral norm and the attention block
+# ---------------------------------------------------------------------------
+
+def _sn_state_init(gen: torch.Generator, params: Pytree,
+                   state: Pytree) -> None:
+    """One u vector per weight of `params` (and of the attention block's
+    sublayers), in sorted layer order, as the sn_* leaves of `state`."""
+    for name in sorted(params):
+        p = params[name]
+        if "w" in p:
+            state[f"sn_{name}"] = spectral_u_init(gen, p["w"].shape[-1])
+        elif name == "attn":
+            for sub in SUBLAYERS:
+                state[f"sn_attn_{sub}"] = spectral_u_init(
+                    gen, p[sub]["w"].shape[-1])
+
+
+def _sn_layer(params: Pytree, state: Pytree, new_state: Pytree, name: str,
+              train: bool) -> Pytree:
+    """params[name] with its weight spectrally normalized; the advanced
+    (train) or stored (eval) u goes into new_state."""
+    w_sn, new_state[f"sn_{name}"] = spectral_normalize(
+        params[name]["w"], state[f"sn_{name}"], train=train)
+    return {**params[name], "w": w_sn}
+
+
+def _sn_attn(params_attn: Pytree, state: Pytree, new_state: Pytree,
+             train: bool) -> Pytree:
+    out = dict(params_attn)
+    for sub in SUBLAYERS:
+        w_sn, new_state[f"sn_attn_{sub}"] = spectral_normalize(
+            params_attn[sub]["w"], state[f"sn_attn_{sub}"], train=train)
+        out[sub] = {**params_attn[sub], "w": w_sn}
+    return out
 
 
 def generator_init(cfg: ModelConfig, *, seed: int = 0,
@@ -79,6 +131,15 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
             params[f"bn{i}"], state[f"bn{i}"] = batch_norm_init(
                 gen, out_ch, dtype=dtype)
         in_ch = out_ch
+    if cfg.attn_res:
+        # stage 0 (base_size) has top_ch channels, stage i gf * 2^(k-1-i)
+        i = int(round(math.log2(cfg.attn_res / cfg.base_size)))
+        ch = top_ch if i == 0 else cfg.gf_dim * (2 ** (k - 1 - i))
+        params["attn"] = attn_init(gen, ch, dtype=dtype)
+    if cfg.spectral_norm == "gd":
+        # drawn after every layer, so the layers' draws do not depend on
+        # the flag
+        _sn_state_init(gen, params, state)
     return _tree_to(params, dev), _tree_to(state, dev)
 
 
@@ -86,33 +147,49 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
-    bn_state), on z's device. train=False is the sampler path (running BN
-    statistics, the state returned unchanged); train=True normalizes with
-    batch statistics and returns the updated state."""
+    state), on z's device. train=False is the sampler path (running BN
+    statistics, stored SN vectors, the state returned unchanged);
+    train=True normalizes with batch statistics and returns the updated
+    state."""
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
     new_state: Pytree = {}
+    sn = cfg.spectral_norm == "gd"
+
+    def layer(name):
+        return _sn_layer(params, state, new_state, name, train) if sn \
+            else params[name]
+
+    def attend(h):
+        p = _sn_attn(params["attn"], state, new_state, train) if sn \
+            else params["attn"]
+        return attn_apply(p, h, compute_dtype=cdt, num_heads=cfg.attn_heads,
+                          use_pallas=cfg.use_pallas)
 
     def bn(name, h):
         return batch_norm_apply(params[name], state[name], h, train=train,
                                 momentum=cfg.bn_momentum, eps=cfg.bn_eps,
                                 act="relu", use_pallas=cfg.bn_use_pallas)
 
-    h = linear_apply(params["proj"], z.to(cdt), compute_dtype=cdt)
+    h = linear_apply(layer("proj"), z.to(cdt), compute_dtype=cdt)
     h = h.reshape(-1, cfg.base_size, cfg.base_size, top_ch)
     h, new_state["bn0"] = bn("bn0", h)
+    if cfg.attn_res == cfg.base_size:
+        h = attend(h)
     for i in range(1, k + 1):
         if cfg.pallas_fused and i < k:
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
-                params[f"deconv{i}"], params[f"bn{i}"], state[f"bn{i}"], h,
+                layer(f"deconv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
                 act="relu", compute_dtype=cdt)
         else:
-            h = deconv2d_apply(params[f"deconv{i}"], h, compute_dtype=cdt)
+            h = deconv2d_apply(layer(f"deconv{i}"), h, compute_dtype=cdt)
             if i < k:
                 h, new_state[f"bn{i}"] = bn(f"bn{i}", h)
+        if i < k and cfg.attn_res == cfg.base_size * (2 ** i):
+            h = attend(h)
     # tanh in f32 after the last deconv, as the JAX package does
     return torch.tanh(h.float()), new_state
 
@@ -152,6 +229,12 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
         in_ch = out_ch
     flat = cfg.base_size * cfg.base_size * cfg.df_dim * (2 ** (k - 1))
     params["head"] = linear_init(gen, flat, 1, dtype=dtype)
+    if cfg.attn_res:
+        # stage i's output map is output_size / 2^(i+1), df * 2^i channels
+        i = int(round(math.log2(cfg.output_size / cfg.attn_res))) - 1
+        params["attn"] = attn_init(gen, cfg.df_dim * (2 ** i), dtype=dtype)
+    if cfg.spectral_norm in ("d", "gd"):
+        _sn_state_init(gen, params, state)
     return _tree_to(params, dev), _tree_to(state, dev)
 
 
@@ -159,30 +242,44 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         *, cfg: ModelConfig, train: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
-    bn_state)."""
+    state)."""
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     new_state: Pytree = {}
+    sn = cfg.spectral_norm in ("d", "gd")
+
+    def layer(name):
+        return _sn_layer(params, state, new_state, name, train) if sn \
+            else params[name]
+
+    def attend(h):
+        p = _sn_attn(params["attn"], state, new_state, train) if sn \
+            else params["attn"]
+        return attn_apply(p, h, compute_dtype=cdt, num_heads=cfg.attn_heads,
+                          use_pallas=cfg.use_pallas)
+
     h = image.to(cdt)
     for i in range(k):
         if cfg.pallas_fused and i > 0:
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
-                params[f"conv{i}"], params[f"bn{i}"], state[f"bn{i}"], h,
+                layer(f"conv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=False, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
                 act="lrelu", leak=cfg.leak, compute_dtype=cdt)
         elif i > 0:
-            h = conv2d_apply(params[f"conv{i}"], h, compute_dtype=cdt)
+            h = conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt)
             h, new_state[f"bn{i}"] = batch_norm_apply(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train,
                 momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="lrelu",
                 leak=cfg.leak, use_pallas=cfg.bn_use_pallas)
         else:
-            h = lrelu(conv2d_apply(params[f"conv{i}"], h, compute_dtype=cdt),
+            h = lrelu(conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt),
                       cfg.leak)
+        if cfg.attn_res and cfg.attn_res == cfg.output_size >> (i + 1):
+            h = attend(h)
     # the head's rows are laid out for the NHWC flatten
     h = h.reshape(h.shape[0], -1)
-    logit = linear_apply(params["head"], h, compute_dtype=cdt).float()
+    logit = linear_apply(layer("head"), h, compute_dtype=cdt).float()
     return torch.sigmoid(logit), logit, new_state
 
 

@@ -17,7 +17,8 @@ On a CPU tensor each wrapper runs its `*_plain` version, the same function
 in plain PyTorch; on a CUDA tensor it launches the kernel or raises. Each
 wrapper counts its launches in `.launches`.
 
-The module also holds the ctypes plumbing shared with `ops/fused.py`:
+The module also holds the ctypes plumbing shared with `ops/fused.py` and
+`ops/flash_attention.py`:
 argument checks, the dtype codes of `csrc/common.cuh`, and raising on a
 launch the runtime refused.
 """
@@ -65,6 +66,12 @@ _SIGNATURES = {
          _P]),
     "dcgan_gemm_bias_moments_splits": [_I] * 5,     # m, k, c, in_dtype, sms
     "dcgan_gemm_bias_moments_parts": [_I] * 5,  # m, c, in_dtype, splits, sms
+    # q, k, v, out, lse, b, s, dk, dv, dtype, scale, stream
+    "dcgan_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, delta, dq, b, s, dk, dv, dtype, scale, stream
+    "dcgan_flash_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, delta, dk, dv, b, s, dk, dv, dtype, scale, stream
+    "dcgan_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
 }
 
 

@@ -1,9 +1,15 @@
 """Named training presets (the counterpart of `dcgan_tpu/presets.py`).
 
-This slice trains one: ``celeba64``, DCGAN 64x64 CelebA on one device,
-z=100, batch 64, bf16 compute over f32 params, BCE non-saturating loss,
-Adam(2e-4, beta1 0.5) on both nets (the reference's headline workload,
-`dcgan_tpu/presets.py:52-56`).
+Two presets, copied field for field from the JAX factories:
+- ``celeba64``: DCGAN 64x64 CelebA on one device, z=100, batch 64, bf16
+  compute over f32 params, BCE non-saturating loss, Adam(2e-4, beta1 0.5)
+  on both nets (the reference's headline workload,
+  `dcgan_tpu/presets.py:52-56`);
+- ``sagan64``: the DCGAN 64x64 stacks with one self-attention block at
+  32x32 in both nets, spectral norm on both, hinge loss, TTUR (D 4e-4,
+  G 1e-4), beta1 0, G EMA 0.999, batch 64; attention on the flash kernels
+  (use_pallas) and BatchNorm on plain ops (bn_pallas=False)
+  (`dcgan_tpu/presets.py:97-123`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,21 @@ def celeba64(**overrides) -> TrainConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-PRESETS: Dict[str, Callable[..., TrainConfig]] = {"celeba64": celeba64}
+def sagan64(**overrides) -> TrainConfig:
+    """Self-attention GAN on 64x64 (Zhang et al. 2018): attention at
+    32x32, spectral norm on both nets, hinge loss, TTUR, beta1 0, G EMA.
+    G's normalization is plain BatchNorm, not the paper's conditional BN.
+    Keyword arguments override TrainConfig fields."""
+    cfg = TrainConfig(
+        model=ModelConfig(output_size=64, attn_res=32, spectral_norm="gd",
+                          use_pallas=True, bn_pallas=False),
+        batch_size=64, loss="hinge", beta1=0.0, d_learning_rate=4e-4,
+        g_learning_rate=1e-4, g_ema_decay=0.999)
+    return dataclasses.replace(cfg, **overrides)
+
+
+PRESETS: Dict[str, Callable[..., TrainConfig]] = {"celeba64": celeba64,
+                                                  "sagan64": sagan64}
 
 
 def get_preset(name: str, **overrides) -> TrainConfig:

@@ -3,8 +3,11 @@ slice serves, plus --device.
 
     python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
         --pallas_fused --synthetic --max_steps 200
-    python -m dcgan_tpu_torch.train --preset celeba64 --synthetic \
-        --max_steps 2 --device cpu --output_size 16 --gf_dim 8 --df_dim 8
+    python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
+        --max_steps 200
+    python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
+        --max_steps 2 --device cpu --output_size 16 --attn_res 8 \
+        --gf_dim 16 --df_dim 16 --z_dim 8 --batch_size 4
 
 Flags given explicitly override the preset's values. Without --synthetic
 it fails: the TFRecord data feed is not ported yet.
@@ -34,6 +37,7 @@ _FLAG_FIELDS = {
     "gf_dim": ("model", "gf_dim"),
     "df_dim": ("model", "df_dim"),
     "z_dim": ("model", "z_dim"),
+    "attn_res": ("model", "attn_res"),
 }
 
 
@@ -60,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gf_dim", type=int)
     p.add_argument("--df_dim", type=int)
     p.add_argument("--z_dim", type=int)
+    p.add_argument("--attn_res", type=int,
+                   help="feature-map resolution of the self-attention block "
+                        "(0 = none; the sagan64 preset sets 32)")
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="train on synthetic data (the only feed ported)")
     p.add_argument("--checkpoint_dir",

@@ -2,14 +2,16 @@
 counterpart of `dcgan_tpu/train/steps.py:72-157,404-730`).
 
 One `train_step(state, images, z)` is the JAX package's step at n_critic 1
-without accumulation, in both update modes:
+without accumulation, on the BCE or the hinge loss (`cfg.loss`), in both
+update modes:
 - "sequential" (default): D's update first, then G's against the updated D
   and its BN state;
 - "fused": both gradients at the pre-update params.
 D runs on the real batch and then on the fake one, each with its own batch
 statistics, the BN state chaining from the first to the second; the two
 batches are never concatenated. In the D step the fake batch comes from G
-in train mode without gradients and G's BN update is discarded, as in JAX.
+in train mode without gradients and G's state update (BN moments, SN
+vectors) is discarded, as in JAX; likewise D's in the G step.
 Gradients are taken with `torch.autograd.grad` with respect to one net's
 leaves at a time, so the other net's weights get none.
 
@@ -36,7 +38,7 @@ from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.models.dcgan import discriminator_apply, gan_init, \
     generator_apply, sampler_apply
-from dcgan_tpu_torch.train.losses import bce_gan_losses
+from dcgan_tpu_torch.train.losses import bce_gan_losses, hinge_losses
 
 Pytree = dict
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -217,6 +219,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                            updates_per_step=cfg.n_critic)
 
     def losses(real_logits, fake_logits):
+        if cfg.loss == "hinge":
+            return hinge_losses(real_logits, fake_logits)
         return bce_gan_losses(real_logits, fake_logits,
                               label_smoothing=cfg.label_smoothing)
 

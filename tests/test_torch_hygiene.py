@@ -72,6 +72,7 @@ class TestNoJaxImports:
         code = ("import subprocess, sys\n"
                 "calls = []\n"
                 "subprocess.Popen = lambda *a, **k: calls.append(a)\n"
+                "import dcgan_tpu_torch.ops.flash_attention\n"
                 "import dcgan_tpu_torch.ops.fused\n"
                 "import dcgan_tpu_torch.ops.kernels\n"
                 "import dcgan_tpu_torch.train.steps\n"

@@ -1,6 +1,8 @@
 """The ported kernels: plain versions (and the autograd Functions built on
 them) against the JAX kernels and their custom VJPs on the CPU, and the
-CUDA kernels against their plain versions on the card.
+CUDA kernels against their plain versions on the card. The flash-attention
+plain versions are held against JAX in tests/test_torch_attention.py; their
+kernels against them on the card here (TestFlashOnCard).
 
 On the CPU the wrappers take the plain PyTorch versions (a CPU tensor is
 the only thing that selects them); the JAX side runs the Pallas kernels in
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from dcgan_tpu_torch.ops import flash_attention as flash
 from dcgan_tpu_torch.ops import fused, kernels
 from dcgan_tpu_torch.ops.activations import ACTS
 
@@ -579,3 +582,106 @@ class TestKernelsOnCard:
         for i, (a, b) in enumerate(zip(*results)):
             tol = (1e-5, 1e-5) if i < 3 else (1e-4, 5e-5)
             torch.testing.assert_close(b, a, rtol=tol[0], atol=tol[1])
+
+
+# ---------------------------------------------------------------------------
+# flash attention on the card
+# ---------------------------------------------------------------------------
+
+def _assert_flash_close(name, got, want, bound, tdt):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all()), name
+    if tdt == torch.bfloat16 and got.dtype == torch.bfloat16:
+        bound = bound + BF16_ULP * w.abs()
+    bad = (g - w).abs() > bound
+    assert not bool(bad.any()), \
+        f"{name}: {int(bad.sum())} elements beyond the bound, max |err| " \
+        f"{float((g - w).abs().max()):.3g}"
+
+
+@pytest.mark.cuda
+class TestFlashOnCard:
+    """Kernels 6-8 (csrc/flash_attention.cu) against their plain versions
+    on the card: sagan64's shape (B 64, S 1024, d_qk 8, d_v 32), ragged S
+    and each head-width instantiation, bf16 and f32, launched twice to show
+    the bits repeat. Bounds: `flash_attention.kernel_error_bounds` (plus
+    one bf16 ulp of bf16 outputs); lse within 1e-5 (1 + |lse|)."""
+
+    # (B, S, d_qk, d_v): one per head-width instantiation (d_qk padded to
+    # 16 or 64, d_v to 32 or 128), ragged S beside sagan64's 1024
+    SHAPES = [(64, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32),
+              (2, 90, 8, 64), (2, 70, 40, 32), (2, 77, 24, 48),
+              (2, 130, 64, 128)]
+
+    @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("shape", SHAPES)
+    def test_matches_plain_and_repeats(self, cuda, tdt, shape):
+        b, s, dk, dv = shape
+        g = torch.Generator(device=cuda).manual_seed(b * s + dk)
+
+        def rand(*sh):
+            return torch.randn(sh, generator=g, device=cuda)
+
+        q, k, v = (rand(b, s, d).to(tdt) for d in (dk, dk, dv))
+        scale = dk ** -0.5
+        before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+                  flash.flash_dkv.launches)
+        out, lse = flash.flash_fwd(q, k, v, scale)
+        want_out, want_lse = flash.flash_fwd_plain(q, k, v, scale)
+        do, delta = flash.bwd_stats(q, want_out, rand(b, s, dv))
+        dq = flash.flash_dq(q, k, v, do, want_lse, delta, scale)
+        dkv = flash.flash_dkv(q, k, v, do, want_lse, delta, scale)
+        again = (flash.flash_fwd(q, k, v, scale),
+                 flash.flash_dq(q, k, v, do, want_lse, delta, scale),
+                 flash.flash_dkv(q, k, v, do, want_lse, delta, scale))
+        torch.cuda.synchronize()
+        assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+                flash.flash_dkv.launches) == tuple(n + 2 for n in before)
+        for a, bb in zip((out, lse, dq, *dkv),
+                         (*again[0], again[1], *again[2])):
+            assert torch.equal(a, bb), "two launches differ"
+        bounds = flash.kernel_error_bounds(q, k, v, do, want_lse, delta,
+                                           scale)
+        _assert_flash_close("out", out, want_out, bounds["out"], tdt)
+        _assert_flash_close("lse", lse, want_lse,
+                            1e-5 * (1.0 + want_lse.abs()), tdt)
+        want_dq = flash.flash_dq_plain(q, k, v, do, want_lse, delta, scale)
+        want_dk, want_dv = flash.flash_dkv_plain(q, k, v, do, want_lse,
+                                                 delta, scale)
+        _assert_flash_close("dq", dq, want_dq, bounds["dq"], tdt)
+        _assert_flash_close("dk", dkv[0], want_dk, bounds["dk"], tdt)
+        _assert_flash_close("dv", dkv[1], want_dv, bounds["dv"], tdt)
+
+    def test_autograd_runs_the_kernels(self, cuda):
+        """flash_attention's backward on the card is bwd_stats, then one
+        dq and one dkv launch, and agrees with the CPU's plain backward
+        (f32: 1e-4)."""
+        rng = np.random.default_rng(140)
+        arrays = [rng.normal(size=(2, 96, d)).astype(np.float32)
+                  for d in (8, 8, 32)]
+        r = rng.normal(size=(2, 96, 32)).astype(np.float32)
+        results = []
+        counts = (flash.flash_fwd.launches, flash.flash_dq.launches,
+                  flash.flash_dkv.launches)
+        for dev in ("cpu", cuda):
+            leaves = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                      for a in arrays]
+            out = flash.flash_attention(*leaves, 0.3)
+            grads = torch.autograd.grad(
+                (out * torch.from_numpy(r).to(dev)).sum(), leaves)
+            results.append([t.detach().cpu() for t in (out, *grads)])
+        assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+                flash.flash_dkv.launches) == tuple(n + 1 for n in counts)
+        for a, b in zip(*results):
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+    def test_rejects_bad_arguments(self, cuda):
+        q = torch.zeros((1, 8, 8), device=cuda)
+        with pytest.raises(ValueError, match="d_qk"):
+            flash.flash_fwd(torch.zeros((1, 8, 65), device=cuda),
+                            torch.zeros((1, 8, 65), device=cuda), q, 1.0)
+        with pytest.raises(ValueError):
+            flash.flash_fwd(q, q.to(torch.bfloat16), q, 1.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            flash.flash_fwd(q.transpose(1, 2), q, q, 1.0)

@@ -334,8 +334,8 @@ class TestConfig:
         assert cfg.num_up_layers == 3
 
     @pytest.mark.parametrize("kw", [
-        {"arch": "resnet"}, {"num_classes": 10}, {"attn_res": 32},
-        {"spectral_norm": "d"}, {"quant": "fp8"}])
+        {"arch": "resnet"}, {"num_classes": 10}, {"arch": "stylegan"},
+        {"num_classes": 10, "conditional_bn": True}, {"quant": "fp8"}])
     def test_unserved_fields_raise(self, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
             ModelConfig(**kw)

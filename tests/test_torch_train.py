@@ -261,7 +261,7 @@ class TestConfig:
         assert dataclasses.asdict(t.model) == dataclasses.asdict(jt.model)
 
     @pytest.mark.parametrize("kw", [
-        {"loss": "hinge"}, {"n_critic": 5}, {"grad_accum": 2},
+        {"loss": "wgan-gp"}, {"n_critic": 5}, {"grad_accum": 2},
         {"precision": "bf16"}, {"diffaug": "color"}])
     def test_unserved_fields_raise(self, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
