@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a Hopper GPU (sm_90a) and
 nvcc. Needs one card; no network. Phases, each fatal on failure:
 
 1. build: every CUDA kernel of the served and the training path, from
-   dcgan_tpu_torch/csrc (nvcc, one process per source, all at once);
+   dcgan_tpu_torch/csrc (nvcc, one process per source, all at once); each
+   kernel's registers, stack and spills from ptxas, by entry function;
 2. kernels: each kernel against its plain PyTorch version on the same card
    tensors at the shapes the served path (kernels 2, 5) and the training
    step (kernels 1, 3, 4) give it (celeba64, batch 64), in bf16 and f32,
@@ -44,12 +45,14 @@ spectral norm, hinge loss, TTUR, G EMA):
 
 7. flash kernels: the forward, dq and dkv kernels (6-8) against their
    plain versions in bf16 and f32 at sagan64's shape (B 64, S 1024,
-   d_qk 8, d_v 32), a ragged S and d_qk 16, each launched twice to show
-   the bits repeat; at S 4096 and 16384 (sagan128's and sagan256-lc's
-   attention) launched at batch 64 and compared over a 2-row batch
-   slice; each timed beside its bound (the largest of bytes, products and
-   exponentials), its plain version and F.scaled_dot_product_attention
-   on the same q, k, v (the backend it picked named from its kernels);
+   d_qk 8, d_v 32), a ragged S, d_qk 16, S one past a 128-key tile and
+   rows that are not 16-byte multiples (the bf16 kernels' scalar loads),
+   each launched twice to show the bits repeat; at S 4096 and 16384
+   (sagan128's and sagan256-lc's attention) launched at batch 64 and
+   compared over a 2-row batch slice; each timed beside its bound (the
+   largest of bytes, products and exponentials), its plain version and
+   F.scaled_dot_product_attention on the same q, k, v (the backend it
+   picked named from its kernels);
 8. sagan64 train: `train.cli.main --preset sagan64 --synthetic` for
    TRAIN_STEPS steps, the launch counters set to 0 just before and read
    just after (exactly SAGAN_PER_STEP per step); losses finite; every
@@ -58,7 +61,8 @@ spectral norm, hinge loss, TTUR, G EMA):
    attention blocks, the losses and every gradient leaf on the flash
    route against the dense route, within ATTN_ROUTE_TOL in bf16 and f32;
    two broken backwards (dq zeroed; the delta term dropped from dkv) must
-   each be caught; one bf16 step profiled (attention share, idle share);
+   each be caught; one bf16 step profiled (attention share and ms per
+   flash kernel, idle share);
 10. sagan64 serve: the trained EMA G (its gamma set to 0.5) served through
    the serve entry point with the counters reset around it; the images
    checked as in phase 4 and against the dense route.
@@ -76,6 +80,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -904,9 +909,8 @@ def profile_split(torch, fn, steps: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"flash attention kernels": ("flash_fwd_kernel",
-                                            "flash_dq_kernel",
-                                            "flash_dkv_kernel"),
+    families = {"flash attention kernels": ("flash_fwd_", "flash_dq_",
+                                            "flash_dkv_"),
                 "port kernels": ("gbm_", "ssa_", "moments_partial",
                                  "finish_column_partials", "gbsa_"),
                 "library GEMM and conv": ("gemm", "cutlass", "sm90_",
@@ -915,6 +919,7 @@ def profile_split(torch, fn, steps: int = 3):
                 "im2col backward (unfold_backward)": ("unfold",)}
     split = {name: 0.0 for name in families}
     split["other (elementwise, copies, reductions)"] = 0.0
+    flash = {}
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -925,6 +930,11 @@ def profile_split(torch, fn, steps: int = 3):
         ms = us / 1e3 / steps
         top.append((ms, e.count / steps, e.key[:120]))
         key = e.key.lower()
+        m = re.search(r"flash_\w+_kernel(<[^>]*>)?", e.key)
+        if m:
+            f = flash.setdefault(m.group(0), {"ms": 0.0, "calls": 0.0})
+            f["ms"] += ms
+            f["calls"] += e.count / steps
         for name, marks in families.items():
             if any(mark in key for mark in marks):
                 split[name] += ms
@@ -935,7 +945,7 @@ def profile_split(torch, fn, steps: int = 3):
     if busy <= 0.0:
         return None
     top.sort(reverse=True)
-    return {"ms_per_step": split, "busy_ms": busy,
+    return {"ms_per_step": split, "flash_by_kernel": flash, "busy_ms": busy,
             "launches_per_step": sum(n for _, n, _ in top),
             "wall_ms": wall_ms / steps,
             "idle_share": max(0.0, 1.0 - busy / (wall_ms / steps)),
@@ -1130,13 +1140,25 @@ FLASH_SOURCE = "dcgan_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"flash_fwd": "dcgan_tpu/ops/pallas_attention.py:166",
                   "flash_dq": "dcgan_tpu/ops/pallas_attention.py:293",
                   "flash_dkv": "dcgan_tpu/ops/pallas_attention.py:308"}
-# (B, S, d_qk, d_v): sagan64's attention in both nets, then a ragged S and
-# the d_qk 16 instantiation
-FLASH_SHAPES = [(BATCH, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32)]
+# (B, S, d_qk, d_v): sagan64's attention in both nets, then a ragged S, the
+# d_qk 16 instantiation, S one past a 128-key tile, and rows of 24 and 72
+# bytes (the bf16 kernels' scalar load path)
+FLASH_SHAPES = [(BATCH, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32),
+                (2, 129, 8, 32), (2, 100, 12, 36)]
 # sagan128's and sagan256-lc's attention: launched at batch 64 and held
 # against the plain version over the first FLASH_ROWS rows of the batch
 FLASH_LONG = (4096, 16384)
 FLASH_ROWS = 2
+# Which design each bf16 kernel is (v1: tiles staged through shared memory
+# by elementwise loads, p and ds through shared memory; v2: cp.async tiles,
+# p and ds in registers, exp2)
+FLASH_DESIGN = {"flash_fwd": "v2", "flash_dq": "v1", "flash_dkv": "v2"}
+# the bf16 kernel of each on the sagan64 path: a part of its mangled name
+# (flash_fwd_kernel<16, 32>, flash_dq_kernel<__nv_bfloat16, 16, 32>,
+# flash_dkv_kernel<16, 32>)
+FLASH_ENTRIES = {"flash_fwd": "16flash_fwd_kernelILi16ELi32E",
+                 "flash_dq": "15flash_dq_kernelI13__nv_bfloat16Li16ELi32E",
+                 "flash_dkv": "16flash_dkv_kernelILi16ELi32E"}
 
 
 def flash_bound(name, b, s, dk, dv, itemsize):
@@ -1312,8 +1334,9 @@ def time_flash(torch, q, k, v, do, lse, delta, scale, rows, iters):
     return out
 
 
-def check_flash_kernels(torch):
-    """Phase 7. Returns the kernels line's entries for kernels 6-8."""
+def check_flash_kernels(torch, ptxas):
+    """Phase 7. Returns the kernels line's entries for kernels 6-8;
+    `ptxas` is the build's ptxas reports (`_build.ptxas_report`)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
 
@@ -1322,9 +1345,19 @@ def check_flash_kernels(torch):
                    for d in (dk, dk, dv))
         return q, k, v, torch.randn((b, s, dv), generator=g, device=dev)
 
-    entries = {name: {"name": name, "route": "cuda", "source": FLASH_SOURCE,
-                      "replaces": FLASH_REPLACES[name], "long": []}
-               for name in FLASH_REPLACES}
+    entries = {}
+    for name in FLASH_REPLACES:
+        found = [e for e in ptxas if FLASH_ENTRIES[name] in e["entry"]]
+        if len(found) != 1:
+            raise RuntimeError(f"{len(found)} ptxas entries match "
+                               f"{FLASH_ENTRIES[name]}")
+        report = found[0]
+        entries[name] = {
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name], "design": FLASH_DESIGN[name],
+            "registers": report.get("registers"),
+            "spill_bytes": (report.get("spill_stores", 0)
+                            + report.get("spill_loads", 0)), "long": []}
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
         for shape in FLASH_SHAPES:
@@ -1357,16 +1390,19 @@ def check_flash_kernels(torch):
         for name, e in timed.items():
             e["max_abs_err"] = errs[name]
             entries[name]["long"].append(e)
-            log(f"{name} at S={s}, batch {BATCH}: {e['ms']:.4f} ms vs bound "
-                f"{e['bound_ms']:.4f} ms ({e['bound_kind']}); plain over "
-                f"{FLASH_ROWS} rows {e['plain_ms']:.4f} ms; library "
+            log(f"{name} at S={s}, batch {BATCH}: {e['ms']:.4f} ms "
+                f"({FLASH_DESIGN[name]} design) vs "
+                f"bound {e['bound_ms']:.4f} ms ({e['bound_kind']}); plain "
+                f"over {FLASH_ROWS} rows {e['plain_ms']:.4f} ms; library "
                 f"{e['library_ms']} ms; max |err| over {FLASH_ROWS} rows "
                 f"{errs[name]:.3g}")
         del q, k, v, gout, bwd_in
         torch.cuda.empty_cache()
     for e in entries.values():
         log(f"{e['name']} at sagan64's shape {e['shape']}: {e['ms']:.4f} ms "
-            f"vs bound {e['bound_ms']:.4f} ms ({e['bound_kind']}); plain "
+            f"({e['design']} design, {e['registers']} registers, "
+            f"{e['spill_bytes']} B spilled) vs bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_kind']}); plain "
             f"{e['plain_ms']:.4f} ms; {e['library']} {e['library_ms']} ms")
     return list(entries.values())
 
@@ -1529,8 +1565,11 @@ def sagan_train_and_check(torch, np, workdir, kernels):
         if split is not None:
             attn = split["ms_per_step"]["flash attention kernels"]
             split["attention_share"] = attn / split["busy_ms"]
+            by_kernel = "; ".join(
+                f"{k} {v['ms']:.4f} ms in {v['calls']:.0f}"
+                for k, v in sorted(split["flash_by_kernel"].items()))
             log(f"sagan64 {route} route step: busy {split['busy_ms']:.3f} "
-                f"ms, flash kernels {attn:.3f} ms "
+                f"ms, flash kernels {attn:.3f} ms ({by_kernel}) "
                 f"({split['attention_share']:.3f} of busy), idle share "
                 f"{split['idle_share']:.3f}, "
                 f"{split['launches_per_step']:.0f} launches, "
@@ -1635,16 +1674,22 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = []
     for name, lib in sorted(libs.items()):
-        report = lib.with_name(lib.name + ".log")
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        report = _build.ptxas_report(
+            lib.with_name(lib.name + ".log").read_text())
+        names = _build.demangle([e["entry"] for e in report])
+        for e, entry in zip(report, names):
+            log(f"ptxas {name} {entry}: {e.get('registers')} "
+                f"registers, {e.get('stack')} B stack, "
+                f"{e.get('spill_stores')} B spill stores, "
+                f"{e.get('spill_loads')} B spill loads")
+        ptxas += report
 
     cfg = celeba64(use_pallas=True, pallas_fused=True)
     kernels = check_kernels(torch, cfg)
     kernels[1:1] = check_train_kernels(torch, cfg, kernels[0])
-    kernels += check_flash_kernels(torch)
+    kernels += check_flash_kernels(torch, ptxas)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         row, timing = serve_and_check(torch, np, cfg, workdir, kernels)
         train_report = train_and_check(torch, np, workdir, kernels)

@@ -12,7 +12,8 @@ The build runs at first use, into `dcgan_tpu_torch/_build/` (git-ignored),
 keyed by a hash of every source and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused. All sources compile at once, one
 nvcc process each. Each library's ptxas report (registers, shared memory,
-spills) is kept beside it as `<lib>.log`.
+spills) is kept beside it as `<lib>.log`; `ptxas_report` reads it per
+kernel.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -103,6 +105,44 @@ def build_all() -> Dict[str, Path]:
                 if tmp.exists():
                     tmp.unlink()
     return {name: lib for name, (_, lib) in targets.items()}
+
+
+def ptxas_report(text: str) -> List[Dict[str, object]]:
+    """One entry per kernel of an `nvcc -Xptxas -v` log, in its order:
+    {"entry": mangled name, "registers", "stack", "spill_stores",
+    "spill_loads"} (bytes for the last three)."""
+    entries: List[Dict[str, object]] = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append({"entry": m.group(1)})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entries[-1].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
+def demangle(names: Sequence[str]) -> List[str]:
+    """The names as `cu++filt -p` (beside nvcc) prints them: demangled,
+    without parameter lists."""
+    if not names:
+        return []
+    filt = Path(_nvcc()).with_name("cu++filt")
+    out = subprocess.run([str(filt), "-p", *names], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    if len(out) != len(names):
+        raise RuntimeError(f"cu++filt printed {len(out)} lines for "
+                           f"{len(names)} names")
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

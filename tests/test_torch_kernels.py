@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from dcgan_tpu_torch.ops import flash_attention as flash
-from dcgan_tpu_torch.ops import fused, kernels
+from dcgan_tpu_torch.ops import _build, fused, kernels
 from dcgan_tpu_torch.ops.activations import ACTS
 
 BF16_ULP = 2.0 ** -7
@@ -412,6 +412,52 @@ def _check_fused_train_stage(jref, *, transpose, act, tdt, jname):
 
 
 # ---------------------------------------------------------------------------
+# The build's ptxas report, as chip_smoke reads it
+# ---------------------------------------------------------------------------
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi16ELi32EEEvPK13__nv_bfloat16S3_S3_PfS4_iiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi16ELi32EEEvPK13__nv_bfloat16S3_S3_PfS4_iiifi
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_dq_kernelI13__nv_bfloat16Li16ELi32EEEvPKT_S4_S4_S4_PKfS6_PS2_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115flash_dq_kernelI13__nv_bfloat16Li16ELi32EEEvPKT_S4_S4_S4_PKfS6_PS2_iiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5dcgan22finish_column_partialsEPKfiifPfS2_' for 'sm_90a'
+ptxas info    : Used 32 registers, 392 bytes cmem[0]
+"""
+
+
+class TestPtxasReport:
+    @pytest.mark.parametrize("text, want", [
+        (PTXAS_LOG, [
+            {"entry": "_ZN12_GLOBAL__N_116flash_fwd_kernelILi16ELi32EEEvPK13"
+                      "__nv_bfloat16S3_S3_PfS4_iiifi",
+             "stack": 8, "spill_stores": 8, "spill_loads": 12,
+             "registers": 128},
+            {"entry": "_ZN12_GLOBAL__N_115flash_dq_kernelI13__nv_bfloat16Li16"
+                      "ELi32EEEvPKT_S4_S4_S4_PKfS6_PS2_iiif",
+             "stack": 0, "spill_stores": 0, "spill_loads": 0,
+             "registers": 94},
+            {"entry": "_ZN5dcgan22finish_column_partialsEPKfiifPfS2_",
+             "registers": 32}]),
+        ("", []),
+        # lines before the first entry belong to no kernel
+        ("ptxas info    : Used 12 registers\n"
+         "ptxas info    : Compiling entry function 'k' for 'sm_90a'\n",
+         [{"entry": "k"}]),
+        ("ptxas info    : Compiling entry function 'a' for 'sm_90a'\n"
+         "ptxas info    : Compiling entry function 'b' for 'sm_90a'\n"
+         "ptxas info    : Used 7 registers, 384 bytes cmem[0]\n",
+         [{"entry": "a"}, {"entry": "b", "registers": 7}])])
+    def test_names_each_entry_with_its_registers_and_spills(self, text,
+                                                            want):
+        assert _build.ptxas_report(text) == want
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version, same tensors
 # ---------------------------------------------------------------------------
 
@@ -600,6 +646,17 @@ def _assert_flash_close(name, got, want, bound, tdt):
         f"{float((g - w).abs().max()):.3g}"
 
 
+def _at_offset(t, offset):
+    """A contiguous copy of t that starts `offset` elements into its own
+    buffer (t itself for offset 0)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
 class TestFlashOnCard:
     """Kernels 6-8 (csrc/flash_attention.cu) against their plain versions
@@ -609,27 +666,52 @@ class TestFlashOnCard:
     one bf16 ulp of bf16 outputs); lse within 1e-5 (1 + |lse|)."""
 
     # (B, S, d_qk, d_v): one per head-width instantiation (d_qk padded to
-    # 16 or 64, d_v to 32 or 128), ragged S beside sagan64's 1024
+    # 16 or 64, d_v to 32 or 128), ragged S beside sagan64's 1024; S just
+    # past one 128 tile and two whole ones; rows of 24 and 72 bytes, not
+    # multiples of 16, which take the kernels' scalar load path; a single
+    # key, and heads one element wide (odd widths, scalar stores)
     SHAPES = [(64, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32),
               (2, 90, 8, 64), (2, 70, 40, 32), (2, 77, 24, 48),
-              (2, 130, 64, 128)]
+              (2, 130, 64, 128), (2, 129, 8, 32), (2, 256, 8, 32),
+              (2, 100, 12, 36), (3, 1, 8, 32), (2, 50, 1, 1)]
 
     @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("shape", SHAPES)
     def test_matches_plain_and_repeats(self, cuda, tdt, shape):
+        self._check(cuda, tdt, shape, offset=0)
+
+    @pytest.mark.parametrize("shape", [(2, 100, 8, 32), (64, 1024, 8, 32)])
+    def test_misaligned_pointers(self, cuda, shape):
+        """q, k, v and do one element into their buffers: 16-byte rows but
+        data pointers off 16-byte alignment, the scalar load path of the
+        bf16 forward and dkv."""
+        self._check(cuda, torch.bfloat16, shape, offset=1)
+
+    def test_negative_scale(self, cuda):
+        """softmax(q k^T * scale) with scale < 0: the bf16 forward moves the
+        sign into q's fragments and takes the running max with c > 0."""
+        self._check(cuda, torch.bfloat16, (2, 129, 8, 32), offset=0,
+                    scale=-0.5)
+
+    def _check(self, cuda, tdt, shape, offset, scale=None):
         b, s, dk, dv = shape
         g = torch.Generator(device=cuda).manual_seed(b * s + dk)
 
         def rand(*sh):
             return torch.randn(sh, generator=g, device=cuda)
 
-        q, k, v = (rand(b, s, d).to(tdt) for d in (dk, dk, dv))
-        scale = dk ** -0.5
+        q, k, v = (_at_offset(rand(b, s, d).to(tdt), offset)
+                   for d in (dk, dk, dv))
+        gout = rand(b, s, dv)
+        scale = dk ** -0.5 if scale is None else scale
         before = (flash.flash_fwd.launches, flash.flash_dq.launches,
                   flash.flash_dkv.launches)
         out, lse = flash.flash_fwd(q, k, v, scale)
         want_out, want_lse = flash.flash_fwd_plain(q, k, v, scale)
-        do, delta = flash.bwd_stats(q, want_out, rand(b, s, dv))
+        do, delta = flash.bwd_stats(q, want_out, gout)
+        do = _at_offset(do, offset)
+        assert all(bool(t.data_ptr() % 16) == bool(offset)
+                   for t in (q, k, v, do))
         dq = flash.flash_dq(q, k, v, do, want_lse, delta, scale)
         dkv = flash.flash_dkv(q, k, v, do, want_lse, delta, scale)
         again = (flash.flash_fwd(q, k, v, scale),
@@ -641,8 +723,11 @@ class TestFlashOnCard:
         for a, bb in zip((out, lse, dq, *dkv),
                          (*again[0], again[1], *again[2])):
             assert torch.equal(a, bb), "two launches differ"
-        bounds = flash.kernel_error_bounds(q, k, v, do, want_lse, delta,
-                                           scale)
+        # the bounds scale with `scale`: for scale < 0 take them from the
+        # same scores written as (-q) . k^T at -scale (-q exact in bf16)
+        sign = 1.0 if scale >= 0 else -1.0
+        bounds = flash.kernel_error_bounds(q * sign, k, v, do, want_lse,
+                                           delta, scale * sign)
         _assert_flash_close("out", out, want_out, bounds["out"], tdt)
         _assert_flash_close("lse", lse, want_lse,
                             1e-5 * (1.0 + want_lse.abs()), tdt)
