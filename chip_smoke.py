@@ -9,18 +9,24 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
 1. build: every CUDA kernel of the served and the training path, from
    dcgan_tpu_torch/csrc (nvcc, one process per source, all at once); each
    kernel's registers, stack and spills from ptxas, by entry function;
+   the redesigned kernels' machine code (cuobjdump -sass) must hold the
+   Hopper instructions of HOPPER_SASS, whose counts are logged;
 2. kernels: each kernel against its plain PyTorch version on the same card
    tensors at the shapes the served path (kernels 2, 5) and the training
    step (kernels 1, 3, 4) give it (celeba64, batch 64), in bf16 and f32,
-   plus ragged shapes, kernels 1, 3, 4 also launched twice to show they
-   repeat bit for bit; then timed with CUDA events beside its bound, its
-   plain version and a library call;
+   plus ragged shapes (kernel 5: an aligned one on its v2 design, an
+   unaligned one on v1, every act), kernels 1, 3, 4, 5 also launched
+   twice to show they repeat bit for bit; kernel 5's launch plan per
+   stage (gbsa_plan) and the design each launch took are checked; then
+   timed with CUDA events beside its bound, its plain version and a
+   library call;
 3. serve: seeded celeba64 weights (use_pallas + pallas_fused, BN running
    statistics calibrated on a batch and perturbed with numpy noise) are
    written with convert.save_weights and served through
    `python -m dcgan_tpu_torch.serve`'s entry point on cuda, 24 demo
    requests of 1-8 images; the kernels' launch counters are set to 0 just
-   before and read just after, and must both have risen;
+   before and read just after, and must both have risen, every kernel 5
+   launch on its v2 design;
 4. outputs: every served image is finite, in [-1, 1], shape [n, 64, 64, 3];
    requests match a direct sampler call on the same z rows; one batch
    matches the cuDNN + torch-BN route (use_pallas=False), in bf16 and, with
@@ -166,6 +172,20 @@ ATTN_ROUTE_TOL = {"bfloat16": (2.0 ** -6, 1e-3), "float32": (1e-5, 1e-6)}
 ATTN_GRAD_TOL = {"bfloat16": (0.1, 1e-3), "float32": (1e-2, 1e-5)}
 
 
+# The design of the gemm_bias_scale_act kernel on the served bf16 stages
+# (ops/fused.py::gbsa_plan; v1: WMMA from padded shared rows, v2: TMA-fed
+# wgmma)
+GBSA_DESIGN = "v2"
+# Hopper instructions each redesigned kernel's machine code must hold
+# (cuobjdump -sass of the built library), by a part of its entries'
+# mangled names: TMA loads and wgmma in every gbsa_wgmma_kernel<BN, OutT>,
+# ldmatrix and the ex2 MUFU op in every bf16 flash_dq_kernel<DKP, DVP>
+HOPPER_SASS = {"gemm_bias_scale_act": ("17gbsa_wgmma_kernelI",
+                                       ("HGMMA", "UTMALDG")),
+               "flash_attention": ("15flash_dq_kernelI",
+                                   ("LDSM", "MUFU.EX2"))}
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -246,14 +266,27 @@ def stage_shapes(cfg, batch):
     return out
 
 
-def check_kernels(torch, cfg):
+def gbsa_entry_report(ptxas, bn):
+    """registers and spill bytes of the v2 gemm_bias_scale_act entry at
+    column tile `bn` with a bf16 output (gbsa_wgmma_kernel<bn, bf16>)."""
+    part = f"17gbsa_wgmma_kernelILi{bn}E13__nv_bfloat16E"
+    found = [e for e in ptxas if part in e["entry"]]
+    if len(found) != 1:
+        fail(f"{len(found)} ptxas entries match {part}")
+    return {"registers": found[0].get("registers"),
+            "spill_bytes": (found[0].get("spill_stores", 0)
+                            + found[0].get("spill_loads", 0))}
+
+
+def check_kernels(torch, cfg, ptxas):
     """Phase 2: kernels vs plain versions, then timings. Returns the
-    per-kernel entries of the kernels line (launches filled later)."""
+    per-kernel entries of the kernels line (launches filled later);
+    `ptxas` is the build's ptxas reports (`_build.ptxas_report`)."""
     from dcgan_tpu_torch.ops.activations import ACTS
     from dcgan_tpu_torch.ops.fused import conv_patches, \
-        gemm_bias_scale_act, gemm_bias_scale_act_plain, w_to_gemm
+        gbsa_plan, gemm_bias_scale_act, gemm_bias_scale_act_plain, w_to_gemm
     from dcgan_tpu_torch.ops.kernels import scale_shift_act, \
-        scale_shift_act_plain
+        scale_shift_act_plain, sm_count
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -305,17 +338,38 @@ def check_kernels(torch, cfg):
     # ---- gemm_bias_scale_act at the fused stages -------------------------
     gemm = {"name": "gemm_bias_scale_act", "route": "cuda",
             "source": "dcgan_tpu_torch/csrc/gemm_bias_scale_act.cu",
-            "replaces": "dcgan_tpu/ops/pallas_fused.py:229", "stages": []}
-    for act in ACTS:   # ragged M, K, C: the masked, unaligned load path
-        for dt_name, dt in (("bfloat16", torch.bfloat16),
-                            ("float32", torch.float32)):
-            p, w = rand(100, 37).to(dt), (0.1 * rand(37, 70)).to(dt)
-            b, scale, shift = vectors(70)
-            check_close(torch, f"gemm_bias_scale_act ragged {dt_name} {act}",
-                        gemm_bias_scale_act(p, w, b, scale, shift, act,
-                                            out_dtype=dt),
+            "replaces": "dcgan_tpu/ops/pallas_fused.py:229",
+            "design": GBSA_DESIGN, "stages": []}
+    by_design = gemm_bias_scale_act.launches_by_design
+    # ragged M, K and C, every act: an aligned shape on v2 (bf16 operands,
+    # bf16 and f32 outputs), then K 37 and C 70 on v1 (bf16) and SIMT (f32)
+    ragged = [(1000, 200, 72, torch.bfloat16, torch.bfloat16, "v2"),
+              (1000, 200, 72, torch.bfloat16, torch.float32, "v2"),
+              (100, 37, 70, torch.bfloat16, torch.bfloat16, "v1"),
+              (100, 37, 70, torch.float32, torch.float32, "simt")]
+    for act in ACTS:
+        for m, k, c, in_dt, out_dt, design in ragged:
+            p, w = rand(m, k).to(in_dt), (0.1 * rand(k, c)).to(in_dt)
+            b, scale, shift = vectors(c)
+            before = dict(by_design)
+            got = gemm_bias_scale_act(p, w, b, scale, shift, act,
+                                      out_dtype=out_dt)
+            again = gemm_bias_scale_act(p, w, b, scale, shift, act,
+                                        out_dtype=out_dt)
+            torch.cuda.synchronize()
+            if by_design[design] != before[design] + 2:
+                fail(f"gemm_bias_scale_act ragged {(m, k, c)} did not take "
+                     f"design {design}: {before} -> {by_design}")
+            tag = f"{(m, k, c)} {design} {str(out_dt)[6:]} {act}"
+            same_bits(torch, f"gemm_bias_scale_act ragged {tag}", (got,),
+                      (again,))
+            out_name = "bfloat16" if out_dt is torch.bfloat16 else "float32"
+            check_close(torch, f"gemm_bias_scale_act ragged {tag}", got,
                         gemm_bias_scale_act_plain(p, w, b, scale, shift, act,
-                                                  out_dtype=dt), dt_name)
+                                                  out_dtype=out_dt),
+                        out_name)
+    log(f"gemm_bias_scale_act ragged shapes match their plain versions and "
+        f"repeat bitwise on designs v2, v1 and simt, every act")
     for name, m, k, c, res, in_ch in stage_shapes(cfg, BATCH):
         # operands as the served path builds them: post-relu activations
         # through the zero-dilated im2col, HWIO weights reshaped
@@ -330,16 +384,30 @@ def check_kernels(torch, cfg):
             b, scale, shift = vectors(c)
             if tuple(p2d.shape) != (m, k):
                 fail(f"{name}: patches {tuple(p2d.shape)} != {(m, k)}")
+            plan = gbsa_plan(m, k, c, dt, True, sm_count(dev))
+            before = by_design[plan.design]
             got = gemm_bias_scale_act(p2d, w2d, b, scale, shift, "relu",
                                       out_dtype=dt)
+            again = gemm_bias_scale_act(p2d, w2d, b, scale, shift, "relu",
+                                        out_dtype=dt)
             want = gemm_bias_scale_act_plain(p2d, w2d, b, scale, shift,
                                              "relu", out_dtype=dt)
             torch.cuda.synchronize()
+            if by_design[plan.design] != before + 2:
+                fail(f"gemm_bias_scale_act {name} {dt_name} did not take "
+                     f"its plan's design {plan.design}")
+            same_bits(torch, f"gemm_bias_scale_act {name} {dt_name}",
+                      (got,), (again,))
             stage[f"max_abs_err_{dt_name}"] = check_close(
                 torch, f"gemm_bias_scale_act {name} {dt_name}", got, want,
                 dt_name)
-            del got, want
+            del got, again, want
             if dt is torch.bfloat16:
+                if plan.design != GBSA_DESIGN:
+                    fail(f"{name}: the served bf16 stage plans design "
+                         f"{plan.design}, not {GBSA_DESIGN}")
+                stage["plan"] = plan._asdict()
+                stage.update(gbsa_entry_report(ptxas, plan.bn))
                 stage["ms"], stage["call_ms"] = time_ms(
                     torch, lambda: gemm_bias_scale_act(
                         p2d, w2d, b, scale, shift, "relu",
@@ -361,11 +429,15 @@ def check_kernels(torch, cfg):
             del h, p2d, w2d
             torch.cuda.empty_cache()
         log(f"gemm_bias_scale_act {name} M={m} K={k} C={c} matches its "
-            f"plain version (max |err| bf16 "
+            f"plain version and repeats bitwise (max |err| bf16 "
             f"{stage['max_abs_err_bfloat16']:.3g}, f32 "
-            f"{stage['max_abs_err_float32']:.3g}); {stage['ms']:.4f} ms vs "
-            f"bound {stage['bound_ms']:.4f} ms ({stage['bound_by']}); its "
-            f"im2col {stage['im2col_ms']:.4f} ms")
+            f"{stage['max_abs_err_float32']:.3g}); bf16 plan "
+            f"{stage['plan']} ({stage['registers']} registers, "
+            f"{stage['spill_bytes']} B spilled); {stage['ms']:.4f} ms vs "
+            f"bound {stage['bound_ms']:.4f} ms ({stage['bound_by']}); "
+            f"library {stage['library_ms']:.4f} ms; plain "
+            f"{stage['plain_ms']:.4f} ms; its im2col "
+            f"{stage['im2col_ms']:.4f} ms")
         gemm["stages"].append(stage)
     st = gemm["stages"]
     for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
@@ -375,6 +447,11 @@ def check_kernels(torch, cfg):
                                       for s in st) else "operations"
     gemm["max_abs_err"] = max(s["max_abs_err_bfloat16"] for s in st)
     gemm["max_abs_err_f32"] = max(s["max_abs_err_float32"] for s in st)
+    gemm["registers"] = max(s["registers"] for s in st)
+    gemm["spill_bytes"] = max(s["spill_bytes"] for s in st)
+    log(f"gemm_bias_scale_act per sampler call at batch {BATCH} "
+        f"({GBSA_DESIGN} design): {gemm['ms']:.4f} ms vs bound "
+        f"{gemm['bound_ms']:.4f} ms; library {gemm['library_ms']:.4f} ms")
     return [ssa, gemm]
 
 
@@ -770,8 +847,11 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     wrappers = all_wrappers()
     served = ("scale_shift_act", "gemm_bias_scale_act")
 
+    by_design = wrappers["gemm_bias_scale_act"].launches_by_design
     for fn in wrappers.values():
         fn.launches = 0
+    for design in by_design:
+        by_design[design] = 0
     row, responses = serve_main.run([
         "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
         "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
@@ -779,6 +859,10 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
         "--report", report_path])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"served path gemm_bias_scale_act launches by design: {by_design}")
+    if by_design[GBSA_DESIGN] != launches["gemm_bias_scale_act"]:
+        fail(f"the served bf16 stages must all launch the {GBSA_DESIGN} "
+             f"gemm_bias_scale_act kernel: {by_design}")
     for entry in kernels:
         entry.setdefault("launches_by_path", {})["serve"] = \
             launches[entry["name"]]
@@ -1152,12 +1236,12 @@ FLASH_ROWS = 2
 # Which design each bf16 kernel is (v1: tiles staged through shared memory
 # by elementwise loads, p and ds through shared memory; v2: cp.async tiles,
 # p and ds in registers, exp2)
-FLASH_DESIGN = {"flash_fwd": "v2", "flash_dq": "v1", "flash_dkv": "v2"}
+FLASH_DESIGN = {"flash_fwd": "v2", "flash_dq": "v2", "flash_dkv": "v2"}
 # the bf16 kernel of each on the sagan64 path: a part of its mangled name
-# (flash_fwd_kernel<16, 32>, flash_dq_kernel<__nv_bfloat16, 16, 32>,
+# (flash_fwd_kernel<16, 32>, flash_dq_kernel<16, 32>,
 # flash_dkv_kernel<16, 32>)
 FLASH_ENTRIES = {"flash_fwd": "16flash_fwd_kernelILi16ELi32E",
-                 "flash_dq": "15flash_dq_kernelI13__nv_bfloat16Li16ELi32E",
+                 "flash_dq": "15flash_dq_kernelILi16ELi32E",
                  "flash_dkv": "16flash_dkv_kernelILi16ELi32E"}
 
 
@@ -1648,6 +1732,26 @@ def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
     return row, timing
 
 
+def check_sass(_build, libs):
+    """Phase 1: the Hopper instructions of HOPPER_SASS in each redesigned
+    kernel's entries; fails where an entry lacks one. Returns
+    {library: {demangled entry: {opcode: count}}}."""
+    found = {}
+    for lib_name, (part, opcodes) in HOPPER_SASS.items():
+        counts = _build.sass_counts(_build.sass(libs[lib_name]), opcodes)
+        entries = {e: c for e, c in counts.items() if part in e}
+        if not entries:
+            fail(f"no {part} entry in the SASS of {lib_name}")
+        names = _build.demangle(list(entries))
+        found[lib_name] = dict(zip(names, entries.values()))
+        for name, c in found[lib_name].items():
+            log(f"sass {lib_name} {name}: {c}")
+            missing = [op for op in opcodes if c[op] < 1]
+            if missing:
+                fail(f"{name} holds no {missing} instruction")
+    return found
+
+
 def main() -> int:
     try:
         import torch
@@ -1685,11 +1789,17 @@ def main() -> int:
                 f"{e.get('spill_stores')} B spill stores, "
                 f"{e.get('spill_loads')} B spill loads")
         ptxas += report
+    sass = check_sass(_build, libs)
 
     cfg = celeba64(use_pallas=True, pallas_fused=True)
-    kernels = check_kernels(torch, cfg)
+    kernels = check_kernels(torch, cfg, ptxas)
     kernels[1:1] = check_train_kernels(torch, cfg, kernels[0])
     kernels += check_flash_kernels(torch, ptxas)
+    for entry in kernels:
+        if entry["name"] == "gemm_bias_scale_act":
+            entry["sass"] = sass["gemm_bias_scale_act"]
+        elif entry["name"] == "flash_dq":
+            entry["sass"] = sass["flash_attention"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         row, timing = serve_and_check(torch, np, cfg, workdir, kernels)
         train_report = train_and_check(torch, np, workdir, kernels)

@@ -13,7 +13,7 @@
 //   -1e30, p = exp(s - m_new) in f32, l = l * corr + sum(p) over the f32 p,
 //   acc = acc * corr + (p in the operand dtype) . v; out = acc / l (f32) and
 //   lse = m + log l (f32, natural-log units);
-// - dq, one CTA per (batch, 64 q rows), looping over 64-key tiles:
+// - dq, one CTA per (batch, tile of q rows), looping over key tiles:
 //   p = exp(s - lse), dp = do . v^T, ds = p * (dp - delta),
 //   dq += ((ds in the operand dtype) . k) * scale; dq in q's dtype;
 // - dkv, one CTA per (batch, tile of keys), walking every q tile:
@@ -28,7 +28,7 @@
 // at 1.98 GHz; the bytes (~15 MB for the forward, ~4.5 us) and the bf16
 // products (~5 GFLOP, ~5 us at the wgmma peak) bound it less.
 //
-// bf16 forward and dkv (the sagan64 path). MUFU, which runs ex2, takes 16
+// bf16 forward, dq and dkv (the sagan64 path). MUFU, which runs ex2, takes 16
 // lanes per clock per SM against 128 FP32 lanes, so a score's FP32 work
 // around its ex2 is hidden only if it stays a few instructions. Beside the
 // exponentials each kernel streams its B operands out of shared memory
@@ -39,26 +39,29 @@
 // and do not all overlap. The design:
 // - Tile loads are 16-byte cp.async into row-major shared tiles padded by
 //   16 bytes a row (ldmatrix reads them without bank conflicts), two
-//   stages: the next key tile (forward) or q tile (dkv) is in flight while
-//   this one is computed, with one __syncthreads per tile. The operands the
-//   products need transposed (v for p.v; q and do for dk and dv) are read
-//   from the same row-major tiles with ldmatrix.trans, never copied
-//   transposed. cp.async needs 16-byte rows and pointers: d_qk and d_v
+//   stages: the next key tile (forward, dq) or q tile (dkv) is in flight
+//   while this one is computed, with one __syncthreads per tile. The
+//   operands the products need transposed (v for p.v; k for ds.k; q and do
+//   for dk and dv) are read from the same row-major tiles with
+//   ldmatrix.trans, never copied transposed. cp.async needs 16-byte rows and pointers: d_qk and d_v
 //   multiples of 8 and q, k, v (and do) 16-byte aligned. Any other width or
 //   pointer takes a scalar load path of the same kernel into the same
 //   zero-padded tiles; everything after the load is shared.
-// - p, and in dkv ds, stay in registers: the m16n8 accumulators of two
-//   adjacent n8 tiles, packed with cvt.rn.bf16x2.f32, are the A fragment of
-//   the next k16 product.
+// - p, and in dq and dkv ds, stay in registers: the m16n8 accumulators of
+//   two adjacent n8 tiles, packed with cvt.rn.bf16x2.f32, are the A
+//   fragment of the next k16 product.
 // - exp2: the scores stay raw q . k sums and p = ex2.approx(s * c - m) is
 //   one FFMA and one MUFU op, c = scale * log2(e), the running max m kept in
 //   log2 units (a negative scale is moved into q's fragments, an exact sign
 //   flip, so the max is taken with c > 0). lse = (m + log2 l) * ln 2 is
-//   written in natural-log units for dq and the plain versions; dkv stages
-//   lse * log2(e) once per q row and scales dk once, at the write.
-// - Only the forward's ragged last key tile is masked (keys past S score
-//   -inf). dkv masks nothing: q rows past S are zero-filled and read
-//   lse = +inf (p = 0) and delta = 0.
+//   written in natural-log units for the backward and the plain versions;
+//   dq and dkv take lse * log2(e) once per q row, p = ex2(s * c - lse2)
+//   (no max, so a negative c is used as it is), and scale dq and dk once,
+//   at the write.
+// - Only the ragged last key tile of the forward and of dq is masked (keys
+//   past S score -inf, or get p = 0). dkv masks nothing: q rows past S are
+//   zero-filled and read lse = +inf (p = 0) and delta = 0, as dq's rows
+//   past S do.
 // - Forward: 4 warps per CTA, each owning two 16-row m tiles (128 q rows
 //   per CTA), walking 128-key tiles; q's A fragments are held in registers
 //   for the whole walk, and each k or v fragment read from shared memory
@@ -73,9 +76,17 @@
 //   dk += ds^T . q; q rows are taken 16 at a time, so the registers do not
 //   grow with the q tile, and dk's products run only over the n8 tiles
 //   d_qk needs.
-// - Tile shapes from a tile sweep on the card (PERF.md): 128-key forward
+// - dq: 8 warps per CTA, each owning two 16-row m tiles (256 q rows per
+//   CTA), walking 128-key tiles 16 keys at a time; q's and do's A
+//   fragments are held in registers for the whole walk, s and dp of one
+//   16-key step live only for that step (so the registers do not grow with
+//   the key tile), and each k or v fragment read from shared memory feeds
+//   both m tiles' products; dq's products run only over the n8 tiles d_qk
+//   needs (one at d_qk = 8).
+// - Tile shapes from tile sweeps on the card (PERF.md): 128-key forward
 //   tiles 6-14 % faster than 64, two m tiles per warp 3-5 % faster than
-//   one in the forward and 1-4 % in dkv.
+//   one in the forward and 1-4 % in dkv; dq's constants from its own
+//   sweep.
 //   The narrow heads' kernels (d_qk <= 16, d_v <= 32) use 255 and 176
 //   registers and keep 8 warps per SM; the wide heads keep one m tile per
 //   warp, as two would not fit in 255 registers.
@@ -84,19 +95,17 @@
 //   the wgmma peak take ~5 us of the 16 us bound; mma.sync with p in
 //   registers keeps them below the exponentials in the forward.
 //
-// dq, and the f32 instantiations of all three kernels (the exact-f32 test
-// path), keep the first design: each of the 4 warps of a CTA owns 16 rows of
-// the CTA's tile; products are 16 x 8 output tiles from shared memory, in
-// bf16 one `mma.sync.m16n8k16` per 16-deep step (the narrow heads are
-// zero-padded to 16 or 64 in shared memory, and d_v to 32 or 128), in f32
-// the same output fragment computed with f32 FMAs, so the f32 path is exact
-// f32 (no TF32). Score fragments are reduced across the 4 lanes that share
-// a row with shuffles; ds goes through a per-warp shared tile in the operand
-// dtype to become the next product's A operand. Tiles are loaded element by
-// element, k transposed by the copy. Keys past S score -inf (p = 0), q rows
-// past S read lse = +inf and delta = 0, and rows past S are not written.
-// Still to do for speed: dq on the lines of the bf16 dkv above; wgmma and
-// TMA for all three.
+// The f32 kernels of all three (the exact-f32 test path) keep the first
+// design: each of the 4 warps of a CTA owns 16 rows of the CTA's tile;
+// products are 16 x 8 output tiles from shared memory computed with f32
+// FMAs in the m16n8 fragment layout (the narrow heads zero-padded to 16 or
+// 64 in shared memory, and d_v to 32 or 128), so the f32 path is exact f32
+// (no TF32). Score fragments are reduced across the 4 lanes that share a
+// row with shuffles; p and ds go through a per-warp shared tile to become
+// the next product's A operand. Tiles are loaded element by element, k
+// transposed by the copy. Keys past S score -inf (p = 0), q rows past S
+// read lse = +inf and delta = 0, and rows past S are not written.
+// Still to do for speed: wgmma with a producer warp and TMA for all three.
 
 #include <cmath>
 #include <cstdint>
@@ -116,39 +125,13 @@ constexpr int kTile = kWarps * kRows;  // q rows (fwd, dq) / keys (dkv) per CTA
 constexpr int kInner = 64;             // keys (fwd, dq) / q rows (dkv) per step
 constexpr float kNegInf = -1e30f;      // the running max's start (_NEG_INF)
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// C[16 x 8] += A[16 x 16 ksteps] . Bt[8 x 16 ksteps]^T for one warp, A and
-// Bt row-major in shared memory with leading dimensions lda, ldb (even).
+// C[16 x 8] += A[16 x 16 ksteps] . Bt[8 x 16 ksteps]^T for one warp in f32
+// FMAs, A and Bt row-major in shared memory with leading dimensions lda,
+// ldb.
 // The accumulator is the mma.sync m16n8 fragment: lane (g = lane / 4,
 // t = lane % 4) holds c[0], c[1] at row g, columns 2t, 2t + 1 and c[2], c[3]
 // at row g + 8.
 template <typename T> struct WarpMma;
-
-template <> struct WarpMma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(
-      const __nv_bfloat16* a, int lda, const __nv_bfloat16* bt, int ldb,
-      int ksteps, float c[4]) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const __nv_bfloat16* a_lo = a + g * lda + 2 * t;
-    const __nv_bfloat16* a_hi = a_lo + 8 * lda;
-    const __nv_bfloat16* b = bt + g * ldb + 2 * t;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int k0 = ks * 16;
-      const uint32_t a0 = ld32(a_lo + k0), a1 = ld32(a_hi + k0);
-      const uint32_t a2 = ld32(a_lo + k0 + 8), a3 = ld32(a_hi + k0 + 8);
-      const uint32_t b0 = ld32(b + k0), b1 = ld32(b + k0 + 8);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};\n"
-          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-    }
-  }
-};
 
 template <> struct WarpMma<float> {
   static __device__ __forceinline__ void run(const float* a, int lda,
@@ -340,46 +323,50 @@ flash_fwd_simt_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// dq
+// dq, f32
 // ---------------------------------------------------------------------------
 
-template <typename T, int DKP, int DVP>
+template <int DKP, int DVP>
 struct DqSmem {
-  static constexpr int kLdK = DKP + pad<T>();     // q_s, k_s
-  static constexpr int kLdV = DVP + pad<T>();     // do_s, v_s
-  static constexpr int kLdT = kInner + pad<T>();  // kt_s, ds_s
+  static constexpr int kLdK = DKP + pad<float>();     // q_s, k_s
+  static constexpr int kLdV = DVP + pad<float>();     // do_s, v_s
+  static constexpr int kLdT = kInner + pad<float>();  // kt_s, ds_s
   static constexpr int kBytes =
-      (int)sizeof(T) * ((kTile + kInner) * (kLdK + kLdV) + DKP * kLdT
+      (int)sizeof(float) * ((kTile + kInner) * (kLdK + kLdV) + DKP * kLdT
                         + kWarps * kRows * kLdT);
 };
 
-template <typename T, int DKP, int DVP>
+template <int DKP, int DVP>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S,
-                int dk, int dv, float scale) {
-  using L = DqSmem<T, DKP, DVP>;
+flash_dq_simt_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq, int S, int dk, int dv,
+                     float scale) {
+  using L = DqSmem<DKP, DVP>;
   constexpr int NS = kInner / 8, NQ = DKP / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);        // [kTile][kLdK]
-  T* do_s = q_s + kTile * L::kLdK;            // [kTile][kLdV]
-  T* k_s = do_s + kTile * L::kLdV;            // [kInner][kLdK]
-  T* v_s = k_s + kInner * L::kLdK;            // [kInner][kLdV]
-  T* kt_s = v_s + kInner * L::kLdV;           // [DKP][kLdT], k transposed
-  T* ds_s = kt_s + DKP * L::kLdT;             // [kWarps][kRows][kLdT]
+  float* q_s = reinterpret_cast<float*>(smem);  // [kTile][kLdK]
+  float* do_s = q_s + kTile * L::kLdK;          // [kTile][kLdV]
+  float* k_s = do_s + kTile * L::kLdV;          // [kInner][kLdK]
+  float* v_s = k_s + kInner * L::kLdK;          // [kInner][kLdV]
+  float* kt_s = v_s + kInner * L::kLdV;         // [DKP][kLdT], k transposed
+  float* ds_s = kt_s + DKP * L::kLdT;           // [kWarps][kRows][kLdT]
 
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5;
-  const T* kb = k + (int64_t)b * S * dk;
-  const T* vb = v + (int64_t)b * S * dv;
-  load_rows<T, DKP>(q_s, L::kLdK, q + (int64_t)b * S * dk, q0, S, dk, kTile);
-  load_rows<T, DVP>(do_s, L::kLdV, dout + (int64_t)b * S * dv, q0, S, dv,
-                    kTile);
-  const T* q_w = q_s + warp * kRows * L::kLdK;
-  const T* do_w = do_s + warp * kRows * L::kLdV;
-  T* ds_w = ds_s + warp * kRows * L::kLdT;
+  const float* kb = k + (int64_t)b * S * dk;
+  const float* vb = v + (int64_t)b * S * dv;
+  load_rows<float, DKP>(q_s, L::kLdK, q + (int64_t)b * S * dk, q0, S, dk,
+                        kTile);
+  load_rows<float, DVP>(do_s, L::kLdV, dout + (int64_t)b * S * dv, q0, S, dv,
+                        kTile);
+  const float* q_w = q_s + warp * kRows * L::kLdK;
+  const float* do_w = do_s + warp * kRows * L::kLdV;
+  float* ds_w = ds_s + warp * kRows * L::kLdT;
 
   const int row0 = q0 + warp * kRows;
   float lse_r[2], delta_r[2];
@@ -397,19 +384,19 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < S; j0 += kInner) {
     __syncthreads();
-    load_rows<T, DKP>(k_s, L::kLdK, kb, j0, S, dk, kInner);
-    load_rows<T, DVP>(v_s, L::kLdV, vb, j0, S, dv, kInner);
-    load_cols<T, DKP>(kt_s, L::kLdT, kb, j0, S, dk, kInner);
+    load_rows<float, DKP>(k_s, L::kLdK, kb, j0, S, dk, kInner);
+    load_rows<float, DVP>(v_s, L::kLdV, vb, j0, S, dv, kInner);
+    load_cols<float, DKP>(kt_s, L::kLdT, kb, j0, S, dk, kInner);
     __syncthreads();
 
     float ds[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      WarpMma<T>::run(q_w, L::kLdK, k_s + n * 8 * L::kLdK, L::kLdK,
-                      DKP / 16, s);
-      WarpMma<T>::run(do_w, L::kLdV, v_s + n * 8 * L::kLdV, L::kLdV,
-                      DVP / 16, dp);
+      WarpMma<float>::run(q_w, L::kLdK, k_s + n * 8 * L::kLdK, L::kLdK,
+                          DKP / 16, s);
+      WarpMma<float>::run(do_w, L::kLdV, v_s + n * 8 * L::kLdV, L::kLdV,
+                          DVP / 16, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = j0 + frag_col(n, i) < S
@@ -417,13 +404,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ds[n][i] = p * (dp[i] - delta_r[i >> 1]);
       }
     }
-    store_frags<T, NS>(ds_w, L::kLdT, ds);
+    store_frags<float, NS>(ds_w, L::kLdT, ds);
     __syncwarp();
 #pragma unroll
     for (int n = 0; n < NQ; ++n) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
-      WarpMma<T>::run(ds_w, L::kLdT, kt_s + n * 8 * L::kLdT, L::kLdT,
-                      kInner / 16, part);
+      WarpMma<float>::run(ds_w, L::kLdT, kt_s + n * 8 * L::kLdT, L::kLdT,
+                          kInner / 16, part);
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] += part[i] * scale;
     }
@@ -435,7 +422,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + frag_row(i), col = frag_col(n, i);
       if (row < S && col < dk)
-        dq[((int64_t)b * S + row) * dk + col] = from_float<T>(acc[n][i]);
+        dq[((int64_t)b * S + row) * dk + col] = acc[n][i];
     }
 }
 
@@ -581,10 +568,15 @@ constexpr int kDkvWarps = 8;
 constexpr int kDkvThreads = kDkvWarps * 32;
 constexpr int kDkvMTiles = 2;   // 16-key m tiles per warp (narrow heads)
 constexpr int kDkvRows = 64;                    // q rows per tile
+constexpr int kDqWarps = 8;
+constexpr int kDqThreads = kDqWarps * 32;
+constexpr int kDqKeys = 128;    // keys per tile
+constexpr int kDqMTiles = 2;    // 16-row m tiles per warp (narrow heads)
 constexpr int kPadH = 8;                        // 16 bytes of row padding
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-static_assert(kFwdKeys % 16 == 0 && kDkvRows <= kDkvThreads,
+static_assert(kFwdKeys % 16 == 0 && kDqKeys % 16 == 0
+                  && kDkvRows <= kDkvThreads,
               "tile constants");
 
 // 16-row m tiles per warp: the tile constant for the narrow heads
@@ -1182,6 +1174,206 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DKP, int DVP>
+struct DqLayout {
+  static constexpr int kMT = mtiles<DKP, DVP, kDqMTiles>();
+  static constexpr int kRowsCta = kDqWarps * kMT * kRows;  // q rows
+  static constexpr int kLdK = DKP + kPadH, kLdV = DVP + kPadH;
+  static constexpr int kStage = kDqKeys * (kLdK + kLdV);  // k, v elements
+  static constexpr int kBytes =
+      2 * (kRowsCta * (kLdK + kLdV) + 2 * kStage);
+};
+
+// One warp's kMT x 16 q rows against one key tile, 16 keys at a time:
+// s = q . k^T and dp = do . v^T (k and v read with ldmatrix),
+// p = ex2(s * c - lse2), ds = p * (dp - delta) packed into the A fragment
+// of dq += bf16(ds) . k (the same k tile read with ldmatrix.trans), over
+// only the n8 tiles d_qk needs; each k or v fragment serves every m tile.
+// MASK: keys past S get p = 0 (their k and v rows are zero-filled, but
+// ex2(-lse2) alone could overflow).
+template <int DKP, int DVP, bool MASK, int MT>
+__device__ __forceinline__ void dq_tile(
+    const uint32_t (&qa)[MT][DKP / 16][4],
+    const uint32_t (&doa)[MT][DVP / 16][4], const bf16* k_t,
+    const bf16* v_t, int j0, int S, float c, int dk,
+    const float (&lse2)[MT][2], const float (&dlt)[MT][2],
+    float (&acc)[MT][DKP / 8][4]) {
+  using L = DqLayout<DKP, DVP>;
+  const int t2 = 2 * (threadIdx.x & 3);
+  const uint32_t k_b = smem_u32(k_t + b_row() * L::kLdK + b_col());
+  const uint32_t v_b = smem_u32(v_t + b_row() * L::kLdV + b_col());
+  const uint32_t k_a = smem_u32(k_t + a_row() * L::kLdK + a_col());
+#pragma unroll
+  for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+    float s[MT][2][4], dp[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][n][i] = dp[mt][n][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DKP / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, k_b + 2 * (kk * 16 * L::kLdK + ks * 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(s[mt][0], qa[mt][ks], b[0], b[1]);
+        mma_bf16(s[mt][1], qa[mt][ks], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < DVP / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, v_b + 2 * (kk * 16 * L::kLdV + ks * 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(dp[mt][0], doa[mt][ks], b[0], b[1]);
+        mma_bf16(dp[mt][1], doa[mt][ks], b[2], b[3]);
+      }
+    }
+    uint32_t da[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = ex2(fmaf(s[mt][n][i], c, -lse2[mt][i >> 1]));
+          if (MASK && j0 + kk * 16 + n * 8 + t2 + (i & 1) >= S) p = 0.f;
+          x[i] = p * (dp[mt][n][i] - dlt[mt][i >> 1]);
+        }
+        da[mt][2 * n] = pack_bf16(x[0], x[1]);
+        da[mt][2 * n + 1] = pack_bf16(x[2], x[3]);
+      }
+#pragma unroll
+    for (int nk = 0; nk < DKP / 16; ++nk) {
+      const uint32_t addr = k_a + 2 * (kk * 16 * L::kLdK + nk * 16);
+      if (nk * 16 + 8 < dk) {
+        uint32_t b[4];
+        ldsm_x4_t(b, addr);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * nk], da[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * nk + 1], da[mt], b[2], b[3]);
+        }
+      } else if (nk * 16 < dk) {
+        uint32_t b[2];
+        ldsm_x2_t(b, addr);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_bf16(acc[mt][2 * nk], da[mt], b[0], b[1]);
+      }
+    }
+  }
+}
+
+// vec: the 16-byte load path (see load_tile)
+template <int DKP, int DVP>
+__global__ void __launch_bounds__(
+    kDqThreads,
+    (MinBlocks<DKP, DVP, kDqWarps, DqLayout<DKP, DVP>::kMT>::value))
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                int S, int dk, int dv, float scale, int vec) {
+  using L = DqLayout<DKP, DVP>;
+  constexpr int MT = L::kMT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kRowsCta][kLdK]
+  bf16* do_s = q_s + L::kRowsCta * L::kLdK;   // [kRowsCta][kLdV]
+  bf16* kv_s = do_s + L::kRowsCta * L::kLdV;  // 2 x (k [kDqKeys][kLdK],
+                                              //      v [kDqKeys][kLdV])
+  const int b = blockIdx.y, q0 = blockIdx.x * L::kRowsCta;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* kb = k + (int64_t)b * S * dk;
+  const bf16* vb = v + (int64_t)b * S * dv;
+  const int tiles = (S + kDqKeys - 1) / kDqKeys;
+  auto load_kv = [&](int t) {
+    bf16* k_t = kv_s + (t & 1) * L::kStage;
+    load_tile<kDqKeys, DKP, kDqThreads>(k_t, L::kLdK, kb, t * kDqKeys, S,
+                                        dk, vec);
+    load_tile<kDqKeys, DVP, kDqThreads>(k_t + kDqKeys * L::kLdK, L::kLdV,
+                                        vb, t * kDqKeys, S, dv, vec);
+    cp_async_commit();
+  };
+
+  load_tile<L::kRowsCta, DKP, kDqThreads>(
+      q_s, L::kLdK, q + (int64_t)b * S * dk, q0, S, dk, vec);
+  load_tile<L::kRowsCta, DVP, kDqThreads>(
+      do_s, L::kLdV, dout + (int64_t)b * S * dv, q0, S, dv, vec);
+  load_kv(0);
+  // lse in log2 units and delta of this lane's rows, read while the tiles
+  // load; rows past S take lse = +inf (p = 0) and delta = 0
+  float lse2[MT][2], dlt[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + (warp * MT + mt) * kRows + (lane >> 2) + 8 * r;
+      lse2[mt][r] = row < S ? lse[(int64_t)b * S + row] * kLog2e : INFINITY;
+      dlt[mt][r] = row < S ? delta[(int64_t)b * S + row] : 0.f;
+    }
+  cp_async_wait_all();
+  __syncthreads();
+  // this warp's q and do rows as A fragments for the whole walk
+  uint32_t qa[MT][DKP / 16][4], doa[MT][DVP / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = (warp * MT + mt) * kRows + a_row();
+#pragma unroll
+    for (int ks = 0; ks < DKP / 16; ++ks)
+      ldsm_x4(qa[mt][ks], smem_u32(q_s + row * L::kLdK + ks * 16 + a_col()));
+#pragma unroll
+    for (int ks = 0; ks < DVP / 16; ++ks)
+      ldsm_x4(doa[mt][ks],
+              smem_u32(do_s + row * L::kLdV + ks * 16 + a_col()));
+  }
+
+  float acc[MT][DKP / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < DKP / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][n][i] = 0.f;
+  const float c = scale * kLog2e;
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait_all();  // tile t is in; every warp is done with t - 1
+      __syncthreads();
+    }
+    if (t + 1 < tiles) load_kv(t + 1);
+    const bf16* k_t = kv_s + (t & 1) * L::kStage;
+    const bf16* v_t = k_t + kDqKeys * L::kLdK;
+    const int j0 = t * kDqKeys;
+    if (j0 + kDqKeys > S)
+      dq_tile<DKP, DVP, true>(qa, doa, k_t, v_t, j0, S, c, dk, lse2, dlt,
+                              acc);
+    else
+      dq_tile<DKP, DVP, false>(qa, doa, k_t, v_t, j0, S, c, dk, lse2, dlt,
+                               acc);
+  }
+
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row0 = q0 + (warp * MT + mt) * kRows + (lane >> 2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      bf16* o = dq + ((int64_t)b * S + row) * dk;
+#pragma unroll
+      for (int n = 0; n < DKP / 8; ++n)
+        store_pair(o, n * 8 + 2 * t4, dk, acc[mt][n][2 * r] * scale,
+                   acc[mt][n][2 * r + 1] * scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -1210,7 +1402,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// bf16 forward and dkv
+// bf16 forward, dq and dkv
 template <int DKP, int DVP>
 cudaError_t launch_bf16(Which which, const Args& a) {
   const bf16* q = static_cast<const bf16*>(a.q);
@@ -1229,6 +1421,14 @@ cudaError_t launch_bf16(Which which, const Args& a) {
     flash_fwd_kernel<DKP, DVP><<<grid, kFwdThreads, bytes, a.stream>>>(
         q, k, v, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
         a.s, a.dk, a.dv, a.scale * kLog2e, vec);
+  } else if (which == kDq) {
+    const int bytes = DqLayout<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_dq_kernel<DKP, DVP>, bytes))) return err;
+    constexpr int rows = DqLayout<DKP, DVP>::kRowsCta;
+    const dim3 grid((a.s + rows - 1) / rows, a.b);
+    flash_dq_kernel<DKP, DVP><<<grid, kDqThreads, bytes, a.stream>>>(
+        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta,
+        static_cast<bf16*>(a.out0), a.s, a.dk, a.dv, a.scale, vec);
   } else {
     const int bytes = DkvLayout<DKP, DVP>::kBytes;
     if ((err = prepare(flash_dkv_kernel<DKP, DVP>, bytes))) return err;
@@ -1242,39 +1442,43 @@ cudaError_t launch_bf16(Which which, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DKP, int DVP>
-cudaError_t launch(Which which, const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (which != kDq) return launch_bf16<DKP, DVP>(which, a);
-  }
+// f32 forward, dq and dkv
+template <int DKP, int DVP>
+cudaError_t launch_f32(Which which, const Args& a) {
   const dim3 grid((a.s + kTile - 1) / kTile, a.b);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* d = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d = static_cast<const float*>(a.dout);
   cudaError_t err;
-  if (which == kDq) {
-    const int bytes = DqSmem<T, DKP, DVP>::kBytes;
-    if ((err = prepare(flash_dq_kernel<T, DKP, DVP>, bytes))) return err;
-    flash_dq_kernel<T, DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.out0), a.s, a.dk,
+  if (which == kFwd) {
+    const int bytes = FwdSmem<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_fwd_simt_kernel<DKP, DVP>, bytes))) return err;
+    flash_fwd_simt_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
+        q, k, v, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+        a.s, a.dk, a.dv, a.scale);
+  } else if (which == kDq) {
+    const int bytes = DqSmem<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_dq_simt_kernel<DKP, DVP>, bytes))) return err;
+    flash_dq_simt_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<float*>(a.out0), a.s, a.dk,
         a.dv, a.scale);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (which == kFwd) {
-      const int bytes = FwdSmem<DKP, DVP>::kBytes;
-      if ((err = prepare(flash_fwd_simt_kernel<DKP, DVP>, bytes))) return err;
-      flash_fwd_simt_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
-          q, k, v, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
-          a.s, a.dk, a.dv, a.scale);
-    } else {
-      const int bytes = DkvSmem<DKP, DVP>::kBytes;
-      if ((err = prepare(flash_dkv_simt_kernel<DKP, DVP>, bytes))) return err;
-      flash_dkv_simt_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
-          q, k, v, d, a.lse, a.delta, static_cast<float*>(a.out0),
-          static_cast<float*>(a.out1), a.s, a.dk, a.dv, a.scale);
-    }
+  } else {
+    const int bytes = DkvSmem<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_dkv_simt_kernel<DKP, DVP>, bytes))) return err;
+    flash_dkv_simt_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.s, a.dk, a.dv, a.scale);
   }
   return cudaGetLastError();
+}
+
+template <typename T, int DKP, int DVP>
+cudaError_t launch(Which which, const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_bf16<DKP, DVP>(which, a);
+  else
+    return launch_f32<DKP, DVP>(which, a);
 }
 
 // The head widths are padded to one of two sizes each: d_qk to 16 (SAGAN's

@@ -13,7 +13,9 @@ keyed by a hash of every source and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused. All sources compile at once, one
 nvcc process each. Each library's ptxas report (registers, shared memory,
 spills) is kept beside it as `<lib>.log`; `ptxas_report` reads it per
-kernel.
+kernel. `sass_counts` counts chosen instructions per kernel in
+`cuobjdump -sass` of a built library (`sass`), to show which hardware
+units a kernel's machine code uses.
 """
 
 from __future__ import annotations
@@ -129,6 +131,38 @@ def ptxas_report(text: str) -> List[Dict[str, object]]:
         if m:
             entries[-1]["registers"] = int(m.group(1))
     return entries
+
+
+def sass_counts(text: str, opcodes: Sequence[str]
+                ) -> Dict[str, Dict[str, int]]:
+    """{kernel: {opcode: count}} over the `Function : <mangled name>`
+    sections of `cuobjdump -sass` output: an instruction counts for an
+    opcode it equals or extends with modifiers (HGMMA counts
+    `HGMMA.64x256x16.F32.BF16`, MUFU.EX2 counts `MUFU.EX2`, not
+    `MUFU.RCP`); a predicate guard (`@P0`, `@!UPT`) is skipped."""
+    out: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            counts = out.setdefault(m.group(1), dict.fromkeys(opcodes, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if counts is None or not m:
+            continue
+        op = m.group(1)
+        for name in opcodes:
+            if op == name or op.startswith(name + "."):
+                counts[name] += 1
+    return out
+
+
+def sass(library: Path) -> str:
+    """`cuobjdump -sass` (beside nvcc) of a built library."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def demangle(names: Sequence[str]) -> List[str]:

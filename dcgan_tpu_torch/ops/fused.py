@@ -12,7 +12,8 @@ Two GEMM kernels, each with its plain version for CPU tensors:
 - `gemm_bias_scale_act` runs the whole inference stage,
   act((P @ W + b) * scale + shift), in one pass: on a CUDA tensor the
   `csrc/gemm_bias_scale_act.cu` kernel (which replaces the TPU kernel
-  `_gemm_bias_scale_act_kernel`);
+  `_gemm_bias_scale_act_kernel`), in the design and tiles that
+  `gbsa_plan` picks;
 - `gemm_bias_moments` is the train stage's forward, u = P @ W + b in f32
   with the per-channel (E[v], E[v^2]) of v = u in the compute dtype: on a
   CUDA tensor `csrc/gemm_bias_moments.cu` (replacing
@@ -26,7 +27,7 @@ the `scale_shift_act` epilogue (ops/kernels.py).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +129,85 @@ def _check_gemm_operands(p2d: torch.Tensor, w2d: torch.Tensor) -> None:
                          f"M={m} K={k} C={c}")
 
 
+# csrc/gemm_bias_scale_act.cu::Design
+GBSA_DESIGNS = {"simt": 0, "v1": 1, "v2": 2}
+# The v2 kernel's tile constants (csrc/gemm_wgmma.cuh: kBM, kMaxStages,
+# kBK, kSmemBudget); the launch refuses a plan that disagrees with them
+GBSA_V2_BM = 128
+GBSA_V2_MAX_STAGES = 6
+GBSA_V2_BK = 64
+GBSA_V2_SMEM_BUDGET = 200 * 1024
+# v2: at least this many 64-deep K blocks per split
+GBSA_V2_MIN_KB_PER_SPLIT = 8
+
+
+class GbsaPlan(NamedTuple):
+    """A launch of the gemm_bias_scale_act kernel: the design, the output
+    tile (bm rows, bn columns), the depth of its shared-memory ring, and
+    how many split-K groups sum disjoint K ranges (1: none)."""
+    design: str
+    bm: int
+    bn: int
+    stages: int
+    splits: int
+
+    def ctas(self, m: int, c: int) -> int:
+        """CTAs of the main kernel for an [m, c] output."""
+        return (-(-m // self.bm)) * (-(-c // self.bn)) * self.splits
+
+
+def gbsa_plan(m: int, k: int, c: int, in_dtype: torch.dtype, aligned: bool,
+              sm_count: int) -> GbsaPlan:
+    """The launch plan of gemm_bias_scale_act for P [m, k] @ W [k, c] with
+    operands of `in_dtype`. A dispatch by shape and alignment:
+
+    - float32 operands: "simt", 64 x 64 f32 FMA tiles, no split;
+    - bfloat16 with `aligned` (k and c multiples of 8, P and W 16-byte
+      aligned: TMA's rule for global strides and base): "v2", TMA-fed
+      wgmma on GBSA_V2_BM-row tiles whose columns are all of c up to 256
+      (bn 64, 128 or 256), so P is read once; the ring as deep as
+      GBSA_V2_MAX_STAGES and the CTA's share of the shared memory allow
+      (two CTAs per SM at bn 64, one otherwise);
+    - other bfloat16 shapes: "v1", 128 x 128 WMMA tiles (128 x 64 when
+      c <= 64) behind a two-stage ring.
+
+    Both bf16 designs split K (in powers of 2) while the doubled CTA count
+    still fits on the card at once (two CTAs per SM for v1 and for v2 at
+    bn 64, one otherwise) and each split keeps enough of K: 256 for v1,
+    GBSA_V2_MIN_KB_PER_SPLIT 64-deep blocks for v2."""
+    if min(m, k, c) < 1 or sm_count < 1:
+        raise ValueError(f"gbsa_plan needs positive m, k, c and sm_count, "
+                         f"got {m}, {k}, {c}, {sm_count}")
+    if in_dtype == torch.float32:
+        return GbsaPlan("simt", 64, 64, 1, 1)
+    if in_dtype != torch.bfloat16:
+        raise TypeError(f"in_dtype must be float32 or bfloat16, got "
+                        f"{in_dtype}")
+    if aligned and (k % 8 or c % 8):
+        raise ValueError(f"aligned operands need k and c multiples of 8, "
+                         f"got k={k}, c={c}")
+    if aligned:
+        bn = 64 if c <= 64 else 128 if c <= 128 else 256
+        per_sm = 2 if bn == 64 else 1
+        stage_bytes = (GBSA_V2_BM + bn) * GBSA_V2_BK * 2
+        stages = min(GBSA_V2_MAX_STAGES,
+                     GBSA_V2_SMEM_BUDGET // per_sm // stage_bytes)
+        plan = GbsaPlan("v2", GBSA_V2_BM, bn, stages, 1)
+        resident = per_sm * sm_count
+        depth = -(-k // GBSA_V2_BK)
+        per_split = GBSA_V2_MIN_KB_PER_SPLIT
+    else:
+        bn = 64 if c <= 64 else 128
+        plan = GbsaPlan("v1", 128, bn, 2, 1)
+        resident = 2 * sm_count
+        depth, per_split = k, 256
+    splits = 1
+    while plan.ctas(m, c) * 2 * splits <= resident \
+            and depth >= 2 * splits * per_split:
+        splits *= 2
+    return plan._replace(splits=splits)
+
+
 def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
                         b: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, act: str = "none",
@@ -138,8 +218,11 @@ def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
     [C] vectors, accumulated in f32, returned in `out_dtype`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot). `gemm_bias_scale_act.launches` counts
-    launches."""
+    (and raises if it cannot) in the design `gbsa_plan` picks: bf16
+    operands whose K and C are multiples of 8 and whose data pointers are
+    16-byte aligned take v2 (TMA and wgmma), other bf16 operands v1
+    (WMMA), f32 operands the SIMT kernel. `gemm_bias_scale_act.launches`
+    counts launches, `.launches_by_design` them by design."""
     check_act(act)
     _check_gemm(p2d, w2d, out_dtype)
     if p2d.device.type == "cpu":
@@ -152,27 +235,30 @@ def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
     b = channel_vector("b", b, c, dev)
     scale = channel_vector("scale", scale, c, dev)
     shift = channel_vector("shift", shift, c, dev)
-    in_code = DTYPE_CODES[p2d.dtype]
-    splits = c_function("gemm_bias_scale_act",
-                        "dcgan_gemm_bias_scale_act_splits")(
-        m, k, c, in_code, sm_count(dev))
+    aligned = (k % 8 == 0 and c % 8 == 0 and p2d.data_ptr() % 16 == 0
+               and w2d.data_ptr() % 16 == 0)
+    plan = gbsa_plan(m, k, c, p2d.dtype, aligned, sm_count(dev))
     y = torch.empty((m, c), dtype=out_dtype, device=dev)
     # split-K partial sums, summed in split order by the kernel's finish
-    ws = torch.empty((splits, m, c), dtype=torch.float32,
-                     device=dev) if splits > 1 else None
+    ws = torch.empty((plan.splits, m, c), dtype=torch.float32,
+                     device=dev) if plan.splits > 1 else None
     fn = c_function("gemm_bias_scale_act", "dcgan_gemm_bias_scale_act")
     with torch.cuda.device(dev):
         err = fn(p2d.data_ptr(), w2d.data_ptr(), b.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
-                 ws.data_ptr() if ws is not None else None, splits, m, k, c,
-                 in_code, DTYPE_CODES[out_dtype], ACT_CODES[act],
-                 float(leak), stream_of(dev))
+                 ws.data_ptr() if ws is not None else None,
+                 GBSA_DESIGNS[plan.design], plan.bm, plan.bn, plan.stages,
+                 plan.splits, m, k, c, DTYPE_CODES[p2d.dtype],
+                 DTYPE_CODES[out_dtype], ACT_CODES[act], float(leak),
+                 stream_of(dev))
     check_launch("gemm_bias_scale_act", err)
     gemm_bias_scale_act.launches += 1
+    gemm_bias_scale_act.launches_by_design[plan.design] += 1
     return y
 
 
 gemm_bias_scale_act.launches = 0
+gemm_bias_scale_act.launches_by_design = dict.fromkeys(GBSA_DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

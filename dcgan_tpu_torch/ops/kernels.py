@@ -55,10 +55,9 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I, _I64, _I, _I, _F, _P]),
     "dcgan_channel_moments_chunks": [_I64, _I, _I],
     "dcgan_gemm_bias_scale_act": (
-        # p, w, bias, scale, shift, y, ws, splits, m, k, c, in_dtype,
-        # out_dtype, act, leak, stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "dcgan_gemm_bias_scale_act_splits": [_I] * 5,   # m, k, c, in_dtype, sms
+        # p, w, bias, scale, shift, y, ws, design, bm, bn, stages, splits,
+        # m, k, c, in_dtype, out_dtype, act, leak, stream
+        [_P] * 7 + [_I] * 11 + [_F, _P]),
     "dcgan_gemm_bias_moments": (
         # p, w, bias, u, mean, mean_sq, ws, part, splits, parts, m, k, c,
         # in_dtype, round_bf16, inv_m, stream

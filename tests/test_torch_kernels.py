@@ -22,6 +22,8 @@ does not need). This module imports JAX only inside the fixture that needs
 it, so those runs collect it without JAX.
 """
 
+import math
+import re
 import types
 
 import numpy as np
@@ -197,6 +199,76 @@ class TestGemmBiasScaleActPlain:
         with pytest.raises(TypeError, match="out_dtype"):
             fused.gemm_bias_scale_act(torch.zeros(4, 5), w, v, v, v,
                                       out_dtype=torch.float16)
+
+
+class TestGbsaPlan:
+    """The launch plan of gemm_bias_scale_act (`fused.gbsa_plan`): a
+    dispatch by dtype, shape and alignment, pinned on an H100's 132 SMs."""
+
+    # celeba64's three served stages at batch 64: (M, K, C)
+    CELEBA64 = [(4096, 12800, 256), (16384, 6400, 128), (65536, 3200, 64)]
+
+    @pytest.mark.parametrize("mkc", CELEBA64)
+    def test_celeba64_stages_take_v2_with_all_of_c(self, mkc):
+        m, k, c = mkc
+        plan = fused.gbsa_plan(m, k, c, torch.bfloat16, True, 132)
+        assert plan.design == "v2" and plan.bn == c
+        assert plan.bm == fused.GBSA_V2_BM
+        assert 2 <= plan.stages <= fused.GBSA_V2_MAX_STAGES
+        # the CTAs fill the card (within one CTA per 32 SMs of a full
+        # wave) and a doubled split would not fit at once
+        resident = 132 * (2 if plan.bn == 64 else 1)
+        assert plan.ctas(m, c) >= 132 * 31 // 32
+        assert plan.splits == 1 or 2 * plan.ctas(m, c) > resident
+        # every split keeps at least its share of K blocks
+        blocks = -(-k // fused.GBSA_V2_BK)
+        assert blocks >= plan.splits * fused.GBSA_V2_MIN_KB_PER_SPLIT
+
+    def test_first_stage_splits_k(self):
+        plan = fused.gbsa_plan(4096, 12800, 256, torch.bfloat16, True, 132)
+        assert (plan.splits, plan.ctas(4096, 256)) == (4, 128)
+
+    @pytest.mark.parametrize("mkc, aligned", [
+        ((100, 37, 70), False),      # K and C not multiples of 8
+        ((1000, 200, 72), False),    # aligned shape, unaligned pointers
+        ((4096, 12800, 256), False)])
+    def test_unaligned_takes_v1(self, mkc, aligned):
+        m, k, c = mkc
+        plan = fused.gbsa_plan(m, k, c, torch.bfloat16, aligned, 132)
+        assert plan.design == "v1" and plan.bm == 128 and plan.stages == 2
+        assert plan.bn == (64 if c <= 64 else 128)
+
+    def test_aligned_ragged_shape_takes_v2(self):
+        plan = fused.gbsa_plan(1000, 200, 72, torch.bfloat16, True, 132)
+        assert plan == fused.GbsaPlan("v2", fused.GBSA_V2_BM, 128,
+                                      plan.stages, 1)
+
+    def test_f32_takes_simt_unsplit(self):
+        assert fused.gbsa_plan(4096, 12800, 256, torch.float32, True, 132) \
+            == fused.GbsaPlan("simt", 64, 64, 1, 1)
+
+    @pytest.mark.parametrize("args, err", [
+        ((0, 8, 8, torch.bfloat16, True, 132), ValueError),
+        ((8, 8, 8, torch.bfloat16, True, 0), ValueError),
+        ((8, 8, 8, torch.float16, True, 132), TypeError),
+        ((8, 12, 8, torch.bfloat16, True, 132), ValueError)])
+    def test_bad_arguments_raise(self, args, err):
+        with pytest.raises(err):
+            fused.gbsa_plan(*args)
+
+    def test_constants_match_the_kernel_source(self):
+        """The plan's v2 tile constants are the kernel's (the launch
+        refuses a plan that disagrees)."""
+        src = (_build.SRC_DIR / "gemm_wgmma.cuh").read_text()
+
+        def const(name):   # an int literal or a product, "200 * 1024"
+            m = re.search(rf"constexpr int {name} = ([\d *]+);", src)
+            return math.prod(int(x) for x in m.group(1).split("*"))
+
+        assert (const("kBM"), const("kMaxStages"), const("kBK"),
+                const("kSmemBudget")) == (
+            fused.GBSA_V2_BM, fused.GBSA_V2_MAX_STAGES, fused.GBSA_V2_BK,
+            fused.GBSA_V2_SMEM_BUDGET)
 
 
 def _assert_sum_close(got, want, terms_abs):
@@ -457,6 +529,67 @@ class TestPtxasReport:
         assert _build.ptxas_report(text) == want
 
 
+SASS_DUMP = """\
+Fatbin elf code:
+================
+arch = sm_90a
+
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_117gbsa_wgmma_kernelILi256E13__nv_bfloat16EEvN
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+        /*0090*/                   UTMALDG.2D [UR8], [UR4] ;              /* 0x00000008040075b4 */
+        /*00a0*/              @!P0 UTMALDG.2D [UR16], [UR4] ;             /* 0x00000010040085b4 */
+        /*00b0*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*00c0*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ;
+		Function : _ZN12_GLOBAL__N_115flash_dq_kernelILi16ELi32EEEvPK13__nv_bfloat16
+        /*0010*/                   MUFU.RCP R2, R3 ;
+        /*0020*/               @P1 MUFU.EX2 R2, R3 ;
+        /*0030*/                   MUFU.EX2 R5, R6 ;
+        /*0040*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0050*/             @!UPT LDSM.16.MT88.2 R8, [R2+0x200] ;
+        /*0060*/                   HMMA.16816.F32.BF16 R12, R4, R8, R12 ;
+"""
+
+OPCODES = ["HGMMA", "UTMALDG", "LDSM", "MUFU.EX2", "HMMA"]
+
+
+class TestSassCounts:
+    """`_build.sass_counts`, which chip_smoke runs on `cuobjdump -sass`
+    of the built libraries to show the redesigned kernels use wgmma, TMA,
+    ldmatrix and the ex2 unit."""
+
+    @pytest.mark.parametrize("text, want", [
+        (SASS_DUMP, {
+            "_ZN12_GLOBAL__N_117gbsa_wgmma_kernelILi256E13__nv_bfloat16EEvN":
+                {"HGMMA": 2, "UTMALDG": 2, "LDSM": 0, "MUFU.EX2": 0,
+                 "HMMA": 0},
+            "_ZN12_GLOBAL__N_115flash_dq_kernelILi16ELi32EEEvPK13"
+            "__nv_bfloat16":
+                {"HGMMA": 0, "UTMALDG": 0, "LDSM": 2, "MUFU.EX2": 2,
+                 "HMMA": 1}}),
+        ("", {}),
+        # instructions before the first function belong to none
+        ("        /*0000*/  HGMMA.64x64x16.F32.BF16 R0, gdesc[UR4], R0 ;\n",
+         {}),
+        # a function with none of the opcodes still has its zeros
+        ("\t\tFunction : k\n        /*0000*/   EXIT ;\n",
+         {"k": dict.fromkeys(OPCODES, 0)})])
+    def test_counts_each_opcode_per_function(self, text, want):
+        assert _build.sass_counts(text, OPCODES) == want
+
+    def test_modifiers_do_not_match_other_opcodes(self):
+        """MUFU.EX2 counts only the ex2 op; LDSM does not count LDS."""
+        text = ("\t\tFunction : f\n"
+                "        /*0000*/   MUFU.EX2 R0, R1 ;\n"
+                "        /*0010*/   MUFU.EX2.F16 R0, R1 ;\n"
+                "        /*0020*/   MUFU.RSQ R0, R1 ;\n"
+                "        /*0030*/   LDS.128 R0, [R1] ;\n"
+                "        /*0040*/   LDSM.16.M88.4 R0, [R1] ;\n")
+        assert _build.sass_counts(text, ["MUFU.EX2", "LDSM"]) == {
+            "f": {"MUFU.EX2": 2, "LDSM": 1}}
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version, same tensors
 # ---------------------------------------------------------------------------
@@ -502,6 +635,43 @@ class TestKernelsOnCard:
             else 1e-5 * wnt.abs() + 1e-4
         assert bool(((g - wnt).abs() <= tol).all())
 
+    # (M, K, C, pointer offset in elements, the design gbsa_plan picks):
+    # celeba64's three stages at batch 2, an aligned ragged shape, then
+    # K 37 / C 70 and the aligned shape off 16-byte alignment, both on v1
+    GBSA_CASES = [(128, 12800, 256, 0, "v2"), (512, 6400, 128, 0, "v2"),
+                  (2048, 3200, 64, 0, "v2"), (1000, 200, 72, 0, "v2"),
+                  (100, 37, 70, 0, "v1"), (1000, 200, 72, 1, "v1")]
+
+    @pytest.mark.parametrize("act", ACT_LIST)
+    @pytest.mark.parametrize("out_dt", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("case", GBSA_CASES)
+    def test_gemm_bias_scale_act_designs(self, cuda, act, out_dt, case):
+        """bf16 operands on each design gbsa_plan picks: the launch takes
+        that design, matches the plain version and repeats bit for bit."""
+        m, k, c, offset, design = case
+        p = _at_offset(torch.from_numpy(_np(45, (m, k))).to(
+            cuda, torch.bfloat16), offset)
+        w = _at_offset(torch.from_numpy(_np(46, (k, c), -0.05, 0.05)).to(
+            cuda, torch.bfloat16), offset)
+        b, scale, shift = (torch.from_numpy(a).to(cuda) for a in (
+            _np(47, (c,)), _np(48, (c,), 0.5, 1.5), _np(49, (c,))))
+        by_design = fused.gemm_bias_scale_act.launches_by_design
+        before = dict(by_design)
+        got = fused.gemm_bias_scale_act(p, w, b, scale, shift, act,
+                                        out_dtype=out_dt)
+        again = fused.gemm_bias_scale_act(p, w, b, scale, shift, act,
+                                          out_dtype=out_dt)
+        torch.cuda.synchronize()
+        assert by_design == dict(before, **{design: before[design] + 2})
+        assert torch.equal(got, again), "two launches differ"
+        want = fused.gemm_bias_scale_act_plain(p, w, b, scale, shift, act,
+                                               out_dtype=out_dt)
+        g, wnt = got.float(), want.float()
+        # as test_gemm_bias_scale_act: f32 sums in another order
+        tol = BF16_ULP * wnt.abs() + 1e-4 if out_dt == torch.bfloat16 \
+            else 1e-5 * wnt.abs() + 1e-4
+        assert bool(((g - wnt).abs() <= tol).all())
+
     def test_bf16_operands_f32_output(self, cuda):
         p = torch.from_numpy(_np(50, (64, 48))).to(cuda, torch.bfloat16)
         w = torch.from_numpy(_np(51, (48, 16), -0.1, 0.1)).to(
@@ -514,7 +684,8 @@ class TestKernelsOnCard:
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
-    def test_wrappers_raise_instead_of_falling_back(self, cuda):
+    def test_wrappers_raise_instead_of_falling_back(self, cuda,
+                                                    monkeypatch):
         x = torch.zeros(8, 6, device=cuda).t()   # not contiguous
         with pytest.raises(ValueError, match="contiguous"):
             kernels.scale_shift_act(x, torch.ones(8, device=cuda),
@@ -529,6 +700,28 @@ class TestKernelsOnCard:
                                       torch.zeros(4, 2, device=cuda),
                                       torch.zeros(2), torch.zeros(2),
                                       torch.zeros(2))
+        # a plan the kernel cannot run is refused by the launch and raises;
+        # no other design or plain torch takes over
+        p = torch.zeros(256, 64, device=cuda, dtype=torch.bfloat16)
+        w = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)
+        v = torch.zeros(64, device=cuda)
+        plan = fused.gbsa_plan
+        for bad in ({"stages": 1}, {"bm": 64}, {"design": "simt"}):
+            with monkeypatch.context() as patch:
+                patch.setattr(fused, "gbsa_plan", lambda *a, bad=bad:
+                              plan(*a)._replace(**bad))
+                count = fused.gemm_bias_scale_act.launches
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    fused.gemm_bias_scale_act(p, w, v, v, v)
+                assert fused.gemm_bias_scale_act.launches == count
+        # the bf16 dq kernel's wrapper raises on what it does not take
+        q = torch.zeros((1, 8, 8), device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros((1, 8), device=cuda)
+        with pytest.raises(ValueError, match="do must be"):
+            flash.flash_dq(q, q, q, q.float(), lse, lse, 1.0)
+        with pytest.raises(ValueError, match="d_qk"):
+            wide = torch.zeros((1, 8, 65), device=cuda, dtype=torch.bfloat16)
+            flash.flash_dq(wide, wide, q, q, lse, lse, 1.0)
 
     @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [(1024, 512), (37, 70), (5, 3),
@@ -669,11 +862,13 @@ class TestFlashOnCard:
     # 16 or 64, d_v to 32 or 128), ragged S beside sagan64's 1024; S just
     # past one 128 tile and two whole ones; rows of 24 and 72 bytes, not
     # multiples of 16, which take the kernels' scalar load path; a single
-    # key, and heads one element wide (odd widths, scalar stores)
+    # key, and heads one element wide (odd widths, scalar stores); S one
+    # short of, at and one short of two 128-key tiles
     SHAPES = [(64, 1024, 8, 32), (2, 100, 8, 32), (3, 100, 16, 32),
               (2, 90, 8, 64), (2, 70, 40, 32), (2, 77, 24, 48),
               (2, 130, 64, 128), (2, 129, 8, 32), (2, 256, 8, 32),
-              (2, 100, 12, 36), (3, 1, 8, 32), (2, 50, 1, 1)]
+              (2, 100, 12, 36), (3, 1, 8, 32), (2, 50, 1, 1),
+              (2, 127, 8, 32), (2, 128, 8, 32), (2, 255, 8, 32)]
 
     @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("shape", SHAPES)
@@ -760,6 +955,29 @@ class TestFlashOnCard:
                 flash.flash_dkv.launches) == tuple(n + 1 for n in counts)
         for a, b in zip(*results):
             torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+    def test_autograd_runs_the_bf16_kernels(self, cuda):
+        """In bf16 the backward is bwd_stats, then one launch each of the
+        bf16 dq and dkv kernels; dq agrees with its plain version on the
+        saved out and lse within kernel_error_bounds."""
+        g = torch.Generator(device=cuda).manual_seed(141)
+        q, k, v = (torch.randn((2, 129, d), generator=g, device=cuda)
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for d in (8, 8, 32))
+        r = torch.randn((2, 129, 32), generator=g, device=cuda)
+        counts = (flash.flash_fwd.launches, flash.flash_dq.launches,
+                  flash.flash_dkv.launches)
+        out = flash.flash_attention(q, k, v, 0.3)
+        dq, = torch.autograd.grad((out * r).sum(), (q,))
+        torch.cuda.synchronize()
+        assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+                flash.flash_dkv.launches) == tuple(n + 1 for n in counts)
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        _, lse = flash.flash_fwd(qd, kd, vd, 0.3)
+        do, delta = flash.bwd_stats(qd, out.detach(), r)
+        bounds = flash.kernel_error_bounds(qd, kd, vd, do, lse, delta, 0.3)
+        _assert_flash_close("dq", dq, flash.flash_dq_plain(
+            qd, kd, vd, do, lse, delta, 0.3), bounds["dq"], torch.bfloat16)
 
     def test_rejects_bad_arguments(self, cuda):
         q = torch.zeros((1, 8, 8), device=cuda)
