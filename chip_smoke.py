@@ -8,18 +8,21 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
 
 1. build: every CUDA kernel of the served and the training path, from
    dcgan_tpu_torch/csrc (nvcc, one process per source, all at once); each
-   kernel's registers, stack and spills from ptxas, by entry function;
-   the redesigned kernels' machine code (cuobjdump -sass) must hold the
-   Hopper instructions of HOPPER_SASS, whose counts are logged;
+   kernel's registers, stack and spills from ptxas, by entry function
+   (the entries of NO_SPILLS must not spill); the redesigned kernels'
+   machine code (cuobjdump -sass) must hold the Hopper instructions of
+   HOPPER_SASS, whose counts are logged;
 2. kernels: each kernel against its plain PyTorch version on the same card
    tensors at the shapes the served path (kernels 2, 5) and the training
    step (kernels 1, 3, 4) give it (celeba64, batch 64), in bf16 and f32,
-   plus ragged shapes (kernel 5: an aligned one on its v2 design, an
-   unaligned one on v1, every act), kernels 1, 3, 4, 5 also launched
-   twice to show they repeat bit for bit; kernel 5's launch plan per
-   stage (gbsa_plan) and the design each launch took are checked; then
-   timed with CUDA events beside its bound, its plain version and a
-   library call;
+   plus ragged shapes (kernels 4 and 5: an aligned one on the v2 design,
+   an unaligned one on v1, f32 on SIMT; kernel 3: the vector design at C
+   72, the scalar one at C 70 and off 16-byte alignment; every act),
+   kernels 1, 3, 4, 5 also launched twice to show they repeat bit for
+   bit; the launch plan per stage of kernels 4 and 5 (gbsa_plan) and
+   the design each launch of kernels 3, 4 and 5 took are checked; then
+   timed with CUDA events (the median of three windows) beside its
+   bound, its plain version and a library call;
 3. serve: seeded celeba64 weights (use_pallas + pallas_fused, BN running
    statistics calibrated on a batch and perturbed with numpy noise) are
    written with convert.save_weights and served through
@@ -36,8 +39,9 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
    --preset celeba64 --use_pallas --pallas_fused --synthetic, batch 64) for
    TRAIN_STEPS steps on cuda, the launch counters set to 0 just before and
    read just after: each kernel must have launched exactly its per-step
-   count times the steps; the losses are finite and every parameter and
-   BN running statistic moved from the seeded init;
+   count times the steps, kernels 4 and 3 always on their designs of
+   TRAIN_DESIGN; the losses are finite and every parameter and BN running
+   statistic moved from the seeded init;
 6. train outputs: the losses and both nets' gradients at the seeded
    state on the kernel route and on the cuDNN + torch-BN route, same
    images and z, within TRAIN_ROUTE_TOL and, leaf by leaf,
@@ -176,14 +180,25 @@ ATTN_GRAD_TOL = {"bfloat16": (0.1, 1e-3), "float32": (1e-2, 1e-5)}
 # (ops/fused.py::gbsa_plan; v1: WMMA from padded shared rows, v2: TMA-fed
 # wgmma)
 GBSA_DESIGN = "v2"
+# The designs of gemm_bias_moments (the same plan) and scale_shift_act's
+# backward (ops/kernels.py::ssa_bwd_design; vector: 16-byte loads) on every
+# launch of the celeba64 bf16 training step
+TRAIN_DESIGN = {"gemm_bias_moments": "v2", "scale_shift_act_bwd": "vector"}
 # Hopper instructions each redesigned kernel's machine code must hold
 # (cuobjdump -sass of the built library), by a part of its entries'
-# mangled names: TMA loads and wgmma in every gbsa_wgmma_kernel<BN, OutT>,
-# ldmatrix and the ex2 MUFU op in every bf16 flash_dq_kernel<DKP, DVP>
+# mangled names: TMA loads and wgmma in every gbsa_wgmma_kernel<BN, OutT>
+# and gbm_wgmma_kernel<BN>, ldmatrix and the ex2 MUFU op in every bf16
+# flash_dq_kernel<DKP, DVP>
 HOPPER_SASS = {"gemm_bias_scale_act": ("17gbsa_wgmma_kernelI",
                                        ("HGMMA", "UTMALDG")),
+               "gemm_bias_moments": ("16gbm_wgmma_kernelI",
+                                     ("HGMMA", "UTMALDG")),
                "flash_attention": ("15flash_dq_kernelI",
                                    ("LDSM", "MUFU.EX2"))}
+# Entries (a part of their mangled names) that must build without spilling:
+# gemm_bias_moments' v2 keeps 2 x BN / 8 moment sums out of registers by
+# reducing n8 tile by n8 tile
+NO_SPILLS = ("16gbm_wgmma_kernelI",)
 
 
 def fail(msg: str) -> None:
@@ -194,14 +209,17 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2):
-    """(device ms, call ms) of one fn(), each a mean over `iters` calls.
+def time_ms(torch, fn, iters: int, warmup: int = 2, label: str = "fn"):
+    """(device ms, call ms) of one fn().
 
-    call ms: host clock around back-to-back calls ending in a synchronize,
-    so it includes the wrapper's Python and launch overhead. device ms:
-    CUDA events around the same calls enqueued behind a spin kernel that
-    holds the stream until the host has queued them all, so the calls run
-    back to back on the card and host overhead is hidden."""
+    call ms: host clock around `iters` back-to-back calls ending in a
+    synchronize, so it includes the wrapper's Python and launch overhead.
+    device ms: the median of three windows of CUDA events, each around
+    ceil(iters / 3) calls enqueued behind a spin kernel that holds the
+    stream until the host has queued them all, so the calls run back to
+    back on the card and host overhead is hidden. The median drops a window
+    that caught a stall (a single window once read 16x the profiler's
+    kernel time). The three readings are logged under `label`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -210,17 +228,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 2):
         fn()
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3 / iters
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # cycles >= twice the enqueue time at clocks up to 2 GHz, plus 5 ms:
-    # a host-bound fn() enqueues about as slowly as the first loop ran
-    torch.cuda._sleep(int((2.0 * call_ms * iters + 5.0) * 2e6))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters, call_ms
+    n = max(1, -(-iters // 3))
+    readings = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # cycles >= twice the enqueue time at clocks up to 2 GHz, plus 5
+        # ms: a host-bound fn() enqueues about as slowly as the first loop
+        torch.cuda._sleep(int((2.0 * call_ms * n + 5.0) * 2e6))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        readings.append(start.elapsed_time(end) / n)
+    ms = sorted(readings)[1]
+    log(f"timed {label}: {', '.join(f'{r:.4f}' for r in readings)} ms per "
+        f"call in 3 windows of {n}, median {ms:.4f}; host-inclusive "
+        f"{call_ms:.4f} ms")
+    return ms, call_ms
 
 
 def check_close(torch, name, got, want, dtype_name):
@@ -266,16 +292,47 @@ def stage_shapes(cfg, batch):
     return out
 
 
-def gbsa_entry_report(ptxas, bn):
-    """registers and spill bytes of the v2 gemm_bias_scale_act entry at
-    column tile `bn` with a bf16 output (gbsa_wgmma_kernel<bn, bf16>)."""
-    part = f"17gbsa_wgmma_kernelILi{bn}E13__nv_bfloat16E"
+def at_offset(torch, t, offset):
+    """A contiguous copy of t that starts `offset` elements into its own
+    buffer (t itself for offset 0): a pointer off 16-byte alignment."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def entry_report(ptxas, part):
+    """registers and spill bytes of the one ptxas entry whose mangled name
+    holds `part`."""
     found = [e for e in ptxas if part in e["entry"]]
     if len(found) != 1:
         fail(f"{len(found)} ptxas entries match {part}")
     return {"registers": found[0].get("registers"),
             "spill_bytes": (found[0].get("spill_stores", 0)
                             + found[0].get("spill_loads", 0))}
+
+
+def gbsa_entry_report(ptxas, bn):
+    """The v2 gemm_bias_scale_act entry at column tile `bn` with a bf16
+    output (gbsa_wgmma_kernel<bn, bf16>)."""
+    return entry_report(ptxas, f"17gbsa_wgmma_kernelILi{bn}E13__nv_bfloat16E")
+
+
+def gbm_entry_report(ptxas, bn):
+    """The v2 gemm_bias_moments entry at column tile `bn`
+    (gbm_wgmma_kernel<bn>)."""
+    return entry_report(ptxas, f"16gbm_wgmma_kernelILi{bn}EE")
+
+
+def reset_counts(wrappers):
+    """Every wrapper's launch count, and its count by design, set to 0."""
+    for fn in wrappers.values():
+        fn.launches = 0
+        by_design = getattr(fn, "launches_by_design", {})
+        for design in by_design:
+            by_design[design] = 0
 
 
 def check_kernels(torch, cfg, ptxas):
@@ -324,11 +381,12 @@ def check_kernels(torch, cfg, ptxas):
     x = rand(n0, top).clamp_min(0).to(torch.bfloat16)
     _, scale, shift = vectors(top)
     ssa["ms"], ssa["call_ms"] = time_ms(
-        torch, lambda: scale_shift_act(x, scale, shift, "relu"), 200)
+        torch, lambda: scale_shift_act(x, scale, shift, "relu"), 200,
+        label="k2 bn0")
     ssa["plain_ms"], _ = time_ms(torch, lambda: scale_shift_act_plain(
-        x, scale, shift, "relu"), 100)
+        x, scale, shift, "relu"), 100, label="k2 plain bn0")
     ssa["library_ms"], _ = time_ms(torch, lambda: torch.relu(
-        x.float() * scale + shift).to(x.dtype), 100)
+        x.float() * scale + shift).to(x.dtype), 100, label="k2 library bn0")
     t_bytes, t_ops = ssa_bound(n0, top)
     ssa["bound_ms"] = max(t_bytes, t_ops) * 1e3
     ssa["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -411,17 +469,19 @@ def check_kernels(torch, cfg, ptxas):
                 stage["ms"], stage["call_ms"] = time_ms(
                     torch, lambda: gemm_bias_scale_act(
                         p2d, w2d, b, scale, shift, "relu",
-                        out_dtype=torch.bfloat16), 20)
+                        out_dtype=torch.bfloat16), 20, label=f"k5 {name}")
                 stage["plain_ms"], _ = time_ms(
                     torch, lambda: gemm_bias_scale_act_plain(
                         p2d, w2d, b, scale, shift, "relu",
-                        out_dtype=torch.bfloat16), 10)
+                        out_dtype=torch.bfloat16), 10,
+                    label=f"k5 plain {name}")
                 stage["library_ms"], _ = time_ms(torch, lambda: torch.relu(
                     (torch.matmul(p2d, w2d).float() + b) * scale + shift
-                ).to(torch.bfloat16), 20)
+                ).to(torch.bfloat16), 20, label=f"k5 library {name}")
                 # the im2col that feeds the kernel on the served path
                 stage["im2col_ms"], _ = time_ms(torch, lambda: conv_patches(
-                    h, cfg.kernel_size, 2, transpose=True), 10)
+                    h, cfg.kernel_size, 2, transpose=True), 10,
+                    label=f"im2col {name}")
                 t_bytes, t_ops = gemm_bound(m, k, c)
                 stage["bound_ms"] = max(t_bytes, t_ops) * 1e3
                 stage["bound_by"] = "bytes" if t_bytes >= t_ops \
@@ -518,20 +578,21 @@ def weighted(entries, key):
     return sum(e[key] * e["per_step"] for e in entries)
 
 
-def check_train_kernels(torch, cfg, ssa_entry):
+def check_train_kernels(torch, cfg, ssa_entry, ptxas):
     """Phase 2, the training step's kernels: channel_moments (1),
     scale_shift_act's backward (3) and gemm_bias_moments (4) against their
     plain versions at every batch-64 shape of the step, in bf16 and f32,
-    each launched twice to show the bits repeat; then timed. Kernel 2's
-    forward is also timed at the training shapes (into `ssa_entry`)."""
+    each launched twice to show the bits repeat, on the design its plan
+    picks; then timed. Kernel 2's forward is also timed at the training
+    shapes (into `ssa_entry`). `ptxas` is the build's ptxas reports."""
     import torch.nn.functional as F
 
     from dcgan_tpu_torch.ops.activations import ACTS, act_fwd
     from dcgan_tpu_torch.ops.fused import conv_patches, gemm_bias_moments, \
-        gemm_bias_moments_plain, w_to_gemm
+        gemm_bias_moments_plain, gemm_plan, w_to_gemm
     from dcgan_tpu_torch.ops.kernels import channel_moments, \
         channel_moments_plain, scale_shift_act, scale_shift_act_bwd, \
-        scale_shift_act_bwd_plain, scale_shift_act_plain
+        scale_shift_act_bwd_plain, scale_shift_act_plain, sm_count
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -566,11 +627,12 @@ def check_train_kernels(torch, cfg, ssa_entry):
     x = rand(n0, top, lo=-2.0, hi=2.0).to(torch.bfloat16)
     shape = {"stage": "G bn0", "n": n0, "c": top, "per_step": 2}
     shape["ms"], shape["call_ms"] = time_ms(
-        torch, lambda: channel_moments(x), 200)
+        torch, lambda: channel_moments(x), 200, label="k1 bn0")
     shape["plain_ms"], _ = time_ms(torch, lambda: channel_moments_plain(x),
-                                   100)
+                                   100, label="k1 plain bn0")
     shape["library_ms"], _ = time_ms(torch, lambda: (
-        x.float().mean(0), (x.float() ** 2).mean(0)), 100)
+        x.float().mean(0), (x.float() ** 2).mean(0)), 100,
+        label="k1 library bn0")
     t_bytes, t_ops = moments_bound(n0, top, 2)
     shape["bound_ms"] = max(t_bytes, t_ops) * 1e3
     k1["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -585,18 +647,53 @@ def check_train_kernels(torch, cfg, ssa_entry):
     # ---- kernels 3 and 2 at every BN epilogue of the step ----------------
     k3 = {"name": "scale_shift_act_bwd", "route": "cuda",
           "source": "dcgan_tpu_torch/csrc/scale_shift_act.cu",
-          "replaces": "dcgan_tpu/ops/pallas_kernels.py:180", "shapes": []}
+          "replaces": "dcgan_tpu/ops/pallas_kernels.py:180",
+          "design": TRAIN_DESIGN["scale_shift_act_bwd"], "shapes": []}
+    k3_designs = scale_shift_act_bwd.launches_by_design
     epilogues = [("G bn0", n0, top, "relu", 2, 1)] + [
         (s["name"], s["m"], s["c"], s["act"], s["fwd"], s["bwd"])
         for s in stages]
-    for act in ACTS:   # ragged shapes: the masked edges, every activation
+
+    def check_ssa_bwd(tag, x, gr, scale, shift, act, design):
+        """Kernel 3 launched twice on the design ssa_bwd_design picks:
+        that design taken, the same bits twice, and the plain version
+        matched (dx elementwise, dscale and dshift as column sums)."""
+        before = dict(k3_designs)
+        got = scale_shift_act_bwd(x, scale, shift, gr, act)
+        again = scale_shift_act_bwd(x, scale, shift, gr, act)
+        want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
+        torch.cuda.synchronize()
+        if k3_designs != dict(before, **{design: before[design] + 2}):
+            fail(f"scale_shift_act_bwd {tag} did not take design {design}: "
+                 f"{before} -> {k3_designs}")
+        same_bits(torch, f"scale_shift_act_bwd {tag}", got, again)
+        dt_name = "bfloat16" if x.dtype is torch.bfloat16 else "float32"
+        ga, xa = gr.float().abs(), x.float().abs()
+        return max(check_close(torch, f"scale_shift_act_bwd {tag} dx",
+                               got[0], want[0], dt_name),
+                   column_sum_close(torch, f"scale_shift_act_bwd {tag} "
+                                    f"dscale", got[1], want[1],
+                                    (ga * xa).sum(0)),
+                   column_sum_close(torch, f"scale_shift_act_bwd {tag} "
+                                    f"dshift", got[2], want[2], ga.sum(0)))
+
+    # ragged shapes, every activation: C 70 (not a multiple of the 16-byte
+    # width) and C 72 at a pointer one element off 16 bytes on the scalar
+    # design, C 72 aligned on the vector design (37 rows: a ragged last
+    # step); f32 C 70 is not a multiple of 4 either
+    for act in ACTS:
         for dt_name, dt in dtypes:
-            x, gr = rand(37, 70, lo=-2.0, hi=2.0).to(dt), rand(37, 70).to(dt)
-            scale, shift = rand(70, lo=0.5, hi=1.5), rand(70)
-            got = scale_shift_act_bwd(x, scale, shift, gr, act)
-            want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
-            check_close(torch, f"scale_shift_act_bwd ragged {dt_name} {act}",
-                        got[0], want[0], dt_name)
+            for c, offset, design in ((70, 0, "scalar"), (72, 0, "vector"),
+                                      (72, 1, "scalar")):
+                x = at_offset(torch, rand(37, c, lo=-2.0, hi=2.0).to(dt),
+                              offset)
+                gr = at_offset(torch, rand(37, c).to(dt), offset)
+                scale, shift = rand(c, lo=0.5, hi=1.5), rand(c)
+                check_ssa_bwd(f"ragged {dt_name} [37, {c}] +{offset} {act}",
+                              x, gr, scale, shift, act, design)
+    log("scale_shift_act_bwd ragged shapes match their plain versions and "
+        "repeat bitwise on designs scalar (C 70; C 72 off 16-byte "
+        "alignment) and vector (C 72), every act, bf16 and f32")
     fwd_shapes = []
     errs = {}
     for name, n, c, act, fwd, bwd in epilogues:
@@ -604,30 +701,18 @@ def check_train_kernels(torch, cfg, ssa_entry):
             x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
             gr = rand(n, c).to(dt)
             scale, shift = rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
-            got = scale_shift_act_bwd(x, scale, shift, gr, act)
-            again = scale_shift_act_bwd(x, scale, shift, gr, act)
-            want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
-            torch.cuda.synchronize()
-            same_bits(torch, f"scale_shift_act_bwd {name} {dt_name}", got,
-                      again)
-            ga, xa = gr.float().abs(), x.float().abs()
-            err = max(check_close(torch, f"scale_shift_act_bwd {name} "
-                                  f"{dt_name} dx", got[0], want[0], dt_name),
-                      column_sum_close(torch, f"scale_shift_act_bwd {name} "
-                                       f"{dt_name} dscale", got[1], want[1],
-                                       (ga * xa).sum(0)),
-                      column_sum_close(torch, f"scale_shift_act_bwd {name} "
-                                       f"{dt_name} dshift", got[2], want[2],
-                                       ga.sum(0)))
+            err = check_ssa_bwd(f"{name} {dt_name}", x, gr, scale, shift,
+                                act, k3["design"])
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
             if dt is not torch.bfloat16:
                 continue
-            e = {"stage": name, "n": n, "c": c, "per_step": bwd}
+            e = {"stage": name, "n": n, "c": c, "per_step": bwd,
+                 "design": k3["design"]}
             e["ms"], e["call_ms"] = time_ms(torch, lambda: scale_shift_act_bwd(
-                x, scale, shift, gr, act), 50)
+                x, scale, shift, gr, act), 50, label=f"k3 {name}")
             e["plain_ms"], _ = time_ms(
                 torch, lambda: scale_shift_act_bwd_plain(
-                    x, scale, shift, gr, act), 20)
+                    x, scale, shift, gr, act), 20, label=f"k3 plain {name}")
             # the library yardstick: torch's own autograd of the expression
             xl, sl, tl = (x.detach().requires_grad_(True),
                           scale.detach().requires_grad_(True),
@@ -636,7 +721,8 @@ def check_train_kernels(torch, cfg, ssa_entry):
                 (lambda v: F.leaky_relu(v, cfg.leak))
             y = lib_act(xl.float() * sl + tl).to(dt)
             e["library_ms"], _ = time_ms(torch, lambda: torch.autograd.grad(
-                y, (xl, sl, tl), gr, retain_graph=True), 20)
+                y, (xl, sl, tl), gr, retain_graph=True), 20,
+                label=f"k3 library {name}")
             del y
             t_bytes, t_ops = ssa_bwd_bound(n, c, 2)
             e["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -645,11 +731,12 @@ def check_train_kernels(torch, cfg, ssa_entry):
             # kernel 2, the same epilogue's forward, at the training shape
             f = {"stage": name, "n": n, "c": c, "per_step": fwd}
             f["ms"], _ = time_ms(torch, lambda: scale_shift_act(
-                x, scale, shift, act), 50)
+                x, scale, shift, act), 50, label=f"k2 {name}")
             f["plain_ms"], _ = time_ms(torch, lambda: scale_shift_act_plain(
-                x, scale, shift, act), 20)
+                x, scale, shift, act), 20, label=f"k2 plain {name}")
             f["library_ms"], _ = time_ms(torch, lambda: act_fwd(
-                x.float() * scale + shift, act, cfg.leak).to(dt), 20)
+                x.float() * scale + shift, act, cfg.leak).to(dt), 20,
+                label=f"k2 library {name}")
             tb, to = ssa_bound(n, c)
             f["bound_ms"] = max(tb, to) * 1e3
             fwd_shapes.append(f)
@@ -668,14 +755,56 @@ def check_train_kernels(torch, cfg, ssa_entry):
     # ---- kernel 4: gemm_bias_moments at every fused stage ----------------
     k4 = {"name": "gemm_bias_moments", "route": "cuda",
           "source": "dcgan_tpu_torch/csrc/gemm_bias_moments.cu",
-          "replaces": "dcgan_tpu/ops/pallas_fused.py:144", "shapes": []}
-    for dt_name, dt in dtypes:   # ragged M, K, C: the masked load path
-        p, w = rand(100, 37).to(dt), (0.1 * rand(37, 70)).to(dt)
-        b = rand(70, lo=-0.1, hi=0.1)
-        got = gemm_bias_moments(p, w, b, dt)
-        want = gemm_bias_moments_plain(p, w, b, dt)
-        check_close(torch, f"gemm_bias_moments ragged {dt_name} u", got[0],
-                    want[0], "float32")
+          "replaces": "dcgan_tpu/ops/pallas_fused.py:144",
+          "design": TRAIN_DESIGN["gemm_bias_moments"], "shapes": []}
+    k4_designs = gemm_bias_moments.launches_by_design
+    sms = sm_count(dev)
+
+    def check_gbm(tag, p2d, w2d, b, dt):
+        """Kernel 4 launched twice on the design its plan (gemm_plan) picks:
+        that design taken, the same bits twice, u against the plain product
+        (f32 tolerance: u is f32 in both dtypes) and the moments against
+        those of the kernel's own u in the compute dtype (column sums: only
+        the summation order differs). Returns (max |err|, the plan)."""
+        plan = gemm_plan(p2d, w2d, sms)
+        before = dict(k4_designs)
+        got = gemm_bias_moments(p2d, w2d, b, dt)
+        again = gemm_bias_moments(p2d, w2d, b, dt)
+        u_want = gemm_bias_moments_plain(p2d, w2d, b, dt)[0]
+        torch.cuda.synchronize()
+        if k4_designs != dict(before, **{plan.design:
+                                         before[plan.design] + 2}):
+            fail(f"gemm_bias_moments {tag} did not take its plan's design "
+                 f"{plan.design}: {before} -> {k4_designs}")
+        same_bits(torch, f"gemm_bias_moments {tag}", got, again)
+        err = check_close(torch, f"gemm_bias_moments {tag} u", got[0],
+                          u_want, "float32")
+        v = got[0].to(dt).float()
+        err = max(err, column_sum_close(
+            torch, f"gemm_bias_moments {tag} mean", got[1], v.mean(0),
+            v.abs().mean(0)), column_sum_close(
+            torch, f"gemm_bias_moments {tag} mean_sq", got[2],
+            (v * v).mean(0), (v * v).mean(0)))
+        return err, plan
+
+    # ragged M and C: an aligned shape on v2 (a partial row tile, C 72 in a
+    # 128-column tile), then K 37 / C 70 and the aligned shape one element
+    # off 16-byte alignment on v1, and f32 on SIMT
+    for m, k, c, dt, offset, design in (
+            (1000, 200, 72, torch.bfloat16, 0, "v2"),
+            (100, 37, 70, torch.bfloat16, 0, "v1"),
+            (1000, 200, 72, torch.bfloat16, 1, "v1"),
+            (100, 37, 70, torch.float32, 0, "simt")):
+        p = at_offset(torch, rand(m, k).to(dt), offset)
+        w = at_offset(torch, (0.1 * rand(k, c)).to(dt), offset)
+        b = rand(c, lo=-0.1, hi=0.1)
+        tag = f"ragged {(m, k, c)} +{offset} {str(dt)[6:]}"
+        _, plan = check_gbm(tag, p, w, b, dt)
+        if plan.design != design:
+            fail(f"gemm_bias_moments {tag} plans {plan.design}, not {design}")
+    log("gemm_bias_moments ragged shapes match their plain versions and "
+        "repeat bitwise on designs v2, v1 (K 37 / C 70; an unaligned "
+        "pointer) and simt")
     errs = {}
     for st in stages:
         name, m, k, c = st["name"], st["m"], st["k"], st["c"]
@@ -692,39 +821,31 @@ def check_train_kernels(torch, cfg, ssa_entry):
             b = rand(c, lo=-0.1, hi=0.1)
             if tuple(p2d.shape) != (m, k):
                 fail(f"{name}: patches {tuple(p2d.shape)} != {(m, k)}")
-            got = gemm_bias_moments(p2d, w2d, b, dt)
-            again = gemm_bias_moments(p2d, w2d, b, dt)
-            u_want = gemm_bias_moments_plain(p2d, w2d, b, dt)[0]
-            torch.cuda.synchronize()
-            same_bits(torch, f"gemm_bias_moments {name} {dt_name}", got, again)
-            # u is f32 in both dtypes: the f32 tolerance
-            err = check_close(torch, f"gemm_bias_moments {name} {dt_name} u",
-                              got[0], u_want, "float32")
-            # the moments against those of the kernel's own u, in the
-            # compute dtype: only the summation order differs
-            v = got[0].to(dt).float()
-            err = max(err, column_sum_close(
-                torch, f"gemm_bias_moments {name} {dt_name} mean", got[1],
-                v.mean(0), v.abs().mean(0)), column_sum_close(
-                torch, f"gemm_bias_moments {name} {dt_name} mean_sq", got[2],
-                (v * v).mean(0), (v * v).mean(0)))
+            err, plan = check_gbm(f"{name} {dt_name}", p2d, w2d, b, dt)
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
-            del got, again, u_want, v
             if dt is torch.bfloat16:
+                if plan.design != k4["design"]:
+                    fail(f"gemm_bias_moments {name}: the bf16 stage plans "
+                         f"design {plan.design}, not {k4['design']}")
+                e["plan"] = plan._asdict()
+                e.update(gbm_entry_report(ptxas, plan.bn))
                 e["ms"], e["call_ms"] = time_ms(
-                    torch, lambda: gemm_bias_moments(p2d, w2d, b, dt), 20)
+                    torch, lambda: gemm_bias_moments(p2d, w2d, b, dt), 20,
+                    label=f"k4 {name}")
                 e["plain_ms"], _ = time_ms(
                     torch, lambda: gemm_bias_moments_plain(p2d, w2d, b, dt),
-                    10)
+                    10, label=f"k4 plain {name}")
 
                 def library():
                     u = torch.matmul(p2d, w2d).float() + b
                     vv = u.to(dt).float()
                     return u, vv.mean(0), (vv * vv).mean(0)
-                e["library_ms"], _ = time_ms(torch, library, 20)
+                e["library_ms"], _ = time_ms(torch, library, 20,
+                                             label=f"k4 library {name}")
                 # the im2col that feeds the kernel in the step
                 e["im2col_ms"], _ = time_ms(torch, lambda: conv_patches(
-                    h, cfg.kernel_size, 2, st["transpose"]), 10)
+                    h, cfg.kernel_size, 2, st["transpose"]), 10,
+                    label=f"im2col {name}")
                 t_bytes, t_ops = gbm_bound(m, k, c, 2)
                 e["bound_ms"] = max(t_bytes, t_ops) * 1e3
                 e["bound_by"] = "bytes" if t_bytes >= t_ops \
@@ -732,15 +853,19 @@ def check_train_kernels(torch, cfg, ssa_entry):
             del h, p2d, w2d
             torch.cuda.empty_cache()
         log(f"gemm_bias_moments {name} M={m} K={k} C={c} matches its plain "
-            f"version and repeats bitwise; {e['ms']:.4f} ms vs bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']}); library "
-            f"{e['library_ms']:.4f} ms; its im2col {e['im2col_ms']:.4f} ms")
+            f"version and repeats bitwise; bf16 plan {e['plan']} "
+            f"({e['registers']} registers, {e['spill_bytes']} B spilled); "
+            f"{e['ms']:.4f} ms vs bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}); library {e['library_ms']:.4f} ms; plain "
+            f"{e['plain_ms']:.4f} ms; its im2col {e['im2col_ms']:.4f} ms")
         k4["shapes"].append(e)
     k4["max_abs_err"], k4["max_abs_err_f32"] = errs["bfloat16"], \
         errs["float32"]
     k4["bound_by"] = "bytes" if all(e["bound_by"] == "bytes"
                                     for e in k4["shapes"]) else "operations"
     k4["im2col_ms"] = weighted(k4["shapes"], "im2col_ms")
+    k4["registers"] = max(e["registers"] for e in k4["shapes"])
+    k4["spill_bytes"] = max(e["spill_bytes"] for e in k4["shapes"])
 
     # per training step at batch 64: the launch-weighted sums
     for entry in (k1, k3, k4):
@@ -848,10 +973,7 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     served = ("scale_shift_act", "gemm_bias_scale_act")
 
     by_design = wrappers["gemm_bias_scale_act"].launches_by_design
-    for fn in wrappers.values():
-        fn.launches = 0
-    for design in by_design:
-        by_design[design] = 0
+    reset_counts(wrappers)
     row, responses = serve_main.run([
         "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
         "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
@@ -896,7 +1018,8 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     timing = {"batch": BATCH}
     for name, route in (("kernel_route", cfg), ("cudnn_route", plain)):
         timing[f"{name}_ms"], timing[f"{name}_call_ms"] = time_ms(
-            torch, lambda: sampler_apply(params_l, state_l, z, cfg=route), 20)
+            torch, lambda: sampler_apply(params_l, state_l, z, cfg=route), 20,
+            label=f"sampler {name}")
     log(f"sampler at batch {BATCH}: kernel route "
         f"{timing['kernel_route_ms']:.4f} ms, cuDNN + torch-BN route "
         f"{timing['cudnn_route_ms']:.4f} ms (device); host-inclusive "
@@ -1003,7 +1126,7 @@ def profile_split(torch, fn, steps: int = 3):
                 "im2col backward (unfold_backward)": ("unfold",)}
     split = {name: 0.0 for name in families}
     split["other (elementwise, copies, reductions)"] = 0.0
-    flash = {}
+    flash, port = {}, {}
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1022,6 +1145,13 @@ def profile_split(torch, fn, steps: int = 3):
         for name, marks in families.items():
             if any(mark in key for mark in marks):
                 split[name] += ms
+                if name == "port kernels":
+                    # the entry's name without namespace or parameters
+                    m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+                    f = port.setdefault(m.group(0)[:-1] if m else e.key,
+                                        {"ms": 0.0, "calls": 0.0})
+                    f["ms"] += ms
+                    f["calls"] += e.count / steps
                 break
         else:
             split["other (elementwise, copies, reductions)"] += ms
@@ -1029,7 +1159,8 @@ def profile_split(torch, fn, steps: int = 3):
     if busy <= 0.0:
         return None
     top.sort(reverse=True)
-    return {"ms_per_step": split, "flash_by_kernel": flash, "busy_ms": busy,
+    return {"ms_per_step": split, "flash_by_kernel": flash,
+            "port_by_kernel": port, "busy_ms": busy,
             "launches_per_step": sum(n for _, n, _ in top),
             "wall_ms": wall_ms / steps,
             "idle_share": max(0.0, 1.0 - busy / (wall_ms / steps)),
@@ -1073,8 +1204,7 @@ def train_and_check(torch, np, workdir, kernels):
             "--checkpoint_dir", workdir, "--seed", str(SEED)]
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     wrappers = all_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     state = cli.main(argv)
     torch.cuda.synchronize()
@@ -1085,6 +1215,14 @@ def train_and_check(torch, np, workdir, kernels):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"kernel {name}: {launches[name]} launches on the train "
                  f"path, expected {per_step} per step x {TRAIN_STEPS}")
+    # every launch of kernels 4 and 3 on the bf16 step took its Hopper
+    # design
+    for name, design in TRAIN_DESIGN.items():
+        by_design = wrappers[name].launches_by_design
+        log(f"train path {name} launches by design: {by_design}")
+        if by_design[design] != launches[name]:
+            fail(f"the train path's {name} launches must all take design "
+                 f"{design}: {by_design}")
     for entry in kernels:
         entry.setdefault("launches_by_path", {})["train"] = \
             launches[entry["name"]]
@@ -1195,7 +1333,8 @@ def train_and_check(torch, np, workdir, kernels):
         # still read the host's enqueue rate; the device time is the
         # profiled kernel time below
         _, report[f"{route}_step_call_ms"] = time_ms(
-            torch, lambda: step(init, images, z), 5, warmup=1)
+            torch, lambda: step(init, images, z), 5, warmup=1,
+            label=f"{route} step")
     for route, step in steps_by_route.items():
         split = profile_split(torch, lambda: step(init, images, z))
         report[f"{route}_profile"] = split if split is not None \
@@ -1205,6 +1344,9 @@ def train_and_check(torch, np, workdir, kernels):
                 f"{ {k: round(v, 4) for k, v in split['ms_per_step'].items()} }"
                 f", {split['launches_per_step']:.0f} kernel launches, idle "
                 f"share {split['idle_share']:.3f}")
+            for name, f in sorted(split["port_by_kernel"].items()):
+                log(f"{route} route step, port kernel {name}: "
+                    f"{f['ms']:.4f} ms in {f['calls']:.0f} launches")
     busy = {route: report[f"{route}_profile"]["busy_ms"]
             if isinstance(report[f"{route}_profile"], dict) else float("nan")
             for route in steps_by_route}
@@ -1376,9 +1518,11 @@ def time_flash(torch, q, k, v, do, lse, delta, scale, rows, iters):
     out = {}
     for name, (kernel, plain) in calls.items():
         e = {"shape": [b, s, dk, dv]}
-        e["ms"], e["call_ms"] = time_ms(torch, kernel, iters, warmup=1)
+        e["ms"], e["call_ms"] = time_ms(torch, kernel, iters, warmup=1,
+                                        label=f"{name} {list(q.shape)}")
         e["plain_ms"], _ = time_ms(torch, plain, max(1, iters // 4),
-                                   warmup=1)
+                                   warmup=1,
+                                   label=f"{name} plain {list(q.shape)}")
         if rows != b:
             e["plain_rows"] = rows
         t, kind = flash_bound(name, b, s, dk, dv, q.element_size())
@@ -1403,7 +1547,8 @@ def time_flash(torch, q, k, v, do, lse, delta, scale, rows, iters):
             with torch.no_grad() if what == "forward" else \
                     contextlib.nullcontext():
                 out[name]["library_ms"], _ = time_ms(torch, fn, iters,
-                                                     warmup=1)
+                                                     warmup=1,
+                                                     label=f"{name} library")
             out[name]["library"] = (
                 f"F.scaled_dot_product_attention {what}: "
                 f"{sdpa_kernels(torch, fn)}")
@@ -1539,8 +1684,7 @@ def sagan_train_and_check(torch, np, workdir, kernels):
             "--checkpoint_dir", tdir, "--seed", str(SEED)]
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     wrappers = all_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     state = cli.main(argv)
     torch.cuda.synchronize()
@@ -1642,7 +1786,8 @@ def sagan_train_and_check(torch, np, workdir, kernels):
         report[f"{route}_step_syncs"] = sum(
             "called a synchronizing" in str(w.message) for w in caught)
         _, report[f"{route}_step_call_ms"] = time_ms(
-            torch, lambda: step(init, images, z), 5, warmup=1)
+            torch, lambda: step(init, images, z), 5, warmup=1,
+            label=f"sagan64 {route} step")
         split = profile_split(torch, lambda: step(init, images, z))
         report[f"{route}_profile"] = split if split is not None \
             else "not measured (no device time in the trace)"
@@ -1677,8 +1822,7 @@ def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
     path = save_weights(os.path.join(workdir, "sagan64_serve", "G.npz"),
                         mcfg, params, state["bn"]["gen"])
     wrappers = all_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     row, responses = serve_main.run([
         "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
         "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
@@ -1718,7 +1862,8 @@ def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
     for name, route in (("flash_route", mcfg), ("dense_route", dense)):
         def call():
             return sampler_apply(params_l, state_l, z, cfg=route)
-        _, timing[f"{name}_call_ms"] = time_ms(torch, call, 10)
+        _, timing[f"{name}_call_ms"] = time_ms(
+            torch, call, 10, label=f"sagan64 sampler {name}")
         split = profile_split(torch, call)
         timing[f"{name}_busy_ms"] = split["busy_ms"] if split else None
         timing[f"{name}_flash_ms"] = \
@@ -1789,15 +1934,19 @@ def main() -> int:
                 f"{e.get('spill_stores')} B spill stores, "
                 f"{e.get('spill_loads')} B spill loads")
         ptxas += report
+    for e in ptxas:
+        spilled = e.get("spill_stores", 0) + e.get("spill_loads", 0)
+        if spilled and any(part in e["entry"] for part in NO_SPILLS):
+            fail(f"{e['entry']} spills {spilled} bytes")
     sass = check_sass(_build, libs)
 
     cfg = celeba64(use_pallas=True, pallas_fused=True)
     kernels = check_kernels(torch, cfg, ptxas)
-    kernels[1:1] = check_train_kernels(torch, cfg, kernels[0])
+    kernels[1:1] = check_train_kernels(torch, cfg, kernels[0], ptxas)
     kernels += check_flash_kernels(torch, ptxas)
     for entry in kernels:
-        if entry["name"] == "gemm_bias_scale_act":
-            entry["sass"] = sass["gemm_bias_scale_act"]
+        if entry["name"] in ("gemm_bias_scale_act", "gemm_bias_moments"):
+            entry["sass"] = sass[entry["name"]]
         elif entry["name"] == "flash_dq":
             entry["sass"] = sass["flash_attention"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:

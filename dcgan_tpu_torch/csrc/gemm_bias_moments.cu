@@ -23,27 +23,41 @@
 // 26.8 GFLOP (27 us of bf16 tensor time) each; D 61.2 / 32.0 / 21.8 MB
 // (18.3 / 9.6 / 6.5 us) against 6.7 GFLOP (6.8 us) each.
 //
-// Design. The GEMM is kernel 5's (gemm_tiles.cuh): one CTA per BM x BN
-// output tile looping over K with the sum in registers, WMMA bf16 tiles
-// (SIMT for f32 operands), split-K where the tiles cannot fill 132 SMs
-// (D conv3 has 32 tiles of 128 x 128 at B = 64). Only the epilogue differs:
-//   no split: each CTA adds the bias, writes u, and reduces its tile's
-//   columns over its rows (each 16 x 16 fragment through the warp's
-//   shared-memory scratch, 16 lanes adding one column each in row order,
-//   then the warps' partials in warp order) into part[2][row tile][C];
-//   split-K: the CTAs write raw partial products to an f32 workspace, and a
-//   finish pass over 32-column strips and row chunks adds the splits in
-//   split order, adds the bias, writes u and emits the chunk's partial
-//   moments;
-// then one thread per column adds the partials in a fixed order and scales
+// Design. One CTA per output tile loops over K with the sum in registers,
+// in one of kernel 5's three designs; the launch plan is kernel 5's own
+// (ops/fused.py::gbsa_plan), and the launch below refuses a plan it cannot
+// run:
+//   v2, bf16 operands with K and C multiples of 8 and 16-byte-aligned P and
+//   W (TMA's rule), every celeba64 stage: gemm_wgmma.cuh's main loop (TMA
+//   into 128-byte-swizzled stages, one producer warp, two consumer
+//   warpgroups issuing wgmma, N tile all of C up to 256). The moments
+//   epilogue works on the accumulator registers, n8 tile by n8 tile: add
+//   the bias and store u as float2 pairs, round v, sum v and v^2 over the
+//   thread's two rows, reduce over the 8 lanes sharing a column pair
+//   (shuffles 4, 8, 16), and write each warp's 16-row sums into a shared
+//   [8 warps][BN] scratch laid over the ring (free once every consumer
+//   warpgroup has waited on its last wgmma group; the barriers are named
+//   and count the 256 consumer threads, since the producer warp has
+//   returned). The consumers then add the 8 warp rows in warp order into
+//   part[2][row tile][C];
+//   v1, other bf16 operands: gemm_tiles.cuh's WMMA loop, each 16 x 16
+//   fragment through the warp's shared scratch, 16 lanes adding one column
+//   each in row order, then the warps' partials in warp order;
+//   SIMT for f32 operands (full f32 FMAs).
+//   Split-K where the output tiles alone cannot fill the card (D conv2, D
+//   conv3, G deconv1 at B = 64): the CTAs write raw partial products to an
+//   f32 workspace, and a finish pass over 32-column strips and row chunks
+//   adds the splits in split order, adds the bias, writes u and emits the
+//   chunk's partial moments.
+// Then one thread per column adds the partials in a fixed order and scales
 // by 1/M. The TPU kernel accumulated the moments in place across its
 // sequential grid; no atomics here, so two launches give the same bits.
-// Still to do for speed: wgmma + TMA, and an implicit GEMM that never
-// materializes P.
+// Still to do for speed: an implicit GEMM that never materializes P.
 
 #include <cstdint>
 
 #include "gemm_tiles.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -56,6 +70,7 @@ __device__ __forceinline__ float moment_value(float u, bool round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16_rn(u)) : u;
 }
 
+// Design v1 (see the top of the file).
 // ws == nullptr: one pass over all of K, u and the tile's partial moments
 // written here (part[2][n_row_tiles][C]).
 // ws != nullptr: split-K; CTA group `split` sums K range
@@ -159,6 +174,124 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+namespace wg = dcgan::wgmma_gemm;
+
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+// A barrier over the consumer warpgroups only (named barrier 1; 0 is
+// __syncthreads'): the producer warp has returned by the epilogue
+template <int THREADS>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
+}
+
+// Design v2 (see the top of the file). CTA blockIdx.x: split-K group
+// blockIdx.x / tiles over K blocks [split * kb_per_split, + kb_per_split),
+// output tile blockIdx.x % tiles, column tiles of one row block adjacent.
+// ws == nullptr: u and the tile's partial moments written here
+// (part[2][n_row_tiles][C]); else the f32 partial products go to
+// ws[split][M][C] for gbm_splitk_finish. C is a multiple of 8.
+template <int BN>
+__global__ void __launch_bounds__(wg::WgmmaTile<BN>::kThreads,
+                                  wg::WgmmaTile<BN>::kMinBlocks)
+    gbm_wgmma_kernel(const __grid_constant__ CUtensorMap map_p,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const float* __restrict__ bias, float* __restrict__ U,
+                     float* __restrict__ ws, float* __restrict__ part, int M,
+                     int C, int n_row_tiles, int n_col_tiles, int n_kb,
+                     int kb_per_split, bool round_bf16) {
+  using T = wg::WgmmaTile<BN>;
+  constexpr int kWarps = 4 * T::kConsumers;
+  static_assert(2 * kWarps * BN * (int)sizeof(float)
+                    <= T::kStages * T::kStageBytes,
+                "the moments scratch fits in the ring");
+  extern __shared__ unsigned char smem[];
+  const int tiles = n_row_tiles * n_col_tiles;
+  const int split = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int row_tile = tile / n_col_tiles;
+  const int m0 = row_tile * wg::kBM;
+  const int n0 = (tile % n_col_tiles) * BN;
+  const int kb_begin = split * kb_per_split;
+  const int kb_end = min(n_kb, kb_begin + kb_per_split);
+  float acc[BN / 2];
+  if (!wg::wgmma_tile_product<BN>(map_p, map_w, smem, m0, n0, kb_begin,
+                                  kb_end, acc))
+    return;
+
+  // the fragment layout: warp w holds rows 16 w + lane / 4 and 8 below,
+  // columns 8 j + 2 (lane % 4) + {0, 1} of n8 tile j
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = m0 + 16 * warp + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+  const bool in0 = row0 < M, in1 = row0 + 8 < M;
+  if (ws != nullptr) {   // uniform across the CTA
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (n0 + 8 * j >= C) continue;   // C % 8 == 0: uniform over the warp
+      const int col = col0 + 8 * j;
+      float* w0 = ws + ((int64_t)split * M + row0) * C + col;
+      if (in0) store2(w0, acc[4 * j], acc[4 * j + 1]);
+      if (in1) store2(w0 + 8 * (int64_t)C, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    return;
+  }
+
+  // the [2][kWarps][BN] scratch overlays the ring, whose last reads (the
+  // other warpgroup's wgmma) are done after this barrier
+  consumer_sync<T::kConsumers * 128>();
+  float* sum_v = reinterpret_cast<float*>(smem);
+  float* sum_q = sum_v + kWarps * BN;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (n0 + 8 * j >= C) continue;
+    const int col = col0 + 8 * j;
+    const float b0 = bias[col], b1 = bias[col + 1];
+    const float u00 = acc[4 * j] + b0, u01 = acc[4 * j + 1] + b1;
+    const float u10 = acc[4 * j + 2] + b0, u11 = acc[4 * j + 3] + b1;
+    float* p0 = U + (int64_t)row0 * C + col;
+    if (in0) store2(p0, u00, u01);
+    if (in1) store2(p0 + 8 * (int64_t)C, u10, u11);
+    // rows past M hold zeros from the TMA but not u = b: masked
+    const float v00 = in0 ? moment_value(u00, round_bf16) : 0.f;
+    const float v01 = in0 ? moment_value(u01, round_bf16) : 0.f;
+    const float v10 = in1 ? moment_value(u10, round_bf16) : 0.f;
+    const float v11 = in1 ? moment_value(u11, round_bf16) : 0.f;
+    float s0 = v00 + v10, s1 = v01 + v11;
+    float q0 = v00 * v00 + v10 * v10, q1 = v01 * v01 + v11 * v11;
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, o);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, o);
+    }
+    if (lane < 4) {
+      const int cc = warp * BN + 8 * j + 2 * lane;
+      sum_v[cc] = s0;
+      sum_v[cc + 1] = s1;
+      sum_q[cc] = q0;
+      sum_q[cc + 1] = q1;
+    }
+  }
+  consumer_sync<T::kConsumers * 128>();
+  for (int cc = threadIdx.x; cc < BN; cc += T::kConsumers * 128) {
+    const int col = n0 + cc;
+    if (col >= C) break;
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      s += sum_v[w * BN + cc];
+      q += sum_q[w * BN + cc];
+    }
+    part[(int64_t)row_tile * C + col] = s;
+    part[((int64_t)n_row_tiles + row_tile) * C + col] = q;
+  }
+}
+
 // split-K finish over a 32-column strip and a row chunk: u = (sum of the
 // splits in split order) + b, written, and the chunk's partial moments
 __global__ void gbm_splitk_finish(const float* __restrict__ ws, int splits,
@@ -247,37 +380,113 @@ int parts_for(int m, int c, int in_dtype, int splits, int sm_count) {
   return (m + BM - 1) / BM;
 }
 
+void launch_splitk_finish(const float* ws, int splits, const float* bias,
+                          float* u, float* part, int parts, int m, int c,
+                          bool round_bf16, cudaStream_t stream) {
+  const dim3 grid((c + kColTile - 1) / kColTile, parts);
+  const dim3 block(kColTile, kRowPhases);
+  gbm_splitk_finish<<<grid, block, 0, stream>>>(
+      ws, splits, bias, u, m, c, dcgan::rows_per_chunk(m, parts), parts,
+      round_bf16, part);
+}
+
 template <int BN>
 void launch_wmma(const void* p, const void* w, const float* bias, float* u,
                  float* ws, float* part, int parts, int splits, int m, int k,
-                 int c, bool round_bf16, cudaStream_t stream) {
+                 int c, bool aligned, bool round_bf16, cudaStream_t stream) {
   const int n_col = (c + BN - 1) / BN;
   const int n_row = (m + BM - 1) / BM;
-  const bool aligned = (k % 8 == 0) && (c % 8 == 0) &&
-                       ((reinterpret_cast<uintptr_t>(p) |
-                         reinterpret_cast<uintptr_t>(w)) % 16 == 0);
   const int chunk = splits > 1 ? k_chunk(k, splits) : k;
   gbm_wmma_kernel<BN><<<n_col * n_row * splits, kThreads, 0, stream>>>(
       static_cast<const bf16*>(p), static_cast<const bf16*>(w), bias, u,
       splits > 1 ? ws : nullptr, part, m, k, c, n_row, n_col, chunk, aligned,
       round_bf16);
-  if (splits > 1) {
-    const dim3 grid((c + kColTile - 1) / kColTile, parts);
-    const dim3 block(kColTile, kRowPhases);
-    gbm_splitk_finish<<<grid, block, 0, stream>>>(
-        ws, splits, bias, u, m, c, dcgan::rows_per_chunk(m, parts), parts,
-        round_bf16, part);
+  if (splits > 1)
+    launch_splitk_finish(ws, splits, bias, u, part, parts, m, c, round_bf16,
+                         stream);
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* p, const void* w, const float* bias,
+                         float* u, float* ws, float* part, int parts,
+                         int stages, int splits, int m, int k, int c,
+                         bool round_bf16, cudaStream_t stream) {
+  using T = wg::WgmmaTile<BN>;
+  if (stages != T::kStages) return cudaErrorInvalidValue;
+  CUtensorMap map_p, map_w;
+  if (!wg::bf16_tensor_map(&map_p, p, m, k, wg::kBM, wg::kBK) ||
+      !wg::bf16_tensor_map(&map_w, w, k, c, wg::kBK, 64))
+    return cudaErrorInvalidValue;
+  auto kernel = gbm_wgmma_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int n_col = (c + BN - 1) / BN;
+  const int n_row = (m + wg::kBM - 1) / wg::kBM;
+  const int n_kb = (k + wg::kBK - 1) / wg::kBK;
+  const int per_split = (n_kb + splits - 1) / splits;
+  kernel<<<n_col * n_row * splits, T::kThreads, T::kSmemBytes, stream>>>(
+      map_p, map_w, bias, u, splits > 1 ? ws : nullptr, part, m, c, n_row,
+      n_col, n_kb, per_split, round_bf16);
+  if (splits > 1)
+    launch_splitk_finish(ws, splits, bias, u, part, parts, m, c, round_bf16,
+                         stream);
+  return cudaSuccess;
+}
+
+// Runs the plan (design, bm, bn, stages, splits) or refuses it with
+// cudaErrorInvalidValue where it does not fit the operands or this build's
+// tile constants.
+cudaError_t launch(const void* p, const void* w, const float* bias, float* u,
+                   float* ws, float* part, int design, int bm, int bn,
+                   int stages, int splits, int parts, int m, int k, int c,
+                   int in_dtype, bool round_bf16, cudaStream_t stream) {
+  const bool aligned = k % 8 == 0 && c % 8 == 0 && aligned16(p) &&
+                       aligned16(w);
+  if (splits < 1 || (splits > 1 && ws == nullptr) || bm < 1)
+    return cudaErrorInvalidValue;
+  if (splits == 1 ? parts != (m + bm - 1) / bm
+                  : (parts < 1 || parts > 65535))
+    return cudaErrorInvalidValue;
+  if (design == kWgmma) {
+    if (in_dtype != dcgan::kBFloat16 || !aligned || bm != wg::kBM ||
+        bn != wg::tile_n(c))
+      return cudaErrorInvalidValue;
+    if (bn == 64)
+      return launch_wgmma<64>(p, w, bias, u, ws, part, parts, stages, splits,
+                              m, k, c, round_bf16, stream);
+    if (bn == 128)
+      return launch_wgmma<128>(p, w, bias, u, ws, part, parts, stages,
+                               splits, m, k, c, round_bf16, stream);
+    return launch_wgmma<256>(p, w, bias, u, ws, part, parts, stages, splits,
+                             m, k, c, round_bf16, stream);
   }
+  if (design == kWmma) {
+    if (in_dtype != dcgan::kBFloat16 || bm != BM || bn != tile_n(c) ||
+        stages != STAGES)
+      return cudaErrorInvalidValue;
+    if (bn == 64)
+      launch_wmma<64>(p, w, bias, u, ws, part, parts, splits, m, k, c,
+                      aligned, round_bf16, stream);
+    else
+      launch_wmma<128>(p, w, bias, u, ws, part, parts, splits, m, k, c,
+                       aligned, round_bf16, stream);
+    return cudaSuccess;
+  }
+  if (design == kSimt) {
+    if (in_dtype != dcgan::kFloat32 || splits != 1 || bm != SBM ||
+        bn != SBN || stages != 1)
+      return cudaErrorInvalidValue;
+    const int n_col = (c + SBN - 1) / SBN;
+    gbm_simt_kernel<<<n_col * parts, kThreads, 0, stream>>>(
+        static_cast<const float*>(p), static_cast<const float*>(w), bias, u,
+        part, m, k, c, parts, n_col, round_bf16);
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
-
-// How many K splits the launch below should use (kernel 5's rule); the
-// caller allocates the f32 workspace [splits, m, c] when this is above 1.
-extern "C" int dcgan_gemm_bias_moments_splits(int m, int k, int c,
-                                              int in_dtype, int sm_count) {
-  return choose_splits(m, k, c, in_dtype, sm_count);
-}
 
 // How many partial moments per column the launch writes; the caller
 // allocates the f32 workspace part[2][parts][c].
@@ -288,40 +497,25 @@ extern "C" int dcgan_gemm_bias_moments_parts(int m, int c, int in_dtype,
 
 // C interface for ctypes. Returns a cudaError_t (0 = the launches were
 // accepted). in_dtype is the dtype of P and W (0 = float32, 1 = bfloat16);
-// bias, u, mean and mean_sq are f32. round_bf16: take the moments of
-// bf16(u). ws: the split-K workspace (splits > 1, bf16 only); part: the
-// partial-moment workspace of `parts` rows.
+// bias, u, mean and mean_sq are f32. design, bm, bn, stages and splits are
+// the launch plan of ops/fused.py::gbsa_plan (design 0 = f32 SIMT, 1 = v1
+// WMMA, 2 = v2 wgmma). round_bf16: take the moments of bf16(u). ws: the
+// split-K workspace of splits * m * c floats (splits > 1, bf16 only);
+// part: the partial-moment workspace of `parts` rows.
 extern "C" int dcgan_gemm_bias_moments(const void* p, const void* w,
                                        const float* bias, float* u,
                                        float* mean, float* mean_sq, float* ws,
-                                       float* part, int splits, int parts,
-                                       int m, int k, int c, int in_dtype,
-                                       int round_bf16, float inv_m,
-                                       void* stream) {
+                                       float* part, int design, int bm,
+                                       int bn, int stages, int splits,
+                                       int parts, int m, int k, int c,
+                                       int in_dtype, int round_bf16,
+                                       float inv_m, void* stream) {
   if (m <= 0 || c <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == dcgan::kBFloat16) {
-    if (splits < 1 || (splits > 1 && ws == nullptr))
-      return (int)cudaErrorInvalidValue;
-    if (splits == 1 ? parts != (m + BM - 1) / BM
-                    : (parts < 1 || parts > 65535))
-      return (int)cudaErrorInvalidValue;
-    if (tile_n(c) == 64)
-      launch_wmma<64>(p, w, bias, u, ws, part, parts, splits, m, k, c,
-                      round_bf16 != 0, s);
-    else
-      launch_wmma<128>(p, w, bias, u, ws, part, parts, splits, m, k, c,
-                       round_bf16 != 0, s);
-  } else if (in_dtype == dcgan::kFloat32) {
-    if (splits != 1 || parts != parts_for(m, c, in_dtype, 1, 0))
-      return (int)cudaErrorInvalidValue;
-    const int n_col = (c + SBN - 1) / SBN;
-    gbm_simt_kernel<<<n_col * parts, kThreads, 0, s>>>(
-        static_cast<const float*>(p), static_cast<const float*>(w), bias, u,
-        part, m, k, c, parts, n_col, round_bf16 != 0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      launch(p, w, bias, u, ws, part, design, bm, bn, stages, splits, parts,
+             m, k, c, in_dtype, round_bf16 != 0, s);
+  if (err != cudaSuccess) return (int)err;
   dcgan::launch_finish(part, parts, c, inv_m, mean, mean_sq, s);
   return (int)cudaGetLastError();
 }

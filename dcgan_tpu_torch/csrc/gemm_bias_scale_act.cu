@@ -257,9 +257,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The design codes of ops/fused.py::GBSA_DESIGNS
-enum Design : int { kSimt = 0, kWmma = 1, kWgmma = 2 };
-
 template <typename OutT>
 void launch_splitk_epilogue(const float* ws, int splits, const float* bias,
                             const float* scale, const float* shift, void* y,
@@ -318,10 +315,6 @@ cudaError_t launch_wgmma(const void* p, const void* w, const float* bias,
     launch_splitk_epilogue<OutT>(ws, splits, bias, scale, shift, y, m, c,
                                  act, leak, stream);
   return cudaSuccess;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Runs the plan (design, bm, bn, stages, splits) or refuses it with

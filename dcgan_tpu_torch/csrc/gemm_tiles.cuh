@@ -222,19 +222,13 @@ inline int k_chunk(int k, int splits) {
   return (per + BK - 1) / BK * BK;
 }
 
-// How many K splits a bf16 launch should use: enough that the output tiles
-// times the splits fill the card (two CTAs per SM are resident), keeping at
-// least 256 of K per split. f32 operands never split.
-inline int choose_splits(int m, int k, int c, int in_dtype, int sm_count) {
-  if (in_dtype != kBFloat16 || m <= 0 || c <= 0) return 1;
-  const int bn = tile_n(c);
-  const int64_t tiles = (int64_t)((m + BM - 1) / BM) * ((c + bn - 1) / bn);
-  int splits = 1;
-  // double while the doubled CTA count still fits two per SM at once
-  while (tiles * (2 * splits) <= 2 * (int64_t)sm_count &&
-         k >= 2 * splits * 256)
-    splits *= 2;
-  return splits;
+// The design codes of a launch plan (ops/fused.py::GBSA_DESIGNS), shared by
+// gemm_bias_scale_act and gemm_bias_moments: f32 SIMT, v1 WMMA (this
+// file's loop), v2 TMA + wgmma (gemm_wgmma.cuh)
+enum Design : int { kSimt = 0, kWmma = 1, kWgmma = 2 };
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace gemm

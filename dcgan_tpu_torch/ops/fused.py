@@ -17,7 +17,8 @@ Two GEMM kernels, each with its plain version for CPU tensors:
 - `gemm_bias_moments` is the train stage's forward, u = P @ W + b in f32
   with the per-channel (E[v], E[v^2]) of v = u in the compute dtype: on a
   CUDA tensor `csrc/gemm_bias_moments.cu` (replacing
-  `_gemm_bias_moments_kernel`). It is differentiable; its backward is
+  `_gemm_bias_moments_kernel`), in the design and tiles that the same
+  `gbsa_plan` picks. It is differentiable; its backward is
   `_gbm_vjp_bwd`'s two matmuls, which the JAX package leaves to XLA and
   this port to `torch.matmul`.
 `fused_conv_bn_act(train=True)` follows it with BN's batch arithmetic and
@@ -208,6 +209,18 @@ def gbsa_plan(m: int, k: int, c: int, in_dtype: torch.dtype, aligned: bool,
     return plan._replace(splits=splits)
 
 
+def gemm_plan(p2d: torch.Tensor, w2d: torch.Tensor, sms: int) -> GbsaPlan:
+    """The launch plan of either GEMM kernel for P [M, K] @ W [K, C] on a
+    card of `sms` SMs: `gbsa_plan`, with the operands `aligned` where K and
+    C are multiples of 8 and both data pointers are 16-byte aligned (TMA's
+    rule for global strides and base)."""
+    m, k = p2d.shape
+    c = w2d.shape[1]
+    aligned = (k % 8 == 0 and c % 8 == 0 and p2d.data_ptr() % 16 == 0
+               and w2d.data_ptr() % 16 == 0)
+    return gbsa_plan(m, k, c, p2d.dtype, aligned, sms)
+
+
 def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
                         b: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, act: str = "none",
@@ -235,9 +248,7 @@ def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
     b = channel_vector("b", b, c, dev)
     scale = channel_vector("scale", scale, c, dev)
     shift = channel_vector("shift", shift, c, dev)
-    aligned = (k % 8 == 0 and c % 8 == 0 and p2d.data_ptr() % 16 == 0
-               and w2d.data_ptr() % 16 == 0)
-    plan = gbsa_plan(m, k, c, p2d.dtype, aligned, sm_count(dev))
+    plan = gemm_plan(p2d, w2d, sm_count(dev))
     y = torch.empty((m, c), dtype=out_dtype, device=dev)
     # split-K partial sums, summed in split order by the kernel's finish
     ws = torch.empty((plan.splits, m, c), dtype=torch.float32,
@@ -284,7 +295,8 @@ def gemm_bias_moments_launch(p2d: torch.Tensor, w2d: torch.Tensor,
                              out_dtype: torch.dtype = torch.float32
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """The kernel on CUDA tensors (raises if it cannot launch)."""
+    """The kernel on CUDA tensors (raises if it cannot launch), in the
+    design `gemm_plan` picks."""
     _check_gemm_operands(p2d, w2d)
     m, k = p2d.shape
     c = w2d.shape[1]
@@ -292,29 +304,29 @@ def gemm_bias_moments_launch(p2d: torch.Tensor, w2d: torch.Tensor,
     b = channel_vector("b", b, c, dev)
     in_code = DTYPE_CODES[p2d.dtype]
     sms = sm_count(dev)
-    splits = c_function("gemm_bias_moments",
-                        "dcgan_gemm_bias_moments_splits")(m, k, c, in_code,
-                                                          sms)
+    plan = gemm_plan(p2d, w2d, sms)
     parts = c_function("gemm_bias_moments",
                        "dcgan_gemm_bias_moments_parts")(m, c, in_code,
-                                                        splits, sms)
+                                                        plan.splits, sms)
     u = torch.empty((m, c), dtype=torch.float32, device=dev)
     mean = torch.empty(c, dtype=torch.float32, device=dev)
     mean_sq = torch.empty(c, dtype=torch.float32, device=dev)
     # split-K partial products, and the partial moments of each row tile
     # (or row chunk): both summed in a fixed order by the kernel's finish
-    ws = torch.empty((splits, m, c), dtype=torch.float32,
-                     device=dev) if splits > 1 else None
+    ws = torch.empty((plan.splits, m, c), dtype=torch.float32,
+                     device=dev) if plan.splits > 1 else None
     part = torch.empty((2, parts, c), dtype=torch.float32, device=dev)
     fn = c_function("gemm_bias_moments", "dcgan_gemm_bias_moments")
     with torch.cuda.device(dev):
         err = fn(p2d.data_ptr(), w2d.data_ptr(), b.data_ptr(), u.data_ptr(),
                  mean.data_ptr(), mean_sq.data_ptr(),
                  ws.data_ptr() if ws is not None else None, part.data_ptr(),
-                 splits, parts, m, k, c, in_code,
+                 GBSA_DESIGNS[plan.design], plan.bm, plan.bn, plan.stages,
+                 plan.splits, parts, m, k, c, in_code,
                  int(out_dtype == torch.bfloat16), 1.0 / m, stream_of(dev))
     check_launch("gemm_bias_moments", err)
     gemm_bias_moments.launches += 1
+    gemm_bias_moments.launches_by_design[plan.design] += 1
     return u, mean, mean_sq
 
 
@@ -357,13 +369,15 @@ def gemm_bias_moments(p2d: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
     and b.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot). `gemm_bias_moments.launches` counts
-    launches."""
+    (and raises if it cannot) in the design `gemm_plan` picks, as
+    `gemm_bias_scale_act` does. `gemm_bias_moments.launches` counts
+    launches, `.launches_by_design` them by design."""
     _check_gemm(p2d, w2d, out_dtype)
     return _GemmBiasMoments.apply(p2d, w2d, b, out_dtype)
 
 
 gemm_bias_moments.launches = 0
+gemm_bias_moments.launches_by_design = dict.fromkeys(GBSA_DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@
   Differentiable: its forward launches `csrc/scale_shift_act.cu`'s forward
   (replacing `_ssa_fwd_kernel`), its backward `scale_shift_act_bwd`, the
   same file's backward kernel (replacing `_ssa_bwd_kernel`), which returns
-  dx, dscale and dshift in one pass.
+  dx, dscale and dshift in one launch, in the design `ssa_bwd_design`
+  picks.
 - `fused_bn_act`: BatchNorm + activation built on `scale_shift_act`.
 
 On a CPU tensor each wrapper runs its `*_plain` version, the same function
@@ -26,7 +27,7 @@ launch the runtime refused.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,10 +47,11 @@ _SIGNATURES = {
         # x, scale, shift, y, n, c, dtype, act, leak, stream
         [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P]),
     "dcgan_scale_shift_act_bwd": (
-        # x, scale, shift, g, dx, dscale, dshift, part, chunks, n, c, dtype,
-        # act, leak, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _F, _P]),
-    "dcgan_scale_shift_act_bwd_chunks": [_I64, _I, _I],
+        # x, scale, shift, g, dx, dscale, dshift, part, ticket, design,
+        # chunks, n, c, dtype, act, leak, stream
+        [_P] * 9 + [_I, _I, _I64, _I, _I, _I, _F, _P]),
+    # n, c, dtype, design, sm_count
+    "dcgan_scale_shift_act_bwd_chunks": [_I64, _I, _I, _I, _I],
     "dcgan_channel_moments": (
         # x, mean, mean_sq, part, chunks, n, c, dtype, inv_n, stream
         [_P, _P, _P, _P, _I, _I64, _I, _I, _F, _P]),
@@ -59,11 +61,9 @@ _SIGNATURES = {
         # m, k, c, in_dtype, out_dtype, act, leak, stream
         [_P] * 7 + [_I] * 11 + [_F, _P]),
     "dcgan_gemm_bias_moments": (
-        # p, w, bias, u, mean, mean_sq, ws, part, splits, parts, m, k, c,
-        # in_dtype, round_bf16, inv_m, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-         _P]),
-    "dcgan_gemm_bias_moments_splits": [_I] * 5,     # m, k, c, in_dtype, sms
+        # p, w, bias, u, mean, mean_sq, ws, part, design, bm, bn, stages,
+        # splits, parts, m, k, c, in_dtype, round_bf16, inv_m, stream
+        [_P] * 8 + [_I] * 11 + [_F, _P]),
     "dcgan_gemm_bias_moments_parts": [_I] * 5,  # m, c, in_dtype, splits, sms
     # q, k, v, out, lse, b, s, dk, dv, dtype, scale, stream
     "dcgan_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
@@ -234,6 +234,41 @@ def scale_shift_act_bwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
     return ((du * s).to(x2d.dtype), (du * xf).sum(0), du.sum(0))
 
 
+# csrc/scale_shift_act.cu::BwdDesign, and the backward's threads per block
+SSA_BWD_DESIGNS = {"scalar": 0, "vector": 1}
+SSA_BWD_THREADS = 256
+
+
+def ssa_bwd_design(c: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The design of scale_shift_act's backward kernel for [N, c] operands
+    of `dtype`, a dispatch by shape and alignment: "vector" (each thread
+    moves 16 bytes of a row per load and store) where c is a multiple of
+    the 16-byte width (8 bf16 or 4 f32 values), one row takes at most
+    SSA_BWD_THREADS such widths, and x, g and dx are 16-byte `aligned`;
+    "scalar" (one element per thread, 32-column strips) otherwise."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    if aligned and c % vec == 0 and c // vec <= SSA_BWD_THREADS:
+        return "vector"
+    return "scalar"
+
+
+# one int32 per device for the backward's last-block ticket, zeroed once;
+# every launch leaves it at 0 again
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _bwd_ticket(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    ticket = _TICKETS.get(index)
+    if ticket is None:
+        ticket = _TICKETS[index] = torch.zeros(
+            1, dtype=torch.int32, device=torch.device("cuda", index))
+    return ticket
+
+
 def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, g: torch.Tensor,
                         act: str = "none", leak: float = LEAK
@@ -241,23 +276,31 @@ def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
     """(dx, dscale, dshift) of y = act(x * scale + shift) for the cotangent
     g of y: dx in x's dtype, dscale and dshift f32. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (and raises if it
-    cannot). `scale_shift_act_bwd.launches` counts launches."""
+    cannot) in the design `ssa_bwd_design` picks.
+    `scale_shift_act_bwd.launches` counts launches, `.launches_by_design`
+    them by design."""
     check_act(act)
     if x2d.device.type == "cpu":
         return scale_shift_act_bwd_plain(x2d, scale, shift, g, act, leak)
     check_matrix("x2d", x2d)
     check_matrix("g", g)
-    if g.shape != x2d.shape or g.dtype != x2d.dtype:
-        raise ValueError(f"g {tuple(g.shape)}/{g.dtype} must match x2d "
-                         f"{tuple(x2d.shape)}/{x2d.dtype}")
+    if g.shape != x2d.shape or g.dtype != x2d.dtype \
+            or g.device != x2d.device:
+        raise ValueError(f"g {tuple(g.shape)}/{g.dtype}/{g.device} must "
+                         f"match x2d {tuple(x2d.shape)}/{x2d.dtype}/"
+                         f"{x2d.device}")
     n, c = x2d.shape
     dev = x2d.device
     scale = channel_vector("scale", scale, c, dev)
     shift = channel_vector("shift", shift, c, dev)
-    chunks = c_function("scale_shift_act",
-                        "dcgan_scale_shift_act_bwd_chunks")(n, c,
-                                                            sm_count(dev))
     dx = torch.empty_like(x2d)
+    aligned = (x2d.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+               and dx.data_ptr() % 16 == 0)
+    design = ssa_bwd_design(c, x2d.dtype, aligned)
+    code = DTYPE_CODES[x2d.dtype]
+    chunks = c_function("scale_shift_act",
+                        "dcgan_scale_shift_act_bwd_chunks")(
+        n, c, code, SSA_BWD_DESIGNS[design], sm_count(dev))
     dscale = torch.empty(c, dtype=torch.float32, device=dev)
     dshift = torch.empty(c, dtype=torch.float32, device=dev)
     part = torch.empty((2, chunks, c), dtype=torch.float32, device=dev)
@@ -265,15 +308,18 @@ def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                  g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-                 dshift.data_ptr(), part.data_ptr(), chunks, n, c,
-                 DTYPE_CODES[x2d.dtype], ACT_CODES[act], float(leak),
+                 dshift.data_ptr(), part.data_ptr(),
+                 _bwd_ticket(dev).data_ptr(), SSA_BWD_DESIGNS[design],
+                 chunks, n, c, code, ACT_CODES[act], float(leak),
                  stream_of(dev))
     check_launch("scale_shift_act_bwd", err)
     scale_shift_act_bwd.launches += 1
+    scale_shift_act_bwd.launches_by_design[design] += 1
     return dx, dscale, dshift
 
 
 scale_shift_act_bwd.launches = 0
+scale_shift_act_bwd.launches_by_design = dict.fromkeys(SSA_BWD_DESIGNS, 0)
 
 
 class _ScaleShiftAct(torch.autograd.Function):

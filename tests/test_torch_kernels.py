@@ -271,6 +271,101 @@ class TestGbsaPlan:
             fused.GBSA_V2_SMEM_BUDGET)
 
 
+class TestGbmPlan:
+    """The launch plan of gemm_bias_moments: `gbsa_plan` itself, reached
+    through `gemm_plan`, which computes `aligned` from K, C and both data
+    pointers (TMA's rule); pinned on an H100's 132 SMs."""
+
+    # celeba64's six fused training stages at batch 64: (M, K, C) and the
+    # plan's column tile and K splits
+    CELEBA64 = [(4096, 12800, 256, 256, 4),    # G deconv1
+                (16384, 6400, 128, 128, 1),    # G deconv2
+                (65536, 3200, 64, 64, 1),      # G deconv3
+                (16384, 1600, 128, 128, 1),    # D conv1
+                (4096, 3200, 256, 256, 4),     # D conv2
+                (1024, 6400, 512, 256, 8)]     # D conv3
+
+    @pytest.mark.parametrize("m, k, c, bn, splits", CELEBA64)
+    def test_celeba64_stages_take_v2(self, m, k, c, bn, splits):
+        plan = fused.gbsa_plan(m, k, c, torch.bfloat16, True, 132)
+        assert (plan.design, plan.bm, plan.bn, plan.splits) == (
+            "v2", fused.GBSA_V2_BM, bn, splits)
+        assert 2 <= plan.stages <= fused.GBSA_V2_MAX_STAGES
+        # the splits fill the card: a doubled split would not fit at once
+        resident = 132 * (2 if bn == 64 else 1)
+        assert 2 * plan.ctas(m, c) > resident or \
+            -(-k // fused.GBSA_V2_BK) < 2 * splits \
+            * fused.GBSA_V2_MIN_KB_PER_SPLIT
+
+    # (M, K, C), dtype, pointer offsets of P and W in elements, the design
+    @pytest.mark.parametrize("mkc, dtype, offsets, design", [
+        ((1000, 200, 72), torch.bfloat16, (0, 0), "v2"),
+        ((100, 37, 70), torch.bfloat16, (0, 0), "v1"),    # K and C
+        ((100, 40, 70), torch.bfloat16, (0, 0), "v1"),    # C % 8
+        ((100, 37, 72), torch.bfloat16, (0, 0), "v1"),    # K % 8
+        ((1000, 200, 72), torch.bfloat16, (1, 0), "v1"),  # P unaligned
+        ((1000, 200, 72), torch.bfloat16, (0, 4), "v1"),  # W unaligned
+        ((1000, 200, 72), torch.bfloat16, (8, 8), "v2"),  # 16 bytes off
+        ((1000, 200, 72), torch.float32, (0, 0), "simt"),
+        ((100, 37, 70), torch.float32, (1, 1), "simt")])
+    def test_operands_pick_the_design(self, mkc, dtype, offsets, design):
+        m, k, c = mkc
+        p = _at_offset(torch.zeros(m, k, dtype=dtype), offsets[0])
+        w = _at_offset(torch.zeros(k, c, dtype=dtype), offsets[1])
+        plan = fused.gemm_plan(p, w, 132)
+        aligned = design == "v2"
+        assert plan == fused.gbsa_plan(m, k, c, dtype, aligned, 132)
+        assert plan.design == design
+
+    def test_design_codes_match_the_kernel_source(self):
+        src = (_build.SRC_DIR / "gemm_tiles.cuh").read_text()
+        m = re.search(r"enum Design : int \{ kSimt = (\d+), kWmma = (\d+), "
+                      r"kWgmma = (\d+) \};", src)
+        assert tuple(int(x) for x in m.groups()) == (
+            fused.GBSA_DESIGNS["simt"], fused.GBSA_DESIGNS["v1"],
+            fused.GBSA_DESIGNS["v2"])
+
+
+class TestSsaBwdDesign:
+    """The design of scale_shift_act's backward kernel
+    (`kernels.ssa_bwd_design`): a dispatch by width and alignment."""
+
+    @pytest.mark.parametrize("c", [512, 256, 128, 64])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_celeba64_shapes_take_vector(self, c, dtype):
+        assert kernels.ssa_bwd_design(c, dtype, True) == "vector"
+
+    @pytest.mark.parametrize("c, dtype, aligned, design", [
+        (72, torch.bfloat16, True, "vector"),
+        (60, torch.bfloat16, True, "scalar"),     # not a multiple of 8
+        (60, torch.float32, True, "vector"),      # a multiple of 4
+        (70, torch.float32, True, "scalar"),
+        (72, torch.bfloat16, False, "scalar"),    # a pointer off 16 bytes
+        (8, torch.bfloat16, True, "vector"),
+        (4, torch.bfloat16, True, "scalar"),
+        (2048, torch.bfloat16, True, "vector"),   # 256 threads on a row
+        (2056, torch.bfloat16, True, "scalar"),   # 257
+        (1024, torch.float32, True, "vector"),
+        (1028, torch.float32, True, "scalar")])
+    def test_width_and_alignment_pick_the_design(self, c, dtype, aligned,
+                                                 design):
+        assert kernels.ssa_bwd_design(c, dtype, aligned) == design
+
+    def test_rejects_other_dtypes(self):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            kernels.ssa_bwd_design(64, torch.float16, True)
+
+    def test_constants_match_the_kernel_source(self):
+        src = (_build.SRC_DIR / "scale_shift_act.cu").read_text()
+        threads = re.search(r"constexpr int kBwdThreads = (\d+);", src)
+        codes = re.search(r"enum BwdDesign : int \{ kBwdScalar = (\d+), "
+                          r"kBwdVector = (\d+) \};", src)
+        assert int(threads.group(1)) == kernels.SSA_BWD_THREADS
+        assert tuple(int(x) for x in codes.groups()) == (
+            kernels.SSA_BWD_DESIGNS["scalar"],
+            kernels.SSA_BWD_DESIGNS["vector"])
+
+
 def _assert_sum_close(got, want, terms_abs):
     """A column sum taken in another order: within 1e-5 of the sum of the
     terms' magnitudes (plus 1e-6)."""
@@ -714,6 +809,26 @@ class TestKernelsOnCard:
                 with pytest.raises(RuntimeError, match="launch failed"):
                     fused.gemm_bias_scale_act(p, w, v, v, v)
                 assert fused.gemm_bias_scale_act.launches == count
+        # the same for gemm_bias_moments' plan, and for a backward design
+        # that does not fit its operands
+        plan = fused.gemm_plan
+        for bad in ({"stages": 1}, {"bm": 64}, {"bn": 128},
+                    {"design": "simt"}):
+            with monkeypatch.context() as patch:
+                patch.setattr(fused, "gemm_plan", lambda *a, bad=bad:
+                              plan(*a)._replace(**bad))
+                count = fused.gemm_bias_moments.launches
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    fused.gemm_bias_moments(p, w, v, torch.bfloat16)
+                assert fused.gemm_bias_moments.launches == count
+        x = _at_offset(torch.zeros(16, 64, device=cuda,
+                                   dtype=torch.bfloat16), 1)
+        with monkeypatch.context() as patch:
+            patch.setattr(kernels, "ssa_bwd_design", lambda *a: "vector")
+            count = kernels.scale_shift_act_bwd.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kernels.scale_shift_act_bwd(x, v, v, x)
+            assert kernels.scale_shift_act_bwd.launches == count
         # the bf16 dq kernel's wrapper raises on what it does not take
         q = torch.zeros((1, 8, 8), device=cuda, dtype=torch.bfloat16)
         lse = torch.zeros((1, 8), device=cuda)
@@ -790,6 +905,102 @@ class TestKernelsOnCard:
         v = got[0].to(tdt).float()
         _assert_sum_close(got[1], v.mean(0), v.abs().mean(0))
         _assert_sum_close(got[2], (v * v).mean(0), (v * v).mean(0))
+
+    @staticmethod
+    def _check_gbm(p, w, b, tdt, design):
+        """Kernel 4 twice: the design taken, the same bits, u against the
+        plain product (as test_gemm_bias_moments) and the moments against
+        those of the kernel's own u in the compute dtype."""
+        by_design = fused.gemm_bias_moments.launches_by_design
+        before = dict(by_design)
+        got = fused.gemm_bias_moments(p, w, b, tdt)
+        again = fused.gemm_bias_moments(p, w, b, tdt)
+        torch.cuda.synchronize()
+        assert by_design == dict(before, **{design: before[design] + 2})
+        assert all(torch.equal(a, bb) for a, bb in zip(got, again))
+        u_want = fused.gemm_bias_moments_plain(p, w, b, tdt)[0]
+        assert bool(((got[0] - u_want).abs()
+                     <= 1e-5 * u_want.abs() + 1e-4).all())
+        v = got[0].to(tdt).float()
+        _assert_sum_close(got[1], v.mean(0), v.abs().mean(0))
+        _assert_sum_close(got[2], (v * v).mean(0), (v * v).mean(0))
+
+    @pytest.mark.parametrize("m, k, c, bn, splits", TestGbmPlan.CELEBA64)
+    def test_gemm_bias_moments_v2_at_celeba64_stages(self, cuda, m, k, c, bn,
+                                                     splits):
+        """Kernel 4 at each celeba64 training stage's shape at batch 64, on
+        the plan TestGbmPlan pins (v2, its column tile and splits)."""
+        g = torch.Generator(device=cuda).manual_seed(m + k + c)
+        p = (torch.rand((m, k), generator=g, device=cuda) * 2 - 1).to(
+            torch.bfloat16)
+        w = ((torch.rand((k, c), generator=g, device=cuda) - 0.5) * 0.1).to(
+            torch.bfloat16)
+        b = torch.rand(c, generator=g, device=cuda) * 2 - 1
+        plan = fused.gemm_plan(p, w, kernels.sm_count(cuda))
+        if kernels.sm_count(cuda) == 132:
+            assert (plan.design, plan.bn, plan.splits) == ("v2", bn, splits)
+        assert plan.design == "v2"
+        self._check_gbm(p, w, b, torch.bfloat16, "v2")
+
+    # (M, K, C, pointer offset in elements, the design gemm_plan picks): a
+    # ragged aligned shape and a 40-column one on v2, then K 37 / C 70 and
+    # aligned shapes off 16-byte alignment (one split-K) on v1
+    GBM_CASES = [(1000, 200, 72, 0, "v2"), (200, 3000, 40, 0, "v2"),
+                 (100, 37, 70, 0, "v1"), (1000, 200, 72, 1, "v1"),
+                 (4096, 3200, 256, 1, "v1")]
+
+    @pytest.mark.parametrize("case", GBM_CASES)
+    def test_gemm_bias_moments_designs(self, cuda, case):
+        """bf16 operands on each design the plan picks: the launch takes
+        that design, matches the plain version and repeats bit for bit."""
+        m, k, c, offset, design = case
+        p = _at_offset(torch.from_numpy(_np(123, (m, k))).to(
+            cuda, torch.bfloat16), offset)
+        w = _at_offset(torch.from_numpy(_np(124, (k, c), -0.05, 0.05)).to(
+            cuda, torch.bfloat16), offset)
+        b = torch.from_numpy(_np(125, (c,))).to(cuda)
+        assert fused.gemm_plan(p, w, kernels.sm_count(cuda)).design == design
+        self._check_gbm(p, w, b, torch.bfloat16, design)
+
+    # (dtype, C, pointer offset in elements, the design ssa_bwd_design
+    # picks): C 72 and 60 in bf16 and f32, and C 72 one element off 16-byte
+    # alignment
+    SSA_BWD_CASES = [(torch.bfloat16, 72, 0, "vector"),
+                     (torch.bfloat16, 60, 0, "scalar"),
+                     (torch.bfloat16, 72, 1, "scalar"),
+                     (torch.float32, 72, 0, "vector"),
+                     (torch.float32, 60, 0, "vector"),
+                     (torch.float32, 72, 1, "scalar")]
+
+    @pytest.mark.parametrize("act", ACT_LIST)
+    @pytest.mark.parametrize("case", SSA_BWD_CASES)
+    def test_scale_shift_act_bwd_designs(self, cuda, act, case):
+        """Kernel 3 on each design, launched 20 times: the design taken
+        each time, every launch the same bits as the first (a last-block
+        ticket left unreset would change the sums), the plain version
+        matched."""
+        tdt, c, offset, design = case
+        shape = (4099, c)
+        x = _at_offset(torch.from_numpy(_np(114, shape, -2, 2)).to(cuda, tdt),
+                       offset)
+        g = _at_offset(torch.from_numpy(_np(115, shape)).to(cuda, tdt),
+                       offset)
+        scale = torch.from_numpy(_np(116, (c,), 0.5, 1.5)).to(cuda)
+        shift = torch.from_numpy(_np(117, (c,))).to(cuda)
+        by_design = kernels.scale_shift_act_bwd.launches_by_design
+        before = dict(by_design)
+        runs = [kernels.scale_shift_act_bwd(x, scale, shift, g, act)
+                for _ in range(20)]
+        torch.cuda.synchronize()
+        assert by_design == dict(before, **{design: before[design] + 20})
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+        got = runs[0]
+        want = kernels.scale_shift_act_bwd_plain(x, scale, shift, g, act)
+        _assert_close(got[0], want[0], tdt)
+        ga, xa = g.float().abs(), x.float().abs()
+        _assert_sum_close(got[1], want[1], (ga * xa).sum(0))
+        _assert_sum_close(got[2], want[2], ga.sum(0))
 
     @pytest.mark.parametrize("transpose,act", [(True, "relu"),
                                                (False, "lrelu")])
