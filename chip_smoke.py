@@ -14,22 +14,28 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
    HOPPER_SASS, whose counts are logged;
 2. kernels: each kernel against its plain PyTorch version on the same card
    tensors at the shapes the served path (kernels 2, 5) and the training
-   step (kernels 1, 3, 4) give it (celeba64, batch 64), in bf16 and f32,
-   plus ragged shapes (kernels 4 and 5: an aligned one on the v2 design,
-   an unaligned one on v1, f32 on SIMT; kernel 3: the vector design at C
-   72, the scalar one at C 70 and off 16-byte alignment; every act),
-   kernels 1, 3, 4, 5 also launched twice to show they repeat bit for
-   bit; the launch plan per stage of kernels 4 and 5 (gbsa_plan) and
-   the design each launch of kernels 3, 4 and 5 took are checked; then
-   timed with CUDA events (the median of three windows) beside its
-   bound, its plain version and a library call;
+   step (kernels 1-4; kernel 2 at every BN epilogue and every act, kernel
+   1 also at the epilogue shapes of the use_pallas route) give it
+   (celeba64, batch 64), in bf16 and f32, plus ragged shapes (kernels 4
+   and 5: an aligned one on the v2 design, an unaligned one on v1, f32 on
+   SIMT; kernel 3: the vector design at C 72, the scalar one at C 70 and
+   off 16-byte alignment; kernel 2: [37, 70] and bn0 2 elements off
+   alignment on its scalar design; kernel 1: (37, 70), (5, 3) and bn0 one
+   element off alignment on its scalar design), kernels 1, 3, 4, 5 also
+   launched twice to show they repeat bit for bit; the launch plan per
+   stage of kernels 4 and 5 (gbsa_plan) and of kernel 1 (moments_plan)
+   and the design each launch of kernels 1-5 took are checked and
+   logged; then timed with CUDA events (the median of three windows)
+   beside its bound, its plain version and a library call, per shape and
+   per training step; kernels 1 and 2 also over a ring of copies of their
+   input larger than the L2, so that they read from HBM (`hbm_ms`);
 3. serve: seeded celeba64 weights (use_pallas + pallas_fused, BN running
    statistics calibrated on a batch and perturbed with numpy noise) are
    written with convert.save_weights and served through
    `python -m dcgan_tpu_torch.serve`'s entry point on cuda, 24 demo
    requests of 1-8 images; the kernels' launch counters are set to 0 just
    before and read just after, and must both have risen, every kernel 5
-   launch on its v2 design;
+   launch on its v2 design and every kernel 2 launch on its vector design;
 4. outputs: every served image is finite, in [-1, 1], shape [n, 64, 64, 3];
    requests match a direct sampler call on the same z rows; one batch
    matches the cuDNN + torch-BN route (use_pallas=False), in bf16 and, with
@@ -39,7 +45,7 @@ nvcc. Needs one card; no network. Phases, each fatal on failure:
    --preset celeba64 --use_pallas --pallas_fused --synthetic, batch 64) for
    TRAIN_STEPS steps on cuda, the launch counters set to 0 just before and
    read just after: each kernel must have launched exactly its per-step
-   count times the steps, kernels 4 and 3 always on their designs of
+   count times the steps, kernels 1-4 always on their designs of
    TRAIN_DESIGN; the losses are finite and every parameter and BN running
    statistic moved from the seeded init;
 6. train outputs: the losses and both nets' gradients at the seeded
@@ -180,21 +186,33 @@ ATTN_GRAD_TOL = {"bfloat16": (0.1, 1e-3), "float32": (1e-2, 1e-5)}
 # (ops/fused.py::gbsa_plan; v1: WMMA from padded shared rows, v2: TMA-fed
 # wgmma)
 GBSA_DESIGN = "v2"
-# The designs of gemm_bias_moments (the same plan) and scale_shift_act's
-# backward (ops/kernels.py::ssa_bwd_design; vector: 16-byte loads) on every
-# launch of the celeba64 bf16 training step
-TRAIN_DESIGN = {"gemm_bias_moments": "v2", "scale_shift_act_bwd": "vector"}
+# The designs of gemm_bias_moments (the same plan), scale_shift_act's
+# forward and backward (ops/kernels.py::ssa_fwd_design, ::ssa_bwd_design;
+# vector: 16-byte loads) and channel_moments (ops/kernels.py::moments_plan)
+# on every launch of the celeba64 bf16 training step; the served path's
+# scale_shift_act launches take the same forward design
+TRAIN_DESIGN = {"gemm_bias_moments": "v2", "scale_shift_act_bwd": "vector",
+                "scale_shift_act": "vector", "channel_moments": "vector"}
 # Hopper instructions each redesigned kernel's machine code must hold
 # (cuobjdump -sass of the built library), by a part of its entries'
 # mangled names: TMA loads and wgmma in every gbsa_wgmma_kernel<BN, OutT>
 # and gbm_wgmma_kernel<BN>, ldmatrix and the ex2 MUFU op in every bf16
-# flash_dq_kernel<DKP, DVP>
-HOPPER_SASS = {"gemm_bias_scale_act": ("17gbsa_wgmma_kernelI",
-                                       ("HGMMA", "UTMALDG")),
-               "gemm_bias_moments": ("16gbm_wgmma_kernelI",
-                                     ("HGMMA", "UTMALDG")),
-               "flash_attention": ("15flash_dq_kernelI",
-                                   ("LDSM", "MUFU.EX2"))}
+# flash_dq_kernel<DKP, DVP>; 128-bit read-only loads and 128-bit stores in
+# every ssa_fwd_vec_kernel<T, VEC, ACT>; the cluster barrier (arrive and
+# wait) in every moments_cluster_kernel<T, VEC>, and 128-bit read-only
+# loads of x in its vector entries (<bf16, 8>, <float, 4>; the finish's
+# 128-bit loads are .STRONG.GPU and do not count)
+HOPPER_SASS = {
+    "gemm_bias_scale_act": (("17gbsa_wgmma_kernelI", ("HGMMA", "UTMALDG")),),
+    "gemm_bias_moments": (("16gbm_wgmma_kernelI", ("HGMMA", "UTMALDG")),),
+    "flash_attention": (("15flash_dq_kernelI", ("LDSM", "MUFU.EX2")),),
+    "scale_shift_act": (("18ssa_fwd_vec_kernelI",
+                         ("LDG.E.128.CONSTANT", "STG.E.128")),),
+    "channel_moments": (
+        ("22moments_cluster_kernelI", ("UCGABAR_ARV", "UCGABAR_WAIT")),
+        ("22moments_cluster_kernelI13__nv_bfloat16Li8E",
+         ("LDG.E.128.CONSTANT",)),
+        ("22moments_cluster_kernelIfLi4E", ("LDG.E.128.CONSTANT",)))}
 # Entries (a part of their mangled names) that must build without spilling:
 # gemm_bias_moments' v2 keeps 2 x BN / 8 moment sums out of registers by
 # reducing n8 tile by n8 tile
@@ -247,6 +265,35 @@ def time_ms(torch, fn, iters: int, warmup: int = 2, label: str = "fn"):
         f"call in 3 windows of {n}, median {ms:.4f}; host-inclusive "
         f"{call_ms:.4f} ms")
     return ms, call_ms
+
+
+# the bytes that pass through the card between two calls on one copy of an
+# operand in time_from_hbm: three times the H100's 50 MB L2
+RING_BYTES = 150 * 2 ** 20
+
+
+def time_from_hbm(torch, fn, operand, traffic: int, label: str):
+    """Device ms of one fn(operand) with its operand read from HBM and not
+    the L2, where time_ms's back-to-back calls on one tensor may keep an
+    operand of a few MB in the 50 MB L2. fn runs over a ring of copies of
+    `operand`, enough that RING_BYTES of `traffic` (the bytes one call
+    moves) pass between two calls on one copy; its results are kept alive in
+    a ring of the same length, so its outputs rotate through as many
+    buffers. time_ms's median of three windows, each about one turn of the
+    ring. Returns (ms, copies)."""
+    copies = max(2, -(-RING_BYTES // traffic))
+    ring = [operand.clone() for _ in range(copies)]
+    outs = [None] * copies
+    turn = [0]
+
+    def step():
+        i = turn[0] % copies
+        turn[0] += 1
+        outs[i] = fn(ring[i])
+
+    ms, _ = time_ms(torch, step, max(50, 3 * copies),
+                    label=f"{label} from HBM, a ring of {copies}")
+    return ms, copies
 
 
 def check_close(torch, name, got, want, dtype_name):
@@ -363,21 +410,35 @@ def check_kernels(torch, cfg, ptxas):
            "replaces": "dcgan_tpu/ops/pallas_kernels.py:151",
            "shape": [n0, top]}
     errs = {}
+    by_design = scale_shift_act.launches_by_design
+    # the served shape on the vector design, then a ragged shape and the
+    # served shape 2 elements off 16-byte alignment on the scalar design
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
-        for shape in ((n0, top), (37, 70)):   # served shape, then ragged
-            x = rand(*shape).to(dt)
+        for shape, offset, design in (((n0, top), 0, "vector"),
+                                      ((37, 70), 0, "scalar"),
+                                      ((n0, top), 2, "scalar")):
+            x = at_offset(torch, rand(*shape).to(dt), offset)
             _, scale, shift = vectors(shape[1])
             for act in ACTS:
+                before = dict(by_design)
                 got = scale_shift_act(x, scale, shift, act)
                 want = scale_shift_act_plain(x, scale, shift, act)
                 torch.cuda.synchronize()
-                err = check_close(torch, f"scale_shift_act {dt_name} "
-                                  f"{shape} {act}", got, want, dt_name)
-                if shape == (n0, top):
+                tag = f"{dt_name} {shape} +{offset} {act}"
+                if by_design != dict(before, **{design: before[design] + 1}):
+                    fail(f"scale_shift_act {tag} did not take design "
+                         f"{design}: {before} -> {by_design}")
+                err = check_close(torch, f"scale_shift_act {tag}", got, want,
+                                  dt_name)
+                if (shape, offset) == ((n0, top), 0):
                     errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            log(f"scale_shift_act {dt_name} {shape} +{offset} takes design "
+                f"{design} and matches its plain version at every act")
     log(f"scale_shift_act matches its plain version (max |err| bf16 "
         f"{errs['bfloat16']:.3g}, f32 {errs['float32']:.3g})")
+    ssa.update(entry_report(ptxas, "18ssa_fwd_vec_kernelI13__nv_bfloat16Li8E"
+                                   "Li1E"))
     x = rand(n0, top).clamp_min(0).to(torch.bfloat16)
     _, scale, shift = vectors(top)
     ssa["ms"], ssa["call_ms"] = time_ms(
@@ -591,8 +652,9 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
     from dcgan_tpu_torch.ops.fused import conv_patches, gemm_bias_moments, \
         gemm_bias_moments_plain, gemm_plan, w_to_gemm
     from dcgan_tpu_torch.ops.kernels import channel_moments, \
-        channel_moments_plain, scale_shift_act, scale_shift_act_bwd, \
-        scale_shift_act_bwd_plain, scale_shift_act_plain, sm_count
+        channel_moments_plain, moments_plan, scale_shift_act, \
+        scale_shift_act_bwd, scale_shift_act_bwd_plain, \
+        scale_shift_act_plain, sm_count
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -605,44 +667,105 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
     n0 = BATCH * cfg.base_size ** 2
     stages = train_shapes(cfg, BATCH)
 
-    # ---- kernel 1: channel_moments at G's bn0 [16 B, 512] ----------------
+    # ---- kernel 1: channel_moments at G's bn0 [16 B, 512] and every ------
+    # ---- epilogue shape (the use_pallas-only route's BN moments) ---------
     k1 = {"name": "channel_moments", "route": "cuda",
           "source": "dcgan_tpu_torch/csrc/channel_moments.cu",
-          "replaces": "dcgan_tpu/ops/pallas_kernels.py:80", "shapes": []}
-    errs = {}
+          "replaces": "dcgan_tpu/ops/pallas_kernels.py:80",
+          "design": TRAIN_DESIGN["channel_moments"], "shapes": []}
+    k1_designs = channel_moments.launches_by_design
+    sms = sm_count(dev)
+    # (name, N, C, launches per step on the main path, on the use_pallas
+    # route without pallas_fused: every BN's moments, G forwarding twice
+    # and D three times per step); bn0 and D conv3 share [1024, 512]
+    moment_shapes = [("G bn0", n0, top, 2, 2)] + [
+        (s["name"], s["m"], s["c"], 0, s["fwd"]) for s in stages]
+
+    def check_moments(tag, x):
+        """Kernel 1 launched twice on the plan moments_plan makes: that
+        design taken, the same bits twice, the plain version matched as
+        column sums. Returns (max |err|, the plan)."""
+        plan = moments_plan(*x.shape, x.dtype, x.data_ptr() % 16 == 0, sms)
+        before = dict(k1_designs)
+        got, again = channel_moments(x), channel_moments(x)
+        want = channel_moments_plain(x)
+        torch.cuda.synchronize()
+        if k1_designs != dict(before, **{plan.design:
+                                         before[plan.design] + 2}):
+            fail(f"channel_moments {tag} did not take design {plan.design}: "
+                 f"{before} -> {k1_designs}")
+        same_bits(torch, f"channel_moments {tag}", got, again)
+        xf = x.float()
+        return max(column_sum_close(
+            torch, f"channel_moments {tag} {i}", a, w, t)
+            for i, (a, w, t) in enumerate(zip(
+                got, want, (xf.abs().mean(0), (xf * xf).mean(0))))), plan
+
+    # ragged shapes on the scalar design, and bn0 one element off 16-byte
+    # alignment
     for dt_name, dt in dtypes:
-        for shape in ((n0, top), (37, 70), (5, 3)):
-            x = rand(*shape, lo=-2.0, hi=2.0).to(dt)
-            got, again = channel_moments(x), channel_moments(x)
-            want = channel_moments_plain(x)
-            torch.cuda.synchronize()
-            same_bits(torch, f"channel_moments {dt_name} {shape}", got, again)
-            xf = x.float()
-            err = max(column_sum_close(
-                torch, f"channel_moments {dt_name} {shape} {i}", a, w, t)
-                for i, (a, w, t) in enumerate(zip(
-                    got, want, (xf.abs().mean(0), (xf * xf).mean(0)))))
-            if shape == (n0, top):
-                errs[dt_name] = err
-    x = rand(n0, top, lo=-2.0, hi=2.0).to(torch.bfloat16)
-    shape = {"stage": "G bn0", "n": n0, "c": top, "per_step": 2}
-    shape["ms"], shape["call_ms"] = time_ms(
-        torch, lambda: channel_moments(x), 200, label="k1 bn0")
-    shape["plain_ms"], _ = time_ms(torch, lambda: channel_moments_plain(x),
-                                   100, label="k1 plain bn0")
-    shape["library_ms"], _ = time_ms(torch, lambda: (
-        x.float().mean(0), (x.float() ** 2).mean(0)), 100,
-        label="k1 library bn0")
-    t_bytes, t_ops = moments_bound(n0, top, 2)
-    shape["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    k1["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    k1["shapes"].append(shape)
+        for shape, offset in (((37, 70), 0), ((5, 3), 0), ((n0, top), 1)):
+            x = at_offset(torch, rand(*shape, lo=-2.0, hi=2.0).to(dt),
+                          offset)
+            _, plan = check_moments(f"{dt_name} {shape} +{offset}", x)
+            if plan.design != "scalar":
+                fail(f"channel_moments {shape} +{offset} plans {plan}")
+    log("channel_moments ragged and unaligned shapes match their plain "
+        "versions and repeat bitwise on the scalar design")
+    errs = {}
+    timed = {}
+    for name, n, c, per_step, per_step_unfused in moment_shapes:
+        for dt_name, dt in dtypes:
+            x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
+            err, plan = check_moments(f"{name} {dt_name}", x)
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            if plan.design != k1["design"]:
+                fail(f"channel_moments {name} {dt_name} plans {plan}")
+            log(f"channel_moments {name} [{n}, {c}] {dt_name} matches its "
+                f"plain version and repeats bitwise; plan {plan._asdict()}")
+            if dt is not torch.bfloat16:
+                continue
+            e = {"stage": name, "n": n, "c": c, "per_step": per_step,
+                 "per_step_unfused": per_step_unfused,
+                 "plan": plan._asdict()}
+            if (n, c) not in timed:
+                t = timed[(n, c)] = {}
+                t["ms"], t["call_ms"] = time_ms(
+                    torch, lambda: channel_moments(x), 200,
+                    label=f"k1 {name}")
+                t["plain_ms"], _ = time_ms(
+                    torch, lambda: channel_moments_plain(x), 100,
+                    label=f"k1 plain {name}")
+                t["library_ms"], _ = time_ms(torch, lambda: (
+                    x.float().mean(0), (x.float() ** 2).mean(0)), 100,
+                    label=f"k1 library {name}")
+                t["hbm_ms"], t["ring"] = time_from_hbm(
+                    torch, channel_moments, x, 2 * n * c, f"k1 {name}")
+                t_bytes, t_ops = moments_bound(n, c, 2)
+                t["bound_ms"] = max(t_bytes, t_ops) * 1e3
+                t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            e.update(timed[(n, c)])
+            k1["shapes"].append(e)
+            log(f"channel_moments {name}: {e['ms']:.4f} ms ("
+                f"{e['hbm_ms']:.4f} from HBM) vs bound "
+                f"{e['bound_ms']:.5f} ms; plain {e['plain_ms']:.4f} ms; "
+                f"library {e['library_ms']:.4f} ms")
+    k1["bound_by"] = "bytes" if all(e["bound_by"] == "bytes"
+                                    for e in k1["shapes"]) else "operations"
     k1["max_abs_err"], k1["max_abs_err_f32"] = errs["bfloat16"], \
         errs["float32"]
-    log(f"channel_moments matches its plain version and repeats bitwise "
-        f"(max |err| bf16 {errs['bfloat16']:.3g}, f32 "
-        f"{errs['float32']:.3g}); {shape['ms']:.4f} ms vs bound "
-        f"{shape['bound_ms']:.5f} ms")
+    k1.update(entry_report(ptxas, "22moments_cluster_kernelI13__nv_bfloat16"
+                                  "Li8E"))
+    # the use_pallas route's step (BN moments on kernel 1 at every shape)
+    k1["use_pallas_step"] = {
+        key: sum(e[key] * e["per_step_unfused"] for e in k1["shapes"])
+        for key in ("ms", "hbm_ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"channel_moments per step: {weighted(k1['shapes'], 'ms'):.4f} ms "
+        f"on the main path (bound "
+        f"{weighted(k1['shapes'], 'bound_ms'):.5f}), "
+        f"{k1['use_pallas_step']['ms']:.4f} ms on the use_pallas route "
+        f"({k1['use_pallas_step']['hbm_ms']:.4f} from HBM; bound "
+        f"{k1['use_pallas_step']['bound_ms']:.5f})")
 
     # ---- kernels 3 and 2 at every BN epilogue of the step ----------------
     k3 = {"name": "scale_shift_act_bwd", "route": "cuda",
@@ -696,6 +819,7 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
         "alignment) and vector (C 72), every act, bf16 and f32")
     fwd_shapes = []
     errs = {}
+    k2_designs = scale_shift_act.launches_by_design
     for name, n, c, act, fwd, bwd in epilogues:
         for dt_name, dt in dtypes:
             x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
@@ -704,6 +828,25 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
             err = check_ssa_bwd(f"{name} {dt_name}", x, gr, scale, shift,
                                 act, k3["design"])
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            # kernel 2 at this epilogue's shape, every act, on its design
+            k2_err = 0.0
+            for a in ACTS:
+                before = dict(k2_designs)
+                y = scale_shift_act(x, scale, shift, a)
+                torch.cuda.synchronize()
+                design = TRAIN_DESIGN["scale_shift_act"]
+                if k2_designs != dict(before, **{design: before[design] + 1}):
+                    fail(f"scale_shift_act {name} {dt_name} {a} did not take "
+                         f"design {design}: {before} -> {k2_designs}")
+                k2_err = max(k2_err, check_close(
+                    torch, f"scale_shift_act {name} {dt_name} {a}", y,
+                    scale_shift_act_plain(x, scale, shift, a), dt_name))
+            key = "max_abs_err" if dt is torch.bfloat16 \
+                else "max_abs_err_f32"
+            ssa_entry[key] = max(ssa_entry[key], k2_err)
+            log(f"scale_shift_act {name} [{n}, {c}] {dt_name} takes design "
+                f"{design} and matches its plain version at every act (max "
+                f"|err| {k2_err:.3g})")
             if dt is not torch.bfloat16:
                 continue
             e = {"stage": name, "n": n, "c": c, "per_step": bwd,
@@ -729,7 +872,8 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
             e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             k3["shapes"].append(e)
             # kernel 2, the same epilogue's forward, at the training shape
-            f = {"stage": name, "n": n, "c": c, "per_step": fwd}
+            f = {"stage": name, "n": n, "c": c, "per_step": fwd,
+                 "design": TRAIN_DESIGN["scale_shift_act"]}
             f["ms"], _ = time_ms(torch, lambda: scale_shift_act(
                 x, scale, shift, act), 50, label=f"k2 {name}")
             f["plain_ms"], _ = time_ms(torch, lambda: scale_shift_act_plain(
@@ -737,9 +881,21 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
             f["library_ms"], _ = time_ms(torch, lambda: act_fwd(
                 x.float() * scale + shift, act, cfg.leak).to(dt), 20,
                 label=f"k2 library {name}")
+            f["hbm_ms"], f["ring"] = time_from_hbm(
+                torch, lambda xi: scale_shift_act(xi, scale, shift, act), x,
+                2 * 2 * n * c, f"k2 {name}")
+            # what the card's own copy of the same bytes takes from HBM: the
+            # rate one launch of this size can reach
+            f["copy_hbm_ms"], _ = time_from_hbm(
+                torch, torch.clone, x, 2 * 2 * n * c, f"k2 copy {name}")
             tb, to = ssa_bound(n, c)
             f["bound_ms"] = max(tb, to) * 1e3
             fwd_shapes.append(f)
+            log(f"scale_shift_act {name} [{n}, {c}] {act}: {f['ms']:.4f} ms "
+                f"({f['hbm_ms']:.4f} from HBM, a copy of its bytes "
+                f"{f['copy_hbm_ms']:.4f}) vs bound {f['bound_ms']:.5f} ms; "
+                f"plain "
+                f"{f['plain_ms']:.4f} ms; library {f['library_ms']:.4f} ms")
         log(f"scale_shift_act_bwd {name} [{n}, {c}] {act} matches its plain "
             f"version and repeats bitwise; {k3['shapes'][-1]['ms']:.4f} ms "
             f"vs bound {k3['shapes'][-1]['bound_ms']:.5f} ms")
@@ -749,8 +905,16 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
                                     for e in k3["shapes"]) else "operations"
     ssa_entry["train_step"] = {
         key: weighted(fwd_shapes, key)
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for key in ("ms", "hbm_ms", "copy_hbm_ms", "plain_ms", "library_ms",
+                    "bound_ms")}
     ssa_entry["train_step"]["shapes"] = fwd_shapes
+    step_launches = sum(f["per_step"] for f in fwd_shapes)
+    log(f"scale_shift_act per training step ({step_launches} launches): "
+        f"{ssa_entry['train_step']['ms']:.4f} ms ("
+        f"{ssa_entry['train_step']['hbm_ms']:.4f} from HBM) vs bound "
+        f"{ssa_entry['train_step']['bound_ms']:.4f} ms; plain "
+        f"{ssa_entry['train_step']['plain_ms']:.4f} ms; library "
+        f"{ssa_entry['train_step']['library_ms']:.4f} ms")
 
     # ---- kernel 4: gemm_bias_moments at every fused stage ----------------
     k4 = {"name": "gemm_bias_moments", "route": "cuda",
@@ -758,7 +922,6 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
           "replaces": "dcgan_tpu/ops/pallas_fused.py:144",
           "design": TRAIN_DESIGN["gemm_bias_moments"], "shapes": []}
     k4_designs = gemm_bias_moments.launches_by_design
-    sms = sm_count(dev)
 
     def check_gbm(tag, p2d, w2d, b, dt):
         """Kernel 4 launched twice on the design its plan (gemm_plan) picks:
@@ -985,6 +1148,12 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
     if by_design[GBSA_DESIGN] != launches["gemm_bias_scale_act"]:
         fail(f"the served bf16 stages must all launch the {GBSA_DESIGN} "
              f"gemm_bias_scale_act kernel: {by_design}")
+    ssa_designs = wrappers["scale_shift_act"].launches_by_design
+    log(f"served path scale_shift_act launches by design: {ssa_designs}")
+    design = TRAIN_DESIGN["scale_shift_act"]
+    if ssa_designs[design] != launches["scale_shift_act"]:
+        fail(f"the served scale_shift_act launches must all take design "
+             f"{design}: {ssa_designs}")
     for entry in kernels:
         entry.setdefault("launches_by_path", {})["serve"] = \
             launches[entry["name"]]
@@ -1118,7 +1287,7 @@ def profile_split(torch, fn, steps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"flash attention kernels": ("flash_fwd_", "flash_dq_",
                                             "flash_dkv_"),
-                "port kernels": ("gbm_", "ssa_", "moments_partial",
+                "port kernels": ("gbm_", "ssa_", "moments_",
                                  "finish_column_partials", "gbsa_"),
                 "library GEMM and conv": ("gemm", "cutlass", "sm90_",
                                           "xmma", "conv", "cudnn", "cublas",
@@ -1882,18 +2051,20 @@ def check_sass(_build, libs):
     kernel's entries; fails where an entry lacks one. Returns
     {library: {demangled entry: {opcode: count}}}."""
     found = {}
-    for lib_name, (part, opcodes) in HOPPER_SASS.items():
-        counts = _build.sass_counts(_build.sass(libs[lib_name]), opcodes)
-        entries = {e: c for e, c in counts.items() if part in e}
-        if not entries:
-            fail(f"no {part} entry in the SASS of {lib_name}")
-        names = _build.demangle(list(entries))
-        found[lib_name] = dict(zip(names, entries.values()))
-        for name, c in found[lib_name].items():
-            log(f"sass {lib_name} {name}: {c}")
-            missing = [op for op in opcodes if c[op] < 1]
-            if missing:
-                fail(f"{name} holds no {missing} instruction")
+    for lib_name, checks in HOPPER_SASS.items():
+        text = _build.sass(libs[lib_name])
+        for part, opcodes in checks:
+            counts = _build.sass_counts(text, opcodes)
+            entries = {e: c for e, c in counts.items() if part in e}
+            if not entries:
+                fail(f"no {part} entry in the SASS of {lib_name}")
+            names = _build.demangle(list(entries))
+            for name, c in zip(names, entries.values()):
+                log(f"sass {lib_name} {name}: {c}")
+                missing = [op for op in opcodes if c[op] < 1]
+                if missing:
+                    fail(f"{name} holds no {missing} instruction")
+                found.setdefault(lib_name, {}).setdefault(name, {}).update(c)
     return found
 
 
@@ -1945,7 +2116,7 @@ def main() -> int:
     kernels[1:1] = check_train_kernels(torch, cfg, kernels[0], ptxas)
     kernels += check_flash_kernels(torch, ptxas)
     for entry in kernels:
-        if entry["name"] in ("gemm_bias_scale_act", "gemm_bias_moments"):
+        if entry["name"] in sass:
             entry["sass"] = sass[entry["name"]]
         elif entry["name"] == "flash_dq":
             entry["sass"] = sass["flash_attention"]

@@ -11,6 +11,11 @@ namespace dcgan {
 // dtype codes passed by the Python wrappers (ops/kernels.py::DTYPE_CODES)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+// a pointer the 16-byte loads and stores of a vector design may use
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // activation codes, in the order of ops/activations.py::ACTS
 enum Act : int { kNone = 0, kRelu = 1, kLrelu = 2, kTanh = 3 };
 
@@ -112,6 +117,111 @@ __device__ __forceinline__ void write_column_partials(float a, float b,
     part[(int64_t)chunk * c + col] = sa;
     part[((int64_t)chunks + chunk) * c + col] = sb;
   }
+}
+
+// ---------------------------------------------------------------------------
+// One-launch reductions: the last block adds the partials.
+//
+// Each block (or each cluster's leader, channel_moments.cu) that writes
+// partials into part[2][chunks][c] fences them and draws a ticket (atomicInc
+// on one int32 per device and kernel, which wraps back to 0 at the last
+// ticket, ready for the next launch). The block that draws the last ticket
+// adds every chunk's partials. The atomic only decides which block finishes;
+// the order of the sums is fixed by (chunks, c), so two launches give the
+// same bits. Launches sharing a ticket must not overlap (the port launches
+// on one stream).
+// ---------------------------------------------------------------------------
+
+constexpr int kFinishThreads = 256;   // threads of a block that finishes
+
+__device__ __forceinline__ void add_to(float& a, float v) { a += v; }
+__device__ __forceinline__ void add_to(float4& a, float4 v) {
+  a.x += v.x;
+  a.y += v.y;
+  a.z += v.z;
+  a.w += v.w;
+}
+__device__ __forceinline__ float scaled(float a, float s) { return a * s; }
+__device__ __forceinline__ float4 scaled(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// out[col] = scale * sum over the chunks p of part[p][col] for both halves
+// of part[2][chunks][c], by the block's kFinishThreads threads, in units V
+// of one column (float) or four (float4, where c % 4 == 0: 16-byte loads).
+// Below kFinishThreads units, groups of `units` threads each add a
+// contiguous run of chunks, and the groups' sums are added in group order;
+// the order is fixed by (chunks, c) alone.
+template <typename V>
+__device__ void add_partials(const float* part, int chunks, int c,
+                             float scale, float* out_a, float* out_b,
+                             int tid) {
+  __shared__ V red[2][kFinishThreads];
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int units = c / W;
+  const V* pa = reinterpret_cast<const V*>(part);
+  const V* pb = reinterpret_cast<const V*>(part + (int64_t)chunks * c);
+  V* oa = reinterpret_cast<V*>(out_a);
+  V* ob = reinterpret_cast<V*>(out_b);
+  V a = {}, b = {};
+  if (units >= kFinishThreads) {
+    for (int u = tid; u < units; u += kFinishThreads) {
+      a = b = V{};
+#pragma unroll 8
+      for (int p = 0; p < chunks; ++p) {
+        add_to(a, __ldcg(pa + (int64_t)p * units + u));
+        add_to(b, __ldcg(pb + (int64_t)p * units + u));
+      }
+      oa[u] = scaled(a, scale);
+      ob[u] = scaled(b, scale);
+    }
+    return;
+  }
+  const int groups = kFinishThreads / units;
+  const int per = (chunks + groups - 1) / groups;
+  const int grp = tid / units, u = tid % units;
+  if (grp < groups) {
+    const int p1 = min(chunks, (grp + 1) * per);
+#pragma unroll 8
+    for (int p = grp * per; p < p1; ++p) {
+      add_to(a, __ldcg(pa + (int64_t)p * units + u));
+      add_to(b, __ldcg(pb + (int64_t)p * units + u));
+    }
+  }
+  red[0][tid] = a;
+  red[1][tid] = b;
+  __syncthreads();
+  if (tid < units) {
+    a = b = V{};
+    for (int g = 0; g < groups; ++g) {
+      add_to(a, red[0][g * units + tid]);
+      add_to(b, red[1][g * units + tid]);
+    }
+    oa[tid] = scaled(a, scale);
+    ob[tid] = scaled(b, scale);
+  }
+}
+
+// Called by every thread of each of the launch's `takers` blocks once its
+// partials are in part[2][chunks][c] (a block of kFinishThreads threads):
+// the block that draws the last ticket adds the chunks' partials
+// (add_partials) into out_a and out_b, times `scale`.
+static __device__ void finish_if_last(const float* part, int chunks, int c,
+                                      float scale, float* out_a,
+                                      float* out_b, unsigned takers,
+                                      unsigned* __restrict__ ticket) {
+  __shared__ bool last;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  __threadfence();   // this thread's partials, device-wide ...
+  __syncthreads();   // ... for every thread of the block, before the ticket
+  if (tid == 0) last = atomicInc(ticket, takers - 1) == takers - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (c % 4 == 0)   // part, out_a and out_b are 16-byte aligned
+    add_partials<float4>(part, chunks, c, scale, out_a, out_b, tid);
+  else
+    add_partials<float>(part, chunks, c, scale, out_a, out_b, tid);
 }
 
 // Pass 2 (internal linkage: each kernel library carries its own copy):

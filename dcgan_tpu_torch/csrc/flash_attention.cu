@@ -1398,9 +1398,7 @@ struct Args {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using dcgan::aligned16;
 
 // bf16 forward, dq and dkv
 template <int DKP, int DVP>

@@ -227,9 +227,7 @@ inline int k_chunk(int k, int splits) {
 // file's loop), v2 TMA + wgmma (gemm_wgmma.cuh)
 enum Design : int { kSimt = 0, kWmma = 1, kWgmma = 2 };
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using dcgan::aligned16;
 
 }  // namespace gemm
 }  // namespace dcgan

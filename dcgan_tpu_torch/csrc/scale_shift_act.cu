@@ -19,41 +19,51 @@
 // Bound: bytes. The forward reads x and writes y (4 bytes per element in
 // bf16), the backward reads x and g and writes dx (6 bytes per element);
 // a few flops per element are far below the card's balance point. At
-// [65536, 64] bf16 the backward moves 25 MB, 7.5 us at 3.35 TB/s; at bn0
-// 3 MB, 0.9 us, under the launch latency.
+// [65536, 64] bf16 the forward moves 16.8 MB, 5.0 us at 3.35 TB/s, the
+// backward 25 MB, 7.5 us; at bn0 the forward moves 2 MB, 0.6 us, under the
+// launch latency.
 //
-// Design. The forward is one elementwise pass: each thread moves 16 bytes
-// (8 bf16 or 4 f32) per load/store when C is a multiple of that width and
-// the pointers are 16-byte aligned, so a warp touches 512 contiguous bytes;
-// otherwise a scalar grid-stride loop handles any shape.
-// The backward must also reduce over rows, which the TPU kernel did by
-// accumulating in place across a sequential grid. Here it is one launch in
-// one of two designs; the plan (ops/kernels.py::ssa_bwd_design) picks one
-// by shape and alignment, and the launch refuses a design it cannot run:
+// Why CUDA and not Triton: both directions fix which thread owns which
+// columns and rows (the scale/shift registers, the backward's row order),
+// and the backward's one-launch reduction needs an atomic ticket and a
+// last-block finish; Triton's block model chooses neither.
+//
+// Design. Both directions come in two designs; the plan
+// (ops/kernels.py::ssa_fwd_design, ::ssa_bwd_design) picks one by shape and
+// alignment, and the launch refuses a design it cannot run:
 //   vector, where C is a multiple of 8 (bf16; 4 in f32), C / 8 <= 256 and
-//   x, g and dx are 16-byte aligned (every celeba64 shape): each thread
-//   owns 8 consecutive columns (4 in f32) and moves 16 bytes per load of x
-//   and g and per store of dx, neighbouring threads on neighbouring
+//   the operands are 16-byte aligned (every celeba64 shape): each thread
+//   owns 8 consecutive columns (4 in f32), loads their scale and shift once
+//   (as float4s, in registers) and walks rows, moving 16 bytes per load of
+//   x (and g) and per store of y (dx), neighbouring threads on neighbouring
 //   columns, so a warp touches 512 contiguous bytes; a 256-thread block
-//   covers 256 * 8 / C rows per step over its chunk of rows, four rows'
-//   loads in flight per thread; at most 2 blocks per SM, each walking at
-//   least kBwdMinSteps steps, so that the partials stay few. Each thread
-//   keeps f32 sums of du * x and du for its columns in registers, and the
-//   block adds its rows' sums through shared memory in row order into
-//   part[2][block][C];
-//   scalar, any shape: 32 x 8-thread blocks over a 32-column strip and a
-//   chunk of rows, one element per thread (common.cuh's column partials).
-// The last block to finish adds every block's partials into dscale and
-// dshift (16-byte loads where C % 4 == 0, thread groups over runs of
-// blocks): each block fences its partials and draws a ticket (atomicInc on
-// one int32 per device, which wraps back to 0 at the last ticket, ready
-// for the next launch). The atomic only decides which block finishes; the
-// order of the sums is fixed, so two launches give the same bits. Launches
-// sharing the device's ticket must not overlap (the port launches on one
-// stream). At small shapes the pass is latency-bound on few SMs and the
+//   covers 256 * 8 / C rows per step, and each thread issues the loads of
+//   several steps before their math (kFwdRowsPerTurn, kBwdRowsPerTurn);
+//   scalar, any shape: the forward is a grid-stride loop over elements, the
+//   backward 32 x 8-thread blocks over a 32-column strip and a chunk of
+//   rows (common.cuh's column partials).
+// The forward is one elementwise pass: its vector blocks walk turns of
+// kFwdRowsPerTurn row steps, turn t by block t % grid, a few blocks per SM
+// (kFwdBlocksPerSm, from the SM count the wrapper passes); the activation
+// is a template parameter, so relu, lrelu and none never reach tanhf.
+// The backward must also reduce over rows, which the TPU kernel did by
+// accumulating in place across a sequential grid. Here it is one launch:
+// each vector block walks a chunk of at least kBwdMinSteps steps, at most
+// 2 blocks per SM, so that the partials stay few; each thread keeps f32
+// sums of du * x and du for its columns in registers, and the block adds
+// its rows' sums through shared memory in row order into
+// part[2][block][C]. The last block to finish adds every block's partials
+// into dscale and dshift (common.cuh::finish_if_last: an atomic ticket,
+// 16-byte loads where C % 4 == 0, thread groups over runs of blocks); the
+// order of the sums is fixed by the shape, so two launches give the same
+// bits. At small shapes the backward is latency-bound on few SMs and the
 // ticket and the last block's reads add to it (PERF.md).
+// What still holds the forward back: at 1-4 MB one launch's latency is
+// most of its time; the bf16 rounding of u before it is a separate cast on
+// the fused route (ops/fused.py).
 // u is rounded after the product and after the sum (common.cuh::affine), as
-// the plain version's two ops round it, so act'(u) masks the same elements.
+// the plain version's two ops round it, so the forward matches it bit for
+// bit except in tanh's last ulp, and act'(u) masks the same elements.
 
 #include <cstdint>
 
@@ -62,44 +72,85 @@
 namespace {
 
 using dcgan::affine;
+using dcgan::aligned16;
 using dcgan::apply_act;
 using dcgan::from_float;
 using dcgan::kColTile;
 using dcgan::kRowPhases;
 using dcgan::to_float;
 
-template <typename T, int VEC>
-__global__ void ssa_vec_kernel(const T* __restrict__ x,
-                               const float* __restrict__ scale,
-                               const float* __restrict__ shift,
-                               T* __restrict__ y, int64_t n_vec, int c,
-                               int act, float leak) {
+// ops/kernels.py::SSA_FWD_DESIGNS and SSA_BWD_DESIGNS
+enum FwdDesign : int { kFwdScalar = 0, kFwdVector = 1 };
+constexpr int kFwdThreads = 256;
+// the row steps whose loads a vector thread issues before their math, and
+// the resident blocks per SM the vector grid is sized for
+constexpr int kFwdRowsPerTurn = 4;
+constexpr int kFwdBlocksPerSm = 4;
+// blocks per SM of the scalar grid-stride loop
+constexpr int kScalarBlocksPerSm = 32;
+
+// VEC consecutive floats from a 16-byte aligned address, as float4 loads
+template <int VEC>
+__device__ __forceinline__ void load_vector(const float* __restrict__ p,
+                                            float (&out)[VEC]) {
+  static_assert(VEC % 4 == 0, "whole float4s");
+#pragma unroll
+  for (int k = 0; k < VEC / 4; ++k) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
+    out[4 * k] = v.x;
+    out[4 * k + 1] = v.y;
+    out[4 * k + 2] = v.z;
+    out[4 * k + 3] = v.w;
+  }
+}
+
+// The forward's vector design (see the top of the file): C % VEC == 0,
+// C / VEC <= kFwdThreads, x, y, scale and shift 16-byte aligned.
+template <typename T, int VEC, int ACT>
+__global__ void __launch_bounds__(kFwdThreads)
+    ssa_fwd_vec_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ shift, T* __restrict__ y,
+                       int64_t n, int c, float leak) {
   struct alignas(16) Pack { T v[VEC]; };
+  const int per_row = c / VEC;             // threads on one row
+  const int step = kFwdThreads / per_row;  // rows per step of the block
+  const int rp = threadIdx.x / per_row;
+  if (rp >= step) return;                  // (256 % per_row threads)
+  const int cv = threadIdx.x % per_row;    // the thread's pack of a row
+  float s[VEC], t[VEC];
+  load_vector<VEC>(scale + cv * VEC, s);
+  load_vector<VEC>(shift + cv * VEC, t);
   const Pack* xv = reinterpret_cast<const Pack*>(x);
   Pack* yv = reinterpret_cast<Pack*>(y);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-       i += stride) {
-    Pack in = xv[i];
-    Pack out;
-    // C % VEC == 0, so the VEC elements of a pack share one row
-    const int c0 = (int)((i * VEC) % c);
+  const int64_t span = (int64_t)kFwdRowsPerTurn * step;  // rows of a turn
+  const int64_t next = (int64_t)step * per_row;          // packs one step
+  for (int64_t r = (int64_t)blockIdx.x * span + rp; r < n;
+       r += (int64_t)gridDim.x * span) {
+    const int64_t i0 = r * per_row + cv;
+    Pack in[kFwdRowsPerTurn];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float u = affine(to_float(in.v[j]), __ldg(scale + c0 + j),
-                             __ldg(shift + c0 + j));
-      out.v[j] = from_float<T>(apply_act(u, act, leak));
+    for (int q = 0; q < kFwdRowsPerTurn; ++q)
+      if (r + q * step < n) in[q] = xv[i0 + q * next];
+#pragma unroll
+    for (int q = 0; q < kFwdRowsPerTurn; ++q) {
+      if (r + q * step >= n) break;
+      Pack out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        out.v[e] = from_float<T>(
+            apply_act(affine(to_float(in[q].v[e]), s[e], t[e]), ACT, leak));
+      yv[i0 + q * next] = out;
     }
-    yv[i] = out;
   }
 }
 
 template <typename T>
-__global__ void ssa_scalar_kernel(const T* __restrict__ x,
-                                  const float* __restrict__ scale,
-                                  const float* __restrict__ shift,
-                                  T* __restrict__ y, int64_t numel, int c,
-                                  int act, float leak) {
+__global__ void ssa_fwd_scalar_kernel(const T* __restrict__ x,
+                                      const float* __restrict__ scale,
+                                      const float* __restrict__ shift,
+                                      T* __restrict__ y, int64_t numel, int c,
+                                      int act, float leak) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < numel;
        i += stride) {
@@ -110,28 +161,64 @@ __global__ void ssa_scalar_kernel(const T* __restrict__ x,
 }
 
 template <typename T>
+constexpr int vec_of() { return 16 / (int)sizeof(T); }
+
+template <typename T, int ACT>
+void launch_fwd_vec(const T* x, const float* scale, const float* shift, T* y,
+                    int64_t n, int c, float leak, int sm_count,
+                    cudaStream_t stream) {
+  constexpr int VEC = vec_of<T>();
+  const int64_t span = (int64_t)kFwdRowsPerTurn * (kFwdThreads / (c / VEC));
+  int64_t blocks = (n + span - 1) / span;
+  if (blocks > (int64_t)kFwdBlocksPerSm * sm_count)
+    blocks = (int64_t)kFwdBlocksPerSm * sm_count;
+  ssa_fwd_vec_kernel<T, VEC, ACT><<<(unsigned)blocks, kFwdThreads, 0,
+                                     stream>>>(x, scale, shift, y, n, c,
+                                               leak);
+}
+
+template <typename T>
 cudaError_t launch(const void* x, const float* scale, const float* shift,
-                   void* y, int64_t n, int c, int act, float leak,
-                   cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int kThreads = 256;
-  const int64_t numel = n * (int64_t)c;
-  const bool aligned = (c % VEC == 0) &&
-                       ((reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(y)) % 16 == 0);
-  const int64_t work = aligned ? numel / VEC : numel;
-  // enough blocks to cover the work, capped; the loops are grid-stride
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (blocks < 1) blocks = 1;
-  if (aligned) {
-    ssa_vec_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), scale, shift, static_cast<T*>(y), work, c,
-        act, leak);
+                   void* y, int64_t n, int c, int act, float leak, int design,
+                   int sm_count, cudaStream_t stream) {
+  constexpr int VEC = vec_of<T>();
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (sm_count < 1) return cudaErrorInvalidValue;
+  if (design == kFwdVector) {
+    if (c % VEC != 0 || c / VEC > kFwdThreads ||
+        !aligned16(x) || !aligned16(y) || !aligned16(scale) ||
+        !aligned16(shift))
+      return cudaErrorInvalidValue;
+    switch (act) {
+      case dcgan::kNone:
+        launch_fwd_vec<T, dcgan::kNone>(xt, scale, shift, yt, n, c, leak,
+                                        sm_count, stream);
+        break;
+      case dcgan::kRelu:
+        launch_fwd_vec<T, dcgan::kRelu>(xt, scale, shift, yt, n, c, leak,
+                                        sm_count, stream);
+        break;
+      case dcgan::kLrelu:
+        launch_fwd_vec<T, dcgan::kLrelu>(xt, scale, shift, yt, n, c, leak,
+                                         sm_count, stream);
+        break;
+      case dcgan::kTanh:
+        launch_fwd_vec<T, dcgan::kTanh>(xt, scale, shift, yt, n, c, leak,
+                                        sm_count, stream);
+        break;
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else if (design == kFwdScalar) {
+    const int64_t numel = n * (int64_t)c;
+    int64_t blocks = (numel + kFwdThreads - 1) / kFwdThreads;
+    if (blocks > (int64_t)kScalarBlocksPerSm * sm_count)
+      blocks = (int64_t)kScalarBlocksPerSm * sm_count;
+    ssa_fwd_scalar_kernel<T><<<(unsigned)blocks, kFwdThreads, 0, stream>>>(
+        xt, scale, shift, yt, numel, c, act, leak);
   } else {
-    ssa_scalar_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), scale, shift, static_cast<T*>(y), numel, c,
-        act, leak);
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -141,6 +228,8 @@ cudaError_t launch(const void* x, const float* scale, const float* shift,
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 256;
+static_assert(kBwdThreads == dcgan::kFinishThreads,
+              "every block of the backward may finish the launch");
 // each vector block walks at least this many steps of its rows, and
 // issues the loads of kBwdRowsPerTurn steps before their math
 constexpr int kBwdMinSteps = 8;
@@ -158,90 +247,6 @@ __device__ __forceinline__ T bwd_element(T xv, T gv, float s, float t,
   ds += du * xf;
   dt += du;
   return from_float<T>(du * s);
-}
-
-__device__ __forceinline__ void add_to(float& a, float v) { a += v; }
-__device__ __forceinline__ void add_to(float4& a, float4 v) {
-  a.x += v.x;
-  a.y += v.y;
-  a.z += v.z;
-  a.w += v.w;
-}
-
-// out[col] = sum over the chunks p of part[p][col] for both halves of
-// part[2][chunks][c], by the block's kBwdThreads threads, in units V of
-// one column (float) or four (float4, where c % 4 == 0: 16-byte loads).
-// Below kBwdThreads units, groups of `units` threads each add a contiguous
-// run of chunks, and the groups' sums are added in group order; the order
-// is fixed by (chunks, c) alone.
-template <typename V>
-__device__ void add_partials(const float* part, int chunks, int c,
-                             float* out_a, float* out_b, int tid) {
-  __shared__ V red[2][kBwdThreads];
-  constexpr int W = sizeof(V) / sizeof(float);
-  const int units = c / W;
-  const V* pa = reinterpret_cast<const V*>(part);
-  const V* pb = reinterpret_cast<const V*>(part + (int64_t)chunks * c);
-  V* oa = reinterpret_cast<V*>(out_a);
-  V* ob = reinterpret_cast<V*>(out_b);
-  V a = {}, b = {};
-  if (units >= kBwdThreads) {
-    for (int u = tid; u < units; u += kBwdThreads) {
-      a = b = V{};
-#pragma unroll 8
-      for (int p = 0; p < chunks; ++p) {
-        add_to(a, __ldcg(pa + (int64_t)p * units + u));
-        add_to(b, __ldcg(pb + (int64_t)p * units + u));
-      }
-      oa[u] = a;
-      ob[u] = b;
-    }
-    return;
-  }
-  const int groups = kBwdThreads / units;
-  const int per = (chunks + groups - 1) / groups;
-  const int grp = tid / units, u = tid % units;
-  if (grp < groups) {
-    const int p1 = min(chunks, (grp + 1) * per);
-#pragma unroll 8
-    for (int p = grp * per; p < p1; ++p) {
-      add_to(a, __ldcg(pa + (int64_t)p * units + u));
-      add_to(b, __ldcg(pb + (int64_t)p * units + u));
-    }
-  }
-  red[0][tid] = a;
-  red[1][tid] = b;
-  __syncthreads();
-  if (tid < units) {
-    a = b = V{};
-    for (int g = 0; g < groups; ++g) {
-      add_to(a, red[0][g * units + tid]);
-      add_to(b, red[1][g * units + tid]);
-    }
-    oa[tid] = a;
-    ob[tid] = b;
-  }
-}
-
-// Called by every thread of every block once its partials are in
-// part[2][chunks][c]: the block that draws the launch's last ticket adds
-// the chunks' partials (add_partials) into out_a and out_b.
-__device__ void finish_if_last(const float* part, int chunks, int c,
-                               float* out_a, float* out_b,
-                               unsigned* __restrict__ ticket) {
-  __shared__ bool last;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const unsigned blocks = gridDim.x * gridDim.y;
-  __threadfence();   // this thread's partials, device-wide ...
-  __syncthreads();   // ... for every thread of the block, before the ticket
-  if (tid == 0) last = atomicInc(ticket, blocks - 1) == blocks - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (c % 4 == 0)   // part, out_a and out_b are 16-byte aligned
-    add_partials<float4>(part, chunks, c, out_a, out_b, tid);
-  else
-    add_partials<float>(part, chunks, c, out_a, out_b, tid);
 }
 
 // The vector design (see the top of the file): block blockIdx.x walks rows
@@ -327,7 +332,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     part[(int64_t)blockIdx.x * c + col] = a;
     part[((int64_t)gridDim.x + blockIdx.x) * c + col] = b;
   }
-  finish_if_last(part, gridDim.x, c, dscale, dshift, ticket);
+  dcgan::finish_if_last(part, gridDim.x, c, 1.f, dscale, dshift, gridDim.x,
+                        ticket);
 }
 
 // The scalar design: a 32-column strip (blockIdx.x) of a row chunk
@@ -356,11 +362,9 @@ __global__ void ssa_bwd_scalar_kernel(const T* __restrict__ x,
     }
   }
   dcgan::write_column_partials(ds, dt, part, chunk, gridDim.y, col, c);
-  finish_if_last(part, gridDim.y, c, dscale, dshift, ticket);
+  dcgan::finish_if_last(part, gridDim.y, c, 1.f, dscale, dshift,
+                        gridDim.x * gridDim.y, ticket);
 }
-
-template <typename T>
-constexpr int vec_of() { return 16 / (int)sizeof(T); }
 
 bool vector_fits(int c, int vec) {
   return c % vec == 0 && c / vec <= kBwdThreads;
@@ -388,10 +392,9 @@ cudaError_t launch_bwd(const void* x, const float* scale, const float* shift,
   const T* gt = static_cast<const T*>(g);
   T* dxt = static_cast<T*>(dx);
   if (design == kBwdVector) {
-    const bool aligned =
-        ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
-          reinterpret_cast<uintptr_t>(dx)) % 16) == 0;
-    if (!aligned || !vector_fits(c, VEC)) return cudaErrorInvalidValue;
+    if (!aligned16(x) || !aligned16(g) || !aligned16(dx) ||
+        !vector_fits(c, VEC))
+      return cudaErrorInvalidValue;
     ssa_bwd_vec_kernel<T, VEC><<<chunks, kBwdThreads, 0, stream>>>(
         xt, scale, shift, gt, dxt, n, c, (n + chunks - 1) / chunks, act,
         leak, part, dscale, dshift, ticket);
@@ -411,19 +414,22 @@ cudaError_t launch_bwd(const void* x, const float* scale, const float* shift,
 }  // namespace
 
 // C interface for ctypes. Returns a cudaError_t (0 = the launch was
-// accepted). dtype: 0 = float32, 1 = bfloat16 (x and y share it).
+// accepted). dtype: 0 = float32, 1 = bfloat16 (x and y share it). design:
+// 0 = scalar, 1 = vector (ops/kernels.py::ssa_fwd_design), refused with
+// cudaErrorInvalidValue where it does not fit; sm_count sizes the grid.
 extern "C" int dcgan_scale_shift_act(const void* x, const float* scale,
                                      const float* shift, void* y, int64_t n,
                                      int c, int dtype, int act, float leak,
-                                     void* stream) {
+                                     int design, int sm_count, void* stream) {
   if (n <= 0 || c <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case dcgan::kFloat32:
-      return (int)launch<float>(x, scale, shift, y, n, c, act, leak, s);
+      return (int)launch<float>(x, scale, shift, y, n, c, act, leak, design,
+                                sm_count, s);
     case dcgan::kBFloat16:
       return (int)launch<__nv_bfloat16>(x, scale, shift, y, n, c, act, leak,
-                                        s);
+                                        design, sm_count, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -441,7 +447,8 @@ extern "C" int dcgan_scale_shift_act_bwd_chunks(int64_t n, int c, int dtype,
 
 // The backward, one launch. x, g and dx share dtype (0 = float32, 1 =
 // bfloat16); dscale and dshift are f32 [c]; part is the workspace of
-// `chunks` rows; ticket is the device's int32 counter, 0 between launches.
+// `chunks` rows; ticket is an int32 counter of this kernel's own, 0
+// between launches.
 // design: 0 = scalar, 1 = vector (ops/kernels.py::ssa_bwd_design), refused
 // with cudaErrorInvalidValue where it does not fit. Returns a cudaError_t.
 extern "C" int dcgan_scale_shift_act_bwd(const void* x, const float* scale,

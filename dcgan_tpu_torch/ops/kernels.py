@@ -3,15 +3,16 @@
 
 - `channel_moments(x2d)`: per-channel (E[x], E[x^2]) over [N, C] in f32,
   the batch statistics of BN's train path. On a CUDA tensor it launches
-  `csrc/channel_moments.cu` (which replaces the TPU kernel `_moments_kernel`);
-  its backward is the broadcast expression the JAX package leaves to XLA.
+  `csrc/channel_moments.cu` (which replaces the TPU kernel `_moments_kernel`)
+  once, in the plan `moments_plan` makes; its backward is the broadcast
+  expression the JAX package leaves to XLA.
 - `scale_shift_act(x2d, scale, shift, act)`: y = act(x * scale + shift)
   over [N, C] with per-channel f32 vectors, f32 math, output in x's dtype.
   Differentiable: its forward launches `csrc/scale_shift_act.cu`'s forward
-  (replacing `_ssa_fwd_kernel`), its backward `scale_shift_act_bwd`, the
-  same file's backward kernel (replacing `_ssa_bwd_kernel`), which returns
-  dx, dscale and dshift in one launch, in the design `ssa_bwd_design`
-  picks.
+  (replacing `_ssa_fwd_kernel`) in the design `ssa_fwd_design` picks, its
+  backward `scale_shift_act_bwd`, the same file's backward kernel
+  (replacing `_ssa_bwd_kernel`), which returns dx, dscale and dshift in one
+  launch, in the design `ssa_bwd_design` picks.
 - `fused_bn_act`: BatchNorm + activation built on `scale_shift_act`.
 
 On a CPU tensor each wrapper runs its `*_plain` version, the same function
@@ -27,7 +28,7 @@ launch the runtime refused.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -44,8 +45,9 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "dcgan_scale_shift_act": (
-        # x, scale, shift, y, n, c, dtype, act, leak, stream
-        [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P]),
+        # x, scale, shift, y, n, c, dtype, act, leak, design, sm_count,
+        # stream
+        [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _I, _I, _P]),
     "dcgan_scale_shift_act_bwd": (
         # x, scale, shift, g, dx, dscale, dshift, part, ticket, design,
         # chunks, n, c, dtype, act, leak, stream
@@ -53,9 +55,9 @@ _SIGNATURES = {
     # n, c, dtype, design, sm_count
     "dcgan_scale_shift_act_bwd_chunks": [_I64, _I, _I, _I, _I],
     "dcgan_channel_moments": (
-        # x, mean, mean_sq, part, chunks, n, c, dtype, inv_n, stream
-        [_P, _P, _P, _P, _I, _I64, _I, _I, _F, _P]),
-    "dcgan_channel_moments_chunks": [_I64, _I, _I],
+        # x, mean, mean_sq, part, ticket, design, strips, groups, n, c,
+        # dtype, inv_n, stream
+        [_P] * 5 + [_I, _I, _I, _I64, _I, _I, _F, _P]),
     "dcgan_gemm_bias_scale_act": (
         # p, w, bias, scale, shift, y, ws, design, bm, bn, stages, splits,
         # m, k, c, in_dtype, out_dtype, act, leak, stream
@@ -135,24 +137,77 @@ def channel_moments_plain(x2d: torch.Tensor
     return xf.sum(0) * inv_n, (xf * xf).sum(0) * inv_n
 
 
+# csrc/channel_moments.cu: the designs, the threads of a CTA, the CTAs of a
+# cluster, the threads across a column strip (vector, scalar), the row
+# steps whose loads go out together and the CTAs per SM the plan allows
+MOMENTS_DESIGNS = {"scalar": 0, "vector": 1}
+MOMENTS_THREADS = 256
+MOMENTS_CLUSTER = 16
+MOMENTS_STRIP = {"vector": 16, "scalar": 32}
+MOMENTS_ROWS_PER_TURN = 4
+MOMENTS_CTAS_PER_SM = 2
+
+
+class MomentsPlan(NamedTuple):
+    """A launch of the channel_moments kernel: its design, the column
+    strips (one cluster row of the grid each; the launch refuses a count
+    other than its build's strip width gives) and the clusters per strip
+    (`groups`: 1, the cluster adds all of the strip's rows and writes the
+    moments; more, each cluster writes a partial and the last adds them)."""
+    design: str
+    strips: int
+    groups: int
+
+
+def moments_plan(n: int, c: int, dtype: torch.dtype, aligned: bool,
+                 sms: int) -> MomentsPlan:
+    """The plan of channel_moments' kernel for an [n, c] input of `dtype`
+    on a card of `sms` SMs: the "vector" design (16 bytes per load) where c
+    is a multiple of the 16-byte width (8 bf16 or 4 f32 values) and x is
+    16-byte `aligned`, else "scalar" (one element per load). One cluster per
+    strip while each of its CTAs walks at most one turn of
+    MOMENTS_ROWS_PER_TURN row steps; above that, as many clusters per strip
+    as keep each CTA at a turn at least, with at most MOMENTS_CTAS_PER_SM
+    CTAs per SM in all."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    if n < 1 or c < 1 or sms < 1:
+        raise ValueError(f"moments_plan: n={n}, c={c}, sms={sms}")
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    design = "vector" if aligned and c % vec == 0 else "scalar"
+    per_row = c // vec if design == "vector" else c
+    sw = min(per_row, MOMENTS_STRIP[design])
+    strips = -(-per_row // sw)
+    cluster_rows = MOMENTS_CLUSTER * MOMENTS_ROWS_PER_TURN \
+        * (MOMENTS_THREADS // sw)
+    cap = MOMENTS_CTAS_PER_SM * sms // (strips * MOMENTS_CLUSTER)
+    return MomentsPlan(design, strips,
+                       max(1, min(-(-n // cluster_rows), cap)))
+
+
 def channel_moments_launch(x2d: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on a CUDA tensor (raises if it cannot launch)."""
+    """The kernel on a CUDA tensor (raises if it cannot launch), one launch
+    in the plan `moments_plan` makes."""
     check_matrix("x2d", x2d)
     n, c = x2d.shape
     dev = x2d.device
-    chunks = c_function("channel_moments", "dcgan_channel_moments_chunks")(
-        n, c, sm_count(dev))
+    plan = moments_plan(n, c, x2d.dtype, x2d.data_ptr() % 16 == 0,
+                        sm_count(dev))
     mean = torch.empty(c, dtype=torch.float32, device=dev)
     mean_sq = torch.empty(c, dtype=torch.float32, device=dev)
-    part = torch.empty((2, chunks, c), dtype=torch.float32, device=dev)
+    part = torch.empty((2, plan.groups, c), dtype=torch.float32,
+                       device=dev) if plan.groups > 1 else None
     fn = c_function("channel_moments", "dcgan_channel_moments")
     with torch.cuda.device(dev):
         err = fn(x2d.data_ptr(), mean.data_ptr(), mean_sq.data_ptr(),
-                 part.data_ptr(), chunks, n, c, DTYPE_CODES[x2d.dtype],
-                 1.0 / n, stream_of(dev))
+                 None if part is None else part.data_ptr(),
+                 _ticket(dev, "channel_moments").data_ptr(),
+                 MOMENTS_DESIGNS[plan.design], plan.strips, plan.groups, n, c,
+                 DTYPE_CODES[x2d.dtype], 1.0 / n, stream_of(dev))
     check_launch("channel_moments", err)
     channel_moments.launches += 1
+    channel_moments.launches_by_design[plan.design] += 1
     return mean, mean_sq
 
 
@@ -178,14 +233,18 @@ class _ChannelMoments(torch.autograd.Function):
 def channel_moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (E[x], E[x^2]) over axis 0 of [N, C], f32, one pass;
     differentiable. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (and raises if it cannot).
-    `channel_moments.launches` counts launches."""
+    launches the kernel (and raises if it cannot) in the plan
+    `moments_plan` makes. `channel_moments.launches` counts launches,
+    `.launches_by_design` them by design. Above one cluster per strip the
+    launch draws on this kernel's ticket (`_ticket`), so launches on one
+    device must not overlap: launch on one stream."""
     if x2d.dim() != 2:
         raise ValueError(f"x2d must be 2-D, got shape {tuple(x2d.shape)}")
     return _ChannelMoments.apply(x2d)
 
 
 channel_moments.launches = 0
+channel_moments.launches_by_design = dict.fromkeys(MOMENTS_DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -204,20 +263,26 @@ def scale_shift_act_plain(x2d: torch.Tensor, scale: torch.Tensor,
 def scale_shift_act_launch(x2d: torch.Tensor, scale: torch.Tensor,
                            shift: torch.Tensor, act: str = "none",
                            leak: float = LEAK) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor (raises if it cannot launch)."""
+    """The forward kernel on a CUDA tensor (raises if it cannot launch), in
+    the design `ssa_fwd_design` picks."""
     check_act(act)
     check_matrix("x2d", x2d)
     n, c = x2d.shape
-    scale = channel_vector("scale", scale, c, x2d.device)
-    shift = channel_vector("shift", shift, c, x2d.device)
+    dev = x2d.device
+    scale = channel_vector("scale", scale, c, dev)
+    shift = channel_vector("shift", shift, c, dev)
     y = torch.empty_like(x2d)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2d, y, scale, shift))
+    design = ssa_fwd_design(c, x2d.dtype, aligned)
     fn = c_function("scale_shift_act", "dcgan_scale_shift_act")
-    with torch.cuda.device(x2d.device):
+    with torch.cuda.device(dev):
         err = fn(x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                  y.data_ptr(), n, c, DTYPE_CODES[x2d.dtype], ACT_CODES[act],
-                 float(leak), stream_of(x2d.device))
+                 float(leak), SSA_FWD_DESIGNS[design], sm_count(dev),
+                 stream_of(dev))
     check_launch("scale_shift_act", err)
     scale_shift_act.launches += 1
+    scale_shift_act.launches_by_design[design] += 1
     return y
 
 
@@ -234,9 +299,36 @@ def scale_shift_act_bwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
     return ((du * s).to(x2d.dtype), (du * xf).sum(0), du.sum(0))
 
 
-# csrc/scale_shift_act.cu::BwdDesign, and the backward's threads per block
+# csrc/scale_shift_act.cu::FwdDesign and BwdDesign, and each direction's
+# threads per block
+SSA_FWD_DESIGNS = {"scalar": 0, "vector": 1}
+SSA_FWD_THREADS = 256
 SSA_BWD_DESIGNS = {"scalar": 0, "vector": 1}
 SSA_BWD_THREADS = 256
+
+
+def _row_design(c: int, dtype: torch.dtype, aligned: bool,
+                threads: int) -> str:
+    """"vector" where c is a multiple of the 16-byte width (8 bf16 or 4 f32
+    values), one row takes at most `threads` such widths and the operands
+    are 16-byte `aligned`; "scalar" otherwise."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    if aligned and c % vec == 0 and c // vec <= threads:
+        return "vector"
+    return "scalar"
+
+
+def ssa_fwd_design(c: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The design of scale_shift_act's forward kernel for [N, c] operands
+    of `dtype`, a dispatch by shape and alignment: "vector" (each thread
+    owns 16 bytes of columns, keeps their scale and shift in registers and
+    walks rows) where c is a multiple of the 16-byte width, one row takes
+    at most SSA_FWD_THREADS such widths, and x, y, scale and shift are
+    16-byte `aligned`; "scalar" (a grid-stride loop over elements)
+    otherwise."""
+    return _row_design(c, dtype, aligned, SSA_FWD_THREADS)
 
 
 def ssa_bwd_design(c: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -246,25 +338,22 @@ def ssa_bwd_design(c: int, dtype: torch.dtype, aligned: bool) -> str:
     the 16-byte width (8 bf16 or 4 f32 values), one row takes at most
     SSA_BWD_THREADS such widths, and x, g and dx are 16-byte `aligned`;
     "scalar" (one element per thread, 32-column strips) otherwise."""
-    if dtype not in DTYPE_CODES:
-        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    vec = 16 // (4 if dtype == torch.float32 else 2)
-    if aligned and c % vec == 0 and c // vec <= SSA_BWD_THREADS:
-        return "vector"
-    return "scalar"
+    return _row_design(c, dtype, aligned, SSA_BWD_THREADS)
 
 
-# one int32 per device for the backward's last-block ticket, zeroed once;
-# every launch leaves it at 0 again
-_TICKETS: Dict[int, torch.Tensor] = {}
+# one int32 per (device, kernel) for the last-block tickets of
+# channel_moments and scale_shift_act's backward, zeroed once; every launch
+# leaves its ticket at 0 again, so a fault in one kernel's launch cannot
+# leave the other's count wrong
+_TICKETS: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
-def _bwd_ticket(device: torch.device) -> torch.Tensor:
+def _ticket(device: torch.device, kernel: str) -> torch.Tensor:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    ticket = _TICKETS.get(index)
+    ticket = _TICKETS.get((index, kernel))
     if ticket is None:
-        ticket = _TICKETS[index] = torch.zeros(
+        ticket = _TICKETS[index, kernel] = torch.zeros(
             1, dtype=torch.int32, device=torch.device("cuda", index))
     return ticket
 
@@ -278,7 +367,8 @@ def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
     plain version; a CUDA tensor launches the kernel (and raises if it
     cannot) in the design `ssa_bwd_design` picks.
     `scale_shift_act_bwd.launches` counts launches, `.launches_by_design`
-    them by design."""
+    them by design. Every launch draws on this kernel's ticket (`_ticket`),
+    so launches on one device must not overlap: launch on one stream."""
     check_act(act)
     if x2d.device.type == "cpu":
         return scale_shift_act_bwd_plain(x2d, scale, shift, g, act, leak)
@@ -309,7 +399,8 @@ def scale_shift_act_bwd(x2d: torch.Tensor, scale: torch.Tensor,
         err = fn(x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                  g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
                  dshift.data_ptr(), part.data_ptr(),
-                 _bwd_ticket(dev).data_ptr(), SSA_BWD_DESIGNS[design],
+                 _ticket(dev, "scale_shift_act_bwd").data_ptr(),
+                 SSA_BWD_DESIGNS[design],
                  chunks, n, c, code, ACT_CODES[act], float(leak),
                  stream_of(dev))
     check_launch("scale_shift_act_bwd", err)
@@ -348,7 +439,8 @@ def scale_shift_act(x2d: torch.Tensor, scale: torch.Tensor,
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels (and raises if it cannot). `scale_shift_act.launches` counts
-    forward launches, `scale_shift_act_bwd.launches` backward ones."""
+    forward launches (`.launches_by_design` by design),
+    `scale_shift_act_bwd.launches` backward ones."""
     check_act(act)
     if x2d.dim() != 2:
         raise ValueError(f"x2d must be 2-D, got shape {tuple(x2d.shape)}")
@@ -356,6 +448,7 @@ def scale_shift_act(x2d: torch.Tensor, scale: torch.Tensor,
 
 
 scale_shift_act.launches = 0
+scale_shift_act.launches_by_design = dict.fromkeys(SSA_FWD_DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -366,6 +366,126 @@ class TestSsaBwdDesign:
             kernels.SSA_BWD_DESIGNS["vector"])
 
 
+# the eight [N, C] shapes of BN on the celeba64 training step at batch 64:
+# G bn0, G deconv1-3, D conv1-3 (bn0 and D conv3 share [1024, 512])
+CELEBA64_BN = [(1024, 512), (4096, 256), (16384, 128), (65536, 64),
+               (16384, 128), (4096, 256), (1024, 512)]
+
+
+def _source_const(source, name):
+    src = (_build.SRC_DIR / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+class TestSsaFwdDesign:
+    """The design of scale_shift_act's forward kernel
+    (`kernels.ssa_fwd_design`): a dispatch by width and alignment."""
+
+    @pytest.mark.parametrize("shape", CELEBA64_BN)
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_celeba64_shapes_take_vector(self, shape, dtype):
+        assert kernels.ssa_fwd_design(shape[1], dtype, True) == "vector"
+
+    @pytest.mark.parametrize("c, dtype, aligned, design", [
+        (72, torch.bfloat16, True, "vector"),
+        (70, torch.bfloat16, True, "scalar"),     # ragged
+        (60, torch.bfloat16, True, "scalar"),     # not a multiple of 8
+        (60, torch.float32, True, "vector"),      # a multiple of 4
+        (70, torch.float32, True, "scalar"),
+        (512, torch.bfloat16, False, "scalar"),   # an operand off 16 bytes
+        (64, torch.float32, False, "scalar"),
+        (2048, torch.bfloat16, True, "vector"),   # 256 threads on a row
+        (2056, torch.bfloat16, True, "scalar"),   # 257
+        (1028, torch.float32, True, "scalar")])
+    def test_width_and_alignment_pick_the_design(self, c, dtype, aligned,
+                                                 design):
+        assert kernels.ssa_fwd_design(c, dtype, aligned) == design
+
+    @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+    def test_rejects_other_dtypes(self, dtype):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            kernels.ssa_fwd_design(64, dtype, True)
+
+    def test_constants_match_the_kernel_source(self):
+        src = (_build.SRC_DIR / "scale_shift_act.cu").read_text()
+        codes = re.search(r"enum FwdDesign : int \{ kFwdScalar = (\d+), "
+                          r"kFwdVector = (\d+) \};", src)
+        assert _source_const("scale_shift_act.cu", "kFwdThreads") == \
+            kernels.SSA_FWD_THREADS
+        assert tuple(int(x) for x in codes.groups()) == (
+            kernels.SSA_FWD_DESIGNS["scalar"],
+            kernels.SSA_FWD_DESIGNS["vector"])
+
+
+class TestMomentsPlan:
+    """The plan of channel_moments' kernel (`kernels.moments_plan`): the
+    design by width and alignment, the column strips and the clusters per
+    strip; pinned on an H100's 132 SMs."""
+
+    # (N, C), then the strips and groups in bf16 and in f32: bn0 (and D
+    # conv3) in one cluster per strip, the larger shapes in up to 16
+    # clusters per strip (2 CTAs per SM)
+    CELEBA64 = [((1024, 512), (4, 1), (8, 1)),
+                ((4096, 256), (2, 4), (4, 4)),
+                ((16384, 128), (1, 16), (2, 8)),
+                ((65536, 64), (1, 16), (1, 16))]
+
+    @pytest.mark.parametrize("shape, bf16, f32", CELEBA64)
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_celeba64_shapes(self, shape, bf16, f32, dtype):
+        plan = kernels.moments_plan(*shape, dtype, True, 132)
+        want = bf16 if dtype == torch.bfloat16 else f32
+        assert plan == kernels.MomentsPlan("vector", *want)
+        ctas = plan.strips * plan.groups * kernels.MOMENTS_CLUSTER
+        assert ctas <= kernels.MOMENTS_CTAS_PER_SM * 132
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_bn0_is_one_cluster_per_strip(self, dtype):
+        """G bn0 at batch 64, the main path's shape: one launch that needs
+        no workspace and no ticket."""
+        assert kernels.moments_plan(1024, 512, dtype, True, 132).groups == 1
+
+    @pytest.mark.parametrize("n, c, dtype, aligned, plan", [
+        (37, 70, torch.bfloat16, True, ("scalar", 3, 1)),    # ragged
+        (5, 3, torch.float32, True, ("scalar", 1, 1)),
+        (3, 512, torch.bfloat16, True, ("vector", 4, 1)),    # N < a step
+        (1024, 60, torch.bfloat16, True, ("scalar", 2, 2)),  # C % 8
+        (1024, 60, torch.float32, True, ("vector", 1, 1)),   # C % 4 == 0
+        (1024, 512, torch.bfloat16, False, ("scalar", 16, 1)),
+        (65536, 64, torch.bfloat16, False, ("scalar", 2, 8)),
+        (10 ** 6, 8, torch.bfloat16, True, ("vector", 1, 16)),
+        (4096, 72, torch.bfloat16, True, ("vector", 1, 3))])
+    def test_width_and_alignment_pick_the_plan(self, n, c, dtype, aligned,
+                                               plan):
+        assert kernels.moments_plan(n, c, dtype, aligned, 132) == plan
+
+    def test_fewer_sms_cap_the_groups(self):
+        assert kernels.moments_plan(65536, 64, torch.bfloat16, True,
+                                    32).groups == 4
+
+    @pytest.mark.parametrize("args, err", [
+        ((64, 64, torch.float16, True, 132), TypeError),
+        ((0, 64, torch.bfloat16, True, 132), ValueError),
+        ((64, 64, torch.bfloat16, True, 0), ValueError)])
+    def test_bad_arguments_raise(self, args, err):
+        with pytest.raises(err):
+            kernels.moments_plan(*args)
+
+    def test_constants_match_the_kernel_source(self):
+        src = (_build.SRC_DIR / "channel_moments.cu").read_text()
+        codes = re.search(r"enum MomentsDesign : int \{ kMomentsScalar = "
+                          r"(\d+), kMomentsVector = (\d+) \};", src)
+        assert tuple(int(x) for x in codes.groups()) == (
+            kernels.MOMENTS_DESIGNS["scalar"],
+            kernels.MOMENTS_DESIGNS["vector"])
+        assert [_source_const("channel_moments.cu", name) for name in (
+            "kThreads", "kCluster", "kStripVector", "kStripScalar",
+            "kRowsPerTurn", "kCtasPerSm")] == [
+            kernels.MOMENTS_THREADS, kernels.MOMENTS_CLUSTER,
+            kernels.MOMENTS_STRIP["vector"], kernels.MOMENTS_STRIP["scalar"],
+            kernels.MOMENTS_ROWS_PER_TURN, kernels.MOMENTS_CTAS_PER_SM]
+
+
 def _assert_sum_close(got, want, terms_abs):
     """A column sum taken in another order: within 1e-5 of the sum of the
     terms' magnitudes (plus 1e-6)."""
@@ -829,6 +949,31 @@ class TestKernelsOnCard:
             with pytest.raises(RuntimeError, match="launch failed"):
                 kernels.scale_shift_act_bwd(x, v, v, x)
             assert kernels.scale_shift_act_bwd.launches == count
+        # the same for the forward's vector design and the moments' vector
+        # plan on that unaligned pointer
+        with monkeypatch.context() as patch:
+            patch.setattr(kernels, "ssa_fwd_design", lambda *a: "vector")
+            count = kernels.scale_shift_act.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kernels.scale_shift_act(x, v, v)
+            assert kernels.scale_shift_act.launches == count
+        plan = kernels.moments_plan
+        with monkeypatch.context() as patch:
+            patch.setattr(kernels, "moments_plan", lambda *a: plan(
+                *a)._replace(design="vector"))
+            count = kernels.channel_moments.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kernels.channel_moments(x)
+            assert kernels.channel_moments.launches == count
+        # and a moments plan whose column strips differ from the build's
+        x = torch.zeros(64, 512, device=cuda, dtype=torch.bfloat16)
+        with monkeypatch.context() as patch:
+            patch.setattr(kernels, "moments_plan", lambda *a: plan(
+                *a)._replace(strips=plan(*a).strips * 2))
+            count = kernels.channel_moments.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kernels.channel_moments(x)
+            assert kernels.channel_moments.launches == count
         # the bf16 dq kernel's wrapper raises on what it does not take
         q = torch.zeros((1, 8, 8), device=cuda, dtype=torch.bfloat16)
         lse = torch.zeros((1, 8), device=cuda)
@@ -1001,6 +1146,77 @@ class TestKernelsOnCard:
         ga, xa = g.float().abs(), x.float().abs()
         _assert_sum_close(got[1], want[1], (ga * xa).sum(0))
         _assert_sum_close(got[2], want[2], ga.sum(0))
+
+    # (dtype, N, C, pointer offset in elements, the design ssa_fwd_design
+    # picks): G deconv3's width with a ragged last turn, N below one
+    # block's step of rows, C 60 (a multiple of 4, not of 8), C 72, and
+    # operands 2 elements off 16-byte alignment
+    SSA_FWD_CASES = [(torch.bfloat16, 4099, 64, 0, "vector"),
+                     (torch.bfloat16, 3, 512, 0, "vector"),
+                     (torch.bfloat16, 1000, 60, 0, "scalar"),
+                     (torch.bfloat16, 1000, 72, 0, "vector"),
+                     (torch.bfloat16, 1000, 512, 2, "scalar"),
+                     (torch.float32, 4099, 64, 0, "vector"),
+                     (torch.float32, 1, 512, 0, "vector"),
+                     (torch.float32, 1000, 60, 0, "vector"),
+                     (torch.float32, 1000, 70, 0, "scalar"),
+                     (torch.float32, 1000, 512, 2, "scalar")]
+
+    @pytest.mark.parametrize("act", ACT_LIST)
+    @pytest.mark.parametrize("case", SSA_FWD_CASES)
+    def test_scale_shift_act_designs(self, cuda, act, case):
+        """Kernel 2 on each design its plan picks: the design taken, and
+        the plain version matched."""
+        tdt, n, c, offset, design = case
+        x = _at_offset(torch.from_numpy(_np(33, (n, c), -2, 2)).to(cuda, tdt),
+                       offset)
+        scale = torch.from_numpy(_np(34, (c,), 0.5, 1.5)).to(cuda)
+        shift = torch.from_numpy(_np(35, (c,))).to(cuda)
+        by_design = kernels.scale_shift_act.launches_by_design
+        before = dict(by_design)
+        got = kernels.scale_shift_act(x, scale, shift, act)
+        torch.cuda.synchronize()
+        assert by_design == dict(before, **{design: before[design] + 1})
+        _assert_close(got, kernels.scale_shift_act_plain(x, scale, shift,
+                                                         act), tdt)
+
+    # (dtype, N, C, pointer offset in elements): the plan's design and
+    # groups follow from them (TestMomentsPlan); two groups and more take
+    # the last-cluster finish
+    MOMENTS_CASES = [(torch.bfloat16, 1024, 512, 0),
+                     (torch.bfloat16, 3, 512, 0),
+                     (torch.bfloat16, 4096, 256, 0),
+                     (torch.bfloat16, 65536, 64, 0),
+                     (torch.bfloat16, 1000, 60, 0),
+                     (torch.bfloat16, 1024, 512, 2),
+                     (torch.bfloat16, 65536, 64, 1),
+                     (torch.float32, 1024, 60, 0),
+                     (torch.float32, 16384, 128, 0),
+                     (torch.float32, 37, 70, 0),
+                     (torch.float32, 5000, 72, 1)]
+
+    @pytest.mark.parametrize("case", MOMENTS_CASES)
+    def test_channel_moments_designs(self, cuda, case):
+        """Kernel 1 on each plan, launched 10 times: the design taken each
+        time, every launch the same bits as the first (a ticket left
+        unreset would change the sums), the plain version matched."""
+        tdt, n, c, offset = case
+        x = _at_offset(torch.from_numpy(_np(101, (n, c), -2, 2)).to(cuda, tdt),
+                       offset)
+        plan = kernels.moments_plan(n, c, tdt, x.data_ptr() % 16 == 0,
+                                    kernels.sm_count(cuda))
+        by_design = kernels.channel_moments.launches_by_design
+        before = dict(by_design)
+        runs = [kernels.channel_moments(x) for _ in range(10)]
+        torch.cuda.synchronize()
+        assert by_design == dict(before, **{plan.design:
+                                            before[plan.design] + 10})
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+        xf = x.float()
+        for g, w, t in zip(runs[0], kernels.channel_moments_plain(x),
+                           (xf.abs().mean(0), (xf * xf).mean(0))):
+            _assert_sum_close(g, w, t)
 
     @pytest.mark.parametrize("transpose,act", [(True, "relu"),
                                                (False, "lrelu")])
