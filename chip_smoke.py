@@ -83,8 +83,33 @@ spectral norm, hinge loss, TTUR, G EMA):
    the serve entry point with the counters reset around it; the images
    checked as in phase 4 and against the dense route.
 
+celeba64 from TFRecords, checkpointed and resumed:
+
+11. resume: RESUME_RECORDS random 64x64x3 images in the preset's record
+   dtype, in RESUME_SHARDS TFRecord shards (the port's
+   write_image_tfrecords); the trainer's `train()` (celeba64, batch 64,
+   use_pallas and pallas_fused) runs RESUME_FIRST_STEPS steps from them,
+   saving after every step and writing a sample grid at the last; its
+   newest checkpoint restores equal to the final in-memory state, leaf for
+   leaf and bit for bit; a second `train()` on the same directory restores
+   it and runs to RESUME_STEPS, events.jsonl continuing; the newest step,
+   truncated, becomes `<step>.corrupt` and the restore falls back to the
+   step before; the directory is served through the serve entry point
+   (`--checkpoint_dir`), RESUME_REQUESTS requests equal to the sampler on
+   the restored weights within SERVED_TOL; the launch counters are set to 0
+   before the first run and read after the serving (kernels 1, 3 and 4 at
+   exactly their per-step counts, 2 and 5 also in the sampler); one train
+   step from the restored state and one from the in-memory state on the
+   same batch and z agree (bit for bit, or within TRAIN_ROUTE_TOL); the
+   grid PNG decodes with zlib, no PIL, to [8 x 64, 8 x 64, 3] and the
+   sampler's images of that step; then timed: the checkpoint's bytes, save
+   (host copy, write) and restore (verify, read) of the final state, the
+   loader's images/s, and the host-inclusive step ms and profiled idle
+   share with the TFRecord feed against the synthetic feed, in turns.
+
 Stdout ends with the serve reports, the sampler timing, the train
-reports, the card's name and power limit (nvidia-smi), one JSON line
+reports, the resume report, the card's name and power limit (nvidia-smi),
+one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -1367,10 +1392,11 @@ def train_and_check(torch, np, workdir, kernels):
     from dcgan_tpu_torch.train import cli
     from dcgan_tpu_torch.train.steps import init_train_state, make_train_step
 
+    tdir = os.path.join(workdir, "celeba64_train")
     argv = ["--preset", "celeba64", "--use_pallas", "--pallas_fused",
             "--synthetic", "--max_steps", str(TRAIN_STEPS),
             "--batch_size", str(BATCH), "--device", "cuda",
-            "--checkpoint_dir", workdir, "--seed", str(SEED)]
+            "--checkpoint_dir", tdir, "--seed", str(SEED)]
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     wrappers = all_wrappers()
     reset_counts(wrappers)
@@ -1396,7 +1422,7 @@ def train_and_check(torch, np, workdir, kernels):
         entry.setdefault("launches_by_path", {})["train"] = \
             launches[entry["name"]]
 
-    last = read_events(np, workdir, train_s)
+    last = read_events(np, tdir, train_s)
 
     # every parameter and BN running statistic moved from the seeded init
     init = init_train_state(cfg, device="cuda")
@@ -2046,6 +2072,391 @@ def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
     return row, timing
 
 
+# ---------------------------------------------------------------------------
+# celeba64 from TFRecords: checkpoints, resume, sample grids, serving
+# ---------------------------------------------------------------------------
+
+# the resume phase's data: celeba64-shaped random images in the preset's
+# record dtype, written by the port's write_image_tfrecords
+RESUME_RECORDS = 1024
+RESUME_SHARDS = 4
+# the loader's shuffle pool: a quarter of the records (the preset's 10776
+# would hold the whole set ten times over before the first batch)
+RESUME_SHUFFLE = 256
+# the first run saves after every step and keeps the newest RESUME_KEEP,
+# with a sample grid at its last step; the second resumes it to
+# RESUME_STEPS
+RESUME_FIRST_STEPS = 8
+RESUME_STEPS = 12
+RESUME_KEEP = 3
+RESUME_REQUESTS = 8
+# timed saves and restores of the final state, loader batches timed, and
+# steps per feed in the TFRecord-vs-synthetic comparison
+RESUME_REPEATS = 3
+LOADER_BATCHES = 16
+FEED_STEPS = 8
+# the kernels that only the train step launches (kernel 2 also runs in the
+# sampler, kernel 5 only there)
+TRAIN_ONLY = ("channel_moments", "scale_shift_act_bwd", "gemm_bias_moments")
+
+
+def decode_png(np, data: bytes):
+    """[H, W, C] uint8 of an 8-bit greyscale or RGB PNG, non-interlaced,
+    with no row filter (filter type 0 on every row, as utils/images.py
+    writes it), decoded with zlib (no PIL); every chunk's CRC checked."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("not a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            fail(f"PNG chunk {kind!r}: CRC mismatch")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in (0, 2) or interlace:
+        fail(f"PNG depth {depth}, colour type {color}, interlace "
+             f"{interlace}: not decoded here")
+    c = 3 if color == 2 else 1
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (w * c + 1):
+        fail(f"PNG data holds {raw.size} bytes, not {h} rows of {w * c}")
+    rows = raw.reshape(h, w * c + 1)
+    if rows[:, 0].any():
+        fail("PNG rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def same_state(torch, convert, name, got, want):
+    """Fails unless the two states hold the same leaves, dtypes and bits."""
+    fg, fw = convert.flatten(got), convert.flatten(want)
+    if sorted(fg) != sorted(fw):
+        fail(f"{name}: the trees differ")
+    bad = [k for k in fw if fg[k].dtype != fw[k].dtype
+           or not torch.equal(fg[k], fw[k])]
+    if bad:
+        fail(f"{name}: {len(bad)} leaves differ, e.g. {bad[:4]}")
+    return len(fw)
+
+
+def loader_rate(cfg):
+    """(first batch s, images/s after it) of the Python loader on the
+    phase's shards, on the host alone."""
+    from dcgan_tpu_torch.data.pipeline import PythonLoader, list_shards
+
+    mcfg = cfg.model
+    loader = PythonLoader(
+        list_shards(cfg.data_dir), batch=cfg.batch_size,
+        example_shape=(mcfg.output_size, mcfg.output_size, mcfg.c_dim),
+        record_dtype=cfg.record_dtype, min_after_dequeue=cfg.shuffle_buffer,
+        n_threads=cfg.num_loader_threads, seed=cfg.seed)
+    try:
+        t0 = time.perf_counter()
+        loader.next()
+        t1 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            loader.next()
+        t2 = time.perf_counter()
+    finally:
+        loader.close()
+    return t1 - t0, LOADER_BATCHES * cfg.batch_size / (t2 - t1)
+
+
+def feed_steps(torch, trainer, fns, state, cfg, synthetic):
+    """Host-inclusive ms of FEED_STEPS train steps from `state`, each
+    pulling its batch from the trainer's feed (the TFRecord loader and
+    prefetcher, or the synthetic stream) and reading its loss back, after
+    two warm steps; and the profiled idle share of such steps."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = trainer.make_data(cfg, dev, synthetic_data=synthetic)
+    z = trainer.step_z(cfg, 0, dev)
+
+    def step():
+        return fns.train_step(state, next(data), z)[1]["d_loss"].item()
+
+    try:
+        for _ in range(2):
+            step()
+        t0 = time.perf_counter()
+        for _ in range(FEED_STEPS):
+            step()
+        ms = (time.perf_counter() - t0) * 1e3 / FEED_STEPS
+        split = profile_split(torch, step, steps=FEED_STEPS)
+    finally:
+        data.close()
+    return ms, split
+
+
+def resume_and_check(torch, np, workdir, kernels):
+    """Phase 11: celeba64 trained from TFRecords through the trainer's
+    entry point, checkpointed, restored, resumed, corrupted and served
+    from its checkpoint directory; returns the `resume` report."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.data.synthetic import write_image_tfrecords
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.presets import celeba64 as celeba64_preset
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+    from dcgan_tpu_torch.train import trainer
+    from dcgan_tpu_torch.train.steps import init_train_state, make_train_step
+    from dcgan_tpu_torch.utils.checkpoint import STATE_FILENAME, Checkpointer
+
+    root = os.path.join(workdir, "resume")
+    run = os.path.join(root, "run")
+    base = celeba64_preset()
+    cfg = dc.replace(
+        base, model=dc.replace(base.model, use_pallas=True,
+                               pallas_fused=True),
+        batch_size=BATCH, seed=SEED, data_dir=os.path.join(root, "data"),
+        checkpoint_dir=run, sample_dir=os.path.join(root, "samples"),
+        sample_every_steps=RESUME_FIRST_STEPS, save_model_secs=0.0,
+        max_checkpoints=RESUME_KEEP, shuffle_buffer=RESUME_SHUFFLE)
+    mcfg = cfg.model
+    report = {"records": RESUME_RECORDS, "shards": RESUME_SHARDS,
+              "record_dtype": cfg.record_dtype, "batch": BATCH}
+
+    # 1. the data
+    t0 = time.perf_counter()
+    write_image_tfrecords(cfg.data_dir, num_examples=RESUME_RECORDS,
+                          image_size=mcfg.output_size, channels=mcfg.c_dim,
+                          num_shards=RESUME_SHARDS,
+                          record_dtype=cfg.record_dtype, seed=SEED)
+    report["write_s"] = time.perf_counter() - t0
+    report["loader_first_batch_s"], report["loader_images_per_s"] = \
+        loader_rate(cfg)
+    log(f"resume: wrote {RESUME_RECORDS} {cfg.record_dtype} records in "
+        f"{RESUME_SHARDS} shards in {report['write_s']:.2f} s; the Python "
+        f"loader ({cfg.num_loader_threads} readers, pool "
+        f"{cfg.shuffle_buffer}): first batch in "
+        f"{report['loader_first_batch_s']:.2f} s, then "
+        f"{report['loader_images_per_s']:.0f} images/s")
+
+    # 2. the first run, through the trainer's entry point
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    state8 = trainer.train(cfg, max_steps=RESUME_FIRST_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    report["first_run_s"] = time.perf_counter() - t0
+    kept = sorted(int(n) for n in os.listdir(run) if n.isdigit())
+    if len(kept) < 2 or kept[-1] != RESUME_FIRST_STEPS:
+        fail(f"the first run left checkpoints {kept}")
+    grid_path = os.path.join(cfg.sample_dir,
+                             f"train_{RESUME_FIRST_STEPS:08d}.png")
+    if not os.path.exists(grid_path):
+        fail(f"no sample grid {grid_path}")
+    log(f"resume: first run of {RESUME_FIRST_STEPS} steps from TFRecords "
+        f"in {report['first_run_s']:.1f} s, checkpoints {kept}")
+
+    # 3. the newest checkpoint is the final in-memory state, bit for bit
+    ck = Checkpointer(run)
+    template = init_train_state(cfg, device="cuda")
+    restored = ck.restore_latest(template)
+    n_leaves = same_state(torch, convert, "restore of the first run",
+                          restored, state8)
+    log(f"resume: restore_latest gives step {int(restored['step'])} equal "
+        f"to the in-memory state in all {n_leaves} leaves, bit for bit")
+    del restored
+
+    # 4. the second run resumes at step 8 and ends at 12
+    t0 = time.perf_counter()
+    state12 = trainer.train(cfg, max_steps=RESUME_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    report["second_run_s"] = time.perf_counter() - t0
+    if int(state12["step"]) != RESUME_STEPS:
+        fail(f"the second run ended at step {int(state12['step'])}")
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    scalars = [e["step"] for e in events if e["kind"] == "scalars"]
+    images = [e["step"] for e in events if e["kind"] == "image"]
+    if scalars != list(range(1, RESUME_STEPS + 1)) or \
+            images != [RESUME_FIRST_STEPS]:
+        fail(f"events.jsonl: scalars at {scalars}, images at {images}")
+    restored12 = ck.restore_latest(template)
+    same_state(torch, convert, "restore of the second run", restored12,
+               state12)
+    log(f"resume: the second run restored step {RESUME_FIRST_STEPS} and "
+        f"ran to {RESUME_STEPS} in {report['second_run_s']:.1f} s; "
+        f"events.jsonl continues at step {RESUME_FIRST_STEPS + 1}")
+
+    # 6. a truncated newest step is marked .corrupt; the one before serves
+    newest = os.path.join(run, str(RESUME_STEPS), STATE_FILENAME)
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    fallback = ck.restore_latest(template)
+    if int(fallback["step"]) != RESUME_STEPS - 1 or not os.path.isdir(
+            os.path.join(run, f"{RESUME_STEPS}.corrupt")):
+        fail(f"a truncated step {RESUME_STEPS}: restore gave step "
+             f"{int(fallback['step'])}, directory {sorted(os.listdir(run))}")
+    log(f"resume: truncated step {RESUME_STEPS} became "
+        f"{RESUME_STEPS}.corrupt; restore_latest fell back to step "
+        f"{RESUME_STEPS - 1}")
+
+    # 7. the checkpoint directory served through the serve entry point
+    row, responses = serve_main.run([
+        "--checkpoint_dir", run, "--device", "cuda", "--max_batch",
+        str(BATCH), "--demo_requests", str(RESUME_REQUESTS), "--demo_rps",
+        "500", "--demo_max_images", "8", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"resume path launches (two runs, {RESUME_STEPS} steps, a grid, "
+        f"{RESUME_REQUESTS} requests): {launches}")
+    for name in TRAIN_ONLY:
+        if launches[name] != PER_STEP[name] * RESUME_STEPS:
+            fail(f"kernel {name}: {launches[name]} launches on the resume "
+                 f"path, expected {PER_STEP[name]} per step x "
+                 f"{RESUME_STEPS}")
+    if launches["scale_shift_act"] <= PER_STEP["scale_shift_act"] * \
+            RESUME_STEPS or launches["gemm_bias_scale_act"] < 1:
+        fail("the resume path's sampler calls (the grid, the requests) "
+             "launched no scale_shift_act or gemm_bias_scale_act")
+    if any(launches[name] for name in FLASH_REPLACES):
+        fail("the celeba64 resume path launched a flash kernel")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["resume"] = \
+            launches[entry["name"]]
+    if row["completed"] != RESUME_REQUESTS or row["serve/dropped"] != 0 \
+            or row["meta"]["step"] != RESUME_STEPS - 1:
+        fail(f"served {row['completed']}/{RESUME_REQUESTS} requests, "
+             f"{row['serve/dropped']} dropped, from step "
+             f"{row['meta']['step']}")
+    worst = 0.0
+    for serial, r in enumerate(responses):
+        img = r.result(timeout=0)
+        z = np.random.default_rng((SEED, serial)).uniform(
+            -1.0, 1.0, (img.shape[0], mcfg.z_dim)).astype(np.float32)
+        direct = sampler_apply(fallback["params"]["gen"],
+                               fallback["bn"]["gen"],
+                               torch.from_numpy(z).cuda(), cfg=mcfg)
+        worst = max(worst, float(np.abs(direct.float().cpu().numpy()
+                                        - img).max()))
+    if worst > SERVED_TOL:
+        fail(f"images served from the checkpoint differ from the sampler "
+             f"on its restored weights by {worst}")
+    report["served_max_abs_err"] = worst
+    log(f"resume: {RESUME_REQUESTS} requests served from step "
+        f"{RESUME_STEPS - 1} of the checkpoint directory equal the "
+        f"sampler's on the restored weights (max |err| {worst:.3g} <= "
+        f"{SERVED_TOL})")
+
+    # 5. one step from the checkpoint and one from the in-memory state, on
+    # the same batch and z
+    fns = make_train_step(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = trainer.make_data(cfg, dev)
+    try:
+        batch = next(data)
+    finally:
+        data.close()
+    z = trainer.step_z(cfg, RESUME_STEPS, dev)
+    a, am = fns.train_step(state12, batch, z)
+    b, bm = fns.train_step(restored12, batch, z)
+    fa, fb = convert.flatten(a), convert.flatten(b)
+    bitwise = all(torch.equal(am[k], bm[k]) for k in am) and all(
+        torch.equal(fa[k], fb[k]) for k in fa)
+    losses_a = {k: float(v) for k, v in am.items()}
+    losses_b = {k: float(v) for k, v in bm.items()}
+    rtol, atol = TRAIN_ROUTE_TOL["bfloat16"]
+    if not bitwise and any(abs(losses_a[k] - losses_b[k])
+                           > rtol * abs(losses_a[k]) + atol
+                           for k in losses_a):
+        fail(f"one step from the checkpoint vs from memory: losses "
+             f"{losses_b} vs {losses_a}, outside rtol={rtol} atol={atol}")
+    report["one_step_bitwise"] = bitwise
+    log(f"resume: one step from the restored state and one from the "
+        f"in-memory state on the same batch and z agree "
+        f"{'bit for bit' if bitwise else f'within rtol={rtol} atol={atol}'}"
+        f" (losses {losses_a})")
+    del a, b, fa, fb
+
+    # 8. the grid decodes, without PIL, to the sampler's images of step 8
+    with open(grid_path, "rb") as f:
+        grid = decode_png(np, f.read())
+    rows, cols = cfg.sample_grid
+    size = mcfg.output_size
+    if grid.shape != (rows * size, cols * size, mcfg.c_dim):
+        fail(f"the sample grid decodes to {grid.shape}")
+    sample_z = torch.rand(
+        (max(cfg.sample_size, rows * cols), mcfg.z_dim), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    ) * 2.0 - 1.0
+    imgs = fns.sample(state8, sample_z).float().cpu().numpy()[:rows * cols]
+    want = np.clip((imgs + 1.0) / 2.0 * 255.0, 0, 255).astype(np.uint8)
+    want = want.reshape(rows, cols, size, size, -1).transpose(
+        0, 2, 1, 3, 4).reshape(grid.shape)
+    grid_err = int(np.abs(grid.astype(np.int32) - want).max())
+    if grid_err > 1:
+        fail(f"the sample grid differs from the sampler's images of step "
+             f"{RESUME_FIRST_STEPS} by {grid_err} levels")
+    log(f"resume: the grid PNG decodes with zlib to {list(grid.shape)}, "
+        f"within {grid_err} level(s) of the sampler's images of step "
+        f"{RESUME_FIRST_STEPS}")
+    del state8
+
+    # timings: saves and restores of the final state, and the step on each
+    # feed, in turns
+    ckt = Checkpointer(os.path.join(root, "timing"),
+                       max_to_keep=RESUME_REPEATS)
+    saves, restores = [], []
+    for i in range(RESUME_REPEATS):
+        ckt.save(i + 1, state12)
+        ckt.wait()
+        saves.append(dict(ckt.last_save_stats))
+    for _ in range(RESUME_REPEATS):
+        ckt.restore_latest(template)
+        restores.append(dict(ckt.last_restore_stats))
+
+    def median(rows_, key):
+        return sorted(r[key] for r in rows_)[len(rows_) // 2]
+
+    report["checkpoint_bytes"] = int(saves[0]["bytes"])
+    report["save_ms"] = median(saves, "save_ms")
+    report["save_host_copy_ms"] = median(saves, "host_copy_ms")
+    report["save_write_ms"] = median(saves, "write_ms")
+    report["restore_ms"] = median(restores, "restore_ms")
+    report["restore_verify_ms"] = median(restores, "verify_ms")
+    report["restore_read_ms"] = median(restores, "read_ms")
+    report["save_ms_runs"] = [r["save_ms"] for r in saves]
+    report["restore_ms_runs"] = [r["restore_ms"] for r in restores]
+    log(f"resume: checkpoint {report['checkpoint_bytes']} bytes; save "
+        f"{report['save_ms']:.1f} ms (host copy "
+        f"{report['save_host_copy_ms']:.1f}, write "
+        f"{report['save_write_ms']:.1f}), restore "
+        f"{report['restore_ms']:.1f} ms (verify "
+        f"{report['restore_verify_ms']:.1f}, read "
+        f"{report['restore_read_ms']:.1f}), medians of {RESUME_REPEATS}")
+    feeds = {"tfrecord": [], "synthetic": []}
+    for name in ("tfrecord", "synthetic", "synthetic", "tfrecord"):
+        feeds[name].append(feed_steps(torch, trainer, fns, state12, cfg,
+                                      name == "synthetic"))
+    for name, runs in feeds.items():
+        report[f"{name}_step_ms"] = [ms for ms, _ in runs]
+        report[f"{name}_idle_share"] = [
+            split["idle_share"] if split else "not measured"
+            for _, split in runs]
+        report[f"{name}_busy_ms"] = [
+            split["busy_ms"] if split else "not measured"
+            for _, split in runs]
+    log(f"resume: one celeba64 step at batch {BATCH} with its feed, "
+        f"host-inclusive ms: TFRecord {report['tfrecord_step_ms']}, "
+        f"synthetic {report['synthetic_step_ms']}; profiled idle share: "
+        f"TFRecord {report['tfrecord_idle_share']}, synthetic "
+        f"{report['synthetic_idle_share']}")
+    report["launches"] = launches
+    return report
+
+
 def check_sass(_build, libs):
     """Phase 1: the Hopper instructions of HOPPER_SASS in each redesigned
     kernel's entries; fails where an entry lacks one. Returns
@@ -2128,12 +2539,14 @@ def main() -> int:
         sagan_row, sagan_timing = sagan_serve_and_check(
             torch, np, sagan_cfg, state, workdir, kernels)
         del state
+        resume_report = resume_and_check(torch, np, workdir, kernels)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
     print(json.dumps(sagan_row), flush=True)
     print(json.dumps({"sagan64_sampler": sagan_timing}), flush=True)
     print(json.dumps({"sagan64_train": sagan_report}), flush=True)
+    print(json.dumps({"resume": resume_report}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,9 @@
 """Model and training configuration: copies of `dcgan_tpu/config.py`'s
-`ModelConfig` and of the `TrainConfig` fields the port serves.
+`ModelConfig` and of the `TrainConfig` fields the port serves, and of its
+`save_config` / `load_config`.
 
-Same field names, defaults and validation as the JAX package's, so a
-trainer's `config.json` "model" block reads here unchanged. The port serves
+Same field names, defaults and validation as the JAX package's, so each
+package's `config.json` loads in the other. The port serves
 and trains the DCGAN stacks with or without the SAGAN additions (a
 self-attention block at `attn_res`, spectral norm on D or on both nets,
 the hinge loss); the fields that select anything else (another `arch`,
@@ -20,7 +21,7 @@ import json
 import math
 import os
 import sys
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 CONFIG_FILENAME = "config.json"
 
@@ -157,7 +158,27 @@ class TrainConfig:
     grad_clip: float = 0.0         # >0 clips each net's grads by global norm
     label_smoothing: float = 0.0   # one-sided: D's real target 1 - eps
     g_ema_decay: float = 0.0       # 0: ema_gen mirrors the live G weights
+    # data (TFRecord shards, data/pipeline.py)
+    data_dir: str = "train"
+    shuffle_buffer: int = 10_776   # shuffle pool: 10% of a CelebA epoch
+    num_loader_threads: int = 16
+    normalize_inputs: bool = True  # map reals to [-1,1]
+    record_dtype: str = "float64"  # on-disk pixel dtype (dataset.json's
+                                   # wins when the shards have one)
+    prefetch_device_batches: int = 2  # batches the device feed keeps ready
+    max_corrupt_records: int = 0   # >0: quarantine up to this many corrupt
+                                   # records instead of failing
+    # checkpoints, events and sample grids
     checkpoint_dir: str = "checkpoint"
+    sample_dir: str = "samples"
+    tensorboard: bool = True       # mirror events into TensorBoard files
+    save_summaries_secs: float = 10.0  # MetricWriter.ready()'s interval
+    save_model_secs: float = 600.0  # checkpoint cadence (wall clock)
+    save_model_steps: int = 1000   # the JAX package's multi-host cadence
+    max_checkpoints: int = 5       # checkpoints kept
+    sample_every_steps: int = 100  # 0: no sample grids
+    sample_grid: Tuple[int, int] = (8, 8)
+    sample_size: int = 64          # rows of the fixed sample z
     log_every_steps: int = 1
     seed: int = 0
     precision: str = ""            # "" leaves the model dtypes; "f32"
@@ -209,6 +230,14 @@ class TrainConfig:
         if self.log_every_steps < 1:
             raise ValueError(f"log_every_steps must be >= 1, got "
                              f"{self.log_every_steps}")
+        if self.max_corrupt_records < 0:
+            raise ValueError(
+                f"max_corrupt_records must be >= 0, got "
+                f"{self.max_corrupt_records}")
+        if self.prefetch_device_batches < 0:
+            raise ValueError(
+                f"prefetch_device_batches must be >= 0, got "
+                f"{self.prefetch_device_batches}")
         # then what this slice of the port does not train yet
         unserved = []
         if self.loss not in ("gan", "hinge"):
@@ -269,3 +298,62 @@ def save_model_config(cfg: ModelConfig, directory: str) -> str:
         f.write("\n")
     os.replace(tmp, path)
     return path
+
+
+# TrainConfig fields of the JAX package that change what is trained and
+# that the port does not implement, with their JAX defaults: a config.json
+# that sets one otherwise raises instead of being trained without it
+UNPORTED_TRAIN_FIELDS = {"r1_gamma": 0.0, "progressive": "",
+                         "pipeline_gd": False}
+
+
+def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
+    """A TrainConfig from a `config.json` dict of either package.
+
+    The JAX package's fields the port has no use for (its mesh, fault
+    tolerance, profiling, evals) are reported once and dropped; one of
+    UNPORTED_TRAIN_FIELDS away from its default raises
+    NotImplementedError, as the port's own unported values do."""
+    d = dict(d)
+    model = model_config_from_dict({"model": d.pop("model", {})})
+    unported = [f"{k}={d[k]!r}" for k, default in UNPORTED_TRAIN_FIELDS.items()
+                if k in d and d[k] != default]
+    if unported:
+        raise NotImplementedError(
+            "dcgan_tpu_torch does not train these settings of the config; "
+            f"not ported yet: {', '.join(unported)}")
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    ignored = sorted(set(d) - names)
+    if ignored:
+        print(f"[dcgan_tpu_torch] ignoring config keys the port does not "
+              f"use: {ignored}", file=sys.stderr)
+    rest = {k: v for k, v in d.items() if k in names}
+    if "sample_grid" in rest:  # JSON round-trips tuples as lists
+        rest["sample_grid"] = tuple(rest["sample_grid"])
+    return TrainConfig(model=model, **rest)
+
+
+def save_config(cfg: TrainConfig, directory: str) -> str:
+    """Write config.json atomically (tmp + rename), in the JAX package's
+    schema; returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, CONFIG_FILENAME)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def load_config(directory: str) -> Optional[TrainConfig]:
+    """The TrainConfig stored next to a checkpoint, or None if absent."""
+    path = os.path.join(directory, CONFIG_FILENAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return config_from_dict(json.load(f))

@@ -10,13 +10,17 @@
 - `train_state_from_jax(state_np)`: the JAX `init_train_state` pytree (as
   numpy) becomes the port's training state (`train/steps.py`): params, BN
   state, both Adam states, the EMA mirror and the step.
+  `train_state_to_numpy(state)` is its inverse: nested numpy arrays with
+  optax's (count, mu, nu) per net, which the JAX side grafts into its
+  optimizer state by position (`tools/export_torch_checkpoint.py`).
 - `save_weights(path, cfg, params, state)` / `load_weights(path)`: an
   `.npz` keyed by pytree path (`params/deconv1/w`, `state/bn0/mean`) with a
   `config.json` beside it, in the trainer's format (`{"model": {...}}`), so
   the JAX package's `load_config` reads it too.
 
-Reading an Orbax checkpoint needs JAX; exporting one to this `.npz` is a
-later item of the port.
+A training checkpoint of the port (`utils/checkpoint.py`) is its state
+tree through `flatten`; an Orbax checkpoint of the JAX package is converted
+to it, and back, by `tools/export_torch_checkpoint.py` on a host with JAX.
 """
 
 from __future__ import annotations
@@ -113,6 +117,28 @@ def train_state_from_jax(state_np: Pytree, *,
         "ema_gen": _to_torch(state_np["ema_gen"], dev),
         "step": torch.tensor(int(np.asarray(state_np["step"])),
                              dtype=torch.int32, device=dev),
+    }
+
+
+def train_state_to_numpy(state: Pytree) -> Pytree:
+    """The port's training state as nested numpy arrays in the JAX state's
+    layout, with each net's optimizer state as optax's leaves (count, mu,
+    nu); the inverse of `train_state_from_jax`."""
+    def tree(t: Pytree) -> Pytree:
+        return unflatten(_to_numpy(t))
+
+    def scalar(t: torch.Tensor) -> np.ndarray:
+        return np.asarray(int(t), dtype=np.int32)
+
+    return {
+        "params": tree(state["params"]),
+        "bn": tree(state["bn"]),
+        "opt": {net: (scalar(state["opt"][net]["count"]),
+                      tree(state["opt"][net]["mu"]),
+                      tree(state["opt"][net]["nu"]))
+                for net in ("gen", "disc")},
+        "ema_gen": tree(state["ema_gen"]),
+        "step": scalar(state["step"]),
     }
 
 

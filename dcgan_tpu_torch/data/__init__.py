@@ -1,2 +1,2 @@
-"""Input data for the trainer: the synthetic stream (the TFRecord readers
-are a later slice)."""
+"""Input data for the trainer: the TFRecord readers, the loader and the
+device prefetcher (`pipeline.py`), and synthetic data (`synthetic.py`)."""

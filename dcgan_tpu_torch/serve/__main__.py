@@ -1,8 +1,11 @@
 """`python -m dcgan_tpu_torch.serve`: the generation-as-a-service entry
 point on the GPU (the counterpart of `python -m dcgan_tpu.serve`).
 
-  cold start   load the `.npz` weights (`convert.save_weights`) onto the
-               device, build the CUDA kernels, prime every bucket rung;
+  cold start   restore the newest intact checkpoint of a training
+               checkpoint directory (`--checkpoint_dir`, the live or the
+               `--use_ema` generator) or load `.npz` weights
+               (`--weights`, `convert.save_weights`) onto the device,
+               build the CUDA kernels, prime every bucket rung;
   warm serving replay a recorded arrival trace (`--trace`) or a
                deterministic Poisson demo load (`--demo_requests` /
                `--demo_rps`) through the continuous batcher;
@@ -11,6 +14,7 @@ point on the GPU (the counterpart of `python -m dcgan_tpu.serve`).
                the process exits 0.
 
 Usage:
+    python -m dcgan_tpu_torch.serve --checkpoint_dir C --demo_requests 64
     python -m dcgan_tpu_torch.serve --weights G.npz --demo_requests 64
     python -m dcgan_tpu_torch.serve --weights G.npz --trace trace.json \
         --report report.json --device cuda
@@ -35,10 +39,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dcgan_tpu_torch.serve",
         description="continuous-batching sampler server on the GPU")
-    p.add_argument("--weights", required=True,
-                   help="generator weights .npz written by "
-                        "dcgan_tpu_torch.convert.save_weights (config.json "
-                        "beside it)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint_dir",
+                     help="serve the newest intact checkpoint of a "
+                          "training run (verified restore)")
+    src.add_argument("--weights",
+                     help="generator weights .npz written by "
+                          "dcgan_tpu_torch.convert.save_weights "
+                          "(config.json beside it)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="checkpoint source: serve the EMA generator")
     p.add_argument("--buckets", default=None,
                    help="explicit bucket ladder, e.g. 8,16,32 (default: a "
                         "doubling ladder under --max_batch)")
@@ -96,9 +106,14 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, list]:
     args = build_parser().parse_args(argv)
     from dcgan_tpu_torch.serve.buckets import parse_buckets
     from dcgan_tpu_torch.serve.server import SamplerServer
-    from dcgan_tpu_torch.serve.sources import WeightsSource
+    from dcgan_tpu_torch.serve.sources import CheckpointSource, \
+        WeightsSource
 
-    source = WeightsSource(args.weights, device=args.device)
+    if args.checkpoint_dir is not None:
+        source = CheckpointSource(args.checkpoint_dir, use_ema=args.use_ema,
+                                  device=args.device)
+    else:
+        source = WeightsSource(args.weights, device=args.device)
     server = SamplerServer(
         source,
         buckets=parse_buckets(args.buckets).buckets if args.buckets else None,

@@ -1,16 +1,18 @@
 """CLI of the trainer: the JAX package's flag names for the knobs this
-slice serves, plus --device.
+port serves, plus --device.
 
     python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
-        --pallas_fused --synthetic --max_steps 200
+        --pallas_fused --data_dir D --checkpoint_dir C
     python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
         --max_steps 200
     python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
         --max_steps 2 --device cpu --output_size 16 --attn_res 8 \
         --gf_dim 16 --df_dim 16 --z_dim 8 --batch_size 4
 
-Flags given explicitly override the preset's values. Without --synthetic
-it fails: the TFRecord data feed is not ported yet.
+Flags given explicitly override the preset's values. The run reads the
+TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
+run again on the same --checkpoint_dir, resumes from its newest intact
+checkpoint.
 """
 
 from __future__ import annotations
@@ -25,7 +27,18 @@ from dcgan_tpu_torch.presets import PRESETS, get_preset
 _FLAG_FIELDS = {
     "batch_size": ("", "batch_size"),
     "max_steps": ("", "max_steps"),
+    "data_dir": ("", "data_dir"),
+    "shuffle_buffer": ("", "shuffle_buffer"),
+    "num_loader_threads": ("", "num_loader_threads"),
+    "record_dtype": ("", "record_dtype"),
+    "prefetch_device_batches": ("", "prefetch_device_batches"),
+    "max_corrupt_records": ("", "max_corrupt_records"),
     "checkpoint_dir": ("", "checkpoint_dir"),
+    "sample_dir": ("", "sample_dir"),
+    "save_summaries_secs": ("", "save_summaries_secs"),
+    "save_model_secs": ("", "save_model_secs"),
+    "max_checkpoints": ("", "max_checkpoints"),
+    "sample_every_steps": ("", "sample_every_steps"),
     "log_every_steps": ("", "log_every_steps"),
     "seed": ("", "seed"),
     "update_mode": ("", "update_mode"),
@@ -39,6 +52,10 @@ _FLAG_FIELDS = {
     "z_dim": ("model", "z_dim"),
     "attn_res": ("model", "attn_res"),
 }
+
+# --no_<x> flags -> the TrainConfig field they turn off
+_NEGATED_FLAGS = {"no_normalize": "normalize_inputs",
+                  "no_tensorboard": "tensorboard"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,10 +84,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_res", type=int,
                    help="feature-map resolution of the self-attention block "
                         "(0 = none; the sagan64 preset sets 32)")
+    p.add_argument("--data_dir",
+                   help="directory of TFRecord shards (default: train)")
     p.add_argument("--synthetic", action="store_true", default=False,
-                   help="train on synthetic data (the only feed ported)")
+                   help="train on synthetic data (no shards needed)")
+    p.add_argument("--no_normalize", action="store_true",
+                   help="feed the raw pixel scale instead of [-1, 1]")
+    p.add_argument("--record_dtype", choices=["float64", "float32", "uint8"],
+                   help="wire format of shards without a dataset.json (a "
+                        "manifest's record_dtype is adopted)")
+    p.add_argument("--shuffle_buffer", type=int,
+                   help="examples in the loader's shuffle pool")
+    p.add_argument("--num_loader_threads", type=int)
+    p.add_argument("--prefetch_device_batches", type=int,
+                   help="batches the device feed keeps ready ahead of the "
+                        "step (0: copied on the step's thread)")
+    p.add_argument("--max_corrupt_records", type=int,
+                   help=">0: quarantine (skip, log, count) corrupt records "
+                        "up to this budget; 0: the first one is fatal")
     p.add_argument("--checkpoint_dir",
-                   help="where events.jsonl is written")
+                   help="checkpoints, config.json, events.jsonl and the "
+                        "TensorBoard files; a run resumes from it")
+    p.add_argument("--sample_dir", help="where the sample grids go")
+    p.add_argument("--no_tensorboard", action="store_true",
+                   help="no TensorBoard event files (events.jsonl only)")
+    p.add_argument("--save_summaries_secs", type=float)
+    p.add_argument("--save_model_secs", type=float,
+                   help="seconds between checkpoints")
+    p.add_argument("--max_checkpoints", type=int,
+                   help="checkpoints kept (the oldest pruned beyond this)")
+    p.add_argument("--sample_every_steps", type=int,
+                   help="steps between sample grids (0: none)")
     p.add_argument("--log_every_steps", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--device", default="cuda",
@@ -82,7 +126,9 @@ def config_from_args(args: argparse.Namespace):
     """The preset's TrainConfig with the explicitly given flags applied."""
     top, model_kw = {}, {}
     for flag, value in vars(args).items():
-        if flag in _FLAG_FIELDS:
+        if flag in _NEGATED_FLAGS:
+            top[_NEGATED_FLAGS[flag]] = not value
+        elif flag in _FLAG_FIELDS:
             section, field = _FLAG_FIELDS[flag]
             (model_kw if section == "model" else top)[field] = value
     cfg = get_preset(args.preset)
@@ -94,11 +140,7 @@ def config_from_args(args: argparse.Namespace):
 def main(argv: Optional[List[str]] = None):
     """Parse, build the config, train; returns the final state."""
     args = build_parser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "dcgan_tpu_torch.train: the TFRecord data feed is not ported "
-            "yet; pass --synthetic")
     cfg = config_from_args(args)
     from dcgan_tpu_torch.train.trainer import train
 
-    return train(cfg, synthetic_data=True, device=args.device)
+    return train(cfg, synthetic_data=args.synthetic, device=args.device)

@@ -2,7 +2,8 @@
 
 - `MetricWriter`: the trainer's JSONL event stream, one
   {"kind", "step", "time", ...payload} object per line in the JAX
-  package's format (its TensorBoard mirror is a later slice);
+  package's format, mirrored into TensorBoard event files
+  (utils/tb_events.py), with the JAX writer's `every_secs` throttle;
 - `CounterRegistry` / `CounterSnapshot`: the serving plane's counters.
 """
 
@@ -12,16 +13,44 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
+
+from dcgan_tpu_torch.utils.retry import retry_io
 
 
 class MetricWriter:
-    """JSONL event writer, `<logdir>/events.jsonl`, appended one event per
-    line. Not thread-safe: one writer thread at a time."""
+    """Time-throttled event writer, `<logdir>/events.jsonl` appended one
+    event per line; with tensorboard=True (the default) every event is
+    mirrored into an events.out.tfevents.* file.
 
-    def __init__(self, logdir: str):
-        os.makedirs(logdir, exist_ok=True)
+    `ready()` flips true at most once per `every_secs` (the first call
+    always fires), the JAX writer's save_summaries_secs gate. Not
+    thread-safe: one writer thread at a time."""
+
+    def __init__(self, logdir: str, *, every_secs: float = 10.0,
+                 tensorboard: bool = True):
+        self.logdir = logdir
+        self.every_secs = every_secs
+        self._next_time = 0.0
         self.path = os.path.join(logdir, "events.jsonl")
+        # retried: a transient mkdir failure would end the run before its
+        # first step
+        retry_io(lambda: os.makedirs(logdir, exist_ok=True),
+                 tag="metrics-mkdir")
+        self._tb = None
+        if tensorboard:
+            from dcgan_tpu_torch.utils.tb_events import TBEventWriter
+
+            self._tb = TBEventWriter(logdir)
+
+    def ready(self, now: Optional[float] = None) -> bool:
+        now = time.time() if now is None else now
+        if now >= self._next_time:
+            # advance from now, not by accumulation: a slow step must not
+            # cause a burst of catch-up events
+            self._next_time = now + self.every_secs
+            return True
+        return False
 
     def _emit(self, kind: str, step: int, payload: Mapping[str, Any]) -> None:
         event = {"kind": kind, "step": int(step), "time": time.time(),
@@ -30,8 +59,30 @@ class MetricWriter:
             f.write(json.dumps(event) + "\n")
 
     def write_scalars(self, step: int, scalars: Mapping[str, Any]) -> None:
-        self._emit("scalars", step,
-                   {"values": {k: float(v) for k, v in scalars.items()}})
+        vals = {k: float(v) for k, v in scalars.items()}
+        self._emit("scalars", step, {"values": vals})
+        if self._tb:
+            for k, v in vals.items():
+                self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+
+    def write_image_event(self, step: int, name: str, path: str) -> None:
+        """Record that an image was written (the grid PNG itself is saved
+        by utils/images.py) and mirror the PNG into TensorBoard."""
+        self._emit("image", step, {"name": name, "path": path})
+        if self._tb and os.path.exists(path):
+            with open(path, "rb") as f:
+                self._tb.add_image_png(name, f.read(), step)
+            self._tb.flush()
+
+    def flush(self) -> None:
+        if self._tb:
+            self._tb.flush()
+
+    def close(self) -> None:
+        if self._tb:
+            self._tb.close()
+            self._tb = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,436 @@
+"""The port's data feed and its host-side copies against `dcgan_tpu`'s on
+the CPU: the TFRecord and tf.Example codecs, the TensorBoard encoders, the
+sample-grid PNG, the quarantine counter, retry_io, the manifest check, the
+Python loader, and the device prefetcher's CPU path and close order."""
+
+import json
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from dcgan_tpu.data import example_proto as j_proto
+from dcgan_tpu.data import pipeline as j_pipeline
+from dcgan_tpu.data import quarantine as j_quarantine
+from dcgan_tpu.data import synthetic as j_synthetic
+from dcgan_tpu.data import tfrecord as j_tfrecord
+from dcgan_tpu.utils import images as j_images
+from dcgan_tpu.utils import metrics as j_metrics
+from dcgan_tpu.utils import retry as j_retry
+from dcgan_tpu.utils import tb_events as j_tb
+from dcgan_tpu_torch.data import example_proto, pipeline, quarantine, \
+    synthetic, tfrecord
+from dcgan_tpu_torch.utils import images, metrics, retry, tb_events
+
+TIMEOUT = 30.0
+N_RECORDS = 24
+SIZE = 8
+
+
+@pytest.fixture(scope="module")
+def shards(tmp_path_factory):
+    """Two float64 shards of N_RECORDS 8x8x3 images, written by the JAX
+    package's writer."""
+    d = tmp_path_factory.mktemp("shards")
+    j_synthetic.write_image_tfrecords(str(d), num_examples=N_RECORDS,
+                                      image_size=SIZE, num_shards=2, seed=3)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
+
+class TestCodecs:
+    @pytest.mark.parametrize("n", [0, 1, 7, 255, 511, 512, 513, 1000, 4099,
+                                   98305])
+    def test_crc32c_equals_jax(self, n):
+        """Byte-equal to the JAX package's per-byte loop on both sides of
+        the lane threshold (2 * 256 bytes) and with a running crc."""
+        data = np.random.default_rng(n).integers(
+            0, 256, size=n, dtype=np.uint8).tobytes()
+        assert tfrecord.crc32c(data) == j_tfrecord.crc32c(data)
+        assert tfrecord.crc32c(data, 0x1234ABCD) == \
+            j_tfrecord.crc32c(data, 0x1234ABCD)
+        assert tfrecord.masked_crc32c(data) == j_tfrecord.masked_crc32c(data)
+
+    @pytest.mark.parametrize("features", [
+        {"image_raw": [b"\x00\x01\xff" * 11]},
+        {"image_raw": [b"abc", b""], "label": [3]},
+        {"f": [0.5, -2.25, 1e9], "i": [-1, 0, 2 ** 40]},
+        {}])
+    def test_example_round_trip_equals_jax(self, features):
+        ser = example_proto.serialize_example(features)
+        assert ser == j_proto.serialize_example(features)
+        assert example_proto.parse_example(ser) == \
+            j_proto.parse_example(ser)
+
+    @pytest.mark.parametrize("kw", [
+        dict(record_dtype="float64"), dict(record_dtype="uint8"),
+        dict(record_dtype="float32", num_classes=5)])
+    def test_write_image_tfrecords_byte_equal(self, tmp_path, kw):
+        a = j_synthetic.write_image_tfrecords(
+            str(tmp_path / "jax"), num_examples=5, image_size=SIZE,
+            num_shards=2, seed=4, **kw)
+        b = synthetic.write_image_tfrecords(
+            str(tmp_path / "port"), num_examples=5, image_size=SIZE,
+            num_shards=2, seed=4, **kw)
+        assert [os.path.basename(p) for p in a] == \
+            [os.path.basename(p) for p in b]
+        for x, y in zip(a, b):
+            assert open(x, "rb").read() == open(y, "rb").read()
+
+    def test_write_tfrecords_byte_equal(self, tmp_path):
+        recs = [b"", b"x" * 600, bytes(range(256))]
+        tfrecord.write_tfrecords(str(tmp_path / "a"), recs)
+        j_tfrecord.write_tfrecords(str(tmp_path / "b"), recs)
+        assert (tmp_path / "a").read_bytes() == (tmp_path / "b").read_bytes()
+
+    @pytest.mark.parametrize("damage", ["flip_payload", "truncate",
+                                        "flip_length"])
+    def test_read_tfrecords_corruption_equals_jax(self, tmp_path, damage):
+        """On a damaged file both readers yield the same records and report
+        the same (offset, reason) to on_corrupt, and raise the same error
+        without it."""
+        path = str(tmp_path / "s")
+        j_tfrecord.write_tfrecords(path, [b"a" * 40, b"b" * 40, b"c" * 40])
+        raw = bytearray(open(path, "rb").read())
+        if damage == "flip_payload":
+            raw[56 + 12 + 5] ^= 0xFF      # inside record 2's payload
+        elif damage == "truncate":
+            raw = raw[:-10]
+        else:
+            raw[56] ^= 0x01               # record 2's length
+        open(path, "wb").write(bytes(raw))
+        outs = []
+        for mod in (tfrecord, j_tfrecord):
+            seen = []
+            recs = list(mod.read_tfrecords(
+                path, verify_crc=True, with_offsets=True,
+                on_corrupt=lambda off, why: seen.append((off, why))))
+            with pytest.raises(IOError) as err:
+                list(mod.read_tfrecords(path, verify_crc=True))
+            outs.append((recs, seen, str(err.value)))
+        assert outs[0] == outs[1]
+        assert outs[0][1], "the damage went unnoticed"
+
+
+class TestTensorBoard:
+    def test_encoders_byte_equal(self):
+        png = images.encode_png(np.zeros((4, 6, 3), np.uint8))
+        assert tb_events.encode_version_event(5.0) == \
+            j_tb.encode_version_event(5.0)
+        assert tb_events.encode_scalar_event("d_loss", 0.75, 9, 5.0) == \
+            j_tb.encode_scalar_event("d_loss", 0.75, 9, 5.0)
+        assert tb_events.encode_image_event(
+            "samples", png, 12, height=4, width=6, wall_time=5.0) == \
+            j_tb.encode_image_event("samples", png, 12, height=4, width=6,
+                                    wall_time=5.0)
+        assert tb_events.png_dimensions(png) == j_tb.png_dimensions(png) \
+            == (4, 6)
+
+    def test_writer_file_reads_back(self, tmp_path):
+        """The event file is TFRecord-framed: version, a scalar and an
+        image, each CRC-checked by the JAX package's reader."""
+        w = tb_events.TBEventWriter(str(tmp_path))
+        w.add_scalar("g_loss", 1.5, 3)
+        w.add_image_png("samples", images.encode_png(
+            np.full((2, 2, 3), 7, np.uint8)), 3)
+        w.close()
+        recs = list(j_tfrecord.read_tfrecords(w.path, verify_crc=True))
+        assert len(recs) == 3 and b"brain.Event:2" in recs[0]
+        assert b"g_loss" in recs[1] and b"IHDR" in recs[2]
+
+    def test_metric_writer_matches_jax(self, tmp_path):
+        """events.jsonl lines equal the JAX writer's but for the time, the
+        TensorBoard file holds the same records but for their wall times,
+        and ready() throttles alike."""
+        png_path = str(tmp_path / "g.png")
+        images.save_png(png_path, np.ones((2, 3, 3)) * 0.5)
+        texts = []
+        for name, cls in (("port", metrics.MetricWriter),
+                          ("jax", j_metrics.MetricWriter)):
+            w = cls(str(tmp_path / name), every_secs=10.0)
+            w.write_scalars(4, {"d_loss": 1.25, "perf/x": 3})
+            w.write_image_event(5, "samples", png_path)
+            assert [w.ready(now=t) for t in (0.0, 5.0, 10.0, 19.0, 21.0)] \
+                == [True, False, True, False, True]
+            w.close()
+            lines = [json.loads(x) for x in
+                     (tmp_path / name / "events.jsonl").read_text()
+                     .splitlines()]
+            for e in lines:
+                assert isinstance(e.pop("time"), float)
+            tb = [p for p in (tmp_path / name).iterdir()
+                  if p.name.startswith("events.out.tfevents.")]
+            recs = list(j_tfrecord.read_tfrecords(str(tb[0]),
+                                                  verify_crc=True))
+            # each event past its wall time (field 1, a tag byte and a
+            # double) is byte-equal
+            assert all(r[0] == 0x09 for r in recs)
+            texts.append((lines, [r[9:] for r in recs]))
+        assert texts[0] == texts[1]
+        assert len(texts[0][1]) == 4
+
+
+class TestImages:
+    @pytest.mark.parametrize("shape,grid", [((4, 5, 6, 3), (2, 2)),
+                                            ((6, 4, 4, 1), (2, 3)),
+                                            ((64, 16, 16, 3), (8, 8))])
+    def test_grid_png_decodes_like_jax(self, tmp_path, shape, grid):
+        x = np.tanh(np.random.default_rng(0).normal(size=shape)) \
+            .astype(np.float32)
+        images.save_sample_grid(str(tmp_path / "p.png"), x, grid)
+        j_images.save_sample_grid(str(tmp_path / "j.png"), x, grid)
+        a = np.asarray(Image.open(tmp_path / "p.png"))
+        b = np.asarray(Image.open(tmp_path / "j.png"))
+        assert a.shape == b.shape == (grid[0] * shape[1],
+                                      grid[1] * shape[2], *shape[3:])[
+            :2 if shape[3] == 1 else 3]
+        np.testing.assert_array_equal(a, b)
+
+    def test_too_few_images_raise_like_jax(self):
+        for mod in (images, j_images):
+            with pytest.raises(ValueError, match="needs 4 images"):
+                mod.image_grid(np.zeros((3, 2, 2, 3)), (2, 2))
+
+
+class TestQuarantineAndRetry:
+    def test_quarantine_equals_jax(self):
+        quarantine.reset()
+        j_quarantine.reset()
+        for mod in (quarantine, j_quarantine):
+            mod.record("s", 12, "data CRC mismatch", budget=2, seen=1)
+            with pytest.raises(IOError, match="budget exhausted"):
+                mod.record("s", 40, "data CRC mismatch", budget=1, seen=2)
+        assert quarantine.count() == j_quarantine.count() == 2
+        quarantine.reset()
+        assert quarantine.count() == 0
+        j_quarantine.reset()
+
+    def test_retry_io_equals_jax(self):
+        """Same attempts, same jittered delays, the last error re-raised."""
+        for outcome in ("recovers", "fails"):
+            runs = []
+            for mod in (retry, j_retry):
+                calls, sleeps = [], []
+
+                def fn():
+                    calls.append(1)
+                    if outcome == "fails" or len(calls) < 3:
+                        raise OSError(f"blip {len(calls)}")
+                    return "ok"
+
+                try:
+                    got = mod.retry_io(fn, tag="ckpt-manifest",
+                                       sleep=sleeps.append)
+                except OSError as e:
+                    got = str(e)
+                runs.append((got, len(calls), sleeps))
+            assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# the loader and the device feed
+# ---------------------------------------------------------------------------
+
+def _loaders(paths, **kw):
+    return (pipeline.PythonLoader(paths, **kw),
+            j_pipeline.PythonLoader(paths, **kw))
+
+
+def _drain(*loaders):
+    """Each loader's batches up to its end of data; every loader closed."""
+    try:
+        outs = []
+        for loader in loaders:
+            out = []
+            while (b := loader.next()) is not None:
+                out.append(b)
+            outs.append(out)
+        return outs
+    finally:
+        for loader in loaders:
+            loader.close()
+
+
+class TestLoader:
+    @pytest.mark.parametrize("manifest", [
+        {"image_size": 16}, {"record_dtype": "uint8", "channels": 1},
+        {"label_feature": ""}, {"image_size": SIZE, "channels": 3}])
+    def test_check_manifest_equals_jax(self, tmp_path, manifest):
+        (tmp_path / "dataset.json").write_text(json.dumps(manifest))
+        errors = []
+        for mod in (pipeline, j_pipeline):
+            cfg = mod.DataConfig(data_dir=str(tmp_path), image_size=SIZE,
+                                 label_feature="label" if "label_feature"
+                                 in manifest else "")
+            try:
+                mod.check_manifest(str(tmp_path), cfg)
+                errors.append(None)
+            except ValueError as e:
+                errors.append(str(e))
+        assert errors[0] == errors[1]
+        assert (errors[0] is None) == (manifest == {"image_size": SIZE,
+                                                    "channels": 3})
+
+    def test_same_batches_in_the_same_order(self, shards):
+        """One reader thread, loop=False and a shuffle pool that holds the
+        whole dataset: the batcher starts only once the reader is done, so
+        the pool's order is the files' and the seeded draws alone pick each
+        batch; both loaders give the same batches in the same order.
+        (With a smaller pool or more readers the pool's fill at each draw
+        depends on thread timing, in either package.)"""
+        paths = pipeline.list_shards(str(shards))
+        assert paths == j_pipeline.list_shards(str(shards))
+        port, jax_ = _loaders(paths, batch=5, example_shape=(SIZE, SIZE, 3),
+                              min_after_dequeue=N_RECORDS, n_threads=1,
+                              seed=7, loop=False)
+        a, b = _drain(port, jax_)
+        assert len(a) == len(b) == N_RECORDS // 5
+        for x, y in zip(a, b):
+            assert x.dtype == np.float32 and x.shape == (5, SIZE, SIZE, 3)
+            np.testing.assert_array_equal(x, y)
+        assert -1.0 <= float(a[0].min()) and float(a[0].max()) <= 1.0
+
+    def test_corrupt_record_quarantined_alike(self, shards, tmp_path):
+        """A flipped payload byte in one record: with a budget of 2 both
+        loaders skip that record alone, count one quarantine, and give the
+        same batches."""
+        for p in pipeline.list_shards(str(shards)):
+            (tmp_path / os.path.basename(p)).write_bytes(
+                open(p, "rb").read())
+        victim = tmp_path / "shard-00001.tfrecord"
+        raw = bytearray(victim.read_bytes())
+        length = int.from_bytes(raw[:8], "little")
+        raw[2 * (16 + length) + 12 + 100] ^= 0x40   # record 3's pixels
+        victim.write_bytes(bytes(raw))
+        paths = pipeline.list_shards(str(tmp_path))
+        quarantine.reset()
+        j_quarantine.reset()
+        port, jax_ = _loaders(paths, batch=4, example_shape=(SIZE, SIZE, 3),
+                              min_after_dequeue=N_RECORDS, n_threads=1,
+                              seed=1, loop=False, verify_crc=True,
+                              max_corrupt_records=2)
+        a, b = _drain(port, jax_)
+        assert port.corrupt_records == jax_.corrupt_records == 1
+        assert quarantine.count() == j_quarantine.count() == 1
+        assert len(a) == len(b) == (N_RECORDS - 1) // 4
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        quarantine.reset()
+        j_quarantine.reset()
+
+    def test_make_dataset_on_the_cpu(self, shards):
+        """Tensors on the CPU equal to the loader's own batches, through
+        the prefetcher and through the consumer-thread copy."""
+        [want] = _drain(pipeline.PythonLoader(
+            pipeline.list_shards(str(shards)), batch=6,
+            example_shape=(SIZE, SIZE, 3), min_after_dequeue=N_RECORDS,
+            n_threads=1, seed=2, loop=False))
+        for depth in (2, 0):
+            cfg = pipeline.DataConfig(
+                data_dir=str(shards), image_size=SIZE, batch_size=6,
+                min_after_dequeue=N_RECORDS, n_threads=1, seed=2,
+                loop=False, use_native=False, prefetch_device_batches=depth)
+            ds = pipeline.make_dataset(cfg, "cpu")
+            try:
+                got = list(ds)
+            finally:
+                ds.close()
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+                np.testing.assert_array_equal(g.numpy(), w)
+
+    def test_native_loader_raises(self, shards):
+        cfg = pipeline.DataConfig(data_dir=str(shards), image_size=SIZE)
+        with pytest.raises(NotImplementedError, match="native"):
+            pipeline.make_dataset(cfg, "cpu")
+
+    def test_no_shards_names_the_directory(self, tmp_path):
+        for mod in (pipeline, j_pipeline):
+            with pytest.raises(FileNotFoundError, match=str(tmp_path)):
+                mod.list_shards(str(tmp_path))
+
+
+class _BlockingLoader:
+    """Yields two batches, then blocks inside next() until stop() (or
+    close()) releases it; records the order of stop and close, and whether
+    the feed thread was still alive at close."""
+
+    def __init__(self, prefetcher_ref, with_stop):
+        self._release = threading.Event()
+        self.calls = []
+        self.ref = prefetcher_ref
+        if with_stop:
+            self.stop = self._stop
+
+    def __iter__(self):
+        for i in range(2):
+            yield np.full((2, 3), i, np.float32)
+        self.calls.append("blocked")
+        self._release.wait(TIMEOUT)
+
+    def _stop(self):
+        self.calls.append("stop")
+        self._release.set()
+
+    def close(self):
+        self.calls.append(("close", self.ref[0]._thread.is_alive()))
+        self._release.set()
+
+
+class TestPrefetcher:
+    def test_cpu_batches_in_order_and_tuples(self):
+        batches = [np.full((2, 2), i, np.float32) for i in range(5)]
+        with pipeline.DevicePrefetcher(iter(batches), "cpu",
+                                       depth=2) as pf:
+            got = [t.numpy() for t in pf]
+        assert [int(g[0, 0]) for g in got] == list(range(5))
+        pairs = [(np.zeros((2, 2), np.float32), np.array([1, 3], np.int32))]
+        with pipeline.DevicePrefetcher(iter(pairs), "cpu") as pf:
+            imgs, labels = next(pf)
+        assert labels.dtype == torch.int32 and labels.tolist() == [1, 3]
+
+    def test_producer_errors_reraise_with_their_type(self):
+        def bad():
+            yield np.zeros((1,), np.float32)
+            raise quarantine.CorruptRecordError("budget exhausted")
+
+        pf = pipeline.DevicePrefetcher(bad(), "cpu")
+        next(pf)
+        with pytest.raises(quarantine.CorruptRecordError):
+            next(pf)
+        pf.close()
+
+    @pytest.mark.parametrize("with_stop", [True, False])
+    def test_close_order_with_a_blocking_loader(self, with_stop):
+        """An owner with stop(): stop, join, then close once the feed
+        thread has ended. An owner without: its close() unblocks the
+        producer. Either way the thread ends and close() returns fast."""
+        ref = [None]
+        loader = _BlockingLoader(ref, with_stop)
+        pf = pipeline.DevicePrefetcher(iter(loader), "cpu", depth=4,
+                                       owner=loader)
+        ref[0] = pf
+        assert next(pf) is not None
+        deadline = time.monotonic() + TIMEOUT
+        while "blocked" not in loader.calls and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert "blocked" in loader.calls
+        t0 = time.monotonic()
+        pf.close()
+        pf.close()   # idempotent
+        assert time.monotonic() - t0 < 5.0
+        assert not pf._thread.is_alive()
+        if with_stop:
+            assert loader.calls == ["blocked", "stop", ("close", False)]
+        else:
+            assert loader.calls == ["blocked", ("close", True)]
+        with pytest.raises(StopIteration):
+            next(pf)

@@ -158,13 +158,21 @@ class TestTrainerNeedsTheCard:
         assert "torch.cuda.is_available() is False" in out.stderr
         assert not (tmp_path / "events.jsonl").exists()
 
-    def test_train_cli_without_synthetic_names_the_missing_feed(self):
+    def test_train_cli_without_synthetic_names_the_missing_feed(self,
+                                                               tmp_path):
+        """Without --synthetic the run reads --data_dir's TFRecord shards:
+        a directory without any fails, naming it, before anything is
+        written to the checkpoint directory."""
+        empty = tmp_path / "no_shards"
+        empty.mkdir()
         out = subprocess.run(
             [sys.executable, "-m", "dcgan_tpu_torch.train", "--device",
-             "cpu", "--max_steps", "1"], cwd=ROOT, env=_clean_env(),
-            capture_output=True, text=True, timeout=120)
+             "cpu", "--max_steps", "1", "--data_dir", str(empty),
+             "--checkpoint_dir", str(tmp_path / "run")], cwd=ROOT,
+            env=_clean_env(), capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
-        assert "data feed is not ported" in out.stderr
+        assert f"no TFRecord shards in {empty}" in out.stderr
+        assert not (tmp_path / "run").exists()
 
 
 class TestChipSmokeRefuses:

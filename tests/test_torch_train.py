@@ -316,9 +316,15 @@ class TestDataAndTrainer:
         assert set(events[0]["values"]) == set(METRIC_KEYS)
         assert set(events[1]["values"]) == set(METRIC_KEYS) | perf_keys
 
-    def test_cli_needs_synthetic(self):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main(["--max_steps", "1", "--device", "cpu"])
+    def test_cli_needs_synthetic(self, tmp_path):
+        """Without --synthetic the trainer reads --data_dir's TFRecord
+        shards (the default data_dir, "train", when none is given): an
+        empty directory fails and names it."""
+        with pytest.raises(FileNotFoundError,
+                           match=f"no TFRecord shards in {tmp_path}"):
+            cli.main(["--max_steps", "1", "--device", "cpu", "--data_dir",
+                      str(tmp_path), "--checkpoint_dir",
+                      str(tmp_path / "run")])
 
     def test_flags_override_the_preset(self):
         args = cli.build_parser().parse_args(
