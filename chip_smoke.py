@@ -105,10 +105,50 @@ celeba64 from TFRecords, checkpointed and resumed:
    sampler's images of that step; then timed: the checkpoint's bytes, save
    (host copy, write) and restore (verify, read) of the final state, the
    loader's images/s, and the host-inclusive step ms and profiled idle
-   share with the TFRecord feed against the synthetic feed, in turns.
+   share with the TFRecord feed against the synthetic feed, in turns,
+   eager and through the captured runner at K = CAPTURE_K.
+
+On the card the trainer's steps (phases 5, 8, 11) run through the
+captured runner (train/warmup.py: an eager warm-up step, then CUDA graph
+replays, which add the launches their capture recorded to the counters),
+and every serve rung (phases 3, 10, 11) is a captured sampler graph: each
+served batch is held against the eager sampler on the same z, bit for
+bit, and `serve/recompiles_after_warmup` must be 0.
+
+Captured programs (`capture`):
+
+12. capture: from the seeded state, CAPTURE_STEPS steps eager (twice: the
+   step must repeat bit for bit) and through `StepRunner` at K = 1 and K
+   = CAPTURE_K, on the same images and z, for celeba64 bf16 on the
+   kernel route and the cuDNN route, celeba64 f32 on the kernel route
+   (TF32 off) and sagan64 bf16 on the flash route (gamma 0.5), with
+   cuDNN's deterministic algorithms: every state leaf and loss equal bit
+   for bit; CAPTURE_STEPS more steps with no capture and no host
+   synchronization (`torch.cuda.set_sync_debug_mode("error")`); a
+   replay's profile holds the port kernels at their per-step counts
+   (kernels 1-4 for celeba64's kernel route, 6-8 for sagan64); capture
+   ms and graph pool per program. Then, for the three bf16
+   configurations: the multi-tensor Adam equal to the per-leaf one on the
+   card, the launches per eager step with each, and in turns (eager, K=1,
+   K=4, K=4, K=1, eager) the host-inclusive step ms, busy ms and idle
+   share;
+13. save under capture: a save after every replayed step while the
+   replays go on; each checkpoint equal to a clone of the static state
+   taken right after its step, bit for bit; then the trainer's entry
+   point with --steps_per_call CAPTURE_K --aot_warmup on phase 11's
+   TFRecords for CLI_STEPS steps: perf/compile_ms for every plan row,
+   one log line per call, kernels 1, 3, 4 at their per-step counts, the
+   final checkpoint equal to the returned state;
+14. generate: `python -m dcgan_tpu_torch.generate`'s entry point on phase
+   11's checkpoint directory, GEN_IMAGES images in batches of GEN_BATCH
+   (the tail on a smaller ladder rung), an 8x8 grid and --npz: the images
+   equal to the eager sampler on the restored weights at the z rows
+   rebuilt by `generate.generate_z`, bit for bit; the grid decodes; then
+   --interpolate writes its grid.
 
 Stdout ends with the serve reports, the sampler timing, the train
-reports, the resume report, the card's name and power limit (nvidia-smi),
+reports, the resume report, the capture report, the card's name and power
+limit (nvidia-smi),
 one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1162,11 +1202,12 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
 
     by_design = wrappers["gemm_bias_scale_act"].launches_by_design
     reset_counts(wrappers)
-    row, responses = serve_main.run([
-        "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
-        "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
-        "--demo_max_images", "8", "--seed", str(SEED),
-        "--report", report_path])
+    with served_batches(np) as batches:
+        row, responses = serve_main.run([
+            "--weights", path, "--device", "cuda", "--max_batch",
+            str(BATCH), "--demo_requests", str(N_REQUESTS), "--demo_rps",
+            "500", "--demo_max_images", "8", "--seed", str(SEED),
+            "--report", report_path])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"served path gemm_bias_scale_act launches by design: {by_design}")
@@ -1188,6 +1229,7 @@ def serve_and_check(torch, np, cfg, workdir, kernels):
             fail(f"kernel {name} was not launched on the served path")
 
     params_l, state_l = check_served(torch, np, cfg, path, row, responses)
+    check_captured_serving(torch, np, "celeba64 serve", row, batches)
 
     # the kernel route against the cuDNN + torch-BN route, same weights
     z = torch.from_numpy(np.random.default_rng(SEED + 2).uniform(
@@ -1279,32 +1321,30 @@ def broken_backwards(dt_name):
 
 
 def all_wrappers():
-    from dcgan_tpu_torch.ops.flash_attention import flash_dkv, flash_dq, \
-        flash_fwd
-    from dcgan_tpu_torch.ops.fused import gemm_bias_moments, \
-        gemm_bias_scale_act
-    from dcgan_tpu_torch.ops.kernels import channel_moments, \
-        scale_shift_act, scale_shift_act_bwd
+    from dcgan_tpu_torch.graphs import kernel_wrappers
 
-    return {"channel_moments": channel_moments,
-            "scale_shift_act": scale_shift_act,
-            "scale_shift_act_bwd": scale_shift_act_bwd,
-            "gemm_bias_moments": gemm_bias_moments,
-            "gemm_bias_scale_act": gemm_bias_scale_act,
-            "flash_fwd": flash_fwd, "flash_dq": flash_dq,
-            "flash_dkv": flash_dkv}
+    return kernel_wrappers()
 
 
-def profile_split(torch, fn, steps: int = 3):
+def profile_split(torch, fn, steps: int = 3, settle: bool = False):
     """Device time of `steps` calls of fn() by kernel family, from
     torch.profiler's per-kernel self device times, and the share of the
-    window the card sat idle. None if the trace holds no device time."""
+    window the card sat idle. None if the trace holds no device time.
+
+    settle: hold the card with a spin kernel and wait for it inside the
+    trace before the calls, so that the tracer is recording before their
+    first kernel runs (without it a graph replay's first kernels went
+    missing from a trace on the card); the spin kernel is left out of the
+    sums."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if settle:
+            torch.cuda._sleep(int(SETTLE_MS * 2e6))
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -1326,7 +1366,8 @@ def profile_split(torch, fn, steps: int = 3):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us or e.device_type.name != "CUDA":
+        if not us or e.device_type.name != "CUDA" or \
+                (settle and "spin_kernel" in e.key):
             continue
         ms = us / 1e3 / steps
         top.append((ms, e.count / steps, e.key[:120]))
@@ -2018,15 +2059,17 @@ def sagan_serve_and_check(torch, np, cfg, state, workdir, kernels):
                         mcfg, params, state["bn"]["gen"])
     wrappers = all_wrappers()
     reset_counts(wrappers)
-    row, responses = serve_main.run([
-        "--weights", path, "--device", "cuda", "--max_batch", str(BATCH),
-        "--demo_requests", str(N_REQUESTS), "--demo_rps", "500",
-        "--demo_max_images", "8", "--seed", str(SEED)])
+    with served_batches(np) as batches:
+        row, responses = serve_main.run([
+            "--weights", path, "--device", "cuda", "--max_batch",
+            str(BATCH), "--demo_requests", str(N_REQUESTS), "--demo_rps",
+            "500", "--demo_max_images", "8", "--seed", str(SEED)])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for entry in kernels:
         entry.setdefault("launches_by_path", {})["sagan64 serve"] = \
             launches[entry["name"]]
+    check_captured_serving(torch, np, "sagan64 serve", row, batches)
     log(f"sagan64 served path launches: {launches}")
     if launches["flash_fwd"] < 1 or launches["flash_dq"] \
             or launches["flash_dkv"]:
@@ -2197,6 +2240,43 @@ def feed_steps(torch, trainer, fns, state, cfg, synthetic):
     return ms, split
 
 
+def feed_steps_captured(torch, trainer, fns, cfg, synthetic, k):
+    """Host-inclusive ms per step of FEED_STEPS steps through the captured
+    runner at K = k, each call pulling its batches from the trainer's
+    feed and its z from step_z and reading its losses back once, after
+    the warm-up and both captures; and the profiled idle share of such
+    calls."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch.train.warmup import StepRunner, call_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kcfg = dc.replace(cfg, steps_per_call=k)
+    runner = StepRunner(fns, fns.init(seed=SEED, device=dev), kcfg, dev)
+    data = trainer.make_data(kcfg, dev, synthetic_data=synthetic)
+    done = [0]
+
+    def call():
+        n = call_size(done[0], done[0] + k, k, runner.warm)
+        runner.step([next(data) for _ in range(n)],
+                    [trainer.step_z(kcfg, done[0] + i, dev)
+                     for i in range(n)]).tolist()
+        done[0] += n
+
+    try:
+        while done[0] < 2 * k:
+            call()
+        start = done[0]
+        t0 = time.perf_counter()
+        while done[0] < start + FEED_STEPS:
+            call()
+        ms = (time.perf_counter() - t0) * 1e3 / (done[0] - start)
+        split = profile_split(torch, call, steps=2)
+    finally:
+        data.close()
+    return ms, split
+
+
 def resume_and_check(torch, np, workdir, kernels):
     """Phase 11: celeba64 trained from TFRecords through the trainer's
     entry point, checkpointed, restored, resumed, corrupted and served
@@ -2304,11 +2384,14 @@ def resume_and_check(torch, np, workdir, kernels):
         f"{RESUME_STEPS - 1}")
 
     # 7. the checkpoint directory served through the serve entry point
-    row, responses = serve_main.run([
-        "--checkpoint_dir", run, "--device", "cuda", "--max_batch",
-        str(BATCH), "--demo_requests", str(RESUME_REQUESTS), "--demo_rps",
-        "500", "--demo_max_images", "8", "--seed", str(SEED)])
+    with served_batches(np) as batches:
+        row, responses = serve_main.run([
+            "--checkpoint_dir", run, "--device", "cuda", "--max_batch",
+            str(BATCH), "--demo_requests", str(RESUME_REQUESTS),
+            "--demo_rps", "500", "--demo_max_images", "8", "--seed",
+            str(SEED)])
     torch.cuda.synchronize()
+    check_captured_serving(torch, np, "resume serve", row, batches)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"resume path launches (two runs, {RESUME_STEPS} steps, a grid, "
         f"{RESUME_REQUESTS} requests): {launches}")
@@ -2453,7 +2536,631 @@ def resume_and_check(torch, np, workdir, kernels):
         f"synthetic {report['synthetic_step_ms']}; profiled idle share: "
         f"TFRecord {report['tfrecord_idle_share']}, synthetic "
         f"{report['synthetic_idle_share']}")
+    # the same feeds driving the captured runner, K = CAPTURE_K, in turns
+    captured = {"tfrecord": [], "synthetic": []}
+    for name in ("tfrecord", "synthetic", "synthetic", "tfrecord"):
+        captured[name].append(feed_steps_captured(
+            torch, trainer, fns, cfg, name == "synthetic", CAPTURE_K))
+    for name, runs in captured.items():
+        report[f"{name}_captured_step_ms"] = [ms for ms, _ in runs]
+        report[f"{name}_captured_idle_share"] = [
+            split["idle_share"] if split else "not measured"
+            for _, split in runs]
+    log(f"resume: the same feeds through the captured runner at "
+        f"K={CAPTURE_K}, host-inclusive ms per step: TFRecord "
+        f"{report['tfrecord_captured_step_ms']}, synthetic "
+        f"{report['synthetic_captured_step_ms']}; profiled idle share: "
+        f"TFRecord {report['tfrecord_captured_idle_share']}, synthetic "
+        f"{report['synthetic_captured_idle_share']}")
     report["launches"] = launches
+    return report
+
+
+# ---------------------------------------------------------------------------
+# captured programs: the train step and the serve and generate rungs as
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (name, preset, model overrides) of the capture phase; the timed turns
+# run the three bf16 ones
+CAPTURE_CONFIGS = (
+    ("celeba64 bf16 kernel route", "celeba64",
+     dict(use_pallas=True, pallas_fused=True)),
+    ("celeba64 bf16 cuDNN route", "celeba64", {}),
+    ("celeba64 f32 kernel route", "celeba64",
+     dict(use_pallas=True, pallas_fused=True, compute_dtype="float32")),
+    ("sagan64 bf16 flash route", "sagan64", {}),
+)
+CAPTURE_STEPS = 8
+CAPTURE_K = 4
+# steps per timed turn (a multiple of CAPTURE_K), and calls profiled
+TIMED_STEPS = 16
+PROFILED_CALLS = 2
+# the spin that holds the card inside a replay's trace before the replays
+# (profile_split's settle), and the traces taken of a replay until one
+# holds every port kernel at its per-step count
+SETTLE_MS = 5
+PROFILE_ATTEMPTS = 3
+# a replay's per-step launches of each port kernel, read from the
+# profiler's kernel names (a part of each entry's name -> its wrapper)
+PROFILE_ENTRIES = {"moments_cluster_kernel": "channel_moments",
+                   "ssa_fwd_vec_kernel": "scale_shift_act",
+                   "ssa_bwd_vec_kernel": "scale_shift_act_bwd",
+                   "gbm_wgmma_kernel": "gemm_bias_moments",
+                   "flash_fwd_kernel": "flash_fwd",
+                   "flash_dq_kernel": "flash_dq",
+                   "flash_dkv_kernel": "flash_dkv"}
+# saves under capture: steps, one save after each
+SAVE_STEPS = 6
+# the trainer's CLI with --steps_per_call CAPTURE_K --aot_warmup: steps
+# (the warm-up, single steps to the first boundary, calls of K, a tail)
+CLI_STEPS = 13
+# generate on phase 11's checkpoint directory: images, batch (the tail of
+# 100 - 2 x 48 = 4 rows snaps to the ladder's rung of 4), grid
+GEN_IMAGES = 100
+GEN_BATCH = 48
+GEN_GRID = (8, 8)
+GEN_SEED = 7
+
+
+def per_leaf_adam_step(self, params, grads, state):
+    """The Adam step as it was before the multi-tensor one (one set of
+    elementwise ops per leaf, in optax's order): the plain version the
+    multi-tensor Adam is held against on the card, and the launch count
+    before it."""
+    import torch
+
+    from dcgan_tpu_torch.train.steps import tree_leaves, tree_map
+
+    if self.grad_clip > 0:
+        g_norm = torch.sqrt(sum(torch.sum(g * g)
+                                for g in tree_leaves(grads)))
+        keep = g_norm < self.grad_clip
+        grads = tree_map(lambda g: torch.where(
+            keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip), grads)
+    b1, b2 = self.b1, self.b2
+    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                  state["nu"])
+    count = state["count"]
+    count_inc = count + 1
+    t = count_inc.to(torch.float32)
+    bc1 = 1 - torch.full((), b1, dtype=torch.float32, device=t.device) ** t
+    bc2 = 1 - torch.full((), b2, dtype=torch.float32, device=t.device) ** t
+    step_size = -self.lr(count)
+    eps = self.eps
+
+    def update(p, m, v):
+        u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + eps)
+        return (p + step_size.to(u.dtype) * u).to(p.dtype)
+
+    return tree_map(update, params, mu, nu), {"mu": mu, "nu": nu,
+                                              "count": count_inc}
+
+
+@contextlib.contextmanager
+def per_leaf_adam():
+    """Train steps inside take the per-leaf Adam."""
+    from dcgan_tpu_torch.train import steps
+
+    saved = steps.Adam.step
+    steps.Adam.step = per_leaf_adam_step
+    try:
+        yield
+    finally:
+        steps.Adam.step = saved
+
+
+@contextlib.contextmanager
+def served_batches(np):
+    """Records (source, rung, z, images) of every sampler dispatch of the
+    serving plane's sources inside the block."""
+    from dcgan_tpu_torch.serve import sources
+
+    batches = []
+    original = sources._GeneratorSource.sample
+
+    def sample(self, bucket, z, labels=None):
+        out = original(self, bucket, z, labels)
+        batches.append((self, bucket, np.array(z, np.float32), out.copy()))
+        return out
+
+    sources._GeneratorSource.sample = sample
+    try:
+        yield batches
+    finally:
+        sources._GeneratorSource.sample = original
+
+
+def check_captured_serving(torch, np, name, row, batches):
+    """Every served batch equals the eager sampler on its source's weights
+    and the same z, bit for bit; no capture after the cold start."""
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+
+    if not batches:
+        fail(f"{name}: no served batch recorded")
+    for i, (src, bucket, z, images) in enumerate(batches):
+        want = sampler_apply(src._params, src._state,
+                             torch.from_numpy(z).cuda(), cfg=src.cfg)
+        if not np.array_equal(want.float().cpu().numpy(), images):
+            fail(f"{name}: served batch {i} (rung {bucket}) differs from "
+                 "the eager sampler on the same z")
+    if row.get("serve/recompiles_after_warmup") != 0:
+        fail(f"{name}: serve/recompiles_after_warmup "
+             f"{row.get('serve/recompiles_after_warmup')}")
+    compile_ms = {k.rsplit("/", 1)[1]: v for k, v in row.items()
+                  if k.startswith("serve/compile_ms/")}
+    log(f"{name}: {len(batches)} batches on captured rungs equal the eager "
+        f"sampler bit for bit; serve/recompiles_after_warmup 0; capture ms "
+        f"{compile_ms}")
+
+
+def capture_cfg(preset, overrides, k=1):
+    """The preset at batch BATCH with the model overrides and K."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch.presets import get_preset
+
+    cfg = get_preset(preset)
+    return dc.replace(cfg, batch_size=BATCH, seed=SEED, steps_per_call=k,
+                      model=dc.replace(cfg.model, **overrides))
+
+
+def seeded_state(torch, fns, cfg):
+    """The seeded init on the card; attention gates at 0.5 (at 0 the
+    block passes x through and its backward carries nothing)."""
+    state = fns.init(seed=SEED, device="cuda")
+    if cfg.model.attn_res:
+        for net in ("gen", "disc"):
+            state["params"][net]["attn"]["gamma"] = torch.full(
+                (), 0.5, device="cuda")
+    return state
+
+
+def step_inputs(torch, cfg, n):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    m = cfg.model
+    images = [torch.rand((BATCH, m.output_size, m.output_size, m.c_dim),
+                         generator=gen, device="cuda") * 2 - 1
+              for _ in range(n)]
+    zs = [torch.rand((BATCH, m.z_dim), generator=gen, device="cuda") * 2 - 1
+          for _ in range(n)]
+    return images, zs
+
+
+def eager_steps(fns, state, images, zs):
+    """(final state, [[d_loss, d_loss_real, d_loss_fake, g_loss] per
+    step]) of eager train_steps."""
+    from dcgan_tpu_torch.train.warmup import METRIC_KEYS
+
+    losses = []
+    for img, z in zip(images, zs):
+        state, m = fns.train_step(state, img, z)
+        losses.append([float(m[k]) for k in METRIC_KEYS])
+    return state, losses
+
+
+def runner_steps(runner, images, zs, k, start=0):
+    """The runner over len(images) steps from state step `start`, in
+    the trainer's call sizes; the losses per step."""
+    from dcgan_tpu_torch.train.warmup import call_size
+
+    losses, s, total = [], 0, len(images)
+    while s < total:
+        n = call_size(start + s, start + total, k, runner.warm)
+        losses += runner.step(images[s:s + n], zs[s:s + n]).tolist()
+        s += n
+    return losses
+
+
+def replay_profile(torch, runner, k):
+    """The profiled replays of the row of k steps: busy ms, wall ms and
+    launches per step, the idle share, and each port kernel's launches
+    per step."""
+    prog = runner.programs[runner.row(k)]
+    split = profile_split(torch, prog.run, steps=PROFILED_CALLS,
+                          settle=True)
+    if split is None:
+        return None
+    per_step = {"busy_ms": split["busy_ms"] / k,
+                "wall_ms": split["wall_ms"] / k,
+                "launches_per_step": split["launches_per_step"] / k,
+                "idle_share": split["idle_share"]}
+    found = {}
+    for table in (split["port_by_kernel"], split["flash_by_kernel"]):
+        for name, f in table.items():
+            for part, wrapper in PROFILE_ENTRIES.items():
+                if name.startswith(part):
+                    found[wrapper] = found.get(wrapper, 0.0) \
+                        + f["calls"] / k
+    per_step["port_launches_per_step"] = found
+    return per_step
+
+
+def check_capture_config(torch, name, preset, overrides, report):
+    """Eager vs the runner at K = 1 and K = CAPTURE_K from the seeded
+    state, bit for bit; no capture and no host synchronization after the
+    warm-up; the kernels in a replay's profile."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    cfg = capture_cfg(preset, overrides)
+    fns = make_train_step(cfg)
+    images, zs = step_inputs(torch, cfg, 2 * CAPTURE_STEPS)
+    steps_in, zs_in = images[:CAPTURE_STEPS], zs[:CAPTURE_STEPS]
+    eager, losses = eager_steps(fns, seeded_state(torch, fns, cfg),
+                                steps_in, zs_in)
+    again, losses2 = eager_steps(fns, seeded_state(torch, fns, cfg),
+                                 steps_in, zs_in)
+    if losses != losses2:
+        fail(f"capture {name}: two eager runs differ ({losses[-1]} vs "
+             f"{losses2[-1]}): the comparison needs a deterministic step")
+    same_state(torch, convert, f"capture {name}: eager run twice", again,
+               eager)
+    del again
+    entry = {}
+    for k in (1, CAPTURE_K):
+        kcfg = capture_cfg(preset, overrides, k)
+        runner = StepRunner(fns, seeded_state(torch, fns, kcfg), kcfg,
+                            torch.device("cuda"))
+        got = runner_steps(runner, steps_in, zs_in, k)
+        if got != losses:
+            fail(f"capture {name}, K={k}: losses {got} differ from eager "
+                 f"{losses}")
+        n_leaves = same_state(torch, convert, f"capture {name}, K={k}",
+                              runner.state, eager)
+        captured = {n: p.capture_ms for n, p in runner.programs.items()}
+        # the next steps: no capture, and no host synchronization in a
+        # runner call (slot copies and replays; the readback follows)
+        for s in range(CAPTURE_STEPS, 2 * CAPTURE_STEPS, k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = runner.step(images[s:s + k], zs[s:s + k])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not bool(torch.isfinite(out).all()):
+                fail(f"capture {name}, K={k}: non-finite losses")
+        after = {n: p.capture_ms for n, p in runner.programs.items()}
+        if after != captured:
+            fail(f"capture {name}, K={k}: captures after the warm-up: "
+                 f"{captured} -> {after}")
+        rows = {n: {"capture_ms": p.capture_ms,
+                    "pool_mib": p.pool_bytes / 2 ** 20}
+                for n, p in runner.programs.items()}
+        log(f"capture {name}, K={k}: {CAPTURE_STEPS} steps equal the eager "
+            f"steps bit for bit ({n_leaves} state leaves, 4 losses per "
+            f"step); {CAPTURE_STEPS} more steps with no capture and no "
+            f"host synchronization; programs {rows}")
+        entry[f"k{k}"] = rows
+        if preset == "sagan64" or (overrides.get("use_pallas") and
+                                   cfg.model.compute_dtype == "bfloat16"):
+            want = SAGAN_PER_STEP if preset == "sagan64" else PER_STEP
+            for attempt in range(PROFILE_ATTEMPTS):
+                prof = replay_profile(torch, runner, k)
+                if prof is None:
+                    fail(f"capture {name}, K={k}: the replay's trace holds "
+                         "no device time")
+                counts = prof["port_launches_per_step"]
+                bad = {w: counts.get(w, 0.0) for w in set(
+                    PROFILE_ENTRIES.values()) if want[w] and
+                    counts.get(w, 0.0) != want[w]}
+                if not bad:
+                    break
+                log(f"capture {name}, K={k}: trace {attempt + 1} of a "
+                    f"replay misses port kernels: {bad}")
+            if bad:
+                fail(f"capture {name}, K={k}: port kernels per step in "
+                     f"{PROFILE_ATTEMPTS} traces of a replay {counts}, "
+                     f"expected {want}: {bad}")
+            log(f"capture {name}, K={k}: a replay's profile shows the port "
+                f"kernels at their per-step counts {counts}")
+            entry[f"k{k}_replay_profile"] = prof
+        del runner
+        torch.cuda.empty_cache()
+    report[name] = entry
+
+
+def timed_turns(torch, name, preset, overrides, report):
+    """Host-inclusive step ms, busy ms and idle share of eager, K = 1 and
+    K = CAPTURE_K, in turns; the launches per eager step with the
+    per-leaf and the multi-tensor Adam, and the two equal bit for bit."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
+        build_warmup_plan
+
+    cfg = capture_cfg(preset, overrides)
+    fns = make_train_step(cfg)
+    images, zs = step_inputs(torch, cfg, CAPTURE_K)
+    state = seeded_state(torch, fns, cfg)
+    # the multi-tensor Adam against the per-leaf one, one step on the card
+    a, am = fns.train_step(state, images[0], zs[0])
+    with per_leaf_adam():
+        b, bm = fns.train_step(state, images[0], zs[0])
+    same_state(torch, convert, f"{name}: multi-tensor vs per-leaf Adam",
+               {"s": a, "m": am}, {"s": b, "m": bm})
+    del a, b
+    launches = {}
+    for adam, ctx in (("per-leaf", per_leaf_adam),
+                      ("multi-tensor", contextlib.nullcontext)):
+        with ctx():
+            split = profile_split(torch, lambda: fns.train_step(
+                state, images[0], zs[0]))
+        launches[adam] = split["launches_per_step"] if split else \
+            "not measured"
+    log(f"{name}: the multi-tensor Adam equals the per-leaf one bit for bit "
+        f"on the card; launches per eager step {launches}")
+
+    runners, capture_ms, pool = {}, {}, {}
+    for k in (1, CAPTURE_K):
+        kcfg = capture_cfg(preset, overrides, k)
+        runner = StepRunner(fns, seeded_state(torch, fns, kcfg), kcfg,
+                            torch.device("cuda"))
+        runner.step(images[:1], zs[:1])      # the warm-up step
+        capture_ms[k] = aot_capture(runner, build_warmup_plan(
+            kcfg, sample=False))
+        pool[k] = {n: p.pool_bytes for n, p in runner.programs.items()}
+        runners[k] = runner
+
+    def turn(k):
+        if k == 0:
+            holder = {"s": state}
+
+            def call():
+                holder["s"], m = fns.train_step(holder["s"], images[0],
+                                                zs[0])
+                m["d_loss"].item()
+            n = 1
+        else:
+            runner = runners[k]
+
+            def call():
+                runner.step(images[:k], zs[:k]).tolist()
+            n = k
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS // n):
+            call()
+        ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        split = profile_split(torch, call, steps=PROFILED_CALLS)
+        if split is None:
+            return {"step_ms": ms, "busy_ms": "not measured",
+                    "idle_share": "not measured"}
+        return {"step_ms": ms, "busy_ms": split["busy_ms"] / n,
+                "idle_share": split["idle_share"],
+                "launches_per_step": split["launches_per_step"] / n}
+
+    labels = {0: "eager", 1: "K=1", CAPTURE_K: f"K={CAPTURE_K}"}
+    turns = {label: [] for label in labels.values()}
+    for k in (0, 1, CAPTURE_K, CAPTURE_K, 1, 0):
+        turns[labels[k]].append(turn(k))
+    log(f"{name}: host-inclusive step ms, busy ms and idle share in turns "
+        f"(eager, K=1, K={CAPTURE_K}, K={CAPTURE_K}, K=1, eager): "
+        + "; ".join(f"{label} " + ", ".join(
+            f"{t['step_ms']:.3f} ms / {t['busy_ms']} busy / idle "
+            f"{t['idle_share']}" for t in runs)
+            for label, runs in turns.items()))
+    report[name] = {"turns": turns, "capture_ms": capture_ms,
+                    "pool_bytes": pool, "launches_per_eager_step": launches}
+    log(f"{name}: capture ms {capture_ms}; graph pools {pool} bytes")
+    del runners
+    torch.cuda.empty_cache()
+
+
+def save_under_capture(torch, np, workdir, report):
+    """A save after every replayed step while the replays go on: each
+    checkpoint equals a clone of the static state taken right after its
+    step, bit for bit."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step, tree_map
+    from dcgan_tpu_torch.train.warmup import StepRunner
+    from dcgan_tpu_torch.utils.checkpoint import STATE_FILENAME, Checkpointer
+
+    cfg = capture_cfg("celeba64", dict(use_pallas=True, pallas_fused=True))
+    fns = make_train_step(cfg)
+    images, zs = step_inputs(torch, cfg, SAVE_STEPS)
+    runner = StepRunner(fns, seeded_state(torch, fns, cfg), cfg,
+                        torch.device("cuda"))
+    ck = Checkpointer(os.path.join(workdir, "save_under_capture"),
+                      max_to_keep=SAVE_STEPS)
+    clones = {}
+    t0 = time.perf_counter()
+    for s in range(SAVE_STEPS):
+        runner.step(images[s:s + 1], zs[s:s + 1])
+        clones[s + 1] = tree_map(torch.clone, runner.state)
+        ck.save(s + 1, runner.state)
+        runner.wait_for(ck.copy_event)
+    ck.wait()
+    report["save_under_capture_s"] = time.perf_counter() - t0
+    for step, clone in clones.items():
+        with np.load(os.path.join(ck.directory, str(step),
+                                  STATE_FILENAME)) as npz:
+            saved = {k: torch.from_numpy(npz[k]).cuda() for k in npz.files}
+        same_state(torch, convert, f"save under capture, step {step}",
+                   convert.unflatten(saved), clone)
+    same_state(torch, convert, "save under capture, restore_latest",
+               ck.restore_latest(runner.state), clones[SAVE_STEPS])
+    captured = sorted(runner.programs)
+    log(f"save under capture: {SAVE_STEPS} steps ({captured} replayed), a "
+        f"save after each; every checkpoint equals its step's static "
+        f"state bit for bit ({report['save_under_capture_s']:.1f} s)")
+
+
+def generate_and_check(torch, np, workdir, kernels, report):
+    """`python -m dcgan_tpu_torch.generate`'s entry point on phase 11's
+    checkpoint directory: GEN_IMAGES images, a grid and --npz, equal to
+    the eager sampler on the restored weights at the rows rebuilt from
+    the documented z draw, the tail on a ladder rung; --interpolate."""
+    from dcgan_tpu_torch import generate
+    from dcgan_tpu_torch.config import load_config
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve.buckets import build_ladder
+    from dcgan_tpu_torch.train.steps import init_train_state
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    run = os.path.join(workdir, "resume", "run")
+    out = os.path.join(workdir, "generated")
+    npz = os.path.join(out, "gen.npz")
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    result = generate.main([
+        "--checkpoint_dir", run, "--num_images", str(GEN_IMAGES),
+        "--batch_size", str(GEN_BATCH), "--grid",
+        f"{GEN_GRID[0]}x{GEN_GRID[1]}", "--npz", npz, "--out_dir", out,
+        "--seed", str(GEN_SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["generate"] = \
+            launches[entry["name"]]
+    if launches["gemm_bias_scale_act"] < 1 or \
+            launches["scale_shift_act"] < 1:
+        fail(f"generate launched no sampler kernel: {launches}")
+    ladder = build_ladder(GEN_BATCH)
+    tail = GEN_IMAGES % GEN_BATCH
+    want_buckets = [GEN_BATCH] * (GEN_IMAGES // GEN_BATCH) + [
+        ladder.snap(tail)]
+    if result["buckets"] != want_buckets:
+        fail(f"generate dispatched {result['buckets']}, expected "
+             f"{want_buckets}")
+    cfg = load_config(run)
+    mcfg = cfg.model
+    state = Checkpointer(run).restore_latest(init_train_state(
+        cfg, device="cuda"))
+    images = np.load(npz)["images"]
+    if images.shape != (GEN_IMAGES, mcfg.output_size, mcfg.output_size,
+                        mcfg.c_dim) or images.dtype != np.float32:
+        fail(f"generate's npz holds {images.shape} {images.dtype}")
+    lo = 0
+    for i, n in enumerate(result["buckets"]):
+        z = generate.generate_z(GEN_SEED, i, n, mcfg.z_dim)
+        want = sampler_apply(state["params"]["gen"], state["bn"]["gen"],
+                             torch.from_numpy(z).cuda(), cfg=mcfg)
+        take = min(n, GEN_IMAGES - lo)
+        if not np.array_equal(want.float().cpu().numpy()[:take],
+                              images[lo:lo + take]):
+            fail(f"generate batch {i} (rung {n}) differs from the eager "
+                 "sampler on its z rows")
+        lo += take
+    grid = os.path.join(out, f"gen_{int(state['step']):08d}_0000.png")
+    with open(grid, "rb") as f:
+        pixels = decode_png(np, f.read())
+    size = mcfg.output_size
+    if pixels.shape != (GEN_GRID[0] * size, GEN_GRID[1] * size,
+                        mcfg.c_dim):
+        fail(f"generate's grid decodes to {pixels.shape}")
+    interp = generate.main([
+        "--checkpoint_dir", run, "--interpolate", "--grid",
+        f"{GEN_GRID[0]}x{GEN_GRID[1]}", "--out_dir", out, "--seed",
+        str(GEN_SEED), "--batch_size", str(GEN_BATCH), "--device", "cuda"])
+    with open(interp["paths"][0], "rb") as f:
+        ipix = decode_png(np, f.read())
+    if ipix.shape != pixels.shape:
+        fail(f"the interpolation grid decodes to {ipix.shape}")
+    report["generate"] = {"s": gen_s, "buckets": result["buckets"],
+                          "compile_ms": result["compile_ms"],
+                          "interpolate_buckets": interp["buckets"],
+                          "launches": launches, "step": int(state["step"])}
+    log(f"generate: {GEN_IMAGES} images from step {int(state['step'])} in "
+        f"{gen_s:.1f} s on rungs {result['buckets']} (captures "
+        f"{ {k: round(v, 1) for k, v in result['compile_ms'].items()} } "
+        f"ms) equal the eager sampler on the rebuilt z rows bit for bit; "
+        f"the {GEN_GRID[0]}x{GEN_GRID[1]} grid and the interpolation grid "
+        f"decode to {list(pixels.shape)}")
+
+
+def train_cli_captured(torch, np, workdir, kernels, report):
+    """`python -m dcgan_tpu_torch.train`'s entry point with
+    --steps_per_call CAPTURE_K --aot_warmup on phase 11's TFRecords:
+    every row captured after step 1 (perf/compile_ms/* in events.jsonl),
+    one log line per call, kernels 1, 3 and 4 at exactly their per-step
+    counts, the final checkpoint equal to the returned state."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.steps import init_train_state
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    run = os.path.join(workdir, "captured_train")
+    argv = ["--preset", "celeba64", "--use_pallas", "--pallas_fused",
+            "--data_dir", os.path.join(workdir, "resume", "data"),
+            "--checkpoint_dir", run, "--steps_per_call", str(CAPTURE_K),
+            "--aot_warmup", "--max_steps", str(CLI_STEPS), "--batch_size",
+            str(BATCH), "--shuffle_buffer", str(RESUME_SHUFFLE),
+            "--sample_every_steps", str(2 * CAPTURE_K), "--sample_dir",
+            os.path.join(run, "samples"), "--seed", str(SEED),
+            "--device", "cuda"]
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})[
+            f"train --steps_per_call {CAPTURE_K}"] = launches[entry["name"]]
+    for name in TRAIN_ONLY:
+        if launches[name] != PER_STEP[name] * CLI_STEPS:
+            fail(f"kernel {name}: {launches[name]} launches in {CLI_STEPS} "
+                 f"captured steps, expected {PER_STEP[name]} per step")
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    compile_ms = {k.split("/", 2)[2]: v for e in events
+                  for k, v in e.get("values", {}).items()
+                  if k.startswith("perf/compile_ms/")}
+    want_rows = ["train_step", f"multi_step@k{CAPTURE_K}", "sampler"]
+    if sorted(compile_ms) != sorted(want_rows):
+        fail(f"--aot_warmup wrote perf/compile_ms for {sorted(compile_ms)}")
+    logged = [e["step"] for e in events if e["kind"] == "scalars"
+              and "d_loss" in e["values"]]
+    want_logged = [1, 2, 3, 4] + list(range(2 * CAPTURE_K, CLI_STEPS,
+                                            CAPTURE_K)) + [CLI_STEPS]
+    if logged != want_logged:
+        fail(f"captured run logged steps {logged}, expected {want_logged}")
+    for e in events:
+        if "d_loss" in e.get("values", {}) and not np.isfinite(
+                e["values"]["d_loss"]):
+            fail(f"captured run: step {e['step']} d_loss not finite")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    restored = Checkpointer(run).restore_latest(init_train_state(
+        cfg, device="cuda"))
+    same_state(torch, convert, "captured run: its final checkpoint",
+               restored, state)
+    report["train_cli"] = {"steps": CLI_STEPS, "s": train_s,
+                           "compile_ms": compile_ms, "logged": logged,
+                           "launches": launches}
+    log(f"train --steps_per_call {CAPTURE_K} --aot_warmup: {CLI_STEPS} "
+        f"steps from TFRecords in {train_s:.1f} s; perf/compile_ms "
+        f"{ {k: round(v, 1) for k, v in compile_ms.items()} }; logged "
+        f"steps {logged}; kernels 1, 3, 4 at their per-step counts; the "
+        f"final checkpoint equals the returned state")
+
+
+def capture_and_check(torch, np, workdir, kernels):
+    """Phases 12-14; returns the `capture` report."""
+    report = {"configs": {}, "timed": {}}
+    saved = torch.backends.cudnn.deterministic
+    # cuDNN may pick algorithms that sum with atomics, whose order varies
+    # from run to run: deterministic ones, so that the bit comparison sees
+    # the capture alone
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, preset, overrides in CAPTURE_CONFIGS:
+            check_capture_config(torch, name, preset, overrides,
+                                 report["configs"])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for name, preset, overrides in CAPTURE_CONFIGS:
+        if overrides.get("compute_dtype", "bfloat16") == "bfloat16":
+            timed_turns(torch, name, preset, overrides, report["timed"])
+    save_under_capture(torch, np, workdir, report)
+    train_cli_captured(torch, np, workdir, kernels, report)
+    generate_and_check(torch, np, workdir, kernels, report)
     return report
 
 
@@ -2540,6 +3247,7 @@ def main() -> int:
             torch, np, sagan_cfg, state, workdir, kernels)
         del state
         resume_report = resume_and_check(torch, np, workdir, kernels)
+        capture_report = capture_and_check(torch, np, workdir, kernels)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -2547,6 +3255,7 @@ def main() -> int:
     print(json.dumps({"sagan64_sampler": sagan_timing}), flush=True)
     print(json.dumps({"sagan64_train": sagan_report}), flush=True)
     print(json.dumps({"resume": resume_report}), flush=True)
+    print(json.dumps({"capture": capture_report}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

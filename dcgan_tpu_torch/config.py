@@ -183,6 +183,12 @@ class TrainConfig:
     seed: int = 0
     precision: str = ""            # "" leaves the model dtypes; "f32"
                                    # forces float32 compute and params
+    steps_per_call: int = 1        # >1: K steps as one captured CUDA graph
+                                   # (train/warmup.py); the step cadences
+                                   # must be 0, multiples or divisors of K
+    aot_warmup: bool = False       # capture every program of the run
+                                   # before its second step, with
+                                   # perf/compile_ms/* capture times
 
     def __post_init__(self):
         # the JAX package's validation of these fields, with its messages
@@ -238,6 +244,26 @@ class TrainConfig:
             raise ValueError(
                 f"prefetch_device_batches must be >= 0, got "
                 f"{self.prefetch_device_batches}")
+        if self.steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1, got {self.steps_per_call}")
+        if self.steps_per_call > 1:
+            # the JAX rule over the cadences the port has: a cadence that
+            # is a multiple of K fires on schedule, one that divides K at
+            # every call boundary (reporting the call's last step);
+            # anything else would fire on a skewed subset of its steps
+            cadences = {"log_every_steps": self.log_every_steps,
+                        "sample_every_steps": self.sample_every_steps,
+                        "save_model_steps": self.save_model_steps}
+            spc = self.steps_per_call
+            bad = {k: v for k, v in cadences.items()
+                   if v and v % spc != 0 and spc % v != 0}
+            if bad:
+                raise ValueError(
+                    f"with steps_per_call={spc} every step cadence must be "
+                    "0, a multiple of it (fires on schedule), or a divisor "
+                    "of it (fires each call boundary); offending: "
+                    f"{bad}")
         # then what this slice of the port does not train yet
         unserved = []
         if self.loss not in ("gan", "hinge"):
@@ -357,3 +383,58 @@ def load_config(directory: str) -> Optional[TrainConfig]:
         return None
     with open(path) as f:
         return config_from_dict(json.load(f))
+
+
+# The ModelConfig knobs the checkpoint consumers (generate) expose as
+# override flags, the JAX package's list
+MODEL_OVERRIDE_FLAGS = ("arch", "output_size", "c_dim", "z_dim", "gf_dim",
+                        "df_dim", "num_classes", "conditional_bn",
+                        "attn_res", "attn_heads", "spectral_norm")
+
+
+def add_model_override_flags(p) -> None:
+    """Install the MODEL_OVERRIDE_FLAGS flags on an argparse parser, with
+    default None so that "passed" differs from "omitted"; precedence is
+    explicit flag > --preset > the checkpoint's config.json > ModelConfig
+    defaults (resolve_model_config)."""
+    import argparse
+
+    p.add_argument("--arch", choices=["dcgan", "resnet", "stylegan"],
+                   default=None,
+                   help="match the checkpoint's model family")
+    p.add_argument("--output_size", type=int, default=None)
+    p.add_argument("--c_dim", type=int, default=None)
+    p.add_argument("--z_dim", type=int, default=None)
+    p.add_argument("--gf_dim", type=int, default=None)
+    p.add_argument("--df_dim", type=int, default=None)
+    p.add_argument("--num_classes", type=int, default=None)
+    p.add_argument("--attn_res", type=int, default=None,
+                   help="match the checkpoint's attention config "
+                        "(presets supply it; explicit flag overrides)")
+    p.add_argument("--attn_heads", type=int, default=None,
+                   help="match the checkpoint's attention head count")
+    p.add_argument("--spectral_norm", choices=["none", "d", "gd"],
+                   default=None,
+                   help="match the checkpoint's spectral-norm config")
+    p.add_argument("--conditional_bn", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="match the checkpoint's conditional-BN config")
+
+
+def resolve_model_config(checkpoint_dir: str, *, preset: Optional[str] = None,
+                         overrides: Optional[Dict[str, Any]] = None
+                         ) -> ModelConfig:
+    """The architecture of a checkpoint consumer: explicit flag overrides
+    > --preset > the checkpoint's own config.json > ModelConfig defaults.
+    `overrides` values of None mean "not passed" and are dropped.
+    (The JAX package's progressive-schedule sidecars do not exist in the
+    port's checkpoints.)"""
+    if preset:
+        from dcgan_tpu_torch.presets import get_preset  # presets imports us
+
+        base = get_preset(preset).model
+    else:
+        saved = load_config(checkpoint_dir)
+        base = saved.model if saved is not None else ModelConfig()
+    given = {k: v for k, v in (overrides or {}).items() if v is not None}
+    return dataclasses.replace(base, **given)

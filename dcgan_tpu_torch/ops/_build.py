@@ -179,6 +179,12 @@ def demangle(names: Sequence[str]) -> List[str]:
     return out
 
 
+def is_loaded(name: str) -> bool:
+    """Whether `csrc/<name>.cu`'s library is loaded in this process."""
+    with _lock:
+        return name in _libs
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     with _lock:

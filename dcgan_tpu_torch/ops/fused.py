@@ -23,6 +23,15 @@ Two GEMM kernels, each with its plain version for CPU tensors:
   this port to `torch.matmul`.
 `fused_conv_bn_act(train=True)` follows it with BN's batch arithmetic and
 the `scale_shift_act` epilogue (ops/kernels.py).
+
+Under a CUDA graph capture (graphs.py): the v2 design of both kernels
+encodes its TMA descriptors on the host, from the operands' addresses, at
+every launch (`csrc/gemm_wgmma.cuh`'s `encode_tiled`), and passes them as
+kernel parameters, so a capture bakes them into the graph. That is right
+only because every operand of a captured program keeps its address from
+replay to replay: the static inputs are the owner's, and the
+intermediates come from the graph's private pool at the addresses the
+capture gave them.
 """
 
 from __future__ import annotations

@@ -76,9 +76,22 @@ _SIGNATURES = {
 }
 
 
+def not_capturing(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: `what` (a
+    build, a ticket's allocation) must happen in the eager warm-up that
+    precedes every capture (graphs.py), not inside it, where a build's
+    host work would not be recorded and an allocation would come from the
+    graph's pool, zeroed only at replay."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} inside a CUDA graph capture: run the "
+                           "captured function once eagerly first")
+
+
 def c_function(source: str, symbol: str):
     """`symbol` of the library built from `csrc/<source>.cu`, with its
     ctypes signature set (pointers and the stream as c_void_p)."""
+    if not _build.is_loaded(source):
+        not_capturing(f"the build of csrc/{source}.cu")
     fn = getattr(_build.load(source), symbol)
     fn.argtypes = _SIGNATURES[symbol]
     fn.restype = ctypes.c_int
@@ -353,6 +366,7 @@ def _ticket(device: torch.device, kernel: str) -> torch.Tensor:
         else torch.cuda.current_device()
     ticket = _TICKETS.get((index, kernel))
     if ticket is None:
+        not_capturing(f"the first {kernel} ticket")
         ticket = _TICKETS[index, kernel] = torch.zeros(
             1, dtype=torch.int32, device=torch.device("cuda", index))
     return ticket

@@ -15,7 +15,9 @@ Batching policy, as in the JAX package:
 - when the queue is full the OLDEST never-dispatched request is shed and
   its Response fails with `ServeOverloadError` (drop-oldest backpressure).
 
-`report()` emits the same `serve/*` metric keys as the JAX server.
+`report()` emits the same `serve/*` metric keys as the JAX server, with
+`serve/compile_ms/<rung>` holding each rung's capture time and
+`serve/recompiles_after_warmup` the captures after the cold start.
 Weight promotion and the replica fleet are later items of the port.
 """
 
@@ -176,6 +178,10 @@ class SamplerServer:
         # cold-start accounting, filled by the worker
         self.meta: Dict[str, Any] = {}
         self.cold_ms: Dict[str, float] = {}
+        # {"sampler@b<rung>": capture ms}, and the source's capture count
+        # when the cold start ended
+        self.compile_ms: Dict[str, float] = {}
+        self._captures_at_warm: Optional[int] = None
         self._t_warm: Optional[float] = None
         self._t_drained: Optional[float] = None
 
@@ -341,6 +347,13 @@ class SamplerServer:
                          ("serve/cold_start_ms", "cold_start_ms")):
             if src in self.cold_ms:
                 out[key] = self.cold_ms[src]
+        for name, ms in self.compile_ms.items():
+            out[f"serve/compile_ms/{name}"] = ms
+        if self._captures_at_warm is not None:   # set by the cold start
+            # the zero-recompile guarantee, measured: captures after the
+            # cold start's (must stay 0: every batch replays a bound rung)
+            out["serve/recompiles_after_warmup"] = float(
+                self.source.captures - self._captures_at_warm)
         return out
 
     # -- worker side (dispatch thread only) ---------------------------------

@@ -7,25 +7,35 @@
   before it is served), the live or the EMA weights;
 - `WeightsSource` serves an `.npz` written by `convert.save_weights`.
 
-Both present the surface the worker thread drives:
+- `StateSource` serves a generator already in memory (generate.py's
+  restored checkpoint).
+
+All present the surface the worker thread drives:
 
 - `prepare()`: load the weights onto the device (cold start, on the
   dispatch thread); returns the source's metadata;
 - `bucket_plan(ladder)` / `bind(rungs)` / `compiled_buckets()`: the rungs
-  this source will serve (no AOT compile in the port; the worker's primed
-  dispatch per rung is the warm-up);
-- `sample(bucket, z[, labels])`: one sampler dispatch at a bound rung,
-  materialized to a host float32 array [bucket, S, S, c_dim].
+  this source will serve. `bind` gives each rung a static z input and
+  runs the sampler on it once eagerly (the warm-up: it builds the kernels
+  and lets cuDNN pick its algorithms), then captures it as a CUDA graph
+  with its static output (graphs.py; eager on the CPU), timing each
+  capture into `compile_ms` under the JAX row name `sampler@b<rung>`;
+- `sample(bucket, z[, labels])`: z copied into the rung's input, one
+  replay, the image copied out to a host float32 array
+  [bucket, S, S, c_dim]. `captures` counts every capture, so the server
+  can report the captures after warm-up (`serve/recompiles_after_warmup`,
+  0 by construction: an unbound rung raises instead of being captured).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from dcgan_tpu_torch.device import resolve_device
+from dcgan_tpu_torch.graphs import CapturedProgram, on_stream
 from dcgan_tpu_torch.serve.buckets import BucketLadder
 
 
@@ -41,7 +51,9 @@ class _GeneratorSource:
         self.cfg = None
         self._params = None
         self._state = None
-        self._rungs: Tuple[int, ...] = ()
+        self._rungs: Dict[int, Tuple[torch.Tensor, CapturedProgram]] = {}
+        self.compile_ms: Dict[str, float] = {}
+        self.captures = 0
 
     def prepare(self) -> dict:
         raise NotImplementedError
@@ -50,26 +62,43 @@ class _GeneratorSource:
         return tuple(ladder.buckets)
 
     def bind(self, rungs: Sequence[int]) -> None:
-        self._rungs = tuple(sorted(rungs))
+        """Warm up and capture one sampler program per rung."""
+        from dcgan_tpu_torch.models.dcgan import sampler_apply
+
+        stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        for b in sorted(rungs):
+            if b in self._rungs:
+                continue
+            z = torch.zeros((b, self.z_dim), dtype=torch.float32,
+                            device=self.device)
+
+            def fn(z=z):
+                return sampler_apply(self._params, self._state, z,
+                                     cfg=self.cfg)
+            with on_stream(stream):
+                fn()
+            prog = CapturedProgram(f"sampler@b{b}", fn, self.device, stream)
+            self.compile_ms[prog.name] = prog.capture()
+            self.captures += 1
+            self._rungs[b] = (z, prog)
 
     def compiled_buckets(self) -> Tuple[int, ...]:
         """Ascending bound bucket rungs."""
-        return self._rungs
+        return tuple(sorted(self._rungs))
 
     def sample(self, bucket: int, z: np.ndarray,
                labels: Optional[np.ndarray] = None) -> np.ndarray:
-        from dcgan_tpu_torch.models.dcgan import sampler_apply
-
         if bucket not in self._rungs:
             raise KeyError(f"bucket {bucket} is not a bound rung "
-                           f"{self._rungs}")
+                           f"{self.compiled_buckets()}")
         z = np.asarray(z, np.float32)
         if z.shape != (bucket, self.z_dim):
             raise ValueError(f"z must be [{bucket}, {self.z_dim}], got "
                              f"{z.shape}")
-        zt = torch.from_numpy(z).to(self.device)
-        img = sampler_apply(self._params, self._state, zt, cfg=self.cfg)
-        return img.cpu().numpy()
+        z_in, prog = self._rungs[bucket]
+        z_in.copy_(torch.from_numpy(z))
+        return prog.run().cpu().numpy()
 
 
 class CheckpointSource(_GeneratorSource):
@@ -126,4 +155,21 @@ class WeightsSource(_GeneratorSource):
             self.path, device=self.device)
         self.z_dim = self.cfg.z_dim
         return {"source": "weights", "step": None, "weights": self.path,
+                "device": str(self.device)}
+
+
+class StateSource(_GeneratorSource):
+    """Serve a generator already in memory: (ModelConfig, params, BN
+    state) on the source's device."""
+
+    def __init__(self, cfg, params, state, *,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__(device)
+        self.cfg = cfg
+        self._params = params
+        self._state = state
+        self.z_dim = cfg.z_dim
+
+    def prepare(self) -> dict:
+        return {"source": "state", "step": None, "weights": "memory",
                 "device": str(self.device)}

@@ -8,9 +8,10 @@ touches the card another thread has current. Callers only touch the
 thread-safe queue.
 
 - cold start: the source's `prepare()` (weight load), ladder resolution,
-  and one throwaway dispatch per bucket rung, timed into the server's
-  cold_ms breakdown. The first dispatch also builds the CUDA kernels and
-  lets cuDNN pick its algorithms, so live traffic pays neither;
+  and the source's `bind`: one eager warm-up dispatch per bucket rung and
+  its capture as a CUDA graph, timed into the server's cold_ms and
+  compile_ms breakdowns. The first dispatch also builds the CUDA kernels
+  and lets cuDNN pick its algorithms, so live traffic pays neither;
 - warm serving: `server._next_batch()` -> assemble z -> bucketed dispatch
   -> split images back per request, resolving Responses with latency
   accounting;
@@ -81,11 +82,11 @@ class ServeWorker:
         s.meta = s.source.prepare()
         t_restore = time.perf_counter()
         s.ladder = s._resolve_ladder()
+        # one eager warm-up dispatch per rung, then its capture: a broken
+        # rung fails the cold start loudly instead of the first request
         s.source.bind(s.source.bucket_plan(s.ladder))
-        # prime every rung with one throwaway dispatch: a broken rung fails
-        # the cold start loudly instead of the first request
-        for b in s.source.compiled_buckets():
-            s.source.sample(b, np.zeros((b, s.source.z_dim), np.float32))
+        s.compile_ms = dict(s.source.compile_ms)
+        s._captures_at_warm = s.source.captures
         t_warm = time.perf_counter()
         s.cold_ms = {
             "restore_ms": (t_restore - t0) * 1e3,

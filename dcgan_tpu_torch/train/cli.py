@@ -3,6 +3,9 @@ port serves, plus --device.
 
     python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
         --pallas_fused --data_dir D --checkpoint_dir C
+    python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
+        --pallas_fused --data_dir D --checkpoint_dir C --steps_per_call 4 \
+        --aot_warmup
     python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
         --max_steps 200
     python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
@@ -44,6 +47,8 @@ _FLAG_FIELDS = {
     "update_mode": ("", "update_mode"),
     "grad_clip": ("", "grad_clip"),
     "lr_schedule": ("", "lr_schedule"),
+    "steps_per_call": ("", "steps_per_call"),
+    "aot_warmup": ("", "aot_warmup"),
     "use_pallas": ("model", "use_pallas"),
     "pallas_fused": ("model", "pallas_fused"),
     "output_size": ("model", "output_size"),
@@ -117,6 +122,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="steps between sample grids (0: none)")
     p.add_argument("--log_every_steps", type=int)
     p.add_argument("--seed", type=int)
+    p.add_argument("--steps_per_call", type=int,
+                   help=">1: K steps as one captured CUDA graph (the step "
+                        "cadences must be 0, multiples or divisors of K)")
+    p.add_argument("--aot_warmup", action="store_true",
+                   help="capture every program of the run after its first "
+                        "step, writing perf/compile_ms/* capture times")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' must be asked for by name")
     return p

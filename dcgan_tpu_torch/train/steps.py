@@ -60,6 +60,19 @@ def tree_leaves(tree: Pytree) -> List[torch.Tensor]:
     return out
 
 
+def tree_unflatten(like: Pytree, leaves: List[torch.Tensor]) -> Pytree:
+    """A tree shaped like `like` holding `leaves` in tree_leaves' order."""
+    it = iter(leaves)
+
+    def build(tree):
+        return {k: build(tree[k]) if isinstance(tree[k], dict) else next(it)
+                for k in sorted(tree)}
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Learning-rate schedules and Adam, in optax's arithmetic
 # ---------------------------------------------------------------------------
@@ -124,17 +137,31 @@ class Adam:
              ) -> Tuple[Pytree, Pytree]:
         """(new params, new state), in optax's order: clip, mu, nu,
         count + 1, the bias corrections 1 - b^t, mu_hat / (sqrt(nu_hat) +
-        eps), times -lr(count), then p + u."""
+        eps), times -lr(count), then p + u.
+
+        Each elementwise operation runs over all the leaves at once
+        (`torch._foreach_*`, a few launches for the whole tree instead of
+        one per leaf), with the per-leaf arithmetic's operations in its
+        order, so the result is the same bits; no fused foreach op
+        (addcmul, addcdiv, lerp) is used, since each rounds once where
+        the per-leaf form rounds twice."""
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        dtype = ps[0].dtype
         if self.grad_clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g)
-                                    for g in tree_leaves(grads)))
+            g_norm = torch.sqrt(sum(torch.sum(sq) for sq in
+                                    torch._foreach_mul(gs, gs)))
             keep = g_norm < self.grad_clip
-            grads = tree_map(lambda g: torch.where(
-                keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip), grads)
+            scaled = torch._foreach_mul(
+                torch._foreach_div(gs, g_norm.to(dtype)), self.grad_clip)
+            gs = [torch.where(keep, g, c) for g, c in zip(gs, scaled)]
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
-                      state["nu"])
+        mu = torch._foreach_add(torch._foreach_mul(gs, 1 - b1),
+                                torch._foreach_mul(
+                                    tree_leaves(state["mu"]), b1))
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1 - b2)
+        nu = torch._foreach_add(sq, torch._foreach_mul(
+            tree_leaves(state["nu"]), b2))
         count = state["count"]
         count_inc = count + 1
         t = count_inc.to(torch.float32)
@@ -145,15 +172,17 @@ class Adam:
         bc2 = 1 - torch.full((), b2, dtype=torch.float32,
                              device=t.device) ** t
         step_size = -self.lr(count)
-        eps = self.eps
-
-        def update(p, m, v):
-            u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype))
-                                         + eps)
-            return (p + step_size.to(u.dtype) * u).to(p.dtype)
-
-        new_params = tree_map(update, params, mu, nu)
-        return new_params, {"mu": mu, "nu": nu, "count": count_inc}
+        # u = (mu / bc1) / (sqrt(nu / bc2) + eps); p + step_size * u
+        den = torch._foreach_div(nu, bc2.to(dtype))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(mu, bc1.to(dtype))
+        torch._foreach_div_(u, den)
+        torch._foreach_mul_(u, step_size.to(dtype))
+        new_params = torch._foreach_add(ps, u)
+        return (tree_unflatten(params, new_params),
+                {"mu": tree_unflatten(params, mu),
+                 "nu": tree_unflatten(params, nu), "count": count_inc})
 
 
 def make_optimizer(cfg: TrainConfig, lr: Optional[float] = None, *,
@@ -287,8 +316,10 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
         d_ema = cfg.g_ema_decay   # 0: ema_gen mirrors the live weights
         with torch.no_grad():
-            ema_gen = tree_map(lambda e, p: d_ema * e + (1.0 - d_ema) * p,
-                               state["ema_gen"], new_gen)
+            # d * e + (1 - d) * p over all the leaves at once
+            ema_gen = tree_unflatten(new_gen, torch._foreach_add(
+                torch._foreach_mul(tree_leaves(state["ema_gen"]), d_ema),
+                torch._foreach_mul(tree_leaves(new_gen), 1.0 - d_ema)))
         new_state = {
             "params": {"gen": new_gen, "disc": new_disc},
             "bn": {"gen": g_bn, "disc": d_bn},

@@ -15,14 +15,21 @@
 - the z of the step that takes the state from step s to s + 1 comes from a
   generator seeded from (seed, s), as the JAX trainer folds s into its
   base key, so a resumed run draws the z an unbroken run draws;
+- the steps through `StepRunner` (train/warmup.py): captured CUDA graphs
+  over a static state on the card (eager on the CPU), `steps_per_call`
+  steps per call where aligned, with one loss readback per call;
+  `--aot_warmup` captures every program after the first (eager) step and
+  writes their capture times as a `perf/compile_ms/<row>` event;
 - a `scalars` event every `log_every_steps` steps in the JAX package's
   JSONL format (`<checkpoint_dir>/events.jsonl`: d_loss, d_loss_real,
   d_loss_fake, g_loss and StepTimer's perf/* keys; data/corrupt_records
   once nonzero), mirrored into TensorBoard files;
 - every `sample_every_steps` steps a grid PNG of the samples of the fixed
   `sample_z` (drawn once from seed + 1) in `sample_dir`, and an image event;
-- `maybe_save` after every step (every `save_model_secs` of wall clock),
-  a final save of the last step and a wait for it to be on disk.
+- `maybe_save` after every call (every `save_model_secs` of wall clock),
+  the next step waiting on the device for the save's host copy of the
+  static state; a final save of the last step and a wait for it to be on
+  disk.
 """
 
 from __future__ import annotations
@@ -43,14 +50,14 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.train.steps import make_train_step
+from dcgan_tpu_torch.train.warmup import METRIC_KEYS, StepRunner, \
+    aot_capture, build_warmup_plan, call_size
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 from dcgan_tpu_torch.utils.images import save_sample_grid
 from dcgan_tpu_torch.utils.metrics import MetricWriter
 from dcgan_tpu_torch.utils.profiling import StepTimer
 
 Pytree = dict
-
-METRIC_KEYS = ("d_loss", "d_loss_real", "d_loss_fake", "g_loss")
 
 
 def step_z(cfg: TrainConfig, step: int, device: torch.device
@@ -139,6 +146,7 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     corrupt_base = quarantine.count()
     data = make_data(cfg, dev, synthetic_data=synthetic_data)
     writer = None
+    warm_ms: dict = {}
     try:
         pprint.pprint(dataclasses.asdict(cfg))
         save_config(cfg, cfg.checkpoint_dir)
@@ -147,11 +155,6 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                               tensorboard=cfg.tensorboard)
         fns = make_train_step(cfg)
         state = fns.init(seed=cfg.seed, device=dev)
-        restored = ckpt.restore_latest(state)
-        if restored is not None:
-            state = restored
-            print(f"[dcgan_tpu_torch] restored checkpoint at step "
-                  f"{int(state['step'])}", flush=True)
         # fixed z for comparable sample grids across the run, drawn once
         rows, cols = cfg.sample_grid
         n_samples = max(cfg.sample_size, rows * cols)
@@ -159,18 +162,40 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             (n_samples, mcfg.z_dim), device=dev,
             generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         ) * 2.0 - 1.0
+        runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z)
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            runner.load(restored)
+            del restored
+            print(f"[dcgan_tpu_torch] restored checkpoint at step "
+                  f"{int(state['step'])}", flush=True)
         timer = StepTimer(images_per_step=cfg.batch_size)
         t_start = time.time()
-        for step_num in range(int(state["step"]), total_steps):
-            images = next(data)
-            z = step_z(cfg, step_num, dev)
-            state, metrics = fns.train_step(state, images, z)
-            # one readback per step: the host waits for the device here,
-            # so each tick follows one step's completion
-            values = dict(zip(METRIC_KEYS, torch.stack(
-                [metrics[k] for k in METRIC_KEYS]).tolist()))
-            timer.tick()
-            step = step_num + 1
+        step_num = int(state["step"])
+        while step_num < total_steps:
+            k = call_size(step_num, total_steps, cfg.steps_per_call,
+                          runner.warm)
+            batches = [next(data) for _ in range(k)]
+            zs = [step_z(cfg, step_num + i, dev) for i in range(k)]
+            metrics = runner.step(batches, zs)
+            if cfg.aot_warmup and not warm_ms:
+                # every row captured right after the warm-up, before the
+                # timer is armed
+                warm_ms = aot_capture(runner, build_warmup_plan(
+                    cfg, sample=bool(cfg.sample_every_steps)))
+                print("[dcgan_tpu_torch] aot warmup captured "
+                      f"{len(warm_ms)} program(s): "
+                      + ", ".join(f"{n} {ms:.0f}ms"
+                                  for n, ms in warm_ms.items()), flush=True)
+                writer.write_scalars(step_num + 1, {
+                    f"perf/compile_ms/{n}": ms for n, ms in warm_ms.items()})
+            # one readback per call: the host waits for the device here,
+            # so each tick follows the call's completion; the log reports
+            # the call's last step
+            values = dict(zip(METRIC_KEYS, metrics.tolist()[-1]))
+            timer.tick(steps=k)
+            step_num += k
+            step = step_num
             if step % cfg.log_every_steps == 0:
                 t0 = time.perf_counter()
                 row = {**values, **timer.summary()}
@@ -185,12 +210,15 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 timer.note_host(time.perf_counter() - t0)
             if cfg.sample_every_steps and step % cfg.sample_every_steps == 0:
                 t0 = time.perf_counter()
-                imgs = fns.sample(state, sample_z).float().cpu().numpy()
+                imgs = runner.sample().float().cpu().numpy()
                 path = os.path.join(cfg.sample_dir, f"train_{step:08d}.png")
                 save_sample_grid(path, imgs[:rows * cols], (rows, cols))
                 writer.write_image_event(step, "samples", path)
                 timer.note_host(time.perf_counter() - t0)
-            ckpt.maybe_save(step, state)
+            if ckpt.maybe_save(step, state):
+                # the save's host copy reads the static state that the
+                # next step overwrites in place
+                runner.wait_for(ckpt.copy_event)
     finally:
         data.close()
         if writer is not None:

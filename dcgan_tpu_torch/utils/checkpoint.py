@@ -27,12 +27,12 @@ quarantines a step.
 `save` runs asynchronously, as the JAX default does: the state is copied
 to pinned host memory on a side stream, and a background thread waits for
 that copy and writes the file. The copy runs while the next steps run on
-the main stream, so it reads the tensors of the state that was passed in,
-which is safe only because `train_step` returns new tensors and never
-writes into the old ones. A step that updates the state in place (the
-captured step of ROADMAP Queue A item 4) must wait for the host copy
-(`save` followed by `wait`, or the copy event) before the next step is
-dispatched.
+the main stream and reads the tensors of the state that was passed in.
+The captured step (train/warmup.py) writes its static state in place, so
+`save` leaves the event that marks its host copy done in `copy_event`,
+and the trainer makes the main stream wait on it (`stream.wait_event`,
+on the device, not the host) before the next step: the copy never reads
+a leaf that a later step is writing.
 
 Left out for now (ROADMAP): the JAX Checkpointer's sharding sidecars and
 resharding restores, multi-host saves, the progressive-schedule tag and
@@ -104,6 +104,10 @@ class Checkpointer:
         # previous save has finished with them before the next copies in)
         self._pinned: Dict[str, torch.Tensor] = {}
         self._copy_stream: Optional[torch.cuda.Stream] = None
+        # the event that marks the last save's host copy done (None when
+        # it copied no CUDA leaf): a step that writes the saved tensors in
+        # place must wait for it
+        self.copy_event: Optional[torch.cuda.Event] = None
         # {"step", "bytes", "host_copy_ms", "write_ms", "save_ms"} of the
         # last finished save
         self.last_save_stats: Optional[Dict[str, float]] = None
@@ -125,6 +129,7 @@ class Checkpointer:
                 f"checkpoint step {step} already exists in {self.directory}")
         t0 = time.perf_counter()
         host, copied = self._host_copy(flatten(state))
+        self.copy_event = copied
         if not self.async_save:
             self._write(step, host, copied, t0)
             return

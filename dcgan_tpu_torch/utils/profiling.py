@@ -27,13 +27,17 @@ class StepTimer:
         self._host_pending = 0.0
         self._last: Optional[float] = None
 
-    def tick(self) -> None:
-        """Mark the end of one training step; the first call only arms the
-        timer."""
-        now = time.perf_counter()
+    def tick(self, now: Optional[float] = None, steps: int = 1) -> None:
+        """Mark the end of `steps` training steps (a call of K captured
+        steps counts each, with the call's time and host time spread
+        evenly over them); the first call only arms the timer."""
+        now = time.perf_counter() if now is None else now
         if self._last is not None:
-            self._durations.append(now - self._last)
-            self._host.append(self._host_pending)
+            per_step = (now - self._last) / max(1, steps)
+            host_per_step = self._host_pending / max(1, steps)
+            for _ in range(max(1, steps)):
+                self._durations.append(per_step)
+                self._host.append(host_per_step)
         self._host_pending = 0.0
         self._last = now
 

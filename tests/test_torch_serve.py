@@ -27,7 +27,7 @@ TIMEOUT = 60.0
 
 class FakeSource:
     """Echoes each dispatched batch's z rows back as its "images" and
-    records the bucket of every dispatch."""
+    records the bucket of every dispatch; it captures nothing."""
 
     device = torch.device("cpu")
 
@@ -37,6 +37,8 @@ class FakeSource:
         self.granule = 1
         self.dispatches = []
         self._rungs = ()
+        self.compile_ms = {}
+        self.captures = 0
 
     def prepare(self):
         return {"source": "fake", "step": None, "weights": "-",
