@@ -146,9 +146,54 @@ Captured programs (`capture`):
    rebuilt by `generate.generate_z`, bit for bit; the grid decodes; then
    --interpolate writes its grid.
 
+The rest of the training step (`a1`):
+
+15. a1: (1) the wgan-gp preset (64 px, gf=df=64, batch 64, n_critic 5,
+   gp weight 10) through train.cli.main for A1_STEPS steps on the plain
+   route, where the penalty's double backward runs: finite losses, gp > 0,
+   every D leaf moved; then A1_COMPARE_STEPS steps eager against the
+   runner at K=1 on the trainer's z and draws, bit for bit (cuDNN
+   deterministic); (2) celeba64 on the cuDNN route with R1 gamma 10 every
+   R1_INTERVAL steps, R1_STEPS steps eager against the runner at K = 1 and
+   CAPTURE_K (one program per pattern of penalty and plain steps): bit for
+   bit, r1 > 0 on steps 0 and 4 and 0 elsewhere; (3) celeba64 bf16 on the
+   kernel route with n_critic 2, 2 microbatches and DiffAugment (color,
+   translation, cutout): first kernels 1-4 against their plain versions
+   at every shape of the microbatch of 32 (a1_check_kernels: bf16 and
+   f32, launched twice, bit for bit, each plan logged, TRAIN_DESIGN's
+   designs where the route runs them); then through train.cli.main, the
+   launch counters set to 0 just before and read just after: kernels 1-4
+   at exactly
+   `a1_per_step(2, 2)` per step on their TRAIN_DESIGN designs; the losses
+   and every gradient leaf (D's first critic update, G's, each over its
+   microbatches with its draws) against the cuDNN route at the seeded
+   state within TRAIN_ROUTE_TOL and TRAIN_GRAD_TOL; eager against the
+   runner at K=1 bit for bit; (4) --precision bf16 at 64 px and fp8 at
+   128 px (no stage of a 64 px model reaches fp8's 64 px gate; at 128 G's
+   deconv4 and D's conv1 quantize) on the kernel route through
+   train.cli.main, fp8's kernels first checked at its shapes as in (3)
+   with fp8 operands where the stage quantizes, counters around each
+   (PER_STEP; `a1_per_step(1, 1, 4)`): params bf16, Adam mu f32, the
+   checkpoint restores bit for bit, the kernel route within tolerance of
+   the cuDNN route; fp8's losses and gradients differ from the bf16
+   step's at 128 px; the quantizer on the card equals the CPU's, bit for
+   bit; (5) kernel 5 with inputs that require grad at D's stage
+   shapes, bf16 and f32: a grad_fn, one launch, cotangents within
+   GBSA_BWD_TOL of the plain version's autograd; (6) wgan-gp with
+   use_pallas is refused; (7) one step of each configuration (and of the
+   bf16 policy at 128 px) timed eager and at K=1 (host-inclusive ms, busy
+   ms, idle share), and the wgan-gp preset's eval_losses and summarize.
+
+At the end of each group of phases (the kernel checks, serve, train,
+sagan64, resume, capture, a1) the garbage is collected and the cache
+emptied; the run fails if a CUDA graph's private pool is still reserved
+then (every runner is closed, so a pool left over is a leak that would
+starve the phases after it), and it logs the group's peak and the bytes
+left allocated and reserved.
+
 Stdout ends with the serve reports, the sampler timing, the train
-reports, the resume report, the capture report, the card's name and power
-limit (nvidia-smi),
+reports, the resume report, the capture report, the a1 report, the
+memory report, the card's name and power limit (nvidia-smi),
 one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -159,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -704,6 +750,139 @@ def weighted(entries, key):
     return sum(e[key] * e["per_step"] for e in entries)
 
 
+def check_moments(torch, tag, x):
+    """Kernel 1 launched twice on the plan moments_plan makes: that design
+    taken, the same bits twice, the plain version matched as column sums.
+    Returns (max |err|, the plan)."""
+    from dcgan_tpu_torch.ops.kernels import channel_moments, \
+        channel_moments_plain, moments_plan, sm_count
+
+    designs = channel_moments.launches_by_design
+    plan = moments_plan(*x.shape, x.dtype, x.data_ptr() % 16 == 0,
+                        sm_count(x.device))
+    before = dict(designs)
+    got, again = channel_moments(x), channel_moments(x)
+    want = channel_moments_plain(x)
+    torch.cuda.synchronize()
+    if designs != dict(before, **{plan.design: before[plan.design] + 2}):
+        fail(f"channel_moments {tag} did not take design {plan.design}: "
+             f"{before} -> {designs}")
+    same_bits(torch, f"channel_moments {tag}", got, again)
+    xf = x.float()
+    return max(column_sum_close(
+        torch, f"channel_moments {tag} {i}", a, w, t)
+        for i, (a, w, t) in enumerate(zip(
+            got, want, (xf.abs().mean(0), (xf * xf).mean(0))))), plan
+
+
+def check_ssa_bwd(torch, tag, x, gr, scale, shift, act, design):
+    """Kernel 3 launched twice on the design ssa_bwd_design picks: that
+    design taken, the same bits twice, and the plain version matched (dx
+    elementwise, dscale and dshift as column sums). Returns max |err|."""
+    from dcgan_tpu_torch.ops.kernels import scale_shift_act_bwd, \
+        scale_shift_act_bwd_plain
+
+    designs = scale_shift_act_bwd.launches_by_design
+    before = dict(designs)
+    got = scale_shift_act_bwd(x, scale, shift, gr, act)
+    again = scale_shift_act_bwd(x, scale, shift, gr, act)
+    want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
+    torch.cuda.synchronize()
+    if designs != dict(before, **{design: before[design] + 2}):
+        fail(f"scale_shift_act_bwd {tag} did not take design {design}: "
+             f"{before} -> {designs}")
+    same_bits(torch, f"scale_shift_act_bwd {tag}", got, again)
+    dt_name = "bfloat16" if x.dtype is torch.bfloat16 else "float32"
+    ga, xa = gr.float().abs(), x.float().abs()
+    return max(check_close(torch, f"scale_shift_act_bwd {tag} dx",
+                           got[0], want[0], dt_name),
+               column_sum_close(torch, f"scale_shift_act_bwd {tag} dscale",
+                                got[1], want[1], (ga * xa).sum(0)),
+               column_sum_close(torch, f"scale_shift_act_bwd {tag} dshift",
+                                got[2], want[2], ga.sum(0)))
+
+
+def check_ssa_fwd(torch, tag, x, scale, shift, acts):
+    """Kernel 2 once per act of `acts` on TRAIN_DESIGN's design against its
+    plain version. Returns max |err|."""
+    from dcgan_tpu_torch.ops.kernels import scale_shift_act, \
+        scale_shift_act_plain
+
+    designs = scale_shift_act.launches_by_design
+    design = TRAIN_DESIGN["scale_shift_act"]
+    dt_name = "bfloat16" if x.dtype is torch.bfloat16 else "float32"
+    err = 0.0
+    for a in acts:
+        before = dict(designs)
+        y = scale_shift_act(x, scale, shift, a)
+        torch.cuda.synchronize()
+        if designs != dict(before, **{design: before[design] + 1}):
+            fail(f"scale_shift_act {tag} {a} did not take design {design}: "
+                 f"{before} -> {designs}")
+        err = max(err, check_close(
+            torch, f"scale_shift_act {tag} {a}", y,
+            scale_shift_act_plain(x, scale, shift, a), dt_name))
+    return err
+
+
+def check_gbm(torch, tag, p2d, w2d, b, dt):
+    """Kernel 4 launched twice on the design its plan (gemm_plan) picks:
+    that design taken, the same bits twice, u against the plain product
+    (f32 tolerance: u is f32 in both dtypes) and the moments against those
+    of the kernel's own u in the compute dtype (column sums: only the
+    summation order differs). Returns (max |err|, the plan)."""
+    from dcgan_tpu_torch.ops.fused import gemm_bias_moments, \
+        gemm_bias_moments_plain, gemm_plan
+    from dcgan_tpu_torch.ops.kernels import sm_count
+
+    designs = gemm_bias_moments.launches_by_design
+    plan = gemm_plan(p2d, w2d, sm_count(p2d.device))
+    before = dict(designs)
+    got = gemm_bias_moments(p2d, w2d, b, dt)
+    again = gemm_bias_moments(p2d, w2d, b, dt)
+    u_want = gemm_bias_moments_plain(p2d, w2d, b, dt)[0]
+    torch.cuda.synchronize()
+    if designs != dict(before, **{plan.design: before[plan.design] + 2}):
+        fail(f"gemm_bias_moments {tag} did not take its plan's design "
+             f"{plan.design}: {before} -> {designs}")
+    same_bits(torch, f"gemm_bias_moments {tag}", got, again)
+    err = check_close(torch, f"gemm_bias_moments {tag} u", got[0], u_want,
+                      "float32")
+    v = got[0].to(dt).float()
+    err = max(err, column_sum_close(
+        torch, f"gemm_bias_moments {tag} mean", got[1], v.mean(0),
+        v.abs().mean(0)), column_sum_close(
+        torch, f"gemm_bias_moments {tag} mean_sq", got[2], (v * v).mean(0),
+        (v * v).mean(0)))
+    return err, plan
+
+
+def gbm_operands(torch, cfg, st, dt, g, batch, quant=False):
+    """Kernel 4's operands of stage `st` as the step builds them: a
+    post-activation map through the (dilated) im2col and the HWIO weights
+    reshaped, both through fake_quant_fp8 when `quant`; and a bias.
+    Returns (h, p2d, w2d, b)."""
+    from dcgan_tpu_torch.ops.activations import act_fwd
+    from dcgan_tpu_torch.ops.fused import conv_patches, w_to_gemm
+    from dcgan_tpu_torch.ops.layers import fake_quant_fp8
+
+    dev = torch.device("cuda")
+    h = act_fwd(torch.rand((batch, st["res"], st["res"], st["in_ch"]),
+                           generator=g, device=dev) * 2.0 - 1.0,
+                st["act"], cfg.leak).to(dt)
+    p2d, _ = conv_patches(h, cfg.kernel_size, 2, st["transpose"])
+    w2d = w_to_gemm(0.02 * torch.randn(
+        (cfg.kernel_size, cfg.kernel_size, st["in_ch"], st["c"]),
+        generator=g, device=dev)).to(dt)
+    if quant:
+        p2d, w2d = fake_quant_fp8(p2d), fake_quant_fp8(w2d)
+    b = torch.rand((st["c"],), generator=g, device=dev) * 0.2 - 0.1
+    if tuple(p2d.shape) != (st["m"], st["k"]):
+        fail(f"{st['name']}: patches {tuple(p2d.shape)} != "
+             f"{(st['m'], st['k'])}")
+    return h, p2d, w2d, b
+
+
 def check_train_kernels(torch, cfg, ssa_entry, ptxas):
     """Phase 2, the training step's kernels: channel_moments (1),
     scale_shift_act's backward (3) and gemm_bias_moments (4) against their
@@ -715,11 +894,10 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
 
     from dcgan_tpu_torch.ops.activations import ACTS, act_fwd
     from dcgan_tpu_torch.ops.fused import conv_patches, gemm_bias_moments, \
-        gemm_bias_moments_plain, gemm_plan, w_to_gemm
+        gemm_bias_moments_plain
     from dcgan_tpu_torch.ops.kernels import channel_moments, \
-        channel_moments_plain, moments_plan, scale_shift_act, \
-        scale_shift_act_bwd, scale_shift_act_bwd_plain, \
-        scale_shift_act_plain, sm_count
+        channel_moments_plain, scale_shift_act, scale_shift_act_bwd, \
+        scale_shift_act_bwd_plain, scale_shift_act_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -738,33 +916,11 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
           "source": "dcgan_tpu_torch/csrc/channel_moments.cu",
           "replaces": "dcgan_tpu/ops/pallas_kernels.py:80",
           "design": TRAIN_DESIGN["channel_moments"], "shapes": []}
-    k1_designs = channel_moments.launches_by_design
-    sms = sm_count(dev)
     # (name, N, C, launches per step on the main path, on the use_pallas
     # route without pallas_fused: every BN's moments, G forwarding twice
     # and D three times per step); bn0 and D conv3 share [1024, 512]
     moment_shapes = [("G bn0", n0, top, 2, 2)] + [
         (s["name"], s["m"], s["c"], 0, s["fwd"]) for s in stages]
-
-    def check_moments(tag, x):
-        """Kernel 1 launched twice on the plan moments_plan makes: that
-        design taken, the same bits twice, the plain version matched as
-        column sums. Returns (max |err|, the plan)."""
-        plan = moments_plan(*x.shape, x.dtype, x.data_ptr() % 16 == 0, sms)
-        before = dict(k1_designs)
-        got, again = channel_moments(x), channel_moments(x)
-        want = channel_moments_plain(x)
-        torch.cuda.synchronize()
-        if k1_designs != dict(before, **{plan.design:
-                                         before[plan.design] + 2}):
-            fail(f"channel_moments {tag} did not take design {plan.design}: "
-                 f"{before} -> {k1_designs}")
-        same_bits(torch, f"channel_moments {tag}", got, again)
-        xf = x.float()
-        return max(column_sum_close(
-            torch, f"channel_moments {tag} {i}", a, w, t)
-            for i, (a, w, t) in enumerate(zip(
-                got, want, (xf.abs().mean(0), (xf * xf).mean(0))))), plan
 
     # ragged shapes on the scalar design, and bn0 one element off 16-byte
     # alignment
@@ -772,7 +928,8 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
         for shape, offset in (((37, 70), 0), ((5, 3), 0), ((n0, top), 1)):
             x = at_offset(torch, rand(*shape, lo=-2.0, hi=2.0).to(dt),
                           offset)
-            _, plan = check_moments(f"{dt_name} {shape} +{offset}", x)
+            _, plan = check_moments(torch, f"{dt_name} {shape} +{offset}",
+                                    x)
             if plan.design != "scalar":
                 fail(f"channel_moments {shape} +{offset} plans {plan}")
     log("channel_moments ragged and unaligned shapes match their plain "
@@ -782,7 +939,7 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
     for name, n, c, per_step, per_step_unfused in moment_shapes:
         for dt_name, dt in dtypes:
             x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
-            err, plan = check_moments(f"{name} {dt_name}", x)
+            err, plan = check_moments(torch, f"{name} {dt_name}", x)
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
             if plan.design != k1["design"]:
                 fail(f"channel_moments {name} {dt_name} plans {plan}")
@@ -837,33 +994,9 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
           "source": "dcgan_tpu_torch/csrc/scale_shift_act.cu",
           "replaces": "dcgan_tpu/ops/pallas_kernels.py:180",
           "design": TRAIN_DESIGN["scale_shift_act_bwd"], "shapes": []}
-    k3_designs = scale_shift_act_bwd.launches_by_design
     epilogues = [("G bn0", n0, top, "relu", 2, 1)] + [
         (s["name"], s["m"], s["c"], s["act"], s["fwd"], s["bwd"])
         for s in stages]
-
-    def check_ssa_bwd(tag, x, gr, scale, shift, act, design):
-        """Kernel 3 launched twice on the design ssa_bwd_design picks:
-        that design taken, the same bits twice, and the plain version
-        matched (dx elementwise, dscale and dshift as column sums)."""
-        before = dict(k3_designs)
-        got = scale_shift_act_bwd(x, scale, shift, gr, act)
-        again = scale_shift_act_bwd(x, scale, shift, gr, act)
-        want = scale_shift_act_bwd_plain(x, scale, shift, gr, act)
-        torch.cuda.synchronize()
-        if k3_designs != dict(before, **{design: before[design] + 2}):
-            fail(f"scale_shift_act_bwd {tag} did not take design {design}: "
-                 f"{before} -> {k3_designs}")
-        same_bits(torch, f"scale_shift_act_bwd {tag}", got, again)
-        dt_name = "bfloat16" if x.dtype is torch.bfloat16 else "float32"
-        ga, xa = gr.float().abs(), x.float().abs()
-        return max(check_close(torch, f"scale_shift_act_bwd {tag} dx",
-                               got[0], want[0], dt_name),
-                   column_sum_close(torch, f"scale_shift_act_bwd {tag} "
-                                    f"dscale", got[1], want[1],
-                                    (ga * xa).sum(0)),
-                   column_sum_close(torch, f"scale_shift_act_bwd {tag} "
-                                    f"dshift", got[2], want[2], ga.sum(0)))
 
     # ragged shapes, every activation: C 70 (not a multiple of the 16-byte
     # width) and C 72 at a pointer one element off 16 bytes on the scalar
@@ -877,41 +1010,31 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
                               offset)
                 gr = at_offset(torch, rand(37, c).to(dt), offset)
                 scale, shift = rand(c, lo=0.5, hi=1.5), rand(c)
-                check_ssa_bwd(f"ragged {dt_name} [37, {c}] +{offset} {act}",
+                check_ssa_bwd(torch,
+                              f"ragged {dt_name} [37, {c}] +{offset} {act}",
                               x, gr, scale, shift, act, design)
     log("scale_shift_act_bwd ragged shapes match their plain versions and "
         "repeat bitwise on designs scalar (C 70; C 72 off 16-byte "
         "alignment) and vector (C 72), every act, bf16 and f32")
     fwd_shapes = []
     errs = {}
-    k2_designs = scale_shift_act.launches_by_design
     for name, n, c, act, fwd, bwd in epilogues:
         for dt_name, dt in dtypes:
             x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
             gr = rand(n, c).to(dt)
             scale, shift = rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
-            err = check_ssa_bwd(f"{name} {dt_name}", x, gr, scale, shift,
-                                act, k3["design"])
+            err = check_ssa_bwd(torch, f"{name} {dt_name}", x, gr, scale,
+                                shift, act, k3["design"])
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
             # kernel 2 at this epilogue's shape, every act, on its design
-            k2_err = 0.0
-            for a in ACTS:
-                before = dict(k2_designs)
-                y = scale_shift_act(x, scale, shift, a)
-                torch.cuda.synchronize()
-                design = TRAIN_DESIGN["scale_shift_act"]
-                if k2_designs != dict(before, **{design: before[design] + 1}):
-                    fail(f"scale_shift_act {name} {dt_name} {a} did not take "
-                         f"design {design}: {before} -> {k2_designs}")
-                k2_err = max(k2_err, check_close(
-                    torch, f"scale_shift_act {name} {dt_name} {a}", y,
-                    scale_shift_act_plain(x, scale, shift, a), dt_name))
+            k2_err = check_ssa_fwd(torch, f"{name} {dt_name}", x, scale,
+                                   shift, ACTS)
             key = "max_abs_err" if dt is torch.bfloat16 \
                 else "max_abs_err_f32"
             ssa_entry[key] = max(ssa_entry[key], k2_err)
             log(f"scale_shift_act {name} [{n}, {c}] {dt_name} takes design "
-                f"{design} and matches its plain version at every act (max "
-                f"|err| {k2_err:.3g})")
+                f"{TRAIN_DESIGN['scale_shift_act']} and matches its plain "
+                f"version at every act (max |err| {k2_err:.3g})")
             if dt is not torch.bfloat16:
                 continue
             e = {"stage": name, "n": n, "c": c, "per_step": bwd,
@@ -986,34 +1109,6 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
           "source": "dcgan_tpu_torch/csrc/gemm_bias_moments.cu",
           "replaces": "dcgan_tpu/ops/pallas_fused.py:144",
           "design": TRAIN_DESIGN["gemm_bias_moments"], "shapes": []}
-    k4_designs = gemm_bias_moments.launches_by_design
-
-    def check_gbm(tag, p2d, w2d, b, dt):
-        """Kernel 4 launched twice on the design its plan (gemm_plan) picks:
-        that design taken, the same bits twice, u against the plain product
-        (f32 tolerance: u is f32 in both dtypes) and the moments against
-        those of the kernel's own u in the compute dtype (column sums: only
-        the summation order differs). Returns (max |err|, the plan)."""
-        plan = gemm_plan(p2d, w2d, sms)
-        before = dict(k4_designs)
-        got = gemm_bias_moments(p2d, w2d, b, dt)
-        again = gemm_bias_moments(p2d, w2d, b, dt)
-        u_want = gemm_bias_moments_plain(p2d, w2d, b, dt)[0]
-        torch.cuda.synchronize()
-        if k4_designs != dict(before, **{plan.design:
-                                         before[plan.design] + 2}):
-            fail(f"gemm_bias_moments {tag} did not take its plan's design "
-                 f"{plan.design}: {before} -> {k4_designs}")
-        same_bits(torch, f"gemm_bias_moments {tag}", got, again)
-        err = check_close(torch, f"gemm_bias_moments {tag} u", got[0],
-                          u_want, "float32")
-        v = got[0].to(dt).float()
-        err = max(err, column_sum_close(
-            torch, f"gemm_bias_moments {tag} mean", got[1], v.mean(0),
-            v.abs().mean(0)), column_sum_close(
-            torch, f"gemm_bias_moments {tag} mean_sq", got[2],
-            (v * v).mean(0), (v * v).mean(0)))
-        return err, plan
 
     # ragged M and C: an aligned shape on v2 (a partial row tile, C 72 in a
     # 128-column tile), then K 37 / C 70 and the aligned shape one element
@@ -1027,7 +1122,7 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
         w = at_offset(torch, (0.1 * rand(k, c)).to(dt), offset)
         b = rand(c, lo=-0.1, hi=0.1)
         tag = f"ragged {(m, k, c)} +{offset} {str(dt)[6:]}"
-        _, plan = check_gbm(tag, p, w, b, dt)
+        _, plan = check_gbm(torch, tag, p, w, b, dt)
         if plan.design != design:
             fail(f"gemm_bias_moments {tag} plans {plan.design}, not {design}")
     log("gemm_bias_moments ragged shapes match their plain versions and "
@@ -1038,18 +1133,9 @@ def check_train_kernels(torch, cfg, ssa_entry, ptxas):
         name, m, k, c = st["name"], st["m"], st["k"], st["c"]
         e = {"stage": name, "m": m, "k": k, "c": c, "per_step": st["fwd"]}
         for dt_name, dt in dtypes:
-            # operands as the step builds them: post-activation maps
-            # through the (dilated) im2col, HWIO weights reshaped
-            h = act_fwd(rand(BATCH, st["res"], st["res"], st["in_ch"]),
-                        st["act"], cfg.leak).to(dt)
-            p2d, _ = conv_patches(h, cfg.kernel_size, 2, st["transpose"])
-            w2d = w_to_gemm(0.02 * torch.randn(
-                (cfg.kernel_size, cfg.kernel_size, st["in_ch"], c),
-                generator=g, device=dev)).to(dt)
-            b = rand(c, lo=-0.1, hi=0.1)
-            if tuple(p2d.shape) != (m, k):
-                fail(f"{name}: patches {tuple(p2d.shape)} != {(m, k)}")
-            err, plan = check_gbm(f"{name} {dt_name}", p2d, w2d, b, dt)
+            h, p2d, w2d, b = gbm_operands(torch, cfg, st, dt, g, BATCH)
+            err, plan = check_gbm(torch, f"{name} {dt_name}", p2d, w2d, b,
+                                  dt)
             errs[dt_name] = max(errs.get(dt_name, 0.0), err)
             if dt is torch.bfloat16:
                 if plan.design != k4["design"]:
@@ -1326,16 +1412,46 @@ def all_wrappers():
     return kernel_wrappers()
 
 
+def kernel_totals(prof, settle):
+    """[{key, us, count}] of the trace's device kernels by name: every
+    kernel (the profiler's key_averages), or with `settle` those that
+    start after the last spin kernel ends (the spin left out)."""
+    if not settle:
+        out = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us and e.device_type.name == "CUDA":
+                out.append({"key": e.key, "us": us, "count": e.count})
+        return out
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spins = [e.time_range.end for e in kernels if "spin_kernel" in e.name]
+    if not spins:
+        fail("profile_split: the trace holds no spin kernel")
+    totals = {}
+    for e in kernels:
+        if e.time_range.start >= max(spins) and "spin_kernel" not in e.name:
+            t = totals.setdefault(e.name, {"key": e.name, "us": 0.0,
+                                           "count": 0})
+            t["us"] += e.time_range.elapsed_us()
+            t["count"] += 1
+    return [t for t in totals.values() if t["us"]]
+
+
 def profile_split(torch, fn, steps: int = 3, settle: bool = False):
     """Device time of `steps` calls of fn() by kernel family, from
     torch.profiler's per-kernel self device times, and the share of the
     window the card sat idle. None if the trace holds no device time.
 
-    settle: hold the card with a spin kernel and wait for it inside the
-    trace before the calls, so that the tracer is recording before their
-    first kernel runs (without it a graph replay's first kernels went
-    missing from a trace on the card); the spin kernel is left out of the
-    sums."""
+    settle: inside the trace, one call, then a spin kernel that holds the
+    card and a wait for it, then the calls; only the kernels that start
+    after the spin ends are summed. A graph replay's early kernels went
+    missing from traces on the card: without the spin, and in one long
+    run with it too (one of the four moments_cluster_kernel launches of
+    two celeba64 replays, in each of three traces), so the counted
+    replays are no longer a trace's first."""
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1343,6 +1459,7 @@ def profile_split(torch, fn, steps: int = 3, settle: bool = False):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         if settle:
+            fn()
             torch.cuda._sleep(int(SETTLE_MS * 2e6))
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1362,31 +1479,25 @@ def profile_split(torch, fn, steps: int = 3, settle: bool = False):
     split["other (elementwise, copies, reductions)"] = 0.0
     flash, port = {}, {}
     top = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us or e.device_type.name != "CUDA" or \
-                (settle and "spin_kernel" in e.key):
-            continue
-        ms = us / 1e3 / steps
-        top.append((ms, e.count / steps, e.key[:120]))
-        key = e.key.lower()
-        m = re.search(r"flash_\w+_kernel(<[^>]*>)?", e.key)
+    for e in kernel_totals(prof, settle):
+        ms = e["us"] / 1e3 / steps
+        top.append((ms, e["count"] / steps, e["key"][:120]))
+        key = e["key"].lower()
+        m = re.search(r"flash_\w+_kernel(<[^>]*>)?", e["key"])
         if m:
             f = flash.setdefault(m.group(0), {"ms": 0.0, "calls": 0.0})
             f["ms"] += ms
-            f["calls"] += e.count / steps
+            f["calls"] += e["count"] / steps
         for name, marks in families.items():
             if any(mark in key for mark in marks):
                 split[name] += ms
                 if name == "port kernels":
                     # the entry's name without namespace or parameters
-                    m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
-                    f = port.setdefault(m.group(0)[:-1] if m else e.key,
+                    m = re.search(r"(\w+)(<[^>]*>)?\(", e["key"])
+                    f = port.setdefault(m.group(0)[:-1] if m else e["key"],
                                         {"ms": 0.0, "calls": 0.0})
                     f["ms"] += ms
-                    f["calls"] += e.count / steps
+                    f["calls"] += e["count"] / steps
                 break
         else:
             split["other (elementwise, copies, reductions)"] += ms
@@ -2222,7 +2333,7 @@ def feed_steps(torch, trainer, fns, state, cfg, synthetic):
     two warm steps; and the profiled idle share of such steps."""
     dev = torch.device("cuda", torch.cuda.current_device())
     data = trainer.make_data(cfg, dev, synthetic_data=synthetic)
-    z = trainer.step_z(cfg, 0, dev)
+    z, _ = trainer.step_inputs(cfg, 0, dev)
 
     def step():
         return fns.train_step(state, next(data), z)[1]["d_loss"].item()
@@ -2243,7 +2354,7 @@ def feed_steps(torch, trainer, fns, state, cfg, synthetic):
 def feed_steps_captured(torch, trainer, fns, cfg, synthetic, k):
     """Host-inclusive ms per step of FEED_STEPS steps through the captured
     runner at K = k, each call pulling its batches from the trainer's
-    feed and its z from step_z and reading its losses back once, after
+    feed and its z from step_inputs and reading its losses back once, after
     the warm-up and both captures; and the profiled idle share of such
     calls."""
     import dataclasses as dc
@@ -2259,7 +2370,7 @@ def feed_steps_captured(torch, trainer, fns, cfg, synthetic, k):
     def call():
         n = call_size(done[0], done[0] + k, k, runner.warm)
         runner.step([next(data) for _ in range(n)],
-                    [trainer.step_z(kcfg, done[0] + i, dev)
+                    [trainer.step_inputs(kcfg, done[0] + i, dev)[0]
                      for i in range(n)]).tolist()
         done[0] += n
 
@@ -2273,6 +2384,7 @@ def feed_steps_captured(torch, trainer, fns, cfg, synthetic, k):
         ms = (time.perf_counter() - t0) * 1e3 / (done[0] - start)
         split = profile_split(torch, call, steps=2)
     finally:
+        runner.close()
         data.close()
     return ms, split
 
@@ -2442,7 +2554,7 @@ def resume_and_check(torch, np, workdir, kernels):
         batch = next(data)
     finally:
         data.close()
-    z = trainer.step_z(cfg, RESUME_STEPS, dev)
+    z, _ = trainer.step_inputs(cfg, RESUME_STEPS, dev)
     a, am = fns.train_step(state12, batch, z)
     b, bm = fns.train_step(restored12, batch, z)
     fa, fb = convert.flatten(a), convert.flatten(b)
@@ -2856,6 +2968,7 @@ def check_capture_config(torch, name, preset, overrides, report):
             log(f"capture {name}, K={k}: a replay's profile shows the port "
                 f"kernels at their per-step counts {counts}")
             entry[f"k{k}_replay_profile"] = prof
+        runner.close()
         del runner
         torch.cuda.empty_cache()
     report[name] = entry
@@ -2946,6 +3059,8 @@ def timed_turns(torch, name, preset, overrides, report):
     report[name] = {"turns": turns, "capture_ms": capture_ms,
                     "pool_bytes": pool, "launches_per_eager_step": launches}
     log(f"{name}: capture ms {capture_ms}; graph pools {pool} bytes")
+    for runner in runners.values():
+        runner.close()
     del runners
     torch.cuda.empty_cache()
 
@@ -2984,6 +3099,7 @@ def save_under_capture(torch, np, workdir, report):
     same_state(torch, convert, "save under capture, restore_latest",
                ck.restore_latest(runner.state), clones[SAVE_STEPS])
     captured = sorted(runner.programs)
+    runner.close()
     log(f"save under capture: {SAVE_STEPS} steps ({captured} replayed), a "
         f"save after each; every checkpoint equals its step's static "
         f"state bit for bit ({report['save_under_capture_s']:.1f} s)")
@@ -3164,6 +3280,745 @@ def capture_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 15 (`a1`): the rest of the training step
+# ---------------------------------------------------------------------------
+
+# steps of each trainer run of the phase, and of each eager / captured
+# comparison; lazy R1's interval and its runs' steps (two intervals)
+A1_STEPS = 4
+A1_COMPARE_STEPS = 3
+R1_INTERVAL = 4
+R1_STEPS = 8
+# the kernel route's new step bodies
+A1_CRITIC = ["--n_critic", "2", "--grad_accum", "2", "--diffaug",
+             "color,translation,cutout"]
+# kernel 5's backward, cotangents against the plain version's autograd on
+# the card, max |kernel's - plain's| <= tol * max |plain's|: the same f32
+# products in another order (f32); one bf16 ulp where the cotangent of a
+# bf16 operand is rounded to bf16
+GBSA_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# the bound on the noise of a gradient that is 0 in exact arithmetic (a
+# bias that feeds a BatchNorm), as a share of the net's largest leaf norm
+A1_NOISE = 0.05
+# fp8 (e4m3, a 3-bit mantissa) at 128 px. The reference rounds through
+# fp8 the operands of a quantized stage and, its casts being
+# differentiable, their cotangents too: on the kernel route those of the
+# patch matrix, one per copy of each element, on the plain route those of
+# the map, summed over the copies. So the two routes agree on the forward
+# but not on the cotangent that leaves a quantized stage's input, by the
+# reference's design, and every gradient that passes back through one
+# (all of G's, D's conv0) differs between them. The step, kernel route
+# against cuDNN route: the losses within 3 % (where the routes' bf16
+# activations before a quantized stage differ by one bf16 ulp, their fp8
+# roundings can differ by one fp8 step, 6 %: tests/test_torch_precision.py's
+# fp8 rule); D's other leaves per leaf within TRAIN_GRAD_TOL; the rest
+# reported. A quantized stage on its own (a1_fp8_stages): in bf16 the
+# output against the cuDNN route, two bf16 ulps in relative L2 (the batch
+# statistics come from f32 u on one route, from the bf16 conv output on
+# the other); in f32 (TF32 off) the output and every cotangent against the
+# same function on the CPU (the kernels' plain versions, the same
+# quantization points), 1e-3 in relative L2 (the cotangents pass e4m3 on
+# both, so an f32 difference that carries one across a rounding boundary
+# moves it by an fp8 step: 1.7e-4 to 4.7e-4 measured, H100 at 700 W; the
+# conv bias, whose gradient before a BatchNorm is 0, against BN's shift
+# gradient). A stage that skipped a quantization would be off by e4m3's
+# rounding noise, ~4 %.
+A1_FP8_LOSS_RTOL = 0.03
+A1_FP8_STAGE_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-3}
+
+
+def pre_bn_biases(mcfg):
+    """The "<net>/<path>" of every per-channel bias that feeds a
+    BatchNorm: G's interior deconvs, D's convs after the first. (G's proj
+    bias is one per position and channel, and BN takes out only each
+    channel's mean over the positions: its gradient is real.)"""
+    k = mcfg.num_up_layers
+    return ({f"gen/deconv{i}/b" for i in range(1, k)}
+            | {f"disc/conv{i}/b" for i in range(1, k)})
+
+
+def a1_per_step(n_critic, accum, stages=3):
+    """Kernel launches per training step of the kernel route at `n_critic`
+    critic updates and `accum` microbatches, each net with `stages` fused
+    stages (3 at 64 px, 4 at 128), derived from the step: per critic
+    update and microbatch, G's forward (bn0's moments and epilogue and the
+    s stages: 1 channel_moments, s + 1 scale_shift_act, s
+    gemm_bias_moments), D on the real and the fake batch (2s and 2s) and
+    D's backward through both (2s scale_shift_act_bwd); per microbatch of
+    G's update, G's forward (1, s + 1, s), D on the fake batch (s and s)
+    and the backward through D and G (s + s + bn0's 1). At (1, 1, 3) this
+    is PER_STEP."""
+    n, k, s = n_critic, accum, stages
+    return dict(PER_STEP, channel_moments=k * (n + 1),
+                scale_shift_act=k * (n * (3 * s + 1) + 2 * s + 1),
+                scale_shift_act_bwd=k * (n * 2 * s + 2 * s + 1),
+                gemm_bias_moments=k * (n * 3 * s + 2 * s))
+
+
+def a1_argv(workdir, name, argv):
+    """train.cli.main's arguments for a phase-15 run called `name`."""
+    tdir = os.path.join(workdir, name)
+    return ["--synthetic", "--max_steps", str(A1_STEPS), "--batch_size",
+            str(BATCH), "--device", "cuda", "--checkpoint_dir", tdir,
+            "--sample_dir", os.path.join(tdir, "samples"), "--seed",
+            str(SEED), "--activation_summary_steps", "0"] + argv
+
+
+def a1_config(workdir, name, argv):
+    from dcgan_tpu_torch.train import cli
+
+    return cli.config_from_args(cli.build_parser().parse_args(
+        a1_argv(workdir, name, argv)))
+
+
+def a1_check_kernels(torch, workdir, name, argv, batch, report):
+    """Kernels 1-4 against their plain versions at every shape the step of
+    run `name` gives them at `batch` images (a microbatch under
+    grad_accum), in bf16 and f32, each launched twice to show the bits
+    repeat (kernel 2 once): kernel 1 at G's bn0 and every fused stage,
+    kernels 2 and 3 at every BN epilogue with the stage's act, kernel 4 at
+    every fused stage on operands built as the step builds them, through
+    fake_quant_fp8 where the config quantizes the stage. Each takes the
+    design its plan picks, logged; the shapes the kernel route runs take
+    TRAIN_DESIGN's. Called before the run's counts are set to 0."""
+    from dcgan_tpu_torch.models.dcgan import _stage_quant
+
+    mcfg = a1_config(workdir, name, argv).model
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    top = mcfg.gf_dim * 2 ** (mcfg.num_up_layers - 1)
+    stages = train_shapes(mcfg, batch)
+    epilogues = [("G bn0", batch * mcfg.base_size ** 2, top, "relu")] + [
+        (st["name"], st["m"], st["c"], st["act"]) for st in stages]
+    errs = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        e = errs[dt_name] = dict.fromkeys(TRAIN_DESIGN, 0.0)
+        for stage, n, c, act in epilogues:
+            tag = f"a1 {name} {stage} {dt_name}"
+            x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
+            err, plan = check_moments(torch, tag, x)
+            if stage == "G bn0" and \
+                    plan.design != TRAIN_DESIGN["channel_moments"]:
+                fail(f"channel_moments {tag} plans {plan}")
+            e["channel_moments"] = max(e["channel_moments"], err)
+            gr = rand(n, c).to(dt)
+            scale, shift = rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
+            e["scale_shift_act_bwd"] = max(e["scale_shift_act_bwd"],
+                                           check_ssa_bwd(
+                torch, tag, x, gr, scale, shift, act,
+                TRAIN_DESIGN["scale_shift_act_bwd"]))
+            e["scale_shift_act"] = max(e["scale_shift_act"], check_ssa_fwd(
+                torch, tag, x, scale, shift, (act,)))
+            log(f"a1 {name}: {stage} [{n}, {c}] {dt_name}: channel_moments "
+                f"plan {plan._asdict()}; scale_shift_act and its backward "
+                "on their TRAIN_DESIGN designs; all match their plain "
+                "versions and repeat bitwise")
+        for st in stages:
+            out_res = 2 * st["res"] if st["transpose"] else st["res"]
+            quant = _stage_quant(mcfg, out_res) == "fp8"
+            tag = f"a1 {name} {st['name']} {dt_name}"
+            _, p2d, w2d, b = gbm_operands(torch, mcfg, st, dt, g, batch,
+                                          quant=quant)
+            err, plan = check_gbm(torch, tag, p2d, w2d, b, dt)
+            if dt is torch.bfloat16 and \
+                    plan.design != TRAIN_DESIGN["gemm_bias_moments"]:
+                fail(f"gemm_bias_moments {tag} plans {plan}")
+            e["gemm_bias_moments"] = max(e["gemm_bias_moments"], err)
+            on = " on fp8 operands" if quant else ""
+            log(f"a1 {name}: gemm_bias_moments {st['name']} M={st['m']} "
+                f"K={st['k']} C={st['c']} {dt_name}{on} matches its plain "
+                f"version and repeats bitwise; plan {plan._asdict()}")
+            del p2d, w2d
+            torch.cuda.empty_cache()
+    report.setdefault("kernel_checks", {})[f"{name} batch {batch}"] = errs
+
+
+def a1_cli(torch, np, workdir, name, argv, per_step, kernels, path=None):
+    """train.cli.main on cuda for A1_STEPS steps with `argv` added, the
+    launch counters set to 0 just before and read just after: each kernel
+    exactly per_step[kernel] x A1_STEPS launches, kernels 1-4 on their
+    TRAIN_DESIGN designs; finite losses (and penalty) in events.jsonl.
+    Adds the launches to launches_by_path[path] when path is given.
+    Returns (final state, config, events' values, seconds)."""
+    from dcgan_tpu_torch.train import cli
+
+    full = a1_argv(workdir, name, argv)
+    cfg = a1_config(workdir, name, argv)
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    state = cli.main(full)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for n, want in per_step.items():
+        if launches[n] != want * A1_STEPS:
+            fail(f"a1 {name}: kernel {n} launched {launches[n]} times, "
+                 f"expected {want} per step x {A1_STEPS}")
+    for n, design in TRAIN_DESIGN.items():
+        by = wrappers[n].launches_by_design
+        if launches[n] and by[design] != launches[n]:
+            fail(f"a1 {name}: {n} launches must all take design {design}: "
+                 f"{by}")
+    if path is not None:
+        for entry in kernels:
+            by_path = entry.setdefault("launches_by_path", {})
+            by_path[path] = by_path.get(path, 0) + launches[entry["name"]]
+    with open(os.path.join(cfg.checkpoint_dir, "events.jsonl")) as f:
+        rows = [json.loads(line)["values"] for line in f
+                if json.loads(line)["kind"] == "scalars"]
+    rows = [r for r in rows if "d_loss" in r]
+    if len(rows) != A1_STEPS or not all(
+            np.isfinite([v for k, v in r.items() if not k.startswith(
+                "perf/")]).all() for r in rows):
+        fail(f"a1 {name}: {len(rows)} loss rows, or non-finite: {rows}")
+    log(f"a1 {name}: {A1_STEPS} steps of train.cli.main in {secs:.1f} s, "
+        f"launches {launches}, last losses "
+        f"{ {k: round(v, 5) for k, v in rows[-1].items() if '/' not in k} }")
+    return state, cfg, rows, secs
+
+
+def a1_inputs(torch, cfg, n):
+    """n steps' images (seeded on the card) and the trainer's z and draws
+    of steps 0 .. n-1."""
+    from dcgan_tpu_torch.train import trainer
+
+    images, _ = step_inputs(torch, cfg, n)
+    zs, draws = zip(*(trainer.step_inputs(cfg, s, torch.device("cuda"))
+                      for s in range(n)))
+    return images, list(zs), list(draws)
+
+
+def a1_capture_compare(torch, name, cfg, n, ks=(1,)):
+    """n eager steps against the runner at each K of `ks` from the seeded
+    state on the trainer's inputs, cuDNN deterministic: every metric of
+    every step and every state leaf equal bit for bit. Returns the eager
+    metrics per step (metric_keys order)."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner, call_size, \
+        metric_keys
+
+    keys = metric_keys(cfg)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fns = make_train_step(cfg)
+        images, zs, draws = a1_inputs(torch, cfg, n)
+        state = fns.init(seed=SEED, device="cuda")
+        eager = []
+        for i in range(n):
+            state, m = fns.train_step(state, images[i], zs[i], draws[i])
+            eager.append([float(m[k]) for k in keys])
+        for k in ks:
+            kcfg = dataclasses.replace(cfg, steps_per_call=k)
+            runner = StepRunner(fns, fns.init(seed=SEED, device="cuda"),
+                                kcfg, torch.device("cuda"))
+            got, s = [], 0
+            while s < n:
+                c = call_size(s, n, k, runner.warm)
+                got += runner.step(images[s:s + c], zs[s:s + c],
+                                   draws[s:s + c], start=s).tolist()
+                s += c
+            if got != eager:
+                fail(f"a1 {name}, K={k}: metrics {got} differ from eager "
+                     f"{eager}")
+            leaves = same_state(torch, convert, f"a1 {name}, K={k}",
+                                runner.state, state)
+            log(f"a1 {name}, K={k}: {n} captured steps equal the eager "
+                f"steps bit for bit ({leaves} leaves, {len(keys)} metrics "
+                f"per step); programs {sorted(runner.programs)}")
+            runner.close()
+            del runner
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return eager
+
+
+def net_gaps(convert, got, want, skip):
+    """Net -> |got - want| / |want| over the net's leaves as one vector,
+    the "<net>/<path>" leaves of `skip` left out."""
+    out = {}
+    for net in ("gen", "disc"):
+        g, w = convert.flatten(got[net]), convert.flatten(want[net])
+        keep = [p for p in w if f"{net}/{p}" not in skip]
+        diff = sum(float((g[p].float() - w[p].float()).norm()) ** 2
+                   for p in keep)
+        out[net] = (diff / sum(float(w[p].float().norm()) ** 2
+                               for p in keep)) ** 0.5
+    return out
+
+
+def a1_route_grads(torch, name, cfg, report):
+    """The losses and both nets' gradients (`grads`: D's of the first
+    critic update, G's against the seeded D, each over its microbatches
+    with its draws) at the seeded state, the kernel route against the
+    cuDNN + torch-BN route on the same images, z and draws, within
+    TRAIN_ROUTE_TOL and TRAIN_GRAD_TOL (bf16); under the fp8 policy the
+    losses within A1_FP8_LOSS_RTOL and only the gradients that pass back
+    through no quantized stage's input (D's from conv1 on) per leaf.
+    Returns the kernel route's (grads, losses) and each net's gradient gap
+    in relative L2."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step
+
+    images, zs, draws = a1_inputs(torch, cfg, 1)
+    losses, grads = {}, {}
+    state = None
+    for route, flags in (("kernel", {}), ("cudnn", {"use_pallas": False,
+                                                    "pallas_fused": False})):
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **flags))
+        fns = make_train_step(rcfg)
+        if state is None:
+            state = fns.init(seed=SEED, device="cuda")
+        grads[route], metrics = fns.grads(state, images[0], zs[0], draws[0])
+        losses[route] = {k: float(v) for k, v in metrics.items()}
+    fp8 = cfg.precision == "fp8"
+    rtol, atol = (A1_FP8_LOSS_RTOL, 0.0) if fp8 \
+        else TRAIN_ROUTE_TOL["bfloat16"]
+    bad = [k for k in losses["kernel"]
+           if not abs(losses["kernel"][k] - losses["cudnn"][k])
+           <= rtol * abs(losses["cudnn"][k]) + atol]
+    if bad:
+        fail(f"a1 {name}: losses, kernel vs cuDNN route {losses}, outside "
+             f"rtol={rtol} atol={atol}: {bad}")
+    rtol, atol = TRAIN_GRAD_TOL["bfloat16"]
+    gaps = grad_gaps(convert, grads["kernel"], grads["cudnn"], rtol, atol)
+    # the biases that feed a BatchNorm have a gradient of 0 in exact
+    # arithmetic: on each route theirs is the rounding noise of a bf16
+    # batch sum, which the bf16 params of the precision policies leave as
+    # large as the atol term, so they are held to a bound of their own:
+    # noise, at most A1_NOISE of the net's largest leaf norm on each route
+    noise = {}
+    for key in sorted(pre_bn_biases(cfg.model)):
+        net, path = key.split("/", 1)
+        top = max(float(x.norm()) for x in convert.flatten(
+            grads["cudnn"][net]).values())
+        noise[key] = max(float(convert.flatten(grads[r][net])[path].norm())
+                         for r in grads) / top
+        del gaps[key]
+    loud = {k: v for k, v in noise.items() if not v <= A1_NOISE}
+    if loud:
+        fail(f"a1 {name}: BN-feeding biases' gradients above noise "
+             f"(share of the net's largest leaf norm): {loud}")
+    nets = net_gaps(convert, grads["kernel"], grads["cudnn"],
+                    pre_bn_biases(cfg.model))
+    held = {k: v for k, v in gaps.items()
+            if not fp8 or (k.startswith("disc/") and "/conv0/" not in k)}
+    worst = max(held, key=held.get)
+    report[f"{name}_route"] = {"losses": losses, "worst_grad_gap":
+                               [worst, gaps[worst]],
+                               "bn_bias_noise": max(noise.values()),
+                               "net_grad_gap": nets}
+    if not gaps[worst] <= 1.0:
+        fail(f"a1 {name}: gradients, kernel vs cuDNN route, outside "
+             f"rtol={rtol} atol={atol}: "
+             f"{ {k: v for k, v in held.items() if not v <= 1.0} }")
+    if fp8:
+        other = max((k for k in gaps if k not in held), key=gaps.get)
+        report[f"{name}_route"]["farthest_not_held"] = [other, gaps[other]]
+    log(f"a1 {name}: kernel vs cuDNN route losses {losses['kernel']} vs "
+        f"{losses['cudnn']}; {len(held)} gradient leaves within limits, "
+        f"the closest {worst} at {gaps[worst]:.3g} of its limit; each "
+        f"net's gradient off by {nets} (relative L2)"
+        + (f"; of the leaves not held, {other} farthest at "
+           f"{gaps[other]:.3g} of the limit" if fp8 else ""))
+    return grads["kernel"], losses["kernel"], nets
+
+
+def a1_timed(torch, name, cfg, report):
+    """One step's host-inclusive ms, busy ms and idle share, eager and
+    through the runner at K=1, in turns (eager, K=1, K=1, eager)."""
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    fns = make_train_step(cfg)
+    images, zs, draws = a1_inputs(torch, cfg, 2)
+    holder = {"s": fns.init(seed=SEED, device="cuda")}
+    runner = StepRunner(fns, fns.init(seed=SEED, device="cuda"),
+                        dataclasses.replace(cfg, steps_per_call=1),
+                        torch.device("cuda"))
+    runner.step(images[:1], zs[:1], draws[:1], start=0)
+
+    def eager():
+        holder["s"], m = fns.train_step(holder["s"], images[1], zs[1],
+                                        draws[1], penalty=True)
+        m["d_loss"].item()
+
+    def captured():
+        # start 0: the penalty row under lazy R1, the only row otherwise
+        runner.step(images[1:2], zs[1:2], draws[1:2], start=0).tolist()
+
+    def turn(fn, settle):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS // 4):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / (TIMED_STEPS // 4)
+        split = profile_split(torch, fn, steps=PROFILED_CALLS,
+                              settle=settle)
+        if split is None:
+            return {"step_ms": ms, "busy_ms": "not measured",
+                    "idle_share": "not measured"}
+        return {"step_ms": ms, "busy_ms": split["busy_ms"],
+                "idle_share": split["idle_share"],
+                "launches_per_step": split["launches_per_step"]}
+    turns = {"eager": [], "K=1": []}
+    for label in ("eager", "K=1", "K=1", "eager"):
+        turns[label].append(turn(eager if label == "eager" else captured,
+                                 label != "eager"))
+    report[name] = turns
+    report[f"{name}_pool_bytes"] = {n: p.pool_bytes
+                                    for n, p in runner.programs.items()}
+    log(f"a1 {name}: one step, host-inclusive ms / busy ms / idle share "
+        "in turns (eager, K=1, K=1, eager): " + "; ".join(
+            f"{label} " + ", ".join(
+                f"{t['step_ms']:.3f} / {t['busy_ms']} / {t['idle_share']}"
+                for t in runs) for label, runs in turns.items()))
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+
+
+def a1_fp8_stages(torch, report):
+    """The two stages the fp8 policy quantizes at 128 px (G's deconv4,
+    64 px out; D's conv1, 64 px in) on their own, on a seeded input,
+    params and output cotangent, as A1_FP8_STAGE_TOL says: in bf16 at
+    batch 64, fused_conv_bn_act(quant="fp8") on the card (kernel 4, BN's
+    batch arithmetic, kernel 2) against the cuDNN route's conv with
+    quant="fp8" and torch BN, the output; the unquantized stage farther
+    from the quantized one than that limit; in f32 at batch 16, the same
+    call on the card (kernels 4 and 2, kernel 3 in its backward) against
+    itself on the CPU (the kernels' plain versions), the output and the
+    cotangents of x, w, b and BN's scale and bias, and the output against
+    the cuDNN route's."""
+    from dcgan_tpu_torch.ops.fused import fused_conv_bn_act
+    from dcgan_tpu_torch.ops.layers import conv2d_apply, deconv2d_apply
+    from dcgan_tpu_torch.ops.norm import batch_norm_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def rel(a, b, ref):
+        return float((a.float().cpu() - b.float().cpu()).norm()
+                     / ref.float().cpu().norm())
+
+    out = {}
+    for name, transpose, act, res, cin, cout in (
+            ("G deconv4", True, "relu", 32, 128, 64),
+            ("D conv1", False, "lrelu", 64, 64, 128)):
+        ho = 2 * res if transpose else res // 2
+        for dt_name, batch in (("bfloat16", BATCH), ("float32", BATCH // 4)):
+            dt = getattr(torch, dt_name)
+            h = randn(batch, res, res, cin)
+            *leaves0, gy = [t.to(dt) for t in (
+                h.relu() if act == "relu" else
+                torch.nn.functional.leaky_relu(h, 0.2),
+                randn(5, 5, cin, cout, scale=0.02), randn(cout, scale=0.01),
+                1.0 + randn(cout, scale=0.02), randn(cout, scale=0.02),
+                randn(batch, ho, ho, cout))]
+
+            def run(route, quant, dev="cuda"):
+                xs = [t.to(dev).requires_grad_(True) for t in leaves0]
+                x, w, b, scale, shift = xs
+                conv, bn = {"w": w, "b": b}, {"scale": scale, "bias": shift}
+                state = {"mean": torch.zeros(cout, device=dev, dtype=dt),
+                         "var": torch.ones(cout, device=dev, dtype=dt)}
+                if route == "kernel":
+                    y, _ = fused_conv_bn_act(
+                        conv, bn, state, x, transpose=transpose, kernel=5,
+                        stride=2, train=True, act=act, leak=0.2,
+                        compute_dtype=dt, quant=quant)
+                else:
+                    layer = deconv2d_apply if transpose else conv2d_apply
+                    y, _ = batch_norm_apply(
+                        bn, state, layer(conv, x, compute_dtype=dt,
+                                         quant=quant),
+                        train=True, act=act, leak=0.2)
+                return y, torch.autograd.grad(y, xs, gy.to(dev))
+
+            y_k, g_k = run("kernel", "fp8")
+            errs = {"out_vs_cudnn": rel(y_k, run("cudnn", "fp8")[0], y_k)}
+            if dt is torch.bfloat16:
+                errs["unquantized"] = rel(run("kernel", "")[0], y_k, y_k)
+            else:
+                y_p, g_p = run("kernel", "fp8", "cpu")
+                errs["out_vs_plain"] = rel(y_k, y_p, y_p)
+                for label, a, b in zip(("x", "w", "b", "scale", "shift"),
+                                       g_k, g_p):
+                    errs[f"d{label}_vs_plain"] = rel(
+                        a, b, g_p[4] if label == "b" else b)
+            limit = A1_FP8_STAGE_TOL[dt_name]
+            bad = {k: v for k, v in errs.items()
+                   if k != "unquantized" and not v <= limit}
+            if bad:
+                fail(f"a1 fp8 stage {name} {dt_name}: off by {bad} "
+                     f"(relative L2), limit {limit}")
+            if errs.get("unquantized", 1.0) <= limit:
+                fail(f"a1 fp8 stage {name}: quant='fp8' moved the output "
+                     f"by only {errs['unquantized']:.3g}")
+            out[f"{name} {dt_name}"] = errs
+            log(f"a1 fp8 stage {name} [{batch}, {res}, {res}, {cin}] -> "
+                f"{cout} {dt_name} (relative L2): "
+                f"{ {k: f'{v:.3g}' for k, v in errs.items()} }")
+            del y_k, g_k
+            torch.cuda.empty_cache()
+    report["fp8_stages"] = out
+
+
+def check_gbsa_backward(torch, report):
+    """Kernel 5 with inputs that require grad at D's fused stage shapes
+    (celeba64, batch 64, lrelu), in bf16 and f32: the output has a
+    grad_fn; its five cotangents (the port's backward, torch products)
+    against autograd through the plain version on the same card tensors,
+    within GBSA_BWD_TOL; the forward launches once, the backward not."""
+    from dcgan_tpu_torch.ops.fused import gemm_bias_scale_act, \
+        gemm_bias_scale_act_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    shapes = []
+    for i, (res, cin) in enumerate(((32, 64), (16, 128), (8, 256)), 1):
+        ho = res // 2
+        shapes.append((f"conv{i}", BATCH * ho * ho, 25 * cin, 2 * cin))
+    out = {}
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for name, m, k, c in shapes:
+            p = (torch.randn((m, k), generator=gen, device="cuda")
+                 * 0.5).to(dt)
+            w = (torch.randn((k, c), generator=gen, device="cuda")
+                 * k ** -0.5).to(dt)
+            vecs = [torch.randn((c,), generator=gen, device="cuda") * s + o
+                    for s, o in ((0.1, 0.0), (0.2, 1.0), (0.1, 0.0))]
+            g = torch.randn((m, c), generator=gen, device="cuda").to(dt)
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in [p, w] + vecs]
+            before = gemm_bias_scale_act.launches
+            y = gemm_bias_scale_act(*ins, "lrelu", 0.2, dt)
+            if y.grad_fn is None:
+                fail(f"gemm_bias_scale_act {name} {dt_name}: no grad_fn")
+            got = torch.autograd.grad(y, ins, g)
+            torch.cuda.synchronize()
+            if gemm_bias_scale_act.launches != before + 1:
+                fail(f"gemm_bias_scale_act {name} {dt_name}: "
+                     f"{gemm_bias_scale_act.launches - before} launches "
+                     "for one forward and backward, expected 1")
+            ref = [t.detach().clone().requires_grad_(True)
+                   for t in [p, w] + vecs]
+            want = torch.autograd.grad(gemm_bias_scale_act_plain(
+                *ref, "lrelu", 0.2, dt), ref, g)
+            errs = {}
+            for label, a, b in zip(("p2d", "w2d", "b", "scale", "shift"),
+                                   got, want):
+                if a.dtype != b.dtype:
+                    fail(f"gemm_bias_scale_act {name} {dt_name}: d{label} "
+                         f"is {a.dtype}, the plain version's {b.dtype}")
+                scale = float(b.float().abs().max())
+                errs[label] = float((a.float() - b.float()).abs().max()) / \
+                    scale
+                if not errs[label] <= GBSA_BWD_TOL[dt_name]:
+                    fail(f"gemm_bias_scale_act backward {name} {dt_name}: "
+                         f"d{label} off by {errs[label]:.3g} of its largest "
+                         f"value (limit {GBSA_BWD_TOL[dt_name]})")
+            out[f"{name} {dt_name}"] = errs
+            log(f"gemm_bias_scale_act backward {name} [{m}, {k}] @ "
+                f"[{k}, {c}] {dt_name}: cotangents within "
+                f"{GBSA_BWD_TOL[dt_name]} of the plain version's autograd "
+                f"({ {kk: f'{v:.2g}' for kk, v in errs.items()} })")
+    report["gbsa_backward_rel_err"] = out
+
+
+def a1_and_check(torch, np, workdir, kernels):
+    """Phase 15; returns the `a1` report."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.config import ModelConfig, TrainConfig
+    from dcgan_tpu_torch.ops.layers import fake_quant_fp8
+    from dcgan_tpu_torch.presets import get_preset
+    from dcgan_tpu_torch.train.steps import init_train_state, \
+        make_train_step, tree_leaves
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    report = {"timed": {}}
+    none = {n: 0 for n in PER_STEP}
+
+    # 1. WGAN-GP at full width on the plain route: the trainer, then
+    # captured against eager
+    state, cfg, rows, secs = a1_cli(torch, np, workdir, "wgan_gp",
+                                    ["--preset", "wgan-gp"], none, kernels)
+    gps = [r["gp"] for r in rows]
+    if not all(v > 0 for v in gps):
+        fail(f"a1 wgan-gp: gp {gps}")
+    init = init_train_state(cfg, device="cuda")
+    for group in ("params", "bn"):
+        after = convert.flatten(state[group]["disc"])
+        for path, a in convert.flatten(init[group]["disc"]).items():
+            # the critic's output bias has no gradient: it cancels between
+            # -E[D(real)] and E[D(fake)], and the penalty's input gradient
+            # does not see it
+            if path != "head/b" and torch.equal(a, after[path]):
+                fail(f"a1 wgan-gp: {group}/disc/{path} did not move")
+    report["wgan_gp"] = {"train_s": secs, "gp": gps, "last": rows[-1]}
+    log(f"a1 wgan-gp: gp {gps}; every D leaf moved but head/b (no "
+        "gradient in a Wasserstein critic)")
+    a1_capture_compare(torch, "wgan-gp", capture_cfg("wgan-gp", {}),
+                       A1_COMPARE_STEPS)
+
+    # 2. lazy R1 on the cuDNN route: the penalty on steps 0 and 4
+    r1_cfg = dataclasses.replace(capture_cfg("celeba64", {}), r1_gamma=10.0,
+                                 r1_interval=R1_INTERVAL)
+    eager = a1_capture_compare(torch, "r1 lazy", r1_cfg, R1_STEPS,
+                               ks=(1, CAPTURE_K))
+    r1 = [row[-1] for row in eager]
+    if [v > 0 for v in r1] != [s % R1_INTERVAL == 0
+                               for s in range(R1_STEPS)] \
+            or not all(v == 0.0 for s, v in enumerate(r1)
+                       if s % R1_INTERVAL):
+        fail(f"a1 r1 lazy: r1 per step {r1}, expected > 0 on every "
+             f"{R1_INTERVAL}th step from 0 and 0 elsewhere")
+    report["r1_lazy"] = {"r1": r1}
+    log(f"a1 r1 lazy: r1 per step {r1}")
+
+    # 3. the kernel route with n_critic 2, 2 microbatches and DiffAugment:
+    # kernels 1-4 at the microbatch's shapes first
+    kernel = ["--preset", "celeba64", "--use_pallas", "--pallas_fused"]
+    a1_check_kernels(torch, workdir, "kernel_critic", kernel + A1_CRITIC,
+                     BATCH // 2, report)
+    state, cfg, rows, secs = a1_cli(torch, np, workdir, "kernel_critic",
+                                    kernel + A1_CRITIC, a1_per_step(2, 2),
+                                    kernels, path="a1")
+    report["kernel_critic"] = {"train_s": secs, "last": rows[-1],
+                               "per_step": a1_per_step(2, 2)}
+    kcfg = dataclasses.replace(cfg, max_steps=1_200_000)
+    a1_route_grads(torch, "kernel_critic", kcfg, report)
+    a1_capture_compare(torch, "kernel_critic", kcfg, A1_COMPARE_STEPS)
+
+    # 4. the precision policies on the kernel route: bf16 at 64 px, fp8 at
+    # 128 px (no stage of a 64 px model reaches the 64 px gate; at 128 G's
+    # last fused stage and D's conv1 quantize), its kernels at its shapes
+    # first
+    fp8_argv = ["--precision", "fp8", "--output_size", "128"]
+    a1_check_kernels(torch, workdir, "kernel_fp8", kernel + fp8_argv, BATCH,
+                     report)
+    timed = {}
+    for policy, argv, per_step in (
+            ("bf16", ["--precision", "bf16"], PER_STEP),
+            ("fp8", fp8_argv, a1_per_step(1, 1, stages=4))):
+        state, cfg, rows, secs = a1_cli(
+            torch, np, workdir, f"kernel_{policy}", kernel + argv, per_step,
+            kernels, path="a1")
+        for net in ("gen", "disc"):
+            if {t.dtype for t in tree_leaves(state["params"][net])} != {
+                    torch.bfloat16} or {t.dtype for t in tree_leaves(
+                        state["opt"][net]["mu"])} != {torch.float32}:
+                fail(f"a1 {policy}: {net}'s params must be bf16 and its "
+                     "Adam mu f32")
+        restored = Checkpointer(cfg.checkpoint_dir).restore_latest(
+            init_train_state(cfg, device="cuda"))
+        same_state(torch, convert, f"a1 {policy}: the checkpoint",
+                   restored, state)
+        pcfg = timed[f"kernel_{policy}_{cfg.model.output_size}px"] = \
+            dataclasses.replace(cfg, max_steps=1_200_000)
+        grads, losses, route_gap = a1_route_grads(
+            torch, f"kernel_{policy}", pcfg, report)
+        report[f"kernel_{policy}"] = {"train_s": secs, "last": rows[-1],
+                                      "output_size": cfg.model.output_size,
+                                      "per_step": per_step}
+        log(f"a1 {policy} at {cfg.model.output_size} px: params bf16, Adam "
+            "mu f32, the checkpoint restores bit for bit")
+    # the bf16 policy at 128 px on the same state and inputs: its routes
+    # within the bf16 limits, and its step not the fp8 step
+    bcfg = timed["kernel_bf16_128px"] = dataclasses.replace(
+        pcfg, precision="bf16")
+    bgrads, bm, _ = a1_route_grads(torch, "kernel_bf16_128px", bcfg, report)
+    policy_gap = net_gaps(convert, grads, bgrads, pre_bn_biases(bcfg.model))
+    if bm == losses or not min(policy_gap.values()) > 0.0:
+        fail(f"a1 fp8 at 128 px: the bf16 step's losses {bm}, fp8's "
+             f"{losses}; gradients off the bf16 step's by {policy_gap} "
+             "(relative L2)")
+    report["fp8_vs_bf16_128px"] = {"losses": [losses, bm],
+                                   "net_grad_gap": policy_gap}
+    log(f"a1 fp8 at 128 px differs from the bf16 step: losses {losses} vs "
+        f"{bm}; each net's gradient off the bf16 step's by {policy_gap}, "
+        f"off the cuDNN route's fp8 step's by {route_gap} (relative L2)")
+    a1_fp8_stages(torch, report)
+    # the quantizer on the card against the CPU, bit for bit, at G's
+    # largest patch matrix of a 64 px model
+    x = torch.randn((BATCH * 32 * 32, 25 * 128), device="cuda",
+                    dtype=torch.bfloat16) * 3.0
+    if not torch.equal(fake_quant_fp8(x).cpu(), fake_quant_fp8(x.cpu())):
+        fail("fake_quant_fp8 on the card differs from the CPU's")
+    log("a1 fp8: fake_quant_fp8 on the card equals the CPU's bit for bit")
+
+    # 5. kernel 5's backward
+    check_gbsa_backward(torch, report)
+
+    # 6. the penalty on a kernel route is refused
+    try:
+        TrainConfig(model=ModelConfig(use_pallas=True, pallas_fused=True),
+                    loss="wgan-gp")
+    except NotImplementedError as e:
+        log(f"a1: wgan-gp with use_pallas refused: {e}")
+    else:
+        fail("a1: loss='wgan-gp' with use_pallas was not refused")
+
+    # 7. timings
+    timed.update({"wgan_gp": capture_cfg("wgan-gp", {}), "r1_lazy": r1_cfg,
+                  "kernel_critic": kcfg})
+    for name, tcfg in timed.items():
+        a1_timed(torch, name, tcfg, report["timed"])
+    pcfg = get_preset("wgan-gp", batch_size=BATCH)
+    fns = make_train_step(pcfg)
+    st = fns.init(seed=SEED, device="cuda")
+    images, zs, _ = a1_inputs(torch, pcfg, 1)
+    for label, fn in (("eval_losses", lambda: fns.eval_losses(
+            st, images[0], zs[0])), ("summarize", lambda: fns.summarize(
+                st, images[0], zs[0]))):
+        dev_ms, call_ms = time_ms(torch, fn, 5, warmup=1,
+                                  label=f"wgan-gp {label}")
+        report[label] = {"device_ms": dev_ms, "call_ms": call_ms}
+        log(f"a1 wgan-gp {label}: {dev_ms:.3f} ms on the card, "
+            f"{call_ms:.3f} ms host-inclusive per call")
+    return report
+
+
+def phase_memory(torch, phase, report):
+    """A phase's end: its peak device memory, then the garbage collected
+    (a captured program's closure refers to its owner, which holds the
+    program: a cycle) and the cache emptied. Fails if a CUDA graph's
+    private pool is still reserved: the phases after it would run short of
+    the card's memory. Adds {peak, left allocated and reserved bytes} to
+    `report[phase]` and resets the peaks."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pooled = [seg for seg in torch.cuda.memory_snapshot()
+              if tuple(seg["segment_pool_id"]) != (0, 0)]
+    entry = report[phase] = {
+        "peak_allocated": torch.cuda.max_memory_allocated(),
+        "peak_reserved": torch.cuda.max_memory_reserved(),
+        "allocated": torch.cuda.memory_allocated(),
+        "reserved": torch.cuda.memory_reserved(),
+        "graph_pool_bytes": sum(seg["total_size"] for seg in pooled)}
+    log(f"memory after {phase}: " + ", ".join(
+        f"{k} {v / 2 ** 30:.2f} GiB" for k, v in entry.items()))
+    if pooled:
+        fail(f"after {phase}: {len(pooled)} segments of CUDA graph pools "
+             f"({entry['graph_pool_bytes']} bytes) still reserved")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def check_sass(_build, libs):
     """Phase 1: the Hopper instructions of HOPPER_SASS in each redesigned
     kernel's entries; fails where an entry lacks one. Returns
@@ -3230,9 +4085,11 @@ def main() -> int:
     sass = check_sass(_build, libs)
 
     cfg = celeba64(use_pallas=True, pallas_fused=True)
+    memory = {}
     kernels = check_kernels(torch, cfg, ptxas)
     kernels[1:1] = check_train_kernels(torch, cfg, kernels[0], ptxas)
     kernels += check_flash_kernels(torch, ptxas)
+    phase_memory(torch, "kernel checks", memory)
     for entry in kernels:
         if entry["name"] in sass:
             entry["sass"] = sass[entry["name"]]
@@ -3240,14 +4097,21 @@ def main() -> int:
             entry["sass"] = sass["flash_attention"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         row, timing = serve_and_check(torch, np, cfg, workdir, kernels)
+        phase_memory(torch, "serve", memory)
         train_report = train_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "train", memory)
         sagan_report, state, sagan_cfg = sagan_train_and_check(
             torch, np, workdir, kernels)
         sagan_row, sagan_timing = sagan_serve_and_check(
             torch, np, sagan_cfg, state, workdir, kernels)
         del state
+        phase_memory(torch, "sagan64", memory)
         resume_report = resume_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "resume", memory)
         capture_report = capture_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "capture", memory)
+        a1_report = a1_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "a1", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -3256,6 +4120,8 @@ def main() -> int:
     print(json.dumps({"sagan64_train": sagan_report}), flush=True)
     print(json.dumps({"resume": resume_report}), flush=True)
     print(json.dumps({"capture": capture_report}), flush=True)
+    print(json.dumps({"a1": a1_report}), flush=True)
+    print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,12 +6,16 @@ Same field names, defaults and validation as the JAX package's, so each
 package's `config.json` loads in the other. The port serves
 and trains the DCGAN stacks with or without the SAGAN additions (a
 self-attention block at `attn_res`, spectral norm on D or on both nets,
-the hinge loss); the fields that select anything else (another `arch`,
-class conditioning, fp8 quantization; the wgan-gp loss, n_critic > 1,
-gradient accumulation, a bf16/fp8 precision policy, DiffAugment) raise
-`NotImplementedError` instead of being silently ignored. A sequence mesh
-for the attention does not exist in the port yet: `ops/attention.py`
-refuses one.
+the hinge loss), on the BCE, hinge or WGAN-GP loss, with R1, n_critic,
+gradient accumulation, DiffAugment and the f32/bf16/fp8 precision
+policies; the fields that select anything else (another `arch`, class
+conditioning; the JAX package's `progressive` schedule and `pipeline_gd`
+stage programs) raise `NotImplementedError` instead of being silently
+ignored. So does a penalty (WGAN-GP, R1) on a kernel route
+(`use_pallas`): the JAX package cannot differentiate a Pallas kernel
+twice, so its penalties run on the plain route only, and so do the
+port's. A sequence mesh for the attention does not exist in the port
+yet: `ops/attention.py` refuses one.
 """
 
 from __future__ import annotations
@@ -24,6 +28,27 @@ import sys
 from typing import Any, Dict, Optional, Tuple
 
 CONFIG_FILENAME = "config.json"
+
+# TrainConfig.precision -> (compute_dtype, param_dtype, quant), the JAX
+# package's policy table
+PRECISION_POLICY = {"f32": ("float32", "float32", ""),
+                    "bf16": ("bfloat16", "bfloat16", ""),
+                    "fp8": ("bfloat16", "bfloat16", "fp8")}
+
+DIFFAUG_POLICIES = ("color", "translation", "cutout")
+
+
+def parse_policy(spec: str) -> Tuple[str, ...]:
+    """DiffAugment's "color,translation" -> a validated tuple; "" -> ()."""
+    if not spec:
+        return ()
+    parts = tuple(p.strip() for p in spec.split(",") if p.strip())
+    for p in parts:
+        if p not in DIFFAUG_POLICIES:
+            raise ValueError(
+                f"unknown diffaug policy {p!r}; available: "
+                f"{DIFFAUG_POLICIES}")
+    return parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +75,8 @@ class ModelConfig:
     bn_pallas: Optional[bool] = None  # narrows the BN half of use_pallas
     pallas_fused: bool = False     # interior G stages as one
                                    # gemm_bias_scale_act kernel (ops/fused.py)
-    quant: str = ""
+    quant: str = ""                # "fp8": fp8 operands at >= 64 px
+                                   # stages (set by TrainConfig.precision)
     attn_res: int = 0
     attn_heads: int = 1
     attn_seq_strategy: str = "ring"
@@ -120,8 +146,6 @@ class ModelConfig:
             unserved.append(f"arch={self.arch!r}")
         if self.num_classes:
             unserved.append(f"num_classes={self.num_classes}")
-        if self.quant:
-            unserved.append(f"quant={self.quant!r}")
         if unserved:
             raise NotImplementedError(
                 "dcgan_tpu_torch serves and trains the DCGAN stacks "
@@ -149,17 +173,30 @@ class TrainConfig:
     beta1: float = 0.5
     batch_size: int = 64
     max_steps: int = 1_200_000
-    loss: str = "gan"              # BCE non-saturating | "hinge"
-    n_critic: int = 1              # D updates per G update
+    loss: str = "gan"              # BCE non-saturating | "wgan-gp" |
+                                   # "hinge"
+    gp_weight: float = 10.0        # WGAN-GP gradient-penalty coefficient
+    r1_gamma: float = 0.0          # >0 adds (gamma/2) E[|grad_x D(x)|^2]
+                                   # on the reals to D's loss ("gan" and
+                                   # "hinge" only)
+    r1_interval: int = 1           # lazy R1: the penalty every k-th step,
+                                   # gamma scaled by k
+    n_critic: int = 1              # D updates per G update, each on fresh
+                                   # z against the same real batch
     update_mode: str = "sequential"  # D step, then G against the updated D;
                                      # "fused": both from the same params
-    grad_accum: int = 1
-    diffaug: str = ""
+    grad_accum: int = 1            # microbatches per optimizer update,
+                                   # gradients accumulated in f32
+    diffaug: str = ""              # DiffAugment on every D input: a comma
+                                   # list of color, translation, cutout
     grad_clip: float = 0.0         # >0 clips each net's grads by global norm
     label_smoothing: float = 0.0   # one-sided: D's real target 1 - eps
     g_ema_decay: float = 0.0       # 0: ema_gen mirrors the live G weights
     # data (TFRecord shards, data/pipeline.py)
     data_dir: str = "train"
+    sample_image_dir: str = "sample_data"  # the held-out shards of the
+                                   # eval_losses probe (synthetic runs use
+                                   # the synthetic stream at seed + 100)
     shuffle_buffer: int = 10_776   # shuffle pool: 10% of a CelebA epoch
     num_loader_threads: int = 16
     normalize_inputs: bool = True  # map reals to [-1,1]
@@ -180,9 +217,14 @@ class TrainConfig:
     sample_grid: Tuple[int, int] = (8, 8)
     sample_size: int = 64          # rows of the fixed sample z
     log_every_steps: int = 1
+    activation_summary_steps: int = 500  # per-layer activation histograms
+                                   # and sparsity (0: none)
     seed: int = 0
     precision: str = ""            # "" leaves the model dtypes; "f32"
-                                   # forces float32 compute and params
+                                   # forces float32 compute and params;
+                                   # "bf16" bf16 params and compute with
+                                   # f32 Adam first moments; "fp8" that
+                                   # plus fp8 operands at >= 64 px stages
     steps_per_call: int = 1        # >1: K steps as one captured CUDA graph
                                    # (train/warmup.py); the step cadences
                                    # must be 0, multiples or divisors of K
@@ -196,14 +238,41 @@ class TrainConfig:
             raise ValueError(
                 f"precision must be one of '', 'f32', 'bf16', 'fp8', got "
                 f"{self.precision!r}")
+        if self.precision:
+            # the JAX policy normalization: precision overrides the model's
+            # dtype and quant flags (idempotent, so config.json round-trips)
+            cdt, pdt, quant = PRECISION_POLICY[self.precision]
+            if (self.model.compute_dtype, self.model.param_dtype,
+                    self.model.quant) != (cdt, pdt, quant):
+                object.__setattr__(self, "model", dataclasses.replace(
+                    self.model, compute_dtype=cdt, param_dtype=pdt,
+                    quant=quant))
+        elif self.model.quant:
+            raise ValueError(
+                "model.quant is set by the precision policy — use "
+                "precision='fp8' rather than setting it directly")
         if self.loss not in ("gan", "wgan-gp", "hinge"):
             raise ValueError(f"unknown loss {self.loss!r}")
         if self.update_mode not in ("sequential", "fused"):
             raise ValueError(f"unknown update_mode {self.update_mode!r}")
         if self.n_critic < 1:
             raise ValueError(f"n_critic must be >= 1, got {self.n_critic}")
+        if self.r1_gamma < 0:
+            raise ValueError(f"r1_gamma must be >= 0, got {self.r1_gamma}")
+        if self.r1_gamma and self.loss == "wgan-gp":
+            raise ValueError(
+                "r1_gamma composes with the 'gan'/'hinge' families; "
+                "'wgan-gp' already carries its own gradient penalty")
+        if self.r1_interval < 1:
+            raise ValueError(
+                f"r1_interval must be >= 1, got {self.r1_interval}")
+        if self.r1_interval > 1 and not self.r1_gamma:
+            raise ValueError(
+                "r1_interval > 1 without r1_gamma is a silent no-op — set "
+                "r1_gamma > 0 to enable R1")
         if self.grad_clip < 0:
             raise ValueError(f"grad_clip must be >= 0, got {self.grad_clip}")
+        parse_policy(self.diffaug)  # raises on unknown policy names
         if not 0.0 <= self.label_smoothing < 0.5:
             raise ValueError(
                 f"label_smoothing must be in [0, 0.5), got "
@@ -254,6 +323,8 @@ class TrainConfig:
             # anything else would fire on a skewed subset of its steps
             cadences = {"log_every_steps": self.log_every_steps,
                         "sample_every_steps": self.sample_every_steps,
+                        "activation_summary_steps":
+                            self.activation_summary_steps,
                         "save_model_steps": self.save_model_steps}
             spc = self.steps_per_call
             bad = {k: v for k, v in cadences.items()
@@ -264,32 +335,21 @@ class TrainConfig:
                     "0, a multiple of it (fires on schedule), or a divisor "
                     "of it (fires each call boundary); offending: "
                     f"{bad}")
-        # then what this slice of the port does not train yet
-        unserved = []
-        if self.loss not in ("gan", "hinge"):
-            unserved.append(f"loss={self.loss!r}")
-        if self.n_critic > 1:
-            unserved.append(f"n_critic={self.n_critic}")
-        if self.grad_accum > 1:
-            unserved.append(f"grad_accum={self.grad_accum}")
-        if self.precision not in ("", "f32"):
-            unserved.append(f"precision={self.precision!r}")
-        if self.diffaug:
-            unserved.append(f"diffaug={self.diffaug!r}")
-        if unserved:
+        if self.n_critic > 1 and self.update_mode == "fused":
+            raise ValueError(
+                "update_mode='fused' (reference-parity single fused step) is "
+                "defined only for n_critic=1")
+        if (self.loss == "wgan-gp" or self.r1_gamma > 0) \
+                and self.model.use_pallas:
+            # the JAX package's penalties fail on both of its kernel routes
+            # (a pallas_call has no second derivative), so they run on the
+            # plain route there and here
             raise NotImplementedError(
-                "dcgan_tpu_torch trains the BCE or hinge GAN step (n_critic "
-                "1, no accumulation, model dtypes or f32, no augmentation) "
-                "only; "
-                f"not ported yet: {', '.join(unserved)}")
-        if self.precision == "f32" and (self.model.compute_dtype,
-                                        self.model.param_dtype) != (
-                                            "float32", "float32"):
-            # the JAX policy normalization: precision overrides the model's
-            # dtype flags
-            object.__setattr__(self, "model", dataclasses.replace(
-                self.model, compute_dtype="float32", param_dtype="float32"))
-
+                "a gradient penalty (loss='wgan-gp' or r1_gamma > 0) needs "
+                "the critic's second derivative, which the reference cannot "
+                "take through a Pallas kernel (its penalties run on the "
+                "plain route only); train the penalty with "
+                "use_pallas=False")
 
 
 def model_config_from_dict(d: Dict[str, Any]) -> ModelConfig:
@@ -329,8 +389,7 @@ def save_model_config(cfg: ModelConfig, directory: str) -> str:
 # TrainConfig fields of the JAX package that change what is trained and
 # that the port does not implement, with their JAX defaults: a config.json
 # that sets one otherwise raises instead of being trained without it
-UNPORTED_TRAIN_FIELDS = {"r1_gamma": 0.0, "progressive": "",
-                         "pipeline_gd": False}
+UNPORTED_TRAIN_FIELDS = {"progressive": "", "pipeline_gd": False}
 
 
 def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:

@@ -21,6 +21,13 @@
 A training checkpoint of the port (`utils/checkpoint.py`) is its state
 tree through `flatten`; an Orbax checkpoint of the JAX package is converted
 to it, and back, by `tools/export_torch_checkpoint.py` on a host with JAX.
+
+bfloat16 leaves (the bf16 and fp8 precision policies): numpy has no
+bfloat16, so an npz holds such a leaf as its uint16 bit pattern and lists
+its path in the `BF16_PATHS` entry (`to_npz_arrays`, `from_npz_arrays`):
+the state restores bit for bit. A JAX bfloat16 array (an `ml_dtypes`
+numpy array) is read through its uint16 view, by its dtype's name, so
+nothing here imports `ml_dtypes`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from dcgan_tpu_torch.device import resolve_device
 Pytree = dict
 
 _SEP = "/"
+# the npz entry that lists the paths of the leaves stored as bfloat16 bits
+BF16_PATHS = "__bfloat16__"
 
 
 def flatten(tree: Pytree, prefix: str = "") -> Dict[str, object]:
@@ -66,20 +75,52 @@ def unflatten(flat: Dict[str, object]) -> Pytree:
     return tree
 
 
-def _to_torch(tree: Pytree, device: torch.device) -> Pytree:
-    return unflatten({path: torch.from_numpy(np.array(leaf)).to(device)
-                      for path, leaf in flatten(tree).items()})
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; a bfloat16 one as its uint16 bit
+    pattern."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
-def _to_numpy(tree: Pytree) -> Dict[str, np.ndarray]:
-    out = {}
-    for path, leaf in flatten(tree).items():
-        t = leaf.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            raise TypeError(f"{path}: bfloat16 leaves have no numpy dtype; "
-                            "store parameters in float32 (param_dtype)")
-        out[path] = t.numpy()
+def leaf_from_numpy(a, bfloat16: bool = False) -> torch.Tensor:
+    """A numpy array as a tensor: a JAX bfloat16 array (ml_dtypes) or, with
+    bfloat16=True, a uint16 bit pattern becomes a bfloat16 tensor with the
+    same bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a, bfloat16 = a.view(np.uint16), True
+    if bfloat16:
+        if a.dtype != np.uint16:
+            raise TypeError(f"bfloat16 bits must be uint16, got {a.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def to_npz_arrays(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{path: tensor} as the arrays of an npz, bfloat16 leaves as bits
+    with their paths in BF16_PATHS."""
+    out = {path: leaf_to_numpy(t) for path, t in flat.items()}
+    bf16 = sorted(p for p, t in flat.items() if t.dtype == torch.bfloat16)
+    if bf16:
+        out[BF16_PATHS] = np.array(bf16)
     return out
+
+
+def from_npz_arrays(arrays: Dict[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+    """The inverse of `to_npz_arrays`, on the host."""
+    arrays = dict(arrays)
+    bf16 = set(arrays.pop(BF16_PATHS, np.array([], dtype=str)).tolist())
+    return {path: leaf_from_numpy(a, path in bf16)
+            for path, a in arrays.items()}
+
+
+def _to_torch(tree: Pytree, device: torch.device) -> Pytree:
+    return unflatten({path: leaf_from_numpy(leaf).to(device)
+                      for path, leaf in flatten(tree).items()})
 
 
 def generator_from_jax(params_np: Pytree, state_np: Pytree, *,
@@ -112,7 +153,9 @@ def train_state_from_jax(state_np: Pytree, *,
 
     return {
         "params": _to_torch(state_np["params"], dev),
-        "bn": _to_torch(state_np["bn"], dev),
+        # per net: a D without BatchNorm (one stage) keeps its empty dict
+        "bn": {net: _to_torch(state_np["bn"][net], dev)
+               for net in ("gen", "disc")},
         "opt": {net: opt(state_np["opt"][net]) for net in ("gen", "disc")},
         "ema_gen": _to_torch(state_np["ema_gen"], dev),
         "step": torch.tensor(int(np.asarray(state_np["step"])),
@@ -123,9 +166,11 @@ def train_state_from_jax(state_np: Pytree, *,
 def train_state_to_numpy(state: Pytree) -> Pytree:
     """The port's training state as nested numpy arrays in the JAX state's
     layout, with each net's optimizer state as optax's leaves (count, mu,
-    nu); the inverse of `train_state_from_jax`."""
+    nu); the inverse of `train_state_from_jax`. bfloat16 leaves come out
+    as their uint16 bits (`leaf_to_numpy`)."""
     def tree(t: Pytree) -> Pytree:
-        return unflatten(_to_numpy(t))
+        return unflatten({path: leaf_to_numpy(leaf)
+                          for path, leaf in flatten(t).items()})
 
     def scalar(t: torch.Tensor) -> np.ndarray:
         return np.asarray(int(t), dtype=np.int32)
@@ -150,8 +195,10 @@ def save_weights(path: str, cfg: ModelConfig, params: Pytree,
                  state: Pytree) -> str:
     """Write params and BN state to `path` (.npz) and `cfg` as config.json
     in the same directory; returns the npz path."""
-    arrays = {f"params{_SEP}{k}": v for k, v in _to_numpy(params).items()}
-    arrays.update({f"state{_SEP}{k}": v for k, v in _to_numpy(state).items()})
+    arrays = to_npz_arrays({**{f"params{_SEP}{k}": v
+                                for k, v in flatten(params).items()},
+                             **{f"state{_SEP}{k}": v
+                                for k, v in flatten(state).items()}})
     directory = _config_dir(path)
     os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp.npz"
@@ -168,12 +215,11 @@ def load_weights(path: str, *, device: Union[str, torch.device] = "cuda"
     dev = resolve_device(device)
     cfg = load_model_config(_config_dir(path))
     with np.load(path) as data:
-        flat = {name: data[name] for name in data.files}
-    groups: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "state": {}}
-    for name, arr in flat.items():
+        flat = from_npz_arrays({name: data[name] for name in data.files})
+    groups: Dict[str, Dict[str, torch.Tensor]] = {"params": {}, "state": {}}
+    for name, t in flat.items():
         group, _, rest = name.partition(_SEP)
         if group not in groups or not rest:
             raise ValueError(f"{path}: unexpected array {name!r}")
-        groups[group][rest] = arr
-    return (cfg, _to_torch(unflatten(groups["params"]), dev),
-            _to_torch(unflatten(groups["state"]), dev))
+        groups[group][rest] = t.to(dev)
+    return cfg, unflatten(groups["params"]), unflatten(groups["state"])

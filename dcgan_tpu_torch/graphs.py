@@ -35,6 +35,7 @@ a replayed program counts as the eager calls it was captured from.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -130,14 +131,23 @@ class CapturedProgram:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             before = launch_counts()
+            # the collector stays off while the capture runs: a graph it
+            # destroyed there (a dropped owner's) would invalidate the
+            # capture
+            collecting = gc.isenabled()
             # torch.cuda.graph empties the cache too; emptied first, the
             # growth of the reserved bytes is the graph's private pool
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                self.outputs = self.fn()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = self.fn()
+            finally:
+                if collecting:
+                    gc.enable()
             torch.cuda.synchronize(self.device)
             self.launches = counts_delta(launch_counts(), before)
             # the capture launched nothing: its counts come back at every
@@ -160,3 +170,16 @@ class CapturedProgram:
             self.graph.replay()
             add_counts(self.launches)
         return self.outputs
+
+    def release(self) -> None:
+        """Drop the graph, its outputs and the function. The function's
+        closure usually refers to the program's owner, which holds the
+        program: a cycle that only the garbage collector would break, and
+        until then the graph's private pool stays reserved on the device.
+        Released, the program is not captured and cannot run."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.outputs = None
+        self.fn = None
+        self.capture_ms = None

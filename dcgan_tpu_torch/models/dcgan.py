@@ -33,12 +33,22 @@ the BN moments, advanced on every train=True apply.
 
 train=True uses batch BN statistics and returns the EMA-updated state
 (detached); train=False uses the running statistics.
+
+fp8 (`quant="fp8"`, the fp8 precision policy): the interior stages whose
+feature maps reach _FP8_MIN_RES pixels quantize both GEMM operands
+(`_stage_quant`, `dcgan_tpu/models/dcgan.py:103-114`); G's last deconv and
+D's first conv never do. No stage of a 64 px model reaches 64 px inside
+(its interior maps top out at 32), so the policy bites from 128 px up.
+
+`capture`, a dict, receives the post-activation tensors under the JAX
+names, for `summarize`: "h0".."hk" in G (hk the tanh output), "h0"..
+"h{k-1}" and "logit" in D.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -63,6 +73,15 @@ def torch_dtype(name: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; expected one of "
                          f"{sorted(_DTYPES)}") from None
+
+
+_FP8_MIN_RES = 64
+
+
+def _stage_quant(cfg: ModelConfig, res: int) -> str:
+    """The quantization of an interior stage whose feature map is `res`
+    pixels on a side: cfg.quant at res >= _FP8_MIN_RES, else none."""
+    return cfg.quant if res >= _FP8_MIN_RES else ""
 
 
 def _tree_to(tree: Pytree, device: torch.device) -> Pytree:
@@ -144,7 +163,8 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 
 
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
-                    cfg: ModelConfig, train: bool
+                    cfg: ModelConfig, train: bool,
+                    capture: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
     state), on z's device. train=False is the sampler path (running BN
@@ -177,21 +197,32 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
     h, new_state["bn0"] = bn("bn0", h)
     if cfg.attn_res == cfg.base_size:
         h = attend(h)
+    if capture is not None:
+        capture["h0"] = h
     for i in range(1, k + 1):
+        quant = "" if i == k else _stage_quant(cfg,
+                                               cfg.base_size * (2 ** i))
         if cfg.pallas_fused and i < k:
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"deconv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                act="relu", compute_dtype=cdt)
+                act="relu", compute_dtype=cdt, quant=quant)
         else:
-            h = deconv2d_apply(layer(f"deconv{i}"), h, compute_dtype=cdt)
+            h = deconv2d_apply(layer(f"deconv{i}"), h, compute_dtype=cdt,
+                               quant=quant)
             if i < k:
                 h, new_state[f"bn{i}"] = bn(f"bn{i}", h)
-        if i < k and cfg.attn_res == cfg.base_size * (2 ** i):
-            h = attend(h)
+        if i < k:
+            if cfg.attn_res == cfg.base_size * (2 ** i):
+                h = attend(h)
+            if capture is not None:
+                capture[f"h{i}"] = h
     # tanh in f32 after the last deconv, as the JAX package does
-    return torch.tanh(h.float()), new_state
+    out = torch.tanh(h.float())
+    if capture is not None:
+        capture[f"h{k}"] = out
+    return out, new_state
 
 
 @torch.inference_mode()
@@ -239,7 +270,8 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
 
 
 def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
-                        *, cfg: ModelConfig, train: bool
+                        *, cfg: ModelConfig, train: bool,
+                        capture: Optional[dict] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
     state)."""
@@ -260,14 +292,16 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
 
     h = image.to(cdt)
     for i in range(k):
+        quant = _stage_quant(cfg, cfg.output_size >> i)
         if cfg.pallas_fused and i > 0:
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"conv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=False, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                act="lrelu", leak=cfg.leak, compute_dtype=cdt)
+                act="lrelu", leak=cfg.leak, compute_dtype=cdt, quant=quant)
         elif i > 0:
-            h = conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt)
+            h = conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt,
+                             quant=quant)
             h, new_state[f"bn{i}"] = batch_norm_apply(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train,
                 momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="lrelu",
@@ -277,9 +311,13 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                       cfg.leak)
         if cfg.attn_res and cfg.attn_res == cfg.output_size >> (i + 1):
             h = attend(h)
+        if capture is not None:
+            capture[f"h{i}"] = h
     # the head's rows are laid out for the NHWC flatten
     h = h.reshape(h.shape[0], -1)
     logit = linear_apply(layer("head"), h, compute_dtype=cdt).float()
+    if capture is not None:
+        capture["logit"] = logit
     return torch.sigmoid(logit), logit, new_state
 
 

@@ -13,7 +13,10 @@ Two GEMM kernels, each with its plain version for CPU tensors:
   act((P @ W + b) * scale + shift), in one pass: on a CUDA tensor the
   `csrc/gemm_bias_scale_act.cu` kernel (which replaces the TPU kernel
   `_gemm_bias_scale_act_kernel`), in the design and tiles that
-  `gbsa_plan` picks;
+  `gbsa_plan` picks. It is differentiable; its backward is
+  `_gbsa_vjp_bwd`'s (`dcgan_tpu/ops/pallas_fused.py:250-287`): u
+  recomputed with one f32 matmul, then f32 products in torch ops, as the
+  JAX package takes them in XLA;
 - `gemm_bias_moments` is the train stage's forward, u = P @ W + b in f32
   with the per-channel (E[v], E[v^2]) of v = u in the compute dtype: on a
   CUDA tensor `csrc/gemm_bias_moments.cu` (replacing
@@ -22,7 +25,10 @@ Two GEMM kernels, each with its plain version for CPU tensors:
   `_gbm_vjp_bwd`'s two matmuls, which the JAX package leaves to XLA and
   this port to `torch.matmul`.
 `fused_conv_bn_act(train=True)` follows it with BN's batch arithmetic and
-the `scale_shift_act` epilogue (ops/kernels.py).
+the `scale_shift_act` epilogue (ops/kernels.py). Under the fp8 policy a
+quantized stage passes the patch matrix and W through `fake_quant_fp8`
+before either kernel: one more elementwise pass over the patches, outside
+the kernel, as in the JAX package.
 
 Under a CUDA graph capture (graphs.py): the v2 design of both kernels
 encodes its TMA descriptors on the host, from the operands' addresses, at
@@ -43,11 +49,11 @@ import torch
 import torch.nn.functional as F
 
 from dcgan_tpu_torch.ops.activations import ACT_CODES, LEAK, act_fwd, \
-    check_act
+    act_grad, check_act
 from dcgan_tpu_torch.ops.kernels import DTYPE_CODES, bn_scale_shift, \
     c_function, channel_vector, check_launch, check_matrix, \
     scale_shift_act, sm_count, stream_of
-from dcgan_tpu_torch.ops.layers import same_pads
+from dcgan_tpu_torch.ops.layers import fake_quant_fp8, same_pads
 from dcgan_tpu_torch.ops.norm import finish_batch_moments
 
 Pytree = dict
@@ -230,26 +236,12 @@ def gemm_plan(p2d: torch.Tensor, w2d: torch.Tensor, sms: int) -> GbsaPlan:
     return gbsa_plan(m, k, c, p2d.dtype, aligned, sms)
 
 
-def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
-                        b: torch.Tensor, scale: torch.Tensor,
-                        shift: torch.Tensor, act: str = "none",
-                        leak: float = LEAK,
-                        out_dtype: torch.dtype = torch.float32
-                        ) -> torch.Tensor:
-    """act((p2d @ w2d + b) * scale + shift) for p2d [M, K], w2d [K, C] and
-    [C] vectors, accumulated in f32, returned in `out_dtype`.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot) in the design `gbsa_plan` picks: bf16
-    operands whose K and C are multiples of 8 and whose data pointers are
-    16-byte aligned take v2 (TMA and wgmma), other bf16 operands v1
-    (WMMA), f32 operands the SIMT kernel. `gemm_bias_scale_act.launches`
-    counts launches, `.launches_by_design` them by design."""
-    check_act(act)
-    _check_gemm(p2d, w2d, out_dtype)
-    if p2d.device.type == "cpu":
-        return gemm_bias_scale_act_plain(p2d, w2d, b, scale, shift, act,
-                                         leak, out_dtype)
+def gemm_bias_scale_act_launch(p2d: torch.Tensor, w2d: torch.Tensor,
+                               b: torch.Tensor, scale: torch.Tensor,
+                               shift: torch.Tensor, act: str, leak: float,
+                               out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors (raises if it cannot launch), in the
+    design `gemm_plan` picks."""
     _check_gemm_operands(p2d, w2d)
     m, k = p2d.shape
     c = w2d.shape[1]
@@ -275,6 +267,60 @@ def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
     gemm_bias_scale_act.launches += 1
     gemm_bias_scale_act.launches_by_design[plan.design] += 1
     return y
+
+
+class _GemmBiasScaleAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p2d, w2d, b, scale, shift, act, leak, out_dtype):
+        ctx.save_for_backward(p2d, w2d, b, scale, shift)
+        ctx.act, ctx.leak = act, leak
+        if p2d.device.type == "cpu":
+            return gemm_bias_scale_act_plain(p2d, w2d, b, scale, shift, act,
+                                             leak, out_dtype)
+        return gemm_bias_scale_act_launch(p2d, w2d, b, scale, shift, act,
+                                          leak, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # `_gbsa_vjp_bwd`: u recomputed in f32 (one matmul) instead of
+        # stored, then f32 products outside any kernel (XLA's in JAX), each
+        # cotangent cast to its input's dtype
+        p2d, w2d, b, scale, shift = ctx.saved_tensors
+        pf, wf, sf = p2d.float(), w2d.float(), scale.float()
+        u = torch.matmul(pf, wf) + b.float()
+        v = u * sf + shift.float()
+        dv = g.float() * act_grad(v, ctx.act, ctx.leak)
+        du = dv * sf
+        need = ctx.needs_input_grad
+        dp = torch.matmul(du, wf.t()).to(p2d.dtype) if need[0] else None
+        dw = torch.matmul(pf.t(), du).to(w2d.dtype) if need[1] else None
+        db = du.sum(0).to(b.dtype) if need[2] else None
+        dscale = (dv * u).sum(0).to(scale.dtype) if need[3] else None
+        dshift = dv.sum(0).to(shift.dtype) if need[4] else None
+        return dp, dw, db, dscale, dshift, None, None, None
+
+
+def gemm_bias_scale_act(p2d: torch.Tensor, w2d: torch.Tensor,
+                        b: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor, act: str = "none",
+                        leak: float = LEAK,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """act((p2d @ w2d + b) * scale + shift) for p2d [M, K], w2d [K, C] and
+    [C] vectors, accumulated in f32, returned in `out_dtype`;
+    differentiable in the five tensors.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and raises if it cannot) in the design `gbsa_plan` picks: bf16
+    operands whose K and C are multiples of 8 and whose data pointers are
+    16-byte aligned take v2 (TMA and wgmma), other bf16 operands v1
+    (WMMA), f32 operands the SIMT kernel. `gemm_bias_scale_act.launches`
+    counts launches, `.launches_by_design` them by design; the backward
+    launches none of them."""
+    check_act(act)
+    _check_gemm(p2d, w2d, out_dtype)
+    return _GemmBiasScaleAct.apply(p2d, w2d, b, scale, shift, act, leak,
+                                   out_dtype)
 
 
 gemm_bias_scale_act.launches = 0
@@ -398,8 +444,8 @@ def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
                       kernel: int, stride: int = 2, train: bool,
                       momentum: float = 0.9, eps: float = 1e-5, act: str,
                       leak: float = LEAK,
-                      compute_dtype: Optional[torch.dtype] = None
-                      ) -> Tuple[torch.Tensor, Pytree]:
+                      compute_dtype: Optional[torch.dtype] = None,
+                      quant: str = "") -> Tuple[torch.Tensor, Pytree]:
     """One G (transpose=True) or D (transpose=False) stage, conv ⊕ bias ⊕
     BN ⊕ act, returning (y NHWC, bn_state) with `batch_norm_apply`'s state
     contract.
@@ -408,12 +454,15 @@ def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
     [C]-sized moments, then the scale_shift_act epilogue kernel; the new
     state is the EMA update, detached. train=False: the running statistics
     are known before the GEMM, so the whole stage is the single
-    gemm_bias_scale_act kernel. The patch matrix lives only inside this
-    call (and in autograd's graph, for dw = P^T du)."""
+    gemm_bias_scale_act kernel. quant="fp8" quantizes the patch matrix
+    and W first. The patch matrix lives only inside this call (and in
+    autograd's graph, for dw = P^T du)."""
     cdt = compute_dtype if compute_dtype is not None else x.dtype
     w, b = conv_params["w"], conv_params["b"]
     w2d = w_to_gemm(w.to(cdt))
     p2d, (n, ho, wo) = conv_patches(x.to(cdt), kernel, stride, transpose)
+    if quant == "fp8":
+        p2d, w2d = fake_quant_fp8(p2d), fake_quant_fp8(w2d)
     c = w2d.shape[1]
     gamma, beta = bn_params["scale"], bn_params["bias"]
     if train:

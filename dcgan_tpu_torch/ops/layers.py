@@ -16,6 +16,11 @@ equivalent is `conv_transpose2d` over the kernel flipped in h and w and
 permuted to (Cin, Cout, kh, kw), with padding (k-1)//2 - 1 (1 for k=5) and
 the last row and column cropped; the textbook `padding=2, output_padding=1`
 is a different function (off by O(1) on random weights).
+
+Under the fp8 precision policy a quantized stage (`quant="fp8"`, chosen by
+models/dcgan.py::_stage_quant) passes both GEMM operands through
+`fake_quant_fp8` first: fp8 numerics on any device, the products still in
+the compute dtype, as the JAX package simulates them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,29 @@ import torch
 import torch.nn.functional as F
 
 Pytree = dict
+
+
+# the largest finite float8_e4m3fn value
+FP8_E4M3_MAX = 448.0
+
+
+def fake_quant_fp8(x: torch.Tensor) -> torch.Tensor:
+    """x through float8_e4m3fn with per-tensor amax scaling, back in x's
+    dtype (`dcgan_tpu/ops/layers.py:23-32`, as compiled): scale =
+    max(amax / 448, 1e-12), q = fp8(x / scale) rounded to nearest even,
+    q * scale. The
+    scaling keeps x / scale within e4m3's range, where an unscaled cast
+    would overflow. Differentiable as the JAX function is: the casts pass
+    the gradient through, and the scale's own gradient reaches the amax
+    element."""
+    xf = x.float()
+    # amax times the f32 reciprocal of 448: the JAX function's `/ 448.0`
+    # as XLA compiles it (a division by a constant becomes this product),
+    # so a scale one ulp apart cannot move the fp8 roundings
+    scale = torch.maximum(xf.abs().max() * (1.0 / FP8_E4M3_MAX),
+                          torch.full((), 1e-12, device=x.device))
+    q = (xf / scale).to(torch.float8_e4m3fn).float()
+    return (q * scale).to(x.dtype)
 
 
 def _normal(gen: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:
@@ -84,13 +112,16 @@ def conv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, *,
 
 
 def conv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
-                 compute_dtype: Optional[torch.dtype] = None
-                 ) -> torch.Tensor:
+                 compute_dtype: Optional[torch.dtype] = None,
+                 quant: str = "") -> torch.Tensor:
     """NHWC [N, H, W, Cin] -> NHWC [N, ceil(H/s), ceil(W/s), Cout], the JAX
-    `lax.conv_general_dilated(..., padding="SAME")` followed by the bias."""
+    `lax.conv_general_dilated(..., padding="SAME")` followed by the bias;
+    quant="fp8" quantizes both operands first."""
     w, b = params["w"], params["b"]
     if compute_dtype is not None:
         x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if quant == "fp8":
+        x, w = fake_quant_fp8(x), fake_quant_fp8(w)
     k = w.shape[0]
     (top, bottom), (left, right) = (same_pads(x.shape[1], k, stride),
                                     same_pads(x.shape[2], k, stride))
@@ -113,13 +144,16 @@ def deconv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, *,
 
 
 def deconv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
-                   compute_dtype: Optional[torch.dtype] = None
-                   ) -> torch.Tensor:
+                   compute_dtype: Optional[torch.dtype] = None,
+                   quant: str = "") -> torch.Tensor:
     """NHWC [N, H, W, Cin] -> NHWC [N, H*s, W*s, Cout], the JAX
-    `lax.conv_transpose(..., padding="SAME")` followed by the bias."""
+    `lax.conv_transpose(..., padding="SAME")` followed by the bias;
+    quant="fp8" quantizes both operands first."""
     w, b = params["w"], params["b"]
     if compute_dtype is not None:
         x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if quant == "fp8":
+        x, w = fake_quant_fp8(x), fake_quant_fp8(w)
     k = w.shape[0]
     if k % 2 != 1 or stride != 2:
         # the crop below is derived for odd kernels at stride 2, the only

@@ -1,6 +1,6 @@
 """Named training presets (the counterpart of `dcgan_tpu/presets.py`).
 
-Two presets, copied field for field from the JAX factories:
+Three presets, copied field for field from the JAX factories:
 - ``celeba64``: DCGAN 64x64 CelebA on one device, z=100, batch 64, bf16
   compute over f32 params, BCE non-saturating loss, Adam(2e-4, beta1 0.5)
   on both nets (the reference's headline workload,
@@ -9,7 +9,12 @@ Two presets, copied field for field from the JAX factories:
   32x32 in both nets, spectral norm on both, hinge loss, TTUR (D 4e-4,
   G 1e-4), beta1 0, G EMA 0.999, batch 64; attention on the flash kernels
   (use_pallas) and BatchNorm on plain ops (bn_pallas=False)
-  (`dcgan_tpu/presets.py:97-123`).
+  (`dcgan_tpu/presets.py:97-123`);
+- ``wgan-gp``: the DCGAN 64x64 stacks as a Wasserstein critic with the
+  gradient penalty (weight 10), Adam(1e-4, beta1 0), 5 critic updates per
+  generator update, each on fresh z against the same real batch, batch
+  64, on the plain route (cuDNN convolutions, torch BatchNorm), where the
+  penalty's double backward runs (`dcgan_tpu/presets.py:80-94`).
 """
 
 from __future__ import annotations
@@ -40,8 +45,19 @@ def sagan64(**overrides) -> TrainConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def wgan_gp(**overrides) -> TrainConfig:
+    """WGAN-GP on 64x64 (Gulrajani et al. 2017): critic and gradient
+    penalty, lr 1e-4, beta1 0, n_critic 5. Keyword arguments override
+    TrainConfig fields."""
+    cfg = TrainConfig(model=ModelConfig(output_size=64), batch_size=64,
+                      loss="wgan-gp", learning_rate=1e-4, beta1=0.0,
+                      n_critic=5)
+    return dataclasses.replace(cfg, **overrides)
+
+
 PRESETS: Dict[str, Callable[..., TrainConfig]] = {"celeba64": celeba64,
-                                                  "sagan64": sagan64}
+                                                  "sagan64": sagan64,
+                                                  "wgan-gp": wgan_gp}
 
 
 def get_preset(name: str, **overrides) -> TrainConfig:

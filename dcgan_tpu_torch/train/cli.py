@@ -11,6 +11,11 @@ port serves, plus --device.
     python -m dcgan_tpu_torch.train --preset sagan64 --synthetic \
         --max_steps 2 --device cpu --output_size 16 --attn_res 8 \
         --gf_dim 16 --df_dim 16 --z_dim 8 --batch_size 4
+    python -m dcgan_tpu_torch.train --preset wgan-gp --synthetic \
+        --max_steps 200
+    python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
+        --pallas_fused --precision bf16 --n_critic 2 --grad_accum 2 \
+        --diffaug color,translation,cutout --data_dir D --checkpoint_dir C
 
 Flags given explicitly override the preset's values. The run reads the
 TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
@@ -45,6 +50,16 @@ _FLAG_FIELDS = {
     "log_every_steps": ("", "log_every_steps"),
     "seed": ("", "seed"),
     "update_mode": ("", "update_mode"),
+    "loss": ("", "loss"),
+    "gp_weight": ("", "gp_weight"),
+    "r1_gamma": ("", "r1_gamma"),
+    "r1_interval": ("", "r1_interval"),
+    "n_critic": ("", "n_critic"),
+    "grad_accum": ("", "grad_accum"),
+    "diffaug": ("", "diffaug"),
+    "precision": ("", "precision"),
+    "sample_image_dir": ("", "sample_image_dir"),
+    "activation_summary_steps": ("", "activation_summary_steps"),
     "grad_clip": ("", "grad_clip"),
     "lr_schedule": ("", "lr_schedule"),
     "steps_per_call": ("", "steps_per_call"),
@@ -72,6 +87,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int)
     p.add_argument("--max_steps", type=int)
     p.add_argument("--update_mode", choices=["sequential", "fused"])
+    p.add_argument("--loss", choices=["gan", "wgan-gp", "hinge"])
+    p.add_argument("--n_critic", type=int,
+                   help="D updates per G update (WGAN-GP canonical: 5)")
+    p.add_argument("--grad_accum", type=int,
+                   help=">1 accumulates that many microbatches per "
+                        "optimizer update (batch_size must divide by it)")
+    p.add_argument("--gp_weight", type=float,
+                   help="WGAN-GP gradient-penalty coefficient")
+    p.add_argument("--r1_gamma", type=float,
+                   help=">0 adds R1 regularization ((gamma/2)*||grad D||^2 "
+                        "on reals) to the gan/hinge families")
+    p.add_argument("--r1_interval", type=int,
+                   help="lazy regularization: compute R1 every k-th step "
+                        "with gamma scaled by k (1 = every step)")
+    p.add_argument("--diffaug",
+                   help="DiffAugment policy for every D input, e.g. "
+                        "'color,translation,cutout'; '' = off")
+    p.add_argument("--precision", choices=["", "f32", "bf16", "fp8"],
+                   help="f32 (float32 compute and params), bf16 (bf16 "
+                        "params and compute, f32 Adam first moments), fp8 "
+                        "(bf16 plus fp8 conv operands at >= 64 px stages); "
+                        "'' leaves the model dtypes alone")
     p.add_argument("--grad_clip", type=float,
                    help=">0 clips both nets' grads by global norm before "
                         "Adam")
@@ -91,6 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = none; the sagan64 preset sets 32)")
     p.add_argument("--data_dir",
                    help="directory of TFRecord shards (default: train)")
+    p.add_argument("--sample_image_dir",
+                   help="held-out TFRecord shards of the sample-loss probe "
+                        "(default: sample_data; skipped when absent)")
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="train on synthetic data (no shards needed)")
     p.add_argument("--no_normalize", action="store_true",
@@ -121,6 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_every_steps", type=int,
                    help="steps between sample grids (0: none)")
     p.add_argument("--log_every_steps", type=int)
+    p.add_argument("--activation_summary_steps", type=int,
+                   help="per-layer activation histogram cadence (0 = off)")
     p.add_argument("--seed", type=int)
     p.add_argument("--steps_per_call", type=int,
                    help=">1: K steps as one captured CUDA graph (the step "

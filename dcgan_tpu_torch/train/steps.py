@@ -1,9 +1,10 @@
 """The GAN train step: two Adam optimizers over dicts of tensors (the
-counterpart of `dcgan_tpu/train/steps.py:72-157,404-730`).
+counterpart of `dcgan_tpu/train/steps.py:72-157,404-730,964-1021`).
 
-One `train_step(state, images, z)` is the JAX package's step at n_critic 1
-without accumulation, on the BCE or the hinge loss (`cfg.loss`), in both
-update modes:
+`train_step(state, images, z, draws)` is the JAX package's fused step, on
+the BCE, hinge or WGAN-GP loss (`cfg.loss`), with R1, n_critic critic
+updates, gradient accumulation and DiffAugment (`make_train_step` lists
+how each follows the JAX step), in both update modes:
 - "sequential" (default): D's update first, then G's against the updated D
   and its BN state;
 - "fused": both gradients at the pre-update params.
@@ -15,9 +16,13 @@ vectors) is discarded, as in JAX; likewise D's in the G step.
 Gradients are taken with `torch.autograd.grad` with respect to one net's
 leaves at a time, so the other net's weights get none.
 
-The JAX step draws z inside the step from its key; here z is an argument
-(the trainer draws it from a `torch.Generator`), so the parity tests can
-hand both the same z.
+The JAX step draws z, the critic iterations' z, WGAN-GP's interpolation
+weights and the augmentations inside the step from its key; here they are
+arguments (the trainer draws them from one `torch.Generator` per step, z
+first, then `draw_step`), so the parity tests can hand both packages the
+same draws, and a captured step reads them from its input slots.
+`eval_losses` and `summarize` are the JAX package's loss probe and
+activation summaries.
 
 The state is a nested dict of tensors with the JAX state's names:
     {"params": {"gen", "disc"}, "bn": {"gen", "disc"},
@@ -34,11 +39,14 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from dcgan_tpu_torch.config import TrainConfig
+from dcgan_tpu_torch.config import TrainConfig, parse_policy
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.models.dcgan import discriminator_apply, gan_init, \
     generator_apply, sampler_apply
-from dcgan_tpu_torch.train.losses import bce_gan_losses, hinge_losses
+from dcgan_tpu_torch.ops.augment import diff_augment, draw_augment
+from dcgan_tpu_torch.train.losses import bce_gan_losses, \
+    gradient_penalty, hinge_losses, r1_penalty, wgan_losses
+from dcgan_tpu_torch.utils.metrics import activation_stats
 
 Pytree = dict
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -125,10 +133,12 @@ class Adam:
     b2: float = 0.999
     eps: float = 1e-8
     grad_clip: float = 0.0
+    mu_dtype: Optional[torch.dtype] = None  # None: the params' dtype
 
     def init(self, params: Pytree) -> Pytree:
         device = tree_leaves(params)[0].device
-        return {"mu": tree_map(torch.zeros_like, params),
+        return {"mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=self.mu_dtype or p.dtype), params),
                 "nu": tree_map(torch.zeros_like, params),
                 "count": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -137,7 +147,9 @@ class Adam:
              ) -> Tuple[Pytree, Pytree]:
         """(new params, new state), in optax's order: clip, mu, nu,
         count + 1, the bias corrections 1 - b^t, mu_hat / (sqrt(nu_hat) +
-        eps), times -lr(count), then p + u.
+        eps), times -lr(count), then p + u. Each operation rounds in
+        optax's dtype: with an f32 mu over bf16 params (mu_dtype) the
+        update is f32 and p + u is cast back to the params' dtype.
 
         Each elementwise operation runs over all the leaves at once
         (`torch._foreach_*`, a few launches for the whole tree instead of
@@ -173,13 +185,15 @@ class Adam:
                              device=t.device) ** t
         step_size = -self.lr(count)
         # u = (mu / bc1) / (sqrt(nu / bc2) + eps); p + step_size * u
-        den = torch._foreach_div(nu, bc2.to(dtype))
+        den = torch._foreach_div(nu, bc2.to(nu[0].dtype))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        u = torch._foreach_div(mu, bc1.to(dtype))
+        u = torch._foreach_div(mu, bc1.to(mu[0].dtype))
         torch._foreach_div_(u, den)
-        torch._foreach_mul_(u, step_size.to(dtype))
+        torch._foreach_mul_(u, step_size.to(u[0].dtype))
         new_params = torch._foreach_add(ps, u)
+        if new_params[0].dtype != dtype:
+            new_params = [p.to(dtype) for p in new_params]
         return (tree_unflatten(params, new_params),
                 {"mu": tree_unflatten(params, mu),
                  "nu": tree_unflatten(params, nu), "count": count_inc})
@@ -191,9 +205,12 @@ def make_optimizer(cfg: TrainConfig, lr: Optional[float] = None, *,
     `lr` overrides the base rate (per-net rates), the schedule applies on
     top; grad_clip > 0 clips by global norm first."""
     base_lr = cfg.learning_rate if lr is None else lr
+    # the bf16 and fp8 policies keep Adam's first moment in f32 (optax's
+    # mu_dtype): a small signed running mean that bf16 rounding biases
+    mu_dtype = torch.float32 if cfg.precision in ("bf16", "fp8") else None
     return Adam(lr=make_lr_schedule(cfg, base_lr,
                                     updates_per_step=updates_per_step),
-                b1=cfg.beta1, grad_clip=cfg.grad_clip)
+                b1=cfg.beta1, grad_clip=cfg.grad_clip, mu_dtype=mu_dtype)
 
 
 def init_train_state(cfg: TrainConfig, *, seed: Optional[int] = None,
@@ -220,13 +237,79 @@ def init_train_state(cfg: TrainConfig, *, seed: Optional[int] = None,
 # The step
 # ---------------------------------------------------------------------------
 
+def lazy_r1(cfg: TrainConfig) -> bool:
+    """Whether R1 runs on every r1_interval-th step only."""
+    return cfg.r1_gamma > 0.0 and cfg.r1_interval > 1
+
+
+def penalty_due(cfg: TrainConfig, step: int) -> bool:
+    """Whether the step from state step `step` runs the critic's penalty:
+    every step for WGAN-GP and R1 at r1_interval 1, every r1_interval-th
+    step for lazy R1 (`dcgan_tpu/train/steps.py:460-473`), never without
+    a penalty."""
+    if cfg.loss == "wgan-gp":
+        return True
+    if cfg.r1_gamma > 0.0:
+        return step % cfg.r1_interval == 0
+    return False
+
+
+def draw_step(cfg: TrainConfig, gen: torch.Generator,
+              batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The random inputs of one step besides z, drawn from `gen` on its
+    device, as a flat dict of tensors (empty for a config that uses no
+    randomness beyond z):
+
+    - "critic<i>/z" [B, z_dim]: critic iteration i's fresh z (n_critic > 1;
+      with n_critic 1 the critic uses the step's z);
+    - "critic<i>/eps" [B]: WGAN-GP's interpolation weights, U(0, 1);
+    - "critic<i>/real/<aug>", "critic<i>/fake/<aug>": the DiffAugment draws
+      (ops/augment.py::draw_augment) of D's real and fake batch;
+    - "g/<aug>": those of the fake batch of G's step.
+
+    Per-example draws are [B]: under grad_accum, microbatch j takes rows
+    j*B/K .. (j+1)*B/K of each, as it takes those of the images and z."""
+    b = cfg.batch_size if batch is None else batch
+    m = cfg.model
+    policy = parse_policy(cfg.diffaug)
+    dev = gen.device
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.n_critic):
+        p = f"critic{i}/"
+        if cfg.n_critic > 1:
+            out[p + "z"] = torch.rand((b, m.z_dim), generator=gen,
+                                      device=dev) * 2.0 - 1.0
+        if cfg.loss == "wgan-gp":
+            out[p + "eps"] = torch.rand((b,), generator=gen, device=dev)
+        for which in ("real", "fake"):
+            for k, v in draw_augment(policy, b, m.output_size,
+                                     gen).items():
+                out[f"{p}{which}/{k}"] = v
+    for k, v in draw_augment(policy, b, m.output_size, gen).items():
+        out[f"g/{k}"] = v
+    return out
+
+
+def _sub(draws: Dict[str, torch.Tensor], prefix: str
+         ) -> Dict[str, torch.Tensor]:
+    """The draws under `prefix`, with the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in draws.items()
+            if k.startswith(prefix)}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainStepFns:
     """The functions of one TrainConfig."""
-    train_step: Callable  # (state, images, z) -> (state, metrics)
-    grads: Callable       # (state, images, z) -> ({"gen", "disc"}, metrics)
+    train_step: Callable  # (state, images, z, draws=None, *, penalty=None)
+                          # -> (state, metrics)
+    grads: Callable       # (state, images, z, draws=None, *, penalty=None)
+                          # -> ({"gen", "disc"}, metrics)
     sample: Callable      # (state, z) -> images (running-stat BN)
     init: Callable        # (seed=None, device="cuda") -> state
+    eval_losses: Callable  # (state, images, z, eps=None) -> metrics, no
+                           # update
+    summarize: Callable   # (state, images, z) -> per-layer activation
+                          # stats (utils/metrics.py::activation_stats)
 
 
 def _leaves_with_grad(tree: Pytree) -> Pytree:
@@ -242,76 +325,250 @@ def _grad(loss: torch.Tensor, leaves: Pytree) -> Pytree:
 
 
 def make_train_step(cfg: TrainConfig) -> TrainStepFns:
+    """The step functions of `cfg`, following `dcgan_tpu/train/steps.py`
+    line by line:
+
+    - D's loss (`:404-473`): the fake batch from G in train mode without
+      gradients (G's state update discarded), D on the real batch, then on
+      the fake one, chaining its BN state, each DiffAugmented with its own
+      draws; with a penalty, the critic at train=False (running BN
+      statistics) on the raw inputs: WGAN-GP's weighted by gp_weight on
+      interpolates, R1's by gamma / 2 on the reals (lazy R1: gamma * k / 2
+      on the steps `penalty_due` picks, none on the others);
+    - n_critic > 1 (`:658-700`): that many Adam updates of D, each on its
+      own z, interpolation weights and augmentation draws against the same
+      real batch, D's BN state chained across them; the metrics are the
+      last iteration's; G then trains on the step's own z;
+    - grad_accum K > 1 (`:508-632`): each update's gradient is the mean
+      of K microbatches' at fixed params, accumulated in f32 and cast to
+      the params' dtype, the BN state chained through the microbatches;
+      with n_critic > 1 each critic iteration accumulates its own;
+    - G's loss through D at train=True on the augmented fake batch, G's
+      gradient flowing through the augmentation.
+
+    A config that uses none of these takes the step of n_critic 1 without
+    accumulation, augmentation or penalty: the same operations as before
+    they existed. The step's randomness comes in as `z` and the `draws` of
+    `draw_step`; `penalty` (lazy R1) says whether this step runs the
+    penalty, `penalty_due(cfg, int(state["step"]))` when None."""
     mcfg = cfg.model
     opt_g = make_optimizer(cfg, cfg.g_learning_rate)
     opt_d = make_optimizer(cfg, cfg.d_learning_rate,
                            updates_per_step=cfg.n_critic)
+    wgan = cfg.loss == "wgan-gp"
+    r1 = cfg.r1_gamma > 0.0
+    lazy = lazy_r1(cfg)
+    penalty_key = "gp" if wgan else "r1" if r1 else None
+    policy = parse_policy(cfg.diffaug)
+    n_micro = cfg.grad_accum
+    draw_names = frozenset(draw_step(cfg, torch.Generator(), batch=1))
+
+    def check_draws(draws: Optional[Dict[str, torch.Tensor]]
+                    ) -> Dict[str, torch.Tensor]:
+        draws = draws or {}
+        if set(draws) != draw_names:
+            raise ValueError(
+                f"the step's draws are {sorted(draws)}, the config's "
+                f"{sorted(draw_names)} (steps.draw_step)")
+        return draws
 
     def losses(real_logits, fake_logits):
         if cfg.loss == "hinge":
             return hinge_losses(real_logits, fake_logits)
+        if wgan:
+            return wgan_losses(real_logits, fake_logits)
         return bce_gan_losses(real_logits, fake_logits,
                               label_smoothing=cfg.label_smoothing)
 
-    def d_grads(params: Pytree, bn: Pytree, images: torch.Tensor,
-                z: torch.Tensor):
-        """D's gradients -> (grads, D's new BN state, (d_loss, d_real,
-        d_fake)): the fake batch without gradients, G's BN update
-        discarded; D on real, then on fake, chaining its BN state."""
+    def aug(x: torch.Tensor, draws: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+        return diff_augment(x, draws, policy) if policy else x
+
+    def micro(t: torch.Tensor, j: int) -> torch.Tensor:
+        """Microbatch j of a batch-leading tensor (the whole of it at
+        K = 1)."""
+        if n_micro == 1:
+            return t
+        m = t.shape[0] // n_micro
+        return t.narrow(0, j * m, m)
+
+    def micro_draws(draws: Dict[str, torch.Tensor], j: int
+                    ) -> Dict[str, torch.Tensor]:
+        return {k: micro(v, j) for k, v in draws.items()}
+
+    def d_loss_fn(d_params: Pytree, g_params: Pytree, bn: Pytree,
+                  images: torch.Tensor, z: torch.Tensor,
+                  draws: Dict[str, torch.Tensor], penalty: bool,
+                  r1_weight: float, augment: bool = True):
+        """(D's loss, D's new BN state, d_real, d_fake, the penalty or
+        None); `draws` holds "eps" and the "real/" and "fake/"
+        augmentation draws of this batch (augment=False: the probe's
+        unaugmented D)."""
+        def d_input(x, which):
+            return aug(x, _sub(draws, which)) if augment else x
+
         with torch.no_grad():
-            fake, _ = generator_apply(params["gen"], bn["gen"], z, cfg=mcfg,
+            fake, _ = generator_apply(g_params, bn["gen"], z, cfg=mcfg,
                                       train=True)
-        d_leaves = _leaves_with_grad(params["disc"])
         _, real_logits, d_bn1 = discriminator_apply(
-            d_leaves, bn["disc"], images, cfg=mcfg, train=True)
+            d_params, bn["disc"], d_input(images, "real/"), cfg=mcfg,
+            train=True)
         _, fake_logits, d_bn = discriminator_apply(
-            d_leaves, d_bn1, fake, cfg=mcfg, train=True)
+            d_params, d_bn1, d_input(fake, "fake/"), cfg=mcfg, train=True)
         d_loss, d_real, d_fake, _ = losses(real_logits, fake_logits)
-        # _grad frees the graph before the G step builds its own
-        return _grad(d_loss, d_leaves), d_bn, (d_loss, d_real, d_fake)
+        gp = None
+        if wgan or (r1 and penalty):
+            # running BN statistics: batch statistics would couple D(x_i)
+            # to every x_j, and the penalties are per-example input
+            # gradients on the raw (unaugmented) inputs
+            def critic(x):
+                return discriminator_apply(d_params, bn["disc"], x,
+                                           cfg=mcfg, train=False)[1][:, 0]
+            if wgan:
+                gp = gradient_penalty(critic, images.float(), fake.float(),
+                                      draws["eps"])
+                d_loss = d_loss + cfg.gp_weight * gp
+            else:
+                gp = r1_penalty(critic, images.float())
+                d_loss = d_loss + r1_weight * gp
+        return d_loss, d_bn, d_real, d_fake, gp
+
+    def accumulate(acc: Optional[List[torch.Tensor]], grads: Pytree
+                   ) -> List[torch.Tensor]:
+        gs = [g.float() for g in tree_leaves(grads)]
+        return gs if acc is None else torch._foreach_add(acc, gs)
+
+    def average(acc: List[torch.Tensor], like: Pytree) -> Pytree:
+        """The f32 sum of K gradients as their mean in the params'
+        dtypes."""
+        return tree_unflatten(like, [
+            (a / n_micro).to(p.dtype)
+            for a, p in zip(acc, tree_leaves(like))])
+
+    def d_grads(d_params: Pytree, g_params: Pytree, bn: Pytree,
+                images: torch.Tensor, z: torch.Tensor,
+                draws: Dict[str, torch.Tensor], penalty: bool):
+        """D's gradient for one update -> (grads, D's new BN state,
+        (d_loss, d_real, d_fake, penalty or None)), the mean of the K
+        microbatches' with the BN state chained through them."""
+        r1_weight = 0.5 * cfg.r1_gamma * (cfg.r1_interval if lazy else 1)
+        if n_micro == 1:
+            d_leaves = _leaves_with_grad(d_params)
+            loss, d_bn, d_real, d_fake, gp = d_loss_fn(
+                d_leaves, g_params, bn, images, z, draws, penalty,
+                r1_weight)
+            # _grad frees the graph before the G step builds its own
+            return _grad(loss, d_leaves), d_bn, (loss, d_real, d_fake, gp)
+        acc, d_bn, terms = None, bn["disc"], []
+        for j in range(n_micro):
+            d_leaves = _leaves_with_grad(d_params)
+            out = d_loss_fn(d_leaves, g_params,
+                            {"gen": bn["gen"], "disc": d_bn},
+                            micro(images, j), micro(z, j),
+                            micro_draws(draws, j), penalty, r1_weight)
+            d_bn = out[1]
+            acc = accumulate(acc, _grad(out[0], d_leaves))
+            terms.append([t.detach() for t in (out[0], *out[2:4])]
+                         + ([out[4].detach()] if out[4] is not None
+                            else []))
+        means = [torch.stack(col).mean() for col in zip(*terms)]
+        gp = means[3] if len(means) > 3 else None
+        return average(acc, d_params), d_bn, (*means[:3], gp)
+
+    def g_loss_fn(g_params: Pytree, g_bn: Pytree, disc: Pytree,
+                  disc_bn: Pytree, z: torch.Tensor,
+                  draws: Dict[str, torch.Tensor], augment: bool = True):
+        fake, new_g_bn = generator_apply(g_params, g_bn, z, cfg=mcfg,
+                                         train=True)
+        _, fake_logits, _ = discriminator_apply(
+            disc, disc_bn, aug(fake, draws) if augment else fake, cfg=mcfg,
+            train=True)
+        return losses(fake_logits, fake_logits)[3], new_g_bn
 
     def g_grads(g_params: Pytree, g_bn: Pytree, disc: Pytree,
-                disc_bn: Pytree, z: torch.Tensor):
-        """G's gradients against (disc, disc_bn) -> (grads, G's new BN
-        state, g_loss)."""
-        g_leaves = _leaves_with_grad(g_params)
-        fake, new_g_bn = generator_apply(g_leaves, g_bn, z, cfg=mcfg,
-                                         train=True)
-        _, fake_logits, _ = discriminator_apply(disc, disc_bn, fake,
-                                                cfg=mcfg, train=True)
-        g_loss = losses(fake_logits, fake_logits)[3]
-        return _grad(g_loss, g_leaves), new_g_bn, g_loss
+                disc_bn: Pytree, z: torch.Tensor,
+                draws: Dict[str, torch.Tensor]):
+        """G's gradient against (disc, disc_bn) -> (grads, G's new BN
+        state, g_loss), the mean of the K microbatches'."""
+        if n_micro == 1:
+            g_leaves = _leaves_with_grad(g_params)
+            g_loss, new_g_bn = g_loss_fn(g_leaves, g_bn, disc, disc_bn, z,
+                                         draws)
+            return _grad(g_loss, g_leaves), new_g_bn, g_loss
+        acc, new_g_bn, g_losses = None, g_bn, []
+        for j in range(n_micro):
+            g_leaves = _leaves_with_grad(g_params)
+            g_loss, new_g_bn = g_loss_fn(g_leaves, new_g_bn, disc, disc_bn,
+                                         micro(z, j), micro_draws(draws, j))
+            acc = accumulate(acc, _grad(g_loss, g_leaves))
+            g_losses.append(g_loss.detach())
+        return (average(acc, g_params), new_g_bn,
+                torch.stack(g_losses).mean())
 
     def metrics_of(d_terms, g_loss) -> Dict[str, torch.Tensor]:
-        return {k: v.detach() for k, v in zip(
+        out = {k: v.detach() for k, v in zip(
             ("d_loss", "d_loss_real", "d_loss_fake", "g_loss"),
-            (*d_terms, g_loss))}
+            (*d_terms[:3], g_loss))}
+        if penalty_key is not None:
+            gp = d_terms[3]
+            out[penalty_key] = gp.detach() if gp is not None else \
+                torch.zeros((), dtype=torch.float32, device=g_loss.device)
+        return out
 
-    def grads(state: Pytree, images: torch.Tensor, z: torch.Tensor
+    def resolve_penalty(state: Pytree, penalty: Optional[bool]) -> bool:
+        if not lazy:
+            return wgan or r1
+        if penalty is None:
+            # a host read of the step: the captured runner passes it
+            return penalty_due(cfg, int(state["step"]))
+        return penalty
+
+    def critic_inputs(z: torch.Tensor, draws: Dict[str, torch.Tensor],
+                      i: int):
+        """(z, draws) of critic iteration i."""
+        d = _sub(draws, f"critic{i}/")
+        return (d.pop("z") if cfg.n_critic > 1 else z), d
+
+    def grads(state: Pytree, images: torch.Tensor, z: torch.Tensor,
+              draws: Optional[Dict[str, torch.Tensor]] = None, *,
+              penalty: Optional[bool] = None
               ) -> Tuple[Pytree, Dict[str, torch.Tensor]]:
         """Both nets' gradients at the state's params, as the "fused"
-        update mode takes them (G's against the pre-update D), and the
-        losses; the state is not changed."""
+        update mode takes them (G's against the pre-update D): D's of the
+        first critic iteration, with its draws; and the losses. The state
+        is not changed."""
+        draws = check_draws(draws)
         params, bn = state["params"], state["bn"]
-        dg, _, d_terms = d_grads(params, bn, images, z)
+        z0, d0 = critic_inputs(z, draws, 0)
+        dg, _, d_terms = d_grads(params["disc"], params["gen"], bn, images,
+                                 z0, d0, resolve_penalty(state, penalty))
         gg, _, g_loss = g_grads(params["gen"], bn["gen"], params["disc"],
-                                bn["disc"], z)
+                                bn["disc"], z, _sub(draws, "g/"))
         return {"gen": gg, "disc": dg}, metrics_of(d_terms, g_loss)
 
-    def train_step(state: Pytree, images: torch.Tensor, z: torch.Tensor
+    def train_step(state: Pytree, images: torch.Tensor, z: torch.Tensor,
+                   draws: Optional[Dict[str, torch.Tensor]] = None, *,
+                   penalty: Optional[bool] = None
                    ) -> Tuple[Pytree, Dict[str, torch.Tensor]]:
+        draws = check_draws(draws)
         params, bn = state["params"], state["bn"]
-        dg, d_bn, d_terms = d_grads(params, bn, images, z)
-        new_disc, d_opt = opt_d.step(params["disc"], dg,
-                                     state["opt"]["disc"])
-        del dg
+        pen = resolve_penalty(state, penalty)
+        new_disc, d_opt, d_bn = params["disc"], state["opt"]["disc"], \
+            bn["disc"]
+        for i in range(cfg.n_critic):
+            z_i, d_i = critic_inputs(z, draws, i)
+            dg, d_bn, d_terms = d_grads(new_disc, params["gen"],
+                                        {"gen": bn["gen"], "disc": d_bn},
+                                        images, z_i, d_i, pen)
+            new_disc, d_opt = opt_d.step(new_disc, dg, d_opt)
+            del dg
 
         if cfg.update_mode == "sequential":
             g_disc, g_disc_bn = new_disc, d_bn
         else:   # "fused": G's gradients at the pre-update D
             g_disc, g_disc_bn = params["disc"], bn["disc"]
         gg, g_bn, g_loss = g_grads(params["gen"], bn["gen"], g_disc,
-                                   g_disc_bn, z)
+                                   g_disc_bn, z, _sub(draws, "g/"))
         new_gen, g_opt = opt_g.step(params["gen"], gg, state["opt"]["gen"])
 
         d_ema = cfg.g_ema_decay   # 0: ema_gen mirrors the live weights
@@ -329,6 +586,53 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         }
         return new_state, metrics_of(d_terms, g_loss)
 
+    def eval_losses(state: Pytree, images: torch.Tensor, z: torch.Tensor,
+                    eps: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The loss probe on a held-out batch with a fixed z, no update
+        (`:1004-1021`): train-mode BN with its new state discarded, no
+        augmentation, R1 on every call with gamma / 2 unscaled by the
+        interval, WGAN-GP's interpolation on fixed weights of its own
+        (drawn from a generator seeded 0 unless `eps` is given)."""
+        params, bn = state["params"], state["bn"]
+        draws: Dict[str, torch.Tensor] = {}
+        if wgan:
+            if eps is None:
+                gen = torch.Generator(device=images.device).manual_seed(0)
+                eps = torch.rand((images.shape[0],), generator=gen,
+                                 device=images.device)
+            draws["eps"] = eps
+        d_loss, _, d_real, d_fake, gp = d_loss_fn(
+            params["disc"], params["gen"], bn, images, z, draws, True,
+            0.5 * cfg.r1_gamma, augment=False)
+        with torch.no_grad():
+            g_loss, _ = g_loss_fn(params["gen"], bn["gen"], params["disc"],
+                                  bn["disc"], z, {}, augment=False)
+        return metrics_of((d_loss, d_real, d_fake, gp), g_loss)
+
+    @torch.no_grad()
+    def summarize(state: Pytree, images: torch.Tensor, z: torch.Tensor
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Per-layer activation histograms and sparsity (`:964-1002`): one
+        train-mode G forward on z and D forwards on the real batch and on
+        G's images, the JAX names: gen/h*, disc/h*, disc/logit, z,
+        d_real_prob, d_fake_prob."""
+        params, bn = state["params"], state["bn"]
+        g_cap: dict = {}
+        d_cap: dict = {}
+        fake, _ = generator_apply(params["gen"], bn["gen"], z, cfg=mcfg,
+                                  train=True, capture=g_cap)
+        d_real_prob, _, _ = discriminator_apply(
+            params["disc"], bn["disc"], images, cfg=mcfg, train=True,
+            capture=d_cap)
+        d_fake_prob, _, _ = discriminator_apply(
+            params["disc"], bn["disc"], fake, cfg=mcfg, train=True)
+        acts = {**{f"gen/{k}": v for k, v in g_cap.items()},
+                **{f"disc/{k}": v for k, v in d_cap.items()},
+                "z": z, "d_real_prob": d_real_prob,
+                "d_fake_prob": d_fake_prob}
+        return activation_stats(acts)
+
     def sample(state: Pytree, z: torch.Tensor) -> torch.Tensor:
         # the EMA weights when tracking is on, else the live ones
         g_params = (state["ema_gen"] if cfg.g_ema_decay > 0.0
@@ -340,4 +644,5 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         return init_train_state(cfg, seed=seed, device=device)
 
     return TrainStepFns(train_step=train_step, grads=grads, sample=sample,
-                        init=init)
+                        init=init, eval_losses=eval_losses,
+                        summarize=summarize)

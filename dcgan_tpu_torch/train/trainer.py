@@ -14,7 +14,10 @@
   JAX trainer's does;
 - the z of the step that takes the state from step s to s + 1 comes from a
   generator seeded from (seed, s), as the JAX trainer folds s into its
-  base key, so a resumed run draws the z an unbroken run draws;
+  base key, so a resumed run draws the z an unbroken run draws; the
+  step's other draws (`steps.draw_step`: the critic iterations' z,
+  WGAN-GP's interpolation weights, the augmentations) come from the same
+  generator after z (`step_inputs`), so a run without them draws today's z;
 - the steps through `StepRunner` (train/warmup.py): captured CUDA graphs
   over a static state on the card (eager on the CPU), `steps_per_call`
   steps per call where aligned, with one loss readback per call;
@@ -26,6 +29,14 @@
   once nonzero), mirrored into TensorBoard files;
 - every `sample_every_steps` steps a grid PNG of the samples of the fixed
   `sample_z` (drawn once from seed + 1) in `sample_dir`, and an image event;
+  then the loss probe (`eval_losses`) on a held-out batch, the synthetic
+  stream at seed + 100 or the TFRecord shards of `sample_image_dir` when
+  that directory exists (none otherwise), with the fixed z, written as
+  `sample/*` scalars (`dcgan_tpu/train/trainer.py:250-290, 1769-1800`);
+- every `activation_summary_steps` steps an "activations" event of
+  `summarize` on the call's last batch (z from (seed, step, 1));
+- under a precision policy, a `perf/precision/policy` (f32 0, bf16 1, fp8
+  2) and `perf/precision/master_f32_leaves` row at the first log;
 - `maybe_save` after every call (every `save_model_secs` of wall clock),
   the next step waiting on the device for the save's host copy of the
   static state; a final save of the last step and a wait for it to be on
@@ -38,7 +49,7 @@ import dataclasses
 import os
 import pprint
 import time
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,9 +60,12 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
     read_manifest
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
-from dcgan_tpu_torch.train.steps import make_train_step
-from dcgan_tpu_torch.train.warmup import METRIC_KEYS, StepRunner, \
-    aot_capture, build_warmup_plan, call_size
+from dcgan_tpu_torch.train.steps import draw_step, make_train_step, \
+    tree_leaves
+from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
+    build_warmup_plan, call_size, metric_keys
+# the losses' keys, re-exported for the trainer's callers
+from dcgan_tpu_torch.train.warmup import METRIC_KEYS  # noqa: F401
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 from dcgan_tpu_torch.utils.images import save_sample_grid
 from dcgan_tpu_torch.utils.metrics import MetricWriter
@@ -60,15 +74,34 @@ from dcgan_tpu_torch.utils.profiling import StepTimer
 Pytree = dict
 
 
-def step_z(cfg: TrainConfig, step: int, device: torch.device
-           ) -> torch.Tensor:
-    """U(-1, 1) z [batch, z_dim] of the step that takes the state from
-    `step` to `step + 1`, from a generator seeded from (cfg.seed, step)."""
+def _step_generator(cfg: TrainConfig, step: int, device: torch.device,
+                    *tag: int) -> torch.Generator:
     seed = np.random.SeedSequence(
-        [cfg.seed & 0xFFFFFFFFFFFFFFFF, step]).generate_state(1, np.uint64)
-    gen = torch.Generator(device=device).manual_seed(int(seed[0]))
+        [cfg.seed & 0xFFFFFFFFFFFFFFFF, step, *tag]).generate_state(
+            1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(seed[0]))
+
+
+def _draw_z(cfg: TrainConfig, gen: torch.Generator) -> torch.Tensor:
     return torch.rand((cfg.batch_size, cfg.model.z_dim), generator=gen,
-                      device=device) * 2.0 - 1.0
+                      device=gen.device) * 2.0 - 1.0
+
+
+def step_inputs(cfg: TrainConfig, step: int, device: torch.device
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(z, draws) of the step that takes the state from `step` to
+    `step + 1`, from one generator seeded from (cfg.seed, step): U(-1, 1)
+    z [batch, z_dim] first, then the step's other draws
+    (`steps.draw_step`; empty for a config that draws nothing else)."""
+    gen = _step_generator(cfg, step, device)
+    z = _draw_z(cfg, gen)
+    return z, draw_step(cfg, gen)
+
+
+def summary_z(cfg: TrainConfig, step: int, device: torch.device
+              ) -> torch.Tensor:
+    """The z of `summarize` at step `step`, from (cfg.seed, step, 1)."""
+    return _draw_z(cfg, _step_generator(cfg, step, device, 1))
 
 
 def _synthetic_feed(cfg: TrainConfig, device: torch.device) -> Iterator:
@@ -82,29 +115,65 @@ def _synthetic_feed(cfg: TrainConfig, device: torch.device) -> Iterator:
 
 
 def make_data(cfg: TrainConfig, device: torch.device, *,
-              synthetic_data: bool = False) -> Iterator:
+              synthetic_data: bool = False, data_dir: Optional[str] = None,
+              seed_offset: int = 0, n_threads: Optional[int] = None,
+              min_after_dequeue: Optional[int] = None) -> Iterator:
     """The trainer's batches on `device`: the synthetic stream, or the
-    TFRecord shards of cfg.data_dir (the Python loader; the record dtype
-    of their dataset.json, when they have one). Close it when done."""
+    TFRecord shards of `data_dir` (cfg.data_dir by default; the Python
+    loader; the record dtype of their dataset.json, when they have one),
+    seeded from cfg.seed + seed_offset. Close it when done."""
+    if seed_offset:
+        cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
     if synthetic_data:
         return _synthetic_feed(cfg, device)
+    data_dir = cfg.data_dir if data_dir is None else data_dir
     # the manifest's wire format is authoritative; cfg.record_dtype covers
     # shards without one
-    wire_dtype = read_manifest(cfg.data_dir).get("record_dtype",
-                                                 cfg.record_dtype)
+    wire_dtype = read_manifest(data_dir).get("record_dtype",
+                                             cfg.record_dtype)
     if wire_dtype != cfg.record_dtype:
         print(f"[dcgan_tpu_torch] adopting record_dtype={wire_dtype!r} "
-              f"from {cfg.data_dir}/dataset.json (config said "
+              f"from {data_dir}/dataset.json (config said "
               f"{cfg.record_dtype!r})", flush=True)
     dcfg = DataConfig(
-        data_dir=cfg.data_dir, image_size=cfg.model.output_size,
+        data_dir=data_dir, image_size=cfg.model.output_size,
         channels=cfg.model.c_dim, batch_size=cfg.batch_size,
-        record_dtype=wire_dtype, min_after_dequeue=cfg.shuffle_buffer,
-        n_threads=cfg.num_loader_threads, seed=cfg.seed,
-        normalize=cfg.normalize_inputs,
+        record_dtype=wire_dtype,
+        min_after_dequeue=(cfg.shuffle_buffer if min_after_dequeue is None
+                           else min_after_dequeue),
+        n_threads=(cfg.num_loader_threads if n_threads is None
+                   else n_threads),
+        seed=cfg.seed, normalize=cfg.normalize_inputs,
         prefetch_device_batches=cfg.prefetch_device_batches,
         max_corrupt_records=cfg.max_corrupt_records, use_native=False)
     return make_dataset(dcfg, device)
+
+
+def make_sample_data(cfg: TrainConfig, device: torch.device, *,
+                     synthetic_data: bool = False) -> Optional[Iterator]:
+    """The held-out batches of the loss probe: the synthetic stream at
+    seed + 100, or the shards of cfg.sample_image_dir (a light loader: 2
+    threads, a pool of 4 batches) when that directory exists; None
+    otherwise (no probe, as in the JAX trainer)."""
+    if synthetic_data:
+        return make_data(cfg, device, synthetic_data=True, seed_offset=100)
+    if os.path.isdir(cfg.sample_image_dir):
+        return make_data(cfg, device, data_dir=cfg.sample_image_dir,
+                         seed_offset=100, n_threads=2,
+                         min_after_dequeue=4 * cfg.batch_size)
+    return None
+
+
+def master_f32_leaves(state: Pytree) -> int:
+    """The f32 Adam first moments whose parameter is narrower (the bf16
+    and fp8 policies' master moments)."""
+    n = 0
+    for net in ("gen", "disc"):
+        for mu, p in zip(tree_leaves(state["opt"][net]["mu"]),
+                         tree_leaves(state["params"][net])):
+            if mu.dtype == torch.float32 and p.element_size() < 4:
+                n += 1
+    return n
 
 
 def _check_architecture(cfg: TrainConfig, ckpt: Checkpointer) -> None:
@@ -145,7 +214,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     # before anything is written
     corrupt_base = quarantine.count()
     data = make_data(cfg, dev, synthetic_data=synthetic_data)
+    sample_data = None
     writer = None
+    runner = None
     warm_ms: dict = {}
     try:
         pprint.pprint(dataclasses.asdict(cfg))
@@ -163,6 +234,15 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         ) * 2.0 - 1.0
         runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z)
+        keys = metric_keys(cfg)
+        if cfg.sample_every_steps:
+            sample_data = make_sample_data(cfg, dev,
+                                           synthetic_data=synthetic_data)
+        # the probe's fixed z: sample_z's rows, cycled to the batch
+        eval_z = sample_z.reshape(-1).repeat(
+            -(-cfg.batch_size // n_samples))[
+                :cfg.batch_size * mcfg.z_dim].reshape(cfg.batch_size,
+                                                      mcfg.z_dim)
         restored = ckpt.restore_latest(state)
         if restored is not None:
             runner.load(restored)
@@ -171,13 +251,16 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                   f"{int(state['step'])}", flush=True)
         timer = StepTimer(images_per_step=cfg.batch_size)
         t_start = time.time()
+        logged_precision = False
         step_num = int(state["step"])
         while step_num < total_steps:
             k = call_size(step_num, total_steps, cfg.steps_per_call,
                           runner.warm)
             batches = [next(data) for _ in range(k)]
-            zs = [step_z(cfg, step_num + i, dev) for i in range(k)]
-            metrics = runner.step(batches, zs)
+            zs, draws = zip(*(step_inputs(cfg, step_num + i, dev)
+                              for i in range(k)))
+            metrics = runner.step(batches, list(zs), list(draws),
+                                  start=step_num)
             if cfg.aot_warmup and not warm_ms:
                 # every row captured right after the warm-up, before the
                 # timer is armed
@@ -192,7 +275,7 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             # one readback per call: the host waits for the device here,
             # so each tick follows the call's completion; the log reports
             # the call's last step
-            values = dict(zip(METRIC_KEYS, metrics.tolist()[-1]))
+            values = dict(zip(keys, metrics.tolist()[-1]))
             timer.tick(steps=k)
             step_num += k
             step = step_num
@@ -203,6 +286,15 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 if corrupt:
                     row["data/corrupt_records"] = corrupt
                 writer.write_scalars(step, row)
+                if cfg.precision and not logged_precision:
+                    # the policy (numeric code) and the f32 master-moment
+                    # census, once; a run without a policy writes neither
+                    writer.write_scalars(step, {
+                        "perf/precision/policy": float(
+                            {"f32": 0, "bf16": 1, "fp8": 2}[cfg.precision]),
+                        "perf/precision/master_f32_leaves": float(
+                            master_f32_leaves(state))})
+                    logged_precision = True
                 print(f"[dcgan_tpu_torch] step {step} time "
                       f"{time.time() - t_start:.1f}s d_loss "
                       f"{values['d_loss']:.8f} g_loss "
@@ -214,13 +306,34 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 path = os.path.join(cfg.sample_dir, f"train_{step:08d}.png")
                 save_sample_grid(path, imgs[:rows * cols], (rows, cols))
                 writer.write_image_event(step, "samples", path)
+                if sample_data is not None:
+                    # the held-out loss probe with the fixed z
+                    ev = {k: float(v) for k, v in fns.eval_losses(
+                        state, next(sample_data), eval_z).items()}
+                    print(f"[dcgan_tpu_torch] [sample] step {step} d_loss "
+                          f"{ev['d_loss']:.8f} g_loss {ev['g_loss']:.8f}",
+                          flush=True)
+                    writer.write_scalars(step, {f"sample/{k}": v
+                                                for k, v in ev.items()})
+                timer.note_host(time.perf_counter() - t0)
+            if cfg.activation_summary_steps and \
+                    step % cfg.activation_summary_steps == 0:
+                t0 = time.perf_counter()
+                writer.write_activations(step, fns.summarize(
+                    state, batches[-1], summary_z(cfg, step, dev)))
                 timer.note_host(time.perf_counter() - t0)
             if ckpt.maybe_save(step, state):
                 # the save's host copy reads the static state that the
                 # next step overwrites in place
                 runner.wait_for(ckpt.copy_event)
     finally:
+        if runner is not None:
+            # its graphs' pools, which the closures' cycles would hold
+            # until the garbage collector ran
+            runner.close()
         data.close()
+        if sample_data is not None:
+            sample_data.close()
         if writer is not None:
             writer.close()
     # the last step, unless the cadence saved it already

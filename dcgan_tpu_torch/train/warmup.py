@@ -9,8 +9,10 @@ as captured CUDA graphs (graphs.py) over static buffers it owns:
 - the train state, allocated once outside any graph and updated in place
   (the counterpart of JAX's buffer donation); a resume copies the restored
   leaves into it (`load`), never rebinds it;
-- K image slots and K z slots (K = steps_per_call), which the trainer
-  fills outside the graph on the current stream;
+- K image slots, K z slots and K slots of the step's other draws
+  (`steps.draw_step`: the critic iterations' z, WGAN-GP's interpolation
+  weights, the augmentations; none for a config without them), which the
+  trainer fills outside the graph on the current stream;
 - the sampler's fixed z.
 
 A row of the plan is one program: `train_step` (one step), `multi_step@kK`
@@ -23,6 +25,15 @@ captured. A row is captured at its first dispatch, or all of them right
 after the warm-up by `aot_capture` (--aot_warmup), which returns the
 `perf/compile_ms/<row>` capture times.
 
+Lazy R1 (r1_interval k > 1) runs the penalty on the steps whose state step
+is a multiple of k. That is no branch inside a graph: the host knows each
+step's index, so a call of K steps takes the row of its pattern of
+penalty and plain steps, `<row>/r1=<K digits>` (1: the penalty runs), one
+program per pattern the run can meet (`r1_patterns`). Before the first
+capture of a penalty step, one eager penalty step on a copy of the state
+warms its double backward up on the capture stream, if the warm-up step
+was a plain one.
+
 On the CPU the runner runs the same static-buffer path eagerly (slots,
 copy-back, K steps per call), so the CPU tests cover all of it but the
 capture itself. The step reads only tensors (no value of the state
@@ -32,13 +43,15 @@ replay is frozen at capture time.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import math
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.graphs import CapturedProgram, on_stream
-from dcgan_tpu_torch.train.steps import TrainStepFns, tree_leaves
+from dcgan_tpu_torch.train.steps import TrainStepFns, draw_step, \
+    lazy_r1, penalty_due, tree_leaves, tree_map
 
 Pytree = dict
 
@@ -47,8 +60,39 @@ TRAIN_ROW = "train_step"
 SAMPLER_ROW = "sampler"
 
 
+def metric_keys(cfg: TrainConfig) -> Tuple[str, ...]:
+    """The step's metrics, in the runner's column order: the losses, then
+    "gp" (WGAN-GP) or "r1" where the config has the penalty."""
+    if cfg.loss == "wgan-gp":
+        return METRIC_KEYS + ("gp",)
+    if cfg.r1_gamma > 0.0:
+        return METRIC_KEYS + ("r1",)
+    return METRIC_KEYS
+
+
+def r1_pattern(cfg: TrainConfig, start: int, k: int) -> Tuple[bool, ...]:
+    """Which of the k steps from state step `start` run lazy R1."""
+    return tuple(penalty_due(cfg, start + i) for i in range(k))
+
+
+def r1_patterns(cfg: TrainConfig, k: int) -> List[Tuple[bool, ...]]:
+    """The patterns a call of k steps can meet: any start for k = 1, the
+    starts on k boundaries for k > 1 (call_size's aligned calls)."""
+    if k == 1:
+        return [(False,), (True,)]
+    span = cfg.r1_interval * k // math.gcd(cfg.r1_interval, k)
+    return sorted({r1_pattern(cfg, s, k) for s in range(0, span, k)})
+
+
 def multi_step_row(k: int) -> str:
     return f"multi_step@k{k}"
+
+
+def pattern_row(row: str, pattern: Optional[Tuple[bool, ...]]) -> str:
+    """A train row's name for a lazy-R1 pattern (None: no lazy R1)."""
+    if pattern is None:
+        return row
+    return f"{row}/r1=" + "".join("1" if p else "0" for p in pattern)
 
 
 def call_size(step: int, total: int, steps_per_call: int,
@@ -73,6 +117,11 @@ def build_warmup_plan(cfg: TrainConfig, *, sample: bool) -> List[str]:
     rows = [TRAIN_ROW]
     if cfg.steps_per_call > 1:
         rows.append(multi_step_row(cfg.steps_per_call))
+    if lazy_r1(cfg):
+        # one program per pattern of penalty and plain steps
+        rows = [pattern_row(row, p) for row in rows
+                for p in r1_patterns(cfg, 1 if row == TRAIN_ROW
+                                     else cfg.steps_per_call)]
     if sample:
         rows.append(SAMPLER_ROW)
     return rows
@@ -106,10 +155,16 @@ class StepRunner:
             dtype=torch.float32, device=device)
         self.z = torch.empty((k, cfg.batch_size, m.z_dim),
                              dtype=torch.float32, device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        self.draws = [{name: torch.empty_like(t) for name, t in
+                       draw_step(cfg, gen).items()} for _ in range(k)]
+        self.cfg = cfg
+        self.keys = metric_keys(cfg)
         self.sample_z = sample_z
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
         self.warm = False
+        self.penalty_warm = False
         self.programs: Dict[str, CapturedProgram] = {}
         self._wait: List[torch.cuda.Event] = []
 
@@ -128,16 +183,36 @@ class StepRunner:
         if event is not None:
             self._wait.append(event)
 
-    def _steps_fn(self, k: int) -> Callable[[], torch.Tensor]:
+    def _steps_fn(self, k: int, pattern: Optional[Tuple[bool, ...]] = None
+                  ) -> Callable[[], torch.Tensor]:
         def steps() -> torch.Tensor:
             state, rows = self.state, []
             for i in range(k):
-                state, m = self.fns.train_step(state, self.images[i],
-                                               self.z[i])
-                rows.append(torch.stack([m[key] for key in METRIC_KEYS]))
+                state, m = self.fns.train_step(
+                    state, self.images[i], self.z[i], self.draws[i],
+                    penalty=None if pattern is None else pattern[i])
+                rows.append(torch.stack([m[key] for key in self.keys]))
             _copy_into(self.state, state)
             return torch.stack(rows)
         return steps
+
+    def _warm_penalty(self) -> None:
+        """One eager penalty step on a copy of the state, on the capture
+        stream, so that the penalty's double backward has run there before
+        a capture records it."""
+        with on_stream(self.stream):
+            copy = tree_map(torch.clone, self.state)
+            self.fns.train_step(copy, self.images[0], self.z[0],
+                                self.draws[0], penalty=True)
+        self.penalty_warm = True
+
+    def _pattern(self, k: int, start: Optional[int]
+                 ) -> Optional[Tuple[bool, ...]]:
+        if not lazy_r1(self.cfg):
+            return None
+        if start is None:
+            raise ValueError("lazy R1: a call needs its start step")
+        return r1_pattern(self.cfg, start, k)
 
     def _sample_fn(self) -> Callable[[], torch.Tensor]:
         if self.sample_z is None:
@@ -151,14 +226,18 @@ class StepRunner:
         if not self.warm:
             raise RuntimeError(f"{name}: the runner's first step (the "
                                "eager warm-up) must run before a capture")
+        base, _, digits = name.partition("/r1=")
+        pattern = tuple(c == "1" for c in digits) if digits else None
+        if pattern is not None and any(pattern) and not self.penalty_warm:
+            self._warm_penalty()
         if name == SAMPLER_ROW:
             fn = self._sample_fn()
             with on_stream(self.stream):   # the sampler's own warm-up
                 fn()
-        elif name == TRAIN_ROW:
-            fn = self._steps_fn(1)
-        elif name.startswith("multi_step@k"):
-            fn = self._steps_fn(int(name[len("multi_step@k"):]))
+        elif base == TRAIN_ROW:
+            fn = self._steps_fn(1, pattern)
+        elif base.startswith("multi_step@k"):
+            fn = self._steps_fn(int(base[len("multi_step@k"):]), pattern)
         else:
             raise KeyError(f"no program {name!r}")
         prog = CapturedProgram(name, fn, self.device, self.stream)
@@ -170,34 +249,61 @@ class StepRunner:
         """Capture row `name` if it is not yet; its capture ms."""
         return self._program(name).capture_ms
 
-    def row(self, k: int) -> str:
-        return TRAIN_ROW if k == 1 else multi_step_row(k)
+    def row(self, k: int, start: Optional[int] = None) -> str:
+        """The row of a call of k steps from state step `start` (needed
+        only under lazy R1)."""
+        return pattern_row(TRAIN_ROW if k == 1 else multi_step_row(k),
+                           self._pattern(k, start))
 
-    def step(self, images: List[torch.Tensor], zs: List[torch.Tensor]
-             ) -> torch.Tensor:
-        """len(images) steps on the static state, step i on images[i] and
-        zs[i]; returns the [k, 4] losses (METRIC_KEYS), which the next
-        call overwrites. The first call (one step) is the eager warm-up."""
+    def step(self, images: List[torch.Tensor], zs: List[torch.Tensor],
+             draws: Optional[List[Dict[str, torch.Tensor]]] = None,
+             start: Optional[int] = None) -> torch.Tensor:
+        """len(images) steps on the static state, step i on images[i],
+        zs[i] and draws[i] (`steps.draw_step`'s; None for a config without
+        them); `start` is the state step the call starts from, which lazy
+        R1 needs. Returns the [k, len(metric_keys(cfg))] metrics, which
+        the next call overwrites. The first call (one step) is the eager
+        warm-up."""
         k = len(images)
         if not 1 <= k <= self.images.shape[0] or len(zs) != k:
             raise ValueError(f"{k} batches and {len(zs)} z for a runner of "
                              f"{self.images.shape[0]} slots")
+        if draws is None:
+            draws = [{}] * k
         for i in range(k):
             self.images[i].copy_(images[i])
             self.z[i].copy_(zs[i])
+            if set(draws[i]) != set(self.draws[i]):
+                raise ValueError(
+                    f"step {i}: draws {sorted(draws[i])}, the config's "
+                    f"are {sorted(self.draws[i])}")
+            for name, t in draws[i].items():
+                self.draws[i][name].copy_(t)
         current = torch.cuda.current_stream(self.device) \
             if self.stream is not None else None
         while self._wait:
             current.wait_event(self._wait.pop())
+        pattern = self._pattern(k, start)
         if not self.warm:
             if k != 1:
                 raise ValueError("the warm-up is one step")
             with on_stream(self.stream):
-                out = self._steps_fn(1)()
+                out = self._steps_fn(1, pattern)()
             self.warm = True
+            self.penalty_warm = pattern is None or pattern[0]
             return out
-        return self._program(self.row(k)).run()
+        return self._program(pattern_row(
+            TRAIN_ROW if k == 1 else multi_step_row(k), pattern)).run()
 
     def sample(self) -> torch.Tensor:
         """The sampler's images of the sample z at the static state."""
         return self._program(SAMPLER_ROW).run()
+
+    def close(self) -> None:
+        """Release every captured program and its graph pool (the static
+        state stays); a later call captures its row again."""
+        if self.stream is not None and self.programs:
+            torch.cuda.synchronize(self.device)
+        for prog in self.programs.values():
+            prog.release()
+        self.programs.clear()

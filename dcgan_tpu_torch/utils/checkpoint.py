@@ -6,7 +6,10 @@ Orbax, and an Orbax reader cannot open it:
 
     <dir>/<step>/state.npz        the training state, keyed by pytree path
                                   as `convert.flatten` names it
-                                  (params/gen/proj/w, opt/disc/count, step)
+                                  (params/gen/proj/w, opt/disc/count, step);
+                                  bfloat16 leaves as their uint16 bits,
+                                  listed in `__bfloat16__`
+                                  (convert.to_npz_arrays)
     <dir>/integrity/<step>.json   {"step", "files": {"state.npz":
                                   {"size", "crc32"}}}
 
@@ -53,7 +56,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dcgan_tpu_torch.convert import flatten, unflatten
+from dcgan_tpu_torch.convert import flatten, from_npz_arrays, \
+    to_npz_arrays, unflatten
 from dcgan_tpu_torch.utils.retry import retry_io
 
 Pytree = dict
@@ -149,9 +153,6 @@ class Checkpointer:
         copied = None
         for path, t in flat.items():
             t = t.detach()
-            if t.dtype == torch.bfloat16:
-                raise TypeError(f"{path}: bfloat16 leaves have no numpy "
-                                "dtype; keep the state in float32")
             if t.device.type != "cuda":
                 host[path] = t.clone()
                 continue
@@ -192,7 +193,7 @@ class Checkpointer:
         os.makedirs(tmp_dir)
         path = os.path.join(tmp_dir, STATE_FILENAME)
         with open(path, "wb") as f:
-            np.savez(f, **{k: v.numpy() for k, v in host.items()})
+            np.savez(f, **to_npz_arrays(host))
             f.flush()
             os.fsync(f.fileno())
         files = {STATE_FILENAME: _file_checksum(path)}
@@ -377,7 +378,7 @@ class Checkpointer:
                     self._mark_corrupt(step, f"crc32 mismatch on {bad[0]!r}")
                     continue
             with np.load(io.BytesIO(data[STATE_FILENAME])) as npz:
-                arrays = {k: npz[k] for k in npz.files}
+                arrays = from_npz_arrays({k: npz[k] for k in npz.files})
             state = self._to_template(step, arrays, want)
             t_done = time.perf_counter()
             self.last_restore_stats = {
@@ -391,7 +392,7 @@ class Checkpointer:
             return state
         return None
 
-    def _to_template(self, step: int, arrays: Dict[str, np.ndarray],
+    def _to_template(self, step: int, arrays: Dict[str, torch.Tensor],
                      want: Dict[str, torch.Tensor]) -> Pytree:
         missing = sorted(set(want) - set(arrays))
         extra = sorted(set(arrays) - set(want))
@@ -401,7 +402,7 @@ class Checkpointer:
                 f"state tree: missing {missing[:8]}, unexpected {extra[:8]}")
         out = {}
         for path, leaf in want.items():
-            t = torch.from_numpy(arrays[path])
+            t = arrays[path]
             if t.shape != leaf.shape or t.dtype != leaf.dtype:
                 raise ValueError(
                     f"checkpoint step {step} in {self.directory}: {path} is "

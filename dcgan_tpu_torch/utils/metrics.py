@@ -4,6 +4,10 @@
   {"kind", "step", "time", ...payload} object per line in the JAX
   package's format, mirrored into TensorBoard event files
   (utils/tb_events.py), with the JAX writer's `every_secs` throttle;
+- `activation_stats`: per-layer histograms and sparsity of the
+  activations `summarize` captures, reduced on the device
+  (`dcgan_tpu/utils/metrics.py:158-210`), which
+  `MetricWriter.write_activations` writes;
 - `CounterRegistry` / `CounterSnapshot`: the serving plane's counters.
 """
 
@@ -15,7 +19,54 @@ import os
 import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
+import torch
+
 from dcgan_tpu_torch.utils.retry import retry_io
+
+
+def _histogram(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+               bins: int):
+    """jnp.histogram(v, bins, range=(lo, hi)) of a flat f32 tensor: the
+    edges by jnp.linspace's arithmetic (lo * (1 - t) + hi * t with t =
+    i / bins, the last edge hi itself; a range of width 0 widened by 0.5
+    each way), each value in the bin whose right edge is the first one
+    above it, a value equal to the last edge in the last bin; counts as
+    f32."""
+    flat = lo == hi
+    lo = torch.where(flat, lo - 0.5, lo)
+    hi = torch.where(flat, hi + 0.5, hi)
+    t = torch.arange(bins, dtype=torch.float32, device=v.device) / bins
+    edges = torch.cat([lo * (1 - t) + hi * t, hi.reshape(1)])
+    idx = torch.searchsorted(edges, v, right=True)
+    idx = torch.where(v == edges[-1], bins, idx)
+    counts = torch.bincount(idx, minlength=bins + 2)[1:bins + 1]
+    return counts.float(), edges
+
+
+def activation_stats(acts: Mapping[str, torch.Tensor], bins: int = 30
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{name: {count, min, max, mean, std, zero_fraction, bin_counts,
+    bin_edges}} of each activation tensor, in f32 on its device: the
+    two-pass variance around the mean, the share of exact zeros (the
+    reference's sparsity), and a `bins`-bin histogram over [min, max]."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, x in acts.items():
+        v = x.detach().float().reshape(-1)
+        lo, hi = v.min(), v.max()
+        mean = v.mean()
+        counts, edges = _histogram(v, lo, hi, bins)
+        out[name] = {
+            "count": v.numel(),
+            "min": lo,
+            "max": hi,
+            "mean": mean,
+            "std": torch.sqrt(torch.square(v - mean).mean()),
+            "zero_fraction": (v == 0.0).float().mean(),
+            "bin_counts": counts,
+            "bin_edges": edges,
+        }
+    return out
 
 
 class MetricWriter:
@@ -64,6 +115,35 @@ class MetricWriter:
         if self._tb:
             for k, v in vals.items():
                 self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+
+    def write_activations(self, step: int,
+                          stats: Mapping[str, Mapping[str, Any]]) -> None:
+        """One "activations" event of `activation_stats`' output (bin
+        counts and `count` as ints, the rest as floats), mirrored into
+        TensorBoard as a histogram and a sparsity scalar per layer."""
+        def conv(rec):
+            out = {}
+            for k, v in rec.items():
+                a = v.detach().cpu().numpy() if isinstance(
+                    v, torch.Tensor) else np.asarray(v)
+                if a.ndim:
+                    cast = int if k == "bin_counts" else float
+                    out[k] = [cast(x) for x in a.ravel()]
+                else:
+                    out[k] = int(a) if k == "count" else float(a)
+            return out
+        converted = {k: conv(rec) for k, rec in stats.items()}
+        self._emit("activations", step, {"values": converted})
+        if self._tb:
+            for k, rec in converted.items():
+                self._tb.add_histogram_bins(
+                    k + "/activations", step, bin_edges=rec["bin_edges"],
+                    bin_counts=rec["bin_counts"], minimum=rec["min"],
+                    maximum=rec["max"], num=float(rec["count"]),
+                    mean=rec["mean"], std=rec["std"])
+                self._tb.add_scalar(k + "/sparsity", rec["zero_fraction"],
+                                    step)
             self._tb.flush()
 
     def write_image_event(self, step: int, name: str, path: str) -> None:

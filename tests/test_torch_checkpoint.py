@@ -237,21 +237,22 @@ class TestResume:
             steps.init_train_state(cfg, device="cpu"))
         _assert_same(restored, first)
         drawn = []
-        real = trainer.step_z
+        real = trainer.step_inputs
 
         def recording(c, step, device):
-            z = real(c, step, device)
+            z, draws = real(c, step, device)
             drawn.append((step, z))
-            return z
+            return z, draws
 
-        monkeypatch.setattr(trainer, "step_z", recording)
+        monkeypatch.setattr(trainer, "step_inputs", recording)
         second = trainer.train(cfg, synthetic_data=True, max_steps=4,
                                device="cpu")
         assert int(second["step"]) == 4
         assert [s for s, _ in drawn] == [2, 3]
-        assert torch.equal(drawn[0][1], real(cfg, 2, torch.device("cpu")))
-        assert not torch.equal(drawn[0][1], real(cfg, 3,
-                                                 torch.device("cpu")))
+        assert torch.equal(drawn[0][1],
+                           real(cfg, 2, torch.device("cpu"))[0])
+        assert not torch.equal(drawn[0][1],
+                               real(cfg, 3, torch.device("cpu"))[0])
         assert [e["step"] for e in _events(cfg.checkpoint_dir)] == \
             [1, 2, 3, 4]
         assert Checkpointer(cfg.checkpoint_dir).latest_step() == 4
@@ -313,12 +314,35 @@ class TestConfigFiles:
         assert dataclasses.asdict(cfg.model) == dataclasses.asdict(
             jcfg.model)
 
-    @pytest.mark.parametrize("kw", [{"r1_gamma": 1.0}, {"loss": "wgan-gp"},
-                                    {"pipeline_gd": True}])
+    @pytest.mark.parametrize("kw", [
+        {"progressive": "32:2,64:*"},
+        {"model": JModelConfig(arch="resnet")},
+        {"pipeline_gd": True}])
     def test_unported_jax_settings_raise(self, tmp_path, kw):
         j_config.save_config(JTrainConfig(**kw), str(tmp_path))
         with pytest.raises(NotImplementedError, match="not ported"):
             config.load_config(str(tmp_path))
+
+    @pytest.mark.parametrize("kw", [
+        {"r1_gamma": 1.0}, {"loss": "wgan-gp"},
+        {"r1_gamma": 10.0, "r1_interval": 4, "n_critic": 2,
+         "grad_accum": 2, "diffaug": "color,cutout", "precision": "bf16"}])
+    def test_jax_penalty_settings_load(self, tmp_path, kw):
+        """Settings the port trains since it has the penalties, n_critic,
+        accumulation, DiffAugment and the precision policies: the JAX
+        config.json loads in the port with every field equal, and the
+        port's loads back in JAX equal to the JAX config."""
+        jcfg = JTrainConfig(**kw)
+        j_config.save_config(jcfg, str(tmp_path / "jax"))
+        cfg = config.load_config(str(tmp_path / "jax"))
+        for f in dataclasses.fields(TrainConfig):
+            if f.name != "model":
+                assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert dataclasses.asdict(cfg.model) == dataclasses.asdict(
+            jcfg.model)
+        config.save_config(cfg, str(tmp_path / "port"))
+        back = j_config.load_config(str(tmp_path / "port"))
+        assert back == jcfg
 
     def test_unported_defaults_are_jax_defaults(self):
         for name, default in config.UNPORTED_TRAIN_FIELDS.items():

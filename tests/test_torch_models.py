@@ -335,10 +335,17 @@ class TestConfig:
 
     @pytest.mark.parametrize("kw", [
         {"arch": "resnet"}, {"num_classes": 10}, {"arch": "stylegan"},
-        {"num_classes": 10, "conditional_bn": True}, {"quant": "fp8"}])
+        {"num_classes": 10, "conditional_bn": True},
+        {"arch": "resnet", "quant": "fp8"}])
     def test_unserved_fields_raise(self, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
             ModelConfig(**kw)
+
+    def test_fp8_quant_is_served(self):
+        """quant="fp8" (set by the fp8 precision policy) constructs, equal
+        to the JAX ModelConfig."""
+        assert dataclasses.asdict(ModelConfig(quant="fp8")) == \
+            dataclasses.asdict(JModelConfig(quant="fp8"))
 
     @pytest.mark.parametrize("kw", [
         {"output_size": 48}, {"arch": "vit"}, {"pallas_fused": True},

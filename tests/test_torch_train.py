@@ -260,19 +260,73 @@ class TestConfig:
                 assert getattr(t, name) == getattr(jt, name), name
         assert dataclasses.asdict(t.model) == dataclasses.asdict(jt.model)
 
+    @pytest.mark.parametrize("make,match", [
+        (lambda: TrainConfig(loss="wgan-gp",
+                             model=ModelConfig(use_pallas=True)),
+         "second derivative"),
+        (lambda: TrainConfig(r1_gamma=10.0, model=ModelConfig(
+            use_pallas=True, pallas_fused=True)), "second derivative"),
+        (lambda: TrainConfig(r1_gamma=1.0, model=ModelConfig(
+            use_pallas=True, bn_pallas=False, attn_res=32)),
+         "second derivative"),
+        (lambda: ModelConfig(arch="resnet"), "not ported"),
+        (lambda: ModelConfig(num_classes=10), "not ported")])
+    def test_unserved_fields_raise(self, make, match):
+        """What the port does not train: a penalty on a kernel route (the
+        JAX package cannot differentiate a Pallas kernel twice), another
+        arch, class conditioning."""
+        with pytest.raises(NotImplementedError, match=match):
+            make()
+
     @pytest.mark.parametrize("kw", [
         {"loss": "wgan-gp"}, {"n_critic": 5}, {"grad_accum": 2},
-        {"precision": "bf16"}, {"diffaug": "color"}])
-    def test_unserved_fields_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TrainConfig(**kw)
+        {"precision": "bf16"}, {"diffaug": "color"},
+        {"precision": "fp8"}, {"r1_gamma": 10.0, "r1_interval": 4},
+        {"loss": "hinge", "n_critic": 2, "grad_accum": 4,
+         "diffaug": "color,translation,cutout", "precision": "bf16",
+         "model": "fused"}])
+    def test_served_fields_equal_jax(self, tmp_path, kw):
+        """The settings of the penalty slice construct in the port, equal
+        to the JAX package's normalized config, and each package's
+        config.json loads in the other."""
+        if kw.get("model") == "fused":
+            kw = dict(kw)
+            del kw["model"]
+            jt = JTrainConfig(model=JModelConfig(
+                use_pallas=True, pallas_fused=True), **kw)
+            t = TrainConfig(model=ModelConfig(
+                use_pallas=True, pallas_fused=True), **kw)
+        else:
+            jt, t = JTrainConfig(**kw), TrainConfig(**kw)
+        for name in TRAIN_FIELDS:
+            if name != "model":
+                assert getattr(t, name) == getattr(jt, name), name
+        assert dataclasses.asdict(t.model) == dataclasses.asdict(jt.model)
+        from dcgan_tpu import config as j_config
+        from dcgan_tpu_torch import config as t_config
+
+        t_config.save_config(t, str(tmp_path / "port"))
+        assert j_config.load_config(str(tmp_path / "port")) == jt
+        j_config.save_config(jt, str(tmp_path / "jax"))
+        assert t_config.load_config(str(tmp_path / "jax")) == t
 
     @pytest.mark.parametrize("kw", [
         {"loss": "l2"}, {"update_mode": "both"}, {"grad_clip": -1.0},
         {"label_smoothing": 0.5}, {"g_ema_decay": 1.0},
         {"lr_schedule": "step"}, {"warmup_steps": 10, "max_steps": 10},
-        {"precision": "fp16"}, {"batch_size": 6, "grad_accum": 4}])
+        {"precision": "fp16"}, {"batch_size": 6, "grad_accum": 4},
+        {"r1_gamma": -1.0}, {"r1_gamma": 1.0, "loss": "wgan-gp"},
+        {"r1_interval": 0}, {"r1_interval": 4}, {"diffaug": "flip"},
+        {"n_critic": 2, "update_mode": "fused"},
+        {"model": "quant"}])
     def test_jax_validation_kept(self, kw):
+        if kw.get("model") == "quant":
+            # model.quant set without the precision policy
+            with pytest.raises(ValueError, match="precision policy"):
+                JTrainConfig(model=JModelConfig(quant="fp8"))
+            with pytest.raises(ValueError, match="precision policy"):
+                TrainConfig(model=ModelConfig(quant="fp8"))
+            return
         with pytest.raises(ValueError):
             JTrainConfig(**kw)
         with pytest.raises(ValueError):

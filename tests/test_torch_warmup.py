@@ -143,7 +143,7 @@ class TestMultiTensorAdam:
 # ---------------------------------------------------------------------------
 
 # the JAX cadences the port does not have, off
-JAX_ONLY_CADENCES = dict(nan_check_steps=0, activation_summary_steps=0)
+JAX_ONLY_CADENCES = dict(nan_check_steps=0)
 
 
 @pytest.mark.parametrize("kw,valid", [
@@ -183,8 +183,8 @@ def _eager_states(cfg, batches_of_step):
     batches = [next(feed) for _ in range(max(batches_of_step) + 1)]
     for s, b in enumerate(batches_of_step):
         state, _ = fns.train_step(state, batches[b],
-                                  trainer.step_z(cfg, s,
-                                                 torch.device("cpu")))
+                                  trainer.step_inputs(
+                                      cfg, s, torch.device("cpu"))[0])
     return state
 
 
@@ -199,9 +199,14 @@ class TestRunner:
         state = trainer.train(cfg, synthetic_data=True, max_steps=8,
                               device="cpu")
         _assert_same(state, _eager_states(cfg, list(range(8))))
-        # the warm-up step, single steps to the K boundary, one call of 4
-        assert [e["step"] for e in _events(cfg.checkpoint_dir)
-                if e["kind"] == "scalars"] == [1, 2, 3, 4, 8]
+        # the warm-up step, single steps to the K boundary, one call of 4;
+        # the held-out loss probe with each sample grid
+        scalars = [e for e in _events(cfg.checkpoint_dir)
+                   if e["kind"] == "scalars"]
+        assert [e["step"] for e in scalars
+                if "d_loss" in e["values"]] == [1, 2, 3, 4, 8]
+        assert [e["step"] for e in scalars
+                if "sample/d_loss" in e["values"]] == [4, 8]
         assert sorted(os.listdir(cfg.sample_dir)) == [
             "train_00000004.png", "train_00000008.png"]
 
@@ -232,6 +237,40 @@ class TestRunner:
         with pytest.raises(ValueError, match="warm-up is one step"):
             runner.step([torch.zeros(BATCH, 16, 16, 3)] * 2,
                         [torch.zeros(BATCH, 8)] * 2)
+
+    def test_close_releases_programs_and_recaptures(self):
+        cfg = _cfg()
+        fns = steps.make_train_step(cfg)
+        runner = warmup.StepRunner(fns, fns.init(seed=0, device="cpu"),
+                                   cfg, torch.device("cpu"))
+        feed = trainer._synthetic_feed(cfg, torch.device("cpu"))
+        batches = [next(feed) for _ in range(3)]
+        zs = [trainer.step_inputs(cfg, s, torch.device("cpu"))[0]
+              for s in range(3)]
+        runner.step(batches[:1], zs[:1])
+        runner.step(batches[1:2], zs[1:2])
+        prog = runner.programs["train_step"]
+        runner.close()
+        assert runner.programs == {}
+        assert prog.fn is None and prog.outputs is None
+        with pytest.raises(RuntimeError, match="not captured"):
+            prog.run()
+        # the next call captures its row again and the steps go on
+        runner.step(batches[2:3], zs[2:3])
+        assert sorted(runner.programs) == ["train_step"]
+        _assert_same(runner.state, _eager_states(cfg, [0, 1, 2]))
+
+    def test_train_closes_its_runner(self, tmp_path, monkeypatch):
+        closed = []
+        close = warmup.StepRunner.close
+
+        def recording_close(runner):
+            closed.append(sorted(runner.programs))
+            close(runner)
+        monkeypatch.setattr(warmup.StepRunner, "close", recording_close)
+        cfg = _cfg(tmp_path)
+        trainer.train(cfg, synthetic_data=True, max_steps=2, device="cpu")
+        assert closed == [["train_step"]]
 
     @pytest.mark.parametrize("spc,sample_every", [(1, 0), (1, 4), (2, 0),
                                                   (4, 8)])
@@ -364,6 +403,40 @@ def test_captured_steps_equal_eager(cuda, k, model):
     torch.cuda.synchronize()
     delta = graphs.counts_delta(graphs.launch_counts(), before)
     assert delta == runner.programs[runner.row(k)].launches
+
+
+@pytest.mark.cuda
+def test_closed_runner_frees_its_graph_pool(cuda):
+    import gc
+
+    cfg = _cfg(steps_per_call=2)
+    fns = steps.make_train_step(cfg)
+    images = [torch.zeros((BATCH, 16, 16, 3), device=cuda)] * 3
+    zs = [torch.zeros((BATCH, 8), device=cuda)] * 3
+    def pools():
+        return {tuple(seg["segment_pool_id"])
+                for seg in torch.cuda.memory_snapshot()} - {(0, 0)}
+
+    # without the collector, only close() breaks the programs' cycles; the
+    # pools of other tests' graphs, if any are alive, are left out
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = pools()
+    gc.disable()
+    try:
+        runner = warmup.StepRunner(fns, fns.init(seed=0, device=cuda), cfg,
+                                   cuda)
+        runner.step(images[:1], zs[:1])
+        runner.step(images[1:3], zs[1:3])
+        assert runner.programs["multi_step@k2"].pool_bytes > 0
+        assert pools() - others
+        runner.close()
+        del runner
+        torch.cuda.empty_cache()
+        left = pools() - others
+    finally:
+        gc.enable()
+    assert left == set()
 
 
 @pytest.mark.cuda

@@ -20,6 +20,11 @@ intact checkpoint of the port's directory and grafts it into a JAX
 training-state pytree of the same config (`template`, e.g.
 `init_train_state`'s), each net's optax state rebuilt by position from the
 port's (count, mu, nu).
+
+bfloat16 leaves (the bf16 and fp8 precision policies) cross both ways
+bit for bit: a JAX bfloat16 array is read through its uint16 view
+(`convert.leaf_from_numpy`), and a port leaf comes out as its uint16 bits
+and is viewed as the template leaf's bfloat16 dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
     """The newest intact checkpoint of the port's `port_dir` as a JAX
     training state shaped like `template` (numpy leaves)."""
     import jax
+    import numpy as np
 
     from dcgan_tpu_torch import convert
     from dcgan_tpu_torch.config import load_config
@@ -53,11 +59,18 @@ def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
     if restored is None:
         raise FileNotFoundError(f"no checkpoint under {port_dir}")
     state = convert.train_state_to_numpy(restored)
+
+    def as_template(a, b):
+        # a bfloat16 leaf's uint16 bits as the template's bfloat16 dtype
+        if a.dtype.name == "bfloat16" and b.dtype == np.uint16:
+            return b.view(a.dtype)
+        return b
+
     out = dict(template)
     for group in ("params", "bn", "ema_gen"):
-        jax.tree_util.tree_map(lambda a, b: None, template[group],
-                               state[group])  # the same tree, or raises
-        out[group] = state[group]
+        # the same tree, or raises
+        out[group] = jax.tree_util.tree_map(as_template, template[group],
+                                            state[group])
     out["step"] = state["step"]
     out["opt"] = {}
     for net, opt in template["opt"].items():
@@ -71,6 +84,7 @@ def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
             raise ValueError(
                 f"opt/{net}: the JAX optimizer state has {len(leaves)} "
                 f"leaves, the port's checkpoint gives {len(new)}")
+        new = [as_template(a, b) for a, b in zip(leaves, new)]
         for i, (a, b) in enumerate(zip(leaves, new)):
             if tuple(a.shape) != tuple(b.shape):
                 raise ValueError(f"opt/{net} leaf {i}: {a.shape} in the "
