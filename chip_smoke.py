@@ -184,8 +184,32 @@ The rest of the training step (`a1`):
    bf16 policy at 128 px) timed eager and at K=1 (host-inclusive ms, busy
    ms, idle share), and the wgan-gp preset's eval_losses and summarize.
 
+The native feed, the pipelined G/D step and the trainer's guards
+(`feed_pipeline`):
+
+16. feed_pipeline: FEED_RECORDS random uint8 64 px records in FEED_SHARDS
+   shards; the native loader and the Python loader on the host alone on
+   those and on phase 11's float64 shards (first batch s, images/s); the
+   trainer's `train()` for FEED_TRAIN_STEPS steps at K=1 on the native
+   uint8 feed and on the synthetic feed, kernel and cuDNN routes (the p50
+   host-inclusive ms of events.jsonl), and the captured runner on the same
+   feeds (ms, busy ms, idle share); pipeline_gd on the kernel route:
+   PIPE_COMPARE_STEPS eager pipelined steps (a GDPipeline over the stage
+   programs, drained before step PIPE_DRAIN_AT) against the runner's
+   captured stage rows, every metric and leaf bit for bit, each row's
+   launches of kernels 1-4 exactly `pipe_per_stage` and its graph pool;
+   one pipelined step against one fused step at K=1 in turns; `train()`
+   with pipeline_gd for PIPE_TRAIN_STEPS steps from the native feed with
+   the counters set to 0 around it (the kernels' `pipeline_gd` path: one
+   fill, PIPE_TRAIN_STEPS steady stages, one drain at the end); a NaN
+   learning rate with nan_check_steps 1 must raise FloatingPointError at
+   step 1 (any other error fails) and leave no checkpoint;
+   fake_quant_fp8's autograd Function equal to its composed ops on the
+   card, output and cotangent. The memory line also gets the a1 group's
+   fp8 128 px graph pool.
+
 At the end of each group of phases (the kernel checks, serve, train,
-sagan64, resume, capture, a1) the garbage is collected and the cache
+sagan64, resume, capture, a1, feed_pipeline) the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -193,7 +217,7 @@ left allocated and reserved.
 
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
-memory report, the card's name and power limit (nvidia-smi),
+feed_pipeline report, the memory report, the card's name and power limit (nvidia-smi),
 one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2303,13 +2327,14 @@ def same_state(torch, convert, name, got, want):
     return len(fw)
 
 
-def loader_rate(cfg):
-    """(first batch s, images/s after it) of the Python loader on the
-    phase's shards, on the host alone."""
+def loader_rate(cfg, native=False):
+    """(first batch s, images/s after it) of the Python loader (the native
+    one with `native`) on the phase's shards, on the host alone."""
+    from dcgan_tpu_torch.data.native import NativeLoader
     from dcgan_tpu_torch.data.pipeline import PythonLoader, list_shards
 
     mcfg = cfg.model
-    loader = PythonLoader(
+    loader = (NativeLoader if native else PythonLoader)(
         list_shards(cfg.data_dir), batch=cfg.batch_size,
         example_shape=(mcfg.output_size, mcfg.output_size, mcfg.c_dim),
         record_dtype=cfg.record_dtype, min_after_dequeue=cfg.shuffle_buffer,
@@ -3993,6 +4018,359 @@ def a1_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the native feed, the pipelined G/D step, the NaN gate (`feed_pipeline`)
+# ---------------------------------------------------------------------------
+
+# uint8 64x64x3 records written for the group (the wire format prepare.py
+# writes by default), in shards
+FEED_RECORDS = 2048
+FEED_SHARDS = 8
+# steps of each train() run on a feed (the p50 of its step times is
+# read from events.jsonl)
+FEED_TRAIN_STEPS = 16
+# eager against captured pipelined steps, the pipeline drained before
+# step PIPE_DRAIN_AT (a refill, as after a restore)
+PIPE_COMPARE_STEPS = 6
+PIPE_DRAIN_AT = 3
+# steps of the pipelined train() run whose launches are counted
+PIPE_TRAIN_STEPS = 4
+
+
+def pipe_per_stage(n_critic, accum, stages=3):
+    """Kernel launches of each stage program of the kernel route
+    (pipeline_gd), derived as `a1_per_step`: gen_fakes is n_critic G
+    forwards (1 channel_moments, s + 1 scale_shift_act, s
+    gemm_bias_moments each); d_update per critic update and microbatch D
+    on the real and the fake batch and its backward (2s, 2s, 2s); g_update
+    per microbatch G's forward, D on the fake batch and the backward
+    through both (as in the fused step), then n_critic - 1 G forwards for
+    the next stack's other slots. A steady step (d_update + g_update) at
+    (1, 1, 3) is PER_STEP less one G forward: slot 0 of the next stack is
+    the G-loss forward's own images."""
+    n, k, s = n_critic, accum, stages
+    zero = dict.fromkeys(PER_STEP, 0)
+    return {
+        "gen_fakes": dict(zero, channel_moments=n,
+                          scale_shift_act=n * (s + 1),
+                          gemm_bias_moments=n * s),
+        "d_update": dict(zero, scale_shift_act=k * n * 2 * s,
+                         scale_shift_act_bwd=k * n * 2 * s,
+                         gemm_bias_moments=k * n * 2 * s),
+        "g_update": dict(zero, channel_moments=k + n - 1,
+                         scale_shift_act=k * (2 * s + 1) + (n - 1) * (s + 1),
+                         scale_shift_act_bwd=k * (2 * s + 1),
+                         gemm_bias_moments=k * 2 * s + (n - 1) * s)}
+
+
+def feed_train(torch, np, cfg, synthetic, steps):
+    """train() for `steps` steps on one feed: (p50 and mean host-inclusive
+    ms per step of the last logged window, seconds of the call)."""
+    from dcgan_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    state = trainer.train(cfg, synthetic_data=synthetic, max_steps=steps,
+                          device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if int(state["step"]) != steps:
+        fail(f"feed_pipeline: train() ended at step {int(state['step'])}")
+    with open(os.path.join(cfg.checkpoint_dir, "events.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(1, steps + 1)) or not all(
+            np.isfinite(r["values"]["d_loss"]) for r in rows):
+        fail(f"feed_pipeline: events.jsonl of {cfg.checkpoint_dir}: "
+             f"{[(r['step'], r['values'].get('d_loss')) for r in rows]}")
+    last = rows[-1]["values"]
+    return last["perf/step_ms_p50"], last["perf/step_ms_mean"], secs
+
+
+def pipe_compare(torch, cfg, report):
+    """PIPE_COMPARE_STEPS pipelined steps eager (a GDPipeline over the step
+    functions) against the runner's captured stage rows, from the seeded
+    state on the same images and draws, the pipeline drained before step
+    PIPE_DRAIN_AT in both, cuDNN deterministic: every metric and state
+    leaf equal bit for bit, two fills each; each stage row's launches of
+    kernels 1-4 as `pipe_per_stage` and its graph pool bytes."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train import trainer
+    from dcgan_tpu_torch.train.gd_pipeline import GDPipeline
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import STAGE_ROWS, StepRunner
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fns = make_train_step(cfg)
+        images, _ = step_inputs(torch, cfg, PIPE_COMPARE_STEPS)
+        draws = [trainer.stage_inputs(cfg, s, dev)
+                 for s in range(PIPE_COMPARE_STEPS)]
+        runner = StepRunner(fns, fns.init(seed=SEED, device=dev), cfg, dev)
+        keys = runner.keys
+        state, pipe, eager = fns.init(seed=SEED, device=dev), GDPipeline(), []
+        for s in range(PIPE_COMPARE_STEPS):
+            if s == PIPE_DRAIN_AT:
+                pipe.drain("restore")
+            state, m = pipe.step(fns, state, images[s], draws[s])
+            eager.append([float(m[k]) for k in keys])
+        got = []
+        for s in range(PIPE_COMPARE_STEPS):
+            if s == PIPE_DRAIN_AT:
+                runner.pipeline.drain("restore")
+            got += runner.pipelined_step(images[s], draws[s],
+                                         start=s).tolist()
+        if got != eager:
+            fail(f"pipeline_gd: captured steps {got} differ from eager "
+                 f"{eager}")
+        leaves = same_state(torch, convert, "pipeline_gd captured vs eager",
+                            runner.state, state)
+        if sorted(runner.programs) != sorted(STAGE_ROWS) or \
+                (pipe.fills, runner.pipeline.fills) != (2, 2):
+            fail(f"pipeline_gd: programs {sorted(runner.programs)}, fills "
+                 f"{pipe.fills} eager, {runner.pipeline.fills} captured")
+        want = pipe_per_stage(cfg.n_critic, cfg.grad_accum)
+        stages = {}
+        for name in STAGE_ROWS:
+            prog = runner.programs[name]
+            launches = {k: n for k, (n, _) in prog.launches.items()}
+            if launches != want[name]:
+                fail(f"pipeline_gd {name}: launches {launches}, expected "
+                     f"{want[name]}")
+            stages[name] = {"launches": launches,
+                            "pool_bytes": prog.pool_bytes,
+                            "capture_ms": prog.capture_ms}
+        log(f"pipeline_gd: {PIPE_COMPARE_STEPS} captured pipelined steps "
+            f"(fill, steady, a drain and a refill at step {PIPE_DRAIN_AT}) "
+            f"equal the eager GDPipeline bit for bit ({leaves} leaves); "
+            "per stage: " + "; ".join(
+                f"{n} {st['launches']} pool {st['pool_bytes']} B"
+                for n, st in stages.items()))
+        report["stages"] = stages
+        runner.close()
+        del runner
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def pipe_timed(torch, cfg, report):
+    """One pipelined step (its two stage rows, steady) against one fused
+    step of the same config at K=1, host-inclusive ms, busy ms and idle
+    share, in turns (pipelined, fused, fused, pipelined)."""
+    from dcgan_tpu_torch.train import trainer
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fcfg = dataclasses.replace(cfg, pipeline_gd=False)
+    images, _ = step_inputs(torch, cfg, 2)
+    draws = [trainer.stage_inputs(cfg, s, dev) for s in range(2)]
+    z, fd = trainer.step_inputs(fcfg, 1, dev)
+    rp = StepRunner(make_train_step(cfg), make_train_step(cfg).init(
+        seed=SEED, device=dev), cfg, dev)
+    ffns = make_train_step(fcfg)
+    rf = StepRunner(ffns, ffns.init(seed=SEED, device=dev), fcfg, dev)
+    rp.pipelined_step(images[0], draws[0], start=0)
+    rf.step([images[0]], [z], [fd], start=0)
+
+    def piped():
+        rp.pipelined_step(images[1], draws[1], start=1).tolist()
+
+    def fused():
+        rf.step([images[1]], [z], [fd], start=1).tolist()
+
+    def turn(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS // 4):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / (TIMED_STEPS // 4)
+        split = profile_split(torch, fn, steps=PROFILED_CALLS, settle=True)
+        if split is None:
+            return {"step_ms": ms, "busy_ms": "not measured",
+                    "idle_share": "not measured"}
+        return {"step_ms": ms, "busy_ms": split["busy_ms"],
+                "idle_share": split["idle_share"],
+                "launches_per_step": split["launches_per_step"]}
+    turns = {"pipelined": [], "fused": []}
+    for label in ("pipelined", "fused", "fused", "pipelined"):
+        turns[label].append(turn(piped if label == "pipelined" else fused))
+    report["timed"] = turns
+    report["pool_bytes"] = {
+        "pipelined": {n: p.pool_bytes for n, p in rp.programs.items()},
+        "fused": {n: p.pool_bytes for n, p in rf.programs.items()}}
+    log("pipeline_gd vs fused, one step at K=1, host-inclusive ms / busy "
+        "ms / idle share in turns: " + "; ".join(
+            f"{label} " + ", ".join(
+                f"{t['step_ms']:.3f} / {t['busy_ms']} / {t['idle_share']}"
+                for t in runs) for label, runs in turns.items()))
+    rp.close()
+    rf.close()
+    del rp, rf
+
+
+def feed_pipeline_and_check(torch, np, workdir, kernels):
+    """Phase 16: the native loader against the Python one on the host
+    alone (float64 and uint8 records at 64 px); train() on the native
+    uint8 feed against the synthetic feed, kernel and cuDNN routes,
+    captured at K=1; pipeline_gd on the kernel route (captured = eager bit
+    for bit over fills and steady steps, launches per stage, ms against
+    the fused step, one train() run ending in one drain, its launches the
+    kernels' `pipeline_gd` path); the NaN gate on the card; fake_quant_fp8's
+    Function against its composed ops on the card. Returns the report."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch.data.synthetic import write_image_tfrecords
+    from dcgan_tpu_torch.ops.layers import fake_quant_fp8, \
+        fake_quant_fp8_ops
+    from dcgan_tpu_torch.presets import celeba64 as celeba64_preset
+    from dcgan_tpu_torch.train import trainer
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    root = os.path.join(workdir, "feed")
+    base = celeba64_preset()
+    kernel_model = dc.replace(base.model, use_pallas=True, pallas_fused=True)
+    u8 = dc.replace(base, batch_size=BATCH, seed=SEED, record_dtype="uint8",
+                    data_dir=os.path.join(root, "u8"),
+                    shuffle_buffer=RESUME_SHUFFLE, sample_every_steps=0,
+                    activation_summary_steps=0, save_model_secs=1e9,
+                    tensorboard=False)
+    report = {"records": FEED_RECORDS, "batch": BATCH}
+
+    # 1. the loaders on the host alone
+    t0 = time.perf_counter()
+    write_image_tfrecords(u8.data_dir, num_examples=FEED_RECORDS,
+                          image_size=64, channels=3, num_shards=FEED_SHARDS,
+                          record_dtype="uint8", seed=SEED)
+    report["write_uint8_s"] = time.perf_counter() - t0
+    f64 = dc.replace(u8, data_dir=os.path.join(workdir, "resume", "data"),
+                     record_dtype="float64")
+    loaders = report["loaders"] = {}
+    for dtype, cfg in (("float64", f64), ("uint8", u8)):
+        for kind in ("native", "python"):
+            first, rate = loader_rate(cfg, native=kind == "native")
+            loaders[f"{kind} {dtype}"] = {"first_batch_s": first,
+                                          "images_per_s": rate}
+    log("feed_pipeline: loaders on the host alone "
+        f"({u8.num_loader_threads} readers, pool {u8.shuffle_buffer}, batch "
+        f"{BATCH}), first batch s / images/s after it: " + "; ".join(
+            f"{k} {v['first_batch_s']:.3f} / {v['images_per_s']:.0f}"
+            for k, v in loaders.items()))
+
+    # 2. train() on the native uint8 feed and on the synthetic feed, each
+    # route at K=1; the idle share through the trainer's feed and runner
+    feeds = report["feeds"] = {}
+    for route, model in (("kernel", kernel_model), ("cudnn", base.model)):
+        for feed in ("native uint8", "synthetic"):
+            run = os.path.join(root, f"{route}_{feed.replace(' ', '_')}")
+            cfg = dc.replace(u8, model=model, checkpoint_dir=run,
+                             sample_dir=os.path.join(run, "samples"))
+            synthetic = feed == "synthetic"
+            p50, mean, secs = feed_train(torch, np, cfg, synthetic,
+                                         FEED_TRAIN_STEPS)
+            fns = make_train_step(cfg)
+            ms, split = feed_steps_captured(torch, trainer, fns, cfg,
+                                            synthetic, 1)
+            feeds[f"{route} {feed}"] = {
+                "train_step_ms_p50": p50, "train_step_ms_mean": mean,
+                "train_s": secs, "runner_step_ms": ms,
+                "idle_share": split["idle_share"] if split
+                else "not measured",
+                "busy_ms": split["busy_ms"] if split else "not measured"}
+    log("feed_pipeline: celeba64 train() at K=1, host-inclusive ms per step "
+        "(p50 of events.jsonl) / the runner on the same feed / busy ms / "
+        "idle share: " + "; ".join(
+            f"{k} {v['train_step_ms_p50']:.3f} / {v['runner_step_ms']:.3f} "
+            f"/ {v['busy_ms']} / {v['idle_share']}"
+            for k, v in feeds.items()))
+
+    # 3. pipeline_gd on the kernel route
+    pcfg = dc.replace(u8, model=kernel_model, pipeline_gd=True,
+                      checkpoint_dir=os.path.join(root, "pipe"),
+                      sample_dir=os.path.join(root, "pipe", "samples"))
+    pipe = report["pipeline_gd"] = {}
+    pipe_compare(torch, pcfg, pipe)
+    pipe_timed(torch, pcfg, pipe)
+    seen = []
+    real_close = StepRunner.close
+
+    def close(self):
+        if self.pipeline is not None:
+            seen.append((self.pipeline.fills, self.pipeline.drains,
+                         self.pipeline.last_drain_reason))
+        real_close(self)
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    StepRunner.close = close
+    try:
+        state = trainer.train(pcfg, max_steps=PIPE_TRAIN_STEPS,
+                              device="cuda")
+    finally:
+        StepRunner.close = real_close
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    per = pipe_per_stage(1, 1)
+    want = {k: PIPE_TRAIN_STEPS * (per["d_update"][k] + per["g_update"][k])
+            + per["gen_fakes"][k] for k in PER_STEP}
+    if launches != want:
+        fail(f"pipeline_gd train(): launches {launches}, expected {want}")
+    if seen != [(1, 1, "shutdown")] or int(state["step"]) != \
+            PIPE_TRAIN_STEPS or Checkpointer(
+                pcfg.checkpoint_dir).latest_step() != PIPE_TRAIN_STEPS:
+        fail(f"pipeline_gd train(): (fills, drains, reason) {seen}, step "
+             f"{int(state['step'])}")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["pipeline_gd"] = \
+            launches[entry["name"]]
+        entry["launches_by_stage"] = {n: c[entry["name"]]
+                                      for n, c in per.items()}
+    pipe["train_launches"] = launches
+    log(f"pipeline_gd: train() from the native uint8 feed, "
+        f"{PIPE_TRAIN_STEPS} steps, one fill and one drain ('shutdown'), "
+        f"launches {launches}")
+
+    # 4. the NaN gate on the card: a NaN learning rate trips it at step 1
+    ncfg = dc.replace(u8, model=kernel_model, learning_rate=float("nan"),
+                      nan_check_steps=1,
+                      checkpoint_dir=os.path.join(root, "nan"),
+                      sample_dir=os.path.join(root, "nan", "samples"))
+    try:
+        trainer.train(ncfg, synthetic_data=True, max_steps=3, device="cuda")
+    except FloatingPointError as e:
+        if getattr(e, "step", None) != 1 or "step 1" not in str(e):
+            fail(f"the NaN gate tripped at the wrong step: {e}")
+        report["nan_gate"] = str(e)
+        log(f"feed_pipeline: the NaN gate raised FloatingPointError: {e}")
+    else:
+        fail("a NaN learning rate trained 3 steps without the NaN gate "
+             "tripping")
+    if Checkpointer(ncfg.checkpoint_dir).latest_step() is not None:
+        fail("the NaN gate let the poisoned state be checkpointed")
+
+    # 5. fake_quant_fp8's Function against its composed ops on the card
+    x = torch.randn((BATCH * 16 * 16, 25 * 128), device="cuda",
+                    dtype=torch.bfloat16) * 3.0
+    gy = torch.randn_like(x)
+    out = []
+    for fn in (fake_quant_fp8, fake_quant_fp8_ops):
+        xr = x.clone().requires_grad_(True)
+        y = fn(xr)
+        (g,) = torch.autograd.grad(y, xr, gy)
+        out.append((y.detach(), g))
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])):
+        fail("fake_quant_fp8's Function differs from its composed ops on "
+             "the card")
+    log("feed_pipeline: fake_quant_fp8's Function equals its composed ops "
+        "on the card, output and cotangent, bit for bit")
+    del x, gy, out
+    return report
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -4112,6 +4490,14 @@ def main() -> int:
         phase_memory(torch, "capture", memory)
         a1_report = a1_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "a1", memory)
+        memory["a1"]["fp8_128px_pool_bytes"] = sum(
+            a1_report["timed"]["kernel_fp8_128px_pool_bytes"].values())
+        log(f"memory: the a1 group's fp8 step at 128 px holds "
+            f"{memory['a1']['fp8_128px_pool_bytes'] / 2 ** 30:.2f} GiB of "
+            f"graph pool; the group peaks at "
+            f"{memory['a1']['peak_reserved'] / 2 ** 30:.2f} GiB reserved")
+        feed_report = feed_pipeline_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "feed_pipeline", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -4121,6 +4507,7 @@ def main() -> int:
     print(json.dumps({"resume": resume_report}), flush=True)
     print(json.dumps({"capture": capture_report}), flush=True)
     print(json.dumps({"a1": a1_report}), flush=True)
+    print(json.dumps({"feed_pipeline": feed_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(

@@ -9,9 +9,9 @@ self-attention block at `attn_res`, spectral norm on D or on both nets,
 the hinge loss), on the BCE, hinge or WGAN-GP loss, with R1, n_critic,
 gradient accumulation, DiffAugment and the f32/bf16/fp8 precision
 policies; the fields that select anything else (another `arch`, class
-conditioning; the JAX package's `progressive` schedule and `pipeline_gd`
-stage programs) raise `NotImplementedError` instead of being silently
-ignored. So does a penalty (WGAN-GP, R1) on a kernel route
+conditioning; the JAX package's `progressive` schedule and its
+`nan_policy="rollback"`) raise `NotImplementedError` instead of being
+silently ignored. So does a penalty (WGAN-GP, R1) on a kernel route
 (`use_pallas`): the JAX package cannot differentiate a Pallas kernel
 twice, so its penalties run on the plain route only, and so do the
 port's. A sequence mesh for the attention does not exist in the port
@@ -217,6 +217,11 @@ class TrainConfig:
     sample_grid: Tuple[int, int] = (8, 8)
     sample_size: int = 64          # rows of the fixed sample z
     log_every_steps: int = 1
+    nan_check_steps: int = 100     # every N steps the step's metrics must
+                                   # be finite, else the run raises
+                                   # FloatingPointError (0 = off)
+    nan_policy: str = "abort"      # a tripped NaN gate raises; the JAX
+                                   # package's "rollback" is not ported
     activation_summary_steps: int = 500  # per-layer activation histograms
                                    # and sparsity (0: none)
     seed: int = 0
@@ -231,6 +236,11 @@ class TrainConfig:
     aot_warmup: bool = False       # capture every program of the run
                                    # before its second step, with
                                    # perf/compile_ms/* capture times
+    pipeline_gd: bool = False      # the step as three stage programs
+                                   # (gen_fakes, d_update, g_update): D
+                                   # trains on the fake stack G produced
+                                   # during the previous step
+                                   # (train/gd_pipeline.py)
 
     def __post_init__(self):
         # the JAX package's validation of these fields, with its messages
@@ -305,6 +315,20 @@ class TrainConfig:
         if self.log_every_steps < 1:
             raise ValueError(f"log_every_steps must be >= 1, got "
                              f"{self.log_every_steps}")
+        if self.nan_policy not in ("abort", "rollback"):
+            raise ValueError(
+                f"nan_policy must be 'abort' or 'rollback', got "
+                f"{self.nan_policy!r}")
+        if self.nan_policy == "rollback" and not self.nan_check_steps:
+            raise ValueError(
+                "nan_policy='rollback' needs the NaN gate enabled "
+                "(nan_check_steps > 0) — with the gate off nothing ever "
+                "trips, so the snapshot cost buys no protection")
+        if self.nan_policy == "rollback":
+            raise NotImplementedError(
+                "nan_policy='rollback' (restore the last good snapshot and "
+                "train on) is not ported to dcgan_tpu_torch; the port "
+                "aborts on a non-finite metric (nan_policy='abort')")
         if self.max_corrupt_records < 0:
             raise ValueError(
                 f"max_corrupt_records must be >= 0, got "
@@ -339,6 +363,22 @@ class TrainConfig:
             raise ValueError(
                 "update_mode='fused' (reference-parity single fused step) is "
                 "defined only for n_critic=1")
+        if self.pipeline_gd:
+            if self.update_mode != "sequential":
+                raise ValueError(
+                    "pipeline_gd dispatches g_update AFTER d_update "
+                    "(sequential semantics by construction); "
+                    "update_mode='fused' has no pipelined equivalent")
+            if self.model.num_classes:
+                raise ValueError(
+                    "pipeline_gd supports unconditional models only — the "
+                    "stage programs do not thread class labels through the "
+                    "fake stack")
+            if self.steps_per_call != 1:
+                raise ValueError(
+                    f"pipeline_gd dispatches per-step stage programs; it "
+                    f"does not compose with the scanned multi-step path "
+                    f"(steps_per_call={self.steps_per_call} — set it to 1)")
         if (self.loss == "wgan-gp" or self.r1_gamma > 0) \
                 and self.model.use_pallas:
             # the JAX package's penalties fail on both of its kernel routes
@@ -389,7 +429,7 @@ def save_model_config(cfg: ModelConfig, directory: str) -> str:
 # TrainConfig fields of the JAX package that change what is trained and
 # that the port does not implement, with their JAX defaults: a config.json
 # that sets one otherwise raises instead of being trained without it
-UNPORTED_TRAIN_FIELDS = {"progressive": "", "pipeline_gd": False}
+UNPORTED_TRAIN_FIELDS = {"progressive": "", "nan_policy": "abort"}
 
 
 def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:

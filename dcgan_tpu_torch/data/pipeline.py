@@ -8,9 +8,13 @@ the device, prefetched (a copy of `dcgan_tpu/data/pipeline.py` without JAX).
   thread copies each host batch into pinned host memory and from there to
   the card on a side stream; the consumer's stream waits on the copy's
   event, and each tensor it takes is marked with `record_stream`.
-- The JAX package's native C++ loader is not ported: `use_native=True`
-  raises `NotImplementedError` instead of falling back to the Python
-  loader.
+- `use_native=True` (the default) reads through the native C++ loader
+  (data/native.py, a copy of the JAX package's), `use_native=False`
+  through `PythonLoader`. Unlike the JAX package, which warns and falls
+  back to the Python loader when the native one fails to build or start,
+  the port raises `NativeLoaderError` (with the compiler's stderr): a
+  silent fallback would leave a run on a loader several times slower
+  without anyone having asked for it.
 """
 
 from __future__ import annotations
@@ -60,8 +64,8 @@ class DataConfig:
                                     # many before failing; 0 = any corrupt
                                     # record is fatal. CRCs are verified only
                                     # when quarantine is on
-    use_native: bool = True         # the JAX package's C++ loader; not in
-                                    # the port, which raises for it
+    use_native: bool = True         # the C++ loader (data/native.py);
+                                    # False: the Python loader
     loop: bool = True
 
 
@@ -329,24 +333,25 @@ class PythonLoader:
 
 
 def _make_loader(cfg: DataConfig, paths: Sequence[str], seed: int):
-    if cfg.use_native:
-        raise NotImplementedError(
-            "the native C++ TFRecord loader is not ported to "
-            "dcgan_tpu_torch; build the DataConfig with use_native=False "
-            "(the pure-Python loader)")
     shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    kwargs = dict(batch=cfg.batch_size, example_shape=shape,
+                  record_dtype=cfg.record_dtype,
+                  min_after_dequeue=cfg.min_after_dequeue,
+                  n_threads=cfg.n_threads,
+                  prefetch_batches=cfg.prefetch_batches, seed=seed,
+                  normalize=cfg.normalize, loop=cfg.loop,
+                  feature_name=cfg.feature_name,
+                  label_feature=cfg.label_feature,
+                  max_corrupt_records=cfg.max_corrupt_records)
+    if cfg.use_native:
+        from dcgan_tpu_torch.data.native import NativeLoader
+
+        # verifies every record's CRC; a failed build or start raises
+        return NativeLoader(paths, **kwargs)
     # the pure-Python CRC pass runs only under quarantine: detecting a
     # payload flip needs it, and it costs a pass over every byte
-    return PythonLoader(paths, batch=cfg.batch_size, example_shape=shape,
-                        record_dtype=cfg.record_dtype,
-                        min_after_dequeue=cfg.min_after_dequeue,
-                        n_threads=cfg.n_threads,
-                        prefetch_batches=cfg.prefetch_batches, seed=seed,
-                        normalize=cfg.normalize, loop=cfg.loop,
-                        feature_name=cfg.feature_name,
-                        label_feature=cfg.label_feature,
-                        verify_crc=cfg.max_corrupt_records > 0,
-                        max_corrupt_records=cfg.max_corrupt_records)
+    return PythonLoader(paths, verify_crc=cfg.max_corrupt_records > 0,
+                        **kwargs)
 
 
 def _as_tuple(batch):
@@ -380,6 +385,9 @@ class DevicePrefetcher:
         self._host_iter = host_iter
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
+        if self._cuda and self._device.index is None:
+            # the producer thread sets its device, which needs an index
+            self._device = torch.device("cuda", torch.cuda.current_device())
         self._owner = owner
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()

@@ -5,7 +5,8 @@ With `max_corrupt_records` > 0 the loader SKIPS a record whose CRC or
 parse fails, logs its file and offset, and counts it here, up to that
 budget; past it the run fails, so systemic corruption (a truncated
 dataset, a wrong record_dtype) still stops the run. The counter is
-process-wide: the trainer reports this run's delta as the
+process-wide and covers both loaders (the native loader's count is
+mirrored in through `add`): the trainer reports this run's delta as the
 `data/corrupt_records` scalar.
 """
 
@@ -35,6 +36,15 @@ def record(path: str, offset: int, reason: str, *,
             f"corrupt-record budget exhausted: {seen} corrupt record(s) "
             f"with --max_corrupt_records={budget}; last was {reason} in "
             f"{path} @ byte {offset} — repair or re-prepare the shards")
+
+
+def add(n: int) -> None:
+    """Fold quarantines counted elsewhere (the native loader's) into the
+    process total."""
+    global _count
+    if n > 0:
+        with _lock:
+            _count += n
 
 
 def count() -> int:

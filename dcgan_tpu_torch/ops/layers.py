@@ -37,15 +37,9 @@ Pytree = dict
 FP8_E4M3_MAX = 448.0
 
 
-def fake_quant_fp8(x: torch.Tensor) -> torch.Tensor:
-    """x through float8_e4m3fn with per-tensor amax scaling, back in x's
-    dtype (`dcgan_tpu/ops/layers.py:23-32`, as compiled): scale =
-    max(amax / 448, 1e-12), q = fp8(x / scale) rounded to nearest even,
-    q * scale. The
-    scaling keeps x / scale within e4m3's range, where an unscaled cast
-    would overflow. Differentiable as the JAX function is: the casts pass
-    the gradient through, and the scale's own gradient reaches the amax
-    element."""
+def fake_quant_fp8_ops(x: torch.Tensor) -> torch.Tensor:
+    """`fake_quant_fp8` as composed torch ops, differentiated by autograd
+    op by op (which keeps f32 copies of x for the backward)."""
     xf = x.float()
     # amax times the f32 reciprocal of 448: the JAX function's `/ 448.0`
     # as XLA compiles it (a division by a constant becomes this product),
@@ -54,6 +48,132 @@ def fake_quant_fp8(x: torch.Tensor) -> torch.Tensor:
                           torch.full((), 1e-12, device=x.device))
     q = (xf / scale).to(torch.float8_e4m3fn).float()
     return (q * scale).to(x.dtype)
+
+
+# elements of the operand each pass of _FakeQuantFp8 takes at once
+FP8_CHUNK = 1 << 24
+
+
+def _fp8_chunks(n: int):
+    return (slice(i, min(n, i + FP8_CHUNK)) for i in range(0, n, FP8_CHUNK))
+
+
+def _memory_order(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """t's elements in memory order as a 1-D view (the order an
+    elementwise op and a full reduction walk a dense tensor in), or None
+    when t is not dense."""
+    perm = sorted(range(t.dim()), key=lambda d: -t.stride(d))
+    flat = t.permute(perm)
+    return flat.view(-1) if flat.is_contiguous() else None
+
+
+class _FakeQuantFp8(torch.autograd.Function):
+    """fake_quant_fp8_ops with the same forward and cotangent bits, holding
+    no f32 copy of x: it saves x (in its own dtype), amax and the scale,
+    and walks x in FP8_CHUNK pieces. Each elementwise step is autograd's
+    own formula for the composed op, so a piece gives the bits the whole
+    tensor gives. The scale's gradient is two sums over the whole tensor
+    (of g * q and of -g_u * (x / s) / s, autograd's products for the
+    multiply and the divide), each reduced over one f32 buffer in x's
+    memory order as autograd reduces it; it reaches the amax elements as
+    torch's max backward spreads it (evenly over the ties). x may be any
+    dense layout (the plain route quantizes a permuted view of the map);
+    a cotangent in another layout than x's, or a double backward (a
+    penalty through a quantized stage), recomputes the composed ops and
+    differentiates them instead."""
+
+    @staticmethod
+    def forward(ctx, x):
+        flat = _memory_order(x)
+        if flat is None:
+            ctx.save_for_backward(x, None, None)
+            return fake_quant_fp8_ops(x)
+        # max is exact in any order: the chunks' maxima give xf.abs().max()
+        amax = torch.stack([flat[sl].float().abs().max()
+                            for sl in _fp8_chunks(flat.numel())]).max()
+        scale = torch.maximum(amax * (1.0 / FP8_E4M3_MAX),
+                              torch.full((), 1e-12, device=x.device))
+        # empty_like keeps a dense tensor's strides: the same memory order
+        y = torch.empty_like(x)
+        out = _memory_order(y)
+        for sl in _fp8_chunks(flat.numel()):
+            q = (flat[sl].float() / scale).to(torch.float8_e4m3fn).float()
+            out[sl] = (q * scale).to(x.dtype)
+        ctx.save_for_backward(x, amax, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, amax, scale = ctx.saved_tensors
+        if torch.is_grad_enabled() or amax is None \
+                or gy.stride() != x.stride():
+            twice = torch.is_grad_enabled()
+            with torch.enable_grad():
+                xr = x if twice else x.detach().requires_grad_(True)
+                y = fake_quant_fp8_ops(xr)
+            return torch.autograd.grad(y, xr, gy, create_graph=twice)[0]
+        e4m3 = torch.float8_e4m3fn
+        flat, gflat = _memory_order(x), _memory_order(gy)
+        n = flat.numel()
+
+        def tied(xc):
+            # torch's max backward: the elements whose |x| equals the max
+            # (x in its own dtype: amax is one of its values, so the
+            # comparison is exact; a NaN amax makes every cotangent NaN)
+            return (xc == amax) | (xc == -amax)
+
+        # d/dscale of q * scale: sum(g * q); of xf / scale: sum(-g_u *
+        # ((xf / scale) / scale)), g_u the cotangent through the casts,
+        # kept in e4m3 (its exact value) for the last pass
+        prod = torch.empty(n, dtype=torch.float32, device=x.device)
+        g_u8 = torch.empty(n, dtype=e4m3, device=x.device)
+        count = torch.zeros((), dtype=torch.int64, device=x.device)
+        for sl in _fp8_chunks(n):
+            count += tied(flat[sl]).sum()
+            torch.mul(gflat[sl].float(),
+                      (flat[sl].float() / scale).to(e4m3).float(),
+                      out=prod[sl])
+        g_scale = prod.sum()
+        for sl in _fp8_chunks(n):
+            g_u8[sl] = (gflat[sl].float() * scale).to(e4m3)
+            torch.mul(-g_u8[sl].float(), (flat[sl].float() / scale) / scale,
+                      out=prod[sl])
+        g_scale = g_scale + prod.sum()
+        del prod
+        # through max(amax / 448, 1e-12) and the product with 1 / 448 to
+        # amax, spread evenly over its ties
+        m = amax * (1.0 / FP8_E4M3_MAX)
+        eps = torch.full((), 1e-12, device=x.device)
+        g_m = torch.where(m == eps, g_scale / 2, g_scale).masked_fill_(
+            m < eps, 0)
+        share = g_m * (1.0 / FP8_E4M3_MAX) / count
+        gx = torch.empty_like(x)
+        out = _memory_order(gx)
+        for sl in _fp8_chunks(n):
+            mask = tied(flat[sl])
+            # max's backward on CUDA multiplies the mask by the share
+            # (zeros keep the share's sign); on the CPU it scatters the
+            # share into zeros
+            g_abs = mask * share if x.is_cuda else torch.where(
+                mask, share, torch.zeros((), device=x.device))
+            out[sl] = (g_u8[sl].float() / scale
+                       + g_abs * flat[sl].sgn()).to(x.dtype)
+        return gx
+
+
+def fake_quant_fp8(x: torch.Tensor) -> torch.Tensor:
+    """x through float8_e4m3fn with per-tensor amax scaling, back in x's
+    dtype (`dcgan_tpu/ops/layers.py:23-32`, as compiled): scale =
+    max(amax / 448, 1e-12), q = fp8(x / scale) rounded to nearest even,
+    q * scale. The
+    scaling keeps x / scale within e4m3's range, where an unscaled cast
+    would overflow. Differentiable as the JAX function is: the casts pass
+    the gradient through (rounding it through e4m3), and the scale's own
+    gradient reaches the amax element. An autograd Function that holds no
+    f32 copy of x (`_FakeQuantFp8`); its bits are `fake_quant_fp8_ops`'."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return fake_quant_fp8_ops(x)
+    return _FakeQuantFp8.apply(x)
 
 
 def _normal(gen: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:

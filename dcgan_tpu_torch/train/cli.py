@@ -16,11 +16,15 @@ port serves, plus --device.
     python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
         --pallas_fused --precision bf16 --n_critic 2 --grad_accum 2 \
         --diffaug color,translation,cutout --data_dir D --checkpoint_dir C
+    python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
+        --pallas_fused --pipeline_gd --data_dir D --checkpoint_dir C
 
 Flags given explicitly override the preset's values. The run reads the
 TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
 run again on the same --checkpoint_dir, resumes from its newest intact
-checkpoint.
+checkpoint. SIGTERM or SIGINT stops the run at the next call boundary with
+a final checkpoint; a non-finite loss on the --nan_check_steps cadence
+aborts it with FloatingPointError.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ _FLAG_FIELDS = {
     "lr_schedule": ("", "lr_schedule"),
     "steps_per_call": ("", "steps_per_call"),
     "aot_warmup": ("", "aot_warmup"),
+    "nan_check_steps": ("", "nan_check_steps"),
+    "pipeline_gd": ("", "pipeline_gd"),
     "use_pallas": ("model", "use_pallas"),
     "pallas_fused": ("model", "pallas_fused"),
     "output_size": ("model", "output_size"),
@@ -76,6 +82,16 @@ _FLAG_FIELDS = {
 # --no_<x> flags -> the TrainConfig field they turn off
 _NEGATED_FLAGS = {"no_normalize": "normalize_inputs",
                   "no_tensorboard": "tensorboard"}
+
+
+def _parse_bool(text: str) -> bool:
+    """The JAX CLI's {true,false} flag values."""
+    lowered = text.lower()
+    if lowered in ("1", "true", "yes", "on"):
+        return True
+    if lowered in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected true or false, got {text!r}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -170,6 +186,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aot_warmup", action="store_true",
                    help="capture every program of the run after its first "
                         "step, writing perf/compile_ms/* capture times")
+    p.add_argument("--nan_check_steps", type=int,
+                   help="numerical-health gate cadence (0 = off): every "
+                        "N steps a non-finite loss aborts the run with "
+                        "FloatingPointError before the step is saved")
+    p.add_argument("--pipeline_gd", type=_parse_bool, nargs="?", const=True,
+                   metavar="{true,false}",
+                   help="pipelined G/D dispatch: the step as three stage "
+                        "programs (gen_fakes, d_update, g_update), D "
+                        "training on the fake stack G produced during the "
+                        "previous step (sequential update mode, "
+                        "steps_per_call 1)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' must be asked for by name")
     return p

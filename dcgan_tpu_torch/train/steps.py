@@ -24,6 +24,13 @@ same draws, and a captured step reads them from its input slots.
 `eval_losses` and `summarize` are the JAX package's loss probe and
 activation summaries.
 
+`gen_fakes`, `d_update` and `g_update` are the JAX package's pipelined
+stage programs (`:744-946`, train/gd_pipeline.py drives them): the fused
+step's own D and G code, with D's fake batch taken from a stack that the
+previous step's G update made (its G-loss forward's images and, with
+n_critic > 1, fresh slots from the same weights); their draws come from
+`draw_stages`.
+
 The state is a nested dict of tensors with the JAX state's names:
     {"params": {"gen", "disc"}, "bn": {"gen", "disc"},
      "opt": {"gen": {"mu", "nu", "count"}, "disc": {...}},
@@ -290,6 +297,50 @@ def draw_step(cfg: TrainConfig, gen: torch.Generator,
     return out
 
 
+def draw_stages(cfg: TrainConfig, gen: torch.Generator,
+                batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The random inputs of one pipelined step (the stage programs'
+    counterpart of the JAX key schedule `fold_in(key, 0 | 1 | 2)`, D, G
+    and the fill), drawn from `gen` on its device as a flat dict, in the
+    order listed:
+
+    - "d/critic<i>/eps" (WGAN-GP), "d/critic<i>/real/<aug>",
+      "d/critic<i>/fake/<aug>": critic iteration i's draws in `d_update`;
+    - "g/z" [B, z_dim]: G's z in `g_update`; "g/extra_z" [n_critic - 1,
+      B, z_dim] (n_critic > 1): the z of the next stack's slots 1..;
+      "g/aug/<aug>": the augmentation of G's fake batch;
+    - "fill/z" [n_critic, B, z_dim]: `gen_fakes`' z per slot, drawn every
+      step so that a captured fill reads a slot like the others.
+
+    Per-example draws are [B], split by rows under grad_accum as in
+    `draw_step`."""
+    b = cfg.batch_size if batch is None else batch
+    m = cfg.model
+    policy = parse_policy(cfg.diffaug)
+    dev = gen.device
+
+    def uniform_z(*lead):
+        return torch.rand((*lead, b, m.z_dim), generator=gen,
+                          device=dev) * 2.0 - 1.0
+
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.n_critic):
+        p = f"d/critic{i}/"
+        if cfg.loss == "wgan-gp":
+            out[p + "eps"] = torch.rand((b,), generator=gen, device=dev)
+        for which in ("real", "fake"):
+            for k, v in draw_augment(policy, b, m.output_size,
+                                     gen).items():
+                out[f"{p}{which}/{k}"] = v
+    out["g/z"] = uniform_z()
+    if cfg.n_critic > 1:
+        out["g/extra_z"] = uniform_z(cfg.n_critic - 1)
+    for k, v in draw_augment(policy, b, m.output_size, gen).items():
+        out[f"g/aug/{k}"] = v
+    out["fill/z"] = uniform_z(cfg.n_critic)
+    return out
+
+
 def _sub(draws: Dict[str, torch.Tensor], prefix: str
          ) -> Dict[str, torch.Tensor]:
     """The draws under `prefix`, with the prefix taken off."""
@@ -310,6 +361,11 @@ class TrainStepFns:
                            # update
     summarize: Callable   # (state, images, z) -> per-layer activation
                           # stats (utils/metrics.py::activation_stats)
+    gen_fakes: Callable   # (state, draws) -> fake stack (the fill)
+    d_update: Callable    # (state, images, fakes, draws, *, penalty=None)
+                          # -> (state, D's metrics)
+    g_update: Callable    # (state, draws) -> (state, next fake stack,
+                          # {"g_loss"})
 
 
 def _leaves_with_grad(tree: Pytree) -> Pytree:
@@ -362,6 +418,7 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
     policy = parse_policy(cfg.diffaug)
     n_micro = cfg.grad_accum
     draw_names = frozenset(draw_step(cfg, torch.Generator(), batch=1))
+    stage_names = frozenset(draw_stages(cfg, torch.Generator(), batch=1))
 
     def check_draws(draws: Optional[Dict[str, torch.Tensor]]
                     ) -> Dict[str, torch.Tensor]:
@@ -396,20 +453,35 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                     ) -> Dict[str, torch.Tensor]:
         return {k: micro(v, j) for k, v in draws.items()}
 
+    def make_fake(g_params: Pytree, g_bn: Pytree, z: torch.Tensor
+                  ) -> torch.Tensor:
+        """G's images of z in train mode, without gradients, G's state
+        update discarded (D's fake batch)."""
+        with torch.no_grad():
+            return generator_apply(g_params, g_bn, z, cfg=mcfg,
+                                   train=True)[0]
+
     def d_loss_fn(d_params: Pytree, g_params: Pytree, bn: Pytree,
                   images: torch.Tensor, z: torch.Tensor,
                   draws: Dict[str, torch.Tensor], penalty: bool,
                   r1_weight: float, augment: bool = True):
         """(D's loss, D's new BN state, d_real, d_fake, the penalty or
-        None); `draws` holds "eps" and the "real/" and "fake/"
-        augmentation draws of this batch (augment=False: the probe's
-        unaugmented D)."""
+        None) on G's fake batch of z."""
+        return d_loss_on_fake(d_params, bn, images,
+                              make_fake(g_params, bn["gen"], z), draws,
+                              penalty, r1_weight, augment)
+
+    def d_loss_on_fake(d_params: Pytree, bn: Pytree, images: torch.Tensor,
+                       fake: torch.Tensor, draws: Dict[str, torch.Tensor],
+                       penalty: bool, r1_weight: float,
+                       augment: bool = True):
+        """d_loss_fn on a fake batch already made (the fused step makes it
+        just before; `d_update` takes it from the fake stack); `draws`
+        holds "eps" and the "real/" and "fake/" augmentation draws of this
+        batch (augment=False: the probe's unaugmented D)."""
         def d_input(x, which):
             return aug(x, _sub(draws, which)) if augment else x
 
-        with torch.no_grad():
-            fake, _ = generator_apply(g_params, bn["gen"], z, cfg=mcfg,
-                                      train=True)
         _, real_logits, d_bn1 = discriminator_apply(
             d_params, bn["disc"], d_input(images, "real/"), cfg=mcfg,
             train=True)
@@ -446,26 +518,33 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             for a, p in zip(acc, tree_leaves(like))])
 
     def d_grads(d_params: Pytree, g_params: Pytree, bn: Pytree,
-                images: torch.Tensor, z: torch.Tensor,
-                draws: Dict[str, torch.Tensor], penalty: bool):
+                images: torch.Tensor, z: Optional[torch.Tensor],
+                draws: Dict[str, torch.Tensor], penalty: bool,
+                fake: Optional[torch.Tensor] = None):
         """D's gradient for one update -> (grads, D's new BN state,
         (d_loss, d_real, d_fake, penalty or None)), the mean of the K
-        microbatches' with the BN state chained through them."""
+        microbatches' with the BN state chained through them; on G's fake
+        batch of z, or on `fake` when given (z unused)."""
         r1_weight = 0.5 * cfg.r1_gamma * (cfg.r1_interval if lazy else 1)
+
+        def loss_of(d_leaves, bn_j, j):
+            if fake is None:
+                return d_loss_fn(d_leaves, g_params, bn_j, micro(images, j),
+                                 micro(z, j), micro_draws(draws, j),
+                                 penalty, r1_weight)
+            return d_loss_on_fake(d_leaves, bn_j, micro(images, j),
+                                  micro(fake, j), micro_draws(draws, j),
+                                  penalty, r1_weight)
+
         if n_micro == 1:
             d_leaves = _leaves_with_grad(d_params)
-            loss, d_bn, d_real, d_fake, gp = d_loss_fn(
-                d_leaves, g_params, bn, images, z, draws, penalty,
-                r1_weight)
+            loss, d_bn, d_real, d_fake, gp = loss_of(d_leaves, bn, 0)
             # _grad frees the graph before the G step builds its own
             return _grad(loss, d_leaves), d_bn, (loss, d_real, d_fake, gp)
         acc, d_bn, terms = None, bn["disc"], []
         for j in range(n_micro):
             d_leaves = _leaves_with_grad(d_params)
-            out = d_loss_fn(d_leaves, g_params,
-                            {"gen": bn["gen"], "disc": d_bn},
-                            micro(images, j), micro(z, j),
-                            micro_draws(draws, j), penalty, r1_weight)
+            out = loss_of(d_leaves, {"gen": bn["gen"], "disc": d_bn}, j)
             d_bn = out[1]
             acc = accumulate(acc, _grad(out[0], d_leaves))
             terms.append([t.detach() for t in (out[0], *out[2:4])]
@@ -477,9 +556,14 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
     def g_loss_fn(g_params: Pytree, g_bn: Pytree, disc: Pytree,
                   disc_bn: Pytree, z: torch.Tensor,
-                  draws: Dict[str, torch.Tensor], augment: bool = True):
+                  draws: Dict[str, torch.Tensor], augment: bool = True,
+                  fakes: Optional[List[torch.Tensor]] = None):
+        """(G's loss, G's new BN state); appends G's images, detached, to
+        `fakes` when given (`g_update`'s next fake stack)."""
         fake, new_g_bn = generator_apply(g_params, g_bn, z, cfg=mcfg,
                                          train=True)
+        if fakes is not None:
+            fakes.append(fake.detach())
         _, fake_logits, _ = discriminator_apply(
             disc, disc_bn, aug(fake, draws) if augment else fake, cfg=mcfg,
             train=True)
@@ -487,33 +571,41 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
     def g_grads(g_params: Pytree, g_bn: Pytree, disc: Pytree,
                 disc_bn: Pytree, z: torch.Tensor,
-                draws: Dict[str, torch.Tensor]):
+                draws: Dict[str, torch.Tensor],
+                fakes: Optional[List[torch.Tensor]] = None):
         """G's gradient against (disc, disc_bn) -> (grads, G's new BN
-        state, g_loss), the mean of the K microbatches'."""
+        state, g_loss), the mean of the K microbatches'; G's images of
+        each microbatch appended to `fakes` when given."""
         if n_micro == 1:
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, g_bn, disc, disc_bn, z,
-                                         draws)
+                                         draws, fakes=fakes)
             return _grad(g_loss, g_leaves), new_g_bn, g_loss
         acc, new_g_bn, g_losses = None, g_bn, []
         for j in range(n_micro):
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, new_g_bn, disc, disc_bn,
-                                         micro(z, j), micro_draws(draws, j))
+                                         micro(z, j), micro_draws(draws, j),
+                                         fakes=fakes)
             acc = accumulate(acc, _grad(g_loss, g_leaves))
             g_losses.append(g_loss.detach())
         return (average(acc, g_params), new_g_bn,
                 torch.stack(g_losses).mean())
 
-    def metrics_of(d_terms, g_loss) -> Dict[str, torch.Tensor]:
+    def d_metrics_of(d_terms) -> Dict[str, torch.Tensor]:
+        """D's half of the metric row: the losses, and the penalty where
+        the config has one (0 on a lazy-R1 step without it)."""
         out = {k: v.detach() for k, v in zip(
-            ("d_loss", "d_loss_real", "d_loss_fake", "g_loss"),
-            (*d_terms[:3], g_loss))}
+            ("d_loss", "d_loss_real", "d_loss_fake"), d_terms[:3])}
         if penalty_key is not None:
             gp = d_terms[3]
             out[penalty_key] = gp.detach() if gp is not None else \
-                torch.zeros((), dtype=torch.float32, device=g_loss.device)
+                torch.zeros((), dtype=torch.float32,
+                            device=d_terms[0].device)
         return out
+
+    def metrics_of(d_terms, g_loss) -> Dict[str, torch.Tensor]:
+        return {**d_metrics_of(d_terms), "g_loss": g_loss.detach()}
 
     def resolve_penalty(state: Pytree, penalty: Optional[bool]) -> bool:
         if not lazy:
@@ -522,6 +614,24 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             # a host read of the step: the captured runner passes it
             return penalty_due(cfg, int(state["step"]))
         return penalty
+
+    def check_stage_draws(draws: Dict[str, torch.Tensor], prefix: str
+                          ) -> Dict[str, torch.Tensor]:
+        got = {k for k in draws if k.startswith(prefix)}
+        want = {k for k in stage_names if k.startswith(prefix)}
+        if got != want:
+            raise ValueError(
+                f"the stage's draws are {sorted(got)}, the config's "
+                f"{sorted(want)} (steps.draw_stages)")
+        return draws
+
+    def ema_of(state: Pytree, new_gen: Pytree) -> Pytree:
+        d_ema = cfg.g_ema_decay   # 0: ema_gen mirrors the live weights
+        with torch.no_grad():
+            # d * e + (1 - d) * p over all the leaves at once
+            return tree_unflatten(new_gen, torch._foreach_add(
+                torch._foreach_mul(tree_leaves(state["ema_gen"]), d_ema),
+                torch._foreach_mul(tree_leaves(new_gen), 1.0 - d_ema)))
 
     def critic_inputs(z: torch.Tensor, draws: Dict[str, torch.Tensor],
                       i: int):
@@ -571,20 +681,84 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                                    g_disc_bn, z, _sub(draws, "g/"))
         new_gen, g_opt = opt_g.step(params["gen"], gg, state["opt"]["gen"])
 
-        d_ema = cfg.g_ema_decay   # 0: ema_gen mirrors the live weights
-        with torch.no_grad():
-            # d * e + (1 - d) * p over all the leaves at once
-            ema_gen = tree_unflatten(new_gen, torch._foreach_add(
-                torch._foreach_mul(tree_leaves(state["ema_gen"]), d_ema),
-                torch._foreach_mul(tree_leaves(new_gen), 1.0 - d_ema)))
         new_state = {
             "params": {"gen": new_gen, "disc": new_disc},
             "bn": {"gen": g_bn, "disc": d_bn},
             "opt": {"gen": g_opt, "disc": d_opt},
-            "ema_gen": ema_gen,
+            "ema_gen": ema_of(state, new_gen),
             "step": state["step"] + 1,
         }
         return new_state, metrics_of(d_terms, g_loss)
+
+    # --- the pipelined stage programs (`:744-946`), on the code of the
+    # fused step above; sequential update mode, unconditional models
+
+    def gen_fakes(state: Pytree, draws: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        """The fill program: an [n_critic, B, S, S, c_dim] fake stack from
+        the current G, slot i from z "fill/z"[i] (train-mode BN, its state
+        update discarded, as D's fake batch in the fused step)."""
+        zs = check_stage_draws(draws, "fill/")["fill/z"]
+        g_params, g_bn = state["params"]["gen"], state["bn"]["gen"]
+        return torch.stack([make_fake(g_params, g_bn, zs[i])
+                            for i in range(cfg.n_critic)])
+
+    def d_update(state: Pytree, images: torch.Tensor, fakes: torch.Tensor,
+                 draws: Dict[str, torch.Tensor], *,
+                 penalty: Optional[bool] = None
+                 ) -> Tuple[Pytree, Dict[str, torch.Tensor]]:
+        """The critic update(s) on a given fake stack, slot i feeding
+        critic iteration i (its draws "d/critic<i>/..."): D's half of the
+        state updated, every other leaf passed through as the same
+        tensor; returns (state, D's half of the metric row)."""
+        draws = check_stage_draws(draws, "d/")
+        params, bn = state["params"], state["bn"]
+        pen = resolve_penalty(state, penalty)
+        new_disc, d_opt, d_bn = params["disc"], state["opt"]["disc"], \
+            bn["disc"]
+        for i in range(cfg.n_critic):
+            dg, d_bn, d_terms = d_grads(
+                new_disc, params["gen"], {"gen": bn["gen"], "disc": d_bn},
+                images, None, _sub(draws, f"d/critic{i}/"), pen,
+                fake=fakes[i])
+            new_disc, d_opt = opt_d.step(new_disc, dg, d_opt)
+            del dg
+        new_state = {
+            "params": {"gen": params["gen"], "disc": new_disc},
+            "bn": {"gen": bn["gen"], "disc": d_bn},
+            "opt": {"gen": state["opt"]["gen"], "disc": d_opt},
+            "ema_gen": state["ema_gen"],
+            "step": state["step"],
+        }
+        return new_state, d_metrics_of(d_terms)
+
+    def g_update(state: Pytree, draws: Dict[str, torch.Tensor]
+                 ) -> Tuple[Pytree, torch.Tensor, Dict[str, torch.Tensor]]:
+        """G's update against the current D on z "g/z", returning the
+        next step's fake stack: slot 0 is the G-loss forward's own images
+        (from the pre-update weights), slots 1.. (n_critic > 1) fresh
+        images of "g/extra_z" from the same weights and BN state. Returns
+        (state with step + 1, fake stack, {"g_loss"})."""
+        draws = check_stage_draws(draws, "g/")
+        params, bn = state["params"], state["bn"]
+        fakes: List[torch.Tensor] = []
+        gg, g_bn, g_loss = g_grads(params["gen"], bn["gen"], params["disc"],
+                                   bn["disc"], draws["g/z"],
+                                   _sub(draws, "g/aug/"), fakes=fakes)
+        new_gen, g_opt = opt_g.step(params["gen"], gg, state["opt"]["gen"])
+        del gg
+        stack = [torch.cat(fakes) if n_micro > 1 else fakes[0]]
+        for j in range(cfg.n_critic - 1):
+            stack.append(make_fake(params["gen"], bn["gen"],
+                                   draws["g/extra_z"][j]))
+        new_state = {
+            "params": {"gen": new_gen, "disc": params["disc"]},
+            "bn": {"gen": g_bn, "disc": bn["disc"]},
+            "opt": {"gen": g_opt, "disc": state["opt"]["disc"]},
+            "ema_gen": ema_of(state, new_gen),
+            "step": state["step"] + 1,
+        }
+        return new_state, torch.stack(stack), {"g_loss": g_loss.detach()}
 
     def eval_losses(state: Pytree, images: torch.Tensor, z: torch.Tensor,
                     eps: Optional[torch.Tensor] = None
@@ -645,4 +819,5 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
     return TrainStepFns(train_step=train_step, grads=grads, sample=sample,
                         init=init, eval_losses=eval_losses,
-                        summarize=summarize)
+                        summarize=summarize, gen_fakes=gen_fakes,
+                        d_update=d_update, g_update=g_update)

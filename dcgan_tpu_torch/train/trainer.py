@@ -7,9 +7,9 @@
   in the JAX package's schema;
 - seeded init, then `Checkpointer.restore_latest`: a run on a directory
   with checkpoints continues from the newest intact step;
-- the data: TFRecord shards from `data_dir` through the Python loader and
-  the device prefetcher (data/pipeline.py; the record dtype of the shards'
-  dataset.json wins over the config's), or the synthetic stream copied
+- the data: TFRecord shards from `data_dir` through the native C++ loader
+  and the device prefetcher (data/pipeline.py; the record dtype of the
+  shards' dataset.json wins over the config's), or the synthetic stream copied
   host -> pinned -> device, which restarts at batch 0 on a resume as the
   JAX trainer's does;
 - the z of the step that takes the state from step s to s + 1 comes from a
@@ -18,11 +18,22 @@
   step's other draws (`steps.draw_step`: the critic iterations' z,
   WGAN-GP's interpolation weights, the augmentations) come from the same
   generator after z (`step_inputs`), so a run without them draws today's z;
+  under pipeline_gd the stage programs' draws come from that generator
+  instead (`stage_inputs`, `steps.draw_stages`);
 - the steps through `StepRunner` (train/warmup.py): captured CUDA graphs
   over a static state on the card (eager on the CPU), `steps_per_call`
   steps per call where aligned, with one loss readback per call;
   `--aot_warmup` captures every program after the first (eager) step and
-  writes their capture times as a `perf/compile_ms/<row>` event;
+  writes their capture times as a `perf/compile_ms/<row>` event; under
+  pipeline_gd each step is the runner's three stage rows, driven by its
+  GDPipeline (train/gd_pipeline.py), which drains at a stop and at the end;
+- the NaN gate: every `nan_check_steps` steps (each step of a call that
+  falls on the cadence) the step's metrics must be finite, or the run
+  raises `FloatingPointError` with the step, before that step is
+  checkpointed (`dcgan_tpu/train/trainer.py:1162-1198`, the abort policy);
+- SIGTERM and SIGINT (train/coordination.py): the loop stops at the next
+  call boundary, and the final checkpoint is written as at the end of a
+  run, so a preemption resumes where it stopped;
 - a `scalars` event every `log_every_steps` steps in the JAX package's
   JSONL format (`<checkpoint_dir>/events.jsonl`: d_loss, d_loss_real,
   d_loss_fake, g_loss and StepTimer's perf/* keys; data/corrupt_records
@@ -60,8 +71,9 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
     read_manifest
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
-from dcgan_tpu_torch.train.steps import draw_step, make_train_step, \
-    tree_leaves
+from dcgan_tpu_torch.train.coordination import CoordinatedStop
+from dcgan_tpu_torch.train.steps import draw_stages, draw_step, \
+    make_train_step, tree_leaves
 from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
     build_warmup_plan, call_size, metric_keys
 # the losses' keys, re-exported for the trainer's callers
@@ -98,6 +110,27 @@ def step_inputs(cfg: TrainConfig, step: int, device: torch.device
     return z, draw_step(cfg, gen)
 
 
+def stage_inputs(cfg: TrainConfig, step: int, device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+    """The stage programs' draws (`steps.draw_stages`) of the pipelined
+    step from state step `step`, from the generator of `step_inputs`."""
+    return draw_stages(cfg, _step_generator(cfg, step, device))
+
+
+def check_finite(cfg: TrainConfig, step: int, values: Dict[str, float]
+                 ) -> None:
+    """The NaN gate of the step that reached `step`: raises
+    FloatingPointError (with `.step`) if a metric is not finite, with the
+    JAX trainer's message."""
+    if all(np.isfinite(v) for v in values.values()):
+        return
+    err = FloatingPointError(
+        f"non-finite training metrics at step {step}: {values} — inspect "
+        f"the last checkpoint in {cfg.checkpoint_dir}")
+    err.step = step
+    raise err
+
+
 def summary_z(cfg: TrainConfig, step: int, device: torch.device
               ) -> torch.Tensor:
     """The z of `summarize` at step `step`, from (cfg.seed, step, 1)."""
@@ -119,7 +152,7 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
               seed_offset: int = 0, n_threads: Optional[int] = None,
               min_after_dequeue: Optional[int] = None) -> Iterator:
     """The trainer's batches on `device`: the synthetic stream, or the
-    TFRecord shards of `data_dir` (cfg.data_dir by default; the Python
+    TFRecord shards of `data_dir` (cfg.data_dir by default; the native
     loader; the record dtype of their dataset.json, when they have one),
     seeded from cfg.seed + seed_offset. Close it when done."""
     if seed_offset:
@@ -145,7 +178,7 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
                    else n_threads),
         seed=cfg.seed, normalize=cfg.normalize_inputs,
         prefetch_device_batches=cfg.prefetch_device_batches,
-        max_corrupt_records=cfg.max_corrupt_records, use_native=False)
+        max_corrupt_records=cfg.max_corrupt_records)
     return make_dataset(dcfg, device)
 
 
@@ -201,7 +234,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
           device: Union[str, torch.device] = "cuda") -> Pytree:
     """Train `cfg` on `device` until the state reaches step `max_steps`
     (cfg.max_steps when None), resuming from the newest intact checkpoint
-    in cfg.checkpoint_dir; returns the final state."""
+    in cfg.checkpoint_dir, or until SIGTERM or SIGINT stops it at a call
+    boundary; either way the last step is checkpointed. Returns the final
+    state."""
     dev = resolve_device(device)
     total_steps = cfg.max_steps if max_steps is None else max_steps
     mcfg = cfg.model
@@ -218,6 +253,8 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     writer = None
     runner = None
     warm_ms: dict = {}
+    stop = CoordinatedStop()
+    stop.install()
     try:
         pprint.pprint(dataclasses.asdict(cfg))
         save_config(cfg, cfg.checkpoint_dir)
@@ -254,13 +291,26 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         logged_precision = False
         step_num = int(state["step"])
         while step_num < total_steps:
+            sig, _ = stop.poll()
+            if sig is not None:
+                print(f"[dcgan_tpu_torch] received signal {sig} — "
+                      f"checkpointing at step {step_num} and exiting",
+                      flush=True)
+                if runner.pipeline is not None:
+                    runner.pipeline.drain("coordinated-stop")
+                break
             k = call_size(step_num, total_steps, cfg.steps_per_call,
                           runner.warm)
             batches = [next(data) for _ in range(k)]
-            zs, draws = zip(*(step_inputs(cfg, step_num + i, dev)
-                              for i in range(k)))
-            metrics = runner.step(batches, list(zs), list(draws),
-                                  start=step_num)
+            if runner.pipeline is not None:
+                metrics = runner.pipelined_step(
+                    batches[0], stage_inputs(cfg, step_num, dev),
+                    start=step_num)
+            else:
+                zs, draws = zip(*(step_inputs(cfg, step_num + i, dev)
+                                  for i in range(k)))
+                metrics = runner.step(batches, list(zs), list(draws),
+                                      start=step_num)
             if cfg.aot_warmup and not warm_ms:
                 # every row captured right after the warm-up, before the
                 # timer is armed
@@ -275,7 +325,14 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             # one readback per call: the host waits for the device here,
             # so each tick follows the call's completion; the log reports
             # the call's last step
-            values = dict(zip(keys, metrics.tolist()[-1]))
+            per_step = metrics.tolist()
+            if cfg.nan_check_steps:
+                # every step of the call on the cadence, before any save
+                for i, row in enumerate(per_step):
+                    if (step_num + i + 1) % cfg.nan_check_steps == 0:
+                        check_finite(cfg, step_num + i + 1,
+                                     dict(zip(keys, row)))
+            values = dict(zip(keys, per_step[-1]))
             timer.tick(steps=k)
             step_num += k
             step = step_num
@@ -327,7 +384,10 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 # next step overwrites in place
                 runner.wait_for(ckpt.copy_event)
     finally:
+        stop.restore()
         if runner is not None:
+            if runner.pipeline is not None:
+                runner.pipeline.drain("shutdown")
             # its graphs' pools, which the closures' cycles would hold
             # until the garbage collector ran
             runner.close()
@@ -336,7 +396,8 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             sample_data.close()
         if writer is not None:
             writer.close()
-    # the last step, unless the cadence saved it already
+    # the last step (also of a run a signal stopped), unless the cadence
+    # saved it already
     ckpt.wait()
     step = int(state["step"])
     if ckpt.latest_step() != step:

@@ -34,6 +34,16 @@ capture of a penalty step, one eager penalty step on a copy of the state
 warms its double backward up on the capture stream, if the warm-up step
 was a plain one.
 
+Under `pipeline_gd` (train/gd_pipeline.py) the runner holds three stage
+rows in place of the step: `gen_fakes` (the fill, writing the static
+[n_critic, B, S, S, c_dim] fake-stack slot), `d_update` (reading that slot
+and updating D's half of the static state) and `g_update` (updating G's
+half and overwriting the slot with the next stack, later on the same
+stream), each with the step's image and `steps.draw_stages` slots. A
+`GDPipeline` drives them (`pipelined_step`); its first step, which always
+fills, is the eager warm-up of all three. A restore (`load`) drains the
+pipeline, so the step after it refills from the restored G.
+
 On the CPU the runner runs the same static-buffer path eagerly (slots,
 copy-back, K steps per call), so the CPU tests cover all of it but the
 capture itself. The step reads only tensors (no value of the state
@@ -50,14 +60,18 @@ import torch
 
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.graphs import CapturedProgram, on_stream
-from dcgan_tpu_torch.train.steps import TrainStepFns, draw_step, \
-    lazy_r1, penalty_due, tree_leaves, tree_map
+from dcgan_tpu_torch.train.gd_pipeline import GDPipeline
+from dcgan_tpu_torch.train.steps import TrainStepFns, draw_stages, \
+    draw_step, lazy_r1, penalty_due, tree_leaves, tree_map
 
 Pytree = dict
 
 METRIC_KEYS = ("d_loss", "d_loss_real", "d_loss_fake", "g_loss")
 TRAIN_ROW = "train_step"
 SAMPLER_ROW = "sampler"
+# the pipelined step's stage rows (pipeline_gd)
+GEN_ROW, D_ROW, G_ROW = "gen_fakes", "d_update", "g_update"
+STAGE_ROWS = (GEN_ROW, D_ROW, G_ROW)
 
 
 def metric_keys(cfg: TrainConfig) -> Tuple[str, ...]:
@@ -112,8 +126,14 @@ def build_warmup_plan(cfg: TrainConfig, *, sample: bool) -> List[str]:
     """The rows of the programs this run can dispatch, with the JAX plan's
     names: the single step (the tail and realignment calls), the K-step
     call when steps_per_call > 1, and the sampler when the run writes
-    grids. The JAX plan's `state_copy` (the restore's buffer rebase) has
-    no row: the port's restore copies into the static buffers."""
+    grids; under pipeline_gd the three stage rows in place of the step.
+    The JAX plan's `state_copy` (the restore's buffer rebase) has no row:
+    the port's restore copies into the static buffers."""
+    if cfg.pipeline_gd:
+        d_rows = [pattern_row(D_ROW, p) for p in r1_patterns(cfg, 1)] \
+            if lazy_r1(cfg) else [D_ROW]
+        return [GEN_ROW, *d_rows, G_ROW] + ([SAMPLER_ROW] if sample
+                                            else [])
     rows = [TRAIN_ROW]
     if cfg.steps_per_call > 1:
         rows.append(multi_step_row(cfg.steps_per_call))
@@ -156,8 +176,15 @@ class StepRunner:
         self.z = torch.empty((k, cfg.batch_size, m.z_dim),
                              dtype=torch.float32, device=device)
         gen = torch.Generator(device=device).manual_seed(0)
+        draw = draw_stages if cfg.pipeline_gd else draw_step
         self.draws = [{name: torch.empty_like(t) for name, t in
-                       draw_step(cfg, gen).items()} for _ in range(k)]
+                       draw(cfg, gen).items()} for _ in range(k)]
+        self.pipeline = GDPipeline() if cfg.pipeline_gd else None
+        # the fake-stack slot of the stage rows
+        self.fakes = torch.empty(
+            (cfg.n_critic, cfg.batch_size, m.output_size, m.output_size,
+             m.c_dim), dtype=torch.float32, device=device) \
+            if cfg.pipeline_gd else None
         self.cfg = cfg
         self.keys = metric_keys(cfg)
         self.sample_z = sample_z
@@ -169,12 +196,16 @@ class StepRunner:
         self._wait: List[torch.cuda.Event] = []
 
     def load(self, tree: Pytree) -> None:
-        """Copy a state (a restored checkpoint) into the static state."""
+        """Copy a state (a restored checkpoint) into the static state;
+        under pipeline_gd the fake stack in flight is drained, so the next
+        step refills from the restored G."""
         a, b = tree_leaves(self.state), tree_leaves(tree)
         if len(a) != len(b):
             raise ValueError(f"the state has {len(a)} leaves, the tree "
                              f"{len(b)}")
         _copy_into(self.state, tree)
+        if self.pipeline is not None:
+            self.pipeline.drain("restore")
 
     def wait_for(self, event: Optional[torch.cuda.Event]) -> None:
         """Make the next step wait, on the device, for `event` (a
@@ -196,14 +227,46 @@ class StepRunner:
             return torch.stack(rows)
         return steps
 
+    def _stage_fn(self, base: str, pattern: Optional[Tuple[bool, ...]]
+                  ) -> Callable[[], torch.Tensor]:
+        """A stage row's function over the static buffers: gen_fakes
+        writes the fake-stack slot and returns it; d_update returns D's
+        metrics [len(keys) - 1] in `keys` order; g_update writes the next
+        stack into the slot and returns g_loss."""
+        fns, draws = self.fns, self.draws[0]
+        if base == GEN_ROW:
+            def fn():
+                self.fakes.copy_(fns.gen_fakes(self.state, draws))
+                return self.fakes
+        elif base == D_ROW:
+            def fn():
+                state, m = fns.d_update(
+                    self.state, self.images[0], self.fakes, draws,
+                    penalty=None if pattern is None else pattern[0])
+                _copy_into(self.state, state)
+                return torch.stack([m[k] for k in self.keys
+                                    if k != "g_loss"])
+        else:
+            def fn():
+                state, fakes, m = fns.g_update(self.state, draws)
+                _copy_into(self.state, state)
+                self.fakes.copy_(fakes)
+                return m["g_loss"]
+        return fn
+
     def _warm_penalty(self) -> None:
-        """One eager penalty step on a copy of the state, on the capture
-        stream, so that the penalty's double backward has run there before
-        a capture records it."""
+        """One eager penalty step (under pipeline_gd a penalty d_update)
+        on a copy of the state, on the capture stream, so that the
+        penalty's double backward has run there before a capture records
+        it."""
         with on_stream(self.stream):
             copy = tree_map(torch.clone, self.state)
-            self.fns.train_step(copy, self.images[0], self.z[0],
-                                self.draws[0], penalty=True)
+            if self.pipeline is not None:
+                self.fns.d_update(copy, self.images[0], self.fakes,
+                                  self.draws[0], penalty=True)
+            else:
+                self.fns.train_step(copy, self.images[0], self.z[0],
+                                    self.draws[0], penalty=True)
         self.penalty_warm = True
 
     def _pattern(self, k: int, start: Optional[int]
@@ -234,6 +297,8 @@ class StepRunner:
             fn = self._sample_fn()
             with on_stream(self.stream):   # the sampler's own warm-up
                 fn()
+        elif base in STAGE_ROWS:
+            fn = self._stage_fn(base, pattern)
         elif base == TRAIN_ROW:
             fn = self._steps_fn(1, pattern)
         elif base.startswith("multi_step@k"):
@@ -295,6 +360,43 @@ class StepRunner:
         return self._program(pattern_row(
             TRAIN_ROW if k == 1 else multi_step_row(k), pattern)).run()
 
+    def pipelined_step(self, images: torch.Tensor,
+                       draws: Dict[str, torch.Tensor],
+                       start: Optional[int] = None) -> torch.Tensor:
+        """One pipelined step (pipeline_gd) on `images` and the step's
+        `steps.draw_stages` draws, through the GDPipeline over the stage
+        rows; `start` is the state step (lazy R1 needs it). Returns the
+        [1, len(metric_keys(cfg))] metrics. The first call is the eager
+        warm-up of all three stages (it always fills)."""
+        if self.pipeline is None:
+            raise ValueError("the runner's config has no pipeline_gd")
+        self.images[0].copy_(images)
+        if set(draws) != set(self.draws[0]):
+            raise ValueError(f"draws {sorted(draws)}, the config's are "
+                             f"{sorted(self.draws[0])}")
+        for name, t in draws.items():
+            self.draws[0][name].copy_(t)
+        current = torch.cuda.current_stream(self.device) \
+            if self.stream is not None else None
+        while self._wait:
+            current.wait_event(self._wait.pop())
+        pattern = self._pattern(1, start)
+        _, m = self.pipeline.step(_StageRows(self, pattern), self.state,
+                                  self.images[0], self.draws[0])
+        if not self.warm:
+            self.warm = True
+            self.penalty_warm = pattern is None or pattern[0]
+        return torch.stack([m[k] for k in self.keys])[None]
+
+    def _run_stage(self, base: str, pattern: Optional[Tuple[bool, ...]]
+                   ) -> torch.Tensor:
+        """A stage row: eager on the capture stream in the warm-up step,
+        a captured program after it."""
+        if not self.warm:
+            with on_stream(self.stream):
+                return self._stage_fn(base, pattern)()
+        return self._program(pattern_row(base, pattern)).run()
+
     def sample(self) -> torch.Tensor:
         """The sampler's images of the sample z at the static state."""
         return self._program(SAMPLER_ROW).run()
@@ -307,3 +409,26 @@ class StepRunner:
         for prog in self.programs.values():
             prog.release()
         self.programs.clear()
+
+
+class _StageRows:
+    """A runner's stage rows as GDPipeline's stage functions: each runs
+    its row over the static buffers (the state it is given is the static
+    state, returned as it is; the stack is the static slot)."""
+
+    def __init__(self, runner: StepRunner,
+                 pattern: Optional[Tuple[bool, ...]]):
+        self.runner = runner
+        self.pattern = pattern
+
+    def gen_fakes(self, state, draws):
+        return self.runner._run_stage(GEN_ROW, None)
+
+    def d_update(self, state, images, fakes, draws):
+        out = self.runner._run_stage(D_ROW, self.pattern)
+        keys = [k for k in self.runner.keys if k != "g_loss"]
+        return state, dict(zip(keys, out))
+
+    def g_update(self, state, draws):
+        g_loss = self.runner._run_stage(G_ROW, None)
+        return state, self.runner.fakes, {"g_loss": g_loss}

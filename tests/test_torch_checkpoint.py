@@ -317,7 +317,8 @@ class TestConfigFiles:
     @pytest.mark.parametrize("kw", [
         {"progressive": "32:2,64:*"},
         {"model": JModelConfig(arch="resnet")},
-        {"pipeline_gd": True}])
+        # pipeline_gd is ported; the rollback NaN policy is not
+        {"nan_policy": "rollback"}])
     def test_unported_jax_settings_raise(self, tmp_path, kw):
         j_config.save_config(JTrainConfig(**kw), str(tmp_path))
         with pytest.raises(NotImplementedError, match="not ported"):

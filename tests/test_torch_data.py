@@ -3,6 +3,7 @@ the CPU: the TFRecord and tf.Example codecs, the TensorBoard encoders, the
 sample-grid PNG, the quarantine counter, retry_io, the manifest check, the
 Python loader, and the device prefetcher's CPU path and close order."""
 
+import dataclasses
 import json
 import os
 import threading
@@ -348,9 +349,30 @@ class TestLoader:
                 np.testing.assert_array_equal(g.numpy(), w)
 
     def test_native_loader_raises(self, shards):
-        cfg = pipeline.DataConfig(data_dir=str(shards), image_size=SIZE)
-        with pytest.raises(NotImplementedError, match="native"):
-            pipeline.make_dataset(cfg, "cpu")
+        """The default DataConfig reads through the native loader (one
+        pass: the Python loader's examples, tests/test_torch_native.py
+        holds the bits); a record it cannot decode (the wrong record
+        dtype) raises NativeLoaderError on the consumer's thread, where the
+        JAX package would have fallen back to its Python loader only for a
+        failed build."""
+        from dcgan_tpu_torch.data.native import NativeLoaderError
+
+        cfg = pipeline.DataConfig(data_dir=str(shards), image_size=SIZE,
+                                  batch_size=6, min_after_dequeue=8,
+                                  n_threads=2, loop=False)
+        ds = pipeline.make_dataset(cfg, "cpu")
+        try:
+            got = list(ds)
+        finally:
+            ds.close()
+        assert len(got) == N_RECORDS // 6
+        bad = pipeline.make_dataset(
+            dataclasses.replace(cfg, record_dtype="float32"), "cpu")
+        try:
+            with pytest.raises(NativeLoaderError, match="payload size"):
+                next(bad)
+        finally:
+            bad.close()
 
     def test_no_shards_names_the_directory(self, tmp_path):
         for mod in (pipeline, j_pipeline):

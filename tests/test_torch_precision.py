@@ -49,7 +49,7 @@ from dcgan_tpu.train import steps as jsteps
 from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, TrainConfig, save_config
 from dcgan_tpu_torch.models import dcgan as tdcgan
-from dcgan_tpu_torch.ops.layers import fake_quant_fp8
+from dcgan_tpu_torch.ops.layers import fake_quant_fp8, fake_quant_fp8_ops
 from dcgan_tpu_torch.train import steps
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -58,6 +58,7 @@ SMALL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8)
 
 
 def _bits(t):
+    t = t.contiguous()
     return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
         else t.numpy()
 
@@ -108,6 +109,104 @@ class TestFakeQuant:
         (g,) = torch.autograd.grad((fake_quant_fp8(xt)
                                     * torch.from_numpy(w)).sum(), xt)
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+class TestFakeQuantFunction:
+    """fake_quant_fp8 is an autograd Function that saves its operand (in
+    its own dtype), amax and the scale, and recomputes the round trip in
+    its backward piece by piece: the forward and every cotangent equal the
+    composed ops' (autograd op by op) bit for bit, in f32 and bf16, with
+    the amax tied between two elements (the scale's gradient reaches both,
+    halved), with cotangents large enough that their e4m3 rounding shows,
+    and with all zeros (the 1e-12 floor of the scale)."""
+
+    @pytest.mark.parametrize("case", ["random", "tie", "big_cotangent",
+                                      "tie_across_chunks", "zeros",
+                                      "permuted"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_bits_equal_the_composition(self, case, dtype, monkeypatch):
+        """The Function walks x in FP8_CHUNK pieces: one piece here, or
+        pieces of 100 elements that cut rows (tie_across_chunks, zeros,
+        permuted); `permuted` quantizes a dense transposed view (the
+        plain route's map is one), its cotangent in the same layout."""
+        from dcgan_tpu_torch.ops import layers
+
+        if case in ("tie_across_chunks", "zeros", "permuted"):
+            monkeypatch.setattr(layers, "FP8_CHUNK", 100)
+        rng = np.random.default_rng(2)
+        x = (rng.normal(size=(37, 21)) * 5.0).astype(np.float32)
+        gy = rng.normal(size=x.shape).astype(np.float32)
+        if case in ("tie", "tie_across_chunks"):
+            m = float(np.abs(x).max())
+            x[3, 4], x[30, 1] = m, -m
+        if case == "zeros":
+            x[:] = 0.0
+        if case == "big_cotangent":
+            gy *= 1e3
+        tdt = getattr(torch, dtype)
+
+        def layout(a):
+            t = torch.from_numpy(a).to(tdt)
+            return t.t() if case == "permuted" else t
+        got, want = [], []
+        for fn, out in ((fake_quant_fp8, got), (fake_quant_fp8_ops, want)):
+            xt = layout(x).detach().requires_grad_(True)
+            y = fn(xt)
+            (g,) = torch.autograd.grad(y, xt, layout(gy))
+            assert g.stride() == xt.stride()
+            out += [y.detach(), g]
+        assert got[0].dtype == got[1].dtype == tdt
+        assert got[0].grad_fn is None and got[1].grad_fn is None
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+
+    def test_saves_only_the_operand(self):
+        """The graph holds x (bf16), amax and the scale, nothing the size
+        of x in f32."""
+        x = torch.randn(64, 64, dtype=torch.bfloat16, requires_grad=True)
+        y = fake_quant_fp8(x)
+        assert type(y.grad_fn).__name__ == "_FakeQuantFp8Backward"
+        saved = y.grad_fn.saved_tensors
+        assert [(t.dtype, t.numel()) for t in saved] == [
+            (torch.bfloat16, x.numel()), (torch.float32, 1),
+            (torch.float32, 1)]
+        y_ops = fake_quant_fp8_ops(x)
+        f32 = [t for t in _saved(y_ops.grad_fn)
+               if t.dtype == torch.float32 and t.numel() == x.numel()]
+        assert f32, "the composed ops keep f32 copies of x"
+        # no grad: the plain ops, no Function
+        with torch.no_grad():
+            assert fake_quant_fp8(x).grad_fn is None
+
+    def test_second_order_through_a_weight_equals_the_composition(self):
+        """A penalty's double backward reaches the quantizer's backward
+        through the cotangent: d/dw of <grad_x q(x) . w> matches the
+        composed ops bit for bit."""
+        rng = np.random.default_rng(4)
+        x = (rng.normal(size=(8, 5)) * 10).astype(np.float32)
+        w = rng.normal(size=(8, 5)).astype(np.float32)
+        out = []
+        for fn in (fake_quant_fp8, fake_quant_fp8_ops):
+            xt = torch.from_numpy(x).requires_grad_(True)
+            wt = torch.from_numpy(w).requires_grad_(True)
+            (g,) = torch.autograd.grad((fn(xt) * wt).sum(), xt,
+                                       create_graph=True)
+            out.append(torch.autograd.grad((g * wt).sum(), (xt, wt)))
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+
+
+def _saved(node, seen=None):
+    """Every tensor an autograd graph below `node` saved."""
+    seen = set() if seen is None else seen
+    if node is None or id(node) in seen:
+        return []
+    seen.add(id(node))
+    out = [getattr(node, a) for a in dir(node) if a.startswith("_saved_")
+           and isinstance(getattr(node, a), torch.Tensor)]
+    for nxt, _ in node.next_functions:
+        out += _saved(nxt, seen)
+    return out
 
 
 class TestStageGate:

@@ -17,6 +17,9 @@ gf = df = 8, z 8, batch 4):
 - the served rungs report `serve/compile_ms/sampler@b<rung>` and
   `serve/recompiles_after_warmup` 0.
 
+On the card also: pipeline_gd's three captured stage rows against the
+eager stage programs, and the native feed against the Python feed.
+
 On the CPU the runner and the rungs run eagerly over their static buffers.
 The captures themselves are the `cuda` tests at the end, which skip
 without a card; the module imports JAX only inside the tests that
@@ -457,3 +460,74 @@ def test_captured_rungs_equal_eager(cuda):
         want = sampler_apply(params, bn, torch.from_numpy(z).to(cuda),
                              cfg=mcfg).float().cpu().numpy()
         np.testing.assert_array_equal(src.sample(b, z), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_critic", [1, 2])
+@pytest.mark.parametrize("model", [
+    dict(use_pallas=True, pallas_fused=True, compute_dtype="bfloat16"),
+    dict(compute_dtype="bfloat16")], ids=["kernel", "cudnn"])
+def test_captured_stage_rows_equal_eager(cuda, n_critic, model):
+    """pipeline_gd: the runner's three stage rows, captured, against a
+    GDPipeline over the eager stage programs, bit for bit over a fill,
+    steady steps, a drain and a refill; each replay adds its capture's
+    launches to the kernels' counters."""
+    from dcgan_tpu_torch import graphs
+    from dcgan_tpu_torch.train.gd_pipeline import GDPipeline
+
+    cfg = dataclasses.replace(
+        _cfg(pipeline_gd=True, n_critic=n_critic), model=ModelConfig(
+            **dict(MODEL, gf_dim=16, df_dim=16, **model)))
+    fns = steps.make_train_step(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    images = [torch.rand((BATCH, 16, 16, 3), generator=gen, device=cuda)
+              * 2 - 1 for _ in range(6)]
+    draws = [trainer.stage_inputs(cfg, s, cuda) for s in range(6)]
+    eager, pipe, losses = fns.init(seed=0, device=cuda), GDPipeline(), []
+    runner = warmup.StepRunner(fns, fns.init(seed=0, device=cuda), cfg,
+                               cuda)
+    got = []
+    for s in range(6):
+        if s == 3:
+            pipe.drain("restore")
+            runner.pipeline.drain("restore")
+        eager, m = pipe.step(fns, eager, images[s], draws[s])
+        losses.append([float(m[k]) for k in runner.keys])
+        got += runner.pipelined_step(images[s], draws[s], start=s).tolist()
+    assert got == losses
+    _assert_same(runner.state, eager)
+    assert sorted(runner.programs) == sorted(warmup.STAGE_ROWS)
+    before = graphs.launch_counts()
+    runner.programs["d_update"].run()
+    torch.cuda.synchronize()
+    delta = graphs.counts_delta(graphs.launch_counts(), before)
+    assert delta == runner.programs["d_update"].launches
+    runner.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "uint8"])
+def test_native_feed_equals_python_feed_on_the_card(cuda, tmp_path, dtype):
+    """The trainer's feed on the card from the same shards, one pass on
+    the raw pixel scale: the native loader's examples are the Python
+    loader's, as a multiset, bit for bit."""
+    from dcgan_tpu_torch.data import pipeline
+    from dcgan_tpu_torch.data.synthetic import write_image_tfrecords
+
+    write_image_tfrecords(str(tmp_path), num_examples=48, image_size=16,
+                          num_shards=3, record_dtype=dtype)
+    rows = []
+    for native in (True, False):
+        cfg = pipeline.DataConfig(
+            data_dir=str(tmp_path), image_size=16, batch_size=6,
+            record_dtype=dtype, min_after_dequeue=8, n_threads=3,
+            loop=False, normalize=False, use_native=native)
+        ds = pipeline.make_dataset(cfg, cuda)
+        try:
+            got = [b for b in ds]
+        finally:
+            ds.close()
+        assert all(b.device.type == "cuda" for b in got)
+        rows.append(sorted(r.cpu().numpy().tobytes()
+                           for b in got for r in b))
+    assert len(rows[0]) == 48 and rows[0] == rows[1]

@@ -13,7 +13,9 @@ helpers follow the JAX key schedule:
 - grad_accum K > 1: `split(gpk, K)` and `split(aug_key, K)` per update,
   microbatch j on its own key;
 - DiffAugment: `fold_in(key, idx)` per D input (0 real, 1 fake, 2 G's
-  fake), then `fold_in(key, i)` per policy and each function's own splits.
+  fake), then `fold_in(key, i)` per policy and each function's own splits;
+- the pipelined stage programs (`stage_draws`): each folds its tag into
+  the step's key (d_update 0, g_update 1, gen_fakes 2) and draws as above.
 """
 
 from __future__ import annotations
@@ -111,6 +113,60 @@ def step_draws(cfg, key, batch):
                      for k in per_micro(aug_key)])
         out.update({f"g/{k}": v for k, v in d.items()})
     return z, out
+
+
+def stage_draws(cfg, key, batch):
+    """The draws of the JAX stage programs on `key` (all three take the
+    step's key and fold in their tag: d_update 0, g_update 1, gen_fakes
+    2; `dcgan_tpu/train/steps.py:774-885`), in `steps.draw_stages`'
+    layout, as numpy."""
+    policy = parse_policy(cfg.diffaug)
+    m = cfg.model
+    n_micro = cfg.grad_accum
+    mb = batch // n_micro
+    out = {}
+
+    def per_micro(k):
+        return [k] if n_micro == 1 else list(jax.random.split(k, n_micro))
+
+    def slot_z(k):
+        # _fake_stack's slot: _critic_streams' z key
+        return uniform(jax.random.split(k)[0], (batch, m.z_dim), -1.0, 1.0)
+
+    iter_keys = jax.random.split(jax.random.fold_in(key, 0), cfg.n_critic)
+    for i, ik in enumerate(iter_keys):
+        p = f"d/critic{i}/"
+        _, gpk = jax.random.split(ik)
+        if cfg.loss == "wgan-gp":
+            out[p + "eps"] = np.concatenate(
+                [uniform(k, (mb, 1, 1, 1)).reshape(-1)
+                 for k in per_micro(gpk)])
+        if policy:
+            augk = jax.random.fold_in(ik, 3)
+            for idx, which in ((0, "real"), (1, "fake")):
+                d = _concat([aug_draws(jax.random.fold_in(k, idx), policy,
+                                       mb, m.output_size)
+                             for k in per_micro(augk)])
+                out.update({f"{p}{which}/{k}": v for k, v in d.items()})
+    gk = jax.random.fold_in(key, 1)
+    if policy:
+        z_key, extra_key, aug_key = jax.random.split(gk, 3)
+    else:
+        z_key, extra_key = jax.random.split(gk)
+    out["g/z"] = uniform(z_key, (batch, m.z_dim), -1.0, 1.0)
+    if cfg.n_critic > 1:
+        out["g/extra_z"] = np.stack(
+            [slot_z(k) for k in jax.random.split(extra_key,
+                                                 cfg.n_critic - 1)])
+    if policy:
+        d = _concat([aug_draws(jax.random.fold_in(k, 2), policy, mb,
+                               m.output_size)
+                     for k in per_micro(aug_key)])
+        out.update({f"g/aug/{k}": v for k, v in d.items()})
+    out["fill/z"] = np.stack(
+        [slot_z(k) for k in jax.random.split(jax.random.fold_in(key, 2),
+                                             cfg.n_critic)])
+    return out
 
 
 def to_torch(draws):
