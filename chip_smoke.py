@@ -208,8 +208,33 @@ The native feed, the pipelined G/D step and the trainer's guards
    card, output and cotangent. The memory line also gets the a1 group's
    fp8 128 px graph pool.
 
+The serving fleet (`serve_fleet`):
+
+17. serve_fleet: on a copy of phase 11's celeba64 kernel-route checkpoint
+   directory, the launch counters set to 0 just before and read just
+   after: the serve entry point's fleet (`--fleet`) with 1 and
+   FLEET_REPLICAS replicas under the same demo load (FLEET_REQUESTS
+   requests of 1-8 images, Poisson at FLEET_RPS, ladder 1-64; p50, p99,
+   samples/s, pad_frac, each replica's cold start ms and graph pool
+   bytes); a fleet whose watcher promotes a new finalized step (G's
+   weights changed, saved through the Checkpointer) while a client
+   thread submits: 0 captures, every served leaf at its address, no
+   request failed or dropped, swap ms per replica; then one replica's
+   source raises at its FLEET_FAIL_AT-th dispatch: no request fails,
+   serve/fleet_unhealthy 1; after ServeFleet.stop(), with the collector
+   off, no graph pool segment is left; int8 on one server (the report's
+   max relative error under the JAX package's bound). Then, against
+   fresh sources: the images after the promotion equal the new step's,
+   bit for bit, and every client response is wholly the old or the new
+   weights'; the int8 images' difference from the f32 weights; the
+   checkpoint exported on the card (`export_sampler`), served through
+   ArtifactSource's captured rungs, within SERVED_TOL of the plain-route
+   sampler, and its rungs at FLEET_TIMED_RUNGS timed against the kernel
+   route's and the cuDNN route's captured rungs.
+
 At the end of each group of phases (the kernel checks, serve, train,
-sagan64, resume, capture, a1, feed_pipeline) the garbage is collected and the cache
+sagan64, resume, capture, a1, feed_pipeline, serve_fleet) the garbage is
+collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -217,7 +242,7 @@ left allocated and reserved.
 
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
-feed_pipeline report, the memory report, the card's name and power limit (nvidia-smi),
+feed_pipeline report, the serve_fleet report, the memory report, the card's name and power limit (nvidia-smi),
 one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -235,6 +260,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -4371,6 +4397,422 @@ def feed_pipeline_and_check(torch, np, workdir, kernels):
     return report
 
 
+# the serving fleet (`serve_fleet`)
+FLEET_REQUESTS = 256
+# the demo load's Poisson rate: at 4.5 images a request on average, above
+# what one replica of the kernel route serves (so samples/s is the
+# plane's, not the load's)
+FLEET_RPS = 4000
+FLEET_REPLICAS = 2
+# the failover check: one replica's source raises at its FLEET_FAIL_AT-th
+# dispatch; FLEET_FAILOVER_REQUESTS requests go in waves of
+# FLEET_FAILOVER_WAVE, each a new client, so both replicas dispatch in
+# every wave
+FLEET_FAIL_AT = 3
+FLEET_FAILOVER_REQUESTS = 48
+FLEET_FAILOVER_WAVE = 8
+# the artifact's rungs timed against the kernel route's and the cuDNN
+# route's
+FLEET_TIMED_RUNGS = (1, 8, 64)
+
+
+@contextlib.contextmanager
+def rung_pools():
+    """Records {source: graph pool bytes of its rungs} of every source the
+    serving plane closes inside the block (the pools are gone after)."""
+    from dcgan_tpu_torch.serve import sources
+
+    pools = {}
+    original = sources._RungSource.close
+
+    def close(self):
+        pools[self] = sum(prog.pool_bytes for _, prog in
+                          self._rungs.values())
+        original(self)
+
+    sources._RungSource.close = close
+    try:
+        yield pools
+    finally:
+        sources._RungSource.close = original
+
+
+def graph_pool_segments(torch):
+    """Segments of CUDA graph private pools still reserved, after the
+    cache is emptied and without a garbage collection."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg["segment_pool_id"]) != (0, 0)]
+
+
+def promoted_step(torch, np, src_dir, dst_dir, step):
+    """Writes `step` into `dst_dir` through the Checkpointer, as a trainer
+    would: the newest state of `src_dir` with G's weights changed (scaled
+    and shifted by seeded noise). Returns the new G params (host)."""
+    from dcgan_tpu_torch.config import load_config
+    from dcgan_tpu_torch.train.steps import init_train_state, tree_map
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    state = Checkpointer(src_dir).restore_latest(init_train_state(
+        load_config(src_dir), device="cpu"))
+    rng = np.random.default_rng(SEED + 7)
+    state["params"]["gen"] = tree_map(
+        lambda w: w * 1.25 + torch.from_numpy(rng.normal(
+            0.0, 0.05, tuple(w.shape)).astype(np.float32)).to(w.dtype),
+        state["params"]["gen"])
+    state["step"] = torch.tensor(step, dtype=torch.int32)
+    ckpt = Checkpointer(dst_dir)
+    ckpt.save(step, state)
+    ckpt.wait()
+    return state["params"]["gen"]
+
+
+def fleet_client(fleet, stop, out):
+    """Submits seeded requests of 1-8 images to `fleet` until `stop`,
+    appending (seed, n, Response) to `out`."""
+    i = 0
+    while not stop.is_set():
+        n = 1 + i % 8
+        out.append((SEED + 1000 + i, n, fleet.submit(
+            n, seed=SEED + 1000 + i, client_id=i % 4)))
+        i += 1
+        time.sleep(0.001)
+
+
+def request_failed(r, timeout=60.0):
+    """Whether a Response failed (waits for it)."""
+    try:
+        r.result(timeout=timeout)
+    except Exception:
+        return True
+    return False
+
+
+def serve_fleet_and_check(torch, np, workdir, kernels):
+    """Phase 17: the serving fleet on the resume group's celeba64
+    kernel-route checkpoint. Returns the `serve_fleet` report."""
+    import shutil
+
+    from dcgan_tpu_torch.config import load_config
+    from dcgan_tpu_torch.convert import flatten
+    from dcgan_tpu_torch.export import export_sampler
+    from dcgan_tpu_torch.graphs import counts_delta, launch_counts
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+    from dcgan_tpu_torch.serve.buckets import build_ladder
+    from dcgan_tpu_torch.serve.fleet import ServeFleet
+    from dcgan_tpu_torch.serve.server import SamplerServer
+    from dcgan_tpu_torch.serve.sources import ArtifactSource, \
+        CheckpointSource, StateSource, latest_finalized_step
+
+    root = os.path.join(workdir, "serve_fleet")
+    run = os.path.join(root, "run")
+    old = os.path.join(root, "old")
+    for dst in (run, old):
+        # a copy: the resume group marked its newest step corrupt
+        shutil.copytree(os.path.join(workdir, "resume", "run"), dst,
+                        ignore=shutil.ignore_patterns("*.corrupt*"))
+    cfg = load_config(run)
+    mcfg = cfg.model
+    if not (mcfg.use_pallas and mcfg.pallas_fused):
+        fail(f"serve_fleet: {run} is not a kernel-route checkpoint")
+    step0 = latest_finalized_step(run)
+    report = {"checkpoint_step": step0, "requests": FLEET_REQUESTS,
+              "demo_rps": FLEET_RPS}
+    # bit-for-bit comparisons below: the sources' cuDNN convolutions take
+    # the deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+
+    # 1. the same demo load on one replica and on FLEET_REPLICAS
+    runs = report["fleet_vs_bare"] = {}
+    for n in (1, FLEET_REPLICAS):
+        argv = ["--checkpoint_dir", run, "--device", "cuda", "--fleet",
+                str(n), "--max_batch", str(BATCH), "--demo_requests",
+                str(FLEET_REQUESTS), "--demo_rps", str(FLEET_RPS),
+                "--demo_max_images", "8", "--seed", str(SEED)]
+        with rung_pools() as pools:
+            row, responses = serve_main.run(argv)
+        if row["completed"] != FLEET_REQUESTS or row["failed"] or \
+                row["serve/dropped"] or row["serve/recompiles_after_warmup"]:
+            fail(f"serve_fleet --fleet {n}: {row['completed']} completed, "
+                 f"{row['failed']} failed, {row['serve/dropped']} dropped, "
+                 f"{row['serve/recompiles_after_warmup']} recaptures")
+        for r in responses:
+            img = r.result(timeout=0)
+            if not np.isfinite(img).all() or np.abs(img).max() > 1.0:
+                fail(f"serve_fleet --fleet {n}: images not finite or "
+                     "outside [-1, 1]")
+        # the report's samples/s counts from the first replica's warm
+        # time (the JAX formula), so a fleet's includes the later
+        # replicas' cold starts; the load window's: the images over the
+        # span from the first arrival to the last completion, each
+        # request submitted at its scheduled arrival
+        arrivals = serve_main._load_arrivals(
+            serve_main.build_parser().parse_args(argv))
+        span_ms = max(a["t_ms"] + r.meta["total_ms"]
+                      for a, r in zip(arrivals, responses)) \
+            - arrivals[0]["t_ms"]
+        images = sum(r.images.shape[0] for r in responses)
+        runs[f"replicas_{n}"] = {
+            "p50_ms": row["serve/p50_ms"], "p99_ms": row["serve/p99_ms"],
+            "samples_per_sec": row["serve/samples_per_sec"],
+            "load_samples_per_sec": images / (span_ms / 1e3),
+            "pad_frac": row["serve/pad_frac"],
+            "batches": row["serve/batches"],
+            "cold_start_ms": [r["serve/cold_start_ms"]
+                              for r in row["fleet"]["per_replica"]],
+            "graph_pool_bytes": sorted(pools.values())}
+        log(f"serve_fleet: {FLEET_REQUESTS} requests at {FLEET_RPS}/s on "
+            f"{n} replica(s): p50 {row['serve/p50_ms']:.3f} ms, p99 "
+            f"{row['serve/p99_ms']:.3f} ms, {row['serve/samples_per_sec']:.1f}"
+            f" samples/s (report), "
+            f"{runs[f'replicas_{n}']['load_samples_per_sec']:.1f} over the "
+            f"load window, pad_frac {row['serve/pad_frac']:.4f}, "
+            f"{row['serve/batches']:.0f} batches; cold start ms "
+            f"{runs[f'replicas_{n}']['cold_start_ms']}, graph pool bytes "
+            f"per replica {runs[f'replicas_{n}']['graph_pool_bytes']}")
+
+    # 2. promotion by the watcher while a client submits, then failover;
+    # without the collector, so that the pools' release is stop()'s own
+    z = np.random.default_rng(SEED + 3).uniform(
+        -1.0, 1.0, (BATCH, mcfg.z_dim)).astype(np.float32)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        srcs = [CheckpointSource(run, device="cuda")
+                for _ in range(FLEET_REPLICAS)]
+        fleet = ServeFleet(srcs, max_batch=BATCH, max_wait_ms=1.0,
+                           watch_promotions=True, watch_interval_secs=0.05)
+        fleet.start()
+        ptrs = [{k: v.data_ptr() for k, v in
+                 flatten({"p": s._params, "s": s._state}).items()}
+                for s in srcs]
+        before = fleet.submit(z=z).result(timeout=60)
+        stop, client = threading.Event(), []
+        thread = threading.Thread(target=fleet_client,
+                                  args=(fleet, stop, client))
+        thread.start()
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        new_gen = promoted_step(torch, np, old, run, step0 + 1)
+        report["save_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 60.0
+        while not fleet.promotion_results and time.monotonic() < deadline:
+            time.sleep(0.01)
+        report["promotion_seen_s"] = time.perf_counter() - t0
+        time.sleep(0.1)
+        stop.set()
+        thread.join(60)
+        if not fleet.promotion_results:
+            fail("serve_fleet: the watcher promoted nothing in 60 s")
+        results = fleet.promotion_results[0]
+        after = fleet.submit(z=z).result(timeout=60)
+        if [(r.get("step"), r.get("compile_requests_delta"))
+                for r in results] != [(step0 + 1, 0)] * FLEET_REPLICAS:
+            fail(f"serve_fleet: promotion results {results}")
+        if [{k: v.data_ptr() for k, v in
+             flatten({"p": s._params, "s": s._state}).items()}
+                for s in srcs] != ptrs:
+            fail("serve_fleet: a promotion moved a served leaf")
+        failed = [seed for seed, _, r in client if request_failed(r)]
+        promo = fleet.report()
+        if failed or promo["serve/dropped"] or \
+                promo["serve/recompiles_after_warmup"]:
+            fail(f"serve_fleet: promotion under load failed requests "
+                 f"{failed[:5]}, dropped {promo['serve/dropped']}, "
+                 f"{promo['serve/recompiles_after_warmup']} recaptures")
+        report["promotion"] = {
+            "swap_ms": [r["swap_ms"] for r in results],
+            "client_requests": len(client),
+            "promote_swap_ms": promo["serve/promote_swap_ms"]}
+        log(f"serve_fleet: the watcher promoted step {step0 + 1} on "
+            f"{FLEET_REPLICAS} replicas while a client submitted "
+            f"{len(client)} requests: swap ms per replica "
+            f"{report['promotion']['swap_ms']}, 0 captures, every leaf's "
+            f"data_ptr unchanged, 0 failed or dropped (save "
+            f"{report['save_s']:.3f} s, seen after "
+            f"{report['promotion_seen_s']:.3f} s)")
+
+        # failover: one replica's source raises at its FLEET_FAIL_AT-th
+        # dispatch from here on
+        victim = srcs[-1]
+        calls = [0]
+        real_sample = victim.sample
+
+        def sample(bucket, zz, labels=None):
+            calls[0] += 1
+            if calls[0] == FLEET_FAIL_AT:
+                raise RuntimeError("serve_fleet: a replica fails on purpose")
+            return real_sample(bucket, zz, labels)
+        victim.sample = sample
+        fo_failed = 0
+        for lo in range(0, FLEET_FAILOVER_REQUESTS, FLEET_FAILOVER_WAVE):
+            wave = [fleet.submit(1 + i % 8, seed=SEED + 5000 + i,
+                                 client_id=f"failover{i}")
+                    for i in range(lo, lo + FLEET_FAILOVER_WAVE)]
+            fo_failed += sum(1 for r in wave if request_failed(r))
+        fleet.router.poll_health()
+        fleet.stop()
+        rep = fleet.report()
+        if fo_failed or rep["serve/fleet_unhealthy"] != 1 or \
+                rep["serve/fleet_failovers"] < 1 or \
+                rep["serve/dropped_failover"] or len(fleet.stop_errors) != 1:
+            fail(f"serve_fleet failover: {fo_failed} failed requests, "
+                 f"unhealthy {rep['serve/fleet_unhealthy']}, failovers "
+                 f"{rep['serve/fleet_failovers']}, dropped_failover "
+                 f"{rep['serve/dropped_failover']}, stop errors "
+                 f"{fleet.stop_errors}")
+        report["failover"] = {"requests": FLEET_FAILOVER_REQUESTS,
+                              "failed": fo_failed,
+                              "failovers": rep["serve/fleet_failovers"],
+                              "unhealthy": rep["serve/fleet_unhealthy"]}
+        log(f"serve_fleet: replica {FLEET_REPLICAS - 1} raised at "
+            f"its dispatch {FLEET_FAIL_AT}; {FLEET_FAILOVER_REQUESTS} "
+            f"requests, 0 failed, {rep['serve/fleet_failovers']:.0f} failed "
+            "over, serve/fleet_unhealthy 1")
+        left = graph_pool_segments(torch)
+        report["graph_pool_bytes_after_stop"] = sum(
+            seg["total_size"] for seg in left)
+        if left:
+            fail(f"serve_fleet: {len(left)} graph pool segments "
+                 f"({report['graph_pool_bytes_after_stop']} bytes) left "
+                 "after ServeFleet.stop(), before any collection")
+        log("serve_fleet: ServeFleet.stop() released every graph pool "
+            "before any garbage collection (0 segments)")
+        del fleet, srcs, victim, real_sample, sample
+    finally:
+        if collecting:
+            gc.enable()
+
+    # 3. int8 on one server
+    qsrc = CheckpointSource(run, quantize="int8", device="cuda")
+    server = SamplerServer(qsrc, max_batch=BATCH, max_wait_ms=1.0)
+    meta = server.start()
+    q_images = server.submit(z=z).result(timeout=60)
+    server.stop()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    served = ("scale_shift_act", "gemm_bias_scale_act")
+    for name in served:
+        if launches[name] < 1:
+            fail(f"serve_fleet: kernel {name} was not launched")
+    for name in TRAIN_ONLY + tuple(FLASH_REPLACES):
+        if launches[name]:
+            fail(f"serve_fleet: the sampler launched {name}")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["serve_fleet"] = \
+            launches[entry["name"]]
+    report["launches"] = launches
+    log(f"serve_fleet path launches: {launches}")
+
+    # 4. the checks against fresh sources (their launches do not count)
+    new_src = CheckpointSource(run, device="cuda")
+    old_src = CheckpointSource(old, device="cuda")
+    ladder = build_ladder(BATCH).buckets
+    for src in (new_src, old_src):
+        src.prepare()
+        src.bind(ladder)
+    want = new_src.sample(BATCH, z)
+    if not np.array_equal(after, want):
+        fail(f"serve_fleet: images after the promotion differ from a fresh "
+             f"source on step {step0 + 1}: max |err| "
+             f"{float(np.abs(after - want).max())}")
+    if not np.array_equal(before, old_src.sample(BATCH, z)):
+        fail("serve_fleet: images before the promotion differ from the "
+             f"fresh source on step {step0}")
+    moved = float(np.abs(after - before).max())
+    if moved < 4 * SERVED_TOL:
+        fail(f"serve_fleet: the new step moved the images by {moved} only: "
+             "old and new weights cannot be told apart")
+    # every response the client got is wholly the old or the new weights'
+    # (a request chunked over two batches may be both: skipped)
+    counts = {"old": 0, "new": 0, "chunked": 0}
+    for seed, n, r in client:
+        if len(r.meta["buckets"]) > 1:
+            counts["chunked"] += 1
+            continue
+        (bucket,) = r.meta["buckets"]
+        rows = np.zeros((bucket, mcfg.z_dim), np.float32)
+        rows[:n] = np.random.default_rng(seed).uniform(
+            -1.0, 1.0, (n, mcfg.z_dim))
+        errs = {k: float(np.abs(s.sample(bucket, rows)[:n]
+                                - r.images).max())
+                for k, s in (("old", old_src), ("new", new_src))}
+        best = min(errs, key=errs.get)
+        if errs[best] > SERVED_TOL:
+            fail(f"serve_fleet: response {seed} matches neither weights "
+                 f"({errs}): a replay read half-copied weights")
+        counts[best] += 1
+    report["promotion"]["responses_old_new"] = counts
+    log(f"serve_fleet: images after the promotion equal a fresh source on "
+        f"step {step0 + 1} bit for bit (moved {moved:.3f} from before); "
+        f"the client's responses: {counts['old']} on the old weights, "
+        f"{counts['new']} on the new, none mixed ({counts['chunked']} "
+        "chunked over two batches, not checked)")
+    q_err = float(np.abs(q_images - want).max())
+    q_mean = float(np.abs(q_images - want).mean())
+    # the JAX package's committed bound on the weights' relative error
+    if not np.isfinite(q_images).all() or \
+            not 0 < meta["quantize"]["max_rel_error"] < 0.02:
+        fail(f"serve_fleet int8: report {meta['quantize']}, images finite "
+             f"{bool(np.isfinite(q_images).all())}")
+    report["int8"] = {"max_rel_error": meta["quantize"]["max_rel_error"],
+                      "worst_leaf": meta["quantize"]["worst_leaf"],
+                      "max_abs_image_diff": q_err,
+                      "mean_abs_image_diff": q_mean}
+    log(f"serve_fleet int8: {meta['quantize']['quantized_leaves']} leaves, "
+        f"max relative weight error {meta['quantize']['max_rel_error']} "
+        f"({meta['quantize']['worst_leaf']}); images against the f32 "
+        f"weights, same z: max |diff| {q_err:.4f}, mean {q_mean:.5f}")
+
+    # 5. the artifact: exported on the card, served on captured rungs
+    t0 = time.perf_counter()
+    art = os.path.join(root, "sampler.pt2")
+    side = export_sampler(run, art, device="cuda", max_serve_batch=BATCH)
+    report["export_s"] = time.perf_counter() - t0
+    asrc = ArtifactSource(art, device="cuda")
+    server = SamplerServer(asrc, max_wait_ms=1.0)
+    server.start()
+    a_images = server.submit(z=z).result(timeout=60)
+    if asrc.compiled_buckets() != ladder:
+        fail(f"serve_fleet artifact: rungs {asrc.compiled_buckets()}")
+    plain = dataclasses.replace(mcfg, use_pallas=False, pallas_fused=False)
+    ref = sampler_apply(new_src._params, new_src._state,
+                        torch.from_numpy(z).cuda(), cfg=plain)
+    a_err = float(np.abs(a_images - ref.float().cpu().numpy()).max())
+    if not np.isfinite(a_images).all() or a_err > SERVED_TOL:
+        fail(f"serve_fleet artifact: images differ from the plain-route "
+             f"sampler by {a_err} > {SERVED_TOL}")
+    cudnn_src = StateSource(plain, new_src._params, new_src._state,
+                            device="cuda")
+    cudnn_src.bind(FLEET_TIMED_RUNGS)
+    timed = {}
+    for b in FLEET_TIMED_RUNGS:
+        for name, src in (("artifact", asrc), ("kernel_route", new_src),
+                          ("cudnn_route", cudnn_src)):
+            prog = src._rungs[b][1]
+            timed[f"{name}@b{b}"], _ = time_ms(
+                torch, prog.run, 30, label=f"serve_fleet {name} rung b{b}")
+    server.stop()
+    report["artifact"] = {"bytes": side["bytes"], "max_abs_err": a_err,
+                          "rung_ms": timed}
+    log(f"serve_fleet artifact: {side['bytes']} bytes, exported in "
+        f"{report['export_s']:.2f} s, images within {a_err:.4g} of the "
+        f"plain-route sampler; captured rung ms (artifact / kernel route "
+        f"/ cuDNN route): " + "; ".join(
+            f"b{b} {timed[f'artifact@b{b}']:.4f} / "
+            f"{timed[f'kernel_route@b{b}']:.4f} / "
+            f"{timed[f'cudnn_route@b{b}']:.4f}" for b in FLEET_TIMED_RUNGS))
+    for src in (new_src, old_src, cudnn_src):
+        src.close()
+    torch.backends.cudnn.deterministic = deterministic
+    return report
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -4498,6 +4940,8 @@ def main() -> int:
             f"{memory['a1']['peak_reserved'] / 2 ** 30:.2f} GiB reserved")
         feed_report = feed_pipeline_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "feed_pipeline", memory)
+        fleet_report = serve_fleet_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "serve_fleet", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -4508,6 +4952,7 @@ def main() -> int:
     print(json.dumps({"capture": capture_report}), flush=True)
     print(json.dumps({"a1": a1_report}), flush=True)
     print(json.dumps({"feed_pipeline": feed_report}), flush=True)
+    print(json.dumps({"serve_fleet": fleet_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(

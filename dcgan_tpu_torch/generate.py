@@ -182,8 +182,11 @@ def generate(args: argparse.Namespace) -> dict:
             made += take
             i += 1
     source.bind({len(z) for z, _ in batches})
-    images = np.concatenate([source.sample(len(z), z)[:take]
-                             for z, take in batches]).astype(np.float32)
+    try:
+        images = np.concatenate([source.sample(len(z), z)[:take]
+                                 for z, take in batches]).astype(np.float32)
+    finally:
+        source.close()   # the rungs' graph pools go now
 
     paths: List[str] = []
     if args.interpolate:

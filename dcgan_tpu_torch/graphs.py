@@ -30,18 +30,24 @@ The kernel wrappers count their launches in Python (`.launches`,
 `.launches_by_design`), which a replay does not run. So the counts a
 capture adds are taken back after it and added again at every replay:
 a replayed program counts as the eager calls it was captured from.
+Replays run on the dispatch threads of several serve replicas at once, so
+`add_counts` updates the counters under one lock.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 Counts = Dict[str, Tuple[int, Dict[str, int]]]
+
+# guards the wrappers' counters against replays on several threads
+_COUNTS_LOCK = threading.Lock()
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
@@ -76,13 +82,16 @@ def counts_delta(after: Counts, before: Counts) -> Counts:
 
 
 def add_counts(delta: Counts, times: int = 1) -> None:
-    """Add `times` x `delta` to the wrappers' counters."""
-    for name, fn in kernel_wrappers().items():
-        n, by = delta[name]
-        fn.launches += times * n
-        by_design = getattr(fn, "launches_by_design", None)
-        for design, c in by.items():
-            by_design[design] += times * c
+    """Add `times` x `delta` to the wrappers' counters (one thread at a
+    time: `+=` on an attribute is a read, an add and a write)."""
+    wrappers = kernel_wrappers()
+    with _COUNTS_LOCK:
+        for name, fn in wrappers.items():
+            n, by = delta[name]
+            fn.launches += times * n
+            by_design = getattr(fn, "launches_by_design", None)
+            for design, c in by.items():
+                by_design[design] += times * c
 
 
 @contextlib.contextmanager

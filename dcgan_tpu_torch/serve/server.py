@@ -15,10 +15,21 @@ Batching policy, as in the JAX package:
 - when the queue is full the OLDEST never-dispatched request is shed and
   its Response fails with `ServeOverloadError` (drop-oldest backpressure).
 
+Weight promotion: `request_promote()` queues a control op that the
+dispatch thread takes ahead of queued requests and only between batches
+(the drain barrier); it reloads the source's weights into the tensors the
+rungs were captured over and replays every rung once (worker.py). A
+replica of a `ServeFleet` (fleet.py) also shows the router (router.py) its
+liveness (`beats`), its load (`queue_depth()`), and lets it rescue its
+untouched requests (`evict_pending()`) and count the requests no peer
+could take (`record_failover_drop()`).
+
 `report()` emits the same `serve/*` metric keys as the JAX server, with
 `serve/compile_ms/<rung>` holding each rung's capture time and
-`serve/recompiles_after_warmup` the captures after the cold start.
-Weight promotion and the replica fleet are later items of the port.
+`serve/recompiles_after_warmup` the captures after the cold start. On
+stop the dispatch thread releases the source's captured rungs
+(`source.close()`), so their graph pools do not wait for the garbage
+collector.
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ class Response:
 
     def __init__(self) -> None:
         self._ev = threading.Event()
+        self._cb_lock = threading.Lock()
+        self._cbs: List[Any] = []
         self.images: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
         self.meta: Dict[str, Any] = {}
@@ -75,11 +88,57 @@ class Response:
             raise self.error
         return self.images
 
+    def add_done_callback(self, fn) -> None:
+        """Run `fn(self)` when the response resolves or fails; at once, on
+        the calling thread, if it is done already. Callbacks run on the
+        resolving thread (the router's failover hook)."""
+        with self._cb_lock:
+            if not self._ev.is_set():
+                self._cbs.append(fn)
+                return
+        fn(self)
+
     # -- dispatch-thread side ---------------------------------------------
+
+    def _finish(self) -> None:
+        with self._cb_lock:
+            self._ev.set()
+            cbs, self._cbs = self._cbs, []
+        for fn in cbs:
+            fn(self)
 
     def _resolve(self, images: np.ndarray, meta: Dict[str, Any]) -> None:
         self.images = images
         self.meta.update(meta)
+        self._finish()
+
+    def _fail(self, err: BaseException) -> None:
+        self.error = err
+        self._finish()
+
+
+class PromotionTicket:
+    """Future-like handle for one weight-promotion control op, resolved by
+    the replica's dispatch thread after drain -> swap -> prime -> resume;
+    `info` carries {replica, step, swap_ms, compile_requests_delta}."""
+
+    def __init__(self) -> None:
+        self._ev = threading.Event()
+        self.info: Dict[str, Any] = {}
+        self.error: Optional[BaseException] = None
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> Dict[str, Any]:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("promotion not resolved within timeout")
+        if self.error is not None:
+            raise self.error
+        return dict(self.info)
+
+    def _resolve(self, info: Dict[str, Any]) -> None:
+        self.info.update(info)
         self._ev.set()
 
     def _fail(self, err: BaseException) -> None:
@@ -134,13 +193,15 @@ class SamplerServer:
     `stop(drain=True)` stops intake, lets the worker drain the queue in
     FIFO order, and joins it. A worker failure fails the in-flight requests
     and poisons the server (later submits are rejected, `stop()` re-raises).
+    `replica_index` is the server's position in a ServeFleet (0 alone).
     """
 
     def __init__(self, source, *, buckets: Optional[Sequence[int]] = None,
                  max_batch: int = 64,
                  max_queue: int = DEFAULT_MAX_QUEUE,
                  max_wait_ms: float = 10.0,
-                 seed: int = 0):
+                 seed: int = 0,
+                 replica_index: int = 0):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_wait_ms < 0:
@@ -151,12 +212,15 @@ class SamplerServer:
         self.max_queue = max_queue
         self.max_wait_ms = max_wait_ms
         self.seed = seed
+        self.replica_index = replica_index
         self._explicit_buckets = tuple(buckets) if buckets else None
         self.ladder: Optional[BucketLadder] = None   # set at cold start
 
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._queue: "collections.deque[_Pending]" = collections.deque()
+        self._control: "collections.deque[PromotionTicket]" = \
+            collections.deque()
         self._draining = False
         self._started = False
         self._ready = threading.Event()
@@ -166,12 +230,18 @@ class SamplerServer:
         # counters, mutated under _lock
         self.submitted = 0
         self.completed = 0
-        self.dropped = 0
+        self.dropped = 0            # all sheds: overload + failover
+        self.dropped_overload = 0   # drop-oldest backpressure sheds
+        self.dropped_failover = 0   # abandoned by the router in failover
         self.batches = 0
         self.images_out = 0
         self.padded_rows = 0
         self.dispatched_rows = 0
         self.queue_depth_max = 0
+        self.promotions = 0         # completed weight promotions
+        self.promote_swap_ms = 0.0  # the last promotion's wall time
+        self.beats = 0              # the dispatch thread's heartbeat
+        self._beat_mute_until = 0.0
         self._serial = 0
         self._latencies_ms: List[float] = []
 
@@ -191,6 +261,10 @@ class SamplerServer:
         self.registry.provide("serve_requests", lambda: self.submitted)
         self.registry.provide("serve_completed", lambda: self.completed)
         self.registry.provide("serve_dropped", lambda: self.dropped)
+        self.registry.provide("serve_dropped_overload",
+                              lambda: self.dropped_overload)
+        self.registry.provide("serve_dropped_failover",
+                              lambda: self.dropped_failover)
         self.registry.provide("serve_batches", lambda: self.batches)
         self.registry.provide("serve_queue", lambda: len(self._queue))
 
@@ -215,10 +289,16 @@ class SamplerServer:
 
     def submit(self, num_images: int = 1, *,
                z: Optional[np.ndarray] = None,
+               labels: Optional[np.ndarray] = None,
                seed: Optional[int] = None) -> Response:
         """Enqueue one generation request; returns its Response. Never
         blocks on a full queue: the oldest never-dispatched request is shed
-        instead, and a stopped/poisoned server fails the Response at once."""
+        instead, and a stopped/poisoned server fails the Response at once.
+        `labels` is the JAX signature's; only None is served (conditional
+        models are not ported)."""
+        if labels is not None:
+            raise ValueError("labels given, but conditional models are not "
+                             "ported: the source serves num_classes 0")
         if z is not None:
             z = np.asarray(z, np.float32)
             if z.ndim != 2:
@@ -261,6 +341,7 @@ class SamplerServer:
                     victim = next(
                         (q for q in self._queue if q.delivered == 0), None)
                     self.dropped += 1
+                    self.dropped_overload += 1
                     if victim is None:
                         fail_after.append((p.resp, overload))
                         rejected = True
@@ -290,6 +371,10 @@ class SamplerServer:
                 err = ServeError("server stopped before dispatch")
                 while self._queue:
                     fail_after.append((self._queue.popleft().resp, err))
+            # a promotion still queued when intake stops does not run
+            while self._control:
+                fail_after.append((self._control.popleft(), ServeError(
+                    "server stopped before promotion")))
             self._work.notify_all()
         for fut, err in fail_after:
             fut._fail(err)
@@ -302,8 +387,57 @@ class SamplerServer:
                     "all resolved")
         self.raise_if_failed()
 
+    def request_promote(self) -> PromotionTicket:
+        """Queue a weight-promotion control op; returns its ticket. The
+        dispatch thread takes it ahead of queued requests once the
+        in-flight batch is done, reloads the source's weights and replays
+        every rung before serving on. A stopped or poisoned server fails
+        the ticket at once."""
+        t = PromotionTicket()
+        fail: Optional[BaseException] = None
+        with self._lock:
+            if self._draining or self._error is not None:
+                fail = ServeError(
+                    "server is stopped" if self._error is None else
+                    f"server failed: {self._error!r}")
+            else:
+                self._control.append(t)
+                self._work.notify_all()
+        if fail is not None:
+            t._fail(fail)
+        return t
+
+    def evict_pending(self) -> int:
+        """The router's rescue of an unhealthy replica: fail every queued
+        request that no batch has taken rows from with a retryable
+        ServeError, so its failover callback resubmits it to a peer.
+        Requests already partly dispatched stay with this worker. Returns
+        the count evicted."""
+        with self._lock:
+            keep = [p for p in self._queue if p.remaining < p.num_images]
+            victims = [p.resp for p in self._queue
+                       if p.remaining == p.num_images]
+            self._queue.clear()
+            self._queue.extend(keep)
+        err = ServeError(
+            f"request evicted from unhealthy replica {self.replica_index}")
+        for resp in victims:
+            resp._fail(err)
+        return len(victims)
+
+    def record_failover_drop(self, n: int = 1) -> None:
+        """The router abandoned `n` requests that failed on this replica
+        and no healthy peer could take; counted apart from overload."""
+        with self._lock:
+            self.dropped += n
+            self.dropped_failover += n
+
+    def queue_depth(self) -> int:
+        """Pending-request count (the router's load signal)."""
+        return len(self._queue)
+
     def poisoned(self) -> bool:
-        """Whether the dispatch thread died."""
+        """Whether the dispatch thread died (permanently unhealthy)."""
         return self._error is not None
 
     def raise_if_failed(self) -> None:
@@ -327,6 +461,8 @@ class SamplerServer:
                 "serve/requests": float(self.submitted),
                 "serve/completed": float(self.completed),
                 "serve/dropped": float(self.dropped),
+                "serve/dropped_overload": float(self.dropped_overload),
+                "serve/dropped_failover": float(self.dropped_failover),
                 "serve/batches": float(self.batches),
                 "serve/images": float(self.images_out),
                 "serve/queue_depth_max": float(self.queue_depth_max),
@@ -342,6 +478,9 @@ class SamplerServer:
             out["serve/p50_ms"] = _percentile(lat, 50.0)
             out["serve/p99_ms"] = _percentile(lat, 99.0)
             out["serve/mean_ms"] = float(np.mean(lat))
+        if self.promotions:
+            out["serve/promotions"] = float(self.promotions)
+            out["serve/promote_swap_ms"] = self.promote_swap_ms
         for key, src in (("serve/restore_ms", "restore_ms"),
                          ("serve/warmup_ms", "warmup_ms"),
                          ("serve/cold_start_ms", "cold_start_ms")):
@@ -360,20 +499,40 @@ class SamplerServer:
 
     def _resolve_ladder(self) -> BucketLadder:
         """The bucket ladder for this run: the explicit buckets, else the
-        default doubling ladder under max_batch."""
+        source's hint (an artifact's sidecar), else the default doubling
+        ladder under max_batch."""
         granule = self.source.granule
-        if self._explicit_buckets is None:
-            return build_ladder(self.max_batch, granule)
-        return BucketLadder(
-            buckets=tuple(sorted(set(self._explicit_buckets))),
-            granule=granule)
+        rungs = self._explicit_buckets
+        if rungs is None:
+            rungs = getattr(self.source, "ladder_hint", lambda: None)()
+            if not rungs:
+                return build_ladder(self.max_batch, granule)
+        return BucketLadder(buckets=tuple(sorted({int(b) for b in rungs})),
+                            granule=granule)
+
+    def _bump_beat(self) -> None:
+        """The dispatch thread's heartbeat: bumped at every batcher wait and
+        after every dispatch and promotion. A wedged worker stops bumping,
+        which the router's monitor watches; `_mute_beats` silences it for a
+        while (a replica that serves but looks dead)."""
+        if time.monotonic() < self._beat_mute_until:
+            return
+        self.beats += 1
+
+    def _mute_beats(self, secs: float) -> None:
+        self._beat_mute_until = time.monotonic() + secs
 
     def _next_batch(self):
-        """Block until work is due, then return a `(spans, total)` request
-        batch (full top bucket, deadline, or drain), or None once draining
-        and empty: the worker's exit signal."""
+        """Block until work is due, then return it: a PromotionTicket
+        (control ops first: the in-flight batch is done, so this is the
+        drain barrier), a `(spans, total)` request batch (full top bucket,
+        deadline, or drain), or None once draining and empty: the worker's
+        exit signal."""
         with self._lock:
             while True:
+                self._bump_beat()
+                if self._control:
+                    return self._control.popleft()
                 if not self._queue:
                     if self._draining:
                         self._t_drained = time.monotonic()
@@ -415,12 +574,16 @@ class SamplerServer:
             self._latencies_ms.append(total_ms)
 
     def _fail_all(self, err: BaseException) -> None:
-        """Worker death: fail everything still queued and poison intake."""
+        """Worker death: fail everything still queued (requests and
+        promotions) and poison intake. Responses fail outside the lock, so
+        the router's failover callbacks can resubmit them elsewhere."""
         victims: List[Any] = []
         with self._lock:
             self._error = err
             while self._queue:
                 victims.append(self._queue.popleft().resp)
+            while self._control:
+                victims.append(self._control.popleft())
             self._work.notify_all()
         for fut in victims:
             fut._fail(err)

@@ -15,10 +15,22 @@ thread-safe queue.
 - warm serving: `server._next_batch()` -> assemble z -> bucketed dispatch
   -> split images back per request, resolving Responses with latency
   accounting;
+- weight promotion: a PromotionTicket popped from the batcher is the drain
+  barrier (the loop is sequential, so the in-flight batch has resolved).
+  `_promote` calls the source's `reload()`, which copies the newest
+  finalized step into the tensors the rungs were captured over, on this
+  thread's stream, then replays every bound rung once (the prime) and
+  resumes. It captures nothing: the ticket's `compile_requests_delta` is
+  the source's captures during the promotion, 0;
 - drain: once the server stops intake, the loop keeps flushing until the
-  queue is empty (FIFO, same batching rules), then exits.
+  queue is empty (FIFO, same batching rules), then exits;
+- release: when the thread ends, for whatever reason, it calls the
+  source's `close()`, which releases every captured rung and its graph
+  pool.
 
 A failure anywhere fails the in-flight requests and poisons the server.
+The one exception is a reload that fails before it copies anything: only
+its ticket fails and the old weights keep serving.
 """
 
 from __future__ import annotations
@@ -30,14 +42,18 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from dcgan_tpu_torch.serve.server import PromotionTicket, ServeError
+
 
 class ServeWorker:
     """Single dispatch thread bound to one SamplerServer."""
 
     def __init__(self, server):
         self._server = server
-        self._thread = threading.Thread(
-            target=self._run, name="dcgan-torch-serve-dispatch", daemon=True)
+        name = "dcgan-torch-serve-dispatch" if server.replica_index == 0 \
+            else f"dcgan-torch-serve-dispatch-{server.replica_index}"
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
 
     def start(self) -> None:
         self._thread.start()
@@ -51,6 +67,14 @@ class ServeWorker:
     # -- the dispatch thread ------------------------------------------------
 
     def _run(self) -> None:
+        try:
+            self._serve()
+        finally:
+            # the rungs' graph pools go now, not when the collector breaks
+            # the cycle between a program and its source
+            self._server.source.close()
+
+    def _serve(self) -> None:
         s = self._server
         try:
             device = getattr(s.source, "device", None)
@@ -67,9 +91,18 @@ class ServeWorker:
             batch = s._next_batch()
             if batch is None:
                 return
+            if isinstance(batch, PromotionTicket):
+                try:
+                    self._promote(batch)
+                except Exception as e:  # the prime failed: poisoned
+                    batch._fail(e)
+                    s._fail_all(e)
+                    return
+                continue
             spans, total = batch
             try:
                 self._dispatch(spans, total)
+                s._bump_beat()
             except Exception as e:  # fails this batch and poisons the server
                 for p, _ in spans:
                     p.resp._fail(e)
@@ -93,6 +126,40 @@ class ServeWorker:
             "warmup_ms": (t_warm - t_restore) * 1e3,
             "cold_start_ms": (t_warm - t0) * 1e3,
         }
+
+    def _promote(self, ticket: PromotionTicket) -> None:
+        """Swap to the newest finalized step, on the dispatch thread after
+        the in-flight batch resolved. A reload that raises fails only the
+        ticket (it raises before it copies a leaf, so the old weights
+        serve on); a prime that raises is raised (the caller poisons the
+        server: the swapped weights could not dispatch)."""
+        s = self._server
+        reload_fn = getattr(s.source, "reload", None)
+        if reload_fn is None:
+            ticket._fail(ServeError(
+                f"{type(s.source).__name__} does not support weight "
+                "promotion (no reload())"))
+            return
+        base = s.source.captures
+        t0 = time.perf_counter()
+        try:
+            meta = reload_fn()
+        except Exception as e:  # the replica survives on its old weights
+            ticket._fail(e)
+            return
+        # the prime: one replay per bound rung, on the stream the reload
+        # copied on, so no later replay can read half-copied weights
+        for b in s.source.compiled_buckets():
+            s.source.sample(b, np.zeros((b, s.source.z_dim), np.float32))
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        s.meta.update(meta)
+        s.promotions += 1
+        s.promote_swap_ms = swap_ms
+        s._bump_beat()
+        ticket._resolve({"replica": s.replica_index,
+                         "step": meta.get("step"),
+                         "swap_ms": swap_ms,
+                         "compile_requests_delta": s.source.captures - base})
 
     def _dispatch(self, spans: List[Tuple], total: int) -> None:
         s = self._server

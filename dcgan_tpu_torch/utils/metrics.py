@@ -172,7 +172,10 @@ class CounterSnapshot:
 
     serve_requests: int = 0        # generation requests accepted
     serve_completed: int = 0       # requests fully resolved with images
-    serve_dropped: int = 0         # requests shed by drop-oldest
+    serve_dropped: int = 0         # requests shed, total (overload +
+                                   # failover)
+    serve_dropped_overload: int = 0  # shed by drop-oldest backpressure
+    serve_dropped_failover: int = 0  # abandoned during fleet failover
     serve_batches: int = 0         # bucketed device dispatches
     serve_queue: int = 0           # requests pending on the serve queue
 

@@ -67,14 +67,19 @@ class TestNoJaxImports:
         assert loaded >= 15
 
     def test_import_builds_nothing(self):
-        """Importing the kernel modules and the native loader's bindings
-        starts no compiler: a kernel is built inside the first call that
-        launches it, the loader at the first NativeLoader."""
+        """Importing the kernel modules, the native loader's bindings and
+        the serving plane starts no compiler: a kernel is built inside the
+        first call that launches it, the loader at the first
+        NativeLoader."""
         code = ("import subprocess, sys\n"
                 "calls = []\n"
                 "subprocess.Popen = lambda *a, **k: calls.append(a)\n"
                 "import dcgan_tpu_torch.data.native\n"
                 "import dcgan_tpu_torch.data.prepare\n"
+                "import dcgan_tpu_torch.export\n"
+                "import dcgan_tpu_torch.serve.__main__\n"
+                "import dcgan_tpu_torch.serve.fleet\n"
+                "import dcgan_tpu_torch.serve.quantize\n"
                 "import dcgan_tpu_torch.ops.flash_attention\n"
                 "import dcgan_tpu_torch.ops.fused\n"
                 "import dcgan_tpu_torch.ops.kernels\n"

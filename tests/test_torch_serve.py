@@ -1,8 +1,12 @@
 """The port's serving plane on the CPU: ladder, batcher, drain, backpressure,
-and served images against the JAX generator on the same numpy z rows."""
+and served images against the JAX generator on the same numpy z rows; the
+CLI's fleet, promotion, int8, preset and events flags, the fleet report's
+keys equal to the JAX fleet's."""
 
+import dataclasses
 import json
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +56,9 @@ class FakeSource:
 
     def compiled_buckets(self):
         return self._rungs
+
+    def close(self):
+        self._rungs = ()
 
     def sample(self, bucket, z, labels=None):
         assert bucket in self._rungs and z.shape == (bucket, self.z_dim)
@@ -285,3 +292,144 @@ class TestServedImages:
             assert key in saved, key
         assert saved["buckets"] == [1, 2, 4]
         assert saved["device"] == "cpu"
+
+
+MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
+             compute_dtype="float32")
+CKPT_FLAGS = ["--output_size", "16", "--gf_dim", "8", "--df_dim", "8",
+              "--z_dim", "8", "--device", "cpu"]
+
+
+def _save_step(directory, step, scale=1.0):
+    """Save a training state at `step` (G's weights the seeded init's times
+    `scale`) with its config.json, as the trainer does."""
+    from dcgan_tpu_torch.config import TrainConfig, save_config
+    from dcgan_tpu_torch.train.steps import init_train_state, tree_map
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = TrainConfig(model=ModelConfig(**MODEL), batch_size=4)
+    state = init_train_state(cfg, device="cpu")
+    state["params"]["gen"] = tree_map(lambda w: w * scale,
+                                      state["params"]["gen"])
+    state["step"] = torch.tensor(step, dtype=torch.int32)
+    save_config(cfg, directory)
+    ckpt = Checkpointer(directory)
+    ckpt.save(step, state)
+    ckpt.wait()
+    return state
+
+
+def _jax_fleet_report_keys():
+    """The key set of the JAX ServeFleet's report after one promotion, over
+    a fake source."""
+    from dcgan_tpu.serve.fleet import ServeFleet as JServeFleet
+
+    class Fake(FakeSource):
+        step = 0
+
+        def bucket_plan(self, ladder):
+            return []
+
+        def reload(self):
+            return {"source": "fake", "step": 1, "weights": "live"}
+
+        def sample(self, bucket, z, labels=None):
+            return z.copy()
+
+    fleet = JServeFleet([Fake(), Fake()], buckets=(1, 2), max_wait_ms=1.0)
+    fleet.start(timeout=TIMEOUT)
+    try:
+        fleet.submit(z=_z(0, 2)).result(TIMEOUT)
+        fleet.promote()
+    finally:
+        fleet.stop()
+    return set(fleet.report())
+
+
+class TestCliFlags:
+    def test_fleet_watch_promotions_and_events(self, tmp_path):
+        """--fleet 2 --watch_promotions: a step finalized while the trace
+        plays is promoted on both replicas with no capture and no failed
+        request; the report's serve/* keys are the JAX fleet's, and
+        --events_dir mirrors them into events.jsonl."""
+        ckpt = str(tmp_path / "ckpt")
+        _save_step(ckpt, 1, 2.0)
+        trace = tmp_path / "trace.json"
+        trace.write_text(json.dumps({"arrivals": [
+            {"t_ms": 40.0 * i, "num_images": 1 + i % 3,
+             "client": f"c{i % 4}"} for i in range(40)]}))
+        saved = threading.Event()
+
+        def deliver():
+            # step 2 lands while the trace plays
+            time.sleep(0.2)
+            _save_step(ckpt, 2, 3.0)
+            saved.set()
+        saver = threading.Thread(target=deliver)
+        saver.start()
+        try:
+            row, responses = serve_main.run([
+                "--checkpoint_dir", ckpt, *CKPT_FLAGS, "--fleet", "2",
+                "--watch_promotions", "--watch_interval_secs", "0.05",
+                "--max_batch", "4", "--trace", str(trace), "--events_dir",
+                str(tmp_path / "events"), "--report",
+                str(tmp_path / "report.json")])
+        finally:
+            saver.join(TIMEOUT)
+        assert saved.is_set()
+        assert row["completed"] == 40 and row["failed"] == 0
+        assert row["fleet"]["replicas"] == 2
+        assert row["fleet"]["stop_errors"] == []
+        promoted = [r for rnd in row["fleet"]["promotions"] for r in rnd]
+        assert promoted and all(r["step"] == 2 for r in promoted)
+        assert all(r["compile_requests_delta"] == 0 for r in promoted)
+        assert row["serve/recompiles_after_warmup"] == 0
+        keys = {k for k in row if k.startswith("serve/")}
+        assert keys == _jax_fleet_report_keys()
+        events = [json.loads(line) for line in
+                  (tmp_path / "events" / "events.jsonl").read_text()
+                  .splitlines()]
+        assert [e["kind"] for e in events] == ["scalars"]
+        assert set(events[0]["values"]) == keys
+        assert events[0]["values"]["serve/fleet_replicas"] == 2.0
+        assert json.loads((tmp_path / "report.json").read_text())[
+            "fleet"]["replicas"] == 2
+
+    def test_quantize_int8(self, tmp_path):
+        from dcgan_tpu_torch.serve.quantize import quantize_dequantize_int8
+
+        ckpt = str(tmp_path / "ckpt")
+        state = _save_step(ckpt, 3, 2.0)
+        row, responses = serve_main.run([
+            "--checkpoint_dir", ckpt, *CKPT_FLAGS, "--quantize", "int8",
+            "--max_batch", "4", "--demo_requests", "4", "--demo_rps",
+            "500"])
+        assert row["completed"] == 4
+        _, report = quantize_dequantize_int8(state["params"]["gen"])
+        assert row["meta"]["quantize"] == report
+        assert row["meta"]["step"] == 3
+
+    def test_preset_with_model_flags(self, tmp_path):
+        """--preset supplies the architecture over config.json, the model
+        flags over the preset (the JAX resolution): celeba64's bf16 compute
+        with the 16 px widths."""
+        from dcgan_tpu import config as j_config
+        from dcgan_tpu_torch import config as t_config
+        from dcgan_tpu_torch.serve.sources import CheckpointSource
+
+        ckpt = str(tmp_path / "ckpt")
+        _save_step(ckpt, 1, 2.0)
+        overrides = dict.fromkeys(t_config.MODEL_OVERRIDE_FLAGS)
+        overrides.update(output_size=16, gf_dim=8, df_dim=8, z_dim=8)
+        src = CheckpointSource(ckpt, preset="celeba64", overrides=overrides,
+                               device="cpu")
+        src.prepare()
+        want = j_config.resolve_model_config(ckpt, preset="celeba64",
+                                             overrides=overrides)
+        assert dataclasses.asdict(src.cfg) == dataclasses.asdict(want)
+        assert src.cfg.compute_dtype == "bfloat16"
+        row, _ = serve_main.run([
+            "--checkpoint_dir", ckpt, "--preset", "celeba64", *CKPT_FLAGS,
+            "--max_batch", "2", "--demo_requests", "3", "--demo_rps",
+            "500", "--demo_max_images", "2"])
+        assert row["completed"] == 3 and row["failed"] == 0
