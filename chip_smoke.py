@@ -219,7 +219,9 @@ The serving fleet (`serve_fleet`):
    bytes); a fleet whose watcher promotes a new finalized step (G's
    weights changed, saved through the Checkpointer) while a client
    thread submits: 0 captures, every served leaf at its address, no
-   request failed or dropped, swap ms per replica; then one replica's
+   request failed or dropped, swap ms per replica (the copy and the
+   prime; the restore is staged on the watcher's thread while the
+   replicas serve on, stage ms per replica); then one replica's
    source raises at its FLEET_FAIL_AT-th dispatch: no request fails,
    serve/fleet_unhealthy 1; after ServeFleet.stop(), with the collector
    off, no graph pool segment is left; int8 on one server (the report's
@@ -232,9 +234,48 @@ The serving fleet (`serve_fleet`):
    sampler, and its rungs at FLEET_TIMED_RUNGS timed against the kernel
    route's and the cuDNN route's captured rungs.
 
+Class conditioning and the 128 px presets (`conditional`):
+
+18. conditional: fake CIFAR-10 python batches (COND_ROWS random uint8
+   rows and labels in each of data_batch_1..5) turned into COND_SHARDS
+   labelled shards by `python -m dcgan_tpu_torch.data.prepare --cifar10`'s
+   entry point; kernels 1-4 against their plain versions at every shape
+   of the cifar10-cond step (batch 64, 32 px, three stages, gf = df =
+   64), as in phase 15; train.cli.main --preset cifar10-cond --use_pallas
+   --pallas_fused on those shards for COND_STEPS steps at K=1, the
+   counters set to 0 just before and read just after (kernels 1-4 at
+   exactly `a1_per_step(1, 1, 2)` per step; the `cifar10_cond` path),
+   finite losses, every leaf moved; at the seeded state with labels of
+   every class, the losses and every gradient leaf on the kernel route
+   against the cuDNN route, and with conditional_bn on use_pallas
+   (kernel 1's moments, the plain per-class epilogue) against the plain
+   route, within TRAIN_ROUTE_TOL and TRAIN_GRAD_TOL (bf16); the
+   conditional-BN step captured at K=1 equal to eager bit for bit
+   (COND_CAPTURE_STEPS steps); a conditional-BN checkpoint served and
+   promoted to a newer step (0 captures, the cBN tables copied into the
+   served tensors at their addresses, the images a fresh source's);
+   kernels 2 and 5 against their plain versions at the conditional
+   sampler's shapes at rungs COND_ARTIFACT_RUNGS; the cifar10-cond
+   checkpoint served through the serve entry point (COND_DEMO_REQUESTS
+   demo requests, class 0) and a server on a CheckpointSource with
+   labelled requests of every class, one of mixed classes, two without
+   labels and one z under two classes (which must differ), each within
+   SERVED_TOL of a direct sampler call on its rows and labels, then
+   generate --class_id GEN_CLASS equal to the eager sampler bit for bit,
+   the counters set to 0 before the first and read after the last
+   (kernels 2 and 5; the `cifar10_cond_serve` path); the checkpoint
+   exported as call(z, labels) and served through ArtifactSource at
+   COND_ARTIFACT_RUNGS within SERVED_TOL of the plain-route sampler;
+   sagan128 (attention at 64x64, S 4096, on the flash kernels that
+   phase 7 holds at that S) through train.cli.main for SAGAN128_STEPS
+   steps (flash kernels at exactly SAGAN_PER_STEP per step; the
+   `sagan128` path), one captured step timed and profiled (busy ms, idle
+   share); dcgan128 on its preset's route (cuDNN, torch BN) for
+   DCGAN128_STEPS steps, no port kernel launched (the `dcgan128` path).
+
 At the end of each group of phases (the kernel checks, serve, train,
-sagan64, resume, capture, a1, feed_pipeline, serve_fleet) the garbage is
-collected and the cache
+sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional)
+the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -242,7 +283,8 @@ left allocated and reserved.
 
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
-feed_pipeline report, the serve_fleet report, the memory report, the card's name and power limit (nvidia-smi),
+feed_pipeline report, the serve_fleet report, the conditional report,
+the memory report, the card's name and power limit (nvidia-smi),
 one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3546,11 +3588,23 @@ def a1_inputs(torch, cfg, n):
     return images, list(zs), list(draws)
 
 
+def cond_labels(torch, cfg, n):
+    """n steps' labels of a conditional config, each batch holding every
+    class (a shifted arange), on the card; None for an unconditional
+    one."""
+    k = cfg.model.num_classes
+    if not k:
+        return None
+    return [((torch.arange(BATCH, device="cuda") + 3 * i) % k).int()
+            for i in range(n)]
+
+
 def a1_capture_compare(torch, name, cfg, n, ks=(1,)):
     """n eager steps against the runner at each K of `ks` from the seeded
-    state on the trainer's inputs, cuDNN deterministic: every metric of
-    every step and every state leaf equal bit for bit. Returns the eager
-    metrics per step (metric_keys order)."""
+    state on the trainer's inputs (and cond_labels' for a conditional
+    config), cuDNN deterministic: every metric of every step and every
+    state leaf equal bit for bit. Returns the eager metrics per step
+    (metric_keys order)."""
     from dcgan_tpu_torch import convert
     from dcgan_tpu_torch.train.steps import make_train_step
     from dcgan_tpu_torch.train.warmup import StepRunner, call_size, \
@@ -3562,10 +3616,12 @@ def a1_capture_compare(torch, name, cfg, n, ks=(1,)):
     try:
         fns = make_train_step(cfg)
         images, zs, draws = a1_inputs(torch, cfg, n)
+        labels = cond_labels(torch, cfg, n)
         state = fns.init(seed=SEED, device="cuda")
         eager = []
         for i in range(n):
-            state, m = fns.train_step(state, images[i], zs[i], draws[i])
+            state, m = fns.train_step(state, images[i], zs[i], draws[i],
+                                      None if labels is None else labels[i])
             eager.append([float(m[k]) for k in keys])
         for k in ks:
             kcfg = dataclasses.replace(cfg, steps_per_call=k)
@@ -3574,8 +3630,10 @@ def a1_capture_compare(torch, name, cfg, n, ks=(1,)):
             got, s = [], 0
             while s < n:
                 c = call_size(s, n, k, runner.warm)
-                got += runner.step(images[s:s + c], zs[s:s + c],
-                                   draws[s:s + c], start=s).tolist()
+                got += runner.step(
+                    images[s:s + c], zs[s:s + c], draws[s:s + c], start=s,
+                    labels=None if labels is None
+                    else labels[s:s + c]).tolist()
                 s += c
             if got != eager:
                 fail(f"a1 {name}, K={k}: metrics {got} differ from eager "
@@ -3621,6 +3679,7 @@ def a1_route_grads(torch, name, cfg, report):
     from dcgan_tpu_torch.train.steps import make_train_step
 
     images, zs, draws = a1_inputs(torch, cfg, 1)
+    labels = cond_labels(torch, cfg, 1)
     losses, grads = {}, {}
     state = None
     for route, flags in (("kernel", {}), ("cudnn", {"use_pallas": False,
@@ -3630,7 +3689,9 @@ def a1_route_grads(torch, name, cfg, report):
         fns = make_train_step(rcfg)
         if state is None:
             state = fns.init(seed=SEED, device="cuda")
-        grads[route], metrics = fns.grads(state, images[0], zs[0], draws[0])
+        grads[route], metrics = fns.grads(
+            state, images[0], zs[0], draws[0],
+            None if labels is None else labels[0])
         losses[route] = {k: float(v) for k, v in metrics.items()}
     fp8 = cfg.precision == "fp8"
     rtol, atol = (A1_FP8_LOSS_RTOL, 0.0) if fp8 \
@@ -4426,7 +4487,7 @@ def rung_pools():
     original = sources._RungSource.close
 
     def close(self):
-        pools[self] = sum(prog.pool_bytes for _, prog in
+        pools[self] = sum(prog.pool_bytes for *_, prog in
                           self._rungs.values())
         original(self)
 
@@ -4610,7 +4671,16 @@ def serve_fleet_and_check(torch, np, workdir, kernels):
         if not fleet.promotion_results:
             fail("serve_fleet: the watcher promoted nothing in 60 s")
         results = fleet.promotion_results[0]
-        after = fleet.submit(z=z).result(timeout=60)
+        # the client's requests resolve first: `after` must be a batch of
+        # its own, on the b64 rung that the fresh source's check replays
+        # (a 64-row request behind queued ones is chunked over two rungs,
+        # whose convolutions may sum in another order)
+        failed = [seed for seed, _, r in client if request_failed(r)]
+        after_r = fleet.submit(z=z)
+        after = after_r.result(timeout=60)
+        if after_r.meta["buckets"] != [BATCH]:
+            fail(f"serve_fleet: the request after the promotion ran on "
+                 f"rungs {after_r.meta['buckets']}, not one of {BATCH}")
         if [(r.get("step"), r.get("compile_requests_delta"))
                 for r in results] != [(step0 + 1, 0)] * FLEET_REPLICAS:
             fail(f"serve_fleet: promotion results {results}")
@@ -4618,7 +4688,6 @@ def serve_fleet_and_check(torch, np, workdir, kernels):
              flatten({"p": s._params, "s": s._state}).items()}
                 for s in srcs] != ptrs:
             fail("serve_fleet: a promotion moved a served leaf")
-        failed = [seed for seed, _, r in client if request_failed(r)]
         promo = fleet.report()
         if failed or promo["serve/dropped"] or \
                 promo["serve/recompiles_after_warmup"]:
@@ -4627,12 +4696,15 @@ def serve_fleet_and_check(torch, np, workdir, kernels):
                  f"{promo['serve/recompiles_after_warmup']} recaptures")
         report["promotion"] = {
             "swap_ms": [r["swap_ms"] for r in results],
+            "stage_ms": [r.get("stage_ms") for r in results],
             "client_requests": len(client),
             "promote_swap_ms": promo["serve/promote_swap_ms"]}
         log(f"serve_fleet: the watcher promoted step {step0 + 1} on "
             f"{FLEET_REPLICAS} replicas while a client submitted "
             f"{len(client)} requests: swap ms per replica "
-            f"{report['promotion']['swap_ms']}, 0 captures, every leaf's "
+            f"{report['promotion']['swap_ms']} (the restore staged "
+            f"beforehand on the watcher's thread, ms "
+            f"{report['promotion']['stage_ms']}), 0 captures, every leaf's "
             f"data_ptr unchanged, 0 failed or dropped (save "
             f"{report['save_s']:.3f} s, seen after "
             f"{report['promotion_seen_s']:.3f} s)")
@@ -4794,7 +4866,7 @@ def serve_fleet_and_check(torch, np, workdir, kernels):
     for b in FLEET_TIMED_RUNGS:
         for name, src in (("artifact", asrc), ("kernel_route", new_src),
                           ("cudnn_route", cudnn_src)):
-            prog = src._rungs[b][1]
+            prog = src._rungs[b][-1]
             timed[f"{name}@b{b}"], _ = time_ms(
                 torch, prog.run, 30, label=f"serve_fleet {name} rung b{b}")
     server.stop()
@@ -4810,6 +4882,525 @@ def serve_fleet_and_check(torch, np, workdir, kernels):
     for src in (new_src, old_src, cudnn_src):
         src.close()
     torch.backends.cudnn.deterministic = deterministic
+    return report
+
+
+# ---------------------------------------------------------------------------
+# class conditioning (cifar10-cond), dcgan128 and sagan128 (`conditional`)
+# ---------------------------------------------------------------------------
+
+# the fake CIFAR-10 python batches (data_batch_1..5, 32x32x3 uint8 rows
+# and labels) that `prepare --cifar10` turns into labelled shards
+COND_ROWS = 256
+COND_SHARDS = 4
+COND_STEPS = 6
+# the conditional-BN steps, captured at K=1 against eager
+COND_CAPTURE_STEPS = 3
+# the artifact's rungs, each served a labelled request of its size
+COND_ARTIFACT_RUNGS = (1, 8, 64)
+COND_DEMO_REQUESTS = 16
+GEN_CLASS = 3
+SAGAN128_STEPS = 3
+DCGAN128_STEPS = 2
+
+
+def cond_argv(workdir, name, preset, steps, argv):
+    """train.cli.main's arguments for a run of this group called `name`."""
+    tdir = os.path.join(workdir, name)
+    return ["--preset", preset, "--max_steps", str(steps), "--batch_size",
+            str(BATCH), "--device", "cuda", "--checkpoint_dir", tdir,
+            "--sample_dir", os.path.join(tdir, "samples"), "--seed",
+            str(SEED), "--sample_every_steps", "0",
+            "--activation_summary_steps", "0"] + argv
+
+
+def cond_cli(torch, np, name, argv, steps, per_step, kernels, path):
+    """train.cli.main on cuda, the launch counters set to 0 just before
+    and read just after: each kernel exactly per_step[kernel] x steps
+    launches; a finite loss row per step in events.jsonl; every parameter
+    and BN statistic (and sn_* vector but those one element long, such
+    as D's head's, which stay +-1) moved from the seeded init. Adds the launches to launches_by_path.
+    Returns (final state, config, seconds)."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.steps import init_train_state
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for n, want in per_step.items():
+        if launches[n] != want * steps:
+            fail(f"conditional {name}: kernel {n} launched {launches[n]} "
+                 f"times, expected {want} per step x {steps}")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})[path] = \
+            launches[entry["name"]]
+    with open(os.path.join(cfg.checkpoint_dir, "events.jsonl")) as f:
+        rows = [json.loads(line)["values"] for line in f
+                if json.loads(line)["kind"] == "scalars"]
+    rows = [r for r in rows if "d_loss" in r]
+    if len(rows) != steps or not all(
+            np.isfinite([v for k, v in r.items() if not k.startswith(
+                "perf/")]).all() for r in rows):
+        fail(f"conditional {name}: {len(rows)} loss rows, or non-finite: "
+             f"{rows}")
+    init = init_train_state(cfg, device="cuda")
+    still = [f"{group}/{net}/{p}" for group in ("params", "bn")
+             for net in ("gen", "disc")
+             for p, a in convert.flatten(init[group][net]).items()
+             if not (p.startswith("sn_") and a.numel() == 1)
+             and torch.equal(a, convert.flatten(state[group][net])[p])]
+    if still or int(state["step"]) != steps:
+        fail(f"conditional {name}: leaves that did not move {still[:6]}, "
+             f"step {int(state['step'])}")
+    log(f"conditional {name}: {steps} steps of train.cli.main in "
+        f"{secs:.1f} s, launches {launches}, every leaf moved, last losses "
+        f"{ {k: round(v, 5) for k, v in rows[-1].items() if '/' not in k} }")
+    return state, cfg, secs
+
+
+def cond_cifar_batches(np, root):
+    """Fake CIFAR-10 python batches (the cifar-10-batches-py layout):
+    COND_ROWS random uint8 rows and labels in each of data_batch_1..5."""
+    import pickle
+
+    rng = np.random.default_rng(SEED + 31)
+    os.makedirs(root, exist_ok=True)
+    for i in range(1, 6):
+        with open(os.path.join(root, f"data_batch_{i}"), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (COND_ROWS, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, COND_ROWS).tolist()},
+                        f)
+    return root
+
+
+def cond_check_serve_kernels(torch, mcfg, rungs, report):
+    """Kernels 2 and 5 against their plain versions at the shapes the
+    conditional sampler gives them at each rung: kernel 2 at bn0 (relu),
+    kernel 5 at each fused G stage, bf16, each launched twice and bit for
+    bit, on the served designs. Called before the serve counts are set to
+    0."""
+    from dcgan_tpu_torch.ops.fused import conv_patches, gbsa_plan, \
+        gemm_bias_scale_act, gemm_bias_scale_act_plain, w_to_gemm
+    from dcgan_tpu_torch.ops.kernels import sm_count
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    top = mcfg.gf_dim * 2 ** (mcfg.num_up_layers - 1)
+    by_design = gemm_bias_scale_act.launches_by_design
+    errs = {"scale_shift_act": 0.0, "gemm_bias_scale_act": 0.0}
+    for b in rungs:
+        x = rand(b * mcfg.base_size ** 2, top, lo=-2.0, hi=2.0).to(
+            torch.bfloat16)
+        errs["scale_shift_act"] = max(errs["scale_shift_act"], check_ssa_fwd(
+            torch, f"conditional bn0 b{b}", x, rand(top, lo=0.5, hi=1.5),
+            rand(top, lo=-0.5, hi=0.5), ("relu",)))
+        for name, m, k, c, res, in_ch in stage_shapes(mcfg, b):
+            h = rand(b, res, res, in_ch, lo=0.0, hi=1.0).to(torch.bfloat16)
+            p2d, _ = conv_patches(h, mcfg.kernel_size, 2, transpose=True)
+            w2d = w_to_gemm(0.02 * torch.randn(
+                (mcfg.kernel_size, mcfg.kernel_size, in_ch, c),
+                generator=g, device=dev)).to(torch.bfloat16)
+            bias, scale, shift = rand(c, lo=-0.1, hi=0.1), \
+                rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
+            plan = gbsa_plan(m, k, c, torch.bfloat16, True, sm_count(dev))
+            before = by_design[plan.design]
+            got, again = (gemm_bias_scale_act(
+                p2d, w2d, bias, scale, shift, "relu",
+                out_dtype=torch.bfloat16) for _ in range(2))
+            want = gemm_bias_scale_act_plain(p2d, w2d, bias, scale, shift,
+                                             "relu", out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            if plan.design != GBSA_DESIGN or \
+                    by_design[plan.design] != before + 2:
+                fail(f"conditional: gemm_bias_scale_act {name} b{b} plans "
+                     f"{plan}")
+            same_bits(torch, f"conditional gemm_bias_scale_act {name} b{b}",
+                      (got,), (again,))
+            errs["gemm_bias_scale_act"] = max(
+                errs["gemm_bias_scale_act"], check_close(
+                    torch, f"conditional gemm_bias_scale_act {name} b{b}",
+                    got, want, "bfloat16"))
+            log(f"conditional: gemm_bias_scale_act {name} at rung b{b} "
+                f"(M={m} K={k} C={c}) matches its plain version, repeats "
+                f"bitwise; plan {plan._asdict()}")
+    report["serve_kernel_checks"] = errs
+
+
+def cond_served(torch, np, name, src, responses):
+    """Each (z, labels or None, Response): finite float32 images of the
+    model's shape within SERVED_TOL of a direct sampler call on its rows
+    and labels (class 0 without). Returns the worst |err|."""
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+
+    mcfg = src.cfg
+    worst = 0.0
+    for z, labels, r in responses:
+        img = r.result(timeout=60)
+        n = z.shape[0]
+        if img.shape != (n, mcfg.output_size, mcfg.output_size,
+                         mcfg.c_dim) or img.dtype != np.float32 or \
+                not np.isfinite(img).all():
+            fail(f"conditional {name}: response {img.shape} {img.dtype}")
+        lab = np.zeros(n, np.int32) if labels is None else labels
+        want = sampler_apply(src._params, src._state,
+                             torch.from_numpy(z).cuda(), cfg=mcfg,
+                             labels=torch.from_numpy(lab).cuda())
+        worst = max(worst, float(np.abs(want.float().cpu().numpy()
+                                        - img).max()))
+    if worst > SERVED_TOL:
+        fail(f"conditional {name}: responses differ from direct sampler "
+             f"calls by {worst} > {SERVED_TOL}")
+    return worst
+
+
+def cond_serve(torch, np, workdir, run, kernels, report):
+    """The conditional checkpoint served: the serve entry point (demo
+    requests, no labels: class 0), then a server on a CheckpointSource
+    with labelled requests of every class, a request of mixed classes,
+    requests without labels, and one z under two labels; generate
+    --class_id; the launch counters set to 0 before the first and read
+    after the last (the `cifar10_cond_serve` path: kernels 2 and 5)."""
+    from dcgan_tpu_torch import generate
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+    from dcgan_tpu_torch.serve.server import SamplerServer
+    from dcgan_tpu_torch.serve.sources import CheckpointSource
+
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    row, demo = serve_main.run([
+        "--checkpoint_dir", run, "--demo_requests", str(COND_DEMO_REQUESTS),
+        "--demo_rps", "2000", "--max_batch", str(BATCH), "--max_wait_ms",
+        "2", "--device", "cuda"])
+    if row["completed"] != COND_DEMO_REQUESTS or row["serve/dropped"] or \
+            row["serve/recompiles_after_warmup"]:
+        fail(f"conditional serve entry point: {row}")
+    src = CheckpointSource(run, device="cuda")
+    server = SamplerServer(src, max_batch=BATCH, max_wait_ms=2.0)
+    server.start()
+    k = src.num_classes
+    rng = np.random.default_rng(SEED + 37)
+
+    def zs(n):
+        return rng.uniform(-1.0, 1.0, (n, src.z_dim)).astype(np.float32)
+
+    reqs = []
+    for c in range(k):
+        z = zs(1 + c % 5)
+        lab = np.full(len(z), c, np.int32)
+        reqs.append((z, lab, server.submit(z=z, labels=lab)))
+    z = zs(2 * k)
+    lab = (np.arange(2 * k) % k).astype(np.int32)
+    reqs.append((z, lab, server.submit(z=z, labels=lab)))
+    for n in (3, 5):
+        z = zs(n)
+        reqs.append((z, None, server.submit(z=z)))
+    same = zs(4)
+    pair = [(same, np.full(4, c, np.int32)) for c in (1, 7)]
+    for z, lab in pair:
+        reqs.append((z, lab, server.submit(z=z, labels=lab)))
+    for _, _, r in reqs:
+        r.result(timeout=60)
+    server.stop()
+    rep = server.report()
+    if rep["serve/recompiles_after_warmup"] or rep["serve/dropped"]:
+        fail(f"conditional server: {rep}")
+
+    # generate --class_id on the same directory
+    out = os.path.join(workdir, "cond_generated")
+    npz = os.path.join(out, "gen.npz")
+    gen = generate.main([
+        "--checkpoint_dir", run, "--class_id", str(GEN_CLASS),
+        "--num_images", str(GEN_IMAGES), "--batch_size", str(BATCH),
+        "--grid", "0", "--npz", npz, "--out_dir", out, "--seed",
+        str(GEN_SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["cifar10_cond_serve"] = \
+            launches[entry["name"]]
+    for n in ("scale_shift_act", "gemm_bias_scale_act"):
+        if launches[n] < 1:
+            fail(f"conditional serve: kernel {n} was not launched")
+    for n in TRAIN_ONLY + tuple(FLASH_REPLACES):
+        if launches[n]:
+            fail(f"conditional serve: the sampler launched {n}")
+
+    # the checks, after the path's counts are read
+    worst = cond_served(torch, np, "labelled requests", src, reqs)
+    moved = float(np.abs(reqs[-1][2].images - reqs[-2][2].images).max())
+    if not moved > 0.0:
+        fail("conditional: one z under classes 1 and 7 served the same "
+             "images: the rung did not read its labels slot")
+    # the entry point's demo requests: class 0, on the same weights
+    demo_worst = cond_served(torch, np, "demo requests", src, [
+        (np.random.default_rng((SEED, i)).uniform(
+            -1.0, 1.0, (r.images.shape[0], src.z_dim)).astype(np.float32),
+         None, r) for i, r in enumerate(demo[:4])])
+    data = np.load(npz)
+    images, labels = data["images"], data["labels"]
+    if images.shape[0] != GEN_IMAGES or \
+            not np.array_equal(labels, np.full(GEN_IMAGES, GEN_CLASS)):
+        fail(f"generate --class_id: {images.shape}, labels "
+             f"{np.unique(labels)}")
+    lo = 0
+    for i, n in enumerate(gen["buckets"]):
+        z = torch.from_numpy(generate.generate_z(GEN_SEED, i, n,
+                                                 src.z_dim)).cuda()
+        want = sampler_apply(src._params, src._state, z, cfg=src.cfg,
+                             labels=torch.full((n,), GEN_CLASS,
+                                               dtype=torch.int32,
+                                               device="cuda"))
+        take = min(n, GEN_IMAGES - lo)
+        if not np.array_equal(want.float().cpu().numpy()[:take],
+                              images[lo:lo + take]):
+            fail(f"generate --class_id batch {i} (rung {n}) differs from "
+                 "the eager sampler on its z rows and class")
+        lo += take
+    report["serve"] = {"labelled_max_abs_err": worst,
+                       "demo_max_abs_err": demo_worst,
+                       "same_z_two_classes_moved": moved,
+                       "p50_ms": rep["serve/p50_ms"],
+                       "generate_buckets": gen["buckets"],
+                       "launches": launches}
+    log(f"conditional serve: {COND_DEMO_REQUESTS} demo requests through "
+        f"the entry point (class 0) and {len(reqs)} labelled requests "
+        f"(every class, mixed classes, none) within {worst:.3g} of direct "
+        f"sampler calls; one z under classes 1 and 7 moved {moved:.4f}; "
+        f"generate --class_id {GEN_CLASS} on rungs {gen['buckets']} equal "
+        f"the eager sampler bit for bit; launches {launches}")
+    src.close()
+
+
+def cond_promote(torch, np, workdir, cfg, report):
+    """A conditional-BN checkpoint (kernel 1's moments, plain epilogue)
+    served, then promoted to a newer step: the ticket's captures 0, every
+    served leaf at its address and the cBN tables now the new step's,
+    the images a fresh source's on that step."""
+    from dcgan_tpu_torch.config import save_config
+    from dcgan_tpu_torch.convert import flatten
+    from dcgan_tpu_torch.serve.server import SamplerServer
+    from dcgan_tpu_torch.serve.sources import CheckpointSource
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    run = os.path.join(workdir, "cond_cbn_serve")
+    cfg = dataclasses.replace(cfg, checkpoint_dir=run)
+    save_config(cfg, run)
+    fns = make_train_step(cfg)
+    images, zs, draws = a1_inputs(torch, cfg, 1)
+    (labels,) = cond_labels(torch, cfg, 1)
+    s0 = fns.init(seed=SEED, device="cuda")
+    s1, _ = fns.train_step(s0, images[0], zs[0], draws[0], labels)
+    ckpt = Checkpointer(run)
+    ckpt.save(0, s0)
+    ckpt.wait()
+    src = CheckpointSource(run, device="cuda")
+    server = SamplerServer(src, max_batch=BATCH, max_wait_ms=1.0)
+    server.start()
+    z = np.random.default_rng(SEED + 41).uniform(
+        -1.0, 1.0, (BATCH, cfg.model.z_dim)).astype(np.float32)
+    lab = (np.arange(BATCH) % cfg.model.num_classes).astype(np.int32)
+    before = server.submit(z=z, labels=lab).result(timeout=60)
+    ptrs = {k: v.data_ptr() for k, v in flatten(src._params).items()}
+    ckpt.save(1, s1)
+    ckpt.wait()
+    ticket = server.request_promote().result(timeout=60)
+    after = server.submit(z=z, labels=lab).result(timeout=60)
+    server.stop()
+    if ticket.get("step") != 1 or ticket.get("compile_requests_delta"):
+        fail(f"conditional cBN promotion: {ticket}")
+    live = flatten(src._params)
+    if {k: v.data_ptr() for k, v in live.items()} != ptrs:
+        fail("conditional cBN promotion moved a served leaf")
+    tables = [k for k in live if k.startswith("bn")]
+    new = flatten(s1["params"]["gen"])
+    stale = [k for k in tables if not torch.equal(live[k], new[k])]
+    if not tables or stale or live["bn0/scale"].ndim != 2:
+        fail(f"conditional cBN promotion: tables {tables}, not copied "
+             f"{stale}")
+    fresh = CheckpointSource(run, device="cuda")
+    fresh.prepare()
+    fresh.bind((BATCH,))
+    want = fresh.sample(BATCH, z, lab)
+    fresh.close()
+    if not np.array_equal(after, want):
+        fail("conditional cBN promotion: images after it differ from a "
+             "fresh source on step 1")
+    moved = float(np.abs(after - before).max())
+    report["cbn_promotion"] = {"swap_ms": ticket["swap_ms"],
+                               "tables": len(tables), "moved": moved}
+    log(f"conditional cBN promotion: step 0 -> 1 in "
+        f"{ticket['swap_ms']:.2f} ms, 0 captures, {len(tables)} cBN table "
+        f"leaves copied into the served tensors at their addresses, the "
+        f"images a fresh source's bit for bit (moved {moved:.4f})")
+
+
+def cond_artifact(torch, np, workdir, run, report):
+    """The conditional checkpoint exported on the card as call(z, labels)
+    and served through ArtifactSource at COND_ARTIFACT_RUNGS, one labelled
+    request per rung, within SERVED_TOL of the plain-route sampler."""
+    from dcgan_tpu_torch.export import export_sampler
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve.server import SamplerServer
+    from dcgan_tpu_torch.serve.sources import ArtifactSource, \
+        CheckpointSource, StateSource
+
+    art = os.path.join(workdir, "cond_sampler.pt2")
+    side = export_sampler(run, art, device="cuda", max_serve_batch=BATCH)
+    if side["num_classes"] != 10 or "labels" not in side["call"]:
+        fail(f"conditional artifact sidecar: {side}")
+    asrc = ArtifactSource(art, device="cuda")
+    server = SamplerServer(asrc, buckets=COND_ARTIFACT_RUNGS,
+                           max_batch=BATCH, max_wait_ms=0.0)
+    server.start()
+    ref = CheckpointSource(run, device="cuda")
+    ref.prepare()
+    plain = dataclasses.replace(ref.cfg, use_pallas=False,
+                                pallas_fused=False)
+    rng = np.random.default_rng(SEED + 43)
+    errs = {}
+    for b in COND_ARTIFACT_RUNGS:
+        z = rng.uniform(-1.0, 1.0, (b, asrc.z_dim)).astype(np.float32)
+        lab = (np.arange(b) % asrc.num_classes).astype(np.int32)
+        got = server.submit(z=z, labels=lab).result(timeout=60)
+        want = sampler_apply(ref._params, ref._state,
+                             torch.from_numpy(z).cuda(), cfg=plain,
+                             labels=torch.from_numpy(lab).cuda())
+        errs[b] = float(np.abs(got - want.float().cpu().numpy()).max())
+    rungs = asrc.compiled_buckets()   # stop() releases them
+    server.stop()
+    if rungs != COND_ARTIFACT_RUNGS or max(errs.values()) > SERVED_TOL:
+        fail(f"conditional artifact: rungs {rungs}, |err| by rung {errs}")
+    # the b64 rung on the kernel route, the cuDNN route and as the artifact
+    top = COND_ARTIFACT_RUNGS[-1]
+    timed = {}
+    for name, src in (("kernel_route", ref), ("cudnn_route", StateSource(
+            plain, ref._params, ref._state, device="cuda")), ("artifact",
+                                                                asrc)):
+        src.bind((top,))
+        timed[name], _ = time_ms(torch, src._rungs[top][-1].run, 30,
+                                 label=f"conditional {name} rung b{top}")
+        src.close()
+    report["artifact"] = {"bytes": side["bytes"], "max_abs_err": errs,
+                          f"rung_ms_b{top}": timed}
+    log(f"conditional artifact: call {side['call']}, {side['bytes']} bytes, "
+        f"served at rungs {COND_ARTIFACT_RUNGS}: max |err| against the "
+        f"plain-route sampler by rung {errs}; the captured b{top} rung, "
+        f"ms: {timed}")
+
+
+def cond_timed(torch, name, cfg, report):
+    """One captured step (K=1) timed on the host clock and profiled (busy
+    ms, idle share)."""
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    fns = make_train_step(cfg)
+    images, zs, draws = a1_inputs(torch, cfg, 2)
+    labels = cond_labels(torch, cfg, 2)
+    runner = StepRunner(fns, fns.init(seed=SEED, device="cuda"),
+                        dataclasses.replace(cfg, steps_per_call=1),
+                        torch.device("cuda"))
+    runner.step(images[:1], zs[:1], draws[:1], start=0,
+                labels=None if labels is None else labels[:1])
+
+    def captured():
+        runner.step(images[1:2], zs[1:2], draws[1:2], start=1,
+                    labels=None if labels is None else labels[1:]).tolist()
+
+    for _ in range(2):
+        captured()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS // 4):
+        captured()
+    ms = (time.perf_counter() - t0) * 1e3 / (TIMED_STEPS // 4)
+    split = profile_split(torch, captured, steps=PROFILED_CALLS, settle=True)
+    out = {"step_ms": ms, "busy_ms": "not measured",
+           "idle_share": "not measured",
+           "pool_bytes": sum(p.pool_bytes for p in runner.programs.values())}
+    if split is not None:
+        out.update(busy_ms=split["busy_ms"], idle_share=split["idle_share"],
+                   port_by_kernel=split["port_by_kernel"])
+    report[name] = out
+    log(f"conditional {name}: one captured step {ms:.3f} ms host-inclusive, "
+        f"busy {out['busy_ms']} ms, idle share {out['idle_share']}, graph "
+        f"pool {out['pool_bytes'] / 2 ** 30:.2f} GiB")
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+
+
+def conditional_and_check(torch, np, workdir, kernels):
+    """Phase 18: cifar10-cond from prepared shards on the kernel route,
+    the routes and the conditional-BN step, serving, promotion, the
+    artifact and generate; sagan128 and dcgan128. Returns the
+    `conditional` report."""
+    from dcgan_tpu_torch.data import prepare
+
+    report = {}
+    saved = torch.backends.cudnn.deterministic
+    shards = os.path.join(workdir, "cifar10_shards")
+    prepare.main(["--cifar10", "--input_dir", cond_cifar_batches(
+        np, os.path.join(workdir, "cifar-10-batches-py")), "--output_dir",
+        shards, "--num_shards", str(COND_SHARDS)])
+    kernel_argv = ["--use_pallas", "--pallas_fused", "--data_dir", shards,
+                   "--shuffle_buffer", str(2 * BATCH)]
+    argv = cond_argv(workdir, "cifar10_cond", "cifar10-cond", COND_STEPS,
+                     kernel_argv)
+    a1_check_kernels(torch, workdir, "cifar10_cond", ["--preset",
+                     "cifar10-cond"] + kernel_argv, BATCH, report)
+    _, cfg, secs = cond_cli(torch, np, "cifar10_cond", argv, COND_STEPS,
+                            a1_per_step(1, 1, 2), kernels, "cifar10_cond")
+    report["train_s"] = secs
+    run = cfg.checkpoint_dir
+
+    # the routes at one seeded state, and the conditional-BN step
+    a1_route_grads(torch, "cifar10_cond", cfg, report)
+    cond_timed(torch, "cifar10_cond_kernel_step", cfg, report)
+    cond_timed(torch, "cifar10_cond_cudnn_step", dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, use_pallas=False,
+                                       pallas_fused=False)), report)
+    cbn = a1_config(workdir, "cond_cbn", ["--preset", "cifar10-cond",
+                                          "--use_pallas", "--conditional_bn"])
+    a1_route_grads(torch, "cond_cbn", cbn, report)
+    a1_capture_compare(torch, "cond_cbn", cbn, COND_CAPTURE_STEPS)
+    # the serving checks below compare captured rungs bit for bit
+    torch.backends.cudnn.deterministic = True
+    cond_promote(torch, np, workdir, cbn, report)
+
+    # serving, generate and the artifact
+    cond_check_serve_kernels(torch, cfg.model, COND_ARTIFACT_RUNGS, report)
+    cond_serve(torch, np, workdir, run, kernels, report)
+    cond_artifact(torch, np, workdir, run, report)
+    torch.backends.cudnn.deterministic = saved
+
+    # sagan128: attention at 64x64 (S 4096) on the flash kernels, which
+    # phase 7 holds against their plain versions at that S
+    _, s128, secs = cond_cli(
+        torch, np, "sagan128", cond_argv(workdir, "sagan128", "sagan128",
+                                         SAGAN128_STEPS, ["--synthetic"]),
+        SAGAN128_STEPS, SAGAN_PER_STEP, kernels, "sagan128")
+    report["sagan128_train_s"] = secs
+    cond_timed(torch, "sagan128_step", s128, report)
+    # dcgan128 on its preset's route (cuDNN, torch BN): no port kernel
+    _, _, secs = cond_cli(
+        torch, np, "dcgan128", cond_argv(workdir, "dcgan128", "dcgan128",
+                                         DCGAN128_STEPS, ["--synthetic"]),
+        DCGAN128_STEPS, {name: 0 for name in PER_STEP}, kernels, "dcgan128")
+    report["dcgan128_train_s"] = secs
     return report
 
 
@@ -4942,6 +5533,8 @@ def main() -> int:
         phase_memory(torch, "feed_pipeline", memory)
         fleet_report = serve_fleet_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "serve_fleet", memory)
+        cond_report = conditional_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "conditional", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -4953,6 +5546,7 @@ def main() -> int:
     print(json.dumps({"a1": a1_report}), flush=True)
     print(json.dumps({"feed_pipeline": feed_report}), flush=True)
     print(json.dumps({"serve_fleet": fleet_report}), flush=True)
+    print(json.dumps({"conditional": cond_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(

@@ -6,10 +6,12 @@ Same field names, defaults and validation as the JAX package's, so each
 package's `config.json` loads in the other. The port serves
 and trains the DCGAN stacks with or without the SAGAN additions (a
 self-attention block at `attn_res`, spectral norm on D or on both nets,
-the hinge loss), on the BCE, hinge or WGAN-GP loss, with R1, n_critic,
-gradient accumulation, DiffAugment and the f32/bf16/fp8 precision
-policies; the fields that select anything else (another `arch`, class
-conditioning; the JAX package's `progressive` schedule and its
+the hinge loss) and with or without class conditioning (`num_classes`:
+a one-hot of the label on G's z and as constant maps on D's image;
+`conditional_bn`: G's BatchNorm affine per class), on the BCE, hinge or
+WGAN-GP loss, with R1, n_critic, gradient accumulation, DiffAugment and
+the f32/bf16/fp8 precision policies; the fields that select anything else
+(another `arch`; the JAX package's `progressive` schedule and its
 `nan_policy="rollback"`) raise `NotImplementedError` instead of being
 silently ignored. So does a penalty (WGAN-GP, R1) on a kernel route
 (`use_pallas`): the JAX package cannot differentiate a Pallas kernel
@@ -140,17 +142,12 @@ class ModelConfig:
             raise ValueError(
                 "conditional_bn requires a conditional model "
                 "(num_classes > 0)")
-        # then what this slice of the port does not serve yet
-        unserved = []
+        # then what the port does not serve yet
         if self.arch != "dcgan":
-            unserved.append(f"arch={self.arch!r}")
-        if self.num_classes:
-            unserved.append(f"num_classes={self.num_classes}")
-        if unserved:
             raise NotImplementedError(
                 "dcgan_tpu_torch serves and trains the DCGAN stacks "
-                "(with attention and spectral norm) only; not ported yet: "
-                f"{', '.join(unserved)}")
+                "(with attention, spectral norm and class conditioning) "
+                f"only; not ported yet: arch={self.arch!r}")
 
 
 def celeba64(**overrides) -> ModelConfig:
@@ -194,6 +191,8 @@ class TrainConfig:
     g_ema_decay: float = 0.0       # 0: ema_gen mirrors the live G weights
     # data (TFRecord shards, data/pipeline.py)
     data_dir: str = "train"
+    label_feature: str = "label"   # int64 per-example class feature, read
+                                   # when model.num_classes > 0
     sample_image_dir: str = "sample_data"  # the held-out shards of the
                                    # eval_losses probe (synthetic runs use
                                    # the synthetic stream at seed + 100)

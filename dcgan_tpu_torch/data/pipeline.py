@@ -38,8 +38,7 @@ from dcgan_tpu_torch.data.tfrecord import read_tfrecords
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Input knobs, field for field the JAX `DataConfig` but `num_classes`
-    (the port trains no conditional model)."""
+    """Input knobs, field for field the JAX `DataConfig`."""
     data_dir: str = "train"
     image_size: int = 64
     channels: int = 3
@@ -58,6 +57,11 @@ class DataConfig:
     feature_name: str = "image_raw"
     label_feature: str = ""         # non-empty: also read an int64 label per
                                     # example and yield (images, labels)
+    num_classes: int = 0            # >0: every label must be < num_classes,
+                                    # checked on the host before the copy
+                                    # (on the device an out-of-range label
+                                    # reads silently as a zero one-hot and
+                                    # a clamped cBN row)
     max_corrupt_records: int = 0    # >0: CRC and parse failures quarantine
                                     # the record (skip, log file and offset,
                                     # count, data/quarantine.py) up to this
@@ -358,6 +362,19 @@ def _as_tuple(batch):
     return batch if isinstance(batch, tuple) else (batch,)
 
 
+def check_labels(batch, num_classes: int) -> None:
+    """The host-side label range check of a labelled batch (the JAX
+    package's `_check_labels`, with its message)."""
+    labels = batch[1]
+    bad = int(labels.max(initial=0))
+    if bad >= num_classes or int(labels.min(initial=0)) < 0:
+        raise ValueError(
+            f"label {bad} out of range for num_classes="
+            f"{num_classes} (dataset/config mismatch; on device "
+            "this would silently one-hot to zeros or clamp the cBN "
+            "table gather)")
+
+
 class DevicePrefetcher:
     """Background device feed: host batches -> a bounded queue of tensors
     on `device`.
@@ -371,15 +388,17 @@ class DevicePrefetcher:
     work is queued. On the CPU a batch becomes a tensor that shares the
     numpy array's memory.
 
-    Order is the host iterator's. A producer exception re-raises on the
-    consumer thread at the next `__next__`. `close()` is idempotent, safe
-    mid-epoch, and closes `owner` (the loader) when given.
+    Order is the host iterator's. With `num_classes` the labels of a
+    labelled batch are range-checked (`check_labels`) before the copy. A
+    producer exception re-raises on the consumer thread at the next
+    `__next__`. `close()` is idempotent, safe mid-epoch, and closes
+    `owner` (the loader) when given.
     """
 
     _SENTINEL = object()
 
     def __init__(self, host_iter: Iterator, device: Union[str, torch.device],
-                 *, depth: int = 2, owner=None):
+                 *, depth: int = 2, num_classes: int = 0, owner=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._host_iter = host_iter
@@ -389,6 +408,7 @@ class DevicePrefetcher:
             # the producer thread sets its device, which needs an index
             self._device = torch.device("cuda", torch.cuda.current_device())
         self._owner = owner
+        self._num_classes = num_classes
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -443,6 +463,8 @@ class DevicePrefetcher:
             for batch in self._host_iter:
                 if self._stop.is_set():
                     return
+                if self._num_classes and isinstance(batch, tuple):
+                    check_labels(batch, self._num_classes)
                 staged = self._stage(batch, slot)
                 slot ^= 1
                 if not self._put((isinstance(batch, tuple), staged)):
@@ -524,12 +546,15 @@ class DevicePrefetcher:
         self.close()
 
 
-def _inline_feed(loader, device: torch.device) -> Iterator:
+def _inline_feed(loader, device: torch.device,
+                 num_classes: int = 0) -> Iterator:
     """prefetch_device_batches=0: each batch copied to the device on the
     consumer's thread when it asks for it; closing the generator closes
     the loader."""
     try:
         for batch in loader:
+            if num_classes and isinstance(batch, tuple):
+                check_labels(batch, num_classes)
             out = tuple(torch.from_numpy(a).to(device)
                         for a in _as_tuple(batch))
             yield out if isinstance(batch, tuple) else out[0]
@@ -551,8 +576,9 @@ def make_dataset(cfg: DataConfig,
     loader = _make_loader(cfg, list_shards(cfg.data_dir), cfg.seed)
     if device is None:
         return iter(loader)
+    num_classes = cfg.num_classes if cfg.label_feature else 0
     if cfg.prefetch_device_batches > 0:
         return DevicePrefetcher(iter(loader), device,
                                 depth=cfg.prefetch_device_batches,
-                                owner=loader)
-    return _inline_feed(loader, torch.device(device))
+                                num_classes=num_classes, owner=loader)
+    return _inline_feed(loader, torch.device(device), num_classes)

@@ -26,6 +26,8 @@ Usage:
     # serving side, no dcgan_tpu_torch import needed:
     sampler = torch.export.load("sampler.pt2").module()
     images = sampler(z)                    # z [b, z_dim] f32 ~ U(-1, 1)
+    images = sampler(z, labels)            # a conditional model: labels
+                                           # [b] int32 class ids
 
 A JSON sidecar (`<out>.json`) holds the calling convention with the JAX
 sidecar's keys: z_dim, num_classes, image shape, checkpoint step, weight
@@ -72,14 +74,15 @@ class _Sampler(torch.nn.Module):
             self.register_buffer(name, t.detach().clone())
             self._names[path] = name
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor,
+                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         from dcgan_tpu_torch.convert import unflatten
         from dcgan_tpu_torch.models.dcgan import generator_apply
 
         tree = unflatten({path: getattr(self, name)
                           for path, name in self._names.items()})
         img, _ = generator_apply(tree["params"], tree["state"], z,
-                                 cfg=self.cfg, train=False)
+                                 cfg=self.cfg, train=False, labels=labels)
         return img
 
 
@@ -137,9 +140,17 @@ def export_sampler(checkpoint_dir: str, out_path: str, *,
     z = torch.rand((trace, mcfg.z_dim), generator=torch.Generator()
                    .manual_seed(0)) * 2.0 - 1.0
     z = z.to(dev)
-    dynamic = None if batch_size > 0 else {
-        "z": {0: torch.export.Dim("b", min=1, max=_MAX_BATCH)}}
-    program = torch.export.export(module, (z,), dynamic_shapes=dynamic)
+    # a conditional model's program is called as (z, labels); the check
+    # below runs every class
+    k = mcfg.num_classes
+    args = (z,) if not k else (
+        z, (torch.arange(trace, dtype=torch.int32) % k).to(dev))
+    dynamic = None
+    if batch_size <= 0:
+        b = torch.export.Dim("b", min=1, max=_MAX_BATCH)
+        dynamic = {"z": {0: b}} if not k else {"z": {0: b},
+                                               "labels": {0: b}}
+    program = torch.export.export(module, args, dynamic_shapes=dynamic)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     torch.export.save(program, out_path)
 
@@ -149,20 +160,30 @@ def export_sampler(checkpoint_dir: str, out_path: str, *,
     params, bn = (tree_map(lambda t: t.to(dev), tree)
                   for tree in (g_params, state["bn"]["gen"]))
     tol = _CHECK_TOL[mcfg.compute_dtype]
-    for zb in ((z,) if batch_size > 0 else (z, z[:1])):
+    checks = [args] if batch_size > 0 else [
+        args, tuple(a[:1] for a in args)]
+    if k and batch_size <= 0:
+        # every class at once, whatever the trace batch
+        zk = torch.rand((k, mcfg.z_dim), generator=torch.Generator()
+                        .manual_seed(1)).to(dev) * 2.0 - 1.0
+        checks.append((zk, torch.arange(k, dtype=torch.int32).to(dev)))
+    for call in checks:
         with torch.no_grad():
-            got = loaded(zb)
-            want, _ = generator_apply(params, bn, zb, cfg=mcfg, train=False)
+            got = loaded(*call)
+            want, _ = generator_apply(params, bn, call[0], cfg=mcfg,
+                                      train=False,
+                                      labels=call[1] if k else None)
         err = float((got - want).abs().max())
         if got.shape != want.shape or not err <= tol:
             raise RuntimeError(
                 f"the exported program differs from the sampler on {dev} "
-                f"at batch {zb.shape[0]}: {tuple(got.shape)}, max |err| "
-                f"{err} > {tol}")
+                f"at batch {call[0].shape[0]}: {tuple(got.shape)}, max "
+                f"|err| {err} > {tol}")
 
     meta = {
         "format": "torch.export ExportedProgram",
-        "call": "(z[b, z_dim] f32) -> images",
+        "call": ("(z[b, z_dim] f32, labels[b] i32) -> images" if k
+                 else "(z[b, z_dim] f32) -> images"),
         "z_dim": mcfg.z_dim,
         "num_classes": mcfg.num_classes or 0,
         "image_shape": [mcfg.output_size, mcfg.output_size, mcfg.c_dim],
@@ -191,7 +212,8 @@ def export_sampler(checkpoint_dir: str, out_path: str, *,
 
 
 def load_sampler(path: str):
-    """The exported sampler as a callable module: z [b, z_dim] -> images.
+    """The exported sampler as a callable module: z [b, z_dim] (and, for a
+    conditional model, labels [b]) -> images.
     Serving needs nothing of this package (`torch.export.load` is the
     whole protocol)."""
     return torch.export.load(path).module()

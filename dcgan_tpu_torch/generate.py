@@ -27,9 +27,14 @@ size of them, scaled by --truncation; --interpolate draws its two
 endpoint sets as batch 0. The draw does not depend on the device, so the
 tests and chip_smoke.py rebuild the rows. It differs from the JAX
 package's z for the same seed, which comes from `jax.random`; the two
-packages agree on the same z rows. Conditioning (--class_id) is not
-ported: it fails for an unconditional model as the JAX CLI does, and a
-conditional model fails in ModelConfig.
+packages agree on the same z rows.
+
+A conditional model (num_classes K > 0) generates image i of class
+i mod K, the cycle running on across batches, or every image of
+--class_id (range-checked: an id outside [0, K) would one-hot to zeros);
+--interpolate holds one class per grid row (row r of class r mod K, or
+--class_id). --npz then also writes the images' `labels`. --class_id on
+an unconditional model fails, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -134,9 +139,15 @@ def generate(args: argparse.Namespace) -> dict:
     if not 0.0 < args.truncation <= 1.0:
         raise SystemExit(
             f"--truncation must be in (0, 1], got {args.truncation}")
-    if args.class_id is not None and not mcfg.num_classes:
-        raise SystemExit("--class_id requires a conditional model "
-                         "(--num_classes > 0)")
+    if args.class_id is not None:
+        if not mcfg.num_classes:
+            raise SystemExit("--class_id requires a conditional model "
+                             "(--num_classes > 0)")
+        if not 0 <= args.class_id < mcfg.num_classes:
+            raise SystemExit(
+                f"--class_id {args.class_id} out of range "
+                f"[0, {mcfg.num_classes}) — an out-of-range id would one-hot "
+                "to all zeros and generate unconditioned images")
     grid = _grid(args.grid)
     if args.interpolate and not grid:
         raise SystemExit("--interpolate needs a grid (e.g. --grid 8x8)")
@@ -154,6 +165,19 @@ def generate(args: argparse.Namespace) -> dict:
     ladder = build_ladder(args.batch_size)
     os.makedirs(args.out_dir, exist_ok=True)
 
+    k = mcfg.num_classes
+
+    def classes(first: int, n: int) -> Optional[np.ndarray]:
+        """The labels of n rows from row `first` of the class cycle, or
+        --class_id's; None for an unconditional model."""
+        if not k:
+            return None
+        if args.class_id is not None:
+            return np.full((n,), args.class_id, np.int32)
+        return np.arange(first, first + n, dtype=np.int32) % k
+
+    # (z, labels or None, rows kept) per dispatch
+    batches = []
     if args.interpolate:
         rows, cols = grid
         ends = generate_z(args.seed, 0, 2 * rows, mcfg.z_dim,
@@ -162,29 +186,39 @@ def generate(args: argparse.Namespace) -> dict:
         z_all = ((1.0 - t) * ends[0][:, None, :]
                  + t * ends[1][:, None, :]).reshape(rows * cols,
                                                     mcfg.z_dim)
-        batches = []
+        # one class per grid row
+        row_classes = classes(0, rows)
+        labels_all = None if row_classes is None \
+            else np.repeat(row_classes, cols)
         for lo in range(0, len(z_all), ladder.max_bucket):
             z = z_all[lo:lo + ladder.max_bucket]
             n = ladder.snap(len(z))
-            # padding rows (z = 0) are sliced off
-            batches.append((np.concatenate(
-                [z, np.zeros((n - len(z), mcfg.z_dim), np.float32)]),
+            # padding rows (z = 0, class 0) are sliced off
+            pad = n - len(z)
+            batches.append((
+                np.concatenate([z, np.zeros((pad, mcfg.z_dim),
+                                            np.float32)]),
+                None if labels_all is None else np.concatenate(
+                    [labels_all[lo:lo + len(z)], np.zeros(pad, np.int32)]),
                 len(z)))
     else:
-        batches, made, i = [], 0, 0
+        made, i = 0, 0
         while made < args.num_images:
             remaining = args.num_images - made
             n = ladder.max_bucket if remaining >= ladder.max_bucket \
                 else ladder.snap(remaining)
             take = min(n, remaining)
+            # the class cycle runs on across batches, whatever the rung
             batches.append((generate_z(args.seed, i, n, mcfg.z_dim,
-                                       args.truncation), take))
+                                       args.truncation),
+                            classes(made, n), take))
             made += take
             i += 1
-    source.bind({len(z) for z, _ in batches})
+    source.bind({len(z) for z, _, _ in batches})
     try:
-        images = np.concatenate([source.sample(len(z), z)[:take]
-                                 for z, take in batches]).astype(np.float32)
+        images = np.concatenate([
+            source.sample(len(z), z, labels)[:take]
+            for z, labels, take in batches]).astype(np.float32)
     finally:
         source.close()   # the rungs' graph pools go now
 
@@ -209,10 +243,14 @@ def generate(args: argparse.Namespace) -> dict:
                   f"{grid[1]} ({cells} cells); lower --grid or raise "
                   "--num_images", file=sys.stderr)
     if args.npz:
-        np.savez(args.npz, images=images)
+        arrays = {"images": images}
+        if k:
+            arrays["labels"] = np.concatenate(
+                [labels[:take] for _, labels, take in batches])
+        np.savez(args.npz, **arrays)
         paths.append(args.npz)
     return {"num_images": len(images), "step": step, "paths": paths,
-            "buckets": [len(z) for z, _ in batches],
+            "buckets": [len(z) for z, _, _ in batches],
             "compile_ms": dict(source.compile_ms)}
 
 

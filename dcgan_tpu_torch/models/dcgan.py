@@ -20,6 +20,16 @@ channels) and D's first conv stay cuDNN convolutions; under `use_pallas`
 BN's moments and epilogue are the `channel_moments` and `scale_shift_act`
 kernels.
 
+Class conditioning (`num_classes` K > 0, `dcgan_tpu/models/dcgan.py:
+143-162, 226-240, 325, 383-390`): G's `proj` takes z_dim + K inputs, the
+label's one-hot in z's dtype concatenated after z; D's `conv0` takes
+c_dim + K channels, the one-hot as constant maps in the compute dtype
+concatenated after the image (so DiffAugment, which transforms the image
+before D, never touches the maps); `conditional_bn` gives every G
+BatchNorm per-class [K, C] scale and bias tables (ops/norm.py). A label
+outside [0, K) gives JAX's answers: a zero one-hot, the clamped table row
+(ops/labels.py). A conditional model raises without labels.
+
 SAGAN additions (`dcgan_tpu/models/dcgan.py:64-103, 242-286, 416-421`):
 `attn_res` inserts one self-attention block (`attn`, ops/attention.py) in
 G after bn0 when attn_res == base_size, or after interior stage i when
@@ -56,6 +66,7 @@ from dcgan_tpu_torch.config import ModelConfig
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.ops.attention import SUBLAYERS, attn_apply, attn_init
 from dcgan_tpu_torch.ops.fused import fused_conv_bn_act
+from dcgan_tpu_torch.ops.labels import one_hot
 from dcgan_tpu_torch.ops.layers import conv2d_apply, conv2d_init, \
     deconv2d_apply, deconv2d_init, linear_apply, linear_init, lrelu
 from dcgan_tpu_torch.ops.norm import batch_norm_apply, batch_norm_init
@@ -138,9 +149,12 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
     dtype = torch_dtype(cfg.param_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
     params: Pytree = {"proj": linear_init(
-        gen, cfg.z_dim, top_ch * cfg.base_size * cfg.base_size, dtype=dtype)}
+        gen, cfg.z_dim + cfg.num_classes,
+        top_ch * cfg.base_size * cfg.base_size, dtype=dtype)}
     state: Pytree = {}
-    params["bn0"], state["bn0"] = batch_norm_init(gen, top_ch, dtype=dtype)
+    bn_classes = cfg.num_classes if cfg.conditional_bn else 0
+    params["bn0"], state["bn0"] = batch_norm_init(
+        gen, top_ch, dtype=dtype, num_classes=bn_classes)
     in_ch = top_ch
     for i in range(1, k + 1):
         out_ch = cfg.c_dim if i == k else cfg.gf_dim * (2 ** (k - 1 - i))
@@ -148,7 +162,7 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
             gen, in_ch, out_ch, kernel=cfg.kernel_size, dtype=dtype)
         if i < k:
             params[f"bn{i}"], state[f"bn{i}"] = batch_norm_init(
-                gen, out_ch, dtype=dtype)
+                gen, out_ch, dtype=dtype, num_classes=bn_classes)
         in_ch = out_ch
     if cfg.attn_res:
         # stage 0 (base_size) has top_ch channels, stage i gf * 2^(k-1-i)
@@ -164,13 +178,14 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool,
+                    labels: Optional[torch.Tensor] = None,
                     capture: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
     state), on z's device. train=False is the sampler path (running BN
     statistics, stored SN vectors, the state returned unchanged);
     train=True normalizes with batch statistics and returns the updated
-    state."""
+    state. A conditional model needs `labels` [B]."""
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
@@ -187,11 +202,19 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         return attn_apply(p, h, compute_dtype=cdt, num_heads=cfg.attn_heads,
                           use_pallas=cfg.use_pallas)
 
+    bn_labels = labels if cfg.conditional_bn else None
+
     def bn(name, h):
         return batch_norm_apply(params[name], state[name], h, train=train,
                                 momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                                act="relu", use_pallas=cfg.bn_use_pallas)
+                                act="relu", use_pallas=cfg.bn_use_pallas,
+                                labels=bn_labels)
 
+    if cfg.num_classes:
+        if labels is None:
+            raise ValueError("conditional generator requires labels")
+        z = torch.cat([z, one_hot(labels, cfg.num_classes, z.dtype)],
+                      dim=-1)
     h = linear_apply(layer("proj"), z.to(cdt), compute_dtype=cdt)
     h = h.reshape(-1, cfg.base_size, cfg.base_size, top_ch)
     h, new_state["bn0"] = bn("bn0", h)
@@ -227,9 +250,11 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
 
 @torch.inference_mode()
 def sampler_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig,
+                  labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inference-mode generation: generator_apply(train=False)."""
-    img, _ = generator_apply(params, state, z, cfg=cfg, train=False)
+    img, _ = generator_apply(params, state, z, cfg=cfg, train=False,
+                             labels=labels)
     return img
 
 
@@ -249,7 +274,7 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
     dtype = torch_dtype(cfg.param_dtype)
     params: Pytree = {}
     state: Pytree = {}
-    in_ch = cfg.c_dim
+    in_ch = cfg.c_dim + cfg.num_classes
     for i in range(k):
         out_ch = cfg.df_dim * (2 ** i)
         params[f"conv{i}"] = conv2d_init(gen, in_ch, out_ch,
@@ -271,10 +296,11 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
 
 def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         *, cfg: ModelConfig, train: bool,
+                        labels: Optional[torch.Tensor] = None,
                         capture: Optional[dict] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
-    state)."""
+    state). A conditional model needs `labels` [B]."""
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     new_state: Pytree = {}
@@ -291,6 +317,12 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                           use_pallas=cfg.use_pallas)
 
     h = image.to(cdt)
+    if cfg.num_classes:
+        if labels is None:
+            raise ValueError("conditional discriminator requires labels")
+        maps = one_hot(labels, cfg.num_classes, h.dtype)[:, None, None, :]
+        h = torch.cat([h, maps.expand(*h.shape[:3], cfg.num_classes)],
+                      dim=-1)
     for i in range(k):
         quant = _stage_quant(cfg, cfg.output_size >> i)
         if cfg.pallas_fused and i > 0:

@@ -18,7 +18,9 @@ Batching policy, as in the JAX package:
 Weight promotion: `request_promote()` queues a control op that the
 dispatch thread takes ahead of queued requests and only between batches
 (the drain barrier); it reloads the source's weights into the tensors the
-rungs were captured over and replays every rung once (worker.py). A
+rungs were captured over and replays every rung once (worker.py). The
+disk read and the checks run before, on the caller's thread, where the
+source can stage them, so the replica pauses only for the copy. A
 replica of a `ServeFleet` (fleet.py) also shows the router (router.py) its
 liveness (`beats`), its load (`queue_depth()`), and lets it rescue its
 untouched requests (`evict_pending()`) and count the requests no peer
@@ -120,12 +122,17 @@ class Response:
 class PromotionTicket:
     """Future-like handle for one weight-promotion control op, resolved by
     the replica's dispatch thread after drain -> swap -> prime -> resume;
-    `info` carries {replica, step, swap_ms, compile_requests_delta}."""
+    `info` carries {replica, step, swap_ms, compile_requests_delta}, and
+    stage_ms when the source staged the new step on the caller's thread
+    (swap_ms is then the copy and the prime only)."""
 
     def __init__(self) -> None:
         self._ev = threading.Event()
         self.info: Dict[str, Any] = {}
         self.error: Optional[BaseException] = None
+        # the source's staged promotion (`stage_reload`), or None: the
+        # dispatch thread then reloads from scratch
+        self.staged: Any = None
 
     def done(self) -> bool:
         return self._ev.is_set()
@@ -149,14 +156,16 @@ class PromotionTicket:
 class _Pending:
     """One queued request, tracked by the batcher."""
 
-    __slots__ = ("num_images", "z", "seed", "serial", "resp",
+    __slots__ = ("num_images", "z", "labels", "seed", "serial", "resp",
                  "t_submit", "t_first_dispatch", "remaining", "delivered",
                  "parts", "buckets", "infer_ms", "cursor")
 
     def __init__(self, num_images: int, z: Optional[np.ndarray],
-                 seed: Optional[int], serial: int):
+                 labels: Optional[np.ndarray], seed: Optional[int],
+                 serial: int):
         self.num_images = num_images
         self.z = z
+        self.labels = labels
         self.seed = seed
         self.serial = serial
         self.resp = Response()
@@ -182,6 +191,14 @@ class _Pending:
         rows = self.z[self.cursor:self.cursor + take]
         self.cursor += take
         return rows
+
+    def take_labels(self, take: int) -> np.ndarray:
+        """The labels of the rows the last `take_z` handed out: the
+        caller's, or zeros (class 0) for a request without labels."""
+        if self.labels is None:
+            return np.zeros((take,), np.int32)
+        start = self.cursor - take  # take_z has advanced the cursor
+        return np.asarray(self.labels[start:start + take], np.int32)
 
 
 class SamplerServer:
@@ -294,11 +311,8 @@ class SamplerServer:
         """Enqueue one generation request; returns its Response. Never
         blocks on a full queue: the oldest never-dispatched request is shed
         instead, and a stopped/poisoned server fails the Response at once.
-        `labels` is the JAX signature's; only None is served (conditional
-        models are not ported)."""
-        if labels is not None:
-            raise ValueError("labels given, but conditional models are not "
-                             "ported: the source serves num_classes 0")
+        `labels` [num_images] are the classes of a conditional model's
+        images (none: class 0); an unconditional model ignores them."""
         if z is not None:
             z = np.asarray(z, np.float32)
             if z.ndim != 2:
@@ -313,15 +327,18 @@ class SamplerServer:
             num_images = z.shape[0]
         if num_images < 1:
             raise ValueError(f"num_images must be >= 1, got {num_images}")
+        if labels is not None and len(labels) != num_images:
+            raise ValueError(
+                f"labels length {len(labels)} != num_images {num_images}")
         fail_after: List[Tuple[Response, BaseException]] = []
         with self._lock:
             if self._draining or self._error is not None:
-                p = _Pending(num_images, z, seed, -1)
+                p = _Pending(num_images, z, labels, seed, -1)
                 fail_after.append((p.resp, ServeError(
                     "server is stopped" if self._error is None else
                     f"server failed: {self._error!r}")))
             else:
-                p = _Pending(num_images, z, seed, self._serial)
+                p = _Pending(num_images, z, labels, seed, self._serial)
                 self._serial += 1
                 self.submitted += 1
                 rejected = False
@@ -388,13 +405,26 @@ class SamplerServer:
         self.raise_if_failed()
 
     def request_promote(self) -> PromotionTicket:
-        """Queue a weight-promotion control op; returns its ticket. The
-        dispatch thread takes it ahead of queued requests once the
-        in-flight batch is done, reloads the source's weights and replays
+        """Queue a weight-promotion control op; returns its ticket. A warm
+        server's source that can `stage_reload()` restores and checks the
+        new step here, on the calling thread, so the replica serves on
+        while it reads the disk; a staging failure fails only the ticket.
+        The dispatch thread takes the ticket ahead of queued requests once
+        the in-flight batch is done, copies the weights in and replays
         every rung before serving on. A stopped or poisoned server fails
         the ticket at once."""
         t = PromotionTicket()
         fail: Optional[BaseException] = None
+        stage = getattr(self.source, "stage_reload", None)
+        if stage is not None and self._ready.is_set() \
+                and self._error is None:
+            t0 = time.perf_counter()
+            try:
+                t.staged = stage()
+            except Exception as e:  # the replica keeps its old weights
+                t._fail(e)
+                return t
+            t.info["stage_ms"] = (time.perf_counter() - t0) * 1e3
         with self._lock:
             if self._draining or self._error is not None:
                 fail = ServeError(

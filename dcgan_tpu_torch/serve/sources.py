@@ -20,14 +20,19 @@ All present the surface the worker thread drives:
 - `prepare()`: load the weights onto the device (cold start, on the
   dispatch thread); returns the source's metadata;
 - `bucket_plan(ladder)` / `bind(rungs)` / `compiled_buckets()`: the rungs
-  this source will serve. `bind` gives each rung a static z input and
-  runs the sampler on it once eagerly (the warm-up: it builds the kernels
-  and lets cuDNN pick its algorithms), then captures it as a CUDA graph
-  with its static output (graphs.py; eager on the CPU), timing each
-  capture into `compile_ms` under the JAX row name `sampler@b<rung>`;
-- `sample(bucket, z[, labels])`: z copied into the rung's input, one
-  replay, the image copied out to a host float32 array
-  [bucket, S, S, c_dim]. `captures` counts every capture, so the server
+  this source will serve. `bind` gives each rung a static z input (and,
+  for a conditional model, `num_classes` > 0, a static int32 labels
+  input beside it) and runs the sampler on it once eagerly (the warm-up:
+  it builds the kernels and lets cuDNN pick its algorithms), then
+  captures it as a CUDA graph with its static output (graphs.py; eager on
+  the CPU), timing each capture into `compile_ms` under the JAX row name
+  `sampler@b<rung>`;
+- `sample(bucket, z[, labels])`: z and the labels copied into the rung's
+  inputs (a conditional rung given no labels copies zeros, class 0, as
+  the JAX sources do; an unconditional one ignores them), one replay, the
+  image copied out to a host float32 array [bucket, S, S, c_dim]. A
+  captured rung reads the addresses it was captured with, so its inputs
+  are written in place, never rebound. `captures` counts every capture, so the server
   can report the captures after warm-up (`serve/recompiles_after_warmup`,
   0 by construction: an unbound rung raises instead of being captured);
 - `close()`: release every rung's graph and its private pool now (the
@@ -70,16 +75,18 @@ class _RungSource:
     def __init__(self, device: Union[str, torch.device]):
         self.device = resolve_device(device)
         self.z_dim = 0          # known after prepare()
-        self.num_classes = 0    # conditional models are not ported yet
+        self.num_classes = 0    # > 0: conditional, known after prepare()
         self.granule = 1        # one device: any batch size tiles
-        self._rungs: Dict[int, Tuple[torch.Tensor, CapturedProgram]] = {}
+        self._rungs: Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor],
+                                     CapturedProgram]] = {}
         self.compile_ms: Dict[str, float] = {}
         self.captures = 0
 
     def prepare(self) -> dict:
         raise NotImplementedError
 
-    def _sampler(self, z: torch.Tensor) -> torch.Tensor:
+    def _sampler(self, z: torch.Tensor,
+                 labels: Optional[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
 
     def bucket_plan(self, ladder: BucketLadder) -> Tuple[int, ...]:
@@ -94,15 +101,18 @@ class _RungSource:
                 continue
             z = torch.zeros((b, self.z_dim), dtype=torch.float32,
                             device=self.device)
+            labels = torch.zeros((b,), dtype=torch.int32,
+                                 device=self.device) \
+                if self.num_classes else None
 
-            def fn(z=z):
-                return self._sampler(z)
+            def fn(z=z, labels=labels):
+                return self._sampler(z, labels)
             with on_stream(stream):
                 fn()
             prog = CapturedProgram(f"sampler@b{b}", fn, self.device, stream)
             self.compile_ms[prog.name] = prog.capture()
             self.captures += 1
-            self._rungs[b] = (z, prog)
+            self._rungs[b] = (z, labels, prog)
 
     def compiled_buckets(self) -> Tuple[int, ...]:
         """Ascending bound bucket rungs."""
@@ -117,15 +127,24 @@ class _RungSource:
         if z.shape != (bucket, self.z_dim):
             raise ValueError(f"z must be [{bucket}, {self.z_dim}], got "
                              f"{z.shape}")
-        z_in, prog = self._rungs[bucket]
+        z_in, labels_in, prog = self._rungs[bucket]
         z_in.copy_(torch.from_numpy(z))
+        if labels_in is not None:
+            if labels is None:
+                labels_in.zero_()
+            else:
+                labels = np.asarray(labels, np.int32)
+                if labels.shape != (bucket,):
+                    raise ValueError(f"labels must be [{bucket}], got "
+                                     f"{labels.shape}")
+                labels_in.copy_(torch.from_numpy(labels))
         return prog.run().cpu().numpy()
 
     def close(self) -> None:
         """Release every rung's program (its graph and private pool); the
         source serves no more until it binds again."""
         rungs, self._rungs = self._rungs, {}
-        for _, prog in rungs.values():
+        for _, _, prog in rungs.values():
             prog.release()
 
 
@@ -139,10 +158,12 @@ class _GeneratorSource(_RungSource):
         self._params = None
         self._state = None
 
-    def _sampler(self, z: torch.Tensor) -> torch.Tensor:
+    def _sampler(self, z: torch.Tensor,
+                 labels: Optional[torch.Tensor]) -> torch.Tensor:
         from dcgan_tpu_torch.models.dcgan import sampler_apply
 
-        return sampler_apply(self._params, self._state, z, cfg=self.cfg)
+        return sampler_apply(self._params, self._state, z, cfg=self.cfg,
+                             labels=labels)
 
 
 class CheckpointSource(_GeneratorSource):
@@ -199,6 +220,7 @@ class CheckpointSource(_GeneratorSource):
         self._params = tree_map(lambda t: t.to(self.device), params)
         self._state = tree_map(lambda t: t.to(self.device), state)
         self.z_dim = mcfg.z_dim
+        self.num_classes = mcfg.num_classes
         return self._meta(step, report)
 
     def _restore(self):
@@ -240,15 +262,13 @@ class CheckpointSource(_GeneratorSource):
             meta["quantize"] = report
         return meta
 
-    def reload(self) -> dict:
-        """Promote the newest finalized step: restore it and copy each
-        leaf into the tensor the rungs were captured over (a captured
-        graph reads the addresses it was captured with; kernel 5's TMA
-        descriptors are encoded from them), on the calling thread's
-        stream, which the next replay runs on. Raises before it copies
-        anything when the newest step fails verification (the restore
-        fell back to an older step) or its tree, a shape or a dtype
-        differs: the old weights keep serving. Returns the metadata."""
+    def stage_reload(self):
+        """The host half of a promotion, which touches no device and may
+        run on any thread once the source is prepared: restore the newest
+        finalized step and check its tree, shapes and dtypes against the
+        served leaves. Raises when the newest step fails verification (the
+        restore fell back to an older step) or anything differs. Returns
+        the staged promotion that `reload` copies."""
         from dcgan_tpu_torch.convert import flatten
 
         newest = latest_finalized_step(self.checkpoint_dir)
@@ -274,6 +294,19 @@ class CheckpointSource(_GeneratorSource):
                         f"{t.dtype}, the served leaf "
                         f"{tuple(live[path].shape)} {live[path].dtype}")
                 pairs.append((live[path], t))
+        return step, pairs, report
+
+    def reload(self, staged=None) -> dict:
+        """Promote the newest finalized step (or the promotion `staged`
+        by `stage_reload`): copy each leaf (the conditional-BN tables too:
+        they are G's params) into the tensor the rungs were captured over
+        (a captured graph reads the addresses it was captured with; kernel
+        5's TMA descriptors are encoded from them), on the calling
+        thread's stream, which the next replay runs on. When it stages
+        here, it raises as `stage_reload` does before it copies anything:
+        the old weights keep serving. Returns the metadata."""
+        step, pairs, report = self.stage_reload() if staged is None \
+            else staged
         with torch.no_grad():
             for live, t in pairs:
                 live.copy_(t)
@@ -298,6 +331,7 @@ class WeightsSource(_GeneratorSource):
         self.cfg, self._params, self._state = load_weights(
             self.path, device=self.device)
         self.z_dim = self.cfg.z_dim
+        self.num_classes = self.cfg.num_classes
         return {"source": "weights", "step": None, "weights": self.path,
                 "device": str(self.device)}
 
@@ -313,6 +347,7 @@ class StateSource(_GeneratorSource):
         self._params = params
         self._state = state
         self.z_dim = cfg.z_dim
+        self.num_classes = cfg.num_classes
 
     def prepare(self) -> dict:
         return {"source": "state", "step": None, "weights": "memory",
@@ -322,7 +357,8 @@ class StateSource(_GeneratorSource):
 class ArtifactSource(_RungSource):
     """Serve an `export.py` artifact: a `torch.export` program (`.pt2`)
     with the generator's weights in it, and its JSON sidecar, which gives
-    the calling convention (z_dim, the ladder hint). No checkpoint and
+    the calling convention (z_dim, num_classes, the ladder hint): a
+    conditional artifact is called as (z, labels). No checkpoint and
     nothing of the models: the program runs on the device in its sidecar.
     Each rung gets a static z, an eager warm-up and a capture, as the
     other sources' rungs do. There is no `reload()`: the weights are in
@@ -347,10 +383,6 @@ class ArtifactSource(_RungSource):
                 f"{self.sidecar.get('platforms')}, not {self.device.type}")
         self.z_dim = int(self.sidecar["z_dim"])
         self.num_classes = int(self.sidecar.get("num_classes", 0) or 0)
-        if self.num_classes:
-            raise NotImplementedError(
-                "conditional artifacts are not ported (num_classes "
-                f"{self.num_classes})")
         self._program: Optional[Callable] = None
 
     def ladder_hint(self) -> Optional[list]:
@@ -366,6 +398,9 @@ class ArtifactSource(_RungSource):
                                        self.sidecar.get("weights", "live")),
                 "device": str(self.device)}
 
-    def _sampler(self, z: torch.Tensor) -> torch.Tensor:
+    def _sampler(self, z: torch.Tensor,
+                 labels: Optional[torch.Tensor]) -> torch.Tensor:
         with torch.no_grad():
-            return self._program(z)
+            if labels is None:
+                return self._program(z)
+            return self._program(z, labels)

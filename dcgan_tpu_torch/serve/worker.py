@@ -12,16 +12,20 @@ thread-safe queue.
   its capture as a CUDA graph, timed into the server's cold_ms and
   compile_ms breakdowns. The first dispatch also builds the CUDA kernels
   and lets cuDNN pick its algorithms, so live traffic pays neither;
-- warm serving: `server._next_batch()` -> assemble z -> bucketed dispatch
+- warm serving: `server._next_batch()` -> assemble z (and, for a
+  conditional source, each row's label: the request's, or class 0 for a
+  request without labels and for the padding rows) -> bucketed dispatch
   -> split images back per request, resolving Responses with latency
   accounting;
 - weight promotion: a PromotionTicket popped from the batcher is the drain
   barrier (the loop is sequential, so the in-flight batch has resolved).
   `_promote` calls the source's `reload()`, which copies the newest
-  finalized step into the tensors the rungs were captured over, on this
-  thread's stream, then replays every bound rung once (the prime) and
-  resumes. It captures nothing: the ticket's `compile_requests_delta` is
-  the source's captures during the promotion, 0;
+  finalized step (restored and checked on the promoter's thread when the
+  ticket carries it staged) into the tensors the rungs were captured
+  over, on this thread's stream, then replays every bound rung once (the
+  prime) and resumes. It captures nothing: the ticket's
+  `compile_requests_delta` is the source's captures during the
+  promotion, 0;
 - drain: once the server stops intake, the loop keeps flushing until the
   queue is empty (FIFO, same batching rules), then exits;
 - release: when the thread ends, for whatever reason, it calls the
@@ -143,7 +147,8 @@ class ServeWorker:
         base = s.source.captures
         t0 = time.perf_counter()
         try:
-            meta = reload_fn()
+            meta = reload_fn() if ticket.staged is None \
+                else reload_fn(ticket.staged)
         except Exception as e:  # the replica survives on its old weights
             ticket._fail(e)
             return
@@ -179,17 +184,23 @@ class ServeWorker:
                 return
         bucket = s.ladder.snap(total)
         t0 = time.monotonic()
-        z_rows = []
+        z_rows, lbl_rows = [], []
+        conditional = s.source.num_classes > 0
         for p, take in spans:
             if p.t_first_dispatch is None:
                 p.t_first_dispatch = t0
             z_rows.append(p.take_z(take, s.source.z_dim, s.seed))
+            if conditional:
+                lbl_rows.append(p.take_labels(take))
         pad = bucket - total
         if pad:
             # padding rows are throwaway work: z=0 is a valid latent, the
             # rows are sliced off before any response sees them
             z_rows.append(np.zeros((pad, s.source.z_dim), np.float32))
-        imgs = s.source.sample(bucket, np.concatenate(z_rows))
+            if conditional:
+                lbl_rows.append(np.zeros((pad,), np.int32))
+        labels = np.concatenate(lbl_rows) if conditional else None
+        imgs = s.source.sample(bucket, np.concatenate(z_rows), labels)
         infer_ms = (time.monotonic() - t0) * 1e3
         s._record_batch(bucket, pad)
         offset = 0

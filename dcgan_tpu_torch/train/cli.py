@@ -18,6 +18,12 @@ port serves, plus --device.
         --diffaug color,translation,cutout --data_dir D --checkpoint_dir C
     python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
         --pallas_fused --pipeline_gd --data_dir D --checkpoint_dir C
+    python -m dcgan_tpu_torch.data.prepare --cifar10 \
+        --input_dir cifar-10-batches-py --output_dir D
+    python -m dcgan_tpu_torch.train --preset cifar10-cond --use_pallas \
+        --pallas_fused --data_dir D --checkpoint_dir C
+    python -m dcgan_tpu_torch.train --preset dcgan128 --synthetic
+    python -m dcgan_tpu_torch.train --preset sagan128 --synthetic
 
 Flags given explicitly override the preset's values. The run reads the
 TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
@@ -77,6 +83,9 @@ _FLAG_FIELDS = {
     "df_dim": ("model", "df_dim"),
     "z_dim": ("model", "z_dim"),
     "attn_res": ("model", "attn_res"),
+    "num_classes": ("model", "num_classes"),
+    "conditional_bn": ("model", "conditional_bn"),
+    "label_feature": ("", "label_feature"),
 }
 
 # --no_<x> flags -> the TrainConfig field they turn off
@@ -142,6 +151,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_res", type=int,
                    help="feature-map resolution of the self-attention block "
                         "(0 = none; the sagan64 preset sets 32)")
+    p.add_argument("--num_classes", type=int,
+                   help=">0 = class-conditional G/D (the cifar10-cond "
+                        "preset sets 10)")
+    p.add_argument("--conditional_bn", action="store_true",
+                   help="conditional models: per-class BN affine in G "
+                        "(not with --pallas_fused)")
+    p.add_argument("--label_feature",
+                   help="int64 class feature name in the records (used "
+                        "when --num_classes > 0; default: label)")
     p.add_argument("--data_dir",
                    help="directory of TFRecord shards (default: train)")
     p.add_argument("--sample_image_dir",

@@ -24,6 +24,14 @@ same draws, and a captured step reads them from its input slots.
 `eval_losses` and `summarize` are the JAX package's loss probe and
 activation summaries.
 
+A conditional model (`num_classes` > 0) takes the real batch's `labels`
+[B] in every function but the stage programs (which stay unconditional,
+as the JAX package's do): the fakes of D's step and of G's step are
+generated on those labels, every critic iteration uses the same batch and
+labels, grad_accum splits the labels by the rows it splits the images by,
+D reads them in every call (the penalties' critic too), and `sample`
+takes the labels of its z rows.
+
 `gen_fakes`, `d_update` and `g_update` are the JAX package's pipelined
 stage programs (`:744-946`, train/gd_pipeline.py drives them): the fused
 step's own D and G code, with D's fake batch taken from a stack that the
@@ -351,16 +359,18 @@ def _sub(draws: Dict[str, torch.Tensor], prefix: str
 @dataclasses.dataclass(frozen=True)
 class TrainStepFns:
     """The functions of one TrainConfig."""
-    train_step: Callable  # (state, images, z, draws=None, *, penalty=None)
-                          # -> (state, metrics)
-    grads: Callable       # (state, images, z, draws=None, *, penalty=None)
-                          # -> ({"gen", "disc"}, metrics)
-    sample: Callable      # (state, z) -> images (running-stat BN)
+    train_step: Callable  # (state, images, z, draws=None, labels=None, *,
+                          # penalty=None) -> (state, metrics)
+    grads: Callable       # (state, images, z, draws=None, labels=None, *,
+                          # penalty=None) -> ({"gen", "disc"}, metrics)
+    sample: Callable      # (state, z, labels=None) -> images (running-stat
+                          # BN)
     init: Callable        # (seed=None, device="cuda") -> state
-    eval_losses: Callable  # (state, images, z, eps=None) -> metrics, no
-                           # update
-    summarize: Callable   # (state, images, z) -> per-layer activation
-                          # stats (utils/metrics.py::activation_stats)
+    eval_losses: Callable  # (state, images, z, eps=None, labels=None) ->
+                           # metrics, no update
+    summarize: Callable   # (state, images, z, labels=None) -> per-layer
+                          # activation stats
+                          # (utils/metrics.py::activation_stats)
     gen_fakes: Callable   # (state, draws) -> fake stack (the fill)
     d_update: Callable    # (state, images, fakes, draws, *, penalty=None)
                           # -> (state, D's metrics)
@@ -453,28 +463,34 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                     ) -> Dict[str, torch.Tensor]:
         return {k: micro(v, j) for k, v in draws.items()}
 
-    def make_fake(g_params: Pytree, g_bn: Pytree, z: torch.Tensor
-                  ) -> torch.Tensor:
+    def micro_labels(labels: Optional[torch.Tensor], j: int
+                     ) -> Optional[torch.Tensor]:
+        return None if labels is None else micro(labels, j)
+
+    def make_fake(g_params: Pytree, g_bn: Pytree, z: torch.Tensor,
+                  labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """G's images of z in train mode, without gradients, G's state
         update discarded (D's fake batch)."""
         with torch.no_grad():
-            return generator_apply(g_params, g_bn, z, cfg=mcfg,
-                                   train=True)[0]
+            return generator_apply(g_params, g_bn, z, cfg=mcfg, train=True,
+                                   labels=labels)[0]
 
     def d_loss_fn(d_params: Pytree, g_params: Pytree, bn: Pytree,
                   images: torch.Tensor, z: torch.Tensor,
                   draws: Dict[str, torch.Tensor], penalty: bool,
-                  r1_weight: float, augment: bool = True):
+                  r1_weight: float, augment: bool = True,
+                  labels: Optional[torch.Tensor] = None):
         """(D's loss, D's new BN state, d_real, d_fake, the penalty or
-        None) on G's fake batch of z."""
+        None) on G's fake batch of z (and of the real batch's labels)."""
         return d_loss_on_fake(d_params, bn, images,
-                              make_fake(g_params, bn["gen"], z), draws,
-                              penalty, r1_weight, augment)
+                              make_fake(g_params, bn["gen"], z, labels),
+                              draws, penalty, r1_weight, augment, labels)
 
     def d_loss_on_fake(d_params: Pytree, bn: Pytree, images: torch.Tensor,
                        fake: torch.Tensor, draws: Dict[str, torch.Tensor],
                        penalty: bool, r1_weight: float,
-                       augment: bool = True):
+                       augment: bool = True,
+                       labels: Optional[torch.Tensor] = None):
         """d_loss_fn on a fake batch already made (the fused step makes it
         just before; `d_update` takes it from the fake stack); `draws`
         holds "eps" and the "real/" and "fake/" augmentation draws of this
@@ -484,9 +500,10 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
         _, real_logits, d_bn1 = discriminator_apply(
             d_params, bn["disc"], d_input(images, "real/"), cfg=mcfg,
-            train=True)
+            train=True, labels=labels)
         _, fake_logits, d_bn = discriminator_apply(
-            d_params, d_bn1, d_input(fake, "fake/"), cfg=mcfg, train=True)
+            d_params, d_bn1, d_input(fake, "fake/"), cfg=mcfg, train=True,
+            labels=labels)
         d_loss, d_real, d_fake, _ = losses(real_logits, fake_logits)
         gp = None
         if wgan or (r1 and penalty):
@@ -495,7 +512,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             # gradients on the raw (unaugmented) inputs
             def critic(x):
                 return discriminator_apply(d_params, bn["disc"], x,
-                                           cfg=mcfg, train=False)[1][:, 0]
+                                           cfg=mcfg, train=False,
+                                           labels=labels)[1][:, 0]
             if wgan:
                 gp = gradient_penalty(critic, images.float(), fake.float(),
                                       draws["eps"])
@@ -520,7 +538,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
     def d_grads(d_params: Pytree, g_params: Pytree, bn: Pytree,
                 images: torch.Tensor, z: Optional[torch.Tensor],
                 draws: Dict[str, torch.Tensor], penalty: bool,
-                fake: Optional[torch.Tensor] = None):
+                fake: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None):
         """D's gradient for one update -> (grads, D's new BN state,
         (d_loss, d_real, d_fake, penalty or None)), the mean of the K
         microbatches' with the BN state chained through them; on G's fake
@@ -531,10 +550,12 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             if fake is None:
                 return d_loss_fn(d_leaves, g_params, bn_j, micro(images, j),
                                  micro(z, j), micro_draws(draws, j),
-                                 penalty, r1_weight)
+                                 penalty, r1_weight,
+                                 labels=micro_labels(labels, j))
             return d_loss_on_fake(d_leaves, bn_j, micro(images, j),
                                   micro(fake, j), micro_draws(draws, j),
-                                  penalty, r1_weight)
+                                  penalty, r1_weight,
+                                  labels=micro_labels(labels, j))
 
         if n_micro == 1:
             d_leaves = _leaves_with_grad(d_params)
@@ -557,36 +578,39 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
     def g_loss_fn(g_params: Pytree, g_bn: Pytree, disc: Pytree,
                   disc_bn: Pytree, z: torch.Tensor,
                   draws: Dict[str, torch.Tensor], augment: bool = True,
-                  fakes: Optional[List[torch.Tensor]] = None):
+                  fakes: Optional[List[torch.Tensor]] = None,
+                  labels: Optional[torch.Tensor] = None):
         """(G's loss, G's new BN state); appends G's images, detached, to
         `fakes` when given (`g_update`'s next fake stack)."""
         fake, new_g_bn = generator_apply(g_params, g_bn, z, cfg=mcfg,
-                                         train=True)
+                                         train=True, labels=labels)
         if fakes is not None:
             fakes.append(fake.detach())
         _, fake_logits, _ = discriminator_apply(
             disc, disc_bn, aug(fake, draws) if augment else fake, cfg=mcfg,
-            train=True)
+            train=True, labels=labels)
         return losses(fake_logits, fake_logits)[3], new_g_bn
 
     def g_grads(g_params: Pytree, g_bn: Pytree, disc: Pytree,
                 disc_bn: Pytree, z: torch.Tensor,
                 draws: Dict[str, torch.Tensor],
-                fakes: Optional[List[torch.Tensor]] = None):
+                fakes: Optional[List[torch.Tensor]] = None,
+                labels: Optional[torch.Tensor] = None):
         """G's gradient against (disc, disc_bn) -> (grads, G's new BN
         state, g_loss), the mean of the K microbatches'; G's images of
         each microbatch appended to `fakes` when given."""
         if n_micro == 1:
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, g_bn, disc, disc_bn, z,
-                                         draws, fakes=fakes)
+                                         draws, fakes=fakes, labels=labels)
             return _grad(g_loss, g_leaves), new_g_bn, g_loss
         acc, new_g_bn, g_losses = None, g_bn, []
         for j in range(n_micro):
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, new_g_bn, disc, disc_bn,
                                          micro(z, j), micro_draws(draws, j),
-                                         fakes=fakes)
+                                         fakes=fakes,
+                                         labels=micro_labels(labels, j))
             acc = accumulate(acc, _grad(g_loss, g_leaves))
             g_losses.append(g_loss.detach())
         return (average(acc, g_params), new_g_bn,
@@ -640,7 +664,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         return (d.pop("z") if cfg.n_critic > 1 else z), d
 
     def grads(state: Pytree, images: torch.Tensor, z: torch.Tensor,
-              draws: Optional[Dict[str, torch.Tensor]] = None, *,
+              draws: Optional[Dict[str, torch.Tensor]] = None,
+              labels: Optional[torch.Tensor] = None, *,
               penalty: Optional[bool] = None
               ) -> Tuple[Pytree, Dict[str, torch.Tensor]]:
         """Both nets' gradients at the state's params, as the "fused"
@@ -651,13 +676,16 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         params, bn = state["params"], state["bn"]
         z0, d0 = critic_inputs(z, draws, 0)
         dg, _, d_terms = d_grads(params["disc"], params["gen"], bn, images,
-                                 z0, d0, resolve_penalty(state, penalty))
+                                 z0, d0, resolve_penalty(state, penalty),
+                                 labels=labels)
         gg, _, g_loss = g_grads(params["gen"], bn["gen"], params["disc"],
-                                bn["disc"], z, _sub(draws, "g/"))
+                                bn["disc"], z, _sub(draws, "g/"),
+                                labels=labels)
         return {"gen": gg, "disc": dg}, metrics_of(d_terms, g_loss)
 
     def train_step(state: Pytree, images: torch.Tensor, z: torch.Tensor,
-                   draws: Optional[Dict[str, torch.Tensor]] = None, *,
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   labels: Optional[torch.Tensor] = None, *,
                    penalty: Optional[bool] = None
                    ) -> Tuple[Pytree, Dict[str, torch.Tensor]]:
         draws = check_draws(draws)
@@ -669,7 +697,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             z_i, d_i = critic_inputs(z, draws, i)
             dg, d_bn, d_terms = d_grads(new_disc, params["gen"],
                                         {"gen": bn["gen"], "disc": d_bn},
-                                        images, z_i, d_i, pen)
+                                        images, z_i, d_i, pen,
+                                        labels=labels)
             new_disc, d_opt = opt_d.step(new_disc, dg, d_opt)
             del dg
 
@@ -678,7 +707,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         else:   # "fused": G's gradients at the pre-update D
             g_disc, g_disc_bn = params["disc"], bn["disc"]
         gg, g_bn, g_loss = g_grads(params["gen"], bn["gen"], g_disc,
-                                   g_disc_bn, z, _sub(draws, "g/"))
+                                   g_disc_bn, z, _sub(draws, "g/"),
+                                   labels=labels)
         new_gen, g_opt = opt_g.step(params["gen"], gg, state["opt"]["gen"])
 
         new_state = {
@@ -761,7 +791,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         return new_state, torch.stack(stack), {"g_loss": g_loss.detach()}
 
     def eval_losses(state: Pytree, images: torch.Tensor, z: torch.Tensor,
-                    eps: Optional[torch.Tensor] = None
+                    eps: Optional[torch.Tensor] = None,
+                    labels: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
         """The loss probe on a held-out batch with a fixed z, no update
         (`:1004-1021`): train-mode BN with its new state discarded, no
@@ -778,14 +809,16 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             draws["eps"] = eps
         d_loss, _, d_real, d_fake, gp = d_loss_fn(
             params["disc"], params["gen"], bn, images, z, draws, True,
-            0.5 * cfg.r1_gamma, augment=False)
+            0.5 * cfg.r1_gamma, augment=False, labels=labels)
         with torch.no_grad():
             g_loss, _ = g_loss_fn(params["gen"], bn["gen"], params["disc"],
-                                  bn["disc"], z, {}, augment=False)
+                                  bn["disc"], z, {}, augment=False,
+                                  labels=labels)
         return metrics_of((d_loss, d_real, d_fake, gp), g_loss)
 
     @torch.no_grad()
-    def summarize(state: Pytree, images: torch.Tensor, z: torch.Tensor
+    def summarize(state: Pytree, images: torch.Tensor, z: torch.Tensor,
+                  labels: Optional[torch.Tensor] = None
                   ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Per-layer activation histograms and sparsity (`:964-1002`): one
         train-mode G forward on z and D forwards on the real batch and on
@@ -795,23 +828,26 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         g_cap: dict = {}
         d_cap: dict = {}
         fake, _ = generator_apply(params["gen"], bn["gen"], z, cfg=mcfg,
-                                  train=True, capture=g_cap)
+                                  train=True, labels=labels, capture=g_cap)
         d_real_prob, _, _ = discriminator_apply(
             params["disc"], bn["disc"], images, cfg=mcfg, train=True,
-            capture=d_cap)
+            labels=labels, capture=d_cap)
         d_fake_prob, _, _ = discriminator_apply(
-            params["disc"], bn["disc"], fake, cfg=mcfg, train=True)
+            params["disc"], bn["disc"], fake, cfg=mcfg, train=True,
+            labels=labels)
         acts = {**{f"gen/{k}": v for k, v in g_cap.items()},
                 **{f"disc/{k}": v for k, v in d_cap.items()},
                 "z": z, "d_real_prob": d_real_prob,
                 "d_fake_prob": d_fake_prob}
         return activation_stats(acts)
 
-    def sample(state: Pytree, z: torch.Tensor) -> torch.Tensor:
+    def sample(state: Pytree, z: torch.Tensor,
+               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         # the EMA weights when tracking is on, else the live ones
         g_params = (state["ema_gen"] if cfg.g_ema_decay > 0.0
                     else state["params"]["gen"])
-        return sampler_apply(g_params, state["bn"]["gen"], z, cfg=mcfg)
+        return sampler_apply(g_params, state["bn"]["gen"], z, cfg=mcfg,
+                             labels=labels)
 
     def init(seed: Optional[int] = None,
              device: Union[str, torch.device] = "cuda") -> Pytree:

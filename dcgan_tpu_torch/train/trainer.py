@@ -11,7 +11,9 @@
   and the device prefetcher (data/pipeline.py; the record dtype of the
   shards' dataset.json wins over the config's), or the synthetic stream copied
   host -> pinned -> device, which restarts at batch 0 on a resume as the
-  JAX trainer's does;
+  JAX trainer's does; a conditional model's feed yields (images, labels)
+  pairs, the records' `label_feature` range-checked against num_classes
+  on the host (`dcgan_tpu/train/trainer.py:112-113,149-159,240-241`);
 - the z of the step that takes the state from step s to s + 1 comes from a
   generator seeded from (seed, s), as the JAX trainer folds s into its
   base key, so a resumed run draws the z an unbroken run draws; the
@@ -39,7 +41,8 @@
   d_loss_fake, g_loss and StepTimer's perf/* keys; data/corrupt_records
   once nonzero), mirrored into TensorBoard files;
 - every `sample_every_steps` steps a grid PNG of the samples of the fixed
-  `sample_z` (drawn once from seed + 1) in `sample_dir`, and an image event;
+  `sample_z` (drawn once from seed + 1; a conditional model's row i of
+  class i mod K) in `sample_dir`, and an image event;
   then the loss probe (`eval_losses`) on a held-out batch, the synthetic
   stream at seed + 100 or the TFRecord shards of `sample_image_dir` when
   that directory exists (none otherwise), with the fixed z, written as
@@ -138,13 +141,27 @@ def summary_z(cfg: TrainConfig, step: int, device: torch.device
 
 
 def _synthetic_feed(cfg: TrainConfig, device: torch.device) -> Iterator:
+    """The synthetic stream on `device`: image batches, or (images,
+    labels) pairs for a conditional model."""
     mcfg = cfg.model
     for batch in synthetic_batches(cfg.batch_size, mcfg.output_size,
-                                   mcfg.c_dim, seed=cfg.seed):
-        images = torch.from_numpy(batch)
+                                   mcfg.c_dim, seed=cfg.seed,
+                                   num_classes=mcfg.num_classes):
+        out = tuple(torch.from_numpy(a) for a in
+                    (batch if isinstance(batch, tuple) else (batch,)))
         if device.type == "cuda":
-            images = images.pin_memory().to(device, non_blocking=True)
-        yield images
+            out = tuple(t.pin_memory().to(device, non_blocking=True)
+                        for t in out)
+        yield out if isinstance(batch, tuple) else out[0]
+
+
+def split_batch(cfg: TrainConfig, batch
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A feed's batch as (images, labels): labels None for an
+    unconditional model."""
+    if cfg.model.num_classes:
+        return batch
+    return batch, None
 
 
 def make_data(cfg: TrainConfig, device: torch.device, *,
@@ -154,7 +171,8 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
     """The trainer's batches on `device`: the synthetic stream, or the
     TFRecord shards of `data_dir` (cfg.data_dir by default; the native
     loader; the record dtype of their dataset.json, when they have one),
-    seeded from cfg.seed + seed_offset. Close it when done."""
+    seeded from cfg.seed + seed_offset; (images, labels) pairs for a
+    conditional model. Close it when done."""
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
     if synthetic_data:
@@ -177,6 +195,8 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
         n_threads=(cfg.num_loader_threads if n_threads is None
                    else n_threads),
         seed=cfg.seed, normalize=cfg.normalize_inputs,
+        label_feature=cfg.label_feature if cfg.model.num_classes else "",
+        num_classes=cfg.model.num_classes,
         prefetch_device_batches=cfg.prefetch_device_batches,
         max_corrupt_records=cfg.max_corrupt_records)
     return make_dataset(dcfg, device)
@@ -195,6 +215,16 @@ def make_sample_data(cfg: TrainConfig, device: torch.device, *,
                          seed_offset=100, n_threads=2,
                          min_after_dequeue=4 * cfg.batch_size)
     return None
+
+
+def grid_labels(n: int, num_classes: int, device: torch.device
+                ) -> Optional[torch.Tensor]:
+    """The labels of the sample grid's n rows, arange(n) % K (the JAX
+    trainer's, `dcgan_tpu/train/trainer.py:577-580`); None for an
+    unconditional model."""
+    if not num_classes:
+        return None
+    return torch.arange(n, dtype=torch.int32, device=device) % num_classes
 
 
 def master_f32_leaves(state: Pytree) -> int:
@@ -270,7 +300,10 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             (n_samples, mcfg.z_dim), device=dev,
             generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         ) * 2.0 - 1.0
-        runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z)
+        # the grid's classes: row i of class i mod K
+        sample_labels = grid_labels(n_samples, mcfg.num_classes, dev)
+        runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z,
+                            sample_labels=sample_labels)
         keys = metric_keys(cfg)
         if cfg.sample_every_steps:
             sample_data = make_sample_data(cfg, dev,
@@ -301,7 +334,8 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 break
             k = call_size(step_num, total_steps, cfg.steps_per_call,
                           runner.warm)
-            batches = [next(data) for _ in range(k)]
+            batches, labels = zip(*(split_batch(cfg, next(data))
+                                    for _ in range(k)))
             if runner.pipeline is not None:
                 metrics = runner.pipelined_step(
                     batches[0], stage_inputs(cfg, step_num, dev),
@@ -309,8 +343,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             else:
                 zs, draws = zip(*(step_inputs(cfg, step_num + i, dev)
                                   for i in range(k)))
-                metrics = runner.step(batches, list(zs), list(draws),
-                                      start=step_num)
+                metrics = runner.step(
+                    list(batches), list(zs), list(draws), start=step_num,
+                    labels=list(labels) if mcfg.num_classes else None)
             if cfg.aot_warmup and not warm_ms:
                 # every row captured right after the warm-up, before the
                 # timer is armed
@@ -364,9 +399,11 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 save_sample_grid(path, imgs[:rows * cols], (rows, cols))
                 writer.write_image_event(step, "samples", path)
                 if sample_data is not None:
-                    # the held-out loss probe with the fixed z
+                    # the held-out loss probe with the fixed z (and the
+                    # held-out batch's own labels)
+                    s_imgs, s_labels = split_batch(cfg, next(sample_data))
                     ev = {k: float(v) for k, v in fns.eval_losses(
-                        state, next(sample_data), eval_z).items()}
+                        state, s_imgs, eval_z, labels=s_labels).items()}
                     print(f"[dcgan_tpu_torch] [sample] step {step} d_loss "
                           f"{ev['d_loss']:.8f} g_loss {ev['g_loss']:.8f}",
                           flush=True)
@@ -377,7 +414,8 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                     step % cfg.activation_summary_steps == 0:
                 t0 = time.perf_counter()
                 writer.write_activations(step, fns.summarize(
-                    state, batches[-1], summary_z(cfg, step, dev)))
+                    state, batches[-1], summary_z(cfg, step, dev),
+                    labels[-1]))
                 timer.note_host(time.perf_counter() - t0)
             if ckpt.maybe_save(step, state):
                 # the save's host copy reads the static state that the

@@ -11,9 +11,10 @@ as captured CUDA graphs (graphs.py) over static buffers it owns:
   leaves into it (`load`), never rebinds it;
 - K image slots, K z slots and K slots of the step's other draws
   (`steps.draw_step`: the critic iterations' z, WGAN-GP's interpolation
-  weights, the augmentations; none for a config without them), which the
-  trainer fills outside the graph on the current stream;
-- the sampler's fixed z.
+  weights, the augmentations; none for a config without them), and for a
+  conditional model K label slots, which the trainer fills outside the
+  graph on the current stream;
+- the sampler's fixed z (and, conditional, its fixed labels).
 
 A row of the plan is one program: `train_step` (one step), `multi_step@kK`
 (K steps, each reading slot k, the last one copying its new state into
@@ -164,7 +165,8 @@ class StepRunner:
 
     def __init__(self, fns: TrainStepFns, state: Pytree, cfg: TrainConfig,
                  device: torch.device,
-                 sample_z: Optional[torch.Tensor] = None):
+                 sample_z: Optional[torch.Tensor] = None,
+                 sample_labels: Optional[torch.Tensor] = None):
         m = cfg.model
         k = cfg.steps_per_call
         self.fns = fns
@@ -175,6 +177,10 @@ class StepRunner:
             dtype=torch.float32, device=device)
         self.z = torch.empty((k, cfg.batch_size, m.z_dim),
                              dtype=torch.float32, device=device)
+        # a conditional model's label slots (the step reads each through
+        # the one-hot comparison, so any int32 value is safe in a slot)
+        self.labels = torch.zeros((k, cfg.batch_size), dtype=torch.int32,
+                                  device=device) if m.num_classes else None
         gen = torch.Generator(device=device).manual_seed(0)
         draw = draw_stages if cfg.pipeline_gd else draw_step
         self.draws = [{name: torch.empty_like(t) for name, t in
@@ -188,6 +194,7 @@ class StepRunner:
         self.cfg = cfg
         self.keys = metric_keys(cfg)
         self.sample_z = sample_z
+        self.sample_labels = sample_labels
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
         self.warm = False
@@ -221,6 +228,7 @@ class StepRunner:
             for i in range(k):
                 state, m = self.fns.train_step(
                     state, self.images[i], self.z[i], self.draws[i],
+                    None if self.labels is None else self.labels[i],
                     penalty=None if pattern is None else pattern[i])
                 rows.append(torch.stack([m[key] for key in self.keys]))
             _copy_into(self.state, state)
@@ -266,7 +274,9 @@ class StepRunner:
                                   self.draws[0], penalty=True)
             else:
                 self.fns.train_step(copy, self.images[0], self.z[0],
-                                    self.draws[0], penalty=True)
+                                    self.draws[0],
+                                    None if self.labels is None
+                                    else self.labels[0], penalty=True)
         self.penalty_warm = True
 
     def _pattern(self, k: int, start: Optional[int]
@@ -280,7 +290,10 @@ class StepRunner:
     def _sample_fn(self) -> Callable[[], torch.Tensor]:
         if self.sample_z is None:
             raise ValueError("the runner has no sample z")
-        return lambda: self.fns.sample(self.state, self.sample_z)
+        if self.labels is not None and self.sample_labels is None:
+            raise ValueError("a conditional runner needs sample labels")
+        return lambda: self.fns.sample(self.state, self.sample_z,
+                                       self.sample_labels)
 
     def _program(self, name: str) -> CapturedProgram:
         prog = self.programs.get(name)
@@ -322,22 +335,30 @@ class StepRunner:
 
     def step(self, images: List[torch.Tensor], zs: List[torch.Tensor],
              draws: Optional[List[Dict[str, torch.Tensor]]] = None,
-             start: Optional[int] = None) -> torch.Tensor:
+             start: Optional[int] = None,
+             labels: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """len(images) steps on the static state, step i on images[i],
-        zs[i] and draws[i] (`steps.draw_step`'s; None for a config without
-        them); `start` is the state step the call starts from, which lazy
-        R1 needs. Returns the [k, len(metric_keys(cfg))] metrics, which
-        the next call overwrites. The first call (one step) is the eager
-        warm-up."""
+        zs[i], draws[i] (`steps.draw_step`'s; None for a config without
+        them) and, for a conditional model, labels[i]; `start` is the
+        state step the call starts from, which lazy R1 needs. Returns the
+        [k, len(metric_keys(cfg))] metrics, which the next call
+        overwrites. The first call (one step) is the eager warm-up."""
         k = len(images)
         if not 1 <= k <= self.images.shape[0] or len(zs) != k:
             raise ValueError(f"{k} batches and {len(zs)} z for a runner of "
                              f"{self.images.shape[0]} slots")
+        if (labels is None) != (self.labels is None) or \
+                (labels is not None and len(labels) != k):
+            raise ValueError(
+                "a conditional model's runner takes one label batch per "
+                "step, an unconditional model's none")
         if draws is None:
             draws = [{}] * k
         for i in range(k):
             self.images[i].copy_(images[i])
             self.z[i].copy_(zs[i])
+            if labels is not None:
+                self.labels[i].copy_(labels[i])
             if set(draws[i]) != set(self.draws[i]):
                 raise ValueError(
                     f"step {i}: draws {sorted(draws[i])}, the config's "

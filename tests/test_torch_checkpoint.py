@@ -473,3 +473,74 @@ class TestCrossLoad:
         _assert_same(restored, convert.train_state_from_jax(
             jax.device_get(state), device="cpu"))
         assert int(restored["step"]) == 6
+
+
+COND = dict(MODEL, num_classes=4)
+
+
+class TestConditionalCrossLoad:
+    @pytest.mark.parametrize("cbn", [False, True])
+    def test_port_checkpoint_samples_in_jax(self, tmp_path, cbn):
+        """A conditional run of the port's trainer (K = 4, with and
+        without conditional BN): its checkpoint grafts into the JAX state
+        exactly (back to the port bit for bit), both samplers on it with
+        labels agree within 1e-4 (f32), and its config.json loads in the
+        JAX package with the conditioning."""
+        mk = dict(COND, conditional_bn=cbn)
+        cfg = TrainConfig(model=ModelConfig(**mk), batch_size=BATCH,
+                          checkpoint_dir=str(tmp_path / "run"),
+                          sample_dir=str(tmp_path / "samples"))
+        port_state = trainer.train(cfg, synthetic_data=True, max_steps=2,
+                                   device="cpu")
+        jcfg = j_config.load_config(cfg.checkpoint_dir)
+        assert jcfg.model.num_classes == 4 and \
+            jcfg.model.conditional_bn == cbn
+        jfns = jsteps.make_train_step(jcfg)
+        template = jax.device_get(jax.jit(jfns.init)(jax.random.key(0)))
+        jstate = _tool().port_to_jax_state(cfg.checkpoint_dir, template)
+        _assert_same(convert.train_state_from_jax(jstate, device="cpu"),
+                     port_state)
+        zs = np.random.default_rng(3).uniform(-1, 1, (6, 8)).astype(
+            np.float32)
+        labels = np.array([0, 1, 2, 3, 1, 2], np.int32)
+        jimg = np.asarray(jax.jit(jfns.sample)(
+            jax.tree_util.tree_map(jnp.asarray, jstate), jnp.asarray(zs),
+            jnp.asarray(labels)))
+        timg = sampler_apply(port_state["params"]["gen"],
+                             port_state["bn"]["gen"], torch.from_numpy(zs),
+                             cfg=cfg.model,
+                             labels=torch.from_numpy(labels)).numpy()
+        assert np.abs(jimg - timg).max() <= 1e-4
+
+    def test_orbax_checkpoint_exports_bit_for_bit(self, tmp_path):
+        """A conditional-BN Orbax checkpoint of the JAX Checkpointer,
+        exported by the tool, restores in the port equal to
+        train_state_from_jax of the saved state: the [K, C] tables, the
+        widened proj and conv0."""
+        jcfg = JTrainConfig(model=JModelConfig(**COND, conditional_bn=True),
+                            batch_size=BATCH,
+                            checkpoint_dir=str(tmp_path / "jax"))
+        rng = np.random.default_rng(6)
+        state = jax.tree_util.tree_map(
+            lambda s: jax.device_put(
+                rng.normal(size=s.shape).astype(s.dtype)
+                if s.dtype == jnp.float32 else np.full(s.shape, 3, s.dtype)),
+            jax.eval_shape(lambda k: jsteps.init_train_state(k, jcfg),
+                           jax.random.key(4)))
+        j_config.save_config(jcfg, jcfg.checkpoint_dir)
+        jck = JCheckpointer(jcfg.checkpoint_dir)
+        jck.save(3, state, force=True)
+        jck.close()
+        out = str(tmp_path / "port")
+        assert _tool().export(jcfg.checkpoint_dir, out) == 3
+        port_cfg = config.load_config(out)
+        assert port_cfg.model.conditional_bn and \
+            port_cfg.model.num_classes == 4
+        restored = Checkpointer(out).restore_latest(
+            steps.init_train_state(port_cfg, device="cpu"))
+        _assert_same(restored, convert.train_state_from_jax(
+            jax.device_get(state), device="cpu"))
+        gen = restored["params"]["gen"]
+        assert gen["bn0"]["scale"].shape[0] == 4
+        assert gen["proj"]["w"].shape[0] == 8 + 4
+        assert restored["params"]["disc"]["conv0"]["w"].shape[2] == 3 + 4

@@ -620,6 +620,46 @@ class TestPromotionEndToEnd:
         assert result["compile_requests_delta"] == 0
         assert all(r.result(0).shape == (2, 16, 16, 3) for r in resps)
 
+    def test_replica_serves_while_the_new_step_is_staged(
+            self, promotable_ckpt, tmp_path):
+        """The promotion's restore runs on the promoter's thread: a
+        request submitted while it reads the disk is served, on the old
+        weights, by the dispatch thread; the ticket then swaps step 2 in."""
+        work, donor_dir = _work(promotable_ckpt, tmp_path)
+        src = CheckpointSource(work, device="cpu")
+        server = t_server.SamplerServer(src, buckets=(4,), max_wait_ms=1.0)
+        server.start(timeout=TIMEOUT)
+        z = np.random.default_rng(5).uniform(
+            -1, 1, (2, 8)).astype(np.float32)
+        before = server.submit(z=z).result(TIMEOUT)
+        inject_step(donor_dir, work, 2)
+        reading, release, threads = threading.Event(), threading.Event(), []
+        real_restore = src._restore
+
+        def restore():
+            threads.append(threading.current_thread().name)
+            reading.set()
+            assert release.wait(TIMEOUT)
+            return real_restore()
+        src._restore = restore
+        tickets = []
+        promoter = threading.Thread(
+            target=lambda: tickets.append(server.request_promote()))
+        try:
+            promoter.start()
+            assert reading.wait(TIMEOUT)
+            during = server.submit(z=z).result(TIMEOUT)
+            release.set()
+            promoter.join(TIMEOUT)
+            assert tickets[0].result(TIMEOUT)["step"] == 2
+            after = server.submit(z=z).result(TIMEOUT)
+        finally:
+            release.set()
+            server.stop()
+        np.testing.assert_array_equal(during, before)
+        assert not np.array_equal(after, before)
+        assert threads == [promoter.name]
+
 
 class TestFailedPromotionKeepsServing:
     def test_corrupt_newest_step_fails_only_the_ticket(
@@ -686,7 +726,7 @@ class TestFailedPromotionKeepsServing:
 
 class TestRungsReleasedOnStop:
     def _programs(self, srcs):
-        return [prog for s in srcs for _, prog in s._rungs.values()]
+        return [prog for s in srcs for *_, prog in s._rungs.values()]
 
     def test_server_and_fleet_release_without_the_collector(
             self, promotable_ckpt, tmp_path, fleets):
@@ -756,3 +796,91 @@ class TestLaunchCounters:
             graphs.add_counts(delta, -threads * per)
         for name, fn in names.items():
             assert fn.launches == before[name]
+
+
+class LabelEcho(FakeSource):
+    """A conditional fake: each image encodes its row's label."""
+
+    def __init__(self, **kw):
+        super().__init__(num_classes=5, **kw)
+
+    def sample(self, bucket, z, labels=None):
+        img = super().sample(bucket, z, labels)
+        img[:, 0, 0, 0] = labels
+        return img
+
+
+class TestConditionalFleet:
+    def test_labels_follow_requests_through_failover(self, fleets):
+        """The router forwards each request's labels; a request rescued
+        from a replica that died carries them to its peer, and a request
+        without labels is served as class 0."""
+        fleet = fleets("port", [LabelEcho(explode_at=1), LabelEcho()])
+        fleet.start(timeout=TIMEOUT)
+        fleet.router.stop_monitor()
+        labels = [np.arange(i, i + 3) % 5 for i in range(4)]
+        resps = [fleet.submit(3, labels=lab, client_id=f"c{i}")
+                 for i, lab in enumerate(labels)]
+        plain = fleet.submit(2, client_id="x")
+        for lab, r in zip(labels, resps):
+            np.testing.assert_array_equal(r.result(TIMEOUT)[:, 0, 0, 0],
+                                          lab)
+        np.testing.assert_array_equal(plain.result(TIMEOUT)[:, 0, 0, 0],
+                                      [0, 0])
+        fleet.router.poll_health()
+        fleet.stop(drain=True)
+        assert fleet.report()["serve/fleet_failovers"] >= 1.0
+
+    def test_conditional_bn_promotion_copies_the_tables(self, tmp_path,
+                                                         fleets):
+        """A conditional-BN checkpoint promoted from step 1 to 2: the cBN
+        tables are copied into the served tensors at their addresses, no
+        capture, and the images of each class equal a fresh source's on
+        step 2 bit for bit."""
+        cfg = TrainConfig(model=ModelConfig(**dict(
+            MODEL, num_classes=3, conditional_bn=True, pallas_fused=False)),
+            batch_size=4)
+        work, donor = str(tmp_path / "serve"), str(tmp_path / "donor")
+        def state_at(step):
+            state = _state(cfg, step, 1.0 + step)
+            for name, p in state["params"]["gen"].items():
+                if name.startswith("bn"):   # per-class rows that differ
+                    p["bias"] = p["bias"] + 0.3 * step * torch.arange(
+                        3, dtype=torch.float32)[:, None]
+            return state
+
+        for d, steps in ((work, (1,)), (donor, (1, 2))):
+            save_config(cfg, d)
+            ckpt = Checkpointer(d)
+            for step in steps:
+                ckpt.save(step, state_at(step))
+                ckpt.wait()
+        srcs = [CheckpointSource(work, device="cpu")]
+        fleet = fleets("port", srcs, buckets=None, max_batch=8,
+                       max_wait_ms=2.0)
+        fleet.start(timeout=TIMEOUT)
+        ptrs = _leaf_ptrs(srcs[0])
+        z = np.random.default_rng(3).uniform(-1, 1, (6, 8)).astype(
+            np.float32)
+        lab = np.array([0, 1, 2, 0, 1, 2], np.int32)
+        before = fleet.submit(z=z, labels=lab).result(TIMEOUT)
+        inject_step(donor, work, 2)
+        (result,) = fleet.promote()
+        after = fleet.submit(z=z, labels=lab).result(TIMEOUT)
+        fleet.stop(drain=True)
+        assert (result["step"], result["compile_requests_delta"]) == (2, 0)
+        assert _leaf_ptrs(srcs[0]) == ptrs
+        served = flatten(srcs[0]._params)
+        new = flatten(state_at(2)["params"]["gen"])
+        tables = [k for k in served if k.startswith("bn")]
+        assert served["bn1/bias"].shape == (3, 8) and len(tables) == 4
+        assert all(torch.equal(served[k], new[k]) for k in tables)
+        fresh = CheckpointSource(work, device="cpu")
+        fresh.prepare()
+        fresh.bind((8,))
+        rows, labels = np.zeros((8, 8), np.float32), np.zeros(8, np.int32)
+        rows[:6], labels[:6] = z, lab
+        want = fresh.sample(8, rows, labels)[:6]
+        fresh.close()
+        assert not np.array_equal(before, want)
+        np.testing.assert_array_equal(after, want)

@@ -147,7 +147,7 @@ def test_artifact_on_captured_rungs(cuda, tmp_path):
     server.start(timeout=TIMEOUT)
     try:
         assert all(prog.graph is not None
-                   for _, prog in src._rungs.values())
+                   for *_, prog in src._rungs.values())
         z = _z(8, 2)
         got = server.submit(z=z).result(TIMEOUT)
     finally:

@@ -160,13 +160,11 @@ class TestLifecycle:
 @pytest.mark.parametrize("kw", [
     {"update_mode": "fused"}, {"steps_per_call": 2}, "conditional"])
 def test_config_errors_match_jax(kw):
-    """pipeline_gd's three ValueErrors, with the JAX messages. The port's
-    ModelConfig refuses a conditional model by itself (not ported), so
-    that case reaches TrainConfig with num_classes set past its check."""
+    """pipeline_gd's three ValueErrors, with the JAX messages; a
+    conditional model is served, and refused with pipeline_gd only."""
     if kw == "conditional":
         jm = JModelConfig(output_size=SIZE, num_classes=4)
-        tm = ModelConfig(output_size=SIZE)
-        object.__setattr__(tm, "num_classes", 4)
+        tm = ModelConfig(output_size=SIZE, num_classes=4)
         kw = {}
     else:
         jm, tm = JModelConfig(output_size=SIZE), ModelConfig(
@@ -177,8 +175,7 @@ def test_config_errors_match_jax(kw):
             cls(model=m, pipeline_gd=True, **kw)
         errors.append(str(e.value))
     assert errors[0] == errors[1] and "pipeline_gd" in errors[0]
-    with pytest.raises(NotImplementedError, match="num_classes"):
-        ModelConfig(output_size=SIZE, num_classes=4)
+    assert TrainConfig(model=ModelConfig(output_size=SIZE, num_classes=4))
 
 
 def test_cli_flag_and_plan_rows():

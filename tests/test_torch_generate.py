@@ -248,8 +248,8 @@ class TestGenerate:
 
     @pytest.mark.parametrize("argv,error,match", [
         (["--class_id", "0"], SystemExit, "conditional"),
-        (["--num_classes", "4", "--class_id", "2"], NotImplementedError,
-         "num_classes"),
+        (["--num_classes", "4", "--class_id", "4"], SystemExit,
+         "out of range"),
     ])
     def test_class_id(self, tmp_path, argv, error, match):
         with pytest.raises(error, match=match):
@@ -282,3 +282,100 @@ class TestGenerate:
                            "--grid", "1x1", *FLAGS])
         assert result["buckets"] == [1]
         assert "1 images from checkpoint step 1" in capsys.readouterr().out
+
+
+COND = dict(MODEL, num_classes=4, conditional_bn=True)
+
+
+@pytest.fixture(scope="module")
+def cond_ckpt(tmp_path_factory):
+    """A conditional-BN checkpoint (K = 4, step 2) whose G weights are the
+    init's times 10 and whose cBN biases differ per class."""
+    from dcgan_tpu_torch.config import save_config
+    from dcgan_tpu_torch.train.steps import init_train_state, tree_map
+
+    root = str(tmp_path_factory.mktemp("cond"))
+    cfg = TrainConfig(model=ModelConfig(**COND), batch_size=4)
+    state = init_train_state(cfg, device="cpu")
+    gen_params = tree_map(lambda w: w * 10.0, state["params"]["gen"])
+    g = torch.Generator().manual_seed(0)
+    for name, p in gen_params.items():
+        if name.startswith("bn"):
+            p["bias"] = 0.5 * torch.randn(p["bias"].shape, generator=g)
+    state["params"]["gen"] = gen_params
+    state["step"] = torch.tensor(2, dtype=torch.int32)
+    save_config(cfg, root)
+    ckpt = Checkpointer(root)
+    ckpt.save(2, state)
+    ckpt.wait()
+    return root
+
+
+class TestConditional:
+    @pytest.mark.parametrize("class_id", [None, 2])
+    def test_npz_labels_and_jax_sampler(self, cond_ckpt, tmp_path,
+                                        class_id):
+        """Labels cycle through the classes across batches (the tail's
+        rung included), or are all --class_id; the npz holds them, and
+        its images equal the JAX sampler on the rebuilt z rows and those
+        labels within 1e-4 (f32)."""
+        npz = str(tmp_path / "gen.npz")
+        extra = [] if class_id is None else ["--class_id", str(class_id)]
+        result = _run(["--checkpoint_dir", cond_ckpt, "--out_dir",
+                       str(tmp_path / "out"), "--num_images", "11",
+                       "--batch_size", "8", "--grid", "0", "--npz", npz,
+                       "--seed", "4", *extra, *FLAGS])
+        assert result["buckets"] == [8, 4]
+        data = np.load(npz)
+        want_labels = np.arange(11) % 4 if class_id is None \
+            else np.full(11, class_id)
+        np.testing.assert_array_equal(data["labels"], want_labels)
+
+        spec = importlib.util.spec_from_file_location(
+            "export_torch_checkpoint",
+            ROOT / "tools" / "export_torch_checkpoint.py")
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        jfns = jsteps.make_train_step(JTrainConfig(
+            model=JModelConfig(**COND), batch_size=4))
+        template = jax.device_get(jax.jit(jfns.init)(jax.random.key(0)))
+        jstate = jax.tree_util.tree_map(
+            jnp.asarray, tool.port_to_jax_state(cond_ckpt, template))
+        want, made = [], 0
+        for i, (n, take) in enumerate(((8, 8), (4, 3))):
+            z = gen.generate_z(4, i, n, 8)
+            lab = (np.arange(made, made + n) % 4 if class_id is None
+                   else np.full(n, class_id)).astype(np.int32)
+            want.append(np.asarray(jax.jit(jfns.sample)(
+                jstate, jnp.asarray(z), jnp.asarray(lab)))[:take])
+            made += take
+        want = np.concatenate(want)
+        assert want.std() > 0.2
+        np.testing.assert_allclose(data["images"], want, rtol=0, atol=1e-4)
+
+    def test_interpolation_holds_one_class_per_row(self, cond_ckpt,
+                                                   tmp_path):
+        npz = str(tmp_path / "i.npz")
+        _run(["--checkpoint_dir", cond_ckpt, "--out_dir",
+              str(tmp_path / "out"), "--interpolate", "--grid", "3x2",
+              "--npz", npz, *FLAGS])
+        np.testing.assert_array_equal(np.load(npz)["labels"],
+                                      [0, 0, 1, 1, 2, 2])
+        _run(["--checkpoint_dir", cond_ckpt, "--out_dir",
+              str(tmp_path / "out"), "--interpolate", "--grid", "2x2",
+              "--class_id", "3", "--npz", npz, *FLAGS])
+        np.testing.assert_array_equal(np.load(npz)["labels"], [3] * 4)
+
+    @pytest.mark.parametrize("class_id", ["-1", "4"])
+    def test_class_id_range_checked_as_jax(self, cond_ckpt, class_id):
+        from dcgan_tpu import generate as jgen
+
+        argv = ["--checkpoint_dir", cond_ckpt, "--class_id", class_id,
+                *FLAGS[:-2]]
+        errors = []
+        for mod, extra in ((gen, ["--device", "cpu"]), (jgen, [])):
+            with pytest.raises(SystemExit) as e:
+                mod.generate(mod.build_parser().parse_args(argv + extra))
+            errors.append(str(e.value).replace("dcgan_tpu_torch",
+                                               "dcgan_tpu"))
+        assert errors[0] == errors[1] and "out of range" in errors[0]

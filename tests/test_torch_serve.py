@@ -433,3 +433,103 @@ class TestCliFlags:
             "--max_batch", "2", "--demo_requests", "3", "--demo_rps",
             "500", "--demo_max_images", "2"])
         assert row["completed"] == 3 and row["failed"] == 0
+
+
+class LabelSource(FakeSource):
+    """A conditional FakeSource: each dispatch's labels are recorded and
+    returned, one per row, as the "images"."""
+
+    def __init__(self, num_classes=3):
+        super().__init__()
+        self.num_classes = num_classes
+        self.labels = []
+
+    def sample(self, bucket, z, labels=None):
+        super().sample(bucket, z, labels)
+        assert labels is not None and labels.shape == (bucket,)
+        assert labels.dtype == np.int32
+        self.labels.append(labels.copy())
+        return labels.astype(np.float32)
+
+
+class TestConditionalServing:
+    COND = dict(output_size=16, gf_dim=8, compute_dtype="float32",
+                num_classes=3, conditional_bn=True, use_pallas=True)
+
+    def test_labels_per_row_or_class_zero(self, servers):
+        """Each row is dispatched with its request's label, a request
+        without labels with class 0, the padding rows with class 0; a
+        request chunked over two batches keeps its labels in order."""
+        src = LabelSource()
+        s = SamplerServer(src, buckets=(2, 4), max_wait_ms=0.0)
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        a = s.submit(z=_z(0, 3), labels=np.array([2, 1, 2])).result(TIMEOUT)
+        b = s.submit(3).result(TIMEOUT)
+        c = s.submit(z=_z(1, 6), labels=np.arange(6) % 3).result(TIMEOUT)
+        np.testing.assert_array_equal(a, [2, 1, 2])
+        np.testing.assert_array_equal(b, [0, 0, 0])
+        np.testing.assert_array_equal(c, [0, 1, 2, 0, 1, 2])
+        assert [lab.tolist() for lab in src.labels[:2]] == [[2, 1, 2, 0],
+                                                           [0, 0, 0, 0]]
+
+    def test_labels_length_checked_as_jax(self, servers):
+        from dcgan_tpu.serve.server import SamplerServer as JServer
+
+        errors = []
+        for cls in (SamplerServer, JServer):
+            s = cls(LabelSource())
+            with pytest.raises(ValueError) as e:
+                s.submit(3, labels=np.array([1, 2]))
+            errors.append(str(e.value))
+        assert errors[0] == errors[1] and "labels length" in errors[0]
+
+    def test_served_images_equal_jax_with_labels(self, tmp_path, servers):
+        """A conditional-BN generator served with labels (and one request
+        without, class 0): the JAX generator on the same z rows and
+        labels, f32 1e-4."""
+        path, params, state, jcfg = _weights(tmp_path, **self.COND)
+        src = WeightsSource(path, device="cpu")
+        s = SamplerServer(src, max_batch=8, max_wait_ms=1.0)
+        servers.append(s)
+        s.start(timeout=TIMEOUT)
+        assert src.num_classes == 3
+        reqs = [(_z(5, 4, 100), np.array([0, 1, 2, 1], np.int32)),
+                (_z(6, 3, 100), None),
+                (_z(5, 4, 100), np.array([2, 2, 2, 2], np.int32))]
+        got = [s.submit(z=z, labels=lab) for z, lab in reqs]
+        s.stop(drain=True, timeout=TIMEOUT)
+        jparams = jax.tree_util.tree_map(jnp.asarray, params)
+        for (z, lab), r in zip(reqs, got):
+            lab = np.zeros(len(z), np.int32) if lab is None else lab
+            want, _ = jdcgan.generator_apply(
+                jparams, state, jnp.asarray(z), cfg=jcfg, train=False,
+                labels=jnp.asarray(lab))
+            np.testing.assert_allclose(r.result(0), np.asarray(want),
+                                       rtol=0, atol=1e-4)
+        assert np.abs(got[0].result(0) - got[2].result(0)).max() > 1e-3
+
+    def test_rung_labels_slot(self, tmp_path):
+        """A bound rung copies the labels into its input tensor on every
+        call: the same z under two labels gives two images, each the
+        direct sampler's; no labels is class 0; a wrong length raises."""
+        from dcgan_tpu_torch.models.dcgan import sampler_apply
+
+        path, *_ = _weights(tmp_path, **self.COND)
+        src = WeightsSource(path, device="cpu")
+        src.prepare()
+        src.bind((4,))
+        z = _z(7, 4, 100)
+        outs = {}
+        for name, lab in (("a", [0, 1, 2, 0]), ("b", [2, 2, 1, 1]),
+                          ("none", [0, 0, 0, 0])):
+            lab = np.array(lab, np.int32)
+            outs[name] = src.sample(4, z, None if name == "none" else lab)
+            want = sampler_apply(src._params, src._state,
+                                 torch.from_numpy(z), cfg=src.cfg,
+                                 labels=torch.from_numpy(lab)).numpy()
+            np.testing.assert_array_equal(outs[name], want)
+        assert not np.array_equal(outs["a"], outs["b"])
+        with pytest.raises(ValueError, match="labels must be"):
+            src.sample(4, z, np.zeros(3, np.int32))
+        src.close()

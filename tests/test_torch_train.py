@@ -270,11 +270,13 @@ class TestConfig:
             use_pallas=True, bn_pallas=False, attn_res=32)),
          "second derivative"),
         (lambda: ModelConfig(arch="resnet"), "not ported"),
-        (lambda: ModelConfig(num_classes=10), "not ported")])
+        (lambda: ModelConfig(arch="stylegan", num_classes=10),
+         "not ported")])
     def test_unserved_fields_raise(self, make, match):
         """What the port does not train: a penalty on a kernel route (the
         JAX package cannot differentiate a Pallas kernel twice), another
-        arch, class conditioning."""
+        arch (with or without class conditioning, which the DCGAN stacks
+        have)."""
         with pytest.raises(NotImplementedError, match=match):
             make()
 

@@ -178,16 +178,45 @@ ROUTES = {"plain": {},
           "fused": {"use_pallas": True, "pallas_fused": True}}
 
 
+def numpy_init(init, seed=0):
+    """A train state in the tree of the JAX package's `init(key)` (from
+    eval_shape: JAX draws nothing, so no per-process compile of its
+    random ops), filled from a numpy seed as the init fills it: weights
+    N(0, 0.02) cut at 2 sigma, BN scales 1 + the same noise, biases,
+    Adam moments and counts 0, running variances 1, the EMA a copy of
+    G's weights and step 0."""
+    shapes = jax.eval_shape(init, jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        top, name = path[0].key, getattr(path[-1], "key", None)
+        if top == "params" and name in ("w", "scale"):
+            noise = np.clip(rng.normal(0, 0.02, leaf.shape), -0.04, 0.04)
+            return (noise + (name == "scale")).astype(leaf.dtype)
+        if top == "params" and name not in ("b", "bias"):
+            raise ValueError(f"numpy_init: no rule for {path}")
+        return np.full(leaf.shape, 1 if name == "var" else 0, leaf.dtype)
+    state = jax.tree_util.tree_map_with_path(fill, shapes)
+    state["ema_gen"] = jax.tree_util.tree_map(np.copy,
+                                              state["params"]["gen"])
+    return state
+
+
 def run_both(train_kw, route="plain", *, steps=2, batch=4, size=16,
              dim=8, dtype="float32", start=0, penalties=None,
-             resync=False, model_kw=None):
+             resync=False, model_kw=None, labels=None,
+             numpy_weights=False):
     """`steps` steps of the JAX package's jitted train_step and of the
     port's from one state (JAX's init, carried over), on the same numpy
     images and the JAX draws; the state step starts at `start`.
     `penalties`, when given, is passed per step to the port as its
     `penalty` flag (None: the port reads the state's step). resync=True
     carries JAX's state over again before each step, so that every step
-    of the port starts from JAX's state.
+    of the port starts from JAX's state. A conditional model (num_classes
+    in model_kw) gets numpy labels per step, drawn after the images, with
+    every class once in each batch of at least num_classes, or the
+    `labels` array given at every step. numpy_weights=True starts from
+    `numpy_init`'s state instead of JAX's init.
 
     Returns (JAX metrics per step, port metrics per step, JAX state as
     numpy, port state, JAX initial params as numpy)."""
@@ -205,7 +234,8 @@ def run_both(train_kw, route="plain", *, steps=2, batch=4, size=16,
     tcfg = TrainConfig(model=ModelConfig(**mk), batch_size=batch,
                        **train_kw)
     jfns = jsteps.make_train_step(jcfg)
-    jstate = jfns.init(jax.random.key(0))
+    jstate = numpy_init(jfns.init) if numpy_weights \
+        else jfns.init(jax.random.key(0))
     jstate["step"] = jnp.asarray(start, jnp.int32)
     init_params = jax.device_get(jstate["params"])
     tstate = convert.train_state_from_jax(jax.device_get(jstate),
@@ -217,14 +247,23 @@ def run_both(train_kw, route="plain", *, steps=2, batch=4, size=16,
     for i in range(steps):
         images = np.tanh(rng.normal(size=(batch, size, size, 3))).astype(
             np.float32)
+        k = mk.get("num_classes", 0)
+        step_labels = rng.permutation(np.arange(batch) % k).astype(
+            np.int32) if k else None
+        if labels is not None:
+            step_labels = labels
         key = jax.random.fold_in(jax.random.key(5), i)
         z, draws = step_draws(jcfg, key, batch)
         if resync:
             tstate = convert.train_state_from_jax(jax.device_get(jstate),
                                                   device="cpu")
-        jstate, jout = jstep(jstate, jnp.asarray(images), key)
+        jstate, jout = jstep(jstate, jnp.asarray(images), key,
+                             *(() if step_labels is None
+                               else (jnp.asarray(step_labels),)))
         tstate, tout = tstep(tstate, torch.from_numpy(images),
                              torch.from_numpy(z.copy()), to_torch(draws),
+                             None if step_labels is None
+                             else torch.from_numpy(step_labels),
                              penalty=None if penalties is None
                              else penalties[i])
         jm.append({k: float(v) for k, v in jout.items()})
