@@ -272,9 +272,32 @@ Class conditioning and the 128 px presets (`conditional`):
    `sagan128` path), one captured step timed and profiled (busy ms, idle
    share); dcgan128 on its preset's route (cuDNN, torch BN) for
    DCGAN128_STEPS steps, no port kernel launched (the `dcgan128` path).
+19. evals: the resume checkpoint scored by `python -m
+   dcgan_tpu_torch.evals`'s `evaluate` at the CLI's defaults (EVAL_SAMPLES
+   samples, batch EVAL_BATCH, KID pool EVAL_KID_POOL, --kid --prdc,
+   synthetic reals), after kernels 2 and 5 are held against their plain
+   versions at the eval sampler's batch: the counters set to 0 just before
+   and read just after (kernels 2 and 5 at exactly SAMPLER_PER_CALL per
+   call of the captured sampler, its warm-up and its replays; the `evals`
+   path), the seconds of the real pass, the sampler, the tower, the host
+   statistics, FID, KID and PRDC, samples/s; the same weights and z on the
+   cuDNN route within EVAL_ROUTE_FID_RTOL (FID only, the cached real
+   side), another z seed beside it, the kernel route again from the
+   cached real side bit for bit (cuDNN deterministic), the tower's
+   features on the card (TF32 on around it, as a process has it by
+   default) against the CPU within EVAL_TOWER_TOL, and the error TF32
+   would give; then train.cli.main on the resume group's records for
+   PROBE_STEPS steps without and with --fid_every_steps PROBE_EVERY
+   --fid_num_samples PROBE_SAMPLES (kernels 1-4 per step, kernels 2 and
+   5 per probe sampler call; the `evals_probe` path): eval/fid and
+   eval/kid at each probe, best/score.json, best/config.json and
+   best/<step> of the best probe, generate on the best directory, the
+   probes' seconds and the host ms per step between probes against the
+   run without them.
 
 At the end of each group of phases (the kernel checks, serve, train,
-sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional)
+sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
+evals)
 the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
@@ -284,8 +307,8 @@ left allocated and reserved.
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
-the memory report, the card's name and power limit (nvidia-smi),
-one JSON line
+the evals report, the memory report, the card's name and power limit
+(nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -296,9 +319,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4980,12 +5005,13 @@ def cond_cifar_batches(np, root):
     return root
 
 
-def cond_check_serve_kernels(torch, mcfg, rungs, report):
+def cond_check_serve_kernels(torch, mcfg, rungs, report,
+                             tag="conditional"):
     """Kernels 2 and 5 against their plain versions at the shapes the
-    conditional sampler gives them at each rung: kernel 2 at bn0 (relu),
-    kernel 5 at each fused G stage, bf16, each launched twice and bit for
-    bit, on the served designs. Called before the serve counts are set to
-    0."""
+    sampler of `mcfg` (the conditional one; celeba64's in the evals group)
+    gives them at each rung: kernel 2 at bn0 (relu), kernel 5 at each
+    fused G stage, bf16, each launched twice and bit for bit, on the
+    served designs. Called before the path's counts are set to 0."""
     from dcgan_tpu_torch.ops.fused import conv_patches, gbsa_plan, \
         gemm_bias_scale_act, gemm_bias_scale_act_plain, w_to_gemm
     from dcgan_tpu_torch.ops.kernels import sm_count
@@ -5003,7 +5029,7 @@ def cond_check_serve_kernels(torch, mcfg, rungs, report):
         x = rand(b * mcfg.base_size ** 2, top, lo=-2.0, hi=2.0).to(
             torch.bfloat16)
         errs["scale_shift_act"] = max(errs["scale_shift_act"], check_ssa_fwd(
-            torch, f"conditional bn0 b{b}", x, rand(top, lo=0.5, hi=1.5),
+            torch, f"{tag} bn0 b{b}", x, rand(top, lo=0.5, hi=1.5),
             rand(top, lo=-0.5, hi=0.5), ("relu",)))
         for name, m, k, c, res, in_ch in stage_shapes(mcfg, b):
             h = rand(b, res, res, in_ch, lo=0.0, hi=1.0).to(torch.bfloat16)
@@ -5023,15 +5049,15 @@ def cond_check_serve_kernels(torch, mcfg, rungs, report):
             torch.cuda.synchronize()
             if plan.design != GBSA_DESIGN or \
                     by_design[plan.design] != before + 2:
-                fail(f"conditional: gemm_bias_scale_act {name} b{b} plans "
+                fail(f"{tag}: gemm_bias_scale_act {name} b{b} plans "
                      f"{plan}")
-            same_bits(torch, f"conditional gemm_bias_scale_act {name} b{b}",
+            same_bits(torch, f"{tag} gemm_bias_scale_act {name} b{b}",
                       (got,), (again,))
             errs["gemm_bias_scale_act"] = max(
                 errs["gemm_bias_scale_act"], check_close(
-                    torch, f"conditional gemm_bias_scale_act {name} b{b}",
+                    torch, f"{tag} gemm_bias_scale_act {name} b{b}",
                     got, want, "bfloat16"))
-            log(f"conditional: gemm_bias_scale_act {name} at rung b{b} "
+            log(f"{tag}: gemm_bias_scale_act {name} at rung b{b} "
                 f"(M={m} K={k} C={c}) matches its plain version, repeats "
                 f"bitwise; plan {plan._asdict()}")
     report["serve_kernel_checks"] = errs
@@ -5404,6 +5430,297 @@ def conditional_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# evals: FID-50k of a celeba64 checkpoint, the trainer's probe (`evals`)
+# ---------------------------------------------------------------------------
+
+# the evals CLI's defaults: FID-50k at batch 256, KID over 100 subsets of
+# 1000 from 10 000-feature reservoirs, PRDC at k 5 on the same reservoirs
+EVAL_SAMPLES = 50_000
+EVAL_BATCH = 256
+EVAL_KID_POOL = 10_000
+# kernel launches of one celeba64 sampler call on the kernel route: kernel
+# 2 at bn0, kernel 5 at each of the three interior stages
+SAMPLER_PER_CALL = dict({name: 0 for name in PER_STEP}, scale_shift_act=1,
+                        gemm_bias_scale_act=3)
+# FID-50k of the same weights and z on the kernel route against the cuDNN
+# + torch-BN route, relative: the two routes' images differ only by where
+# bf16 rounds (SERVED_TOL's rule). The cuDNN route rounds its BN math to
+# bf16 op by op, the kernels once from f32, so the difference is partly
+# systematic and does not average out over 50 000 samples: measured
+# 1.887e-4 relative on the resume checkpoint (H100 at 700 W), 30 times the
+# FID's move under another z seed (`seed_gap`, 6.4e-6), which is small
+# here because this FID is mostly the distance between the two sides'
+# means. The limit leaves five times the measured gap.
+EVAL_ROUTE_FID_RTOL = 1e-3
+# the tower's features on the card against the CPU on one batch, same
+# weights, TF32 off on the card: f32 convolutions summed in another order
+# (cuDNN's algorithm against the CPU's), |card - cpu| <= rtol * |cpu| +
+# atol * max|cpu|
+EVAL_TOWER_TOL = (1e-4, 1e-5)
+# the probe: celeba64 on the kernel route for PROBE_STEPS steps from the
+# resume group's records (native loader; the held-out stream reads the
+# same shards), probing every PROBE_EVERY with PROBE_SAMPLES samples a
+# side (the trainer's default), against the same run without the probe
+PROBE_STEPS = 8
+PROBE_EVERY = 4
+PROBE_SAMPLES = 2048
+
+
+def evals_cli(torch, argv, path, kernels, per_call, calls, overrides=None):
+    """The evals CLI's `evaluate` on cuda, the launch counters set to 0
+    just before and read just after: each kernel exactly per_call[kernel]
+    x calls launches (the sampler's warm-up and its replays). Adds the
+    launches to launches_by_path[path] when a path is named. Returns
+    (result, timings)."""
+    from dcgan_tpu_torch.evals import __main__ as evals_main
+
+    args = evals_main.build_parser().parse_args(argv)
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    result, timings = evals_main.evaluate(args, model_overrides=overrides)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    want = {n: per_call.get(n, 0) * calls for n in wrappers}
+    if launches != want:
+        fail(f"evals {path or argv}: launches {launches}, expected {want}")
+    if path is not None:
+        for entry in kernels:
+            entry.setdefault("launches_by_path", {})[path] = \
+                launches[entry["name"]]
+    fake_s = timings["sampler_s"] + timings["tower_s"] + timings["stats_s"]
+    timings["samples_per_s"] = result["num_samples"] / fake_s
+    log(f"evals {path or 'run'}: {json.dumps(result)}; seconds "
+        f"{ {k: round(v, 3) for k, v in timings.items()} }; launches "
+        f"{launches}")
+    return result, timings
+
+
+def eval_tower_check(torch, np, report):
+    """The port's tower on the card against the CPU on one batch of
+    synthetic reals, the same weights (drawn on the CPU from the seed)."""
+    from dcgan_tpu_torch.data.synthetic import synthetic_batches
+    from dcgan_tpu_torch.evals.features import make_random_feature_fn
+
+    from dcgan_tpu_torch.evals import features
+
+    x = next(synthetic_batches(EVAL_BATCH, 64, 3, seed=SEED + 1, pool=0))
+    card, _ = make_random_feature_fn(64, 3, device="cuda")
+    cpu, _ = make_random_feature_fn(64, 3, device="cpu")
+    want = cpu(x)
+    # TF32 on, as a process has it by default: the tower must turn it off
+    # for its own calls; with that switch disabled, the error TF32 gives
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = card(torch.from_numpy(x).cuda()).cpu()
+        keep, features.full_f32 = features.full_f32, \
+            lambda device: contextlib.nullcontext()
+        try:
+            tf32 = card(torch.from_numpy(x).cuda()).cpu()
+        finally:
+            features.full_f32 = keep
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    rtol, atol = EVAL_TOWER_TOL
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    limit = rtol * want.abs() + atol * scale
+    worst = float((err / limit).max())
+    report["tower_card_vs_cpu"] = {
+        "max_abs_err": float(err.max()), "max_abs_feature": scale,
+        "rtol": rtol, "atol_of_max": atol, "worst_of_limit": worst,
+        "tf32_max_abs_err": float((tf32 - want).abs().max()),
+        "tf32_worst_of_limit": float(((tf32 - want).abs() / limit).max())}
+    log(f"evals: the tower's features on the card vs the CPU, batch "
+        f"{EVAL_BATCH}: max |err| {float(err.max()):.3e} (max |feature| "
+        f"{scale:.3e}), {worst:.3f} of the limit {EVAL_TOWER_TOL}; in "
+        f"TF32 {report['tower_card_vs_cpu']['tf32_max_abs_err']:.3e}")
+    if worst > 1.0:
+        fail(f"evals: tower features on the card off the CPU's by "
+             f"{worst:.2f} x the limit")
+
+
+def probe_steps_ms(np, run):
+    """Host ms per step from events.jsonl's stamps, leaving out the first
+    two steps (the warm-up and the capture) and each step after a probe
+    step (its interval holds the probe): the steps between probes."""
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    t = {e["step"]: e["time"] for e in events
+         if e["kind"] == "scalars" and "d_loss" in e["values"]}
+    gaps = [1e3 * (t[s] - t[s - 1]) for s in range(3, PROBE_STEPS + 1)
+            if (s - 1) % PROBE_EVERY]
+    return float(np.median(gaps)), gaps
+
+
+def eval_probe(torch, np, workdir, kernels, report):
+    """train.cli.main --fid_every_steps on the celeba64 kernel route, then
+    the same run without the probe; the probe's scalars, best checkpoint
+    and score.json; generate on the best directory."""
+    from dcgan_tpu_torch import generate
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    data = os.path.join(workdir, "resume", "data")
+    base = ["--preset", "celeba64", "--use_pallas", "--pallas_fused",
+            "--data_dir", data, "--sample_image_dir", data,
+            "--shuffle_buffer", str(RESUME_SHUFFLE), "--max_steps",
+            str(PROBE_STEPS), "--batch_size", str(BATCH), "--seed",
+            str(SEED), "--sample_every_steps", "0",
+            "--activation_summary_steps", "0", "--device", "cuda"]
+    runs = {}
+    # the run without the probe first: neither run is the process's first
+    for name, extra in (("no_probe", []),
+                        ("probe", ["--fid_every_steps", str(PROBE_EVERY),
+                                   "--fid_num_samples",
+                                   str(PROBE_SAMPLES)])):
+        run = os.path.join(workdir, "evals", name)
+        argv = base + ["--checkpoint_dir", run, "--sample_dir",
+                       os.path.join(run, "samples")] + extra
+        wrappers = all_wrappers()
+        reset_counts(wrappers)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(out.getvalue(), end="", flush=True)
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        probes = PROBE_STEPS // PROBE_EVERY if extra else 0
+        # the probe's sampler: its warm-up, then one call per batch
+        calls = 1 + probes * -(-PROBE_SAMPLES // BATCH) if probes else 0
+        want = {n: PER_STEP[n] * PROBE_STEPS + SAMPLER_PER_CALL[n] * calls
+                for n in wrappers}
+        if launches != want:
+            fail(f"evals {name}: launches {launches}, expected {want}")
+        if extra:
+            for entry in kernels:
+                entry.setdefault("launches_by_path", {})["evals_probe"] = \
+                    launches[entry["name"]]
+        step_ms, gaps = probe_steps_ms(np, run)
+        # the trainer's own seconds of each probe, from its [fid] lines
+        runs[name] = {"run": run, "train_s": secs, "step_ms": step_ms,
+                      "step_gaps_ms": gaps, "probe_s": [
+                          float(t) for t in re.findall(
+                              r"\[fid\] step \d+ .*, ([0-9.]+)s\)",
+                              out.getvalue())]}
+    run = runs["probe"]["run"]
+    with open(os.path.join(run, "events.jsonl")) as f:
+        fids = {e["step"]: e["values"] for e in map(json.loads, f)
+                if e["kind"] == "scalars" and "eval/fid" in e["values"]}
+    if sorted(fids) != [PROBE_EVERY * i for i in
+                        range(1, PROBE_STEPS // PROBE_EVERY + 1)] or \
+            not all(np.isfinite([v["eval/fid"], v["eval/kid"]]).all()
+                    for v in fids.values()):
+        fail(f"evals probe: eval scalars {fids}")
+    best_dir = os.path.join(run, "best")
+    with open(os.path.join(best_dir, "score.json")) as f:
+        score = json.load(f)
+    best_step = min(fids, key=lambda s: fids[s]["eval/fid"])
+    if score != {"fid": fids[best_step]["eval/fid"], "step": best_step} \
+            or Checkpointer(best_dir).latest_step() != best_step \
+            or not os.path.exists(os.path.join(best_dir, "config.json")):
+        fail(f"evals probe: best {score}, scalars {fids}, best dir "
+             f"{sorted(os.listdir(best_dir))}")
+    gen = generate.main(["--checkpoint_dir", best_dir, "--num_images", "8",
+                         "--grid", "0", "--out_dir",
+                         os.path.join(workdir, "evals", "best_gen"),
+                         "--device", "cuda"])
+    if gen["step"] != best_step:
+        fail(f"evals probe: generate on best read step {gen['step']}")
+    if len(runs["probe"]["probe_s"]) != len(fids):
+        fail(f"evals probe: [fid] lines {runs['probe']['probe_s']}")
+    report["probe"] = {
+        "steps": PROBE_STEPS, "every": PROBE_EVERY,
+        "samples": PROBE_SAMPLES, "scalars": fids, "best": score,
+        "probe_s": runs["probe"]["probe_s"],
+        "probe_train_s": runs["probe"]["train_s"],
+        "no_probe_train_s": runs["no_probe"]["train_s"],
+        "step_ms_between_probes": runs["probe"]["step_ms"],
+        "step_ms_without_probe": runs["no_probe"]["step_ms"],
+        "step_gaps_ms": {k: v["step_gaps_ms"] for k, v in runs.items()}}
+    log(f"evals probe: {json.dumps(report['probe'])}")
+
+
+def evals_and_check(torch, np, workdir, kernels):
+    """Phase 19: the `resume` group's celeba64 checkpoint scored by the
+    evals CLI at its defaults (50 000 samples, batch 256, KID pool
+    10 000, --kid --prdc) on the kernel route, writing the real side's
+    statistics; the same weights and z on the cuDNN route and with
+    another z seed (FID only, the cached real side); the kernel route
+    again from the cached real side, bit for bit; the tower on the card
+    against the CPU; the trainer's probe. Returns the `evals` report."""
+    from dcgan_tpu_torch.config import load_config
+
+    report = {"samples": EVAL_SAMPLES, "batch": EVAL_BATCH,
+              "kid_pool": EVAL_KID_POOL}
+    root = os.path.join(workdir, "evals")
+    run = os.path.join(root, "run")
+    shutil.copytree(os.path.join(workdir, "resume", "run"), run,
+                    ignore=shutil.ignore_patterns("*.corrupt*", "events*"))
+    mcfg = load_config(run).model
+    if not (mcfg.use_pallas and mcfg.pallas_fused):
+        fail(f"evals: the resume checkpoint's route is {mcfg}")
+    # the kernels at the eval sampler's batch, before the counted runs
+    cond_check_serve_kernels(torch, mcfg, (EVAL_BATCH,), report,
+                             tag="evals")
+    saved = torch.backends.cudnn.deterministic
+    # the cached rerun is compared bit for bit
+    torch.backends.cudnn.deterministic = True
+    stats = os.path.join(root, "real_stats.npz")
+    # the CLI's defaults, spelled out
+    argv = ["--checkpoint_dir", run, "--synthetic", "--real_stats", stats,
+            "--num_samples", str(EVAL_SAMPLES), "--batch_size",
+            str(EVAL_BATCH), "--kid_pool", str(EVAL_KID_POOL), "--device",
+            "cuda"]
+    full = ["--kid", "--prdc"]
+    calls = 1 + -(-EVAL_SAMPLES // EVAL_BATCH)
+    t0 = time.perf_counter()
+    kernel, k_t = evals_cli(torch, argv + full, "evals", kernels,
+                            SAMPLER_PER_CALL, calls)
+    report["kernel"] = dict(kernel, seconds=k_t)
+    plain, p_t = evals_cli(torch, argv, None, kernels, {}, 0,
+                           dict(use_pallas=False, pallas_fused=False))
+    seed1, s_t = evals_cli(torch, argv + ["--seed", "1"], None, kernels,
+                           SAMPLER_PER_CALL, calls)
+    cached, c_t = evals_cli(torch, argv + full, None, kernels,
+                            SAMPLER_PER_CALL, calls)
+    torch.backends.cudnn.deterministic = saved
+    report["scoring_s"] = time.perf_counter() - t0
+    gap = abs(kernel["fid"] - plain["fid"]) / plain["fid"]
+    seed_gap = abs(kernel["fid"] - seed1["fid"]) / kernel["fid"]
+    report["plain"] = dict(plain, seconds=p_t)
+    report["seed1"] = dict(seed1, seconds=s_t)
+    report["cached"] = dict(cached, seconds=c_t)
+    report["route_fid_gap"] = gap
+    report["route_fid_rtol"] = EVAL_ROUTE_FID_RTOL
+    report["seed_gap"] = seed_gap
+    log(f"evals: FID-50k kernel route {kernel['fid']!r}, cuDNN route "
+        f"{plain['fid']!r} (gap {gap:.3e} relative, limit "
+        f"{EVAL_ROUTE_FID_RTOL}), z seed 1 {seed1['fid']!r} (gap "
+        f"{seed_gap:.3e}); cached real side {cached['fid']!r} in "
+        f"{c_t['total_s']:.1f} s against {k_t['total_s']:.1f} s")
+    if gap > EVAL_ROUTE_FID_RTOL:
+        fail(f"evals: kernel-route FID {kernel['fid']} vs cuDNN route "
+             f"{plain['fid']}: {gap:.3e} relative > {EVAL_ROUTE_FID_RTOL}")
+    if cached != kernel or c_t["real_s"] != 0.0 or k_t["real_s"] <= 0.0:
+        fail(f"evals: the cached rerun {cached} differs from {kernel}, or "
+             f"its real pass ran ({c_t['real_s']} s)")
+    bad = [k for k, v in kernel.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    if bad or kernel["num_samples"] != EVAL_SAMPLES or \
+            kernel["feature_dim"] != 512:
+        fail(f"evals: result {kernel}")
+    eval_tower_check(torch, np, report)
+    eval_probe(torch, np, workdir, kernels, report)
+    return report
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -5535,6 +5852,8 @@ def main() -> int:
         phase_memory(torch, "serve_fleet", memory)
         cond_report = conditional_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "conditional", memory)
+        evals_report = evals_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "evals", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -5547,6 +5866,7 @@ def main() -> int:
     print(json.dumps({"feed_pipeline": feed_report}), flush=True)
     print(json.dumps({"serve_fleet": fleet_report}), flush=True)
     print(json.dumps({"conditional": cond_report}), flush=True)
+    print(json.dumps({"evals": evals_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(

@@ -215,6 +215,16 @@ class TrainConfig:
     sample_every_steps: int = 100  # 0: no sample grids
     sample_grid: Tuple[int, int] = (8, 8)
     sample_size: int = 64          # rows of the fixed sample z
+    fid_every_steps: int = 0       # >0: the in-training surrogate FID/KID
+                                   # probe (evals/) against the held-out
+                                   # stream every N steps, written as
+                                   # eval/fid + eval/kid scalars, the best
+                                   # scoring state kept in
+                                   # <checkpoint_dir>/best; 0 = off
+    fid_num_samples: int = 2048    # samples per side of the probe (small
+                                   # by design: KID is unbiased at small n,
+                                   # and the probe's job is the trend, not
+                                   # the FID-50k headline)
     log_every_steps: int = 1
     nan_check_steps: int = 100     # every N steps the step's metrics must
                                    # be finite, else the run raises
@@ -328,6 +338,13 @@ class TrainConfig:
                 "nan_policy='rollback' (restore the last good snapshot and "
                 "train on) is not ported to dcgan_tpu_torch; the port "
                 "aborts on a non-finite metric (nan_policy='abort')")
+        if self.fid_every_steps < 0:
+            raise ValueError(
+                f"fid_every_steps must be >= 0, got {self.fid_every_steps}")
+        if self.fid_every_steps and self.fid_num_samples < 64:
+            raise ValueError(
+                f"fid_num_samples must be >= 64 for a meaningful probe, "
+                f"got {self.fid_num_samples}")
         if self.max_corrupt_records < 0:
             raise ValueError(
                 f"max_corrupt_records must be >= 0, got "
@@ -348,7 +365,8 @@ class TrainConfig:
                         "sample_every_steps": self.sample_every_steps,
                         "activation_summary_steps":
                             self.activation_summary_steps,
-                        "save_model_steps": self.save_model_steps}
+                        "save_model_steps": self.save_model_steps,
+                        "fid_every_steps": self.fid_every_steps}
             spc = self.steps_per_call
             bad = {k: v for k, v in cadences.items()
                    if v and v % spc != 0 and spc % v != 0}
@@ -439,11 +457,18 @@ def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a `config.json` dict of either package.
 
     The JAX package's fields the port has no use for (its mesh, fault
-    tolerance, profiling, evals) are reported once and dropped; one of
+    tolerance, profiling) are reported once and dropped; one of
     UNPORTED_TRAIN_FIELDS away from its default raises
     NotImplementedError, as the port's own unported values do."""
     d = dict(d)
     model = model_config_from_dict({"model": d.pop("model", {})})
+    if d.get("progressive") and d.get("fid_every_steps"):
+        # the JAX package's own refusal, before the port's of progressive
+        raise ValueError(
+            "--progressive does not compose with fid_every_steps: "
+            "the probe's feature extractor and real-side "
+            "statistics are fixed-resolution; score offline per "
+            "phase via the evals CLI instead")
     unported = [f"{k}={d[k]!r}" for k, default in UNPORTED_TRAIN_FIELDS.items()
                 if k in d and d[k] != default]
     if unported:

@@ -30,9 +30,11 @@ All present the surface the worker thread drives:
 - `sample(bucket, z[, labels])`: z and the labels copied into the rung's
   inputs (a conditional rung given no labels copies zeros, class 0, as
   the JAX sources do; an unconditional one ignores them), one replay, the
-  image copied out to a host float32 array [bucket, S, S, c_dim]. A
-  captured rung reads the addresses it was captured with, so its inputs
-  are written in place, never rebound. `captures` counts every capture, so the server
+  image copied out to a host float32 array [bucket, S, S, c_dim]
+  (`run(bucket, z[, labels])` is the same replay, its image left on the
+  device: the eval job's sampler). A captured rung reads the addresses
+  it was captured with, so its inputs are written in place, never
+  rebound. `captures` counts every capture, so the server
   can report the captures after warm-up (`serve/recompiles_after_warmup`,
   0 by construction: an unbound rung raises instead of being captured);
 - `close()`: release every rung's graph and its private pool now (the
@@ -118,27 +120,37 @@ class _RungSource:
         """Ascending bound bucket rungs."""
         return tuple(sorted(self._rungs))
 
-    def sample(self, bucket: int, z: np.ndarray,
-               labels: Optional[np.ndarray] = None) -> np.ndarray:
+    def run(self, bucket: int, z, labels=None) -> torch.Tensor:
+        """One replay of rung `bucket` on z (and labels): arrays or tensors
+        on any device, copied into the rung's inputs. Returns the rung's
+        output on the source's device, which the rung's next run
+        overwrites (the eval job reads it on the device)."""
         if bucket not in self._rungs:
             raise KeyError(f"bucket {bucket} is not a bound rung "
                            f"{self.compiled_buckets()}")
-        z = np.asarray(z, np.float32)
-        if z.shape != (bucket, self.z_dim):
+        z = torch.as_tensor(z, dtype=torch.float32)
+        if tuple(z.shape) != (bucket, self.z_dim):
             raise ValueError(f"z must be [{bucket}, {self.z_dim}], got "
-                             f"{z.shape}")
+                             f"{tuple(z.shape)}")
         z_in, labels_in, prog = self._rungs[bucket]
-        z_in.copy_(torch.from_numpy(z))
+        z_in.copy_(z)
         if labels_in is not None:
             if labels is None:
                 labels_in.zero_()
             else:
-                labels = np.asarray(labels, np.int32)
-                if labels.shape != (bucket,):
+                labels = torch.as_tensor(labels, dtype=torch.int32)
+                if tuple(labels.shape) != (bucket,):
                     raise ValueError(f"labels must be [{bucket}], got "
-                                     f"{labels.shape}")
-                labels_in.copy_(torch.from_numpy(labels))
-        return prog.run().cpu().numpy()
+                                     f"{tuple(labels.shape)}")
+                labels_in.copy_(labels)
+        return prog.run()
+
+    def sample(self, bucket: int, z: np.ndarray,
+               labels: Optional[np.ndarray] = None) -> np.ndarray:
+        if labels is not None:
+            labels = np.asarray(labels, np.int32)
+        return self.run(bucket, np.asarray(z, np.float32),
+                        labels).cpu().numpy()
 
     def close(self) -> None:
         """Release every rung's program (its graph and private pool); the

@@ -57,6 +57,8 @@ _FLAG_FIELDS = {
     "save_model_secs": ("", "save_model_secs"),
     "max_checkpoints": ("", "max_checkpoints"),
     "sample_every_steps": ("", "sample_every_steps"),
+    "fid_every_steps": ("", "fid_every_steps"),
+    "fid_num_samples": ("", "fid_num_samples"),
     "log_every_steps": ("", "log_every_steps"),
     "seed": ("", "seed"),
     "update_mode": ("", "update_mode"),
@@ -194,6 +196,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoints kept (the oldest pruned beyond this)")
     p.add_argument("--sample_every_steps", type=int,
                    help="steps between sample grids (0: none)")
+    p.add_argument("--fid_every_steps", type=int,
+                   help=">0: periodic in-training surrogate FID/KID probe "
+                        "against the held-out sample stream (eval/fid + "
+                        "eval/kid scalars, the best-scoring state kept in "
+                        "<checkpoint_dir>/best); 0 = off")
+    p.add_argument("--fid_num_samples", type=int,
+                   help="samples per side for the in-training FID probe "
+                        "(default 2048)")
     p.add_argument("--log_every_steps", type=int)
     p.add_argument("--activation_summary_steps", type=int,
                    help="per-layer activation histogram cadence (0 = off)")

@@ -47,6 +47,14 @@
   stream at seed + 100 or the TFRecord shards of `sample_image_dir` when
   that directory exists (none otherwise), with the fixed z, written as
   `sample/*` scalars (`dcgan_tpu/train/trainer.py:250-290, 1769-1800`);
+- every `fid_every_steps` steps the surrogate FID/KID probe
+  (train/fid_probe.py): `fid_num_samples` images of the live state
+  through the runner's captured `fid_sampler` row, scored against a real
+  side computed once from the held-out stream, written as `eval/fid` and
+  `eval/kid`, the best-scoring state kept in `<checkpoint_dir>/best`
+  with its `score.json`; a resumed run fast-forwards the held-out stream
+  past the batches the run before it consumed (`held_out_skip`: the loss
+  probes' and the real side's) and reads its best score back;
 - every `activation_summary_steps` steps an "activations" event of
   `summarize` on the call's last batch (z from (seed, step, 1));
 - under a precision policy, a `perf/precision/policy` (f32 0, bf16 1, fp8
@@ -60,6 +68,7 @@
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import pprint
 import time
@@ -75,6 +84,8 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.train.coordination import CoordinatedStop
+from dcgan_tpu_torch.train.fid_probe import NEEDS_HELD_OUT, FidProbe, \
+    held_out_skip
 from dcgan_tpu_torch.train.steps import draw_stages, draw_step, \
     make_train_step, tree_leaves
 from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
@@ -140,13 +151,16 @@ def summary_z(cfg: TrainConfig, step: int, device: torch.device
     return _draw_z(cfg, _step_generator(cfg, step, device, 1))
 
 
-def _synthetic_feed(cfg: TrainConfig, device: torch.device) -> Iterator:
-    """The synthetic stream on `device`: image batches, or (images,
-    labels) pairs for a conditional model."""
+def _synthetic_feed(cfg: TrainConfig, device: torch.device,
+                    skip_batches: int = 0) -> Iterator:
+    """The synthetic stream on `device` from its batch `skip_batches`
+    (skipped on the host): image batches, or (images, labels) pairs for a
+    conditional model."""
     mcfg = cfg.model
-    for batch in synthetic_batches(cfg.batch_size, mcfg.output_size,
-                                   mcfg.c_dim, seed=cfg.seed,
-                                   num_classes=mcfg.num_classes):
+    batches = synthetic_batches(cfg.batch_size, mcfg.output_size,
+                                mcfg.c_dim, seed=cfg.seed,
+                                num_classes=mcfg.num_classes)
+    for batch in itertools.islice(batches, skip_batches, None):
         out = tuple(torch.from_numpy(a) for a in
                     (batch if isinstance(batch, tuple) else (batch,)))
         if device.type == "cuda":
@@ -167,16 +181,20 @@ def split_batch(cfg: TrainConfig, batch
 def make_data(cfg: TrainConfig, device: torch.device, *,
               synthetic_data: bool = False, data_dir: Optional[str] = None,
               seed_offset: int = 0, n_threads: Optional[int] = None,
-              min_after_dequeue: Optional[int] = None) -> Iterator:
+              min_after_dequeue: Optional[int] = None,
+              skip_batches: int = 0) -> Iterator:
     """The trainer's batches on `device`: the synthetic stream, or the
     TFRecord shards of `data_dir` (cfg.data_dir by default; the native
     loader; the record dtype of their dataset.json, when they have one),
     seeded from cfg.seed + seed_offset; (images, labels) pairs for a
-    conditional model. Close it when done."""
+    conditional model. `skip_batches` fast-forwards past batches an
+    earlier run consumed: the synthetic stream skips on the host, the
+    shards' stream discards batches (a threaded shuffle stream has no
+    exact position to restore). Close it when done."""
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
     if synthetic_data:
-        return _synthetic_feed(cfg, device)
+        return _synthetic_feed(cfg, device, skip_batches)
     data_dir = cfg.data_dir if data_dir is None else data_dir
     # the manifest's wire format is authoritative; cfg.record_dtype covers
     # shards without one
@@ -199,21 +217,28 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
         num_classes=cfg.model.num_classes,
         prefetch_device_batches=cfg.prefetch_device_batches,
         max_corrupt_records=cfg.max_corrupt_records)
-    return make_dataset(dcfg, device)
+    ds = make_dataset(dcfg, device)
+    for _ in range(skip_batches):
+        next(ds)
+    return ds
 
 
 def make_sample_data(cfg: TrainConfig, device: torch.device, *,
-                     synthetic_data: bool = False) -> Optional[Iterator]:
-    """The held-out batches of the loss probe: the synthetic stream at
-    seed + 100, or the shards of cfg.sample_image_dir (a light loader: 2
-    threads, a pool of 4 batches) when that directory exists; None
-    otherwise (no probe, as in the JAX trainer)."""
+                     synthetic_data: bool = False,
+                     skip_batches: int = 0) -> Optional[Iterator]:
+    """The held-out batches of the loss probe and of the FID probe's real
+    side: the synthetic stream at seed + 100, or the shards of
+    cfg.sample_image_dir (a light loader: 2 threads, a pool of 4 batches)
+    when that directory exists; None otherwise (no probe, as in the JAX
+    trainer). `skip_batches` as in make_data."""
     if synthetic_data:
-        return make_data(cfg, device, synthetic_data=True, seed_offset=100)
+        return make_data(cfg, device, synthetic_data=True, seed_offset=100,
+                         skip_batches=skip_batches)
     if os.path.isdir(cfg.sample_image_dir):
         return make_data(cfg, device, data_dir=cfg.sample_image_dir,
                          seed_offset=100, n_threads=2,
-                         min_after_dequeue=4 * cfg.batch_size)
+                         min_after_dequeue=4 * cfg.batch_size,
+                         skip_batches=skip_batches)
     return None
 
 
@@ -270,6 +295,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     dev = resolve_device(device)
     total_steps = cfg.max_steps if max_steps is None else max_steps
     mcfg = cfg.model
+    if cfg.fid_every_steps and not synthetic_data \
+            and not os.path.isdir(cfg.sample_image_dir):
+        raise ValueError(NEEDS_HELD_OUT)
     ckpt = Checkpointer(cfg.checkpoint_dir,
                         save_interval_secs=cfg.save_model_secs,
                         max_to_keep=cfg.max_checkpoints)
@@ -305,9 +333,6 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z,
                             sample_labels=sample_labels)
         keys = metric_keys(cfg)
-        if cfg.sample_every_steps:
-            sample_data = make_sample_data(cfg, dev,
-                                           synthetic_data=synthetic_data)
         # the probe's fixed z: sample_z's rows, cycled to the batch
         eval_z = sample_z.reshape(-1).repeat(
             -(-cfg.batch_size // n_samples))[
@@ -319,6 +344,13 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             del restored
             print(f"[dcgan_tpu_torch] restored checkpoint at step "
                   f"{int(state['step'])}", flush=True)
+        if cfg.sample_every_steps or cfg.fid_every_steps:
+            # the held-out stream from where the run that reached this
+            # step left it
+            sample_data = make_sample_data(
+                cfg, dev, synthetic_data=synthetic_data,
+                skip_batches=held_out_skip(cfg, int(state["step"])))
+        probe = FidProbe(cfg, dev) if cfg.fid_every_steps else None
         timer = StepTimer(images_per_step=cfg.batch_size)
         t_start = time.time()
         logged_precision = False
@@ -409,6 +441,12 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                           flush=True)
                     writer.write_scalars(step, {f"sample/{k}": v
                                                 for k, v in ev.items()})
+                timer.note_host(time.perf_counter() - t0)
+            if probe is not None and probe.due(step):
+                t0 = time.perf_counter()
+                probe.run(step, runner,
+                          (split_batch(cfg, b)[0] for b in sample_data),
+                          writer)
                 timer.note_host(time.perf_counter() - t0)
             if cfg.activation_summary_steps and \
                     step % cfg.activation_summary_steps == 0:

@@ -14,12 +14,16 @@ as captured CUDA graphs (graphs.py) over static buffers it owns:
   weights, the augmentations; none for a config without them), and for a
   conditional model K label slots, which the trainer fills outside the
   graph on the current stream;
-- the sampler's fixed z (and, conditional, its fixed labels).
+- the sampler's fixed z (and, conditional, its fixed labels);
+- with the FID probe on (`fid_every_steps`), a [batch_size, z_dim] z slot
+  (and a labels slot) of the probe's sampler, which the probe fills per
+  batch (`fid_sample`).
 
 A row of the plan is one program: `train_step` (one step), `multi_step@kK`
 (K steps, each reading slot k, the last one copying its new state into
-the static state) and `sampler` (the grid's images from the static
-state). The first step of a runner runs eagerly on the capture stream:
+the static state), `sampler` (the grid's images from the static state)
+and `fid_sampler` (the probe's batch from the static state). The first
+step of a runner runs eagerly on the capture stream:
 the warm-up, a real training step, which builds the kernels, creates their
 tickets and lets cuDNN and cuBLAS pick their algorithms before anything is
 captured. A row is captured at its first dispatch, or all of them right
@@ -70,6 +74,7 @@ Pytree = dict
 METRIC_KEYS = ("d_loss", "d_loss_real", "d_loss_fake", "g_loss")
 TRAIN_ROW = "train_step"
 SAMPLER_ROW = "sampler"
+FID_ROW = "fid_sampler"
 # the pipelined step's stage rows (pipeline_gd)
 GEN_ROW, D_ROW, G_ROW = "gen_fakes", "d_update", "g_update"
 STAGE_ROWS = (GEN_ROW, D_ROW, G_ROW)
@@ -126,15 +131,17 @@ def call_size(step: int, total: int, steps_per_call: int,
 def build_warmup_plan(cfg: TrainConfig, *, sample: bool) -> List[str]:
     """The rows of the programs this run can dispatch, with the JAX plan's
     names: the single step (the tail and realignment calls), the K-step
-    call when steps_per_call > 1, and the sampler when the run writes
-    grids; under pipeline_gd the three stage rows in place of the step.
+    call when steps_per_call > 1, the sampler when the run writes grids
+    and the FID probe's sampler when the probe is on; under pipeline_gd
+    the three stage rows in place of the step.
     The JAX plan's `state_copy` (the restore's buffer rebase) has no row:
     the port's restore copies into the static buffers."""
     if cfg.pipeline_gd:
         d_rows = [pattern_row(D_ROW, p) for p in r1_patterns(cfg, 1)] \
             if lazy_r1(cfg) else [D_ROW]
         return [GEN_ROW, *d_rows, G_ROW] + ([SAMPLER_ROW] if sample
-                                            else [])
+                                            else []) \
+            + ([FID_ROW] if cfg.fid_every_steps else [])
     rows = [TRAIN_ROW]
     if cfg.steps_per_call > 1:
         rows.append(multi_step_row(cfg.steps_per_call))
@@ -145,6 +152,8 @@ def build_warmup_plan(cfg: TrainConfig, *, sample: bool) -> List[str]:
                                      else cfg.steps_per_call)]
     if sample:
         rows.append(SAMPLER_ROW)
+    if cfg.fid_every_steps:
+        rows.append(FID_ROW)
     return rows
 
 
@@ -195,6 +204,13 @@ class StepRunner:
         self.keys = metric_keys(cfg)
         self.sample_z = sample_z
         self.sample_labels = sample_labels
+        # the FID probe's sampler inputs
+        self.fid_z = torch.zeros((cfg.batch_size, m.z_dim),
+                                 dtype=torch.float32, device=device) \
+            if cfg.fid_every_steps else None
+        self.fid_labels = torch.zeros(
+            (cfg.batch_size,), dtype=torch.int32, device=device) \
+            if cfg.fid_every_steps and m.num_classes else None
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
         self.warm = False
@@ -295,6 +311,12 @@ class StepRunner:
         return lambda: self.fns.sample(self.state, self.sample_z,
                                        self.sample_labels)
 
+    def _fid_fn(self) -> Callable[[], torch.Tensor]:
+        if self.fid_z is None:
+            raise ValueError("the runner's config has no FID probe")
+        return lambda: self.fns.sample(self.state, self.fid_z,
+                                       self.fid_labels)
+
     def _program(self, name: str) -> CapturedProgram:
         prog = self.programs.get(name)
         if prog is not None:
@@ -306,8 +328,9 @@ class StepRunner:
         pattern = tuple(c == "1" for c in digits) if digits else None
         if pattern is not None and any(pattern) and not self.penalty_warm:
             self._warm_penalty()
-        if name == SAMPLER_ROW:
-            fn = self._sample_fn()
+        if name in (SAMPLER_ROW, FID_ROW):
+            fn = self._sample_fn() if name == SAMPLER_ROW \
+                else self._fid_fn()
             with on_stream(self.stream):   # the sampler's own warm-up
                 fn()
         elif base in STAGE_ROWS:
@@ -421,6 +444,17 @@ class StepRunner:
     def sample(self) -> torch.Tensor:
         """The sampler's images of the sample z at the static state."""
         return self._program(SAMPLER_ROW).run()
+
+    def fid_sample(self, z: torch.Tensor,
+                   labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The FID probe's sampler: z [batch_size, z_dim] (and a
+        conditional model's labels) copied into its slots, one run of the
+        `fid_sampler` row on the static state. Returns the images, which
+        the next call overwrites."""
+        self.fid_z.copy_(z)
+        if self.fid_labels is not None:
+            self.fid_labels.copy_(labels)
+        return self._program(FID_ROW).run()
 
     def close(self) -> None:
         """Release every captured program and its graph pool (the static

@@ -39,6 +39,7 @@ from dcgan_tpu_torch.ops import spectral as tspectral
 from dcgan_tpu_torch.presets import sagan64
 from dcgan_tpu_torch.train import steps as tsteps
 from dcgan_tpu_torch.train.trainer import METRIC_KEYS
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 F32_FWD, F32_GRAD, BF16 = 2e-6, 2e-5, 1e-2
 DTYPES = {"float32": (torch.float32, jnp.float32),

@@ -15,6 +15,7 @@ import torch_jax_draws as D
 
 from dcgan_tpu.ops import augment as jaug
 from dcgan_tpu_torch.ops import augment as taug
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 B, S = 6, 16
 

@@ -45,6 +45,7 @@ from dcgan_tpu_torch.models.dcgan import sampler_apply
 from dcgan_tpu_torch.serve import __main__ as serve_main
 from dcgan_tpu_torch.train import cli, steps, trainer
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,

@@ -32,6 +32,7 @@ from dcgan_tpu_torch.presets import sagan64
 from dcgan_tpu_torch.train import steps
 from dcgan_tpu_torch.train.trainer import METRIC_KEYS
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the dense route (attention without the flash kernels' plain versions)

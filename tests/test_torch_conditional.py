@@ -29,6 +29,7 @@ from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig
 from dcgan_tpu_torch.models import dcgan as tdcgan
 from dcgan_tpu_torch.ops import labels as L
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 K = 4
 ROUTES = {"plain": {}, "use_pallas": {"use_pallas": True},

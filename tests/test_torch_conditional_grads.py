@@ -24,6 +24,7 @@ from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.models import dcgan as tdcgan
 from test_torch_conditional import CASES, K, _gan, _j, _labels, _mk, _t
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 OUT_OF_RANGE = np.array([-1, K, K + 3, -K - 1], np.int32)
 

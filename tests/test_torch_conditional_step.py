@@ -19,6 +19,7 @@ held to Adam's bound 2 * lr per update of their net.
 import numpy as np
 import pytest
 import torch_jax_draws as D
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 K = 4
 COND = dict(num_classes=K)

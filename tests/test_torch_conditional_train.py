@@ -25,6 +25,7 @@ from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.train import cli, steps, trainer
 from dcgan_tpu_torch.train.warmup import StepRunner, metric_keys
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 K = 4
 COND = dict(num_classes=K)

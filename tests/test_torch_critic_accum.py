@@ -24,6 +24,7 @@ from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.train import cli, steps, trainer
 from dcgan_tpu_torch.train.warmup import StepRunner, build_warmup_plan, \
     metric_keys, r1_patterns
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 CASES = [{"n_critic": 2}, {"grad_accum": 2},
          {"n_critic": 2, "grad_accum": 2, "diffaug": "color"}]

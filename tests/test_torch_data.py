@@ -26,6 +26,7 @@ from dcgan_tpu.utils import tb_events as j_tb
 from dcgan_tpu_torch.data import example_proto, pipeline, quarantine, \
     synthetic, tfrecord
 from dcgan_tpu_torch.utils import images, metrics, retry, tb_events
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 TIMEOUT = 30.0
 N_RECORDS = 24

@@ -40,6 +40,7 @@ from dcgan_tpu_torch.serve.server import SamplerServer
 from dcgan_tpu_torch.serve.sources import ArtifactSource
 from dcgan_tpu_torch.train.steps import init_train_state, tree_map
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8)

@@ -18,6 +18,7 @@ from dcgan_tpu_torch.serve.server import SamplerServer
 from dcgan_tpu_torch.serve.sources import ArtifactSource
 from test_torch_export import SERVED_TOL, TIMEOUT, _checkpoint, _export, \
     _jax_export, _z
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 
 class TestConditionalArtifact:

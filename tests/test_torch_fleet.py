@@ -41,6 +41,7 @@ from dcgan_tpu_torch.serve.sources import CheckpointSource, \
     WeightsSource, latest_finalized_step
 from dcgan_tpu_torch.train.steps import init_train_state, tree_map
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 TIMEOUT = 30.0
 
@@ -304,14 +305,34 @@ class TestFleetOverFakeSources:
     def test_replica_death_fails_over_zero_failed_requests(self, fleets):
         """One replica's source raises at its first dispatch: every client
         request still completes, the death is logged, and no request is a
-        failover drop; both packages give the same fleet report."""
+        failover drop; both packages give the same fleet report.
+
+        The replicas' dispatch loops are held until their requests are
+        queued, so the batches do not depend on how quick requests
+        coalesce under the 5 ms deadline: the six requests are routed
+        while every queue is held, replica 0 then takes its share and
+        dies, and replicas 1 and 2 start only once its requests have
+        failed over to their queues."""
         reports = {}
         for impl in IMPLS:
             fleet = fleets(impl, [FakeSource(explode_at=1), FakeSource(),
                                   FakeSource()])
+            gates = [threading.Event() for _ in fleet.servers]
+            for server, gate in zip(fleet.servers, gates):
+                def held(orig=server._next_batch, gate=gate):
+                    gate.wait(TIMEOUT)
+                    return orig()
+                server._next_batch = held
             fleet.start(timeout=TIMEOUT)
             fleet.router.stop_monitor()    # poll by hand: deterministic
             resps = [fleet.submit(2, client_id=f"c{i}") for i in range(6)]
+            gates[0].set()
+            deadline = time.monotonic() + TIMEOUT
+            while sum(s.queue_depth() for s in fleet.servers[1:]) < 6:
+                assert time.monotonic() < deadline, "no failover"
+                time.sleep(0.005)
+            for gate in gates[1:]:
+                gate.set()
             out = [r.result(TIMEOUT) for r in resps]
             fleet.router.poll_health()     # notice the poisoned worker
             fleet.stop(drain=True)

@@ -167,7 +167,12 @@ def test_artifact_on_captured_rungs(cuda, tmp_path):
 @pytest.mark.cuda
 def test_launch_counts_under_two_replicas(cuda, tmp_path):
     """Two replicas replaying at once from their dispatch threads: each
-    kernel's count rises by exactly its replays' recorded launches."""
+    kernel's count rises by exactly its replays' recorded launches.
+
+    Each client sticks to the replica of its first request, which the
+    router picks by queue depth: both dispatch loops are held until the
+    two first requests are queued, so the clients land on both replicas
+    whatever the timing."""
     from dcgan_tpu_torch import graphs
     from dcgan_tpu_torch.serve.fleet import ServeFleet
     from dcgan_tpu_torch.serve.sources import CheckpointSource
@@ -176,6 +181,12 @@ def test_launch_counts_under_two_replicas(cuda, tmp_path):
     _save_step(ckpt, 1, 2.0)
     srcs = [CheckpointSource(ckpt, device=cuda) for _ in range(2)]
     fleet = ServeFleet(srcs, max_batch=8, max_wait_ms=0.5)
+    gate = threading.Event()
+    for server in fleet.servers:
+        def held(orig=server._next_batch):
+            gate.wait(TIMEOUT)
+            return orig()
+        server._next_batch = held
     fleet.start(timeout=TIMEOUT)
     runs = []
     real_run = graphs.CapturedProgram.run
@@ -186,8 +197,13 @@ def test_launch_counts_under_two_replicas(cuda, tmp_path):
     before = graphs.launch_counts()
     graphs.CapturedProgram.run = run
     try:
+        first = [fleet.submit(1 + seed % 8, client_id=seed)
+                 for seed in range(2)]
+        gate.set()
+
         def client(seed):
-            for i in range(60):
+            first[seed].result(TIMEOUT)
+            for i in range(1, 60):
                 fleet.submit(1 + (seed + i) % 8,
                              client_id=seed).result(TIMEOUT)
         threads = [threading.Thread(target=client, args=(s,))

@@ -45,6 +45,7 @@ from dcgan_tpu_torch.train.gd_pipeline import GDPipeline
 from dcgan_tpu_torch.train.warmup import StepRunner, build_warmup_plan, \
     metric_keys
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 BATCH = 4
 SIZE = 16

@@ -67,8 +67,8 @@ class TestNoJaxImports:
         assert loaded >= 15
 
     def test_import_builds_nothing(self):
-        """Importing the kernel modules, the native loader's bindings and
-        the serving plane starts no compiler: a kernel is built inside the
+        """Importing the kernel modules, the native loader's bindings,
+        the evals rig and the serving plane starts no compiler: a kernel is built inside the
         first call that launches it, the loader at the first
         NativeLoader."""
         code = ("import subprocess, sys\n"
@@ -76,6 +76,7 @@ class TestNoJaxImports:
                 "subprocess.Popen = lambda *a, **k: calls.append(a)\n"
                 "import dcgan_tpu_torch.data.native\n"
                 "import dcgan_tpu_torch.data.prepare\n"
+                "import dcgan_tpu_torch.evals.__main__\n"
                 "import dcgan_tpu_torch.export\n"
                 "import dcgan_tpu_torch.serve.__main__\n"
                 "import dcgan_tpu_torch.serve.fleet\n"

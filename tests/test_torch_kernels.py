@@ -34,6 +34,18 @@ from dcgan_tpu_torch.ops import flash_attention as flash
 from dcgan_tpu_torch.ops import _build, fused, kernels
 from dcgan_tpu_torch.ops.activations import ACTS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's intra-op pool held to one thread on the CPU, as
+    tests/torch_jax_draws.py::one_torch_thread does for the JAX-importing
+    port tests (this file also runs on the card, without JAX)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16_ULP = 2.0 ** -7
 ACT_LIST = list(ACTS)
 

@@ -30,6 +30,7 @@ from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, celeba64, \
     model_config_from_dict
 from dcgan_tpu_torch.models import dcgan as tdcgan
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROUTES = {"plain": {},
           "use_pallas": {"use_pallas": True},

@@ -36,6 +36,7 @@ from dcgan_tpu_torch.data.example_proto import serialize_example
 from dcgan_tpu_torch.data.synthetic import write_image_tfrecords
 from dcgan_tpu_torch.data.tfrecord import write_tfrecords
 from dcgan_tpu_torch.train import trainer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 SIZE = 8
 N = 48

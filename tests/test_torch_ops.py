@@ -22,6 +22,7 @@ from dcgan_tpu_torch.ops import activations as t_act
 from dcgan_tpu_torch.ops import fused as t_fused
 from dcgan_tpu_torch.ops import layers as t_layers
 from dcgan_tpu_torch.ops import norm as t_norm
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7   # bf16 keeps 8 significant bits
 

@@ -57,6 +57,7 @@ from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.models import dcgan as tdcgan
 from dcgan_tpu_torch.ops import fused as tfused
 from dcgan_tpu_torch.train import losses as tlosses
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
              compute_dtype="float32")

@@ -52,6 +52,7 @@ from dcgan_tpu_torch.models import dcgan as tdcgan
 from dcgan_tpu_torch.ops.layers import fake_quant_fp8, fake_quant_fp8_ops
 from dcgan_tpu_torch.train import steps
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8)

@@ -19,6 +19,7 @@ from dcgan_tpu.data import native as j_native
 from dcgan_tpu.data import pipeline as j_pipeline
 from dcgan_tpu.data import prepare as j_prepare
 from dcgan_tpu_torch.data import native, pipeline, prepare
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

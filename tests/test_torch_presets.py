@@ -13,6 +13,7 @@ from dcgan_tpu import presets as jpresets
 from dcgan_tpu_torch import presets
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.train import cli
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 PORTED = ["celeba64", "dcgan128", "cifar10-cond", "wgan-gp", "sagan64",
           "sagan128"]

@@ -22,6 +22,7 @@ from dcgan_tpu_torch.serve.quantize import quantize_dequantize_int8
 from dcgan_tpu_torch.serve.sources import CheckpointSource
 from dcgan_tpu_torch.train.steps import init_train_state, tree_map
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 TREES = {
     "dcgan": dict(output_size=16, gf_dim=8, z_dim=8),

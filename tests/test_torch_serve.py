@@ -25,6 +25,7 @@ from dcgan_tpu_torch.serve.buckets import BucketLadder, build_ladder, \
 from dcgan_tpu_torch.serve.server import SamplerServer, ServeError, \
     ServeOverloadError
 from dcgan_tpu_torch.serve.sources import WeightsSource
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 TIMEOUT = 60.0
 

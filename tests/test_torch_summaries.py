@@ -34,6 +34,7 @@ from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.train import cli, steps
 from dcgan_tpu_torch.utils.metrics import MetricWriter, activation_stats
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
              compute_dtype="float32")

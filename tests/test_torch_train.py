@@ -41,6 +41,7 @@ from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.presets import celeba64
 from dcgan_tpu_torch.train import cli, steps
 from dcgan_tpu_torch.train.trainer import METRIC_KEYS
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROUTES = {"plain": {},
           "use_pallas": {"use_pallas": True},

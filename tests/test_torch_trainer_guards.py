@@ -34,6 +34,7 @@ from dcgan_tpu_torch.config import ModelConfig, TrainConfig, \
     config_from_dict, load_config
 from dcgan_tpu_torch.train import cli, trainer
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+from torch_jax_draws import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, compute_dtype="float32")

@@ -42,6 +42,18 @@ from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.train import steps, trainer, warmup
 from dcgan_tpu_torch.utils.profiling import StepTimer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's intra-op pool held to one thread on the CPU, as
+    tests/torch_jax_draws.py::one_torch_thread does for the JAX-importing
+    port tests (this file also runs on the card, without JAX)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
              compute_dtype="float32")
 BATCH = 4
@@ -284,6 +296,7 @@ class TestRunner:
         from dcgan_tpu.config import TrainConfig as JTrainConfig
         from dcgan_tpu.parallel import make_mesh, make_parallel_train
         from dcgan_tpu.train import warmup as jwarmup
+        from torch_jax_draws import numpy_init
 
         kw = dict(steps_per_call=spc, sample_every_steps=sample_every,
                   log_every_steps=1, save_model_steps=0)
@@ -293,8 +306,10 @@ class TestRunner:
                                if k != "activation_summary_steps"})
         pt = make_parallel_train(jcfg, make_mesh(jcfg.mesh))
         z = jax.random.uniform(jax.random.key(1), (8, MODEL["z_dim"]))
+        # the plan only passes the state along: numpy_init's tree, not
+        # JAX's compiled init
         plan, _ = jwarmup.build_warmup_plan(
-            jcfg, pt, pt.init(jax.random.key(0)),
+            jcfg, pt, numpy_init(lambda key: pt.init(key)),
             sample_z=z if jcfg.sample_every_steps else None)
         jax_rows = [n for n, _, _ in plan if n != "state_copy"]
         cfg = _cfg(**kw)

@@ -25,6 +25,7 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dcgan_tpu.ops.augment import parse_policy
@@ -313,3 +314,16 @@ def assert_f32_state(jstate, tstate, *, lr=2e-4, steps=1, rtol=1e-5):
             else 1e-5 + rtol * np.abs(w).max()
         err = float(np.abs(g.astype(np.float64) - w).max())
         assert err <= bound, (path, err, bound)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's intra-op pool held to one thread for the module that imports
+    this fixture. The port's CPU tests run small ops on tensors of a few
+    kilobytes between numpy and JAX calls, where the pool's threads only
+    wait on each other: with it at the core count a runner test takes ~30
+    times as long, and the test workers beside it slow down too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
