@@ -295,10 +295,37 @@ Class conditioning and the 128 px presets (`conditional`):
    probes' seconds and the host ms per step between probes against the
    run without them.
 
+Progressive-resolution training (`progressive`):
+
+20. progressive: PROG_IMAGES random PNGs turned by `python -m
+   dcgan_tpu_torch.data.prepare`'s entry point into shards at 32, 64 and
+   128 px (`train_{res}`); kernels 1-4 (a1_check_kernels) and 2, 5
+   (cond_check_serve_kernels) against their plain versions at every
+   phase's shapes of dcgan128 (gf = df = 64, batch 64, bf16) on the kernel
+   route; train.cli.main --preset dcgan128 --use_pallas --pallas_fused
+   --progressive PROG_SPEC --progressive_fade_steps PROG_FADE
+   --aot_warmup for PROG_STEPS steps with a grid in each phase, the
+   counters set to 0 just before and read just after (exactly
+   `prog_expected`; the `progressive` path), every capture recorded:
+   only the plan's six rows (`<row>@r64`, `<row>@r128` for the later
+   phases) are captured, both switch lines report the CPU trees' carry
+   count and captures_during_switch=0, the rows' resolutions follow the
+   schedule, each grid decodes at its phase's size; per-phase median step
+   ms, switch ms, graph pools and the run's peak reserved. Then the
+   switch step by step (`prog_switch_checks`): a primed runner per phase,
+   `advance` and `load`, every carried leaf bit for bit its value before
+   the switch; at each merged state the first step's losses and
+   gradients, kernel route against the cuDNN route (TRAIN_ROUTE_TOL,
+   TRAIN_GRAD_TOL); at each phase's state the captured kernel-route
+   sampler within PROG_SAMPLER_TOL of the cuDNN route's. Last, a run that
+   saves every step to PROG_RESUME_AT: generate on the step-PROG_GEN_AT
+   checkpoint alone builds the 64 px model with no flags, and a resume
+   from the step-PROG_RESUME_AT checkpoint (tagged phase 1, r64) starts
+   in phase 1 and switches to r128.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals)
-the garbage is collected and the cache
+evals, progressive) the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -307,8 +334,10 @@ left allocated and reserved.
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
-the evals report, the memory report, the card's name and power limit
-(nvidia-smi), one JSON line
+the evals report, the progressive report, the memory report, the
+progressive group's timing line (median step ms per phase, switch ms,
+graph pools, the group's peak reserved, the card), the card's name and
+power limit (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -3690,10 +3719,11 @@ def net_gaps(convert, got, want, skip):
     return out
 
 
-def a1_route_grads(torch, name, cfg, report):
+def a1_route_grads(torch, name, cfg, report, state=None):
     """The losses and both nets' gradients (`grads`: D's of the first
     critic update, G's against the seeded D, each over its microbatches
-    with its draws) at the seeded state, the kernel route against the
+    with its draws) at the seeded state (or at `state`: the progressive
+    group's merged state after a switch), the kernel route against the
     cuDNN + torch-BN route on the same images, z and draws, within
     TRAIN_ROUTE_TOL and TRAIN_GRAD_TOL (bf16); under the fp8 policy the
     losses within A1_FP8_LOSS_RTOL and only the gradients that pass back
@@ -3706,7 +3736,6 @@ def a1_route_grads(torch, name, cfg, report):
     images, zs, draws = a1_inputs(torch, cfg, 1)
     labels = cond_labels(torch, cfg, 1)
     losses, grads = {}, {}
-    state = None
     for route, flags in (("kernel", {}), ("cudnn", {"use_pallas": False,
                                                     "pallas_fused": False})):
         rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -5721,6 +5750,424 @@ def evals_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# progressive: dcgan128 on a 32 -> 64 -> 128 ladder (`progressive`)
+# ---------------------------------------------------------------------------
+
+# the schedule: 4 steps at 32 px, 4 at 64, the rest of PROG_STEPS at 128,
+# each later phase fading in over PROG_FADE steps
+PROG_SPEC = "32:4,64:4,128:*"
+PROG_PHASES = ((32, 0), (64, 4), (128, 8))   # resolution, first step
+PROG_STEPS = 12
+PROG_FADE = 2
+# PNG images (PROG_SRC px a side) that `prepare` resizes into each
+# resolution's shards, PROG_SHARDS shards each
+PROG_IMAGES = 256
+PROG_SRC = 96
+PROG_SHARDS = 2
+# the grid cadence of the main run: one grid in each phase
+PROG_SAMPLE_EVERY = 4
+# the checkpoint that generate opens (inside phase 1, r64) and the
+# boundary checkpoint a resume starts from (phase 1's tree, r64)
+PROG_GEN_AT = 6
+PROG_RESUME_AT = 8
+# the kernel-route sampler against the cuDNN + torch-BN route at a phase's
+# state, max |difference| of the images (tanh range)
+PROG_SAMPLER_TOL = 2e-2
+
+
+class _Tee(io.TextIOBase):
+    """Stdout that is also kept: the trainer's lines are checked."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def tee_stdout():
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        yield tee.kept
+
+
+def prog_argv(root, name, argv):
+    """train.cli.main's arguments for a progressive run called `name` on
+    the {res} shards under `root`."""
+    tdir = os.path.join(root, name)
+    return ["--preset", "dcgan128", "--use_pallas", "--pallas_fused",
+            "--progressive", PROG_SPEC, "--progressive_fade_steps",
+            str(PROG_FADE), "--max_steps", str(PROG_STEPS), "--batch_size",
+            str(BATCH), "--data_dir", os.path.join(root, "train_{res}"),
+            "--sample_image_dir", os.path.join(root, "no_held_out"),
+            "--shuffle_buffer", str(2 * BATCH), "--checkpoint_dir", tdir,
+            "--sample_dir", os.path.join(tdir, "samples"), "--seed",
+            str(SEED), "--activation_summary_steps", "0", "--device",
+            "cuda"] + argv
+
+
+def prog_shards(np, root):
+    """PROG_IMAGES random PNGs, then `prepare` shards of them at each
+    phase's resolution under root/train_<res>."""
+    from PIL import Image
+
+    from dcgan_tpu_torch.data import prepare
+
+    src = os.path.join(root, "photos")
+    os.makedirs(src)
+    rng = np.random.default_rng(SEED + 41)
+    for i in range(PROG_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (PROG_SRC, PROG_SRC, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(src, f"img{i:04d}.png"))
+    for res, _ in PROG_PHASES:
+        prepare.main(["--input_dir", src, "--output_dir",
+                      os.path.join(root, f"train_{res}"), "--image_size",
+                      str(res), "--crop_size", "0", "--num_shards",
+                      str(PROG_SHARDS)])
+
+
+def prog_expected(counts):
+    """The kernel launches of the main run: per phase (stages, training
+    steps including a primed runner's warm-up step, sampler calls), each
+    training step a1_per_step(1, 1, stages), each sampler call kernel 2
+    at bn0 and kernel 5 at each stage."""
+    total = {name: 0 for name in PER_STEP}
+    for stages, steps, calls in counts:
+        for name, n in a1_per_step(1, 1, stages).items():
+            total[name] += n * steps
+        total["scale_shift_act"] += calls
+        total["gemm_bias_scale_act"] += calls * stages
+    return total
+
+
+def prog_main_run(torch, np, root, kernels, report):
+    """The main run: train.cli.main over the whole ladder with
+    --aot_warmup and a grid in each phase, the launch counters set to 0
+    just before and read just after (the `progressive` path), every
+    capture recorded: only the warm-up plan's rows are captured, both
+    switch lines report the CPU carry count and captures_during_switch=0;
+    per-phase median step ms, switch ms and graph pools."""
+    from dcgan_tpu_torch import graphs
+    from dcgan_tpu_torch.progressive import carry_state
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.steps import init_train_state
+
+    argv = prog_argv(root, "run", [
+        "--aot_warmup", "--sample_every_steps", str(PROG_SAMPLE_EVERY)])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    captures = []
+    real_capture = graphs.CapturedProgram.capture
+
+    def recording(program):
+        ms = real_capture(program)
+        captures.append((program.name, program.pool_bytes))
+        return ms
+
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    graphs.CapturedProgram.capture = recording
+    t0 = time.perf_counter()
+    try:
+        with tee_stdout() as out:
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        graphs.CapturedProgram.capture = real_capture
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_reserved()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["progressive"] = \
+            launches[entry["name"]]
+    # stages per phase: num_up_layers - 1 (2, 3, 4); the later phases'
+    # runners each took one warm-up step on zeros; each phase's sampler
+    # ran its warm-up and one grid
+    steps_in = [PROG_PHASES[1][1], PROG_PHASES[2][1] - PROG_PHASES[1][1],
+                PROG_STEPS - PROG_PHASES[2][1]]
+    want = prog_expected([(2, steps_in[0], 2), (3, steps_in[1] + 1, 2),
+                          (4, steps_in[2] + 1, 2)])
+    if launches != want:
+        fail(f"progressive: launches {launches}, expected {want}")
+    for n, design in TRAIN_DESIGN.items():
+        by = wrappers[n].launches_by_design
+        if by[design] != launches[n]:
+            fail(f"progressive: {n} launches must all take design "
+                 f"{design}: {by}")
+    if int(state["step"]) != PROG_STEPS:
+        fail(f"progressive: the run ended at step {int(state['step'])}")
+    events = read_jsonl(os.path.join(cfg.checkpoint_dir, "events.jsonl"))
+    rows = [(e["step"], e["values"]) for e in events
+            if e["kind"] == "scalars"]
+    compile_ms = {k.split("/", 2)[2]: v for _, r in rows
+                  for k, v in r.items() if k.startswith("perf/compile_ms/")}
+    plan = ["train_step", "sampler", "train_step@r64", "sampler@r64",
+            "train_step@r128", "sampler@r128"]
+    if list(compile_ms) != plan or len(captures) != len(plan):
+        fail(f"progressive: the plan captured {list(compile_ms)}, the run "
+             f"{[n for n, _ in captures]} (expected {plan}, nothing after "
+             "the warm-up)")
+    pools = {}
+    for name, (_, pool) in zip(plan, captures):
+        res = name.split("@r")[1] if "@r" in name else "32"
+        pools[f"r{res}"] = pools.get(f"r{res}", 0) + pool
+    loss_rows = [r for _, r in rows if "d_loss" in r]
+    if len(loss_rows) != PROG_STEPS or not all(
+            np.isfinite([r[k] for k in ("d_loss", "g_loss")]).all()
+            for r in loss_rows):
+        fail(f"progressive: {len(loss_rows)} loss rows, or non-finite")
+    res_seen = [int(r["progressive/resolution"]) for r in loss_rows]
+    want_res = [res for (res, _), n in zip(PROG_PHASES, steps_in)
+                for _ in range(n)]
+    if res_seen != want_res:
+        fail(f"progressive: rows at resolutions {res_seen}, expected "
+             f"{want_res}")
+    alphas = [r.get("progressive/alpha") for r in loss_rows]
+    switch_ms = [r["progressive/switch_ms"] for _, r in rows
+                 if "progressive/switch_ms" in r]
+    lines = [ln for ln in out.getvalue().splitlines()
+             if "] progressive phase" in ln]
+    if len(lines) != 2 or len(switch_ms) != 2:
+        fail(f"progressive: switch lines {lines}, rows {switch_ms}")
+    for line, (old, new) in zip(lines, ((PROG_PHASES[0], PROG_PHASES[1]),
+                                        (PROG_PHASES[1], PROG_PHASES[2]))):
+        _, carried = carry_state(*(init_train_state(dataclasses.replace(
+            cfg, progressive="", progressive_fade_steps=0,
+            model=dataclasses.replace(cfg.model, output_size=res)),
+            device="cpu") for res in (old[0], new[0])), arch="dcgan",
+            shift=1)
+        want_line = (f"at step {new[1]}: r{old[0]} -> r{new[0]} (batch "
+                     f"{BATCH}, {carried} leaves carried)")
+        if want_line not in line or \
+                not line.endswith("captures_during_switch=0"):
+            fail(f"progressive: switch line {line!r}, expected "
+                 f"{want_line!r} ... captures_during_switch=0")
+    # one grid in each phase, at the phase's resolution
+    for (res, _), step in zip(PROG_PHASES, range(
+            PROG_SAMPLE_EVERY, PROG_STEPS + 1, PROG_SAMPLE_EVERY)):
+        with open(os.path.join(cfg.sample_dir,
+                               f"train_{step:08d}.png"), "rb") as f:
+            shape = decode_png(np, f.read()).shape
+        if shape != (8 * res, 8 * res, 3):
+            fail(f"progressive: the grid of step {step} decodes to {shape}")
+    # the median step of each phase: the p50 of its StepTimer (fresh at
+    # each switch) at the phase's last step, over its replayed steps
+    p50 = {}
+    for (res, start), n in zip(PROG_PHASES, steps_in):
+        last = [r for s, r in rows if s == start + n and "d_loss" in r][0]
+        p50[f"r{res}"] = last.get("perf/step_ms_p50", "not measured")
+    report["main"] = {
+        "seconds": secs, "launches": launches, "compile_ms": compile_ms,
+        "pool_bytes": pools, "peak_reserved": peak,
+        "step_ms_p50": p50, "switch_ms": switch_ms, "alphas": alphas,
+        "switch_lines": lines}
+    log(f"progressive: {PROG_STEPS} steps of {PROG_SPEC!r} on the kernel "
+        f"route in {secs:.1f} s, launches {launches}; captured only the "
+        f"plan's {len(plan)} rows (ms {compile_ms}); graph pools by phase "
+        f"{pools}; peak reserved {peak / 2 ** 30:.2f} GiB of the card's "
+        f"80 GB; median step ms {p50}; switch ms {switch_ms}; "
+        + " | ".join(lines))
+    return cfg
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def prog_switch_checks(torch, cfg, report):
+    """The trainer's switch, step by step, on the card: a phase's runner
+    (steps replayed), the next phase's runner built and primed on zeros
+    with its train row captured, `advance` onto it and `load`: every
+    carried leaf equal bit for bit to its value read before the switch,
+    the count carry_state's on the CPU for the same trees; at the merged
+    state the first step's losses and gradients, kernel route against the
+    cuDNN route (a1_route_grads: TRAIN_ROUTE_TOL, TRAIN_GRAD_TOL); at each
+    phase's state the captured kernel-route sampler against the cuDNN
+    route's within PROG_SAMPLER_TOL."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.progressive import PhaseRuntime, carry_path, \
+        carry_state, parse_schedule
+    from dcgan_tpu_torch.progressive.phases import PHASE_SEED_OFFSET
+    from dcgan_tpu_torch.train.steps import init_train_state, \
+        make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    dev = torch.device("cuda")
+    rt = PhaseRuntime(cfg, parse_schedule(
+        cfg.progressive, model=cfg.model, batch_size=cfg.batch_size,
+        max_steps=cfg.max_steps, fade_steps=cfg.progressive_fade_steps),
+        PROG_STEPS)
+    sample_z = torch.rand((BATCH, cfg.model.z_dim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED + 1)) * 2 - 1
+
+    def runner_of(i, state):
+        cfg_i, fns_i = rt.surface(i)
+        r = StepRunner(fns_i, state, cfg_i, dev, sample_z=sample_z)
+        r.prime(start=rt.starts[i])
+        r.capture("train_step")
+        r.capture("sampler")
+        return r
+
+    runner = runner_of(0, rt.fns.init(seed=SEED, device=dev))
+    gaps = {}
+    for i, (res, start) in enumerate(PROG_PHASES):
+        cfg_i, fns_i = rt.surface(i)
+        if i:
+            nxt = runner_of(i, fns_i.init(
+                seed=SEED + PHASE_SEED_OFFSET + i, device=dev))
+            before = {p: t.clone() for p, t in
+                      convert.flatten(runner.state).items()}
+            merged = rt.advance(runner.state)
+            nxt.load(merged)
+            del merged
+            runner.close()
+            runner = nxt
+            _, cpu = carry_state(
+                init_train_state(rt.surface(i - 1)[0], device="cpu"),
+                init_train_state(cfg_i, device="cpu"), arch="dcgan",
+                shift=1)
+            now = convert.flatten(runner.state)
+            same = 0
+            for path, t in before.items():
+                home = carry_path(path, arch="dcgan", shift=1)
+                if home in now and now[home].shape == t.shape \
+                        and now[home].dtype == t.dtype:
+                    if not torch.equal(now[home], t):
+                        fail(f"progressive r{res}: carried leaf {home} "
+                             f"differs from {path} before the switch")
+                    same += 1
+            if not same == rt.last_carried == cpu:
+                fail(f"progressive r{res}: {same} leaves carried bit for "
+                     f"bit, advance counted {rt.last_carried}, the CPU "
+                     f"trees {cpu}")
+            del before, now
+            a1_route_grads(torch, f"progressive_r{res}", cfg_i,
+                           report, state=runner.state)
+            log(f"progressive r{res}: {cpu} leaves carried bit for bit "
+                f"into the primed runner (advance in "
+                f"{rt.last_switch_ms:.1f} ms); the first step's losses and "
+                "gradients within the route tolerances")
+        images, zs, draws = a1_inputs(torch, cfg_i, 2)
+        for j in range(2):
+            runner.step(images[j:j + 1], zs[j:j + 1], draws[j:j + 1],
+                        start=start + j)
+        got = runner.sample().float()
+        plain = make_train_step(dataclasses.replace(
+            cfg_i, model=dataclasses.replace(
+                cfg_i.model, use_pallas=False, pallas_fused=False)))
+        want = plain.sample(runner.state, sample_z).float()
+        gap = float((got - want).abs().max())
+        gaps[f"r{res}"] = gap
+        if not (gap <= PROG_SAMPLER_TOL and bool(torch.isfinite(got).all())
+                and got.shape == (BATCH, res, res, 3)):
+            fail(f"progressive r{res}: the kernel-route sampler is "
+                 f"{gap:.3g} off the cuDNN route (limit "
+                 f"{PROG_SAMPLER_TOL}), shape {tuple(got.shape)}")
+    runner.close()
+    report["sampler_route_gap"] = gaps
+    log(f"progressive: the captured kernel-route sampler against the cuDNN "
+        f"route at each phase's state, max |difference| {gaps} (limit "
+        f"{PROG_SAMPLER_TOL})")
+
+
+def prog_resume_and_generate(torch, np, root, report):
+    """A run saving every step to PROG_RESUME_AT, then: generate on the
+    step-PROG_GEN_AT checkpoint alone builds the 64 px model with no
+    flags; a resume from the step-PROG_RESUME_AT checkpoint (tagged
+    phase 1, r64) starts in phase 1 and switches to r128 at once."""
+    from dcgan_tpu_torch import generate
+    from dcgan_tpu_torch.train import cli, trainer
+    from dcgan_tpu_torch.utils.checkpoint import Checkpointer
+
+    argv = prog_argv(root, "resume", ["--save_model_secs", "0",
+                                      "--max_checkpoints", "3",
+                                      "--sample_every_steps", "0"])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    trainer.train(cfg, max_steps=PROG_RESUME_AT, device="cuda")
+    ckpt = Checkpointer(cfg.checkpoint_dir)
+    tags = {s: ckpt.progressive_tag_of(s)
+            for s in (PROG_GEN_AT, PROG_RESUME_AT)}
+    if any(t != {"phase": 1, "resolution": 64} for t in tags.values()):
+        fail(f"progressive: checkpoint tags {tags}")
+    # the step-6 checkpoint alone, as a run stopped there leaves it
+    gen_dir = os.path.join(root, "gen_run")
+    os.makedirs(os.path.join(gen_dir, "integrity"))
+    shutil.copy(os.path.join(cfg.checkpoint_dir, "config.json"), gen_dir)
+    shutil.copytree(os.path.join(cfg.checkpoint_dir, str(PROG_GEN_AT)),
+                    os.path.join(gen_dir, str(PROG_GEN_AT)))
+    shutil.copy(os.path.join(cfg.checkpoint_dir, "integrity",
+                             f"{PROG_GEN_AT}.json"),
+                os.path.join(gen_dir, "integrity"))
+    npz = os.path.join(root, "gen.npz")
+    result = generate.main(["--checkpoint_dir", gen_dir, "--num_images",
+                            "16", "--batch_size", "16", "--grid", "0",
+                            "--npz", npz, "--out_dir",
+                            os.path.join(root, "generated"), "--device",
+                            "cuda"])
+    images = np.load(npz)["images"]
+    if result["step"] != PROG_GEN_AT or images.shape != (16, 64, 64, 3) \
+            or not np.isfinite(images).all():
+        fail(f"progressive: generate on step {PROG_GEN_AT} gave step "
+             f"{result['step']}, images {images.shape}")
+    with tee_stdout() as out:
+        state = trainer.train(cfg, max_steps=PROG_RESUME_AT + 2,
+                              device="cuda")
+    text = out.getvalue()
+    for want in ("starting in phase 1 (r64", f"progressive phase 2 at step "
+                 f"{PROG_RESUME_AT}: r64 -> r128"):
+        if want not in text:
+            fail(f"progressive: the resume printed no {want!r}")
+    if int(state["step"]) != PROG_RESUME_AT + 2 or \
+            ckpt.progressive_tag_of(PROG_RESUME_AT + 2) != \
+            {"phase": 2, "resolution": 128}:
+        fail("progressive: the resume's final checkpoint is not phase 2's")
+    report["resume"] = {"tags": {str(k): v for k, v in tags.items()},
+                        "generate_images": list(images.shape)}
+    log(f"progressive: checkpoints {PROG_GEN_AT} and {PROG_RESUME_AT} "
+        f"tagged {tags}; generate on step {PROG_GEN_AT} alone built the "
+        f"64 px model with no flags ({list(images.shape)}); the resume from "
+        f"step {PROG_RESUME_AT} started in phase 1 and switched r64 -> r128")
+
+
+def progressive_and_check(torch, np, workdir, kernels):
+    """Phase 20: dcgan128 (gf = df = 64, batch 64, bf16) on the kernel
+    route over the 32 -> 64 -> 128 ladder from `prepare` shards: kernels
+    1-4 and 2, 5 against their plain versions at every phase's shapes,
+    the main run, the switch step by step, the resume and generate.
+    Returns the `progressive` report."""
+    from dcgan_tpu_torch.train import cli
+
+    report = {"spec": PROG_SPEC, "steps": PROG_STEPS}
+    root = os.path.join(workdir, "progressive")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    prog_shards(np, root)
+    report["prepare_s"] = time.perf_counter() - t0
+    for res, _ in PROG_PHASES:
+        argv = ["--preset", "dcgan128", "--use_pallas", "--pallas_fused",
+                "--output_size", str(res)]
+        sub = report.setdefault(f"r{res}", {})
+        a1_check_kernels(torch, workdir, f"progressive_r{res}", argv, BATCH,
+                         sub)
+        cond_check_serve_kernels(torch, cli.config_from_args(
+            cli.build_parser().parse_args(argv)).model, (BATCH,), sub,
+            tag=f"progressive r{res}")
+    cfg = prog_main_run(torch, np, root, kernels, report)
+    prog_switch_checks(torch, cfg, report)
+    prog_resume_and_generate(torch, np, root, report)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -5854,6 +6301,8 @@ def main() -> int:
         phase_memory(torch, "conditional", memory)
         evals_report = evals_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "evals", memory)
+        prog_report = progressive_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "progressive", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -5867,13 +6316,22 @@ def main() -> int:
     print(json.dumps({"serve_fleet": fleet_report}), flush=True)
     print(json.dumps({"conditional": cond_report}), flush=True)
     print(json.dumps({"evals": evals_report}), flush=True)
+    print(json.dumps({"progressive": prog_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    main_run = prog_report["main"]
+    print(json.dumps({"progressive_timing": {
+        "step_ms_p50": main_run["step_ms_p50"],
+        "switch_ms": main_run["switch_ms"],
+        "pool_bytes": main_run["pool_bytes"],
+        "peak_reserved": memory["progressive"]["peak_reserved"],
+        "card": card}}), flush=True)
+    print(card, flush=True)
     for entry in kernels:
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["kernel_ms"] = entry["ms"]

@@ -10,13 +10,13 @@ the hinge loss) and with or without class conditioning (`num_classes`:
 a one-hot of the label on G's z and as constant maps on D's image;
 `conditional_bn`: G's BatchNorm affine per class), on the BCE, hinge or
 WGAN-GP loss, with R1, n_critic, gradient accumulation, DiffAugment and
-the f32/bf16/fp8 precision policies; the fields that select anything else
-(another `arch`; the JAX package's `progressive` schedule and its
-`nan_policy="rollback"`) raise `NotImplementedError` instead of being
-silently ignored. So does a penalty (WGAN-GP, R1) on a kernel route
-(`use_pallas`): the JAX package cannot differentiate a Pallas kernel
-twice, so its penalties run on the plain route only, and so do the
-port's. A sequence mesh for the attention does not exist in the port
+the f32/bf16/fp8 precision policies, on one resolution or on a
+progressive schedule of them; the fields that select anything else
+(another `arch`; the JAX package's `nan_policy="rollback"`) raise
+`NotImplementedError` instead of being silently ignored. So does a
+penalty (WGAN-GP, R1) on a kernel route (`use_pallas`): the JAX package
+cannot differentiate a Pallas kernel twice, so its penalties run on the
+plain route only, and so do the port's. A sequence mesh for the attention does not exist in the port
 yet: `ops/attention.py` refuses one.
 """
 
@@ -250,6 +250,23 @@ class TrainConfig:
                                    # trains on the fake stack G produced
                                    # during the previous step
                                    # (train/gd_pipeline.py)
+    progressive: str = ""          # progressive-resolution schedule, the
+                                   # phase table "RES:STEPS[:BATCH],...,
+                                   # RES:*" (e.g. "32:2000,64:2000,128:*"):
+                                   # each phase trains the model at its
+                                   # resolution, the last at
+                                   # model.output_size; at each switch the
+                                   # state carries across the growth (new
+                                   # layers init fresh), the loaders
+                                   # re-open at the phase's resolution
+                                   # ({res} in data_dir), and checkpoints
+                                   # carry the phase's tag
+                                   # (progressive/); "" = off
+    progressive_fade_steps: int = 0  # >0 with progressive: the real
+                                   # images of the first N steps of each
+                                   # later phase blend alpha * x +
+                                   # (1 - alpha) * up(down(x)), alpha
+                                   # ramping to 1
 
     def __post_init__(self):
         # the JAX package's validation of these fields, with its messages
@@ -396,6 +413,38 @@ class TrainConfig:
                     f"pipeline_gd dispatches per-step stage programs; it "
                     f"does not compose with the scanned multi-step path "
                     f"(steps_per_call={self.steps_per_call} — set it to 1)")
+        if self.progressive_fade_steps < 0:
+            raise ValueError(
+                f"progressive_fade_steps must be >= 0, got "
+                f"{self.progressive_fade_steps}")
+        if self.progressive_fade_steps and not self.progressive:
+            raise ValueError(
+                "progressive_fade_steps > 0 without --progressive is a "
+                "silent no-op — set a --progressive schedule to fade into")
+        if self.progressive:
+            if self.model.attn_res:
+                raise ValueError(
+                    "--progressive does not compose with attn_res: the "
+                    "attention site is anchored to one feature-map "
+                    "resolution, which earlier phases may not contain "
+                    "(and carrying attention projections across a stage "
+                    "shift is undefined)")
+            if self.fid_every_steps:
+                raise ValueError(
+                    "--progressive does not compose with fid_every_steps: "
+                    "the probe's feature extractor and real-side "
+                    "statistics are fixed-resolution; score offline per "
+                    "phase via the evals CLI instead")
+            # the JAX package also refuses rollback_lr_backoff < 1.0 here;
+            # the port has no such field, since nan_policy="rollback" is
+            # refused above
+            from dcgan_tpu_torch.progressive.schedule import parse_schedule
+            parse_schedule(self.progressive, model=self.model,
+                           batch_size=self.batch_size,
+                           max_steps=self.max_steps,
+                           steps_per_call=self.steps_per_call,
+                           grad_accum=self.grad_accum,
+                           fade_steps=self.progressive_fade_steps)
         if (self.loss == "wgan-gp" or self.r1_gamma > 0) \
                 and self.model.use_pallas:
             # the JAX package's penalties fail on both of its kernel routes
@@ -446,7 +495,7 @@ def save_model_config(cfg: ModelConfig, directory: str) -> str:
 # TrainConfig fields of the JAX package that change what is trained and
 # that the port does not implement, with their JAX defaults: a config.json
 # that sets one otherwise raises instead of being trained without it
-UNPORTED_TRAIN_FIELDS = {"progressive": "", "nan_policy": "abort"}
+UNPORTED_TRAIN_FIELDS = {"nan_policy": "abort"}
 
 
 def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:
@@ -462,13 +511,6 @@ def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     NotImplementedError, as the port's own unported values do."""
     d = dict(d)
     model = model_config_from_dict({"model": d.pop("model", {})})
-    if d.get("progressive") and d.get("fid_every_steps"):
-        # the JAX package's own refusal, before the port's of progressive
-        raise ValueError(
-            "--progressive does not compose with fid_every_steps: "
-            "the probe's feature extractor and real-side "
-            "statistics are fixed-resolution; score offline per "
-            "phase via the evals CLI instead")
     unported = [f"{k}={d[k]!r}" for k, default in UNPORTED_TRAIN_FIELDS.items()
                 if k in d and d[k] != default]
     if unported:
@@ -550,8 +592,13 @@ def resolve_model_config(checkpoint_dir: str, *, preset: Optional[str] = None,
     """The architecture of a checkpoint consumer: explicit flag overrides
     > --preset > the checkpoint's own config.json > ModelConfig defaults.
     `overrides` values of None mean "not passed" and are dropped.
-    (The JAX package's progressive-schedule sidecars do not exist in the
-    port's checkpoints.)"""
+
+    A progressive run's config.json describes the schedule's final model,
+    but a checkpoint saved mid-schedule holds an earlier phase's
+    shallower tree: the newest step's phase tag (its integrity manifest's
+    `progressive` entry) names that phase's resolution, and the resolved
+    output_size adopts it (an explicit --output_size still wins), as the
+    JAX package's sidecar tag does (`dcgan_tpu/config.py:1121-1180`)."""
     if preset:
         from dcgan_tpu_torch.presets import get_preset  # presets imports us
 
@@ -559,5 +606,31 @@ def resolve_model_config(checkpoint_dir: str, *, preset: Optional[str] = None,
     else:
         saved = load_config(checkpoint_dir)
         base = saved.model if saved is not None else ModelConfig()
+        if saved is not None and saved.progressive:
+            from dcgan_tpu_torch.utils.checkpoint import \
+                latest_progressive_tag
+
+            tag = latest_progressive_tag(checkpoint_dir)
+            res = None if tag is None else int(tag["resolution"])
+            if res is not None and res != base.output_size:
+                print(f"[dcgan_tpu_torch] progressive checkpoint: latest "
+                      f"step was saved at r{res} (schedule "
+                      f"{saved.progressive!r} ends at "
+                      f"r{base.output_size}); building the r{res} model",
+                      file=sys.stderr)
+                base = dataclasses.replace(base, output_size=res)
     given = {k: v for k, v in (overrides or {}).items() if v is not None}
     return dataclasses.replace(base, **given)
+
+
+def consumer_train_config(checkpoint_dir: str, model: ModelConfig
+                          ) -> TrainConfig:
+    """The TrainConfig a checkpoint consumer builds its restore template
+    from: the checkpoint's config.json (defaults without one) with
+    `model` (resolve_model_config's) in place of its model, as one phase:
+    a progressive schedule describes the final model, and `model` may be
+    an earlier phase's."""
+    saved = load_config(checkpoint_dir)
+    return dataclasses.replace(saved if saved is not None else TrainConfig(),
+                               model=model, progressive="",
+                               progressive_fade_steps=0)

@@ -103,7 +103,7 @@ def export_sampler(checkpoint_dir: str, out_path: str, *,
     int8 quantize-dequantized weights, and the sidecar's serving block
     carries the report. The program is checked on `device` against the
     sampler it was traced from before the sidecar names the device."""
-    from dcgan_tpu_torch.config import TrainConfig, load_config, \
+    from dcgan_tpu_torch.config import consumer_train_config, \
         resolve_model_config
     from dcgan_tpu_torch.device import resolve_device
     from dcgan_tpu_torch.models.dcgan import generator_apply
@@ -116,10 +116,8 @@ def export_sampler(checkpoint_dir: str, out_path: str, *,
     dev = resolve_device(device)
     mcfg = resolve_model_config(checkpoint_dir, preset=preset,
                                 overrides=overrides)
-    saved = load_config(checkpoint_dir)
-    template = init_train_state(dataclasses.replace(
-        saved if saved is not None else TrainConfig(), model=mcfg),
-        device="cpu")
+    template = init_train_state(consumer_train_config(checkpoint_dir, mcfg),
+                                device="cpu")
     state = Checkpointer(checkpoint_dir).restore_latest(template)
     if state is None:
         raise SystemExit(f"no checkpoint under {checkpoint_dir}")

@@ -207,9 +207,7 @@ class CheckpointSource(_GeneratorSource):
         self._template = None
 
     def prepare(self) -> dict:
-        import dataclasses
-
-        from dcgan_tpu_torch.config import TrainConfig, load_config, \
+        from dcgan_tpu_torch.config import consumer_train_config, \
             resolve_model_config
         from dcgan_tpu_torch.convert import flatten, unflatten
         from dcgan_tpu_torch.train.steps import init_train_state, tree_map
@@ -217,9 +215,7 @@ class CheckpointSource(_GeneratorSource):
 
         mcfg = resolve_model_config(self.checkpoint_dir, preset=self.preset,
                                     overrides=self.overrides)
-        saved = load_config(self.checkpoint_dir)
-        cfg = dataclasses.replace(saved if saved is not None
-                                  else TrainConfig(), model=mcfg)
+        cfg = consumer_train_config(self.checkpoint_dir, mcfg)
         # the restore's template lives on the host, as empty tensors: only
         # its tree, shapes and dtypes matter, and only G goes to the device
         template = flatten(init_train_state(cfg, device="cpu"))

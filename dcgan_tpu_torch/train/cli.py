@@ -23,6 +23,9 @@ port serves, plus --device.
     python -m dcgan_tpu_torch.train --preset cifar10-cond --use_pallas \
         --pallas_fused --data_dir D --checkpoint_dir C
     python -m dcgan_tpu_torch.train --preset dcgan128 --synthetic
+    python -m dcgan_tpu_torch.train --preset dcgan128 --use_pallas \
+        --pallas_fused --progressive "32:2000,64:2000,128:*" \
+        --progressive_fade_steps 500 --aot_warmup --data_dir "D_{res}"
     python -m dcgan_tpu_torch.train --preset sagan128 --synthetic
 
 Flags given explicitly override the preset's values. The run reads the
@@ -78,6 +81,8 @@ _FLAG_FIELDS = {
     "aot_warmup": ("", "aot_warmup"),
     "nan_check_steps": ("", "nan_check_steps"),
     "pipeline_gd": ("", "pipeline_gd"),
+    "progressive": ("", "progressive"),
+    "progressive_fade_steps": ("", "progressive_fade_steps"),
     "use_pallas": ("model", "use_pallas"),
     "pallas_fused": ("model", "pallas_fused"),
     "output_size": ("model", "output_size"),
@@ -225,6 +230,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "training on the fake stack G produced during the "
                         "previous step (sequential update mode, "
                         "steps_per_call 1)")
+    p.add_argument("--progressive",
+                   help="progressive-resolution schedule (phase table "
+                        "\"RES:STEPS[:BATCH],...,RES:*\", e.g. "
+                        "\"32:2000,64:2000,128:*\"): train each phase at "
+                        "its resolution and switch mid-run with no "
+                        "capture after --aot_warmup (every phase's "
+                        "programs captured at startup). Resolutions "
+                        "ascend to --output_size; state carries across "
+                        "the model growth (new layers init fresh); "
+                        "loaders re-open at each phase's decode "
+                        "resolution ({res} in --data_dir substitutes per "
+                        "phase); each checkpoint's manifest records the "
+                        "phase so resumes land mid-schedule correctly")
+    p.add_argument("--progressive_fade_steps", type=int,
+                   help=">0 with --progressive: linear fade-in over the "
+                        "first N steps of each later phase (real images "
+                        "blend toward their previous-resolution content)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' must be asked for by name")
     return p

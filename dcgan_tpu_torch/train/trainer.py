@@ -62,7 +62,26 @@
 - `maybe_save` after every call (every `save_model_secs` of wall clock),
   the next step waiting on the device for the save's host copy of the
   static state; a final save of the last step and a wait for it to be on
-  disk.
+  disk;
+- a progressive schedule (`progressive`, progressive/): the run starts in
+  the phase that produced the newest checkpoint, whose manifest's phase
+  tag must agree, and trains each phase with its own step functions,
+  runner and feed; at a phase boundary (never inside a call) the JAX
+  trainer's switch (`dcgan_tpu/train/trainer.py:1526-1586`): the writer
+  flushed, the pipeline drained, the state carried onto the next phase's
+  runner, the checkpoints' tag moved on, the feeds re-opened at the new
+  resolution (`{res}` in the data directories), a fresh StepTimer; the
+  line `progressive phase i at step s: rA -> rB (batch b, n leaves
+  carried) switch_ms=... captures_during_switch=0` after the new phase's
+  first call (the graphs captured from the switch's start through that
+  call), and a `progressive/switch_ms` row. With --aot_warmup every later
+  phase's runner is warmed on zeros and its rows captured at startup
+  (`<row>@r<res>`), so a switch captures nothing; without it the runner
+  of a phase is built at its switch. The old phase's runner is closed
+  once the boundary step's save has copied its state. Inside a fade
+  window the real batch is blended (`PhaseRuntime.fade_images`); the log
+  rows carry `progressive/phase`, `progressive/resolution` and
+  `progressive/alpha`, none for a one-phase schedule.
 """
 
 from __future__ import annotations
@@ -83,6 +102,9 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
     read_manifest
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
+from dcgan_tpu_torch.progressive import PhaseRuntime, Rebucketer, \
+    parse_schedule
+from dcgan_tpu_torch.progressive.phases import PHASE_SEED_OFFSET
 from dcgan_tpu_torch.train.coordination import CoordinatedStop
 from dcgan_tpu_torch.train.fid_probe import NEEDS_HELD_OUT, FidProbe, \
     held_out_skip
@@ -242,6 +264,14 @@ def make_sample_data(cfg: TrainConfig, device: torch.device, *,
     return None
 
 
+def eval_z_of(sample_z: torch.Tensor, batch: int) -> torch.Tensor:
+    """The loss probe's fixed z: sample_z's rows, cycled to `batch` (the
+    JAX trainer's `jnp.resize`)."""
+    n, z_dim = sample_z.shape
+    return sample_z.reshape(-1).repeat(-(-batch // n))[
+        :batch * z_dim].reshape(batch, z_dim)
+
+
 def grid_labels(n: int, num_classes: int, device: torch.device
                 ) -> Optional[torch.Tensor]:
     """The labels of the sample grid's n rows, arange(n) % K (the JAX
@@ -302,14 +332,60 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                         save_interval_secs=cfg.save_model_secs,
                         max_to_keep=cfg.max_checkpoints)
     _check_architecture(cfg, ckpt)
+    # a progressive run: the phase that produced the newest checkpoint,
+    # its tag checked (a schedule edited between runs fails here), and
+    # that phase's config; pcfg is the current phase's config throughout
+    prog = None
+    pcfg = cfg
+    if cfg.progressive:
+        prog = PhaseRuntime(cfg, parse_schedule(
+            cfg.progressive, model=mcfg, batch_size=cfg.batch_size,
+            max_steps=cfg.max_steps, steps_per_call=cfg.steps_per_call,
+            grad_accum=cfg.grad_accum,
+            fade_steps=cfg.progressive_fade_steps), total_steps)
+        latest = ckpt.latest_step()
+        prog.start(latest)
+        if latest is not None:
+            prog.check_resume_tag(ckpt.progressive_tag_of(latest), latest)
+        ckpt.progressive_tag = prog.tag()
+        pcfg = prog.cfg
+        print(f"[dcgan_tpu_torch] progressive schedule "
+              f"{cfg.progressive!r}: starting in phase {prog.index} "
+              f"(r{prog.resolution}, batch {pcfg.batch_size}, "
+              f"{prog.n_phases} phase(s) this run)", flush=True)
     # this run's quarantine count is the process-wide tally's delta, taken
     # before the loader starts; a data_dir without shards fails here,
     # before anything is written
     corrupt_base = quarantine.count()
-    data = make_data(cfg, dev, synthetic_data=synthetic_data)
     sample_data = None
+    rebucketer = None
+    if prog is None:
+        data = make_data(cfg, dev, synthetic_data=synthetic_data)
+    else:
+        # the phase's feeds, re-opened at every switch
+        def open_phase(phase_cfg, held_out_skip):
+            d = make_data(phase_cfg, dev, synthetic_data=synthetic_data)
+            if not cfg.sample_every_steps:
+                return d, None
+            try:
+                return d, make_sample_data(
+                    phase_cfg, dev, synthetic_data=synthetic_data,
+                    skip_batches=held_out_skip)
+            except BaseException:
+                d.close()
+                raise
+
+        rebucketer = Rebucketer(open_phase)
+        # the phase's held-out stream opened at its start: the loss probes
+        # since then are the batches a resume skips
+        done = latest or 0
+        data, sample_data = rebucketer.open(pcfg, held_out_skip(
+            pcfg, done) - held_out_skip(pcfg, prog.starts[prog.index]))
     writer = None
     runner = None
+    # the runners of the phases after the current one, warmed and
+    # captured at startup under --aot_warmup
+    later_runners: Dict[int, StepRunner] = {}
     warm_ms: dict = {}
     stop = CoordinatedStop()
     stop.install()
@@ -319,7 +395,7 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         writer = MetricWriter(cfg.checkpoint_dir,
                               every_secs=cfg.save_summaries_secs,
                               tensorboard=cfg.tensorboard)
-        fns = make_train_step(cfg)
+        fns = make_train_step(cfg) if prog is None else prog.fns
         state = fns.init(seed=cfg.seed, device=dev)
         # fixed z for comparable sample grids across the run, drawn once
         rows, cols = cfg.sample_grid
@@ -330,31 +406,33 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         ) * 2.0 - 1.0
         # the grid's classes: row i of class i mod K
         sample_labels = grid_labels(n_samples, mcfg.num_classes, dev)
-        runner = StepRunner(fns, state, cfg, dev, sample_z=sample_z,
-                            sample_labels=sample_labels)
+
+        def new_runner(phase_fns, phase_state, phase_cfg):
+            return StepRunner(phase_fns, phase_state, phase_cfg, dev,
+                              sample_z=sample_z, sample_labels=sample_labels)
+
+        runner = new_runner(fns, state, pcfg)
         keys = metric_keys(cfg)
-        # the probe's fixed z: sample_z's rows, cycled to the batch
-        eval_z = sample_z.reshape(-1).repeat(
-            -(-cfg.batch_size // n_samples))[
-                :cfg.batch_size * mcfg.z_dim].reshape(cfg.batch_size,
-                                                      mcfg.z_dim)
+        eval_z = eval_z_of(sample_z, pcfg.batch_size)
         restored = ckpt.restore_latest(state)
         if restored is not None:
             runner.load(restored)
             del restored
             print(f"[dcgan_tpu_torch] restored checkpoint at step "
                   f"{int(state['step'])}", flush=True)
-        if cfg.sample_every_steps or cfg.fid_every_steps:
+        if prog is None and (cfg.sample_every_steps or cfg.fid_every_steps):
             # the held-out stream from where the run that reached this
             # step left it
             sample_data = make_sample_data(
                 cfg, dev, synthetic_data=synthetic_data,
                 skip_batches=held_out_skip(cfg, int(state["step"])))
         probe = FidProbe(cfg, dev) if cfg.fid_every_steps else None
-        timer = StepTimer(images_per_step=cfg.batch_size)
+        timer = StepTimer(images_per_step=pcfg.batch_size)
         t_start = time.time()
         logged_precision = False
         step_num = int(state["step"])
+        switched = None      # the last switch's line, printed after the
+                             # new phase's first call
         while step_num < total_steps:
             sig, _ = stop.poll()
             if sig is not None:
@@ -364,25 +442,81 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 if runner.pipeline is not None:
                     runner.pipeline.drain("coordinated-stop")
                 break
-            k = call_size(step_num, total_steps, cfg.steps_per_call,
-                          runner.warm)
+            if prog is not None and prog.switch_due(step_num):
+                # the phase switch, at a call boundary
+                t_sw = time.perf_counter()
+                writer.flush()
+                if runner.pipeline is not None:
+                    runner.pipeline.drain("phase-switch")
+                if ckpt.copy_event is not None:
+                    # the boundary step's save copies the old runner's
+                    # state on a side stream
+                    ckpt.copy_event.synchronize()
+                old_res = prog.resolution
+                merged = prog.advance(runner.state)
+                pcfg, fns = prog.cfg, prog.fns
+                old, runner = runner, later_runners.pop(prog.index, None)
+                if runner is None:
+                    runner = new_runner(fns, merged, pcfg)
+                else:
+                    runner.load(merged)
+                del merged
+                # its graphs' pools, before the new phase allocates
+                old.close()
+                del old
+                state = runner.state
+                ckpt.progressive_tag = prog.tag()
+                data, sample_data = rebucketer.reopen(pcfg)
+                eval_z = eval_z_of(sample_z, pcfg.batch_size)
+                timer = StepTimer(images_per_step=pcfg.batch_size)
+                switch_ms = (time.perf_counter() - t_sw) * 1e3
+                writer.write_scalars(step_num, {
+                    **prog.scalar_extras(step_num + 1),
+                    "progressive/switch_ms": switch_ms})
+                switched = (f"[dcgan_tpu_torch] progressive phase "
+                            f"{prog.index} at step {step_num}: r{old_res} "
+                            f"-> r{prog.resolution} (batch "
+                            f"{pcfg.batch_size}, {prog.last_carried} leaves "
+                            f"carried) switch_ms={switch_ms:.1f}",
+                            runner.captures)
+            k = call_size(step_num,
+                          total_steps if prog is None else prog.call_limit(),
+                          cfg.steps_per_call, runner.warm)
             batches, labels = zip(*(split_batch(cfg, next(data))
                                     for _ in range(k)))
+            if prog is not None:
+                batches = tuple(prog.fade_images(b, step_num + i)
+                                for i, b in enumerate(batches))
             if runner.pipeline is not None:
                 metrics = runner.pipelined_step(
-                    batches[0], stage_inputs(cfg, step_num, dev),
+                    batches[0], stage_inputs(pcfg, step_num, dev),
                     start=step_num)
             else:
-                zs, draws = zip(*(step_inputs(cfg, step_num + i, dev)
+                zs, draws = zip(*(step_inputs(pcfg, step_num + i, dev)
                                   for i in range(k)))
                 metrics = runner.step(
                     list(batches), list(zs), list(draws), start=step_num,
                     labels=list(labels) if mcfg.num_classes else None)
             if cfg.aot_warmup and not warm_ms:
                 # every row captured right after the warm-up, before the
-                # timer is armed
-                warm_ms = aot_capture(runner, build_warmup_plan(
-                    cfg, sample=bool(cfg.sample_every_steps)))
+                # timer is armed; in a progressive run also every later
+                # phase's, on a runner warmed on zeros
+                if prog is None:
+                    warm_ms = aot_capture(runner, build_warmup_plan(
+                        cfg, sample=bool(cfg.sample_every_steps)))
+                else:
+                    for name, i, row in prog.build_warmup_plan(
+                            sample=bool(cfg.sample_every_steps)):
+                        r = runner if i == prog.index \
+                            else later_runners.get(i)
+                        if r is None:
+                            cfg_i, fns_i = prog.surface(i)
+                            r = later_runners[i] = new_runner(
+                                fns_i, fns_i.init(
+                                    seed=cfg.seed + PHASE_SEED_OFFSET + i,
+                                    device=dev), cfg_i)
+                            r.prime(start=prog.starts[i])
+                        warm_ms[name] = r.capture(row)
                 print("[dcgan_tpu_torch] aot warmup captured "
                       f"{len(warm_ms)} program(s): "
                       + ", ".join(f"{n} {ms:.0f}ms"
@@ -393,6 +527,11 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             # so each tick follows the call's completion; the log reports
             # the call's last step
             per_step = metrics.tolist()
+            if switched is not None:
+                line, before = switched
+                print(f"{line} captures_during_switch="
+                      f"{runner.captures - before}", flush=True)
+                switched = None
             if cfg.nan_check_steps:
                 # every step of the call on the cadence, before any save
                 for i, row in enumerate(per_step):
@@ -405,7 +544,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             step = step_num
             if step % cfg.log_every_steps == 0:
                 t0 = time.perf_counter()
-                row = {**values, **timer.summary()}
+                row = {**values, **timer.summary(),
+                       **(prog.scalar_extras(step) if prog is not None
+                          else {})}
                 corrupt = quarantine.count() - corrupt_base
                 if corrupt:
                     row["data/corrupt_records"] = corrupt
@@ -452,7 +593,7 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                     step % cfg.activation_summary_steps == 0:
                 t0 = time.perf_counter()
                 writer.write_activations(step, fns.summarize(
-                    state, batches[-1], summary_z(cfg, step, dev),
+                    state, batches[-1], summary_z(pcfg, step, dev),
                     labels[-1]))
                 timer.note_host(time.perf_counter() - t0)
             if ckpt.maybe_save(step, state):
@@ -467,6 +608,8 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             # its graphs' pools, which the closures' cycles would hold
             # until the garbage collector ran
             runner.close()
+        for later in later_runners.values():
+            later.close()
         data.close()
         if sample_data is not None:
             sample_data.close()

@@ -28,7 +28,9 @@ the warm-up, a real training step, which builds the kernels, creates their
 tickets and lets cuDNN and cuBLAS pick their algorithms before anything is
 captured. A row is captured at its first dispatch, or all of them right
 after the warm-up by `aot_capture` (--aot_warmup), which returns the
-`perf/compile_ms/<row>` capture times.
+`perf/compile_ms/<row>` capture times. A runner whose state a later
+`load` replaces (a progressive run's later phases) takes its warm-up on
+zeros (`prime`), so its rows can be captured before its phase starts.
 
 Lazy R1 (r1_interval k > 1) runs the penalty on the steps whose state step
 is a multiple of k. That is no branch inside a graph: the host knows each
@@ -121,7 +123,10 @@ def call_size(step: int, total: int, steps_per_call: int,
     runner is warm and the call is aligned to a K boundary with K steps
     left before `total`, else 1 (the warm-up, single steps that realign
     after a resume between boundaries, and the tail), as the JAX trainer
-    chooses between its scanned and its single-step program."""
+    chooses between its scanned and its single-step program. `total` is
+    the step no call may pass: the end of the run, or in a progressive
+    run the next phase's start, so that no call crosses a phase
+    boundary."""
     k = steps_per_call
     if warm and k > 1 and step % k == 0 and step + k <= total:
         return k
@@ -216,6 +221,7 @@ class StepRunner:
         self.warm = False
         self.penalty_warm = False
         self.programs: Dict[str, CapturedProgram] = {}
+        self.captures = 0      # programs captured so far (also released)
         self._wait: List[torch.cuda.Event] = []
 
     def load(self, tree: Pytree) -> None:
@@ -344,11 +350,34 @@ class StepRunner:
         prog = CapturedProgram(name, fn, self.device, self.stream)
         prog.capture()
         self.programs[name] = prog
+        self.captures += 1
         return prog
 
     def capture(self, name: str) -> float:
         """Capture row `name` if it is not yet; its capture ms."""
         return self._program(name).capture_ms
+
+    def prime(self, start: int = 0) -> None:
+        """The warm-up step on zeros (images, z, draws, labels) in place
+        of a real first step, for a runner whose state a later `load`
+        replaces (a progressive run's later phases, whose rows are
+        captured at startup): it builds the kernels and lets the libraries
+        pick their algorithms at this runner's shapes, so that every row
+        can be captured now. `start` is the state step of the runner's
+        first real call (lazy R1's pattern). A pipelined runner's fill is
+        drained again by that `load`."""
+        if self.warm:
+            return
+        images = torch.zeros_like(self.images[0])
+        draws = {name: torch.zeros_like(t)
+                 for name, t in self.draws[0].items()}
+        if self.pipeline is not None:
+            self.pipelined_step(images, draws, start=start)
+            return
+        labels = None if self.labels is None \
+            else [torch.zeros_like(self.labels[0])]
+        self.step([images], [torch.zeros_like(self.z[0])], [draws],
+                  start=start, labels=labels)
 
     def row(self, k: int, start: Optional[int] = None) -> str:
         """The row of a call of k steps from state step `start` (needed

@@ -11,7 +11,12 @@ Orbax, and an Orbax reader cannot open it:
                                   listed in `__bfloat16__`
                                   (convert.to_npz_arrays)
     <dir>/integrity/<step>.json   {"step", "files": {"state.npz":
-                                  {"size", "crc32"}}}
+                                  {"size", "crc32"}}}, and in a
+                                  progressive run "progressive":
+                                  {"phase", "resolution"}: the phase
+                                  whose tree the step holds (the tag the
+                                  JAX package keeps in its sharding
+                                  sidecar)
 
 `tools/export_torch_checkpoint.py` converts an Orbax checkpoint of the JAX
 package into this format, and this format into the JAX state.
@@ -38,8 +43,7 @@ on the device, not the host) before the next step: the copy never reads
 a leaf that a later step is writing.
 
 Left out for now (ROADMAP): the JAX Checkpointer's sharding sidecars and
-resharding restores, multi-host saves, the progressive-schedule tag and
-`delete_steps_after`.
+resharding restores, multi-host saves and `delete_steps_after`.
 """
 
 from __future__ import annotations
@@ -118,6 +122,11 @@ class Checkpointer:
         # {"step", "files", "bytes_read", "verify_ms", "read_ms",
         # "restore_ms"} of the last restore (verify_ms 0 when unverified)
         self.last_restore_stats: Optional[Dict[str, float]] = None
+        # a progressive run's phase tag ({"phase", "resolution"}), set by
+        # the trainer at its start and at every phase switch; each save
+        # writes the tag it finds here into its step's manifest. None
+        # leaves the manifest as a fixed-resolution run writes it.
+        self.progressive_tag: Optional[Dict[str, int]] = None
 
     # -- saving ---------------------------------------------------------------
 
@@ -134,12 +143,14 @@ class Checkpointer:
         t0 = time.perf_counter()
         host, copied = self._host_copy(flatten(state))
         self.copy_event = copied
+        tag = dict(self.progressive_tag) if self.progressive_tag else None
         if not self.async_save:
-            self._write(step, host, copied, t0)
+            self._write(step, host, copied, t0, tag)
             return
         self._writer = threading.Thread(
-            target=self._write_or_record, args=(step, host, copied, t0),
-            name="ckpt-write", daemon=True)
+            target=self._write_or_record,
+            args=(step, host, copied, t0, tag), name="ckpt-write",
+            daemon=True)
         self._writer.start()
 
     def _host_copy(self, flat: Dict[str, torch.Tensor]
@@ -183,7 +194,8 @@ class Checkpointer:
             self._error = e
 
     def _write(self, step: int, host: Dict[str, torch.Tensor],
-               copied: Optional[torch.cuda.Event], t0: float) -> None:
+               copied: Optional[torch.cuda.Event], t0: float,
+               tag: Optional[Dict[str, int]] = None) -> None:
         if copied is not None:
             copied.synchronize()
         t_copied = time.perf_counter()
@@ -203,7 +215,7 @@ class Checkpointer:
         if os.path.exists(manifest):
             os.remove(manifest)
         os.replace(tmp_dir, final)
-        self._write_manifest(step, files)
+        self._write_manifest(step, files, tag)
         self._prune()
         t_done = time.perf_counter()
         self.last_save_stats = {
@@ -214,16 +226,18 @@ class Checkpointer:
             "save_ms": (t_done - t0) * 1e3,
         }
 
-    def _write_manifest(self, step: int, files: Dict[str, Dict[str, int]]
-                        ) -> None:
+    def _write_manifest(self, step: int, files: Dict[str, Dict[str, int]],
+                        tag: Optional[Dict[str, int]] = None) -> None:
         path = self._manifest_path(step)
+        record = {"step": step, "files": files}
+        if tag:
+            record["progressive"] = tag
 
         def _write():
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
-                json.dump({"step": step, "files": files}, f, indent=1,
-                          sort_keys=True)
+                json.dump(record, f, indent=1, sort_keys=True)
             os.replace(tmp, path)
 
         retry_io(_write, tag="ckpt-manifest")
@@ -286,6 +300,17 @@ class Checkpointer:
     def latest_step(self) -> Optional[int]:
         steps = self._finalized_steps()
         return steps[0] if steps else None
+
+    def progressive_tag_of(self, step: int) -> Optional[Dict[str, int]]:
+        """The phase tag in step `step`'s manifest; None when the step has
+        no manifest, an unreadable one, or one without a tag."""
+        try:
+            with open(self._manifest_path(step)) as f:
+                tag = json.load(f).get("progressive")
+            return {"phase": int(tag["phase"]),
+                    "resolution": int(tag["resolution"])}
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
 
     # -- restoring ------------------------------------------------------------
 
@@ -410,3 +435,15 @@ class Checkpointer:
                     f"{tuple(leaf.shape)} {leaf.dtype}")
             out[path] = t.to(leaf.device)
         return unflatten(out)
+
+
+def latest_progressive_tag(directory: str) -> Optional[Dict[str, int]]:
+    """The phase tag in the manifest of the newest step of `directory`
+    that has a manifest, or None (no such step; a manifest without a tag,
+    or unreadable): which progressive phase's tree a restore of that
+    directory finds."""
+    ckpt = Checkpointer(directory)
+    for step in ckpt._finalized_steps():
+        if os.path.exists(ckpt._manifest_path(step)):
+            return ckpt.progressive_tag_of(step)
+    return None

@@ -316,7 +316,6 @@ class TestConfigFiles:
             jcfg.model)
 
     @pytest.mark.parametrize("kw", [
-        {"progressive": "32:2,64:*"},
         {"model": JModelConfig(arch="resnet")},
         # pipeline_gd is ported; the rollback NaN policy is not
         {"nan_policy": "rollback"}])
@@ -328,12 +327,14 @@ class TestConfigFiles:
     @pytest.mark.parametrize("kw", [
         {"r1_gamma": 1.0}, {"loss": "wgan-gp"},
         {"r1_gamma": 10.0, "r1_interval": 4, "n_critic": 2,
-         "grad_accum": 2, "diffaug": "color,cutout", "precision": "bf16"}])
+         "grad_accum": 2, "diffaug": "color,cutout", "precision": "bf16"},
+        {"progressive": "32:2,64:*"}])
     def test_jax_penalty_settings_load(self, tmp_path, kw):
         """Settings the port trains since it has the penalties, n_critic,
-        accumulation, DiffAugment and the precision policies: the JAX
-        config.json loads in the port with every field equal, and the
-        port's loads back in JAX equal to the JAX config."""
+        accumulation, DiffAugment and the precision policies, and the
+        progressive schedule: the JAX config.json loads in the port with
+        every field equal, and the port's loads back in JAX equal to the
+        JAX config."""
         jcfg = JTrainConfig(**kw)
         j_config.save_config(jcfg, str(tmp_path / "jax"))
         cfg = config.load_config(str(tmp_path / "jax"))

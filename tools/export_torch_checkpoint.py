@@ -21,6 +21,16 @@ training-state pytree of the same config (`template`, e.g.
 `init_train_state`'s), each net's optax state rebuilt by position from the
 port's (count, mu, nu).
 
+A progressive run's phase tag crosses both ways. A JAX checkpoint saved
+mid-schedule holds an earlier phase's tree and names the phase in its
+sharding sidecar (`"progressive": {"phase", "resolution"}`): `export`
+builds its restore template at that resolution and writes the tag into
+the port's manifest, so the port resumes in that phase. The other way,
+`dcgan_tpu_torch.utils.checkpoint.latest_progressive_tag(port_dir)` reads
+the tag of the port's newest step (and `port_to_jax_state` restores at
+its resolution); set it as the JAX Checkpointer's `progressive_tag` before
+the save, which writes it into the sidecar of a state placed on a mesh.
+
 bfloat16 leaves (the bf16 and fp8 precision policies) cross both ways
 bit for bit: a JAX bfloat16 array is read through its uint16 view
 (`convert.leaf_from_numpy`), and a port leaf comes out as its uint16 bits
@@ -43,22 +53,30 @@ Pytree = Any
 def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
     """The newest intact checkpoint of the port's `port_dir` as a JAX
     training state shaped like `template` (numpy leaves)."""
-    import jax
-    import numpy as np
-
     from dcgan_tpu_torch import convert
-    from dcgan_tpu_torch.config import load_config
+    from dcgan_tpu_torch.config import consumer_train_config, load_config, \
+        resolve_model_config
     from dcgan_tpu_torch.train.steps import init_train_state
     from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 
     cfg = load_config(port_dir)
     if cfg is None:
         raise FileNotFoundError(f"no config.json in {port_dir}")
+    # a progressive run's newest step may hold an earlier phase's tree
+    cfg = consumer_train_config(port_dir, resolve_model_config(port_dir))
     restored = Checkpointer(port_dir).restore_latest(
         init_train_state(cfg, device="cpu"))
     if restored is None:
         raise FileNotFoundError(f"no checkpoint under {port_dir}")
-    state = convert.train_state_to_numpy(restored)
+    return graft_to_jax(convert.train_state_to_numpy(restored), template)
+
+
+def graft_to_jax(state: Pytree, template: Pytree) -> Pytree:
+    """A port state as numpy (`convert.train_state_to_numpy`) grafted into
+    a JAX training state shaped like `template` (whose leaves need only a
+    shape and a dtype: `jax.eval_shape`'s do)."""
+    import jax
+    import numpy as np
 
     def as_template(a, b):
         # a bfloat16 leaf's uint16 bits as the template's bfloat16 dtype
@@ -66,11 +84,20 @@ def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
             return b.view(a.dtype)
         return b
 
+    def with_empty(tmpl, tree):
+        # the port's flat paths keep no empty subtree (the BN state of a D
+        # with one stage): the template's come back
+        if isinstance(tmpl, dict):
+            return {k: with_empty(v, tree.get(k, {})) for k, v in
+                    tmpl.items()}
+        return tree
+
     out = dict(template)
     for group in ("params", "bn", "ema_gen"):
         # the same tree, or raises
-        out[group] = jax.tree_util.tree_map(as_template, template[group],
-                                            state[group])
+        out[group] = jax.tree_util.tree_map(
+            as_template, template[group],
+            with_empty(template[group], state[group]))
     out["step"] = state["step"]
     out["opt"] = {}
     for net, opt in template["opt"].items():
@@ -96,11 +123,15 @@ def port_to_jax_state(port_dir: str, template: Pytree) -> Pytree:
 def export(checkpoint_dir: str, out_dir: str) -> int:
     """Write the newest intact Orbax checkpoint of `checkpoint_dir` in the
     port's format under `out_dir`; returns its step."""
+    import dataclasses
+
     import jax
     import numpy as np
 
+    from dcgan_tpu.config import _progressive_checkpoint_resolution
     from dcgan_tpu.config import config_to_dict
     from dcgan_tpu.config import load_config as jax_load_config
+    from dcgan_tpu.elastic import sidecar
     from dcgan_tpu.train.steps import init_train_state as jax_init
     from dcgan_tpu.utils.checkpoint import Checkpointer as JaxCheckpointer
     from dcgan_tpu_torch import convert
@@ -112,13 +143,22 @@ def export(checkpoint_dir: str, out_dir: str) -> int:
         raise FileNotFoundError(f"no config.json in {checkpoint_dir}")
     # the port's config first: a config the port cannot train raises here
     cfg = config_from_dict(config_to_dict(jcfg))
+    # a checkpoint saved mid-schedule holds the tree of the phase its
+    # sidecar names
+    tcfg = jcfg
+    res = _progressive_checkpoint_resolution(checkpoint_dir) \
+        if jcfg.progressive else None
+    if res is not None:
+        tcfg = dataclasses.replace(
+            jcfg, progressive="", progressive_fade_steps=0,
+            model=dataclasses.replace(jcfg.model, output_size=res))
     jckpt = JaxCheckpointer(checkpoint_dir)
     try:
         # the template's shapes and dtypes, without running (or compiling)
         # the init
         template = jax.tree_util.tree_map(
             lambda s: jax.device_put(np.zeros(s.shape, s.dtype)),
-            jax.eval_shape(lambda key: jax_init(key, jcfg),
+            jax.eval_shape(lambda key: jax_init(key, tcfg),
                            jax.random.key(0)))
         restored = jckpt.restore_latest(template)
     finally:
@@ -129,7 +169,10 @@ def export(checkpoint_dir: str, out_dir: str) -> int:
                                          device="cpu")
     step = int(state["step"])
     save_config(cfg, out_dir)
-    Checkpointer(out_dir, async_save=False).save(step, state)
+    ckpt = Checkpointer(out_dir, async_save=False)
+    ckpt.progressive_tag = (sidecar.read(checkpoint_dir, step) or {}).get(
+        "progressive")
+    ckpt.save(step, state)
     return step
 
 
