@@ -323,9 +323,35 @@ Progressive-resolution training (`progressive`):
    from the step-PROG_RESUME_AT checkpoint (tagged phase 1, r64) starts
    in phase 1 and switches to r128.
 
+The resnet and stylegan model families (`families`):
+
+21. families: kernels 1-3 against their plain versions at every BatchNorm
+   shape of sngan-cifar10's resnet generator (gf = df = 64, batch 64; 2k
+   + 1 = 7 BatchNorms), bf16 and f32, each launched twice and bit for
+   bit, each launch's design logged; train.cli.main --preset
+   sngan-cifar10 --use_pallas on `prepare --cifar10` shards of random
+   arrays for FAM_STEPS steps, the counters set to 0 around it: exactly
+   `fam_per_step` (n_critic 5, the `sngan_cifar10` path), every leaf
+   moved; at the seeded state the losses and every gradient leaf, kernel
+   route against the cuDNN + torch-BN route, within TRAIN_ROUTE_TOL and
+   TRAIN_GRAD_TOL in bf16 and (TF32 off) f32; the captured runner at K=1
+   equal to eager bit for bit; WGAN-GP under use_pallas (gp > 0, the same
+   counts; `resnet_wgan_gp`); the attention block at FAM_ATTN_RES on the
+   flash kernels (kernels 6-8 and 1-3 at exactly their counts,
+   `resnet_attention`; the flash route against the dense route within
+   ATTN_ROUTE_TOL and ATTN_GRAD_TOL); train.cli.main --preset stylegan64
+   --synthetic for STYLEGAN_STEPS captured steps with no port kernel, R1
+   > 0 exactly at steps 0 and 16, eager against the runner over the R1
+   pattern bit for bit; both checkpoints served through the entry point
+   (recompiles_after_warmup 0), each rung's capture holding kernel 2 at
+   every BatchNorm (none for stylegan), generate equal to the eager
+   sampler bit for bit, the export served through ArtifactSource within
+   SERVED_TOL, the evals CLI at FAM_EVAL_SAMPLES samples; one captured
+   step of each preset timed and profiled; the group's seconds.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals, progressive) the garbage is collected and the cache
+evals, progressive, families) the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -334,9 +360,12 @@ left allocated and reserved.
 Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
-the evals report, the progressive report, the memory report, the
-progressive group's timing line (median step ms per phase, switch ms,
-graph pools, the group's peak reserved, the card), the card's name and
+the evals report, the progressive report, the families report, the
+memory report, the progressive group's timing line (median step ms per
+phase, switch ms, graph pools, the group's peak reserved, the card), the
+families group's timing line (each preset's captured step ms, busy ms,
+idle share; the group's seconds and peak reserved; the card), the card's
+name and
 power limit (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3479,8 +3508,22 @@ def pre_bn_biases(mcfg):
     """The "<net>/<path>" of every per-channel bias that feeds a
     BatchNorm: G's interior deconvs, D's convs after the first. (G's proj
     bias is one per position and channel, and BN takes out only each
-    channel's mean over the positions: its gradient is real.)"""
+    channel's mean over the positions: its gradient is real.) In the
+    resnet generator every conv bias but out_conv's reaches the image
+    through BatchNorms only (the 3x3 convs follow one, the skips are 1x1
+    or the identity); the stylegan generator and the residual critic have
+    no BatchNorm."""
     k = mcfg.num_up_layers
+    if mcfg.arch == "resnet":
+        from dcgan_tpu_torch.models.resnet import _g_channels
+
+        chans = _g_channels(mcfg)
+        return ({f"gen/b{i}_conv{j}/b" for i in range(1, k + 1)
+                 for j in (1, 2)}
+                | {f"gen/b{i}_skip/b" for i in range(1, k + 1)
+                   if chans[i - 1] != chans[i]})
+    if mcfg.arch == "stylegan":
+        return set()
     return ({f"gen/deconv{i}/b" for i in range(1, k)}
             | {f"disc/conv{i}/b" for i in range(1, k)})
 
@@ -3748,15 +3791,16 @@ def a1_route_grads(torch, name, cfg, report, state=None):
             None if labels is None else labels[0])
         losses[route] = {k: float(v) for k, v in metrics.items()}
     fp8 = cfg.precision == "fp8"
+    dt_name = cfg.model.compute_dtype
     rtol, atol = (A1_FP8_LOSS_RTOL, 0.0) if fp8 \
-        else TRAIN_ROUTE_TOL["bfloat16"]
+        else TRAIN_ROUTE_TOL[dt_name]
     bad = [k for k in losses["kernel"]
            if not abs(losses["kernel"][k] - losses["cudnn"][k])
            <= rtol * abs(losses["cudnn"][k]) + atol]
     if bad:
         fail(f"a1 {name}: losses, kernel vs cuDNN route {losses}, outside "
              f"rtol={rtol} atol={atol}: {bad}")
-    rtol, atol = TRAIN_GRAD_TOL["bfloat16"]
+    rtol, atol = TRAIN_GRAD_TOL[dt_name]
     gaps = grad_gaps(convert, grads["kernel"], grads["cudnn"], rtol, atol)
     # the biases that feed a BatchNorm have a gradient of 0 in exact
     # arithmetic: on each route theirs is the rounding noise of a bf16
@@ -4968,13 +5012,17 @@ def cond_argv(workdir, name, preset, steps, argv):
             "--activation_summary_steps", "0"] + argv
 
 
-def cond_cli(torch, np, name, argv, steps, per_step, kernels, path):
+def cond_cli(torch, np, name, argv, steps, per_step, kernels, path,
+             group="conditional", unmoved=()):
     """train.cli.main on cuda, the launch counters set to 0 just before
     and read just after: each kernel exactly per_step[kernel] x steps
     launches; a finite loss row per step in events.jsonl; every parameter
     and BN statistic (and sn_* vector but those one element long, such
-    as D's head's, which stay +-1) moved from the seeded init. Adds the launches to launches_by_path.
-    Returns (final state, config, seconds)."""
+    as D's head's, which stay +-1) moved from the seeded init, but the
+    "<params|bn>/<net>/<path>" leaves of `unmoved`, whose gradient may be
+    0 in exact arithmetic. Adds the launches to launches_by_path; `group`
+    names the phase in messages.
+    Returns (final state, config, seconds, the loss rows per step)."""
     from dcgan_tpu_torch import convert
     from dcgan_tpu_torch.train import cli
     from dcgan_tpu_torch.train.steps import init_train_state
@@ -4989,7 +5037,7 @@ def cond_cli(torch, np, name, argv, steps, per_step, kernels, path):
     launches = {n: fn.launches for n, fn in wrappers.items()}
     for n, want in per_step.items():
         if launches[n] != want * steps:
-            fail(f"conditional {name}: kernel {n} launched {launches[n]} "
+            fail(f"{group} {name}: kernel {n} launched {launches[n]} "
                  f"times, expected {want} per step x {steps}")
     for entry in kernels:
         entry.setdefault("launches_by_path", {})[path] = \
@@ -5001,21 +5049,22 @@ def cond_cli(torch, np, name, argv, steps, per_step, kernels, path):
     if len(rows) != steps or not all(
             np.isfinite([v for k, v in r.items() if not k.startswith(
                 "perf/")]).all() for r in rows):
-        fail(f"conditional {name}: {len(rows)} loss rows, or non-finite: "
+        fail(f"{group} {name}: {len(rows)} loss rows, or non-finite: "
              f"{rows}")
     init = init_train_state(cfg, device="cuda")
-    still = [f"{group}/{net}/{p}" for group in ("params", "bn")
+    still = [f"{part}/{net}/{p}" for part in ("params", "bn")
              for net in ("gen", "disc")
-             for p, a in convert.flatten(init[group][net]).items()
+             for p, a in convert.flatten(init[part][net]).items()
              if not (p.startswith("sn_") and a.numel() == 1)
-             and torch.equal(a, convert.flatten(state[group][net])[p])]
+             and f"{part}/{net}/{p}" not in unmoved
+             and torch.equal(a, convert.flatten(state[part][net])[p])]
     if still or int(state["step"]) != steps:
-        fail(f"conditional {name}: leaves that did not move {still[:6]}, "
+        fail(f"{group} {name}: leaves that did not move {still[:6]}, "
              f"step {int(state['step'])}")
-    log(f"conditional {name}: {steps} steps of train.cli.main in "
+    log(f"{group} {name}: {steps} steps of train.cli.main in "
         f"{secs:.1f} s, launches {launches}, every leaf moved, last losses "
         f"{ {k: round(v, 5) for k, v in rows[-1].items() if '/' not in k} }")
-    return state, cfg, secs
+    return state, cfg, secs, rows
 
 
 def cond_cifar_batches(np, root):
@@ -5356,9 +5405,9 @@ def cond_artifact(torch, np, workdir, run, report):
         f"ms: {timed}")
 
 
-def cond_timed(torch, name, cfg, report):
+def cond_timed(torch, name, cfg, report, group="conditional"):
     """One captured step (K=1) timed on the host clock and profiled (busy
-    ms, idle share)."""
+    ms, idle share); `group` names the phase in the log."""
     from dcgan_tpu_torch.train.steps import make_train_step
     from dcgan_tpu_torch.train.warmup import StepRunner
 
@@ -5390,7 +5439,7 @@ def cond_timed(torch, name, cfg, report):
         out.update(busy_ms=split["busy_ms"], idle_share=split["idle_share"],
                    port_by_kernel=split["port_by_kernel"])
     report[name] = out
-    log(f"conditional {name}: one captured step {ms:.3f} ms host-inclusive, "
+    log(f"{group} {name}: one captured step {ms:.3f} ms host-inclusive, "
         f"busy {out['busy_ms']} ms, idle share {out['idle_share']}, graph "
         f"pool {out['pool_bytes'] / 2 ** 30:.2f} GiB")
     runner.close()
@@ -5417,7 +5466,7 @@ def conditional_and_check(torch, np, workdir, kernels):
                      kernel_argv)
     a1_check_kernels(torch, workdir, "cifar10_cond", ["--preset",
                      "cifar10-cond"] + kernel_argv, BATCH, report)
-    _, cfg, secs = cond_cli(torch, np, "cifar10_cond", argv, COND_STEPS,
+    _, cfg, secs, _ = cond_cli(torch, np, "cifar10_cond", argv, COND_STEPS,
                             a1_per_step(1, 1, 2), kernels, "cifar10_cond")
     report["train_s"] = secs
     run = cfg.checkpoint_dir
@@ -5444,14 +5493,14 @@ def conditional_and_check(torch, np, workdir, kernels):
 
     # sagan128: attention at 64x64 (S 4096) on the flash kernels, which
     # phase 7 holds against their plain versions at that S
-    _, s128, secs = cond_cli(
+    _, s128, secs, _ = cond_cli(
         torch, np, "sagan128", cond_argv(workdir, "sagan128", "sagan128",
                                          SAGAN128_STEPS, ["--synthetic"]),
         SAGAN128_STEPS, SAGAN_PER_STEP, kernels, "sagan128")
     report["sagan128_train_s"] = secs
     cond_timed(torch, "sagan128_step", s128, report)
     # dcgan128 on its preset's route (cuDNN, torch BN): no port kernel
-    _, _, secs = cond_cli(
+    _, _, secs, _ = cond_cli(
         torch, np, "dcgan128", cond_argv(workdir, "dcgan128", "dcgan128",
                                          DCGAN128_STEPS, ["--synthetic"]),
         DCGAN128_STEPS, {name: 0 for name in PER_STEP}, kernels, "dcgan128")
@@ -6168,6 +6217,402 @@ def progressive_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the resnet and stylegan model families (`families`)
+# ---------------------------------------------------------------------------
+
+# sngan-cifar10's train.cli.main runs on the kernel route (each step five
+# critic updates), the WGAN-GP and the attention runs beside it, and the
+# eager / captured comparison
+FAM_STEPS = 3
+FAM_WGAN_STEPS = 2
+FAM_ATTN_STEPS = 2
+FAM_ATTN_RES = 16
+FAM_COMPARE_STEPS = 2
+# stylegan64: lazy R1 every 16th step, so 17 steps meet it twice (0, 16)
+STYLEGAN_STEPS = 17
+# the served rungs of both families, and the evals CLI's sample count
+FAM_RUNGS = (1, 8, 64)
+FAM_DEMO_REQUESTS = 16
+FAM_EVAL_SAMPLES = 1024
+# the critic's output bias: its gradient is the real batch's mean loss
+# slope plus the fake batch's, which cancel exactly under WGAN's loss (the
+# penalty does not see the bias), under the hinge loss while every logit
+# is inside the margin, and under BCE to the bit while the logits are
+# near 0 (sigmoid(x) - 1 and sigmoid(x') sum to 0 in the compute dtype)
+HEAD_BIAS = ("params/disc/head/b",)
+
+
+def resnet_bn_shapes(mcfg, batch):
+    """(name, rows, channels) of every BatchNorm of the resnet generator
+    at `batch` images: b{i}_bn1 on block i's input, b{i}_bn2 after its
+    upsampled conv1, bn_out on the last map (2k + 1 in all)."""
+    from dcgan_tpu_torch.models.resnet import _g_channels
+
+    chans = _g_channels(mcfg)
+    k, base = mcfg.num_up_layers, mcfg.base_size
+    out = []
+    for i in range(1, k + 1):
+        res = base * 2 ** (i - 1)
+        out += [(f"b{i}_bn1", batch * res * res, chans[i - 1]),
+                (f"b{i}_bn2", batch * 4 * res * res, chans[i])]
+    return out + [("bn_out", batch * (base * 2 ** k) ** 2, chans[k])]
+
+
+def fam_per_step(n_critic, bns, attn=False):
+    """Kernel launches per training step of the resnet family, derived
+    from the step: each critic update runs G forward without gradients
+    (bns BatchNorms: one channel_moments and one scale_shift_act each; D
+    is norm-free, and a penalty's critic sees G's images detached), G's
+    update runs G forward with gradients (bns and bns) and back (one
+    scale_shift_act_bwd each). With the attention block in both nets on
+    the flash kernels: per critic update G once and D on the real and the
+    fake batch forward (3 flash_fwd), D back through both (2 flash_dq, 2
+    flash_dkv); G's update G and D forward (2) and back (2, 2)."""
+    n = n_critic
+    per = dict({name: 0 for name in PER_STEP},
+               channel_moments=(n + 1) * bns, scale_shift_act=(n + 1) * bns,
+               scale_shift_act_bwd=bns)
+    if attn:
+        per.update(flash_fwd=3 * n + 2, flash_dq=2 * n + 2,
+                   flash_dkv=2 * n + 2)
+    return per
+
+
+def fam_check_kernels(torch, mcfg, batch, report):
+    """Kernels 1-3 against their plain versions at every BatchNorm shape
+    of the resnet generator of `mcfg` at `batch` images, bf16 and f32,
+    each launched twice and bit for bit, the design of each logged (and
+    checked where the plan names it). Called before the path's counts are
+    set to 0."""
+    from dcgan_tpu_torch.ops.kernels import scale_shift_act, \
+        scale_shift_act_plain, ssa_bwd_design, ssa_fwd_design
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 47)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    errs = {}
+    designs = scale_shift_act.launches_by_design
+    for dt_name, dt in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        e = errs[dt_name] = dict.fromkeys(
+            ("channel_moments", "scale_shift_act", "scale_shift_act_bwd"),
+            0.0)
+        for name, n, c in resnet_bn_shapes(mcfg, batch):
+            tag = f"families {name} [{n}, {c}] {dt_name}"
+            x = rand(n, c, lo=-2.0, hi=2.0).to(dt)
+            err, plan = check_moments(torch, tag, x)
+            e["channel_moments"] = max(e["channel_moments"], err)
+            scale, shift = rand(c, lo=0.5, hi=1.5), rand(c, lo=-0.5, hi=0.5)
+            bwd = ssa_bwd_design(c, dt, True)
+            e["scale_shift_act_bwd"] = max(
+                e["scale_shift_act_bwd"], check_ssa_bwd(
+                    torch, tag, x, rand(n, c).to(dt), scale, shift, "relu",
+                    bwd))
+            fwd = ssa_fwd_design(c, dt, True)
+            before = dict(designs)
+            y, again = (scale_shift_act(x, scale, shift, "relu")
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            if designs != dict(before, **{fwd: before[fwd] + 2}):
+                fail(f"scale_shift_act {tag} did not take design {fwd}: "
+                     f"{before} -> {designs}")
+            same_bits(torch, f"scale_shift_act {tag}", (y,), (again,))
+            e["scale_shift_act"] = max(e["scale_shift_act"], check_close(
+                torch, f"scale_shift_act {tag}", y,
+                scale_shift_act_plain(x, scale, shift, "relu"), dt_name))
+            log(f"{tag}: channel_moments plan {plan._asdict()}, "
+                f"scale_shift_act design {fwd}, its backward design {bwd}; "
+                "each matches its plain version and repeats bitwise")
+    report["kernel_checks"] = errs
+
+
+def fam_attention(torch, np, workdir, data, per_step, kernels, report):
+    """sngan-cifar10 with the attention block at FAM_ATTN_RES in both nets
+    on the flash kernels (and G's BatchNorm on kernels 1-3): the trainer
+    at exactly `per_step` launches (the `resnet_attention` path); then
+    from the seeded state with gamma 0.5 in both blocks, BatchNorm on
+    plain ops so that only the attention differs, the losses and every
+    gradient leaf on the flash route against the dense route within
+    ATTN_ROUTE_TOL and ATTN_GRAD_TOL, bf16 and f32."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.train.steps import make_train_step
+
+    argv = cond_argv(workdir, "resnet_attention", "sngan-cifar10",
+                     FAM_ATTN_STEPS, ["--use_pallas", "--attn_res",
+                                      str(FAM_ATTN_RES)] + data)
+    _, cfg, secs, _ = cond_cli(
+        torch, np, "resnet_attention", argv, FAM_ATTN_STEPS, per_step,
+        kernels, "resnet_attention", group="families", unmoved=HEAD_BIAS)
+    out = report["attention"] = {"train_s": secs}
+    images, zs, draws = a1_inputs(torch, cfg, 1)
+    for dt_name in ("bfloat16", "float32"):
+        losses, grads = {}, {}
+        for route, use_pallas in (("flash", True), ("dense", False)):
+            rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=dt_name, use_pallas=use_pallas,
+                bn_pallas=False if use_pallas else None))
+            fns = make_train_step(rcfg)
+            state = fns.init(seed=SEED, device="cuda")
+            for net in ("gen", "disc"):
+                state["params"][net]["attn"]["gamma"].fill_(0.5)
+            grads[route], metrics = fns.grads(state, images[0], zs[0],
+                                              draws[0])
+            losses[route] = {k: float(v) for k, v in metrics.items()}
+        rtol, atol = ATTN_ROUTE_TOL[dt_name]
+        bad = [k for k in losses["flash"] if not abs(
+            losses["flash"][k] - losses["dense"][k])
+            <= rtol * abs(losses["dense"][k]) + atol]
+        if bad:
+            fail(f"families attention losses ({dt_name}), flash vs dense: "
+                 f"{losses}, outside rtol={rtol} atol={atol}: {bad}")
+        rtol, atol = ATTN_GRAD_TOL[dt_name]
+        gaps = grad_gaps(convert, grads["flash"], grads["dense"], rtol, atol)
+        worst = max(gaps, key=gaps.get)
+        out[dt_name] = {"losses": losses, "worst_grad_gap":
+                        [worst, gaps[worst]],
+                        "attn_grad_gaps": {k: v for k, v in gaps.items()
+                                           if "/attn/" in k}}
+        if gaps[worst] > 1.0:
+            fail(f"families attention gradients ({dt_name}), flash vs "
+                 f"dense, outside rtol={rtol} atol={atol}: "
+                 f"{ {k: v for k, v in gaps.items() if v > 1.0} }")
+        log(f"families attention ({dt_name}): the flash route matches the "
+            f"dense route, losses {losses['flash']} vs {losses['dense']}, "
+            f"{len(gaps)} gradient leaves, the closest {worst} at "
+            f"{gaps[worst]:.3g} of its limit")
+
+
+def fam_serve(torch, np, workdir, name, run, kernels, report, per_replay):
+    """A family's checkpoint served and exported: the serve entry point
+    (demo requests) on captured rungs, recompiles_after_warmup 0; a
+    CheckpointSource bound at FAM_RUNGS, each rung's capture holding
+    `per_replay` launches of each kernel (kernel 2 at every BatchNorm of
+    the resnet sampler, none of stylegan's) and its images a direct
+    sampler call's within SERVED_TOL; generate equal to the eager sampler
+    on its z rows bit for bit; the export served through ArtifactSource at
+    FAM_RUNGS within SERVED_TOL of the plain-route sampler; the evals CLI
+    at FAM_EVAL_SAMPLES samples. The counters are set to 0 before the
+    first and read after the last serving call (the `<name>_serve`
+    path)."""
+    from dcgan_tpu_torch import generate
+    from dcgan_tpu_torch.export import export_sampler
+    from dcgan_tpu_torch.models.dcgan import sampler_apply
+    from dcgan_tpu_torch.serve import __main__ as serve_main
+    from dcgan_tpu_torch.serve.server import SamplerServer
+    from dcgan_tpu_torch.serve.sources import ArtifactSource, \
+        CheckpointSource
+
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    row, demo = serve_main.run([
+        "--checkpoint_dir", run, "--demo_requests", str(FAM_DEMO_REQUESTS),
+        "--demo_rps", "2000", "--max_batch", str(BATCH), "--max_wait_ms",
+        "2", "--device", "cuda"])
+    if row["completed"] != FAM_DEMO_REQUESTS or row["serve/dropped"] or \
+            row["serve/recompiles_after_warmup"]:
+        fail(f"families {name} serve entry point: {row}")
+    src = CheckpointSource(run, device="cuda")
+    server = SamplerServer(src, buckets=FAM_RUNGS, max_batch=BATCH,
+                           max_wait_ms=0.0)
+    server.start()
+    rng = np.random.default_rng(SEED + 53)
+    reqs = []
+    for b in FAM_RUNGS:
+        z = rng.uniform(-1.0, 1.0, (b, src.z_dim)).astype(np.float32)
+        reqs.append((z, server.submit(z=z)))
+    for _, r in reqs:
+        r.result(timeout=60)
+    # a capture's launches (none where the rungs run eagerly: the CPU)
+    per_rung = {b: {n: (prog.launches or {}).get(n, (0,))[0]
+                    for n in wrappers}
+                for b, (_, _, prog) in src._rungs.items()}
+    server.stop()
+    rep = server.report()
+    out = os.path.join(workdir, f"{name}_generated")
+    npz = os.path.join(out, "gen.npz")
+    gen = generate.main([
+        "--checkpoint_dir", run, "--num_images", str(GEN_IMAGES),
+        "--batch_size", str(BATCH), "--grid", "0", "--npz", npz,
+        "--out_dir", out, "--seed", str(GEN_SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})[f"{name}_serve"] = \
+            launches[entry["name"]]
+    if rep["serve/recompiles_after_warmup"] or rep["serve/dropped"]:
+        fail(f"families {name} server: {rep}")
+    want_rung = {n: per_replay.get(n, 0) for n in wrappers}
+    bad = {b: c for b, c in per_rung.items() if c != want_rung}
+    if sorted(per_rung) != sorted(FAM_RUNGS) or bad:
+        fail(f"families {name}: rung launches {bad or per_rung}, expected "
+             f"{want_rung} on each of {FAM_RUNGS}")
+    if per_replay and not all(launches[n] > 0 for n in per_replay):
+        fail(f"families {name} serve: launches {launches}")
+    if not per_replay and any(launches.values()):
+        fail(f"families {name} serve launched a port kernel: {launches}")
+
+    # the checks, after the path's counts are read
+    worst = 0.0
+    for z, r in reqs:
+        img = r.result(timeout=60)
+        want = sampler_apply(src._params, src._state,
+                             torch.from_numpy(z).cuda(), cfg=src.cfg)
+        if img.shape != tuple(want.shape) or not np.isfinite(img).all():
+            fail(f"families {name}: response {img.shape}")
+        worst = max(worst, float(np.abs(want.float().cpu().numpy()
+                                        - img).max()))
+    if worst > SERVED_TOL:
+        fail(f"families {name}: responses differ from direct sampler calls "
+             f"by {worst} > {SERVED_TOL}")
+    images = np.load(npz)["images"]
+    lo = 0
+    for i, n in enumerate(gen["buckets"]):
+        z = torch.from_numpy(generate.generate_z(GEN_SEED, i, n,
+                                                 src.z_dim)).cuda()
+        want = sampler_apply(src._params, src._state, z, cfg=src.cfg)
+        take = min(n, GEN_IMAGES - lo)
+        if not np.array_equal(want.float().cpu().numpy()[:take],
+                              images[lo:lo + take]):
+            fail(f"families {name}: generate batch {i} (rung {n}) differs "
+                 "from the eager sampler on its z rows")
+        lo += take
+    src.close()
+
+    art = os.path.join(workdir, f"{name}_sampler.pt2")
+    side = export_sampler(run, art, device="cuda", max_serve_batch=BATCH)
+    asrc = ArtifactSource(art, device="cuda")
+    server = SamplerServer(asrc, buckets=FAM_RUNGS, max_batch=BATCH,
+                           max_wait_ms=0.0)
+    server.start()
+    ref = CheckpointSource(run, device="cuda")
+    ref.prepare()
+    plain = dataclasses.replace(ref.cfg, use_pallas=False, bn_pallas=None)
+    errs = {}
+    for b in FAM_RUNGS:
+        z = rng.uniform(-1.0, 1.0, (b, asrc.z_dim)).astype(np.float32)
+        got = server.submit(z=z).result(timeout=60)
+        want = sampler_apply(ref._params, ref._state,
+                             torch.from_numpy(z).cuda(), cfg=plain)
+        errs[b] = float(np.abs(got - want.float().cpu().numpy()).max())
+    rungs = asrc.compiled_buckets()
+    server.stop()
+    if side["arch"] != ref.cfg.arch or rungs != FAM_RUNGS or \
+            max(errs.values()) > SERVED_TOL:
+        fail(f"families {name} artifact: {side['arch']}, rungs {rungs}, "
+             f"|err| by rung {errs}")
+    ref.close()
+
+    result, timings = evals_cli(
+        torch, ["--checkpoint_dir", run, "--synthetic", "--num_samples",
+                str(FAM_EVAL_SAMPLES), "--batch_size", str(BATCH), "--kid",
+                "--kid_pool", str(FAM_EVAL_SAMPLES), "--kid_subset_size",
+                str(FAM_EVAL_SAMPLES // 4), "--device", "cuda"],
+        None, kernels, per_replay, 1 + -(-FAM_EVAL_SAMPLES // BATCH))
+    if not all(np.isfinite(result[k]) for k in ("fid", "kid")):
+        fail(f"families {name} evals: {result}")
+    report[f"{name}_serve"] = {
+        "max_abs_err": worst, "artifact_max_abs_err": errs,
+        "artifact_bytes": side["bytes"], "p50_ms": rep["serve/p50_ms"],
+        "generate_buckets": gen["buckets"], "launches": launches,
+        "rung_launches": per_rung[FAM_RUNGS[-1]],
+        "evals": dict(result, seconds=timings)}
+    log(f"families {name}: {FAM_DEMO_REQUESTS} demo requests through the "
+        f"entry point; rungs {FAM_RUNGS} each capturing {want_rung}, served "
+        f"within {worst:.3g} of direct sampler calls; generate on rungs "
+        f"{gen['buckets']} equal to the eager sampler bit for bit; the "
+        f"artifact ({side['bytes']} bytes) within {errs} of the plain "
+        f"sampler; evals {result}; launches {launches}")
+
+
+def families_and_check(torch, np, workdir, kernels):
+    """Phase 21: sngan-cifar10 (the resnet family, gf = df = 64, batch 64)
+    on the kernel route from `prepare --cifar10` shards, the routes and
+    the captured step, WGAN-GP under use_pallas, the attention block on
+    the flash kernels; stylegan64 (synthetic) with its lazy R1; both
+    served, generated, exported and scored. Returns the `families`
+    report."""
+    from dcgan_tpu_torch.data import prepare
+    from dcgan_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    report = {"batch": BATCH}
+    saved = torch.backends.cudnn.deterministic
+    shards = os.path.join(workdir, "families_cifar10")
+    prepare.main(["--cifar10", "--input_dir", cond_cifar_batches(
+        np, os.path.join(workdir, "families_cifar_batches")),
+        "--output_dir", shards, "--num_shards", str(COND_SHARDS)])
+    data = ["--data_dir", shards, "--shuffle_buffer", str(2 * BATCH)]
+    preset = cli.config_from_args(cli.build_parser().parse_args(
+        ["--preset", "sngan-cifar10", "--use_pallas"]))
+    bns = len(resnet_bn_shapes(preset.model, BATCH))
+    per_step = fam_per_step(preset.n_critic, bns)
+    fam_check_kernels(torch, preset.model, BATCH, report)
+
+    # sngan-cifar10 on the kernel route: hinge, n_critic 5, SN critic
+    state, cfg, secs, rows = cond_cli(
+        torch, np, "sngan_cifar10", cond_argv(
+            workdir, "sngan_cifar10", "sngan-cifar10", FAM_STEPS,
+            ["--use_pallas"] + data),
+        FAM_STEPS, per_step, kernels, "sngan_cifar10", group="families",
+        unmoved=HEAD_BIAS)
+    del state
+    report["sngan_cifar10"] = {"train_s": secs, "last": rows[-1],
+                               "per_step": per_step}
+    run = cfg.checkpoint_dir
+    for dt_name in ("bfloat16", "float32"):
+        rcfg = dataclasses.replace(cfg, precision={
+            "bfloat16": "bf16", "float32": "f32"}[dt_name])
+        a1_route_grads(torch, f"sngan_cifar10 {dt_name}", rcfg, report)
+    a1_capture_compare(torch, "sngan_cifar10", cfg, FAM_COMPARE_STEPS)
+
+    # WGAN-GP, the resnet family's own loss, with G's BN on the kernels
+    _, _, secs, rows = cond_cli(
+        torch, np, "resnet_wgan_gp", cond_argv(
+            workdir, "resnet_wgan_gp", "sngan-cifar10", FAM_WGAN_STEPS,
+            ["--use_pallas", "--loss", "wgan-gp"] + data),
+        FAM_WGAN_STEPS, per_step, kernels, "resnet_wgan_gp",
+        group="families", unmoved=HEAD_BIAS)
+    if not all(r["gp"] > 0 for r in rows):
+        fail(f"families resnet_wgan_gp: gp {[r['gp'] for r in rows]}")
+    report["resnet_wgan_gp"] = {"train_s": secs,
+                                "gp": [r["gp"] for r in rows]}
+    fam_attention(torch, np, workdir, data, fam_per_step(
+        preset.n_critic, bns, attn=True), kernels, report)
+
+    # stylegan64: no port kernel; R1 at steps 0 and 16 only
+    s_state, scfg, secs, rows = cond_cli(
+        torch, np, "stylegan64", cond_argv(
+            workdir, "stylegan64", "stylegan64", STYLEGAN_STEPS,
+            ["--synthetic"]),
+        STYLEGAN_STEPS, {name: 0 for name in PER_STEP}, kernels,
+        "stylegan64", group="families", unmoved=HEAD_BIAS)
+    del s_state
+    r1 = [r["r1"] for r in rows]
+    if [i for i, v in enumerate(r1) if v > 0] != \
+            [i for i in range(STYLEGAN_STEPS) if i % scfg.r1_interval == 0]:
+        fail(f"families stylegan64: r1 by step {r1}")
+    report["stylegan64"] = {"train_s": secs, "r1": r1}
+    a1_capture_compare(torch, "stylegan64", scfg, STYLEGAN_STEPS)
+
+    # serving, generate, export and evals, bit for bit where compared so
+    torch.backends.cudnn.deterministic = True
+    fam_serve(torch, np, workdir, "sngan_cifar10", run, kernels, report,
+              {"scale_shift_act": bns})
+    fam_serve(torch, np, workdir, "stylegan64", scfg.checkpoint_dir,
+              kernels, report, {})
+    torch.backends.cudnn.deterministic = saved
+
+    cond_timed(torch, "sngan_cifar10_step", cfg, report, group="families")
+    cond_timed(torch, "stylegan64_step", scfg, report, group="families")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"families: the group took {report['seconds']:.1f} s")
+    return report
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -6303,6 +6748,8 @@ def main() -> int:
         phase_memory(torch, "evals", memory)
         prog_report = progressive_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "progressive", memory)
+        fam_report = families_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "families", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -6317,6 +6764,7 @@ def main() -> int:
     print(json.dumps({"conditional": cond_report}), flush=True)
     print(json.dumps({"evals": evals_report}), flush=True)
     print(json.dumps({"progressive": prog_report}), flush=True)
+    print(json.dumps({"families": fam_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
@@ -6330,6 +6778,13 @@ def main() -> int:
         "switch_ms": main_run["switch_ms"],
         "pool_bytes": main_run["pool_bytes"],
         "peak_reserved": memory["progressive"]["peak_reserved"],
+        "card": card}}), flush=True)
+    print(json.dumps({"families_timing": {
+        name: {k: fam_report[name][k] for k in ("step_ms", "busy_ms",
+                                                "idle_share")}
+        for name in ("sngan_cifar10_step", "stylegan64_step")} | {
+        "seconds": fam_report["seconds"],
+        "peak_reserved": memory["families"]["peak_reserved"],
         "card": card}}), flush=True)
     print(card, flush=True)
     for entry in kernels:

@@ -1,10 +1,11 @@
 """dcgan_tpu_torch: the PyTorch/CUDA port of `dcgan_tpu`, for NVIDIA Hopper.
 
-This package serves and trains the DCGAN generator and discriminator on
-one GPU, plain (`celeba64`) or with the SAGAN additions (`sagan64`:
-self-attention, spectral norm, hinge loss): a request queue, a continuous
-batcher, bucketed dispatch and the sampler; the D-then-G train step and
-its trainer. Every Pallas kernel the JAX package runs on those paths is a
+This package serves and trains the GAN generators and discriminators on
+one GPU: the DCGAN stacks, plain (`celeba64`) or with the SAGAN additions
+(`sagan64`: self-attention, spectral norm, hinge loss), the residual
+family (`sngan-cifar10`) and StyleGAN2-lite (`stylegan64`): a request
+queue, a continuous batcher, bucketed dispatch and the sampler; the
+D-then-G train step and its trainer. Every Pallas kernel the JAX package runs on those paths is a
 hand-written CUDA kernel here (`csrc/`, built with nvcc at first use by
 `ops/_build.py`); every other op is plain PyTorch.
 

@@ -3,21 +3,27 @@
 `save_config` / `load_config`.
 
 Same field names, defaults and validation as the JAX package's, so each
-package's `config.json` loads in the other. The port serves
-and trains the DCGAN stacks with or without the SAGAN additions (a
-self-attention block at `attn_res`, spectral norm on D or on both nets,
-the hinge loss) and with or without class conditioning (`num_classes`:
-a one-hot of the label on G's z and as constant maps on D's image;
-`conditional_bn`: G's BatchNorm affine per class), on the BCE, hinge or
-WGAN-GP loss, with R1, n_critic, gradient accumulation, DiffAugment and
-the f32/bf16/fp8 precision policies, on one resolution or on a
-progressive schedule of them; the fields that select anything else
-(another `arch`; the JAX package's `nan_policy="rollback"`) raise
-`NotImplementedError` instead of being silently ignored. So does a
-penalty (WGAN-GP, R1) on a kernel route (`use_pallas`): the JAX package
-cannot differentiate a Pallas kernel twice, so its penalties run on the
-plain route only, and so do the port's. A sequence mesh for the attention does not exist in the port
-yet: `ops/attention.py` refuses one.
+package's `config.json` loads in the other. The port serves and trains
+the three model families (`arch`): the DCGAN stacks, the residual
+SNGAN/WGAN-GP stacks ("resnet") and StyleGAN2-lite ("stylegan", with the
+residual critic), with or without the SAGAN additions (a self-attention
+block at `attn_res`, spectral norm on D or on both nets, the hinge loss)
+and with or without class conditioning (`num_classes`: a one-hot of the
+label on G's z and as constant maps on D's image; `conditional_bn`: G's
+BatchNorm affine per class), on the BCE, hinge or WGAN-GP loss, with R1,
+n_critic, gradient accumulation, DiffAugment and the f32/bf16/fp8
+precision policies, on one resolution or on a progressive schedule of
+them; the fields that select anything else (the JAX package's
+`nan_policy="rollback"`) raise `NotImplementedError` instead of being
+silently ignored. So does a penalty (WGAN-GP, R1) whose critic's second
+derivative would meet a kernel: the JAX package cannot differentiate a
+Pallas kernel twice, so it cannot trace a penalty through the DCGAN
+stacks' BatchNorm under `use_pallas` nor through an attention block on
+the flash kernels, and the port refuses those combinations. The residual
+critic is norm-free and G's kernels never see the penalty's double
+backward (D's loss takes G's images detached), so resnet and stylegan
+train their penalties under `use_pallas`. A sequence mesh for the
+attention does not exist in the port yet: `ops/attention.py` refuses one.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ def parse_policy(spec: str) -> Tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """DCGAN architecture knobs (field-for-field the JAX `ModelConfig`)."""
+    """Architecture knobs (field-for-field the JAX `ModelConfig`)."""
 
     arch: str = "dcgan"
     output_size: int = 64
@@ -142,12 +148,20 @@ class ModelConfig:
             raise ValueError(
                 "conditional_bn requires a conditional model "
                 "(num_classes > 0)")
-        # then what the port does not serve yet
-        if self.arch != "dcgan":
-            raise NotImplementedError(
-                "dcgan_tpu_torch serves and trains the DCGAN stacks "
-                "(with attention, spectral norm and class conditioning) "
-                f"only; not ported yet: arch={self.arch!r}")
+        if self.arch == "stylegan":
+            if self.conditional_bn:
+                raise ValueError(
+                    "arch='stylegan' has no BatchNorm to condition "
+                    "(styles carry conditioning); drop conditional_bn")
+            if self.attn_res:
+                raise ValueError(
+                    "arch='stylegan' has no attention site wired; use "
+                    "arch='dcgan'/'resnet' for attn_res")
+            if self.spectral_norm == "gd":
+                raise ValueError(
+                    "arch='stylegan' supports spectral_norm='d' (critic "
+                    "only) — SN on a style-modulated generator is not "
+                    "wired")
 
 
 def celeba64(**overrides) -> ModelConfig:
@@ -445,17 +459,20 @@ class TrainConfig:
                            steps_per_call=self.steps_per_call,
                            grad_accum=self.grad_accum,
                            fade_steps=self.progressive_fade_steps)
-        if (self.loss == "wgan-gp" or self.r1_gamma > 0) \
-                and self.model.use_pallas:
-            # the JAX package's penalties fail on both of its kernel routes
-            # (a pallas_call has no second derivative), so they run on the
-            # plain route there and here
+        m = self.model
+        if (self.loss == "wgan-gp" or self.r1_gamma > 0) and m.use_pallas \
+                and (m.arch == "dcgan" or m.attn_res):
+            # the JAX package's penalty step fails to trace exactly here (a
+            # pallas_call has no second derivative): the DCGAN critic's
+            # BatchNorm, and an attention block on the flash kernels in
+            # any family; the residual critic is norm-free and G's images
+            # reach D detached, so resnet and stylegan train it
             raise NotImplementedError(
                 "a gradient penalty (loss='wgan-gp' or r1_gamma > 0) needs "
                 "the critic's second derivative, which the reference cannot "
-                "take through a Pallas kernel (its penalties run on the "
-                "plain route only); train the penalty with "
-                "use_pallas=False")
+                "take through a Pallas kernel (the DCGAN stacks' BatchNorm "
+                "or an attention block under use_pallas); train the "
+                "penalty with use_pallas=False")
 
 
 def model_config_from_dict(d: Dict[str, Any]) -> ModelConfig:

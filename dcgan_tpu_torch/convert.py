@@ -33,7 +33,7 @@ nothing here imports `ml_dtypes`.
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,7 +64,11 @@ def flatten(tree: Pytree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
-def unflatten(flat: Dict[str, object]) -> Pytree:
+def unflatten(flat: Dict[str, object],
+              like: Optional[Pytree] = None) -> Pytree:
+    """The inverse of `flatten`. A flat dict holds no empty subtree (the
+    state of a generator without BatchNorm, of a critic without spectral
+    norm); `like`, a tree of the same layout, gives them back."""
     tree: Pytree = {}
     for path, value in flat.items():
         node = tree
@@ -72,7 +76,15 @@ def unflatten(flat: Dict[str, object]) -> Pytree:
         for name in parents:
             node = node.setdefault(name, {})
         node[leaf] = value
+    if like is not None:
+        _add_empty(tree, like)
     return tree
+
+
+def _add_empty(tree: Pytree, like: Pytree) -> None:
+    for name, sub in like.items():
+        if isinstance(sub, dict):
+            _add_empty(tree.setdefault(name, {}), sub)
 
 
 def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -120,7 +132,7 @@ def from_npz_arrays(arrays: Dict[str, np.ndarray]
 
 def _to_torch(tree: Pytree, device: torch.device) -> Pytree:
     return unflatten({path: leaf_from_numpy(leaf).to(device)
-                      for path, leaf in flatten(tree).items()})
+                      for path, leaf in flatten(tree).items()}, like=tree)
 
 
 def generator_from_jax(params_np: Pytree, state_np: Pytree, *,
@@ -153,9 +165,7 @@ def train_state_from_jax(state_np: Pytree, *,
 
     return {
         "params": _to_torch(state_np["params"], dev),
-        # per net: a D without BatchNorm (one stage) keeps its empty dict
-        "bn": {net: _to_torch(state_np["bn"][net], dev)
-               for net in ("gen", "disc")},
+        "bn": _to_torch(state_np["bn"], dev),
         "opt": {net: opt(state_np["opt"][net]) for net in ("gen", "disc")},
         "ema_gen": _to_torch(state_np["ema_gen"], dev),
         "step": torch.tensor(int(np.asarray(state_np["step"])),
@@ -170,7 +180,7 @@ def train_state_to_numpy(state: Pytree) -> Pytree:
     as their uint16 bits (`leaf_to_numpy`)."""
     def tree(t: Pytree) -> Pytree:
         return unflatten({path: leaf_to_numpy(leaf)
-                          for path, leaf in flatten(t).items()})
+                          for path, leaf in flatten(t).items()}, like=t)
 
     def scalar(t: torch.Tensor) -> np.ndarray:
         return np.asarray(int(t), dtype=np.int32)

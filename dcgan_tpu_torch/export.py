@@ -65,10 +65,15 @@ class _Sampler(torch.nn.Module):
 
     def __init__(self, cfg, params, state):
         from dcgan_tpu_torch.convert import flatten
+        from dcgan_tpu_torch.train.steps import tree_map
 
         super().__init__()
         self.cfg = cfg
         self._names = {}
+        # the trees' layout without their tensors: an empty subtree (a
+        # BN-free generator's state) has no buffer to bring it back
+        self._layout = tree_map(lambda t: None,
+                                {"params": params, "state": state})
         for path, t in flatten({"params": params, "state": state}).items():
             name = path.replace("/", "__")
             self.register_buffer(name, t.detach().clone())
@@ -80,7 +85,8 @@ class _Sampler(torch.nn.Module):
         from dcgan_tpu_torch.models.dcgan import generator_apply
 
         tree = unflatten({path: getattr(self, name)
-                          for path, name in self._names.items()})
+                          for path, name in self._names.items()},
+                         like=self._layout)
         img, _ = generator_apply(tree["params"], tree["state"], z,
                                  cfg=self.cfg, train=False, labels=labels)
         return img

@@ -1,6 +1,8 @@
 """DCGAN generator, discriminator and sampler as init/apply functions on
 nested dicts of tensors (the counterpart of `dcgan_tpu/models/dcgan.py:
-129-449`).
+129-449`). The entry points dispatch on `cfg.arch` as the JAX module's
+do: "resnet" to models/resnet.py, "stylegan" to models/stylegan.py's
+generator and resnet's critic.
 
 `generator(z)`: linear z -> gf*2^(k-1) * base^2, reshape to NHWC
 [B, base, base, gf*2^(k-1)], BN + relu, then k stride-2 5x5 deconv stages
@@ -100,6 +102,20 @@ def _tree_to(tree: Pytree, device: torch.device) -> Pytree:
             for k, v in tree.items()}
 
 
+def _family_g(cfg: ModelConfig):
+    """The module of cfg.arch's generator, None for the DCGAN stacks
+    (`dcgan_tpu/models/dcgan.py:131-137, 199-213`)."""
+    if cfg.arch == "resnet":
+        from dcgan_tpu_torch.models import resnet
+
+        return resnet
+    if cfg.arch == "stylegan":
+        from dcgan_tpu_torch.models import stylegan
+
+        return stylegan
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Spectral norm and the attention block
 # ---------------------------------------------------------------------------
@@ -142,7 +158,11 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
                    ) -> Tuple[Pytree, Pytree]:
     """(params, bn_state) drawn from a `torch.Generator` seeded with `seed`
     (on the CPU, then moved to `device`). The draws differ from JAX's
-    threefry stream; parity tests carry JAX weights over with convert.py."""
+    threefry stream; parity tests carry JAX weights over with convert.py.
+    cfg.arch selects the family (models/resnet.py, models/stylegan.py)."""
+    family = _family_g(cfg)
+    if family is not None:
+        return family.generator_init(cfg, seed=seed, device=device)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     k = cfg.num_up_layers
@@ -186,6 +206,11 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
     statistics, stored SN vectors, the state returned unchanged);
     train=True normalizes with batch statistics and returns the updated
     state. A conditional model needs `labels` [B]."""
+    family = _family_g(cfg)
+    if family is not None:
+        return family.generator_apply(params, state, z, cfg=cfg,
+                                      train=train, labels=labels,
+                                      capture=capture)
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
@@ -267,7 +292,12 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
                        ) -> Tuple[Pytree, Pytree]:
     """(params, bn_state) of D drawn from a `torch.Generator` seeded with
     `seed`. Stage 0 has no BN, as in the JAX package (and the reference,
-    which creates a `d_bn0` it never uses)."""
+    which creates a `d_bn0` it never uses). The resnet and stylegan
+    families share the residual critic of models/resnet.py."""
+    if cfg.arch in ("resnet", "stylegan"):
+        from dcgan_tpu_torch.models import resnet
+
+        return resnet.discriminator_init(cfg, seed=seed, device=device)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     k = cfg.num_up_layers
@@ -301,6 +331,12 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
     state). A conditional model needs `labels` [B]."""
+    if cfg.arch in ("resnet", "stylegan"):
+        from dcgan_tpu_torch.models import resnet
+
+        return resnet.discriminator_apply(params, state, image, cfg=cfg,
+                                          train=train, labels=labels,
+                                          capture=capture)
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     new_state: Pytree = {}

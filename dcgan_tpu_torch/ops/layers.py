@@ -242,13 +242,22 @@ def conv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
         x, w = x.to(compute_dtype), w.to(compute_dtype)
     if quant == "fp8":
         x, w = fake_quant_fp8(x), fake_quant_fp8(w)
+    y = conv2d(x, w, stride=stride)
+    return y + b.to(y.dtype)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *,
+           stride: int = 2) -> torch.Tensor:
+    """The convolution of `conv2d_apply` without its bias: NHWC x HWIO ->
+    NHWC, `lax.conv_general_dilated(..., padding="SAME")` in the operands'
+    dtype (the modulated convs of models/stylegan.py add their bias after
+    the demodulation)."""
     k = w.shape[0]
     (top, bottom), (left, right) = (same_pads(x.shape[1], k, stride),
                                     same_pads(x.shape[2], k, stride))
     xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
     y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
-    y = y.permute(0, 2, 3, 1)
-    return y + b.to(y.dtype)
+    return y.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------

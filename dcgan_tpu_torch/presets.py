@@ -1,6 +1,6 @@
 """Named training presets (the counterpart of `dcgan_tpu/presets.py`).
 
-Six of the JAX package's ten presets, copied field for field (over the
+Eight of the JAX package's ten presets, copied field for field (over the
 fields both TrainConfigs have) from the JAX factories:
 - ``celeba64``: DCGAN 64x64 CelebA on one device, z=100, batch 64, bf16
   compute over f32 params, BCE non-saturating loss, Adam(2e-4, beta1 0.5)
@@ -23,12 +23,18 @@ fields both TrainConfigs have) from the JAX factories:
   image), batch 64 (`dcgan_tpu/presets.py:73-78`);
 - ``sagan128``: sagan64's recipe at 128x128 with the attention at the
   64x64 stage, a 4096-token sequence on the flash kernels, BatchNorm on
-  plain ops (`dcgan_tpu/presets.py:126-141`).
+  plain ops (`dcgan_tpu/presets.py:126-141`);
+- ``sngan-cifar10``: the residual family (models/resnet.py) on CIFAR-10,
+  32x32, spectral norm on the norm-free critic, hinge loss, Adam(2e-4,
+  beta1 0), 5 critic updates per G update, batch 64
+  (`dcgan_tpu/presets.py:174-188`);
+- ``stylegan64``: StyleGAN2-lite at 64x64 (models/stylegan.py) with the
+  residual critic, lazy R1 (gamma 10 every 16th step), G EMA 0.999,
+  batch 64 (`dcgan_tpu/presets.py:191-202`).
 
-The other four raise a ValueError that names what each waits for
+The other two raise a ValueError that names what each waits for
 (UNPORTED): ``lsun64-dp8`` and ``sagan256-lc`` multi-GPU (a data mesh
-of 8 devices; the shard_map backend), ``sngan-cifar10`` and
-``stylegan64`` their model families (arch resnet, stylegan).
+of 8 devices; the shard_map backend).
 """
 
 from __future__ import annotations
@@ -96,10 +102,33 @@ def sagan128(**overrides) -> TrainConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def sngan_cifar10(**overrides) -> TrainConfig:
+    """SNGAN on CIFAR-10 (32x32): residual G and D, the norm-free critic
+    spectrally normalized, hinge loss, Adam(2e-4, beta1 0), 5 critic
+    updates per G update. Keyword arguments override TrainConfig
+    fields."""
+    cfg = TrainConfig(
+        model=ModelConfig(arch="resnet", output_size=32, spectral_norm="d"),
+        batch_size=64, loss="hinge", learning_rate=2e-4, beta1=0.0,
+        n_critic=5)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def stylegan64(**overrides) -> TrainConfig:
+    """StyleGAN2-lite at 64x64 with the residual critic, lazy R1 (gamma
+    10, every 16th step) and G EMA 0.999. Keyword arguments override
+    TrainConfig fields."""
+    cfg = TrainConfig(model=ModelConfig(arch="stylegan", output_size=64),
+                      batch_size=64, r1_gamma=10.0, r1_interval=16,
+                      g_ema_decay=0.999)
+    return dataclasses.replace(cfg, **overrides)
+
+
 PRESETS: Dict[str, Callable[..., TrainConfig]] = {
     "celeba64": celeba64, "dcgan128": dcgan128,
     "cifar10-cond": cifar10_cond, "wgan-gp": wgan_gp, "sagan64": sagan64,
-    "sagan128": sagan128}
+    "sagan128": sagan128, "sngan-cifar10": sngan_cifar10,
+    "stylegan64": stylegan64}
 
 # the JAX package's presets the port does not run, and what each waits for
 UNPORTED = {
@@ -107,8 +136,6 @@ UNPORTED = {
                   "port trains on one GPU)",
     "sagan256-lc": "multi-GPU (its config names the shard_map mesh "
                    "backend, which the port does not have)",
-    "sngan-cifar10": "the resnet model family (arch='resnet')",
-    "stylegan64": "the stylegan model family (arch='stylegan')",
 }
 
 

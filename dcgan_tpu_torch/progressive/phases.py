@@ -111,7 +111,7 @@ def carry_state(old_state: Pytree, new_state: Pytree, *, arch: str,
             continue              # longer fits: the fresh init
         merged[path] = old
         carried += 1
-    return unflatten(merged), carried
+    return unflatten(merged, like=new_state), carried
 
 
 def fade(images: torch.Tensor, alpha: float) -> torch.Tensor:

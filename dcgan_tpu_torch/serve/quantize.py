@@ -70,4 +70,4 @@ def quantize_dequantize_int8(tree: Pytree) -> Tuple[Pytree, dict]:
         "int8_bytes": int(quant_bytes),
         "orig_bytes": int(total_bytes),
     }
-    return unflatten(out), report
+    return unflatten(out, like=tree), report

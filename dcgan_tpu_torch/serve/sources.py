@@ -209,7 +209,6 @@ class CheckpointSource(_GeneratorSource):
     def prepare(self) -> dict:
         from dcgan_tpu_torch.config import consumer_train_config, \
             resolve_model_config
-        from dcgan_tpu_torch.convert import flatten, unflatten
         from dcgan_tpu_torch.train.steps import init_train_state, tree_map
         from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -218,10 +217,9 @@ class CheckpointSource(_GeneratorSource):
         cfg = consumer_train_config(self.checkpoint_dir, mcfg)
         # the restore's template lives on the host, as empty tensors: only
         # its tree, shapes and dtypes matter, and only G goes to the device
-        template = flatten(init_train_state(cfg, device="cpu"))
-        self._template = unflatten({
-            k: torch.empty(v.shape, dtype=v.dtype)
-            for k, v in template.items()})
+        self._template = tree_map(
+            lambda v: torch.empty(v.shape, dtype=v.dtype),
+            init_train_state(cfg, device="cpu"))
         self._ckpt = Checkpointer(self.checkpoint_dir)
         step, params, state, report = self._restore()
         self.cfg = mcfg

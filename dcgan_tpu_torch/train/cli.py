@@ -27,6 +27,11 @@ port serves, plus --device.
         --pallas_fused --progressive "32:2000,64:2000,128:*" \
         --progressive_fade_steps 500 --aot_warmup --data_dir "D_{res}"
     python -m dcgan_tpu_torch.train --preset sagan128 --synthetic
+    python -m dcgan_tpu_torch.train --preset sngan-cifar10 --use_pallas \
+        --data_dir D --checkpoint_dir C
+    python -m dcgan_tpu_torch.train --preset stylegan64 --synthetic
+    python -m dcgan_tpu_torch.train --arch resnet --loss wgan-gp \
+        --n_critic 5 --learning_rate 1e-4 --beta1 0 --synthetic
 
 Flags given explicitly override the preset's values. The run reads the
 TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
@@ -46,6 +51,13 @@ from dcgan_tpu_torch.presets import PRESETS, get_preset
 
 # flag -> ("" for a TrainConfig field or "model", field name)
 _FLAG_FIELDS = {
+    "learning_rate": ("", "learning_rate"),
+    "d_learning_rate": ("", "d_learning_rate"),
+    "g_learning_rate": ("", "g_learning_rate"),
+    "beta1": ("", "beta1"),
+    "warmup_steps": ("", "warmup_steps"),
+    "g_ema_decay": ("", "g_ema_decay"),
+    "label_smoothing": ("", "label_smoothing"),
     "batch_size": ("", "batch_size"),
     "max_steps": ("", "max_steps"),
     "data_dir": ("", "data_dir"),
@@ -83,13 +95,17 @@ _FLAG_FIELDS = {
     "pipeline_gd": ("", "pipeline_gd"),
     "progressive": ("", "progressive"),
     "progressive_fade_steps": ("", "progressive_fade_steps"),
+    "arch": ("model", "arch"),
     "use_pallas": ("model", "use_pallas"),
     "pallas_fused": ("model", "pallas_fused"),
     "output_size": ("model", "output_size"),
+    "c_dim": ("model", "c_dim"),
     "gf_dim": ("model", "gf_dim"),
     "df_dim": ("model", "df_dim"),
     "z_dim": ("model", "z_dim"),
     "attn_res": ("model", "attn_res"),
+    "attn_heads": ("model", "attn_heads"),
+    "spectral_norm": ("model", "spectral_norm"),
     "num_classes": ("model", "num_classes"),
     "conditional_bn": ("model", "conditional_bn"),
     "label_feature": ("", "label_feature"),
@@ -116,6 +132,21 @@ def build_parser() -> argparse.ArgumentParser:
         description="DCGAN trainer on one GPU (PyTorch/CUDA port)",
         argument_default=argparse.SUPPRESS)
     p.add_argument("--preset", choices=sorted(PRESETS), default="celeba64")
+    p.add_argument("--learning_rate", type=float)
+    p.add_argument("--d_learning_rate", type=float,
+                   help="TTUR: discriminator base lr (default: "
+                        "learning_rate)")
+    p.add_argument("--g_learning_rate", type=float,
+                   help="TTUR: generator base lr (default: learning_rate)")
+    p.add_argument("--beta1", type=float)
+    p.add_argument("--warmup_steps", type=int)
+    p.add_argument("--g_ema_decay", type=float,
+                   help="EMA decay for a shadow copy of generator weights "
+                        "used for sampling (0 = off, reference parity; "
+                        "typical 0.999)")
+    p.add_argument("--label_smoothing", type=float,
+                   help="one-sided label smoothing: D's real target "
+                        "becomes 1-eps (gan loss only)")
     p.add_argument("--batch_size", type=int)
     p.add_argument("--max_steps", type=int)
     p.add_argument("--update_mode", choices=["sequential", "fused"])
@@ -151,13 +182,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas_fused", action="store_true",
                    help="each interior G/D stage as the fused GEMM kernels "
                         "(requires --use_pallas)")
+    p.add_argument("--arch", choices=["dcgan", "resnet", "stylegan"],
+                   help="model family: the reference's DCGAN stacks, the "
+                        "WGAN-GP/SNGAN residual blocks, or StyleGAN2-lite "
+                        "(modulated convs + resnet critic; pair with "
+                        "--r1_gamma)")
     p.add_argument("--output_size", type=int)
+    p.add_argument("--c_dim", type=int)
     p.add_argument("--gf_dim", type=int)
     p.add_argument("--df_dim", type=int)
     p.add_argument("--z_dim", type=int)
     p.add_argument("--attn_res", type=int,
                    help="feature-map resolution of the self-attention block "
                         "(0 = none; the sagan64 preset sets 32)")
+    p.add_argument("--attn_heads", type=int,
+                   help="attention heads (1 = SAGAN paper; apply-time "
+                        "split, checkpoint-compatible across head counts)")
+    p.add_argument("--spectral_norm", choices=["none", "d", "gd"],
+                   help="spectral-normalize discriminator (d) or both nets' "
+                        "(gd) weights — SN-GAN / SAGAN Lipschitz control")
     p.add_argument("--num_classes", type=int,
                    help=">0 = class-conditional G/D (the cifar10-cond "
                         "preset sets 10)")

@@ -380,7 +380,6 @@ class Checkpointer:
         newest is tried. Without a manifest the step is read unverified
         and its errors propagate. A tree, shape or dtype that differs from
         the template raises ValueError, whatever the manifest says."""
-        want = flatten(template)
         for step in self._finalized_steps():
             files, _ = self._manifest_files(step)
             if files is not None:
@@ -404,7 +403,7 @@ class Checkpointer:
                     continue
             with np.load(io.BytesIO(data[STATE_FILENAME])) as npz:
                 arrays = from_npz_arrays({k: npz[k] for k in npz.files})
-            state = self._to_template(step, arrays, want)
+            state = self._to_template(step, arrays, template)
             t_done = time.perf_counter()
             self.last_restore_stats = {
                 "step": float(step),
@@ -418,7 +417,8 @@ class Checkpointer:
         return None
 
     def _to_template(self, step: int, arrays: Dict[str, torch.Tensor],
-                     want: Dict[str, torch.Tensor]) -> Pytree:
+                     template: Pytree) -> Pytree:
+        want = flatten(template)
         missing = sorted(set(want) - set(arrays))
         extra = sorted(set(arrays) - set(want))
         if missing or extra:
@@ -434,7 +434,8 @@ class Checkpointer:
                     f"{tuple(t.shape)} {t.dtype}, the state wants "
                     f"{tuple(leaf.shape)} {leaf.dtype}")
             out[path] = t.to(leaf.device)
-        return unflatten(out)
+        # the template's empty subtrees (a BN-free net's state) come back
+        return unflatten(out, like=template)
 
 
 def latest_progressive_tag(directory: str) -> Optional[Dict[str, int]]:

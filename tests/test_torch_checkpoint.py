@@ -316,7 +316,9 @@ class TestConfigFiles:
             jcfg.model)
 
     @pytest.mark.parametrize("kw", [
-        {"model": JModelConfig(arch="resnet")},
+        # the resnet family is ported; the rollback NaN policy is not, in
+        # any family
+        {"model": JModelConfig(arch="resnet"), "nan_policy": "rollback"},
         # pipeline_gd is ported; the rollback NaN policy is not
         {"nan_policy": "rollback"}])
     def test_unported_jax_settings_raise(self, tmp_path, kw):
@@ -328,7 +330,12 @@ class TestConfigFiles:
         {"r1_gamma": 1.0}, {"loss": "wgan-gp"},
         {"r1_gamma": 10.0, "r1_interval": 4, "n_critic": 2,
          "grad_accum": 2, "diffaug": "color,cutout", "precision": "bf16"},
-        {"progressive": "32:2,64:*"}])
+        {"progressive": "32:2,64:*"},
+        {"model": JModelConfig(arch="resnet", output_size=32,
+                               spectral_norm="d"),
+         "loss": "hinge", "n_critic": 5, "beta1": 0.0},
+        {"model": JModelConfig(arch="stylegan", use_pallas=True),
+         "r1_gamma": 10.0, "r1_interval": 16, "g_ema_decay": 0.999}])
     def test_jax_penalty_settings_load(self, tmp_path, kw):
         """Settings the port trains since it has the penalties, n_critic,
         accumulation, DiffAugment and the precision policies, and the

@@ -339,8 +339,17 @@ class TestConfig:
         {"arch": "stylegan"}, {"arch": "stylegan", "num_classes": 10},
         {"arch": "resnet", "quant": "fp8"}])
     def test_unserved_fields_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ModelConfig(**kw)
+        """The model families the port once refused are served: each
+        config equals the JAX ModelConfig field for field. What raises is
+        the JAX package's own check, with its message: no attention site
+        in the stylegan family."""
+        assert dataclasses.asdict(ModelConfig(**kw)) == \
+            dataclasses.asdict(JModelConfig(**kw))
+        bad = dict(kw, arch="stylegan", attn_res=8)
+        with pytest.raises(ValueError):
+            JModelConfig(**bad)
+        with pytest.raises(ValueError, match="no attention site"):
+            ModelConfig(**bad)
 
     def test_fp8_quant_is_served(self):
         """quant="fp8" (set by the fp8 precision policy) constructs, equal

@@ -57,6 +57,7 @@ from dcgan_tpu_torch.config import ModelConfig, TrainConfig
 from dcgan_tpu_torch.models import dcgan as tdcgan
 from dcgan_tpu_torch.ops import fused as tfused
 from dcgan_tpu_torch.train import losses as tlosses
+from dcgan_tpu_torch.train import steps as tsteps
 from torch_jax_draws import one_torch_thread  # noqa: F401
 
 MODEL = dict(output_size=16, gf_dim=8, df_dim=8, z_dim=8,
@@ -229,6 +230,61 @@ class TestKernelRouteRefusal:
                            match="second derivative"):
             TrainConfig(model=ModelConfig(**MODEL, **route),
                         batch_size=BATCH, **kw)
+
+    @staticmethod
+    def _jax_traces(model, kw):
+        """Whether the JAX package's train step traces (eval_shape: the
+        penalty's second derivative is taken while tracing)."""
+        jcfg = JTrainConfig(model=JModelConfig(**MODEL, **model),
+                            batch_size=BATCH, **kw)
+        fns = jsteps.make_train_step(jcfg)
+        state = jax.eval_shape(fns.init, jax.random.key(0))
+        images = jax.ShapeDtypeStruct((BATCH, 16, 16, 3), jnp.float32)
+        try:
+            jax.eval_shape(fns.train_step, state, images, jax.random.key(1))
+        except (AssertionError, ValueError, NotImplementedError,
+                TypeError):
+            return False
+        return True
+
+    @pytest.mark.parametrize("arch", ["resnet", "dcgan"])
+    @pytest.mark.parametrize("kw", [{"loss": "wgan-gp"},
+                                    {"r1_gamma": 10.0}])
+    def test_attention_on_flash_is_refused_in_any_family(self, arch, kw):
+        """A penalty through an attention block on the flash kernels
+        (the JAX package's Pallas attention) fails in JAX whatever the
+        family; BatchNorm on plain ops (bn_pallas False) does not help."""
+        model = {"arch": arch, "attn_res": 8, "use_pallas": True,
+                 "bn_pallas": False}
+        assert not self._jax_traces(model, kw)
+        with pytest.raises(NotImplementedError,
+                           match="second derivative"):
+            TrainConfig(model=ModelConfig(**MODEL, **model),
+                        batch_size=BATCH, **kw)
+
+    @pytest.mark.parametrize("arch,kw", [
+        ("resnet", {"loss": "wgan-gp"}), ("resnet", {"r1_gamma": 10.0}),
+        ("stylegan", {"r1_gamma": 10.0})])
+    def test_norm_free_critic_trains_the_penalty(self, arch, kw):
+        """The residual critic is norm-free and G's images reach D
+        detached, so the penalty's double backward meets no kernel: the
+        JAX package traces resnet (G's BatchNorm on its kernels) with
+        WGAN-GP or R1 and stylegan with R1 under use_pallas, and the port
+        builds the step and takes it, the penalty finite and positive."""
+        model = {"arch": arch, "use_pallas": True}
+        assert self._jax_traces(model, kw)
+        cfg = TrainConfig(model=ModelConfig(**MODEL, **model),
+                          batch_size=BATCH, **kw)
+        fns = tsteps.make_train_step(cfg)
+        state = fns.init(seed=0, device="cpu")
+        z = torch.rand((BATCH, 8), generator=torch.Generator().manual_seed(
+            1)) * 2 - 1
+        draws = tsteps.draw_step(cfg, torch.Generator().manual_seed(2))
+        state, m = fns.train_step(state, torch.from_numpy(_images(3)), z,
+                                  draws)
+        key = "gp" if cfg.loss == "wgan-gp" else "r1"
+        assert 0 < float(m[key]) < float("inf")
+        assert int(state["step"]) == 1
 
 
 class TestKernel5Backward:

@@ -3,6 +3,8 @@ the port registers equals the JAX one over the fields both TrainConfigs
 have, its model field for field; every JAX preset the port does not
 register raises a ValueError that names what it waits for; the CLI
 offers exactly the port's presets, and their overrides apply as in JAX.
+The trainer CLI's flags that the JAX CLI also has (its names, types and
+choices) give the JAX CLI's TrainConfig for the same arguments.
 """
 
 import dataclasses
@@ -16,9 +18,8 @@ from dcgan_tpu_torch.train import cli
 from torch_jax_draws import one_torch_thread  # noqa: F401
 
 PORTED = ["celeba64", "dcgan128", "cifar10-cond", "wgan-gp", "sagan64",
-          "sagan128"]
-UNPORTED = {"lsun64-dp8": "multi-GPU", "sagan256-lc": "multi-GPU",
-            "sngan-cifar10": "resnet", "stylegan64": "stylegan"}
+          "sagan128", "sngan-cifar10", "stylegan64"]
+UNPORTED = {"lsun64-dp8": "multi-GPU", "sagan256-lc": "multi-GPU"}
 
 
 def _shared_fields():
@@ -31,7 +32,7 @@ def _shared_fields():
 def test_every_jax_preset_is_ported_or_refused():
     assert sorted(presets.PRESETS) == sorted(PORTED)
     assert sorted(PORTED + list(UNPORTED)) == sorted(jpresets.PRESETS)
-    assert sorted(presets.UNPORTED) == sorted(UNPORTED)
+    assert sorted(presets.UNPORTED) == ["lsun64-dp8", "sagan256-lc"]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -68,3 +69,39 @@ def test_cli_offers_the_ported_presets():
     want = jpresets.sagan128()
     assert cfg.model.attn_res == want.model.attn_res == 64
     assert cfg.model.gf_dim == 16 and cfg.g_ema_decay == want.g_ema_decay
+
+
+# flag -> a value other than every preset's, as the JAX CLI spells it
+JAX_FLAGS = {"learning_rate": "3e-4", "d_learning_rate": "5e-4",
+             "g_learning_rate": "1.5e-4", "beta1": "0.25",
+             "warmup_steps": "7", "g_ema_decay": "0.99",
+             "label_smoothing": "0.1", "spectral_norm": "gd",
+             "attn_heads": "2", "c_dim": "1", "arch": "stylegan"}
+
+
+@pytest.mark.parametrize("flag", sorted(JAX_FLAGS))
+def test_trainer_flag_equals_the_jax_cli(flag):
+    """Each flag parses with the JAX CLI's name and type; with the preset
+    it lands on the TrainConfig as the JAX CLI's preset path puts it
+    (apply_overrides over explicit_flags), and every other field keeps
+    the preset's value."""
+    from dcgan_tpu.train import cli as jcli
+
+    # label smoothing is BCE's alone; every other flag on a ported preset
+    # of the new families
+    preset = "celeba64" if flag == "label_smoothing" else "sngan-cifar10"
+    argv = ["--preset", preset, f"--{flag}", JAX_FLAGS[flag]]
+    if flag == "attn_heads":
+        argv += ["--attn_res", "16"]
+    want = jcli.apply_overrides(jpresets.get_preset(preset),
+                                jcli.explicit_flags(argv))
+    got = cli.config_from_args(cli.build_parser().parse_args(argv))
+    for field in _shared_fields():
+        assert getattr(got, field) == getattr(want, field), field
+    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
+    default = presets.get_preset(preset)
+    changed = {f for f in _shared_fields()
+               if getattr(got, f) != getattr(default, f)}
+    changed |= {f"model.{k}" for k, v in dataclasses.asdict(
+        got.model).items() if getattr(default.model, k) != v}
+    assert changed and len(changed) <= 2, changed

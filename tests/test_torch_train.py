@@ -270,14 +270,17 @@ class TestConfig:
         (lambda: TrainConfig(r1_gamma=1.0, model=ModelConfig(
             use_pallas=True, bn_pallas=False, attn_res=32)),
          "second derivative"),
-        (lambda: ModelConfig(arch="resnet"), "not ported"),
-        (lambda: ModelConfig(arch="stylegan", num_classes=10),
-         "not ported")])
+        (lambda: TrainConfig(nan_policy="rollback",
+                             model=ModelConfig(arch="resnet")),
+         "not ported"),
+        (lambda: TrainConfig(nan_policy="rollback", model=ModelConfig(
+            arch="stylegan", num_classes=10)), "not ported")])
     def test_unserved_fields_raise(self, make, match):
-        """What the port does not train: a penalty on a kernel route (the
-        JAX package cannot differentiate a Pallas kernel twice), another
-        arch (with or without class conditioning, which the DCGAN stacks
-        have)."""
+        """What the port does not train: a penalty whose critic meets a
+        kernel route (the JAX package cannot differentiate a Pallas
+        kernel twice), and the rollback NaN policy in every family (the
+        resnet and stylegan families, with or without class
+        conditioning, are ported)."""
         with pytest.raises(NotImplementedError, match=match):
             make()
 

@@ -20,6 +20,8 @@ helpers follow the JAX key schedule:
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
 import re
 
 import jax
@@ -170,6 +172,31 @@ def stage_draws(cfg, key, batch):
     return out
 
 
+def tree_shapes(tree, prefix=""):
+    """{path: shape} over a nested dict of arrays or tensors, an empty
+    subtree as {path: "{}"}."""
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(tree_shapes(v, p) or {p: "{}"})
+        else:
+            out[p] = tuple(v.shape)
+    return out
+
+
+def export_tool():
+    """tools/export_torch_checkpoint.py as a module (the JAX <-> port
+    checkpoint converter)."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \
+        "export_torch_checkpoint.py"
+    spec = importlib.util.spec_from_file_location("export_torch_checkpoint",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def to_torch(draws):
     return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
 
@@ -185,7 +212,9 @@ def numpy_init(init, seed=0):
     random ops), filled from a numpy seed as the init fills it: weights
     N(0, 0.02) cut at 2 sigma, BN scales 1 + the same noise, biases,
     Adam moments and counts 0, running variances 1, the EMA a copy of
-    G's weights and step 0."""
+    G's weights and step 0; a learned constant (stylegan's `const`)
+    N(0, 1) and spectral norm's u vectors unit normals, as the init
+    draws them."""
     shapes = jax.eval_shape(init, jax.random.key(0))
     rng = np.random.default_rng(seed)
 
@@ -194,6 +223,11 @@ def numpy_init(init, seed=0):
         if top == "params" and name in ("w", "scale"):
             noise = np.clip(rng.normal(0, 0.02, leaf.shape), -0.04, 0.04)
             return (noise + (name == "scale")).astype(leaf.dtype)
+        if top == "params" and name == "const":
+            return rng.normal(size=leaf.shape).astype(leaf.dtype)
+        if top == "bn" and str(name).startswith("sn_"):
+            u = rng.normal(size=leaf.shape)
+            return (u / np.linalg.norm(u)).astype(leaf.dtype)
         if top == "params" and name not in ("b", "bias"):
             raise ValueError(f"numpy_init: no rule for {path}")
         return np.full(leaf.shape, 1 if name == "var" else 0, leaf.dtype)
@@ -296,12 +330,14 @@ def flat_state(state_t):
 PRE_BN = re.compile(r"(proj|deconv[1-9]|conv[1-9])/b$|bn[0-9]+/mean$")
 
 
-def assert_f32_state(jstate, tstate, *, lr=2e-4, steps=1, rtol=1e-5):
+def assert_f32_state(jstate, tstate, *, lr=2e-4, steps=1, rtol=1e-5,
+                     pre_bn=PRE_BN):
     """Every leaf of params, bn, opt and ema_gen within 1e-5 abs + rtol x
     its largest value, but the biases that feed a BatchNorm and the
-    running means they shift: their true gradient is 0, Adam's normalized
-    step follows the sign of f32 rounding noise, and they are held to
-    Adam's own bound, 2 * lr * steps (tests/test_torch_train.py's rule)."""
+    running means they shift (the paths `pre_bn` matches): their true
+    gradient is 0, Adam's normalized step follows the sign of f32
+    rounding noise, and they are held to Adam's own bound, 2 * lr * steps
+    (tests/test_torch_train.py's rule)."""
     from dcgan_tpu_torch import convert
 
     want = flat_state(convert.train_state_from_jax(jstate, device="cpu"))
@@ -310,7 +346,7 @@ def assert_f32_state(jstate, tstate, *, lr=2e-4, steps=1, rtol=1e-5):
     for path, w in want.items():
         g = got[path]
         assert g.shape == w.shape, path
-        bound = 2 * lr * steps if PRE_BN.search(path) \
+        bound = 2 * lr * steps if pre_bn.search(path) \
             else 1e-5 + rtol * np.abs(w).max()
         err = float(np.abs(g.astype(np.float64) - w).max())
         assert err <= bound, (path, err, bound)
