@@ -275,15 +275,17 @@ Class conditioning and the 128 px presets (`conditional`):
 19. evals: the resume checkpoint scored by `python -m
    dcgan_tpu_torch.evals`'s `evaluate` at the CLI's defaults (EVAL_SAMPLES
    samples, batch EVAL_BATCH, KID pool EVAL_KID_POOL, --kid --prdc,
-   synthetic reals), after kernels 2 and 5 are held against their plain
+   synthetic reals; the headline, and the only scoring at 50 000), after
+   kernels 2 and 5 are held against their plain
    versions at the eval sampler's batch: the counters set to 0 just before
    and read just after (kernels 2 and 5 at exactly SAMPLER_PER_CALL per
    call of the captured sampler, its warm-up and its replays; the `evals`
    path), the seconds of the real pass, the sampler, the tower, the host
-   statistics, FID, KID and PRDC, samples/s; the same weights and z on the
-   cuDNN route within EVAL_ROUTE_FID_RTOL (FID only, the cached real
-   side), another z seed beside it, the kernel route again from the
-   cached real side bit for bit (cuDNN deterministic), the tower's
+   statistics, FID, KID and PRDC, samples/s; then at
+   EVAL_COMPARE_SAMPLES a side (a real side of their own) the kernel
+   route with --kid --prdc, the same weights and z on the cuDNN route within
+   EVAL_ROUTE_FID_RTOL, another z seed beside it, the kernel route again
+   from the cached real side bit for bit (cuDNN deterministic), the tower's
    features on the card (TF32 on around it, as a process has it by
    default) against the CPU within EVAL_TOWER_TOL, and the error TF32
    would give; then train.cli.main on the resume group's records for
@@ -349,9 +351,36 @@ The resnet and stylegan model families (`families`):
    SERVED_TOL, the evals CLI at FAM_EVAL_SAMPLES samples; one captured
    step of each preset timed and profiled; the group's seconds.
 
+Fault tolerance in one process (`faults`), celeba64 on the kernel route
+(gf = df = 64, batch 64, --aot_warmup, cuDNN deterministic):
+
+22. faults: at K=1 and K=4, train.cli.main with --nan_policy rollback
+   --rollback_snapshot_steps FAULT_SNAPSHOT under DCGAN_CHAOS
+   {"nan_at_step": FAULT_NAN_STEP}, the counters set to 0 just before
+   and read just after: kernels 1-4 at exactly PER_STEP x the steps the
+   card ran (FAULT_EXECUTED: those up to the NaN and the replayed ones;
+   the `faults_k1` and `faults_k4` paths), one restore to the snapshot
+   that captured nothing, anomaly/rollbacks 1 from the failing step on,
+   the run at FAULT_STEPS; a runner per K timed on the snapshot and the
+   restore (CUDA events and host clock) and on the rollback to the next
+   replay's readback, its restored state equal to the snapshot and its
+   first replay after the restore equal to eager steps from the snapshot
+   bit for bit, a replay's launches the same before and after the
+   restore; the same rollback under --pipeline_gd draining the fake
+   stack; a NaN under the abort policy leaving a flight-recorder dump
+   whose last record is the failing step; the same fed K=1 run
+   (FAULT_TIMED_STEPS steps, a grid and activations every
+   FAULT_TELEMETRY_EVERY) with --async_services true and false writing
+   the same JSONL but for the wall-clock perf/* keys and the time, each
+   run's step ms from its own StepTimer against the captured step's busy
+   ms and the idle share; and `python -m dcgan_tpu_torch.train` in a
+   subprocess with --collective_timeout_secs FAULT_WATCHDOG_SECS and a
+   hang at FAULT_HANG_STEP exiting 43 with every thread's stack and a
+   dump naming `step-dispatch`.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals, progressive, families) the garbage is collected and the cache
+evals, progressive, families, faults) the garbage is collected and the cache
 emptied; the run fails if a CUDA graph's private pool is still reserved
 then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -361,11 +390,14 @@ Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
 the evals report, the progressive report, the families report, the
-memory report, the progressive group's timing line (median step ms per
-phase, switch ms, graph pools, the group's peak reserved, the card), the
-families group's timing line (each preset's captured step ms, busy ms,
-idle share; the group's seconds and peak reserved; the card), the card's
-name and
+faults report, the memory report, the progressive group's timing line
+(median step ms per phase, switch ms, graph pools, the group's peak
+reserved, the card), the families group's timing line (each preset's
+captured step ms, busy ms, idle share; the group's seconds and peak
+reserved; the card), the faults group's timing line (snapshot, restore
+and rollback-to-replay ms per K; the fed K=1 step's ms, busy ms and idle
+share with the services async and inline; the group's seconds and peak
+reserved; the card), the card's name and
 power limit (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -382,6 +414,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -509,8 +542,13 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+# the script's start: each log line carries the seconds since it
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke] [{time.perf_counter() - _T0:7.1f} s] {msg}",
+          flush=True)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2, label: str = "fn"):
@@ -3463,6 +3501,9 @@ def capture_and_check(torch, np, workdir, kernels):
 # steps of each trainer run of the phase, and of each eager / captured
 # comparison; lazy R1's interval and its runs' steps (two intervals)
 A1_STEPS = 4
+# a1_timed's turns: one of each (each turn's profile of an eager step,
+# thousands of launches, takes seconds of the host)
+A1_TURNS = ("eager", "K=1")
 A1_COMPARE_STEPS = 3
 R1_INTERVAL = 4
 R1_STEPS = 8
@@ -3846,7 +3887,7 @@ def a1_route_grads(torch, name, cfg, report, state=None):
 
 def a1_timed(torch, name, cfg, report):
     """One step's host-inclusive ms, busy ms and idle share, eager and
-    through the runner at K=1, in turns (eager, K=1, K=1, eager)."""
+    through the runner at K=1, one turn each (A1_TURNS)."""
     from dcgan_tpu_torch.train.steps import make_train_step
     from dcgan_tpu_torch.train.warmup import StepRunner
 
@@ -3884,14 +3925,14 @@ def a1_timed(torch, name, cfg, report):
                 "idle_share": split["idle_share"],
                 "launches_per_step": split["launches_per_step"]}
     turns = {"eager": [], "K=1": []}
-    for label in ("eager", "K=1", "K=1", "eager"):
+    for label in A1_TURNS:
         turns[label].append(turn(eager if label == "eager" else captured,
                                  label != "eager"))
     report[name] = turns
     report[f"{name}_pool_bytes"] = {n: p.pool_bytes
                                     for n, p in runner.programs.items()}
     log(f"a1 {name}: one step, host-inclusive ms / busy ms / idle share "
-        "in turns (eager, K=1, K=1, eager): " + "; ".join(
+        f"in turns {A1_TURNS}: " + "; ".join(
             f"{label} " + ", ".join(
                 f"{t['step_ms']:.3f} / {t['busy_ms']} / {t['idle_share']}"
                 for t in runs) for label, runs in turns.items()))
@@ -5517,11 +5558,16 @@ def conditional_and_check(torch, np, workdir, kernels):
 EVAL_SAMPLES = 50_000
 EVAL_BATCH = 256
 EVAL_KID_POOL = 10_000
+# the comparisons (the cuDNN route, another z seed, the cached real side)
+# score this many samples a side, from a real side of their own: one
+# FID-50k is the headline, and the route gap is mostly systematic (read
+# at 50 000 and at 5 000 samples alike, see EVAL_ROUTE_FID_RTOL)
+EVAL_COMPARE_SAMPLES = 5_000
 # kernel launches of one celeba64 sampler call on the kernel route: kernel
 # 2 at bn0, kernel 5 at each of the three interior stages
 SAMPLER_PER_CALL = dict({name: 0 for name in PER_STEP}, scale_shift_act=1,
                         gemm_bias_scale_act=3)
-# FID-50k of the same weights and z on the kernel route against the cuDNN
+# FID of the same weights and z on the kernel route against the cuDNN
 # + torch-BN route, relative: the two routes' images differ only by where
 # bf16 rounds (SERVED_TOL's rule). The cuDNN route rounds its BN math to
 # bf16 op by op, the kernels once from f32, so the difference is partly
@@ -5529,7 +5575,10 @@ SAMPLER_PER_CALL = dict({name: 0 for name in PER_STEP}, scale_shift_act=1,
 # 1.887e-4 relative on the resume checkpoint (H100 at 700 W), 30 times the
 # FID's move under another z seed (`seed_gap`, 6.4e-6), which is small
 # here because this FID is mostly the distance between the two sides'
-# means. The limit leaves five times the measured gap.
+# means. At EVAL_COMPARE_SAMPLES the gap read 3.990e-5 to 3.109e-4 in
+# five runs (z seed gaps 1.6-2.8e-5; H100 at 700 W): it moves more with
+# 5 000 samples than with 50 000. The limit leaves 3.2 times the largest
+# measured gap.
 EVAL_ROUTE_FID_RTOL = 1e-3
 # the tower's features on the card against the CPU on one batch, same
 # weights, TF32 off on the card: f32 convolutions summed in another order
@@ -5728,11 +5777,12 @@ def eval_probe(torch, np, workdir, kernels, report):
 def evals_and_check(torch, np, workdir, kernels):
     """Phase 19: the `resume` group's celeba64 checkpoint scored by the
     evals CLI at its defaults (50 000 samples, batch 256, KID pool
-    10 000, --kid --prdc) on the kernel route, writing the real side's
-    statistics; the same weights and z on the cuDNN route and with
-    another z seed (FID only, the cached real side); the kernel route
-    again from the cached real side, bit for bit; the tower on the card
-    against the CPU; the trainer's probe. Returns the `evals` report."""
+    10 000, --kid --prdc) on the kernel route, the headline; then at
+    EVAL_COMPARE_SAMPLES a side: the kernel route (--kid --prdc)
+    writing its own real side's statistics, the same weights and z on the
+    cuDNN route and with another z seed (FID only), and the kernel route
+    again from the cached real side (--kid --prdc), bit for bit; the tower on the card against the CPU;
+    the trainer's probe. Returns the `evals` report."""
     from dcgan_tpu_torch.config import load_config
 
     report = {"samples": EVAL_SAMPLES, "batch": EVAL_BATCH,
@@ -5759,14 +5809,27 @@ def evals_and_check(torch, np, workdir, kernels):
     full = ["--kid", "--prdc"]
     calls = 1 + -(-EVAL_SAMPLES // EVAL_BATCH)
     t0 = time.perf_counter()
-    kernel, k_t = evals_cli(torch, argv + full, "evals", kernels,
+    headline, h_t = evals_cli(torch, argv + full, "evals", kernels,
+                              SAMPLER_PER_CALL, calls)
+    report["headline"] = dict(headline, seconds=h_t)
+    # the comparisons, from a real side of their own
+    compare = ["--checkpoint_dir", run, "--synthetic", "--real_stats",
+               os.path.join(root, "real_stats_compare.npz"),
+               "--num_samples", str(EVAL_COMPARE_SAMPLES), "--batch_size",
+               str(EVAL_BATCH), "--kid_pool", str(EVAL_KID_POOL),
+               "--device", "cuda"]
+    report["compare_samples"] = EVAL_COMPARE_SAMPLES
+    calls = 1 + -(-EVAL_COMPARE_SAMPLES // EVAL_BATCH)
+    # the kernel route and its cached rerun with --kid --prdc, so the
+    # bit-for-bit check covers KID and PRDC on the cached real side too
+    kernel, k_t = evals_cli(torch, compare + full, None, kernels,
                             SAMPLER_PER_CALL, calls)
     report["kernel"] = dict(kernel, seconds=k_t)
-    plain, p_t = evals_cli(torch, argv, None, kernels, {}, 0,
+    plain, p_t = evals_cli(torch, compare, None, kernels, {}, 0,
                            dict(use_pallas=False, pallas_fused=False))
-    seed1, s_t = evals_cli(torch, argv + ["--seed", "1"], None, kernels,
+    seed1, s_t = evals_cli(torch, compare + ["--seed", "1"], None, kernels,
                            SAMPLER_PER_CALL, calls)
-    cached, c_t = evals_cli(torch, argv + full, None, kernels,
+    cached, c_t = evals_cli(torch, compare + full, None, kernels,
                             SAMPLER_PER_CALL, calls)
     torch.backends.cudnn.deterministic = saved
     report["scoring_s"] = time.perf_counter() - t0
@@ -5778,7 +5841,9 @@ def evals_and_check(torch, np, workdir, kernels):
     report["route_fid_gap"] = gap
     report["route_fid_rtol"] = EVAL_ROUTE_FID_RTOL
     report["seed_gap"] = seed_gap
-    log(f"evals: FID-50k kernel route {kernel['fid']!r}, cuDNN route "
+    log(f"evals: FID-50k {headline['fid']!r} in {h_t['total_s']:.1f} s; "
+        f"at {EVAL_COMPARE_SAMPLES}: kernel route {kernel['fid']!r}, cuDNN "
+        f"route "
         f"{plain['fid']!r} (gap {gap:.3e} relative, limit "
         f"{EVAL_ROUTE_FID_RTOL}), z seed 1 {seed1['fid']!r} (gap "
         f"{seed_gap:.3e}); cached real side {cached['fid']!r} in "
@@ -5786,14 +5851,15 @@ def evals_and_check(torch, np, workdir, kernels):
     if gap > EVAL_ROUTE_FID_RTOL:
         fail(f"evals: kernel-route FID {kernel['fid']} vs cuDNN route "
              f"{plain['fid']}: {gap:.3e} relative > {EVAL_ROUTE_FID_RTOL}")
-    if cached != kernel or c_t["real_s"] != 0.0 or k_t["real_s"] <= 0.0:
+    if cached != kernel or "kid" not in kernel or "precision" not in \
+            kernel or c_t["real_s"] != 0.0 or k_t["real_s"] <= 0.0:
         fail(f"evals: the cached rerun {cached} differs from {kernel}, or "
              f"its real pass ran ({c_t['real_s']} s)")
-    bad = [k for k, v in kernel.items() if isinstance(v, float)
+    bad = [k for k, v in headline.items() if isinstance(v, float)
            and not np.isfinite(v)]
-    if bad or kernel["num_samples"] != EVAL_SAMPLES or \
-            kernel["feature_dim"] != 512:
-        fail(f"evals: result {kernel}")
+    if bad or headline["num_samples"] != EVAL_SAMPLES or \
+            headline["feature_dim"] != 512 or "kid" not in headline:
+        fail(f"evals: result {headline}")
     eval_tower_check(torch, np, report)
     eval_probe(torch, np, workdir, kernels, report)
     return report
@@ -6613,6 +6679,466 @@ def families_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# fault tolerance in one process (`faults`)
+# ---------------------------------------------------------------------------
+
+# celeba64 on the kernel route, captured (--aot_warmup), with the rollback
+# armed: a snapshot every FAULT_SNAPSHOT steps, a NaN injected into the
+# gate's view at FAULT_NAN_STEP (inside the K=4 call 4 -> 8), so the run
+# restores step 4 and replays to FAULT_STEPS
+FAULT_STEPS = 12
+FAULT_SNAPSHOT = 4
+FAULT_NAN_STEP = 7
+# the steps the card runs in each rollback run: the NaN's step and the ones
+# before it, then the replay from the snapshot
+FAULT_EXECUTED = {1: FAULT_NAN_STEP + FAULT_STEPS - FAULT_SNAPSHOT,
+                  4: 2 * FAULT_SNAPSHOT + FAULT_STEPS - FAULT_SNAPSHOT}
+# the abort run's NaN, and the watchdog run's hang and deadline (seconds)
+FAULT_ABORT_STEP = 5
+FAULT_HANG_STEP = 3
+FAULT_WATCHDOG_SECS = 5.0
+# the async/inline services pair: a K=1 fed run with a JSONL and
+# TensorBoard row every step, a grid and an activation summary every
+# FAULT_TELEMETRY_EVERY steps
+FAULT_TIMED_STEPS = 60
+FAULT_TELEMETRY_EVERY = 20
+# snapshot / restore timing: repetitions (the median is kept)
+FAULT_REPS = 5
+# --rollback_lr_backoff of the rollback run at K=k (none at K=1), and the
+# scale the restore checks set after a restore
+FAULT_BACKOFF = {4: 0.5}
+
+
+def fault_argv(workdir, name, k, argv):
+    """train.cli.main's arguments for the faults group's run `name`:
+    celeba64 on the kernel route, synthetic, captured at K=k."""
+    return cond_argv(workdir, f"faults_{name}", "celeba64", FAULT_STEPS,
+                     ["--use_pallas", "--pallas_fused", "--synthetic",
+                      "--steps_per_call", str(k), "--aot_warmup",
+                      "--save_model_secs", "1e9", "--nan_check_steps",
+                      "1"] + argv)
+
+
+@contextlib.contextmanager
+def chaos_plan(plan):
+    """DCGAN_CHAOS set to `plan` for the block, read afresh by the port's
+    chaos module (the contract the drill uses per subprocess)."""
+    from dcgan_tpu_torch.testing import chaos
+
+    os.environ["DCGAN_CHAOS"] = json.dumps(plan)
+    chaos.reset()
+    try:
+        yield
+    finally:
+        os.environ.pop("DCGAN_CHAOS", None)
+        chaos.reset()
+
+
+def fault_rollback_run(torch, np, workdir, k, kernels, report):
+    """The rollback run at K=k: exactly FAULT_EXECUTED[k] steps' launches
+    of kernels 1-4 (the steps before the restore and the replayed ones,
+    each at PER_STEP), the restore capturing nothing, anomaly/rollbacks 1
+    from the failing step on, finite losses, the run at FAULT_STEPS."""
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    backoff = FAULT_BACKOFF.get(k)
+    argv = fault_argv(workdir, f"rollback_k{k}", k, [
+        "--nan_policy", "rollback", "--rollback_snapshot_steps",
+        str(FAULT_SNAPSHOT), "--max_rollbacks", "2"] + (
+            [] if backoff is None else
+            ["--rollback_lr_backoff", str(backoff)]))
+    seen = []
+    restore = StepRunner.restore
+
+    def watched(self, manager, exc):
+        before = self.captures
+        step = restore(self, manager, exc)
+        seen.append((self, before, step, getattr(exc, "step", None)))
+        return step
+
+    wrappers = all_wrappers()
+    StepRunner.restore = watched
+    try:
+        with chaos_plan({"nan_at_step": FAULT_NAN_STEP}), \
+                tee_stdout() as out:
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            state = cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        StepRunner.restore = restore
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    name = f"faults rollback K={k}"
+    want = {n: PER_STEP[n] * FAULT_EXECUTED[k] for n in PER_STEP}
+    if launches != want:
+        fail(f"{name}: launches {launches}, expected {want} "
+             f"({FAULT_EXECUTED[k]} steps at PER_STEP)")
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})[f"faults_k{k}"] = \
+            launches[entry["name"]]
+    if len(seen) != 1:
+        fail(f"{name}: {len(seen)} restores, expected one")
+    runner, before, step, fail_step = seen[0]
+    if (step, fail_step) != (FAULT_SNAPSHOT, FAULT_NAN_STEP) or \
+            runner.captures != before:
+        fail(f"{name}: restored step {step} at failing step {fail_step}; "
+             f"captures {before} before the restore, {runner.captures} "
+             f"at the end")
+    text = out.getvalue()
+    if f"rolling back to last-good snapshot at step {FAULT_SNAPSHOT}" \
+            not in text or int(state["step"]) != FAULT_STEPS:
+        fail(f"{name}: no rollback line, or the run ended at step "
+             f"{int(state['step'])}")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    events = read_jsonl(os.path.join(cfg.checkpoint_dir, "events.jsonl"))
+    rows = [(e["step"], e["values"]["anomaly/rollbacks"]) for e in events
+            if e["kind"] == "scalars" and "anomaly/rollbacks" in e["values"]]
+    losses = [e["values"] for e in events if e["kind"] == "scalars"
+              and "d_loss" in e["values"]]
+    if not rows or rows[0] != (FAULT_NAN_STEP, 1.0) or \
+            any(v != 1.0 for _, v in rows) or not all(np.isfinite(
+                [r[k2] for k2 in ("d_loss", "g_loss")]).all()
+                for r in losses):
+        fail(f"{name}: anomaly/rollbacks rows {rows}, or non-finite "
+             f"losses")
+    backoff_line = None
+    if backoff is not None:
+        # the backoff refilled the rate cells the captured rows read
+        cells = runner.fns.lr_backoff
+        got = {n: cells.cell(n, runner.device).item() for n in cells.rates}
+        want = {n: torch.tensor(r * backoff, dtype=torch.float32).item()
+                for n, r in cells.rates.items()}
+        lines = [ln for ln in text.splitlines()
+                 if "rollback LR backoff: base rates scaled by" in ln]
+        if len(lines) != 1 or got != want:
+            fail(f"{name}: backoff lines {lines}, rate cells {got}, "
+                 f"expected {want}")
+        backoff_line = lines[0]
+    report[f"rollback_k{k}"] = {
+        "train_s": secs, "launches": launches, "restored_step": step,
+        "captures_at_restore": before, "captures_at_end": runner.captures,
+        "anomaly_rows": rows, "backoff_line": backoff_line}
+    log(f"{name}: NaN at {FAULT_NAN_STEP} restored step {step}, the run "
+        f"reached {FAULT_STEPS} in {secs:.1f} s; {FAULT_EXECUTED[k]} steps' "
+        f"launches {launches}; captures {before} -> {runner.captures}; "
+        f"backoff {backoff_line}")
+
+
+def fault_restore_checks(torch, k, report):
+    """A runner at K=k (celeba64 kernel route, every row captured): the
+    snapshot and the restore timed on the device (CUDA events) and the
+    host; the restored static state equal to the snapshot bit for bit;
+    the first replay after the restore equal to eager steps from the
+    snapshot on the same inputs, bit for bit (losses and every leaf); the
+    launches of kernels 1-4 of a replay after the restore equal to one
+    before it; nothing captured."""
+    from dcgan_tpu_torch.train.rollback import RollbackManager
+    from dcgan_tpu_torch.train.steps import make_train_step, tree_leaves, \
+        tree_map
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    cfg = capture_cfg("celeba64", dict(use_pallas=True, pallas_fused=True),
+                      k)
+    fns = make_train_step(cfg)
+    images, zs = step_inputs(torch, cfg, 1 + 3 * k)
+    runner = StepRunner(fns, seeded_state(torch, fns, cfg), cfg,
+                        torch.device("cuda"))
+    runner.step(images[:1], zs[:1])                  # the warm-up
+    runner.capture(runner.row(k))
+    wrappers = all_wrappers()
+    manager = RollbackManager(every=1, max_rollbacks=10 ** 6, chief=False)
+    fresh = runner.row(k)
+    before_ix = slice(1, 1 + k)
+    after_ix = slice(1 + k, 1 + 2 * k)
+    reset_counts(wrappers)
+    runner.step(images[before_ix], zs[before_ix]).tolist()
+    per_replay = {n: fn.launches for n, fn in wrappers.items()}
+    captures = runner.captures
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3, \
+            out
+
+    snap, rest, back = [], [], []
+    err = FloatingPointError("faults: injected")
+    for _ in range(FAULT_REPS):
+        snap.append(timed(lambda: manager.snapshot(1 + k, runner.state)))
+        # the live state moves on, then the restore takes it back
+        runner.step(images[after_ix], zs[after_ix]).tolist()
+        rest.append(timed(lambda: runner.restore(manager, err)))
+    saved = [t.clone() for t in tree_leaves(manager._snap)]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(runner.state),
+                                                 saved))
+    if not same:
+        fail(f"faults K={k}: the restored static state differs from the "
+             "snapshot")
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    runner.restore(manager, err)
+    replay = runner.step(images[after_ix], zs[after_ix]).tolist()
+    back_ms = (time.perf_counter() - t0) * 1e3
+    after = {n: fn.launches for n, fn in wrappers.items()}
+    if after != per_replay:
+        fail(f"faults K={k}: a replay after the restore launched {after}, "
+             f"one before it {per_replay}")
+    replayed = [t.clone() for t in tree_leaves(runner.state)]
+    state, losses = eager_steps(fns, tree_map(torch.clone, manager._snap),
+                                images[after_ix], zs[after_ix])
+    if losses != replay or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                              replayed)):
+        fail(f"faults K={k}: the first replay after the restore "
+             f"({replay[-1]}) differs from eager steps from the snapshot "
+             f"({losses[-1]})")
+    # the LR backoff after a restore: the replay reads the refilled rate
+    # cells by address, so it equals eager steps from the snapshot at the
+    # backed-off rates and differs from the replay at the base rates
+    runner.restore(manager, err)
+    runner.set_lr_scale(FAULT_BACKOFF[CAPTURE_K])
+    backed = runner.step(images[after_ix], zs[after_ix]).tolist()
+    backed_state = [t.clone() for t in tree_leaves(runner.state)]
+    state, losses = eager_steps(fns, tree_map(torch.clone, manager._snap),
+                                images[after_ix], zs[after_ix])
+    runner.set_lr_scale(1.0)
+    if losses != backed or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                              backed_state)):
+        fail(f"faults K={k}: the replay after the restore and the LR "
+             f"backoff ({backed[-1]}) differs from eager steps from the "
+             f"snapshot at the backed-off rates ({losses[-1]})")
+    if all(torch.equal(a, b) for a, b in zip(backed_state, replayed)):
+        fail(f"faults K={k}: the replay at the backed-off rates left the "
+             "state of the replay at the base rates")
+    if runner.captures != captures or runner.row(k) != fresh:
+        fail(f"faults K={k}: the restores and the backoff captured "
+             f"{runner.captures - captures} program(s)")
+    for _ in range(2):
+        back.append(timed(lambda: (runner.restore(manager, err),
+                                   runner.step(images[after_ix],
+                                               zs[after_ix]).tolist())))
+    med = statistics.median
+    entry = {
+        "snapshot_device_ms": med(d for d, _, _ in snap),
+        "snapshot_host_ms": med(h for _, h, _ in snap),
+        "restore_device_ms": med(d for d, _, _ in rest),
+        "restore_host_ms": med(h for _, h, _ in rest),
+        "rollback_to_next_replay_ms": med(
+            [back_ms] + [h for _, h, _ in back]),
+        "state_bytes": sum(t.numel() * t.element_size() for t in saved),
+        "leaves": len(saved), "launches_per_replay": per_replay}
+    report[f"restore_k{k}"] = entry
+    log(f"faults K={k}: snapshot {entry['snapshot_device_ms']:.3f} ms "
+        f"device ({entry['snapshot_host_ms']:.3f} host), restore "
+        f"{entry['restore_device_ms']:.3f} ms device "
+        f"({entry['restore_host_ms']:.3f} host) over "
+        f"{entry['state_bytes'] / 2 ** 20:.1f} MiB in {entry['leaves']} "
+        f"leaves; rollback to the next replay's readback "
+        f"{entry['rollback_to_next_replay_ms']:.3f} ms; restored state and "
+        f"the first replay equal the snapshot and eager steps bit for "
+        f"bit, also after an LR backoff to "
+        f"{FAULT_BACKOFF[CAPTURE_K]}; launches per replay {per_replay} "
+        f"before and after; 0 captures")
+    runner.close()
+    del runner, manager
+    torch.cuda.empty_cache()
+
+
+def fault_pipeline_run(torch, np, workdir, report):
+    """The rollback under --pipeline_gd: the restore drains the fake stack
+    in flight, and the run completes."""
+    from dcgan_tpu_torch.train import cli
+
+    argv = fault_argv(workdir, "pipeline", 1, [
+        "--pipeline_gd", "true", "--nan_policy", "rollback",
+        "--rollback_snapshot_steps", str(FAULT_SNAPSHOT)])
+    with chaos_plan({"nan_at_step": FAULT_NAN_STEP}), tee_stdout() as out:
+        t0 = time.perf_counter()
+        state = cli.main(argv)
+        secs = time.perf_counter() - t0
+    text = out.getvalue()
+    if "rollback drained the in-flight pipelined fake stack" not in text \
+            or int(state["step"]) != FAULT_STEPS:
+        fail(f"faults pipeline: no drain line, or the run ended at step "
+             f"{int(state['step'])}")
+    report["pipeline"] = {"train_s": secs, "drained": True}
+    log(f"faults pipeline: the rollback at {FAULT_NAN_STEP} drained the "
+        f"fake stack, the run reached {FAULT_STEPS} in {secs:.1f} s")
+
+
+def fault_abort_run(torch, workdir, report):
+    """A NaN under the abort policy: FloatingPointError at the step, and a
+    flight-recorder dump whose last record is that step, gate "trip"."""
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.flight_recorder import read_dump, \
+        recorder_path
+
+    argv = fault_argv(workdir, "abort", 1, [])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    with chaos_plan({"nan_at_step": FAULT_ABORT_STEP}):
+        try:
+            cli.main(argv)
+        except FloatingPointError as e:
+            if getattr(e, "step", None) != FAULT_ABORT_STEP:
+                fail(f"faults abort: raised at step {getattr(e, 'step')}")
+        else:
+            fail("faults abort: the NaN did not abort the run")
+    header, records = read_dump(recorder_path(cfg.checkpoint_dir))
+    if header["reason"] != "nan-abort" or header["step"] != \
+            FAULT_ABORT_STEP or not records or \
+            (records[-1]["step"], records[-1]["gate"]) != \
+            (FAULT_ABORT_STEP, "trip"):
+        fail(f"faults abort: dump {header}, last record {records[-1:]}")
+    report["abort"] = {"dump_records": len(records),
+                       "last": records[-1]["step"]}
+    log(f"faults abort: FloatingPointError at {FAULT_ABORT_STEP}, a dump of "
+        f"{len(records)} records, the last step {FAULT_ABORT_STEP} 'trip'")
+
+
+def fault_watchdog_run(workdir, report):
+    """`python -m dcgan_tpu_torch.train` in a subprocess with the watchdog
+    armed and a hang at FAULT_HANG_STEP inside the guarded dispatch: exit
+    43, every thread's stack on stderr, and a dump naming the phase."""
+    from dcgan_tpu_torch.train.flight_recorder import read_dump
+
+    tdir = os.path.join(workdir, "faults_watchdog")
+    env = dict(os.environ, DCGAN_CHAOS=json.dumps(
+        {"hang_at_step": FAULT_HANG_STEP, "hang_secs": 600}))
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dcgan_tpu_torch.train", "--preset",
+         "celeba64", "--use_pallas", "--pallas_fused", "--synthetic",
+         "--max_steps", "20", "--batch_size", str(BATCH), "--device",
+         "cuda", "--checkpoint_dir", tdir, "--sample_every_steps", "0",
+         "--activation_summary_steps", "0", "--save_model_secs", "1e9",
+         "--collective_timeout_secs", str(FAULT_WATCHDOG_SECS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if res.returncode != 43 or "hung-collective watchdog" not in \
+            res.stderr or "Thread 0x" not in res.stderr:
+        fail(f"faults watchdog: rc {res.returncode}, stderr "
+             f"{res.stderr[-1500:]}")
+    header, records = read_dump(os.path.join(tdir, "flight_recorder.jsonl"))
+    if (header["reason"], header.get("phase"), header["step"]) != \
+            ("watchdog", "step-dispatch", FAULT_HANG_STEP) or not records:
+        fail(f"faults watchdog: dump header {header}")
+    report["watchdog"] = {"rc": res.returncode, "seconds": secs,
+                          "dump_records": len(records)}
+    log(f"faults watchdog: exit 43 after {secs:.1f} s (deadline "
+        f"{FAULT_WATCHDOG_SECS} s), stacks on stderr, a dump of "
+        f"{len(records)} records naming 'step-dispatch' at step "
+        f"{FAULT_HANG_STEP}")
+
+
+def fault_services_pair(torch, np, workdir, report):
+    """The same fed K=1 run with the services async and inline, in turns
+    (async, inline, inline, async): the same JSONL but for the wall-clock
+    fields; each run's step ms (the trainer's own p50 and mean,
+    host-inclusive) against the captured step's busy ms, and the idle
+    share."""
+    from dcgan_tpu_torch.train import cli
+
+    out = {}
+    # in turns, async first and last
+    for turn, mode in enumerate(("true", "false", "false", "true")):
+        argv = cond_argv(workdir, f"faults_services_{mode}{turn}",
+                         "celeba64",
+                         FAULT_TIMED_STEPS, [
+                             "--use_pallas", "--pallas_fused",
+                             "--synthetic", "--aot_warmup",
+                             "--save_model_secs", "1e9",
+                             "--nan_check_steps", "1",
+                             "--async_services", mode,
+                             "--sample_every_steps",
+                             str(FAULT_TELEMETRY_EVERY),
+                             "--activation_summary_steps",
+                             str(FAULT_TELEMETRY_EVERY)])
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        t0 = time.perf_counter()
+        cli.main(argv)
+        secs = time.perf_counter() - t0
+        events = read_jsonl(os.path.join(cfg.checkpoint_dir,
+                                         "events.jsonl"))
+        last = [e["values"] for e in events if e["kind"] == "scalars"
+                and "perf/step_ms_p50" in e["values"]][-1]
+        text = json.dumps([{k: v for k, v in e.items() if k != "time"}
+                           | ({"values": {a: b for a, b in
+                                          e["values"].items()
+                                          if not a.startswith("perf/")}}
+                              if isinstance(e.get("values"), dict) else {})
+                           for e in events]).replace(cfg.checkpoint_dir,
+                                                     "D")
+        text = text.replace(f"faults_services_{mode}{turn}", "R")
+        o = out.setdefault(mode, {"texts": [], "train_s": [],
+                                  "step_ms_p50": [], "step_ms_mean": [],
+                                  "host_ms_mean": []})
+        o["texts"].append(text)
+        o["events"] = len(events)
+        o["train_s"].append(secs)
+        for key in ("step_ms_p50", "step_ms_mean", "host_ms_mean"):
+            o[key].append(last[f"perf/{key}"])
+    texts = set(out["true"].pop("texts") + out["false"].pop("texts"))
+    if len(texts) != 1:
+        fail(f"faults services: the async and inline runs wrote "
+             f"{len(texts)} different JSONL streams")
+    cfg = capture_cfg("celeba64", dict(use_pallas=True, pallas_fused=True))
+    cond_timed(torch, "faults_step", cfg, report, group="faults")
+    busy = report["faults_step"]["busy_ms"]
+    for mode, name in (("true", "async"), ("false", "inline")):
+        o = out[mode]
+        o["busy_ms"] = busy
+        o["idle_share"] = [max(0.0, 1.0 - busy / ms)
+                           for ms in o["step_ms_p50"]] \
+            if isinstance(busy, float) else "not measured"
+        report[f"services_{name}"] = o
+    log(f"faults services: async and inline JSONL equal "
+        f"({out['true']['events']} events); step ms p50 in turns async "
+        f"{out['true']['step_ms_p50'][0]:.3f}, inline "
+        f"{out['false']['step_ms_p50']}, async "
+        f"{out['true']['step_ms_p50'][1]:.3f}; busy {busy} ms; idle share "
+        f"async {out['true']['idle_share']}, inline "
+        f"{out['false']['idle_share']}")
+
+
+def faults_and_check(torch, np, workdir, kernels):
+    """Phase 22: one-process fault tolerance on celeba64's kernel route
+    (gf = df = 64, batch 64, captured). Returns the `faults` report."""
+    t0 = time.perf_counter()
+    report = {"batch": BATCH}
+    saved = torch.backends.cudnn.deterministic
+    # the bit-for-bit comparisons (eager against replay, async against
+    # inline runs) need cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k in (1, CAPTURE_K):
+            fault_rollback_run(torch, np, workdir, k, kernels, report)
+            fault_restore_checks(torch, k, report)
+        fault_pipeline_run(torch, np, workdir, report)
+        fault_abort_run(torch, workdir, report)
+        fault_services_pair(torch, np, workdir, report)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    fault_watchdog_run(workdir, report)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"faults: the group took {report['seconds']:.1f} s")
+    return report
+
+
+# the end of the last group (phase_memory logs each group's seconds)
+_PHASE_T = time.perf_counter()
+
+
 def phase_memory(torch, phase, report):
     """A phase's end: its peak device memory, then the garbage collected
     (a captured program's closure refers to its owner, which holds the
@@ -6620,9 +7146,13 @@ def phase_memory(torch, phase, report):
     private pool is still reserved: the phases after it would run short of
     the card's memory. Adds {peak, left allocated and reserved bytes} to
     `report[phase]` and resets the peaks."""
+    global _PHASE_T
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    now = time.perf_counter()
+    log(f"{phase}: the group took {now - _PHASE_T:.1f} s")
+    _PHASE_T = now
     pooled = [seg for seg in torch.cuda.memory_snapshot()
               if tuple(seg["segment_pool_id"]) != (0, 0)]
     entry = report[phase] = {
@@ -6750,6 +7280,8 @@ def main() -> int:
         phase_memory(torch, "progressive", memory)
         fam_report = families_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "families", memory)
+        faults_report = faults_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "faults", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -6765,6 +7297,7 @@ def main() -> int:
     print(json.dumps({"evals": evals_report}), flush=True)
     print(json.dumps({"progressive": prog_report}), flush=True)
     print(json.dumps({"families": fam_report}), flush=True)
+    print(json.dumps({"faults": faults_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
@@ -6785,6 +7318,19 @@ def main() -> int:
         for name in ("sngan_cifar10_step", "stylegan64_step")} | {
         "seconds": fam_report["seconds"],
         "peak_reserved": memory["families"]["peak_reserved"],
+        "card": card}}), flush=True)
+    print(json.dumps({"faults_timing": {
+        **{f"k{k}": {name: faults_report[f"restore_k{k}"][name] for name in (
+            "snapshot_device_ms", "snapshot_host_ms", "restore_device_ms",
+            "restore_host_ms", "rollback_to_next_replay_ms", "state_bytes")}
+           for k in (1, CAPTURE_K)},
+        "fed_k1_step": {name: {key: faults_report[f"services_{name}"][key]
+                               for key in ("step_ms_p50", "step_ms_mean",
+                                           "host_ms_mean", "busy_ms",
+                                           "idle_share")}
+                        for name in ("async", "inline")},
+        "seconds": faults_report["seconds"],
+        "peak_reserved": memory["faults"]["peak_reserved"],
         "card": card}}), flush=True)
     print(card, flush=True)
     for entry in kernels:

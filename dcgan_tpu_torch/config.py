@@ -13,13 +13,14 @@ label on G's z and as constant maps on D's image; `conditional_bn`: G's
 BatchNorm affine per class), on the BCE, hinge or WGAN-GP loss, with R1,
 n_critic, gradient accumulation, DiffAugment and the f32/bf16/fp8
 precision policies, on one resolution or on a progressive schedule of
-them; the fields that select anything else (the JAX package's
-`nan_policy="rollback"`) raise `NotImplementedError` instead of being
-silently ignored. So does a penalty (WGAN-GP, R1) whose critic's second
+them, with the one-process fault tolerance (`nan_policy="rollback"` and
+its snapshot cadence, budget and LR backoff, the async host services, the
+flight recorder and the watchdog). It refuses, with
+`NotImplementedError`, a penalty (WGAN-GP, R1) whose critic's second
 derivative would meet a kernel: the JAX package cannot differentiate a
 Pallas kernel twice, so it cannot trace a penalty through the DCGAN
 stacks' BatchNorm under `use_pallas` nor through an attention block on
-the flash kernels, and the port refuses those combinations. The residual
+the flash kernels. The residual
 critic is norm-free and G's kernels never see the penalty's double
 backward (D's loss takes G's images detached), so resnet and stylegan
 train their penalties under `use_pallas`. A sequence mesh for the
@@ -243,8 +244,38 @@ class TrainConfig:
     nan_check_steps: int = 100     # every N steps the step's metrics must
                                    # be finite, else the run raises
                                    # FloatingPointError (0 = off)
-    nan_policy: str = "abort"      # a tripped NaN gate raises; the JAX
-                                   # package's "rollback" is not ported
+    nan_policy: str = "abort"      # what a tripped NaN gate does: "abort"
+                                   # (raise with step context) |
+                                   # "rollback" (restore the last-good
+                                   # snapshot, skip the offending batch
+                                   # window, train on — train/rollback.py)
+    rollback_snapshot_steps: int = 100  # nan_policy="rollback": copy the
+                                   # gate-verified state every K steps (the
+                                   # restore point; a device-side copy)
+    max_rollbacks: int = 3         # rollbacks allowed per run before the
+                                   # gate aborts anyway
+    rollback_lr_backoff: float = 1.0  # <1.0: multiply both nets' base
+                                   # learning rates by this on every
+                                   # rollback (read by the captured step
+                                   # from a device scalar: nothing is
+                                   # captured again); 1.0 = off
+    async_services: bool = True    # telemetry tails (event-file IO, grid
+                                   # PNGs, the probes' writes) on one
+                                   # background worker with drop-oldest
+                                   # backpressure (train/services.py);
+                                   # False runs each inline at its call
+                                   # site
+    flight_recorder_steps: int = 64  # ring of the last K per-step records,
+                                   # dumped as flight_recorder.jsonl on a
+                                   # NaN abort, a stop, a watchdog trip or
+                                   # an uncaught exception; 0 = off
+    collective_timeout_secs: float = 0.0  # >0 arms the watchdog
+                                   # (train/coordination.py): a deadline on
+                                   # each call's dispatch and readback, the
+                                   # rollback restore and the save; on
+                                   # expiry every thread's stack is dumped
+                                   # and the process exits 43. A call that
+                                   # captures a graph is exempt. 0 = off
     activation_summary_steps: int = 500  # per-layer activation histograms
                                    # and sparsity (0: none)
     seed: int = 0
@@ -364,11 +395,25 @@ class TrainConfig:
                 "nan_policy='rollback' needs the NaN gate enabled "
                 "(nan_check_steps > 0) — with the gate off nothing ever "
                 "trips, so the snapshot cost buys no protection")
-        if self.nan_policy == "rollback":
-            raise NotImplementedError(
-                "nan_policy='rollback' (restore the last good snapshot and "
-                "train on) is not ported to dcgan_tpu_torch; the port "
-                "aborts on a non-finite metric (nan_policy='abort')")
+        if self.rollback_snapshot_steps < 1:
+            raise ValueError(
+                f"rollback_snapshot_steps must be >= 1, got "
+                f"{self.rollback_snapshot_steps}")
+        if self.max_rollbacks < 1:
+            raise ValueError(
+                f"max_rollbacks must be >= 1, got {self.max_rollbacks}")
+        if not 0.0 < self.rollback_lr_backoff <= 1.0:
+            raise ValueError(
+                f"rollback_lr_backoff must be in (0, 1], got "
+                f"{self.rollback_lr_backoff}")
+        if self.collective_timeout_secs < 0:
+            raise ValueError(
+                f"collective_timeout_secs must be >= 0, got "
+                f"{self.collective_timeout_secs}")
+        if self.flight_recorder_steps < 0:
+            raise ValueError(
+                f"flight_recorder_steps must be >= 0, got "
+                f"{self.flight_recorder_steps}")
         if self.fid_every_steps < 0:
             raise ValueError(
                 f"fid_every_steps must be >= 0, got {self.fid_every_steps}")
@@ -398,6 +443,11 @@ class TrainConfig:
                             self.activation_summary_steps,
                         "save_model_steps": self.save_model_steps,
                         "fid_every_steps": self.fid_every_steps}
+            if self.nan_policy == "rollback":
+                # the snapshot cadence is inert under the default policy,
+                # so its value constrains steps_per_call only when armed
+                cadences["rollback_snapshot_steps"] = \
+                    self.rollback_snapshot_steps
             spc = self.steps_per_call
             bad = {k: v for k, v in cadences.items()
                    if v and v % spc != 0 and spc % v != 0}
@@ -449,9 +499,14 @@ class TrainConfig:
                     "the probe's feature extractor and real-side "
                     "statistics are fixed-resolution; score offline per "
                     "phase via the evals CLI instead")
-            # the JAX package also refuses rollback_lr_backoff < 1.0 here;
-            # the port has no such field, since nan_policy="rollback" is
-            # refused above
+            if self.nan_policy == "rollback" \
+                    and self.rollback_lr_backoff < 1.0:
+                raise ValueError(
+                    "--progressive does not compose with "
+                    "rollback_lr_backoff < 1.0: the pre-warmed backoff "
+                    "surface is per-phase and a mid-schedule rebuild "
+                    "would recompile under the zero-recompile contract; "
+                    "use rollback without LR backoff")
             from dcgan_tpu_torch.progressive.schedule import parse_schedule
             parse_schedule(self.progressive, model=self.model,
                            batch_size=self.batch_size,
@@ -511,8 +566,9 @@ def save_model_config(cfg: ModelConfig, directory: str) -> str:
 
 # TrainConfig fields of the JAX package that change what is trained and
 # that the port does not implement, with their JAX defaults: a config.json
-# that sets one otherwise raises instead of being trained without it
-UNPORTED_TRAIN_FIELDS = {"nan_policy": "abort"}
+# that sets one otherwise raises instead of being trained without it (none
+# is left; a field the port drops again goes here)
+UNPORTED_TRAIN_FIELDS: Dict[str, Any] = {}
 
 
 def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:
@@ -522,8 +578,9 @@ def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:
 def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a `config.json` dict of either package.
 
-    The JAX package's fields the port has no use for (its mesh, fault
-    tolerance, profiling) are reported once and dropped; one of
+    The JAX package's fields the port has no use for (its mesh, the
+    multi-process fault tolerance, profiling) are reported once and
+    dropped; one of
     UNPORTED_TRAIN_FIELDS away from its default raises
     NotImplementedError, as the port's own unported values do."""
     d = dict(d)

@@ -28,6 +28,9 @@ thread-safe queue.
   promotion, 0;
 - drain: once the server stops intake, the loop keeps flushing until the
   queue is empty (FIFO, same batching rules), then exits;
+- chaos: before its n-th batch dispatch the replica consults the chaos
+  plan (testing/chaos.py): a killed replica fails the batch and poisons
+  itself, a hung one sleeps, a slow-beat one mutes its heartbeat;
 - release: when the thread ends, for whatever reason, it calls the
   source's `close()`, which releases every captured rung and its graph
   pool.
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from dcgan_tpu_torch.serve.server import PromotionTicket, ServeError
+from dcgan_tpu_torch.testing import chaos
 
 
 class ServeWorker:
@@ -58,6 +62,9 @@ class ServeWorker:
             else f"dcgan-torch-serve-dispatch-{server.replica_index}"
         self._thread = threading.Thread(target=self._run, name=name,
                                         daemon=True)
+        # 1-based count of this replica's batch dispatches (the chaos
+        # plan's replica faults are keyed by it)
+        self._dispatch_index = 0
 
     def start(self) -> None:
         self._thread.start()
@@ -104,7 +111,19 @@ class ServeWorker:
                     return
                 continue
             spans, total = batch
+            self._dispatch_index += 1
+            idx = self._dispatch_index
             try:
+                # the chaos plan's replica faults (testing/chaos.py), at
+                # the JAX worker's points of the loop
+                mute = chaos.maybe_replica_slow_beat(s.replica_index, idx)
+                if mute:
+                    s._mute_beats(mute)
+                chaos.maybe_replica_hang(s.replica_index, idx)
+                if chaos.should_kill_replica(s.replica_index, idx):
+                    raise ServeError(
+                        f"chaos: replica {s.replica_index} killed "
+                        f"before dispatch {idx}")
                 self._dispatch(spans, total)
                 s._bump_beat()
             except Exception as e:  # fails this batch and poisons the server

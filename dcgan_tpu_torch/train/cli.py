@@ -38,7 +38,13 @@ TFRecord shards of --data_dir (or synthetic data with --synthetic) and,
 run again on the same --checkpoint_dir, resumes from its newest intact
 checkpoint. SIGTERM or SIGINT stops the run at the next call boundary with
 a final checkpoint; a non-finite loss on the --nan_check_steps cadence
-aborts it with FloatingPointError.
+aborts it with FloatingPointError, or with --nan_policy rollback restores
+the last good snapshot and trains on:
+
+    python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
+        --pallas_fused --synthetic --nan_policy rollback \
+        --rollback_snapshot_steps 20 --max_rollbacks 3 \
+        --rollback_lr_backoff 0.5 --collective_timeout_secs 60
 """
 
 from __future__ import annotations
@@ -92,6 +98,13 @@ _FLAG_FIELDS = {
     "steps_per_call": ("", "steps_per_call"),
     "aot_warmup": ("", "aot_warmup"),
     "nan_check_steps": ("", "nan_check_steps"),
+    "nan_policy": ("", "nan_policy"),
+    "rollback_snapshot_steps": ("", "rollback_snapshot_steps"),
+    "max_rollbacks": ("", "max_rollbacks"),
+    "rollback_lr_backoff": ("", "rollback_lr_backoff"),
+    "async_services": ("", "async_services"),
+    "flight_recorder_steps": ("", "flight_recorder_steps"),
+    "collective_timeout_secs": ("", "collective_timeout_secs"),
     "pipeline_gd": ("", "pipeline_gd"),
     "progressive": ("", "progressive"),
     "progressive_fade_steps": ("", "progressive_fade_steps"),
@@ -266,6 +279,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="numerical-health gate cadence (0 = off): every "
                         "N steps a non-finite loss aborts the run with "
                         "FloatingPointError before the step is saved")
+    p.add_argument("--nan_policy", choices=["abort", "rollback"],
+                   help="tripped NaN gate: abort with step context "
+                        "(reference parity) or restore the last-good "
+                        "snapshot, skip the offending batch window, and "
+                        "keep training (bounded by --max_rollbacks)")
+    p.add_argument("--rollback_snapshot_steps", type=int,
+                   help="with --nan_policy rollback: snapshot the "
+                        "gate-verified state every K steps (the restore "
+                        "point)")
+    p.add_argument("--max_rollbacks", type=int,
+                   help="rollbacks allowed per run before the gate aborts "
+                        "anyway")
+    p.add_argument("--rollback_lr_backoff", type=float,
+                   help="<1.0: multiply both base learning rates by this "
+                        "on every rollback (1.0 = off)")
+    p.add_argument("--async_services", type=_parse_bool,
+                   metavar="{true,false}",
+                   help="run the telemetry tails (event-file IO, sample "
+                        "PNGs, probe writes) on a background executor; "
+                        "--async_services=false runs every service inline "
+                        "on the dispatch thread (identical metric values "
+                        "and event structure)")
+    p.add_argument("--flight_recorder_steps", type=int,
+                   help="crash flight recorder: ring of the last K "
+                        "per-step telemetry records dumped as JSONL on "
+                        "watchdog trip / NaN abort / coordinated stop / "
+                        "uncaught exception (crash-path-only IO; 0 = off)")
+    p.add_argument("--collective_timeout_secs", type=float,
+                   help=">0 arms the hung-section watchdog: a deadline "
+                        "around each dispatch/save/restore section that "
+                        "dumps the stacks and exits 43 on expiry so the "
+                        "launcher restarts the job instead of hanging; "
+                        "0 = off")
     p.add_argument("--pipeline_gd", type=_parse_bool, nargs="?", const=True,
                    metavar="{true,false}",
                    help="pipelined G/D dispatch: the step as three stage "

@@ -100,37 +100,86 @@ def tree_unflatten(like: Pytree, leaves: List[torch.Tensor]) -> Pytree:
 # Learning-rate schedules and Adam, in optax's arithmetic
 # ---------------------------------------------------------------------------
 
+class LrBackoff:
+    """The nets' base learning rates times the rollback LR backoff's
+    scale, each a 0-d f32 tensor per device that the schedule reads
+    (`make_lr_schedule`'s `base_rate`). `set_scale` fills them in place,
+    so a captured step replays at the new rates and nothing is captured
+    again. A cell holds f32(base * scale), the value the JAX package's
+    rebuilt schedule (`warmup.backoff_config`) starts from; at scale 1 it
+    is f32(base), the constant optax's schedule multiplies by."""
+
+    def __init__(self, rates: Dict[str, float]):
+        self.rates = dict(rates)
+        self.scale = 1.0
+        self._cells: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    def cell(self, net: str, device: torch.device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # "cuda" and a tensor's "cuda:0" are one cell
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (net, device)
+        t = self._cells.get(key)
+        if t is None:
+            t = self._cells[key] = torch.full(
+                (), self.rates[net] * self.scale, dtype=torch.float32,
+                device=device)
+        return t
+
+    def rate(self, net: str) -> Callable[[torch.device], torch.Tensor]:
+        """`net`'s cell on a device, as `make_lr_schedule` reads it."""
+        return lambda device: self.cell(net, device)
+
+    def set_scale(self, scale: float) -> None:
+        self.scale = scale
+        with torch.no_grad():
+            for (net, _), t in self._cells.items():
+                t.fill_(self.rates[net] * scale)
+
+
 def make_lr_schedule(cfg: TrainConfig, base_lr: float, *,
-                     updates_per_step: int = 1) -> Schedule:
+                     updates_per_step: int = 1,
+                     base_rate: Optional[Callable[[torch.device],
+                                                  torch.Tensor]] = None
+                     ) -> Schedule:
     """Update count (an int32 tensor) -> f32 learning rate, optax's
     constant / linear / cosine schedules with an optional linear warmup
-    (`join_schedules`), decaying to 0 over max_steps."""
+    (`join_schedules`), decaying to 0 over max_steps. The base rate is
+    read from the 0-d device tensor `base_rate` returns (the rollback LR
+    backoff's cell, LrBackoff), a cell of `base_lr` of the schedule's own
+    when None: the f32 operations of a baked-in base_lr on its f32
+    value."""
     warmup = cfg.warmup_steps * updates_per_step
     decay_steps = max(1, cfg.max_steps * updates_per_step - warmup)
+    if base_rate is None:
+        base_rate = LrBackoff({"base": base_lr}).rate("base")
 
-    def constant(count):
-        return torch.full((), base_lr, dtype=torch.float32,
-                          device=count.device)
+    def base(count):
+        return base_rate(count.device)
 
-    def linear(init: float, end: float, steps: int) -> Schedule:
+    def zero(count):
+        return 0.0
+
+    def linear(init, end, steps: int) -> Schedule:
         def schedule(count):
             c = torch.clamp(count, 0, steps)
             frac = 1.0 - c.float() / steps
-            return (init - end) * frac + end
+            return (init(count) - end(count)) * frac + end(count)
         return schedule
 
     def cosine(count):
         c = torch.minimum(count.float(), torch.full(
             (), float(decay_steps), device=count.device))
         decayed = 0.5 * (1.0 + torch.cos(math.pi * c / float(decay_steps)))
-        return base_lr * decayed
+        return base(count) * decayed
 
-    main = {"constant": constant,
-            "linear": linear(base_lr, 0.0, decay_steps),
+    main = {"constant": base,
+            "linear": linear(base, zero, decay_steps),
             "cosine": cosine}[cfg.lr_schedule]
     if not warmup:
         return main
-    ramp = linear(0.0, base_lr, warmup)
+    ramp = linear(zero, base, warmup)
 
     def joined(count):
         return torch.where(count < warmup, ramp(count), main(count - warmup))
@@ -215,17 +264,32 @@ class Adam:
 
 
 def make_optimizer(cfg: TrainConfig, lr: Optional[float] = None, *,
-                   updates_per_step: int = 1) -> Adam:
+                   updates_per_step: int = 1,
+                   base_rate: Optional[Callable[[torch.device],
+                                                torch.Tensor]] = None
+                   ) -> Adam:
     """Adam(lr=2e-4, b1=0.5, b2=0.999, eps=1e-8), the reference's optimizer;
     `lr` overrides the base rate (per-net rates), the schedule applies on
-    top; grad_clip > 0 clips by global norm first."""
+    top (`base_rate`: see make_lr_schedule); grad_clip > 0 clips by global
+    norm first."""
     base_lr = cfg.learning_rate if lr is None else lr
     # the bf16 and fp8 policies keep Adam's first moment in f32 (optax's
     # mu_dtype): a small signed running mean that bf16 rounding biases
     mu_dtype = torch.float32 if cfg.precision in ("bf16", "fp8") else None
     return Adam(lr=make_lr_schedule(cfg, base_lr,
-                                    updates_per_step=updates_per_step),
+                                    updates_per_step=updates_per_step,
+                                    base_rate=base_rate),
                 b1=cfg.beta1, grad_clip=cfg.grad_clip, mu_dtype=mu_dtype)
+
+
+def make_lr_backoff(cfg: TrainConfig) -> LrBackoff:
+    """The rate cells of both nets' base rates (the rollback LR backoff
+    moves them; at scale 1 the step reads the configured rates)."""
+    return LrBackoff({
+        "gen": cfg.learning_rate if cfg.g_learning_rate is None
+        else cfg.g_learning_rate,
+        "disc": cfg.learning_rate if cfg.d_learning_rate is None
+        else cfg.d_learning_rate})
 
 
 def init_train_state(cfg: TrainConfig, *, seed: Optional[int] = None,
@@ -376,6 +440,8 @@ class TrainStepFns:
                           # -> (state, D's metrics)
     g_update: Callable    # (state, draws) -> (state, next fake stack,
                           # {"g_loss"})
+    lr_backoff: Optional[LrBackoff] = None  # both nets' base-rate cells
+                                            # (make_lr_backoff)
 
 
 def _leaves_with_grad(tree: Pytree) -> Pytree:
@@ -418,9 +484,12 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
     `draw_step`; `penalty` (lazy R1) says whether this step runs the
     penalty, `penalty_due(cfg, int(state["step"]))` when None."""
     mcfg = cfg.model
-    opt_g = make_optimizer(cfg, cfg.g_learning_rate)
+    backoff = make_lr_backoff(cfg)
+    opt_g = make_optimizer(cfg, cfg.g_learning_rate,
+                           base_rate=backoff.rate("gen"))
     opt_d = make_optimizer(cfg, cfg.d_learning_rate,
-                           updates_per_step=cfg.n_critic)
+                           updates_per_step=cfg.n_critic,
+                           base_rate=backoff.rate("disc"))
     wgan = cfg.loss == "wgan-gp"
     r1 = cfg.r1_gamma > 0.0
     lazy = lazy_r1(cfg)
@@ -856,4 +925,5 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
     return TrainStepFns(train_step=train_step, grads=grads, sample=sample,
                         init=init, eval_losses=eval_losses,
                         summarize=summarize, gen_fakes=gen_fakes,
-                        d_update=d_update, g_update=g_update)
+                        d_update=d_update, g_update=g_update,
+                        lr_backoff=backoff)

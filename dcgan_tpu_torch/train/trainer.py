@@ -33,6 +33,30 @@
   falls on the cadence) the step's metrics must be finite, or the run
   raises `FloatingPointError` with the step, before that step is
   checkpointed (`dcgan_tpu/train/trainer.py:1162-1198`, the abort policy);
+  under `nan_policy="rollback"` (train/rollback.py) a trip instead copies
+  the last gate-verified snapshot (taken every `rollback_snapshot_steps`
+  steps on the device, the gate forced on the snapshot's step) back into
+  the runner's static state, drops the checkpoints saved after it, writes
+  `anomaly/rollbacks` at the failing step, refills the LR backoff's rate
+  cells and folds the rollback count into the step draws' seeds; the data
+  iterator is not rewound, a pipelined run drains its fake stack first,
+  and nothing is captured again. Past `max_rollbacks` the run raises
+  `RollbackExhausted` (`dcgan_tpu/train/trainer.py:1235-1316`);
+- the flight recorder (train/flight_recorder.py): one record per step
+  (losses, gate verdict, step and host ms, the counter registry's
+  snapshot) in a ring of `flight_recorder_steps`, dumped as
+  `<checkpoint_dir>/flight_recorder.jsonl` on a NaN abort, a stop, a
+  watchdog trip and an uncaught exception;
+- the watchdog (`collective_timeout_secs` > 0, train/coordination.py): a
+  deadline on each call's dispatch and readback (not on a call that
+  captures a program), on the rollback restore and on the saves; a trip
+  dumps the ring and every thread's stack and exits 43;
+- the host services (train/services.py, `async_services`): every
+  MetricWriter call and the grid's PNG run on one worker thread, fed by
+  host copies the dispatch thread starts (`services.stage`), drained at
+  each save and at the end; `async_services=False` runs them inline;
+- the chaos hooks (testing/chaos.py, `DCGAN_CHAOS`): a poisoned gate
+  view, a SIGTERM to self and a hang inside the guarded window;
 - SIGTERM and SIGINT (train/coordination.py): the loop stops at the next
   call boundary, and the final checkpoint is written as at the end of a
   run, so a preemption resumes where it stopped;
@@ -87,6 +111,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import os
 import pprint
@@ -105,9 +130,15 @@ from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.progressive import PhaseRuntime, Rebucketer, \
     parse_schedule
 from dcgan_tpu_torch.progressive.phases import PHASE_SEED_OFFSET
-from dcgan_tpu_torch.train.coordination import CoordinatedStop
+from dcgan_tpu_torch.testing import chaos
+from dcgan_tpu_torch.train.coordination import CoordinatedStop, \
+    make_watchdog
 from dcgan_tpu_torch.train.fid_probe import NEEDS_HELD_OUT, FidProbe, \
     held_out_skip
+from dcgan_tpu_torch.train.flight_recorder import FlightRecorder, \
+    recorder_path
+from dcgan_tpu_torch.train.rollback import RollbackManager
+from dcgan_tpu_torch.train.services import make_services, stage
 from dcgan_tpu_torch.train.steps import draw_stages, draw_step, \
     make_train_step, tree_leaves
 from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
@@ -116,17 +147,26 @@ from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
 from dcgan_tpu_torch.train.warmup import METRIC_KEYS  # noqa: F401
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 from dcgan_tpu_torch.utils.images import save_sample_grid
-from dcgan_tpu_torch.utils.metrics import MetricWriter
+from dcgan_tpu_torch.utils.metrics import CounterRegistry, MetricWriter
 from dcgan_tpu_torch.utils.profiling import StepTimer
 
 Pytree = dict
 
 
+# joins the rollback count to a rolled-back run's step-draw seeds
+_REKEY = 0x726F6C6C
+
+
 def _step_generator(cfg: TrainConfig, step: int, device: torch.device,
-                    *tag: int) -> torch.Generator:
-    seed = np.random.SeedSequence(
-        [cfg.seed & 0xFFFFFFFFFFFFFFFF, step, *tag]).generate_state(
-            1, np.uint64)
+                    *tag: int, rekey: int = 0) -> torch.Generator:
+    """The generator of step `step`'s draws, seeded from (seed, step,
+    *tag), and from the rollback count `rekey` when it is > 0 (the JAX
+    trainer's `fold_in(key(seed + 2), rollbacks)`), so a run that never
+    rolls back draws what it always drew."""
+    entropy = [cfg.seed & 0xFFFFFFFFFFFFFFFF, step, *tag]
+    if rekey:
+        entropy += [_REKEY, rekey]
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(seed[0]))
 
 
@@ -135,22 +175,24 @@ def _draw_z(cfg: TrainConfig, gen: torch.Generator) -> torch.Tensor:
                       device=gen.device) * 2.0 - 1.0
 
 
-def step_inputs(cfg: TrainConfig, step: int, device: torch.device
+def step_inputs(cfg: TrainConfig, step: int, device: torch.device,
+                rekey: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(z, draws) of the step that takes the state from `step` to
-    `step + 1`, from one generator seeded from (cfg.seed, step): U(-1, 1)
-    z [batch, z_dim] first, then the step's other draws
-    (`steps.draw_step`; empty for a config that draws nothing else)."""
-    gen = _step_generator(cfg, step, device)
+    `step + 1`, from one generator seeded from (cfg.seed, step) and, after
+    `rekey` > 0 rollbacks, the rollback count: U(-1, 1) z [batch, z_dim]
+    first, then the step's other draws (`steps.draw_step`; empty for a
+    config that draws nothing else)."""
+    gen = _step_generator(cfg, step, device, rekey=rekey)
     z = _draw_z(cfg, gen)
     return z, draw_step(cfg, gen)
 
 
-def stage_inputs(cfg: TrainConfig, step: int, device: torch.device
-                 ) -> Dict[str, torch.Tensor]:
+def stage_inputs(cfg: TrainConfig, step: int, device: torch.device,
+                 rekey: int = 0) -> Dict[str, torch.Tensor]:
     """The stage programs' draws (`steps.draw_stages`) of the pipelined
     step from state step `step`, from the generator of `step_inputs`."""
-    return draw_stages(cfg, _step_generator(cfg, step, device))
+    return draw_stages(cfg, _step_generator(cfg, step, device, rekey=rekey))
 
 
 def check_finite(cfg: TrainConfig, step: int, values: Dict[str, float]
@@ -167,10 +209,11 @@ def check_finite(cfg: TrainConfig, step: int, values: Dict[str, float]
     raise err
 
 
-def summary_z(cfg: TrainConfig, step: int, device: torch.device
-              ) -> torch.Tensor:
-    """The z of `summarize` at step `step`, from (cfg.seed, step, 1)."""
-    return _draw_z(cfg, _step_generator(cfg, step, device, 1))
+def summary_z(cfg: TrainConfig, step: int, device: torch.device,
+              rekey: int = 0) -> torch.Tensor:
+    """The z of `summarize` at step `step`, from (cfg.seed, step, 1) (and
+    the rollback count, as in step_inputs)."""
+    return _draw_z(cfg, _step_generator(cfg, step, device, 1, rekey=rekey))
 
 
 def _synthetic_feed(cfg: TrainConfig, device: torch.device,
@@ -314,6 +357,28 @@ def _check_architecture(cfg: TrainConfig, ckpt: Checkpointer) -> None:
         "adopted), or point --checkpoint_dir at a fresh directory.")
 
 
+def _flight_context(cfg: TrainConfig) -> dict:
+    """The flight recorder's dump-time header context."""
+    out = {"process": 0}
+    if cfg.precision:
+        out["precision"] = cfg.precision
+    return out
+
+
+class _QueuedWriter:
+    """The MetricWriter's `write_scalars` through the services queue, for
+    the FID probe, which runs on the dispatch thread."""
+
+    def __init__(self, svc, writer: MetricWriter):
+        self._svc = svc
+        self._writer = writer
+
+    def write_scalars(self, step: int, row: dict) -> None:
+        self._svc.submit(lambda s=step, r=dict(row):
+                         self._writer.write_scalars(s, r),
+                         tag="fid-scalars")
+
+
 def train(cfg: TrainConfig, *, synthetic_data: bool = False,
           max_steps: Optional[int] = None,
           device: Union[str, torch.device] = "cuda") -> Pytree:
@@ -321,7 +386,30 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     (cfg.max_steps when None), resuming from the newest intact checkpoint
     in cfg.checkpoint_dir, or until SIGTERM or SIGINT stops it at a call
     boundary; either way the last step is checkpointed. Returns the final
-    state."""
+    state. A run that dies (a NaN abort, an exhausted rollback budget, any
+    exception) leaves the flight recorder's dump in its checkpoint
+    directory, if it had written there."""
+    flight = FlightRecorder(
+        recorder_path(cfg.checkpoint_dir),
+        capacity=cfg.flight_recorder_steps,
+        context=lambda: _flight_context(cfg))
+    try:
+        return _train(cfg, synthetic_data=synthetic_data,
+                      max_steps=max_steps, device=device, flight=flight)
+    except BaseException as e:
+        # a run that failed before it wrote its checkpoint directory (no
+        # card, a data_dir without shards) leaves nothing there
+        if os.path.isdir(cfg.checkpoint_dir):
+            flight.dump("nan-abort" if isinstance(e, FloatingPointError)
+                        else "exception",
+                        step=getattr(e, "step", None),
+                        extra={"error": repr(e)[:500]})
+        raise
+
+
+def _train(cfg: TrainConfig, *, synthetic_data: bool,
+           max_steps: Optional[int], device: Union[str, torch.device],
+           flight: FlightRecorder) -> Pytree:
     dev = resolve_device(device)
     total_steps = cfg.max_steps if max_steps is None else max_steps
     mcfg = cfg.model
@@ -387,6 +475,16 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     # captured at startup under --aot_warmup
     later_runners: Dict[int, StepRunner] = {}
     warm_ms: dict = {}
+    # the telemetry tails' executor: in async mode every MetricWriter
+    # call goes through it, so its one worker serializes them
+    svc = make_services(cfg.async_services)
+    # a deadline on each call's dispatch and readback, the rollback
+    # restore and the save (off at collective_timeout_secs=0); a trip
+    # dumps the flight recorder's ring beside the stacks
+    watchdog = make_watchdog(
+        cfg.collective_timeout_secs,
+        pre_dump=lambda phase, step: flight.dump(
+            "watchdog", step=step, extra={"phase": phase}))
     stop = CoordinatedStop()
     stop.install()
     try:
@@ -395,6 +493,11 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         writer = MetricWriter(cfg.checkpoint_dir,
                               every_secs=cfg.save_summaries_secs,
                               tensorboard=cfg.tensorboard)
+
+        def write_row(step: int, row: dict, tag: str) -> None:
+            svc.submit(lambda s=step, r=row: writer.write_scalars(s, r),
+                       tag=tag)
+
         fns = make_train_step(cfg) if prog is None else prog.fns
         state = fns.init(seed=cfg.seed, device=dev)
         # fixed z for comparable sample grids across the run, drawn once
@@ -433,19 +536,144 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
         step_num = int(state["step"])
         switched = None      # the last switch's line, printed after the
                              # new phase's first call
+        # NaN rollback-and-skip (train/rollback.py); None under the
+        # default abort policy, so the snapshot costs nothing unless armed
+        rollback = None
+        if cfg.nan_policy == "rollback":
+            rollback = RollbackManager(every=cfg.rollback_snapshot_steps,
+                                       max_rollbacks=cfg.max_rollbacks,
+                                       lr_backoff=cfg.rollback_lr_backoff)
+            if cfg.pipeline_gd:
+                # the in-flight fake stack was made by the weights the
+                # rollback flees: dropped before the copy back
+                def _drain_for_restore():
+                    with watchdog.guard("pipeline-drain", step_num):
+                        if runner.pipeline.drain("rollback"):
+                            print("[dcgan_tpu_torch] rollback drained the "
+                                  "in-flight pipelined fake stack (stale "
+                                  "generator output; refilled from the "
+                                  "restored state at the next dispatch)",
+                                  flush=True)
+                rollback.on_restore = _drain_for_restore
+        # one read surface over the run's counters: the scalar rows'
+        # recovery extras and the flight recorder's records
+        registry = CounterRegistry()
+        registry.provide("services_queue", svc.pending)
+        registry.provide("services_dropped",
+                         lambda: int(getattr(svc, "dropped", 0)))
+        registry.provide("corrupt_records",
+                         lambda: quarantine.count() - corrupt_base)
+        if rollback is not None:
+            registry.provide("rollbacks", lambda: rollback.rollbacks)
+        if prog is not None:
+            registry.provide("progressive_phase", lambda: prog.index)
+        master_f32 = master_f32_leaves(state) if cfg.precision else 0
+        if cfg.precision:
+            registry.provide("master_f32_leaves", lambda: master_f32)
+
+        def health_extras() -> dict:
+            """The recovery counters of a scalars row, absent until
+            nonzero, so a default run's rows carry neither."""
+            c = registry.snapshot()
+            out = {}
+            if c.rollbacks:
+                out["anomaly/rollbacks"] = c.rollbacks
+            if c.corrupt_records:
+                out["data/corrupt_records"] = c.corrupt_records
+            return out
+
+        def record(s: int, vals: dict, gate: str,
+                   pipeline_phase: Optional[str]) -> None:
+            """One flight-recorder record of the step that reached `s`."""
+            if not flight.enabled:
+                return
+            rec = {"step": s, "time": time.time(), "gate": gate,
+                   "step_ms": timer.last_step_ms,
+                   "host_ms": timer.last_host_ms,
+                   "metrics": dict(vals),
+                   "counters": registry.snapshot().as_dict()}
+            if pipeline_phase is not None:
+                rec["pipeline"] = pipeline_phase
+            flight.record(rec)
+
+        def gate(s: int, vals: dict, force: bool,
+                 pipeline_phase: Optional[str]) -> None:
+            """The NaN gate of the step that reached `s` (every
+            nan_check_steps steps, and when `force`d before a snapshot),
+            and its flight-recorder record; the failing step is the
+            ring's last record."""
+            verdict = ""
+            if force or (cfg.nan_check_steps
+                         and s % cfg.nan_check_steps == 0):
+                checked = dict(vals)
+                if chaos.should_inject_nan(s):
+                    checked["d_loss"] = float("nan")
+                try:
+                    check_finite(cfg, s, checked)
+                except FloatingPointError:
+                    record(s, vals, "trip", pipeline_phase)
+                    raise
+                verdict = "ok"
+            record(s, vals, verdict, pipeline_phase)
+
+        # the rollbacks so far, folded into the step draws' seeds when > 0
+        # (the draw functions re-keyed with it)
+        rekey = 0
+        step_draws, stage_draws = step_inputs, stage_inputs
+
+        def do_rollback(e: FloatingPointError) -> None:
+            """Restore the snapshot into the static state (raises
+            RollbackExhausted past the budget), drop the checkpoints saved
+            inside the poisoned window, write anomaly/rollbacks, apply the
+            LR backoff and re-key the step draws. The data iterator is not
+            rewound: the offending batch window is skipped."""
+            nonlocal step_num, rekey, step_draws, stage_draws
+            fail_step = getattr(e, "step", step_num)
+            watchdog.arm("rollback-restore", fail_step)
+            step_num = runner.restore(rollback, e)
+            # <checkpoint_dir>/best is kept: its saves are score-gated
+            dropped = ckpt.delete_steps_after(step_num)
+            if dropped:
+                print(f"[dcgan_tpu_torch] dropped checkpoint step(s) "
+                      f"{dropped} saved inside the poisoned window",
+                      flush=True)
+            write_row(fail_step, {"anomaly/rollbacks": rollback.rollbacks},
+                      "anomaly")
+            watchdog.disarm()
+            if rollback.lr_backoff < 1.0:
+                scale = rollback.lr_scale()
+                runner.set_lr_scale(scale)
+                print(f"[dcgan_tpu_torch] rollback LR backoff: base rates "
+                      f"scaled by {scale:.3g} (rate cells refilled, "
+                      f"nothing captured)", flush=True)
+            rekey = rollback.rollbacks
+            step_draws = functools.partial(step_inputs, rekey=rekey)
+            stage_draws = functools.partial(stage_inputs, rekey=rekey)
+
+        if rollback is not None:
+            # the first restore point: a fresh init or a verified restore
+            rollback.snapshot(step_num, state)
         while step_num < total_steps:
+            svc.raise_if_failed()  # a dead telemetry worker fails loudly
+            chaos.maybe_self_signal(step_num)
             sig, _ = stop.poll()
             if sig is not None:
                 print(f"[dcgan_tpu_torch] received signal {sig} — "
                       f"checkpointing at step {step_num} and exiting",
                       flush=True)
+                flight.dump("coordinated-stop", step=step_num,
+                            extra={"signal": int(sig)})
                 if runner.pipeline is not None:
-                    runner.pipeline.drain("coordinated-stop")
+                    with watchdog.guard("pipeline-drain", step_num):
+                        runner.pipeline.drain("coordinated-stop")
+                # the queued events land before the final save
+                svc.drain()
                 break
             if prog is not None and prog.switch_due(step_num):
                 # the phase switch, at a call boundary
                 t_sw = time.perf_counter()
-                writer.flush()
+                svc.submit(writer.flush, tag="tb-flush", droppable=False)
+                svc.drain()
                 if runner.pipeline is not None:
                     runner.pipeline.drain("phase-switch")
                 if ckpt.copy_event is not None:
@@ -469,10 +697,14 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 data, sample_data = rebucketer.reopen(pcfg)
                 eval_z = eval_z_of(sample_z, pcfg.batch_size)
                 timer = StepTimer(images_per_step=pcfg.batch_size)
+                if rollback is not None:
+                    # a NaN right after the switch restores the new
+                    # phase's tree
+                    rollback.snapshot(step_num, state)
                 switch_ms = (time.perf_counter() - t_sw) * 1e3
-                writer.write_scalars(step_num, {
-                    **prog.scalar_extras(step_num + 1),
-                    "progressive/switch_ms": switch_ms})
+                write_row(step_num, {**prog.scalar_extras(step_num + 1),
+                                     "progressive/switch_ms": switch_ms},
+                          "progressive")
                 switched = (f"[dcgan_tpu_torch] progressive phase "
                             f"{prog.index} at step {step_num}: r{old_res} "
                             f"-> r{prog.resolution} (batch "
@@ -482,6 +714,16 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             k = call_size(step_num,
                           total_steps if prog is None else prog.call_limit(),
                           cfg.steps_per_call, runner.warm)
+            # the call's dispatch and readback under the deadline, unless
+            # it captures or warms up a program
+            if runner.ready(k, step_num):
+                if runner.pipeline is None:
+                    phase = "step-dispatch"
+                else:
+                    phase = "pipeline-dispatch" if runner.pipeline.primed \
+                        else "pipeline-fill"
+                watchdog.arm(phase, step_num)
+            chaos.maybe_hang(step_num)
             batches, labels = zip(*(split_batch(cfg, next(data))
                                     for _ in range(k)))
             if prog is not None:
@@ -489,10 +731,10 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                                 for i, b in enumerate(batches))
             if runner.pipeline is not None:
                 metrics = runner.pipelined_step(
-                    batches[0], stage_inputs(pcfg, step_num, dev),
+                    batches[0], stage_draws(pcfg, step_num, dev),
                     start=step_num)
             else:
-                zs, draws = zip(*(step_inputs(pcfg, step_num + i, dev)
+                zs, draws = zip(*(step_draws(pcfg, step_num + i, dev)
                                   for i in range(k)))
                 metrics = runner.step(
                     list(batches), list(zs), list(draws), start=step_num,
@@ -521,8 +763,9 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                       f"{len(warm_ms)} program(s): "
                       + ", ".join(f"{n} {ms:.0f}ms"
                                   for n, ms in warm_ms.items()), flush=True)
-                writer.write_scalars(step_num + 1, {
-                    f"perf/compile_ms/{n}": ms for n, ms in warm_ms.items()})
+                write_row(step_num + 1, {f"perf/compile_ms/{n}": ms
+                                         for n, ms in warm_ms.items()},
+                          "compile-ms")
             # one readback per call: the host waits for the device here,
             # so each tick follows the call's completion; the log reports
             # the call's last step
@@ -532,33 +775,43 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 print(f"{line} captures_during_switch="
                       f"{runner.captures - before}", flush=True)
                 switched = None
-            if cfg.nan_check_steps:
-                # every step of the call on the cadence, before any save
+            t0 = time.perf_counter()
+            pipeline_phase = runner.pipeline.last_phase \
+                if runner.pipeline is not None else None
+            new_step = step_num + k
+            # a snapshot takes only verified state: the gate is forced on
+            # the call's last step when a snapshot is due after it
+            certify = rollback is not None and rollback.due(new_step)
+            try:
                 for i, row in enumerate(per_step):
-                    if (step_num + i + 1) % cfg.nan_check_steps == 0:
-                        check_finite(cfg, step_num + i + 1,
-                                     dict(zip(keys, row)))
+                    gate(step_num + i + 1, dict(zip(keys, row)),
+                         certify and i == k - 1, pipeline_phase)
+            except FloatingPointError as e:
+                if rollback is None:
+                    raise
+                do_rollback(e)
+                continue
+            watchdog.disarm()  # the dispatch and readback completed
             values = dict(zip(keys, per_step[-1]))
+            timer.note_host(time.perf_counter() - t0)
             timer.tick(steps=k)
-            step_num += k
+            step_num = new_step
             step = step_num
             if step % cfg.log_every_steps == 0:
                 t0 = time.perf_counter()
-                row = {**values, **timer.summary(),
-                       **(prog.scalar_extras(step) if prog is not None
-                          else {})}
-                corrupt = quarantine.count() - corrupt_base
-                if corrupt:
-                    row["data/corrupt_records"] = corrupt
-                writer.write_scalars(step, row)
+                write_row(step, {**values, **timer.summary(),
+                                 **health_extras(),
+                                 **(prog.scalar_extras(step)
+                                    if prog is not None else {})},
+                          "scalars")
                 if cfg.precision and not logged_precision:
                     # the policy (numeric code) and the f32 master-moment
                     # census, once; a run without a policy writes neither
-                    writer.write_scalars(step, {
+                    write_row(step, {
                         "perf/precision/policy": float(
                             {"f32": 0, "bf16": 1, "fp8": 2}[cfg.precision]),
-                        "perf/precision/master_f32_leaves": float(
-                            master_f32_leaves(state))})
+                        "perf/precision/master_f32_leaves":
+                            float(master_f32)}, "precision")
                     logged_precision = True
                 print(f"[dcgan_tpu_torch] step {step} time "
                       f"{time.time() - t_start:.1f}s d_loss "
@@ -567,40 +820,73 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
                 timer.note_host(time.perf_counter() - t0)
             if cfg.sample_every_steps and step % cfg.sample_every_steps == 0:
                 t0 = time.perf_counter()
-                imgs = runner.sample().float().cpu().numpy()
+                # the host copies start here, on the dispatch thread: the
+                # sampler's output is a static buffer its next replay
+                # overwrites
+                staged = stage(runner.sample())
                 path = os.path.join(cfg.sample_dir, f"train_{step:08d}.png")
-                save_sample_grid(path, imgs[:rows * cols], (rows, cols))
-                writer.write_image_event(step, "samples", path)
+
+                def grid_task(s=step, st=staged, p=path):
+                    imgs = st.get().float().numpy()
+                    save_sample_grid(p, imgs[:rows * cols], (rows, cols))
+                    writer.write_image_event(s, "samples", p)
+                svc.submit(grid_task, tag="sample-grid")
                 if sample_data is not None:
                     # the held-out loss probe with the fixed z (and the
                     # held-out batch's own labels)
                     s_imgs, s_labels = split_batch(cfg, next(sample_data))
-                    ev = {k: float(v) for k, v in fns.eval_losses(
-                        state, s_imgs, eval_z, labels=s_labels).items()}
-                    print(f"[dcgan_tpu_torch] [sample] step {step} d_loss "
-                          f"{ev['d_loss']:.8f} g_loss {ev['g_loss']:.8f}",
-                          flush=True)
-                    writer.write_scalars(step, {f"sample/{k}": v
-                                                for k, v in ev.items()})
+                    ev = stage(fns.eval_losses(state, s_imgs, eval_z,
+                                               labels=s_labels))
+
+                    def probe_task(s=step, st=ev):
+                        vals = {k: float(v) for k, v in st.get().items()}
+                        print(f"[dcgan_tpu_torch] [sample] step {s} d_loss "
+                              f"{vals['d_loss']:.8f} g_loss "
+                              f"{vals['g_loss']:.8f}", flush=True)
+                        writer.write_scalars(s, {f"sample/{k}": v
+                                                 for k, v in vals.items()})
+                    svc.submit(probe_task, tag="sample-probe")
                 timer.note_host(time.perf_counter() - t0)
             if probe is not None and probe.due(step):
                 t0 = time.perf_counter()
                 probe.run(step, runner,
                           (split_batch(cfg, b)[0] for b in sample_data),
-                          writer)
+                          _QueuedWriter(svc, writer))
                 timer.note_host(time.perf_counter() - t0)
             if cfg.activation_summary_steps and \
                     step % cfg.activation_summary_steps == 0:
                 t0 = time.perf_counter()
-                writer.write_activations(step, fns.summarize(
-                    state, batches[-1], summary_z(pcfg, step, dev),
+                acts = stage(fns.summarize(
+                    state, batches[-1], summary_z(pcfg, step, dev, rekey),
                     labels[-1]))
+                svc.submit(lambda s=step, a=acts:
+                           writer.write_activations(s, a.get()),
+                           tag="activations")
                 timer.note_host(time.perf_counter() - t0)
-            if ckpt.maybe_save(step, state):
-                # the save's host copy reads the static state that the
-                # next step overwrites in place
-                runner.wait_for(ckpt.copy_event)
+            if certify:
+                with watchdog.guard("snapshot-certify", step):
+                    rollback.snapshot(step, state)
+            with watchdog.guard("collective-save", step):
+                if ckpt.maybe_save(step, state):
+                    # the save's host copy reads the static state that the
+                    # next step overwrites in place
+                    runner.wait_for(ckpt.copy_event)
+                    # the events ordered before the checkpoint land first
+                    svc.drain()
+        svc.submit(writer.flush, tag="tb-flush", droppable=False)
+        svc.close()  # drain-on-exit barrier; re-raises a worker failure
+        if getattr(svc, "dropped", 0):
+            print(f"[dcgan_tpu_torch] host-services backpressure dropped "
+                  f"{svc.dropped} telemetry event(s) (training was never "
+                  f"stalled for them)", flush=True)
+    except BaseException:
+        # the final save below does not run: the enforcement thread goes
+        # now, so a caller that catches the error and trains again does
+        # not collect one per run
+        watchdog.close()
+        raise
     finally:
+        watchdog.disarm()
         stop.restore()
         if runner is not None:
             if runner.pipeline is not None:
@@ -610,16 +896,24 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
             runner.close()
         for later in later_runners.values():
             later.close()
-        data.close()
-        if sample_data is not None:
-            sample_data.close()
+        for closing in (svc, data, sample_data):
+            if closing is None:
+                continue
+            try:
+                closing.close()
+            except Exception:
+                pass
         if writer is not None:
             writer.close()
     # the last step (also of a run a signal stopped), unless the cadence
     # saved it already
-    ckpt.wait()
-    step = int(state["step"])
-    if ckpt.latest_step() != step:
-        ckpt.save(step, state)
+    try:
         ckpt.wait()
+        step = int(state["step"])
+        if ckpt.latest_step() != step:
+            watchdog.arm("final-save", step)
+            ckpt.save(step, state)
+            ckpt.wait()
+    finally:
+        watchdog.close()
     return state

@@ -51,6 +51,15 @@ stream), each with the step's image and `steps.draw_stages` slots. A
 fills, is the eager warm-up of all three. A restore (`load`) drains the
 pipeline, so the step after it refills from the restored G.
 
+A rollback (`restore`, nan_policy="rollback") copies the rollback
+manager's snapshot back into the static state in place, as `load` does,
+so every captured program stays valid and nothing is captured again
+(under pipeline_gd the manager's `on_restore` hook drains the fake stack
+in flight first); the LR backoff (`set_lr_scale`) refills the step's
+base-rate cells, which the captured programs read (steps.LrBackoff), so
+it captures nothing either. The runner makes the cells before any
+capture, so a graph reads them by address and never writes them.
+
 On the CPU the runner runs the same static-buffer path eagerly (slots,
 copy-back, K steps per call), so the CPU tests cover all of it but the
 capture itself. The step reads only tensors (no value of the state
@@ -207,6 +216,8 @@ class StepRunner:
             if cfg.pipeline_gd else None
         self.cfg = cfg
         self.keys = metric_keys(cfg)
+        for net in fns.lr_backoff.rates:
+            fns.lr_backoff.cell(net, device)
         self.sample_z = sample_z
         self.sample_labels = sample_labels
         # the FID probe's sampler inputs
@@ -235,6 +246,45 @@ class StepRunner:
         _copy_into(self.state, tree)
         if self.pipeline is not None:
             self.pipeline.drain("restore")
+
+    def restore(self, manager, exc: FloatingPointError) -> int:
+        """Consume one rollback of `manager` (train/rollback.py): its
+        snapshot copied back into the static state in place, after the
+        pending checkpoint copies, so every captured program stays valid
+        and nothing is captured again. Under pipeline_gd the manager's
+        `on_restore` hook must drain the fake stack in flight (the
+        trainer's does, after the budget check and before the copy back,
+        as the JAX trainer does). Returns the snapshot's step."""
+        self._wait_pending()
+        _, step = manager.restore(exc, into=self.state)
+        return step
+
+    def set_lr_scale(self, scale: float) -> None:
+        """The rollback LR backoff: both nets' base rates times `scale`,
+        written into the step's rate cells (steps.LrBackoff), which the
+        captured programs read at every replay."""
+        self.fns.lr_backoff.set_scale(scale)
+
+    def ready(self, k: int, start: Optional[int] = None) -> bool:
+        """Whether a call of k steps from state step `start` replays only
+        captured programs (none is captured or warmed up in it): the calls
+        the trainer's watchdog guards."""
+        if not self.warm:
+            return False
+        if self.pipeline is not None:
+            pattern = self._pattern(1, start)
+            rows = [pattern_row(D_ROW, pattern), G_ROW]
+            if not self.pipeline.primed:
+                rows.append(GEN_ROW)
+        else:
+            rows = [self.row(k, start)]
+        return all(r in self.programs for r in rows)
+
+    def _wait_pending(self) -> None:
+        current = torch.cuda.current_stream(self.device) \
+            if self.stream is not None else None
+        while self._wait:
+            current.wait_event(self._wait.pop())
 
     def wait_for(self, event: Optional[torch.cuda.Event]) -> None:
         """Make the next step wait, on the device, for `event` (a
@@ -417,10 +467,7 @@ class StepRunner:
                     f"are {sorted(self.draws[i])}")
             for name, t in draws[i].items():
                 self.draws[i][name].copy_(t)
-        current = torch.cuda.current_stream(self.device) \
-            if self.stream is not None else None
-        while self._wait:
-            current.wait_event(self._wait.pop())
+        self._wait_pending()
         pattern = self._pattern(k, start)
         if not self.warm:
             if k != 1:
@@ -449,10 +496,7 @@ class StepRunner:
                              f"{sorted(self.draws[0])}")
         for name, t in draws.items():
             self.draws[0][name].copy_(t)
-        current = torch.cuda.current_stream(self.device) \
-            if self.stream is not None else None
-        while self._wait:
-            current.wait_event(self._wait.pop())
+        self._wait_pending()
         pattern = self._pattern(1, start)
         _, m = self.pipeline.step(_StageRows(self, pattern), self.state,
                                   self.images[0], self.draws[0])

@@ -262,6 +262,27 @@ class Checkpointer:
         self.save(step, state)
         return True
 
+    def delete_steps_after(self, step: int) -> List[int]:
+        """Remove the checkpoints newer than `step`, with their manifests;
+        returns the steps dropped, newest first (the JAX Checkpointer's
+        rollback cleanup). A save taken between the last good snapshot and
+        the gate's trip may hold the divergence the gate caught later, and
+        a replayed save of the same step would collide with its directory.
+        The in-flight save is waited for first. `best/` is never touched:
+        its saves are score-gated, and a diverging state scores badly."""
+        self._join()
+        dropped = [s for s in self._finalized_steps() if s > step]
+        for s in dropped:
+            retry_io(lambda p=self._step_dir(s): shutil.rmtree(p),
+                     tag="ckpt-delete")
+            # a replayed save of this step writes other bytes, which the
+            # stale manifest would judge corrupt at the next restore
+            try:
+                os.remove(self._manifest_path(s))
+            except OSError:
+                pass
+        return dropped
+
     def _join(self) -> None:
         if self._writer is not None:
             self._writer.join()

@@ -167,9 +167,28 @@ class MetricWriter:
 
 @dataclasses.dataclass(frozen=True)
 class CounterSnapshot:
-    """One coherent read of the serving counters; fields a run never wires
-    stay 0."""
+    """One coherent read of the run's recovery and serving counters, with
+    the JAX package's fields in its order (`dcgan_tpu/utils/metrics.py`);
+    fields a run never wires stay 0. The scalar rows' recovery extras and
+    the flight recorder's records read the same snapshot.
 
+    `compile_cache_*` and `live_topology` have no counterpart in the port
+    (it compiles nothing it could cache, and has no live elasticity yet);
+    they stay 0."""
+
+    services_queue: int = 0        # tasks pending on the services worker
+    services_dropped: int = 0      # tasks discarded by backpressure
+    rollbacks: int = 0             # NaN-gate rollbacks this run
+    corrupt_records: int = 0       # quarantined records this run (delta
+                                   # from the trainer's corrupt_base)
+    compile_cache_requests: int = 0
+    compile_cache_hits: int = 0
+    compile_cache_misses: int = 0
+    progressive_phase: int = 0     # the active progressive phase's index
+                                   # (0 in fixed-resolution runs)
+    live_topology: int = 0
+    master_f32_leaves: int = 0     # f32 Adam master-moment leaves under a
+                                   # reduced-precision policy
     serve_requests: int = 0        # generation requests accepted
     serve_completed: int = 0       # requests fully resolved with images
     serve_dropped: int = 0         # requests shed, total (overload +
@@ -179,9 +198,23 @@ class CounterSnapshot:
     serve_batches: int = 0         # bucketed device dispatches
     serve_queue: int = 0           # requests pending on the serve queue
 
+    def as_dict(self) -> Dict[str, int]:
+        # a flat getattr walk, not dataclasses.asdict (which deep-copies):
+        # the flight recorder calls this once per consumed step
+        return {name: getattr(self, name) for name in _SNAPSHOT_FIELD_ORDER}
 
-_SNAPSHOT_FIELDS = frozenset(f.name for f in
-                             dataclasses.fields(CounterSnapshot))
+
+_SNAPSHOT_FIELD_ORDER = tuple(f.name for f in
+                              dataclasses.fields(CounterSnapshot))
+_SNAPSHOT_FIELDS = frozenset(_SNAPSHOT_FIELD_ORDER)
+
+
+def _check_fields(fields) -> None:
+    for field in fields:
+        if field not in _SNAPSHOT_FIELDS:
+            raise ValueError(
+                f"unknown counter {field!r}; CounterSnapshot fields: "
+                f"{sorted(_SNAPSHOT_FIELDS)}")
 
 
 class CounterRegistry:
@@ -190,14 +223,24 @@ class CounterRegistry:
 
     def __init__(self) -> None:
         self._providers: Dict[str, Callable[[], int]] = {}
+        self._groups: list = []
 
     def provide(self, field: str, fn: Callable[[], int]) -> None:
-        if field not in _SNAPSHOT_FIELDS:
-            raise ValueError(
-                f"unknown counter {field!r}; CounterSnapshot fields: "
-                f"{sorted(_SNAPSHOT_FIELDS)}")
+        _check_fields((field,))
         self._providers[field] = fn
 
+    def provide_group(self, fields, fn: Callable[[], Mapping[str, Any]]
+                      ) -> None:
+        """One provider feeding several fields from a single read:
+        snapshot() calls `fn` once, not once per field. `fn` may return
+        extra keys; only `fields` are consumed."""
+        _check_fields(fields)
+        self._groups.append((tuple(fields), fn))
+
     def snapshot(self) -> CounterSnapshot:
-        return CounterSnapshot(**{name: int(fn())
-                                  for name, fn in self._providers.items()})
+        vals = {name: int(fn()) for name, fn in self._providers.items()}
+        for fields, fn in self._groups:
+            got = fn()
+            for field in fields:
+                vals[field] = int(got[field])
+        return CounterSnapshot(**vals)

@@ -46,6 +46,17 @@ class StepTimer:
         attributed to the step of the next tick."""
         self._host_pending += seconds
 
+    @property
+    def last_step_ms(self) -> Optional[float]:
+        """The latest per-step wall ms (None before the second tick): the
+        flight recorder's per-record step time."""
+        return 1e3 * self._durations[-1] if self._durations else None
+
+    @property
+    def last_host_ms(self) -> Optional[float]:
+        """The latest per-step host-work ms."""
+        return 1e3 * self._host[-1] if self._host else None
+
     def summary(self) -> Dict[str, float]:
         """The perf/* stats over the current window; empty until two
         ticks."""

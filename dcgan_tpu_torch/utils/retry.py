@@ -1,12 +1,13 @@
 """Bounded retry with jittered exponential backoff for transient host IO
-(a copy of `dcgan_tpu/utils/retry.py::retry_io`, without its chaos-drill
-hook).
+(a copy of `dcgan_tpu/utils/retry.py::retry_io`).
 
 A transient `OSError` on IO that is retryable by nature (checkpoint
 integrity manifests, the corrupt-step rename, metric files) gets a few
 spaced attempts before it becomes a real failure. Jitter is deterministic
 (seeded from the site tag and the attempt number), so two processes
-retrying one site still decorrelate and a run is reproducible.
+retrying one site still decorrelate and a run is reproducible. Each
+attempt first consults the chaos hook (testing/chaos.py `io_error_once`),
+which raises one OSError at the site whose tag it names.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import random
 import time
 from typing import Callable, Tuple, Type, TypeVar
+
+from dcgan_tpu_torch.testing import chaos
 
 T = TypeVar("T")
 
@@ -30,11 +33,13 @@ def retry_io(fn: Callable[[], T], *, tag: str,
              sleep: Callable[[float], None] = time.sleep) -> T:
     """Run `fn` with up to `attempts` tries; `retry_on` failures back off
     (base * 2^i plus deterministic jitter, capped) between tries, and the
-    last failure propagates unchanged. `tag` names the site in logs."""
+    last failure propagates unchanged. `tag` names the site in logs and is
+    the chaos hook's selector (testing/chaos.py io_error_once)."""
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
     for attempt in range(attempts):
         try:
+            chaos.maybe_io_error(tag)
             return fn()
         except retry_on as e:
             if attempt == attempts - 1:

@@ -316,15 +316,27 @@ class TestConfigFiles:
             jcfg.model)
 
     @pytest.mark.parametrize("kw", [
-        # the resnet family is ported; the rollback NaN policy is not, in
-        # any family
+        # the resnet family and the rollback NaN policy, both ported
         {"model": JModelConfig(arch="resnet"), "nan_policy": "rollback"},
-        # pipeline_gd is ported; the rollback NaN policy is not
+        # the rollback NaN policy with its knobs, ported
         {"nan_policy": "rollback"}])
     def test_unported_jax_settings_raise(self, tmp_path, kw):
-        j_config.save_config(JTrainConfig(**kw), str(tmp_path))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            config.load_config(str(tmp_path))
+        """The JAX settings the port once refused: nothing is left
+        unported (UNPORTED_TRAIN_FIELDS is empty), and a config.json that
+        arms rollback loads with the JAX values and builds the step."""
+        jcfg = JTrainConfig(**kw)
+        j_config.save_config(jcfg, str(tmp_path))
+        assert config.UNPORTED_TRAIN_FIELDS == {}
+        cfg = config.load_config(str(tmp_path))
+        for f in dataclasses.fields(TrainConfig):
+            if f.name != "model":
+                assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert dataclasses.asdict(cfg.model) == dataclasses.asdict(
+            jcfg.model)
+        cells = steps.make_train_step(cfg).lr_backoff
+        base = torch.tensor(jcfg.learning_rate, dtype=torch.float32).item()
+        assert [cells.cell(n, torch.device("cpu")).item() for n in
+                ("gen", "disc")] == [base, base]
 
     @pytest.mark.parametrize("kw", [
         {"r1_gamma": 1.0}, {"loss": "wgan-gp"},

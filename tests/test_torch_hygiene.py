@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
-package, and its entry points refuse to run quietly on the CPU."""
+package (the package, chip_smoke.py and tools/chaos_drill_torch.py), and
+its entry points refuse to run quietly on the CPU."""
 
 import ast
 import os
@@ -17,7 +18,34 @@ FORBIDDEN = ("jax", "jaxlib", "dcgan_tpu")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "tools" / "chaos_drill_torch.py"]
+
+
+#: test_ast_imports' files, dealt round-robin over
+#: test_torch_hygiene_{b,c,d,e}.py so that each file holds at most 30 tests
+IMPORT_SHARDS = 4
+
+
+def import_shard(i: int):
+    return _port_files()[i::IMPORT_SHARDS]
+
+
+def port_file_id(path) -> str:
+    return str(path.relative_to(ROOT))
+
+
+def check_imports(path) -> None:
+    """`path` imports nothing of jax, jaxlib or dcgan_tpu."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
 
 
 def _forbidden(module: str) -> bool:
@@ -32,18 +60,8 @@ def _clean_env():
 
 
 class TestNoJaxImports:
-    @pytest.mark.parametrize("path", _port_files(),
-                             ids=lambda p: str(p.relative_to(ROOT)))
-    def test_ast_imports(self, path):
-        tree = ast.parse(path.read_text(), filename=str(path))
-        bad = []
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                bad += [a.name for a in node.names if _forbidden(a.name)]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                if node.module and _forbidden(node.module):
-                    bad.append(node.module)
-        assert not bad, f"{path} imports {bad}"
+    # test_ast_imports (every port file, chip_smoke.py and
+    # tools/chaos_drill_torch.py): test_torch_hygiene_{b,c,d,e}.py
 
     def test_importing_every_module_loads_no_jax(self):
         """Import every module of the package in a fresh interpreter and

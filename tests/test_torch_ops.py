@@ -197,78 +197,6 @@ def _bn_inputs(c, seed):
     return params, state
 
 
-class TestBatchNormInference:
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    @pytest.mark.parametrize("act", ["relu", "lrelu", "none"])
-    def test_f32_matches_jax(self, use_pallas, act):
-        """Both routes, f32: 1e-5."""
-        params, state = _bn_inputs(12, 20)
-        x = _np(21, (2, 4, 4, 12))
-        got, got_state = t_norm.batch_norm_apply(
-            {k: torch.from_numpy(v) for k, v in params.items()},
-            {k: torch.from_numpy(v) for k, v in state.items()},
-            torch.from_numpy(x), train=False, act=act, use_pallas=use_pallas)
-        want, _ = j_norm.batch_norm_apply(
-            {k: jnp.asarray(v) for k, v in params.items()},
-            {k: jnp.asarray(v) for k, v in state.items()},
-            jnp.asarray(x), train=False, act=act, use_pallas=use_pallas)
-        np.testing.assert_allclose(_t2np(got), _j2np(want), rtol=1e-5,
-                                   atol=1e-5)
-        np.testing.assert_array_equal(_t2np(got_state["mean"]),
-                                      state["mean"])
-
-    def test_bf16_kernel_route_rounds_once(self):
-        """use_pallas route: f32 math, one cast to bf16 in both packages:
-        within one bf16 ulp of the output."""
-        params, state = _bn_inputs(16, 30)
-        x = _np(31, (4, 4, 4, 16))
-        got, _ = t_norm.batch_norm_apply(
-            {k: torch.from_numpy(v) for k, v in params.items()},
-            {k: torch.from_numpy(v) for k, v in state.items()},
-            torch.from_numpy(x).to(torch.bfloat16), train=False, act="relu",
-            use_pallas=True)
-        want, _ = j_norm.batch_norm_apply(
-            {k: jnp.asarray(v) for k, v in params.items()},
-            {k: jnp.asarray(v) for k, v in state.items()},
-            jnp.asarray(x, jnp.bfloat16), train=False, act="relu",
-            use_pallas=True)
-        assert got.dtype == torch.bfloat16
-        g, w = _t2np(got), _j2np(want)
-        assert (np.abs(g - w) <= BF16_ULP * np.abs(w) + 1e-6).all()
-
-    def test_bf16_plain_route_computes_in_bf16(self):
-        """Plain route: the normalization runs in bf16 (x's dtype), as the
-        JAX package's does; op-by-op rounding vs XLA's fused chain stays
-        within 4 bf16 ulps of the output's scale."""
-        params, state = _bn_inputs(16, 40)
-        x = _np(41, (4, 4, 4, 16))
-        got, _ = t_norm.batch_norm_apply(
-            {k: torch.from_numpy(v) for k, v in params.items()},
-            {k: torch.from_numpy(v) for k, v in state.items()},
-            torch.from_numpy(x).to(torch.bfloat16), train=False, act="relu")
-        want, _ = j_norm.batch_norm_apply(
-            {k: jnp.asarray(v) for k, v in params.items()},
-            {k: jnp.asarray(v) for k, v in state.items()},
-            jnp.asarray(x, jnp.bfloat16), train=False, act="relu")
-        assert got.dtype == torch.bfloat16
-        _assert_bf16_close(_t2np(got), _j2np(want), 4)
-
-    def test_init_matches_jax_layout(self):
-        import jax
-
-        jp, js = j_norm.batch_norm_init(jax.random.key(0), 7)
-        tp, ts = t_norm.batch_norm_init(torch.Generator().manual_seed(0), 7)
-        assert sorted(tp) == sorted(jp) and sorted(ts) == sorted(js)
-        np.testing.assert_array_equal(_t2np(ts["mean"]), np.zeros(7))
-        np.testing.assert_array_equal(_t2np(ts["var"]), np.ones(7))
-
-    def test_train_mode_not_ported_yet(self):
-        """batch_norm_apply(train=True) on the plain route, f32, against
-        JAX: output, new state and gradients (the name dates from before
-        the train half was ported; TestBatchNormTrain covers the rest)."""
-        _check_bn_train(use_pallas=False, act="relu", dtype="float32")
-
-
 def _check_bn_train(*, use_pallas, act, dtype):
     """Output, new running statistics and the gradients of x, gamma and
     beta under a random cotangent, against jax.vjp of the JAX function.
@@ -318,137 +246,3 @@ def _check_bn_train(*, use_pallas, act, dtype):
         for got, want in zip(tgrads, jgrads):
             w = _j2np(want)
             assert np.abs(_t2np(got) - w).max() <= 2e-2 * np.abs(w).max()
-
-
-class TestBatchNormTrain:
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    @pytest.mark.parametrize("act", ["relu", "lrelu"])
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    def test_matches_jax(self, use_pallas, act, dtype):
-        _check_bn_train(use_pallas=use_pallas, act=act, dtype=dtype)
-
-    def test_finish_batch_moments_matches_jax(self):
-        """The variance clamp and the EMA, f32 1e-6: a channel whose
-        E[x^2] - E[x]^2 cancels below 0 gets variance 0."""
-        state = {"mean": _np(53, (5,)), "var": np.abs(_np(54, (5,)))}
-        mean = _np(55, (5,))
-        mean_sq = mean * mean + np.abs(_np(56, (5,)))
-        mean_sq[2] = mean[2] * mean[2] - 1e-3
-        got = t_norm.finish_batch_moments(
-            {k: torch.from_numpy(v) for k, v in state.items()},
-            torch.from_numpy(mean), torch.from_numpy(mean_sq), momentum=0.9)
-        want = j_norm.finish_batch_moments(
-            {k: jnp.asarray(v) for k, v in state.items()},
-            jnp.asarray(mean), jnp.asarray(mean_sq), momentum=0.9)
-        assert float(got[1][2]) == 0.0
-        for a, b in ((got[0], want[0]), (got[1], want[1]),
-                     (got[2]["mean"], want[2]["mean"]),
-                     (got[2]["var"], want[2]["var"])):
-            np.testing.assert_allclose(_t2np(a), _j2np(b), rtol=1e-6,
-                                       atol=1e-6)
-
-    def test_routes_agree_in_f32(self):
-        """The kernel route (channel_moments + scale_shift_act) and the
-        plain route are the same function: f32, 1e-5 apart."""
-        params, state = _bn_inputs(8, 57)
-        x = torch.from_numpy(_np(58, (3, 4, 4, 8)))
-        outs = [t_norm.batch_norm_apply(
-            {k: torch.from_numpy(v) for k, v in params.items()},
-            {k: torch.from_numpy(v) for k, v in state.items()}, x,
-            train=True, act="relu", use_pallas=up) for up in (False, True)]
-        torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5,
-                                   atol=1e-5)
-        for key in ("mean", "var"):
-            torch.testing.assert_close(outs[1][1][key], outs[0][1][key],
-                                       rtol=1e-6, atol=1e-6)
-
-
-class TestConv2d:
-    @pytest.mark.parametrize("kernel", [3, 5])
-    @pytest.mark.parametrize("hw", [(8, 8), (7, 10)])
-    def test_f32_matches_jax(self, kernel, hw):
-        """F.pad by XLA's SAME pads, then an unpadded conv2d ==
-        lax.conv_general_dilated(SAME): f32, 1e-5."""
-        x = _np(60, (2, *hw, 6))
-        w, b = _np(61, (kernel, kernel, 6, 10), 0.1), _np(62, (10,), 0.1)
-        got = t_layers.conv2d_apply(
-            {"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
-            torch.from_numpy(x))
-        want = j_layers.conv2d_apply({"w": jnp.asarray(w),
-                                      "b": jnp.asarray(b)}, jnp.asarray(x))
-        assert got.shape == want.shape
-        np.testing.assert_allclose(_t2np(got), _j2np(want), rtol=1e-5,
-                                   atol=1e-5)
-
-    def test_bf16_matches_jax(self):
-        """bf16 conv output, then the bias added in bf16: two roundings."""
-        x, w = _np(63, (2, 8, 8, 8)), _np(64, (5, 5, 8, 4), 0.1)
-        b = _np(65, (4,), 0.1)
-        got = t_layers.conv2d_apply(
-            {"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
-            torch.from_numpy(x), compute_dtype=torch.bfloat16)
-        want = j_layers.conv2d_apply(
-            {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x),
-            compute_dtype=jnp.bfloat16)
-        assert got.dtype == torch.bfloat16
-        _assert_bf16_close(_t2np(got), _j2np(want), 2)
-
-    def test_symmetric_padding_is_a_different_function(self):
-        """The trap: SAME at stride 2 pads (1, 2) on an even input, so
-        conv2d(padding=2) is off."""
-        import torch.nn.functional as F
-
-        x, w = _np(66, (1, 8, 8, 3)), _np(67, (5, 5, 3, 2))
-        want = _j2np(j_layers.conv2d_apply(
-            {"w": jnp.asarray(w), "b": jnp.zeros(2)}, jnp.asarray(x)))
-        naive = F.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
-                         torch.from_numpy(w).permute(3, 2, 0, 1), stride=2,
-                         padding=2).permute(0, 2, 3, 1)
-        assert naive.shape == want.shape
-        assert np.abs(_t2np(naive) - want).max() > 1e-2
-
-    def test_patches_of_d_stage_are_exact(self):
-        """conv_patches(transpose=False) at a D stage's geometry (16x16 in,
-        5x5 stride 2) equals lax.conv_general_dilated_patches exactly, and
-        its GEMM is the conv (f32, 1e-5)."""
-        x = _np(68, (2, 16, 16, 8))
-        jp, jshape = j_fused.conv_patches(jnp.asarray(x), 5, 2, False)
-        tp, tshape = t_fused.conv_patches(torch.from_numpy(x), 5, 2, False)
-        assert tuple(tshape) == tuple(jshape) == (2, 8, 8)
-        np.testing.assert_array_equal(_t2np(tp), _j2np(jp))
-        w = torch.from_numpy(_np(69, (5, 5, 8, 4), 0.1))
-        y = (tp @ t_fused.w_to_gemm(w)).reshape(2, 8, 8, 4)
-        ref = t_layers.conv2d_apply({"w": w, "b": torch.zeros(4)},
-                                    torch.from_numpy(x))
-        np.testing.assert_allclose(_t2np(y), _t2np(ref), rtol=1e-5,
-                                   atol=1e-5)
-
-    def test_init_is_truncated_at_two_sigma(self):
-        import jax
-
-        tp = t_layers.conv2d_init(torch.Generator().manual_seed(0), 16, 32)
-        jp = j_layers.conv2d_init(jax.random.key(0), 16, 32)
-        assert {k: tuple(v.shape) for k, v in tp.items()} == \
-            {k: tuple(v.shape) for k, v in jp.items()}
-        w = _t2np(tp["w"])
-        assert np.abs(w).max() <= 2 * 0.02 + 1e-7
-        assert 0.01 < w.std() < 0.02   # 2-sigma truncation: 0.88 sigma
-        np.testing.assert_array_equal(_t2np(tp["b"]), np.zeros(32))
-
-    def test_lrelu_matches_jax(self):
-        u = _np(70, (64,))
-        np.testing.assert_allclose(
-            _t2np(t_layers.lrelu(torch.from_numpy(u), 0.2)),
-            _j2np(j_layers.lrelu(jnp.asarray(u), 0.2)), rtol=1e-6,
-            atol=1e-6)
-
-
-class TestActGrad:
-    @pytest.mark.parametrize("act", ["none", "relu", "lrelu", "tanh"])
-    def test_matches_jax(self, act):
-        u = _np(71, (64,))
-        u[:3] = 0.0   # the tie: relu 0, lrelu leak
-        np.testing.assert_allclose(
-            _t2np(t_act.act_grad(torch.from_numpy(u), act, 0.2)),
-            _j2np(j_act.act_grad(jnp.asarray(u), act, 0.2)), rtol=1e-6,
-            atol=1e-6)

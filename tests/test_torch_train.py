@@ -20,7 +20,6 @@ update (p4 - p0) within 15 % of JAX's in norm; BN running variances within
 """
 
 import dataclasses
-import json
 import re
 
 import jax
@@ -31,15 +30,10 @@ import torch
 
 from dcgan_tpu.config import ModelConfig as JModelConfig
 from dcgan_tpu.config import TrainConfig as JTrainConfig
-from dcgan_tpu.data.synthetic import synthetic_batches as j_synthetic
-from dcgan_tpu.presets import celeba64 as j_celeba64
 from dcgan_tpu.train import steps as jsteps
-from dcgan_tpu.utils.profiling import StepTimer as JStepTimer
 from dcgan_tpu_torch import convert
 from dcgan_tpu_torch.config import ModelConfig, TrainConfig
-from dcgan_tpu_torch.data.synthetic import synthetic_batches
-from dcgan_tpu_torch.presets import celeba64
-from dcgan_tpu_torch.train import cli, steps
+from dcgan_tpu_torch.train import steps
 from dcgan_tpu_torch.train.trainer import METRIC_KEYS
 from torch_jax_draws import one_torch_thread  # noqa: F401
 
@@ -241,156 +235,3 @@ class TestOptimizer:
             np.asarray(js["params"]["gen"]["deconv1"]["w"]))
         assert int(ts["step"]) == 0 and ts["step"].dtype == torch.int32
         assert int(ts["opt"]["disc"]["count"]) == 0
-
-
-class TestConfig:
-    def test_fields_and_defaults_equal_jax(self):
-        jt = JTrainConfig()
-        for name in TRAIN_FIELDS:
-            if name != "model":
-                assert getattr(TrainConfig(), name) == getattr(jt, name), \
-                    name
-        assert dataclasses.asdict(TrainConfig().model) == \
-            dataclasses.asdict(jt.model)
-
-    def test_celeba64_preset_equals_jax(self):
-        jt = j_celeba64()
-        t = celeba64()
-        for name in TRAIN_FIELDS:
-            if name != "model":
-                assert getattr(t, name) == getattr(jt, name), name
-        assert dataclasses.asdict(t.model) == dataclasses.asdict(jt.model)
-
-    @pytest.mark.parametrize("make,match", [
-        (lambda: TrainConfig(loss="wgan-gp",
-                             model=ModelConfig(use_pallas=True)),
-         "second derivative"),
-        (lambda: TrainConfig(r1_gamma=10.0, model=ModelConfig(
-            use_pallas=True, pallas_fused=True)), "second derivative"),
-        (lambda: TrainConfig(r1_gamma=1.0, model=ModelConfig(
-            use_pallas=True, bn_pallas=False, attn_res=32)),
-         "second derivative"),
-        (lambda: TrainConfig(nan_policy="rollback",
-                             model=ModelConfig(arch="resnet")),
-         "not ported"),
-        (lambda: TrainConfig(nan_policy="rollback", model=ModelConfig(
-            arch="stylegan", num_classes=10)), "not ported")])
-    def test_unserved_fields_raise(self, make, match):
-        """What the port does not train: a penalty whose critic meets a
-        kernel route (the JAX package cannot differentiate a Pallas
-        kernel twice), and the rollback NaN policy in every family (the
-        resnet and stylegan families, with or without class
-        conditioning, are ported)."""
-        with pytest.raises(NotImplementedError, match=match):
-            make()
-
-    @pytest.mark.parametrize("kw", [
-        {"loss": "wgan-gp"}, {"n_critic": 5}, {"grad_accum": 2},
-        {"precision": "bf16"}, {"diffaug": "color"},
-        {"precision": "fp8"}, {"r1_gamma": 10.0, "r1_interval": 4},
-        {"loss": "hinge", "n_critic": 2, "grad_accum": 4,
-         "diffaug": "color,translation,cutout", "precision": "bf16",
-         "model": "fused"}])
-    def test_served_fields_equal_jax(self, tmp_path, kw):
-        """The settings of the penalty slice construct in the port, equal
-        to the JAX package's normalized config, and each package's
-        config.json loads in the other."""
-        if kw.get("model") == "fused":
-            kw = dict(kw)
-            del kw["model"]
-            jt = JTrainConfig(model=JModelConfig(
-                use_pallas=True, pallas_fused=True), **kw)
-            t = TrainConfig(model=ModelConfig(
-                use_pallas=True, pallas_fused=True), **kw)
-        else:
-            jt, t = JTrainConfig(**kw), TrainConfig(**kw)
-        for name in TRAIN_FIELDS:
-            if name != "model":
-                assert getattr(t, name) == getattr(jt, name), name
-        assert dataclasses.asdict(t.model) == dataclasses.asdict(jt.model)
-        from dcgan_tpu import config as j_config
-        from dcgan_tpu_torch import config as t_config
-
-        t_config.save_config(t, str(tmp_path / "port"))
-        assert j_config.load_config(str(tmp_path / "port")) == jt
-        j_config.save_config(jt, str(tmp_path / "jax"))
-        assert t_config.load_config(str(tmp_path / "jax")) == t
-
-    @pytest.mark.parametrize("kw", [
-        {"loss": "l2"}, {"update_mode": "both"}, {"grad_clip": -1.0},
-        {"label_smoothing": 0.5}, {"g_ema_decay": 1.0},
-        {"lr_schedule": "step"}, {"warmup_steps": 10, "max_steps": 10},
-        {"precision": "fp16"}, {"batch_size": 6, "grad_accum": 4},
-        {"r1_gamma": -1.0}, {"r1_gamma": 1.0, "loss": "wgan-gp"},
-        {"r1_interval": 0}, {"r1_interval": 4}, {"diffaug": "flip"},
-        {"n_critic": 2, "update_mode": "fused"},
-        {"model": "quant"}])
-    def test_jax_validation_kept(self, kw):
-        if kw.get("model") == "quant":
-            # model.quant set without the precision policy
-            with pytest.raises(ValueError, match="precision policy"):
-                JTrainConfig(model=JModelConfig(quant="fp8"))
-            with pytest.raises(ValueError, match="precision policy"):
-                TrainConfig(model=ModelConfig(quant="fp8"))
-            return
-        with pytest.raises(ValueError):
-            JTrainConfig(**kw)
-        with pytest.raises(ValueError):
-            TrainConfig(**kw)
-
-    def test_precision_f32_forces_the_model_dtypes(self):
-        assert TrainConfig(precision="f32").model.compute_dtype == "float32"
-        assert JTrainConfig(precision="f32").model.compute_dtype == \
-            "float32"
-
-
-class TestDataAndTrainer:
-    def test_synthetic_batches_equal_jax(self):
-        a, b = synthetic_batches(4, 8, seed=7), j_synthetic(4, 8, seed=7)
-        for _ in range(3):
-            np.testing.assert_array_equal(next(a), next(b))
-
-    def test_cli_writes_jax_event_format(self, tmp_path):
-        """Two steps through `python -m dcgan_tpu_torch.train`'s entry
-        point on the CPU: events.jsonl has one scalars event per step in
-        the JAX package's format, with its loss keys and, once the timer
-        has two ticks, exactly the JAX StepTimer's perf/* keys."""
-        state = cli.main([
-            "--preset", "celeba64", "--synthetic", "--max_steps", "2",
-            "--device", "cpu", "--output_size", "16", "--gf_dim", "8",
-            "--df_dim", "8", "--z_dim", "8", "--batch_size", "4",
-            "--use_pallas", "--pallas_fused",
-            "--checkpoint_dir", str(tmp_path)])
-        assert int(state["step"]) == 2
-        events = [json.loads(line) for line in
-                  (tmp_path / "events.jsonl").read_text().splitlines()]
-        assert [e["step"] for e in events] == [1, 2]
-        timer = JStepTimer(images_per_step=4)
-        for t in (0.0, 1.0):
-            timer.tick(t)
-        perf_keys = set(timer.summary())
-        for e in events:
-            assert set(e) == {"kind", "step", "time", "values"}
-            assert e["kind"] == "scalars" and isinstance(e["time"], float)
-            assert all(np.isfinite(v) for v in e["values"].values())
-        assert set(events[0]["values"]) == set(METRIC_KEYS)
-        assert set(events[1]["values"]) == set(METRIC_KEYS) | perf_keys
-
-    def test_cli_needs_synthetic(self, tmp_path):
-        """Without --synthetic the trainer reads --data_dir's TFRecord
-        shards (the default data_dir, "train", when none is given): an
-        empty directory fails and names it."""
-        with pytest.raises(FileNotFoundError,
-                           match=f"no TFRecord shards in {tmp_path}"):
-            cli.main(["--max_steps", "1", "--device", "cpu", "--data_dir",
-                      str(tmp_path), "--checkpoint_dir",
-                      str(tmp_path / "run")])
-
-    def test_flags_override_the_preset(self):
-        args = cli.build_parser().parse_args(
-            ["--batch_size", "8", "--use_pallas", "--update_mode", "fused",
-             "--synthetic"])
-        cfg = cli.config_from_args(args)
-        assert cfg.batch_size == 8 and cfg.update_mode == "fused"
-        assert cfg.model.use_pallas and not cfg.model.pallas_fused
-        assert cfg.max_steps == celeba64().max_steps

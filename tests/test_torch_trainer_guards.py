@@ -8,8 +8,8 @@ trainer's (`dcgan_tpu/train/trainer.py:289-311, 1162-1198`).
   the values, and the port writes no checkpoint of the poisoned state.
   Under steps_per_call 2 the gate checks every step of a call on its
   cadence.
-- nan_policy="rollback" is refused by name, in TrainConfig and in a JAX
-  config.json.
+- nan_policy="rollback" (ported) loads from a JAX config.json with the
+  JAX values and trains; its validation is the JAX package's.
 - SIGTERM at step 3 of a trainer in a subprocess (CPU, tiny model,
   synthetic data): exit 0 after "received signal", a checkpoint at step 3
   or later, and the directory resumes (the JAX test at
@@ -99,16 +99,31 @@ def test_nan_gate_checks_every_step_of_a_call(tmp_path, monkeypatch):
 
 
 def test_rollback_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="rollback"):
-        TrainConfig(nan_policy="rollback")
+    """nan_policy="rollback" is ported: a JAX config.json that arms it
+    (with its snapshot cadence, budget and backoff) loads into the JAX
+    config's values and trains; the policy's validation stays the JAX
+    package's."""
     with pytest.raises(ValueError, match="needs the NaN gate"):
         TrainConfig(nan_policy="rollback", nan_check_steps=0)
     with pytest.raises(ValueError, match="nan_policy must be"):
         TrainConfig(nan_policy="skip")
-    jcfg = JTrainConfig(model=JModelConfig(**MODEL), nan_policy="rollback")
+    jcfg = JTrainConfig(model=JModelConfig(**MODEL), nan_policy="rollback",
+                        batch_size=8, rollback_snapshot_steps=2,
+                        max_rollbacks=1, rollback_lr_backoff=0.5,
+                        flight_recorder_steps=8, async_services=False,
+                        collective_timeout_secs=120.0,
+                        checkpoint_dir=str(tmp_path / "ckpt"),
+                        sample_dir=str(tmp_path / "samples"),
+                        sample_every_steps=0, activation_summary_steps=0,
+                        tensorboard=False)
     d = json.loads(json.dumps(dataclasses.asdict(jcfg)))
-    with pytest.raises(NotImplementedError, match="nan_policy='rollback'"):
-        config_from_dict(d)
+    cfg = config_from_dict(d)
+    for f in dataclasses.fields(TrainConfig):
+        if f.name != "model":
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    state = trainer.train(cfg, synthetic_data=True, max_steps=2,
+                          device="cpu")
+    assert int(state["step"]) == 2
     d["nan_policy"] = "abort"
     assert config_from_dict(d).nan_check_steps == jcfg.nan_check_steps
     assert cli.config_from_args(cli.build_parser().parse_args(
