@@ -129,9 +129,10 @@ Captured programs (`capture`):
    (kernels 1-4 for celeba64's kernel route, 6-8 for sagan64); capture
    ms and graph pool per program. Then, for the three bf16
    configurations: the multi-tensor Adam equal to the per-leaf one on the
-   card, the launches per eager step with each, and in turns (eager, K=1,
-   K=4, K=4, K=1, eager) the host-inclusive step ms, busy ms and idle
-   share;
+   card, the launches per eager step with each (one profiled step), and
+   in turns (eager, K=1, K=4, K=4, K=1, eager) the host-inclusive step
+   ms, and the busy ms and idle share of the captured turns (the eager
+   turns are not profiled);
 13. save under capture: a save after every replayed step while the
    replays go on; each checkpoint equal to a clone of the static state
    taken right after its step, bit for bit; then the trainer's entry
@@ -378,11 +379,38 @@ Fault tolerance in one process (`faults`), celeba64 on the kernel route
    hang at FAULT_HANG_STEP exiting 43 with every thread's stack and a
    dump naming `step-dispatch`.
 
+The trainer's own trace capture (`trace`), celeba64 on the kernel route
+(gf = df = 64, batch 64, bf16, K=1, --aot_warmup, synthetic feed):
+
+23. trace: train.cli.main for TRACE_STEPS steps with --profile_dir (a
+   window opened at step TRACE_START: a warm-up call, then TRACE_WINDOW
+   recorded steps) and --profile_trigger (the file touched at the
+   boundary TRACE_TRIGGER_AT, between two calls), --timing_window 1 and
+   a row every step; then TRACE_PIPE_STEPS steps under --pipeline_gd
+   with a scheduled window; the launch counters set to 0 before the
+   first and read after the second (the `trace` path) and read around
+   each window's recorded steps (TraceCapture's open, warm-up end and
+   stop patched). Fails unless (a) every digest read the gpu track, (b)
+   each port kernel's launches in each window's trace equal the
+   counters around it, (c) perf/device/step_ms lies between
+   TRACE_STEP_BOUNDS[0] x the busy ms profile_split(settle=True) gives
+   for the same captured step and TRACE_STEP_BOUNDS[1] x the host p50 of
+   the steps outside the windows, (d) the first run made two captures,
+   consumed the trigger and wrote two digest rows, (e) the pipelined
+   window's step is the sum of its d_update and g_update medians, (f)
+   perf/startup/{init,restore,data,warmup,total}_ms are in the startup
+   row and total is at least the phases' sum, (g)
+   tools/trace_summary_torch.py exits 0 on a written trace. Logs what
+   Kineto names the device tracks, each window's compute, idle gap, span
+   and step ms, its top TRACE_TOP kernels, stop-and-export ms, trace
+   bytes and digest seconds, the host p50 inside and outside the windows
+   and the group's seconds.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals, progressive, families, faults) the garbage is collected and the cache
-emptied; the run fails if a CUDA graph's private pool is still reserved
-then (every runner is closed, so a pool left over is a leak that would
+evals, progressive, families, faults, trace) the garbage is collected and
+the cache emptied; the run fails if a CUDA graph's private pool is still
+reserved then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
 left allocated and reserved.
 
@@ -390,15 +418,18 @@ Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
 the evals report, the progressive report, the families report, the
-faults report, the memory report, the progressive group's timing line
-(median step ms per phase, switch ms, graph pools, the group's peak
-reserved, the card), the families group's timing line (each preset's
-captured step ms, busy ms, idle share; the group's seconds and peak
-reserved; the card), the faults group's timing line (snapshot, restore
-and rollback-to-replay ms per K; the fed K=1 step's ms, busy ms and idle
-share with the services async and inline; the group's seconds and peak
-reserved; the card), the card's name and
-power limit (nvidia-smi), one JSON line
+faults report, the trace report, the memory report, the progressive
+group's timing line (median step ms per phase, switch ms, graph pools,
+the group's peak reserved, the card), the families group's timing line
+(each preset's captured step ms, busy ms, idle share; the group's
+seconds and peak reserved; the card), the faults group's timing line
+(snapshot, restore and rollback-to-replay ms per K; the fed K=1 step's
+ms, busy ms and idle share with the services async and inline; the
+group's seconds and peak reserved; the card), the trace group's timing
+line (each window's stop-and-export ms, trace bytes and digest seconds,
+the perf/device rows, the host p50 inside and outside the windows, the
+captured step's busy ms; the group's seconds; the card), the card's
+name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -1625,6 +1656,15 @@ def all_wrappers():
     return kernel_wrappers()
 
 
+def device_op(e):
+    """A profiler event of the card's own work: a kernel, copy or set,
+    not the device span of a record_function range (the captured
+    programs' names, graphs.py), which covers its kernels and the gaps
+    between them."""
+    return e.device_type.name == "CUDA" and not getattr(
+        e, "is_user_annotation", False)
+
+
 def kernel_totals(prof, settle):
     """[{key, us, count}] of the trace's device kernels by name: every
     kernel (the profiler's key_averages), or with `settle` those that
@@ -1635,10 +1675,10 @@ def kernel_totals(prof, settle):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0.0)
-            if us and e.device_type.name == "CUDA":
+            if us and device_op(e):
                 out.append({"key": e.key, "us": us, "count": e.count})
         return out
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels = [e for e in prof.events() if device_op(e)]
     spins = [e.time_range.end for e in kernels if "spin_kernel" in e.name]
     if not spins:
         fail("profile_split: the trace holds no spin kernel")
@@ -3212,8 +3252,9 @@ def timed_turns(torch, name, preset, overrides, report):
     for adam, ctx in (("per-leaf", per_leaf_adam),
                       ("multi-tensor", contextlib.nullcontext)):
         with ctx():
+            # a count: one profiled eager step gives it
             split = profile_split(torch, lambda: fns.train_step(
-                state, images[0], zs[0]))
+                state, images[0], zs[0]), steps=1)
         launches[adam] = split["launches_per_step"] if split else \
             "not measured"
     log(f"{name}: the multi-tensor Adam equals the per-leaf one bit for bit "
@@ -3252,6 +3293,12 @@ def timed_turns(torch, name, preset, overrides, report):
         for _ in range(TIMED_STEPS // n):
             call()
         ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        if k == 0:
+            # the eager step is timed, not profiled: its profiles cost the
+            # most of this group's time, and its busy ms is the captured
+            # step's (the same kernels)
+            return {"step_ms": ms, "busy_ms": "not profiled",
+                    "idle_share": "not profiled"}
         split = profile_split(torch, call, steps=PROFILED_CALLS)
         if split is None:
             return {"step_ms": ms, "busy_ms": "not measured",
@@ -7135,6 +7182,326 @@ def faults_and_check(torch, np, workdir, kernels):
     return report
 
 
+# The trainer's own trace capture (`trace`): celeba64 on the kernel route
+# (gf = df = 64, batch 64, bf16, K=1, --aot_warmup, synthetic feed), a
+# scheduled window and one triggered window, then a pipelined run with a
+# scheduled window
+TRACE_STEPS = 20
+TRACE_START = 3
+TRACE_WINDOW = 5
+# the boundary at which the trigger file is touched (between two calls)
+TRACE_TRIGGER_AT = 12
+TRACE_PIPE_STEPS = 10
+# the window's device step against the profiled busy ms of the same
+# captured step (below) and the run's host-inclusive p50 (above)
+TRACE_STEP_BOUNDS = (0.9, 1.1)
+TRACE_TOP = 10
+# a port kernel's entry in a trace (a part of its name) -> its wrapper
+TRACE_ENTRIES = dict(PROFILE_ENTRIES,
+                     gbsa_wgmma_kernel="gemm_bias_scale_act")
+
+
+def trace_argv(workdir, name, steps, argv):
+    return cond_argv(workdir, name, "celeba64", steps, [
+        "--use_pallas", "--pallas_fused", "--synthetic", "--aot_warmup",
+        "--save_model_secs", "1e9", "--log_every_steps", "1",
+        "--timing_window", "1", "--profile_dir",
+        os.path.join(workdir, name, "traces"), "--profile_start_step",
+        str(TRACE_START), "--profile_num_steps", str(TRACE_WINDOW)] + argv)
+
+
+def kineto_tracks(events):
+    """What Kineto names the tracks of a GPU capture: the process and
+    thread names of the pids that hold device ops, the categories of the
+    X events, and one device annotation's args."""
+    from dcgan_tpu_torch.utils import trace as tr
+
+    _, ops, _ = tr.select_device_tracks(events)
+    pids = {e["pid"] for e in ops}
+    names = {}
+    for e in events:
+        if e.get("ph") == "M" and e.get("pid") in pids and e.get("name") in (
+                "process_name", "process_labels", "thread_name"):
+            names.setdefault(e["name"], set()).add(
+                str(next(iter(e.get("args", {}).values()), "")))
+    cats = {}
+    for e in events:
+        if e.get("ph") == "X":
+            key = f"{e.get('cat')}@{'device' if e['pid'] in pids else 'host'}"
+            cats[key] = cats.get(key, 0) + 1
+    ann = next((e for e in events if e.get("cat") == "gpu_user_annotation"),
+               None)
+    return {"device_pids": sorted(map(str, pids)),
+            "names": {k: sorted(v)[:6] for k, v in names.items()},
+            "cats": cats, "annotation": ann}
+
+
+def window_kernels(events):
+    """{wrapper: launches} of the port kernels in one window's trace, the
+    window's TRACE_TOP costliest kernels by total device ms, and its
+    timeline: the port kernels inside each program execution, and the us
+    from each graph launch (host clock) to the first device op after it
+    (device clock)."""
+    from dcgan_tpu_torch.utils import trace as tr
+
+    programs, ops, _ = tr.select_device_tracks(events)
+    counts = {w: 0 for w in all_wrappers()}
+    by_name = {}
+    port = []
+    for e in ops:
+        if e.get("cat") != "kernel":
+            continue
+        for part, wrapper in TRACE_ENTRIES.items():
+            if part in e["name"]:
+                counts[wrapper] += 1
+                port.append(e["ts"])
+        t = by_name.setdefault(e["name"][:100], [0.0, 0])
+        t[0] += e["dur"] / 1e3
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    starts = sorted(e["ts"] for e in ops)
+    launches = sorted(e["ts"] for e in events if e.get("ph") == "X" and
+                      e.get("cat") == "cuda_runtime"
+                      and "GraphLaunch" in e["name"])
+    timeline = {
+        "port_kernels_per_program": [
+            sum(p["ts"] <= t <= p["ts"] + p["dur"] for t in port)
+            for p in programs],
+        "launch_to_first_op_us": [
+            round(next((t for t in starts if t >= ts), float("nan")) - ts, 1)
+            for ts in launches]}
+    return counts, [{"name": n, "ms": ms, "n": c} for n, (ms, c) in top], \
+        timeline
+
+
+def trace_run(torch, np, workdir, name, steps, argv, windows):
+    """One train.cli.main run of the group with the wrappers' counters
+    read around each window's recorded steps (TraceCapture's open, the
+    end of its warm-up call and its stop patched) and the trigger touched
+    at the boundary TRACE_TRIGGER_AT. Returns (cfg, stdout, events)."""
+    from dcgan_tpu_torch.graphs import counts_delta, launch_counts
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.utils.profiling import TraceCapture
+
+    cls = TraceCapture
+    begin, record, end, start = \
+        cls._begin, cls._record, cls._end, cls.maybe_start
+
+    def patched_begin(self, step):
+        windows.append({"run": name, "open": step})
+        begin(self, step)
+
+    def patched_record(self, step):
+        windows[-1].update(start=step, before=launch_counts())
+        record(self, step)
+
+    def patched_end(self):
+        end(self)
+        w = windows[-1]
+        w["delta"] = {n: c for n, (c, _) in counts_delta(
+            launch_counts(), w.pop("before")).items()}
+        w["stop"] = self._stop_at
+        w["stop_ms"] = self.last_stop_ms
+
+    def patched_start(self, step):
+        if self.trigger_path and step == TRACE_TRIGGER_AT:
+            with open(self.trigger_path, "w"):
+                pass
+        start(self, step)
+
+    argv = trace_argv(workdir, name, steps, argv)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    cls._begin, cls._record, cls._end, cls.maybe_start = \
+        patched_begin, patched_record, patched_end, patched_start
+    try:
+        with tee_stdout() as out:
+            state = cli.main(argv)
+    finally:
+        cls._begin, cls._record, cls._end, cls.maybe_start = \
+            begin, record, end, start
+    if int(state["step"]) != steps:
+        fail(f"trace {name}: the run ended at step {int(state['step'])}")
+    events = read_jsonl(os.path.join(cfg.checkpoint_dir, "events.jsonl"))
+    return cfg, out.getvalue(), events
+
+
+def trace_digests(text):
+    """The trainer's `trace digest` lines: {field: value} each."""
+    out = []
+    for line in text.splitlines():
+        if "] trace digest (ending step" not in line:
+            continue
+        m = re.search(r"ending step (\d+), (\w+) track, top program "
+                      r"'([^']*)' x(\d+)\): (.*)$", line)
+        if m is None:
+            fail(f"trace: unreadable digest line {line!r}")
+        d = {"step": int(m.group(1)), "source": m.group(2),
+             "program": m.group(3), "program_n": int(m.group(4))}
+        for part in m.group(5).split():
+            k, v = part.split("=", 1)
+            d[k] = v if k == "trace" else float(v)
+        out.append(d)
+    return out
+
+
+def trace_and_check(torch, np, workdir, kernels):
+    """Phase 23: the trainer's trace capture on the card. Returns the
+    `trace` report."""
+    from dcgan_tpu_torch.utils import trace as tr
+
+    t0 = time.perf_counter()
+    report = {"batch": BATCH}
+    trigger = os.path.join(workdir, "trace_trigger")
+    wrappers = all_wrappers()
+    windows = []
+    reset_counts(wrappers)
+    cfg, text, events = trace_run(torch, np, workdir, "trace_main",
+                                  TRACE_STEPS, ["--profile_trigger",
+                                                trigger], windows)
+    pipe_cfg, pipe_text, pipe_events = trace_run(
+        torch, np, workdir, "trace_pipe", TRACE_PIPE_STEPS,
+        ["--pipeline_gd"], windows)
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {})["trace"] = \
+            launches[entry["name"]]
+    for name in TRAIN_ONLY:
+        if not launches[name]:
+            fail(f"trace: kernel {name} never launched on the traced runs")
+    digests = trace_digests(text)
+    pipe_digests = trace_digests(pipe_text)
+    rows = [(e["step"], e["values"]) for e in events
+            if e["kind"] == "scalars" and "perf/device/step_ms"
+            in e["values"]]
+    pipe_rows = [(e["step"], e["values"]) for e in pipe_events
+                 if e["kind"] == "scalars" and "perf/device/step_ms"
+                 in e["values"]]
+    # (d) two captures, the trigger consumed, two digest rows
+    main_windows = [w for w in windows if w["run"] == "trace_main"]
+    if len(main_windows) != 2 or len(digests) != 2 or len(rows) != 2:
+        fail(f"trace: {len(main_windows)} captures, {len(digests)} digest "
+             f"lines, {len(rows)} perf/device rows (expected 2 each)")
+    if os.path.exists(trigger):
+        fail("trace: the trigger file was not consumed")
+    if [w["open"] for w in main_windows] != [
+            TRACE_START, TRACE_TRIGGER_AT] or any(
+            w["stop"] - w["start"] != TRACE_WINDOW for w in windows):
+        fail(f"trace: windows {windows}")
+    if len(pipe_digests) != 1 or len(pipe_rows) != 1:
+        fail(f"trace: the pipelined run wrote {len(pipe_digests)} digest "
+             f"lines and {len(pipe_rows)} rows")
+    # (a) the GPU track
+    for d in digests + pipe_digests:
+        if d["source"] != "gpu":
+            fail(f"trace: the digest read the {d['source']} track: {d}")
+    tracks = None
+    per_window = []
+    for w, d in zip(windows, digests + pipe_digests):
+        evs = tr.load_events(d["trace"])
+        if tracks is None:
+            tracks = kineto_tracks(evs)
+            log(f"trace: Kineto's tracks of a GPU window: {tracks}")
+        counts, top, timeline = window_kernels(evs)
+        log(f"trace window {w['run']} at {w['start']}: {timeline}")
+        # (b) each port kernel's launches in the trace = the counters
+        if counts != w["delta"]:
+            fail(f"trace: window at step {w['start']} of {w['run']}: port "
+                 f"kernels in the trace {counts}, the counters "
+                 f"{w['delta']}")
+        per_window.append({"run": w["run"], "open": w["open"],
+                           "start": w["start"], "stop": w["stop"],
+                           "launches": counts, "top_kernels": top,
+                           "timeline": timeline,
+                           "stop_ms": w["stop_ms"],
+                           "trace_bytes": int(d["trace_bytes"]),
+                           "digest_s": d["digest_s"],
+                           "digest_stop_ms": d["stop_ms"]})
+    # (e) the pipelined window's step is the sum of its stages
+    pd = tr.digest(pipe_digests[0]["trace"])
+    stages = {r["program"]: r["ms_median"] for r in pd["rows"]}
+    want = sum(v for k, v in stages.items()
+               if "d_update" in k or "g_update" in k)
+    got = pipe_rows[0][1]["perf/device/step_ms"]
+    if not ({"d_update", "g_update"} <= set(stages)) or \
+            abs(got - want) > 1e-9 * max(1.0, want):
+        fail(f"trace: the pipelined step_ms {got} is not its stages' sum "
+             f"{want} ({stages})")
+    # (f) the startup row
+    startup = [v for _, v in ((e["step"], e["values"]) for e in events
+               if e["kind"] == "scalars")
+               if "perf/startup/total_ms" in v]
+    phases = ("init", "restore", "data", "warmup")
+    if len(startup) != 1 or any(f"perf/startup/{p}_ms" not in startup[0]
+                                for p in phases):
+        fail(f"trace: startup rows {startup}")
+    startup = startup[0]
+    if startup["perf/startup/total_ms"] < sum(
+            startup[f"perf/startup/{p}_ms"] for p in phases):
+        fail(f"trace: startup total below the phases' sum: {startup}")
+    # per-step host ms (timing_window 1): inside the windows (the warm-up
+    # call's step too: the profiler runs) and outside
+    inside = set()
+    for w in main_windows:
+        inside |= set(range(w["open"] + 1, w["stop"] + 1))
+    step_ms = {e["step"]: e["values"]["perf/step_ms_p50"] for e in events
+               if e["kind"] == "scalars"
+               and "perf/step_ms_p50" in e["values"]}
+    p50_in = statistics.median(v for s, v in step_ms.items() if s in inside)
+    p50_out = statistics.median(v for s, v in step_ms.items()
+                                if s not in inside and s > 2)
+    # (c) the device step between the profiled busy ms and the host p50
+    cond_timed(torch, "trace_step", capture_cfg(
+        "celeba64", dict(use_pallas=True, pallas_fused=True)), report,
+        group="trace")
+    busy = report["trace_step"]["busy_ms"]
+    if not isinstance(busy, float):
+        fail("trace: the captured step's profile holds no device time")
+    lo, hi = TRACE_STEP_BOUNDS
+    for s, v in rows:
+        dev_ms = v["perf/device/step_ms"]
+        if not lo * busy <= dev_ms <= hi * p50_out:
+            fail(f"trace: perf/device/step_ms {dev_ms:.3f} at step {s} "
+                 f"outside [{lo} x busy {busy:.3f}, {hi} x host p50 "
+                 f"{p50_out:.3f}]")
+    # (g) the offline tool on a written trace
+    res = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tools", "trace_summary_torch.py"),
+         digests[0]["trace"]], capture_output=True, text=True, timeout=120)
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"trace: tools/trace_summary_torch.py exited {res.returncode}: "
+             f"{res.stderr[-500:]}")
+    summary_rows = [json.loads(line) for line in res.stdout.splitlines()]
+    report.update({
+        "windows": per_window, "rows": [v for _, v in rows],
+        "pipe_row": pipe_rows[0][1], "pipe_stages": stages,
+        "startup": startup, "step_ms_p50_in_windows": p50_in,
+        "step_ms_p50_outside": p50_out, "busy_ms": busy,
+        "summary_rows": summary_rows[:4], "summary_note":
+        res.stderr.strip()[-300:], "tracks": {
+            k: v for k, v in (tracks or {}).items() if k != "annotation"},
+        "launches": launches})
+    for (s, v), w in zip(rows + pipe_rows, per_window):
+        top = [(t["name"][:60], round(t["ms"], 3), t["n"])
+               for t in w["top_kernels"]]
+        log(f"trace window {w['run']} opened at {w['open']}, recorded "
+            f"steps {w['start']}-{s}: compute "
+            f"{v['perf/device/compute_ms']:.3f} ms, idle gap "
+            f"{v['perf/device/idle_gap_ms']:.3f} ms, span "
+            f"{v['perf/device/span_ms']:.3f} ms, step "
+            f"{v['perf/device/step_ms']:.3f} ms; stop and export "
+            f"{w['stop_ms']:.1f} ms, {w['trace_bytes']} bytes, digest "
+            f"{w['digest_s']:.3f} s; port kernels {w['launches']}; top "
+            f"{top}")
+    log(f"trace: host step p50 {p50_in:.3f} ms inside the windows, "
+        f"{p50_out:.3f} outside; the captured step's busy {busy:.3f} ms; "
+        f"startup {startup}; trace_summary_torch rows "
+        f"{[(r['program'], r['n'], r['ms_median']) for r in summary_rows]}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"trace: the group took {report['seconds']:.1f} s")
+    return report
+
+
 # the end of the last group (phase_memory logs each group's seconds)
 _PHASE_T = time.perf_counter()
 
@@ -7282,6 +7649,8 @@ def main() -> int:
         phase_memory(torch, "families", memory)
         faults_report = faults_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "faults", memory)
+        trace_report = trace_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "trace", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -7298,6 +7667,7 @@ def main() -> int:
     print(json.dumps({"progressive": prog_report}), flush=True)
     print(json.dumps({"families": fam_report}), flush=True)
     print(json.dumps({"faults": faults_report}), flush=True)
+    print(json.dumps({"trace": trace_report}), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
@@ -7332,6 +7702,17 @@ def main() -> int:
         "seconds": faults_report["seconds"],
         "peak_reserved": memory["faults"]["peak_reserved"],
         "card": card}}), flush=True)
+    print(json.dumps({"trace_timing": {
+        "windows": [{k: w[k] for k in ("run", "open", "start", "stop",
+                                       "stop_ms", "trace_bytes",
+                                       "digest_s")}
+                    for w in trace_report["windows"]],
+        "rows": [{k.rsplit("/", 1)[1]: v for k, v in r.items()}
+                 for r in trace_report["rows"] + [trace_report["pipe_row"]]],
+        "step_ms_p50_in_windows": trace_report["step_ms_p50_in_windows"],
+        "step_ms_p50_outside": trace_report["step_ms_p50_outside"],
+        "busy_ms": trace_report["busy_ms"],
+        "seconds": trace_report["seconds"], "card": card}}), flush=True)
     print(card, flush=True)
     for entry in kernels:
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -312,6 +312,21 @@ class TrainConfig:
                                    # later phase blend alpha * x +
                                    # (1 - alpha) * up(down(x)), alpha
                                    # ramping to 1
+    # trace capture (utils/profiling.py::TraceCapture, torch.profiler)
+    profile_dir: str = ""          # non-empty enables the scheduled trace
+                                   # capture window
+    profile_start_step: int = 10   # the window's first step, counted from
+                                   # the step the run starts at
+    profile_num_steps: int = 5
+    profile_trigger: str = ""      # non-empty: touch this file mid-run to
+                                   # capture the next profile_num_steps
+                                   # steps (the file is deleted as the ack;
+                                   # touch again for another). Each capture
+                                   # is digested on the services worker
+                                   # into perf/device/* events. Traces land
+                                   # in profile_dir, or checkpoint_dir/
+                                   # trace when that is unset
+    timing_window: int = 50        # sliding window for step-time stats
 
     def __post_init__(self):
         # the JAX package's validation of these fields, with its messages
@@ -579,8 +594,8 @@ def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a `config.json` dict of either package.
 
     The JAX package's fields the port has no use for (its mesh, the
-    multi-process fault tolerance, profiling) are reported once and
-    dropped; one of
+    multi-process fault tolerance, the compile cache) are reported once
+    and dropped; one of
     UNPORTED_TRAIN_FIELDS away from its default raises
     NotImplementedError, as the port's own unported values do."""
     d = dict(d)

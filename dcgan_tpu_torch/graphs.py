@@ -32,6 +32,12 @@ capture adds are taken back after it and added again at every replay:
 a replayed program counts as the eager calls it was captured from.
 Replays run on the dispatch threads of several serve replicas at once, so
 `add_counts` updates the counters under one lock.
+
+Each run is a `torch.profiler.record_function` range named after the
+program, as the owners' eager first calls are: a profiler window
+(utils/profiling.py::TraceCapture) sees the device work of a replay under
+its program's name (Kineto's `gpu_user_annotation` span), which the trace
+digest (utils/trace.py) reads as one program execution.
 """
 
 from __future__ import annotations
@@ -173,11 +179,12 @@ class CapturedProgram:
         which the next run overwrites."""
         if not self.captured:
             raise RuntimeError(f"{self.name} is not captured")
-        if self.graph is None:
-            self.outputs = self.fn()
-        else:
-            self.graph.replay()
-            add_counts(self.launches)
+        with torch.profiler.record_function(self.name):
+            if self.graph is None:
+                self.outputs = self.fn()
+            else:
+                self.graph.replay()
+                add_counts(self.launches)
         return self.outputs
 
     def release(self) -> None:

@@ -45,6 +45,18 @@ the last good snapshot and trains on:
         --pallas_fused --synthetic --nan_policy rollback \
         --rollback_snapshot_steps 20 --max_rollbacks 3 \
         --rollback_lr_backoff 0.5 --collective_timeout_secs 60
+
+A torch.profiler window of --profile_num_steps steps from
+--profile_start_step goes to --profile_dir; touching the
+--profile_trigger file captures the next window of a running job. Each
+window is digested into perf/device/* rows and a `trace digest` line;
+tools/trace_summary_torch.py prints a trace's programs:
+
+    python -m dcgan_tpu_torch.train --preset celeba64 --use_pallas \
+        --pallas_fused --data_dir D --checkpoint_dir C --profile_dir T \
+        --profile_trigger C/trace_now --timing_window 20
+    touch C/trace_now
+    python tools/trace_summary_torch.py T
 """
 
 from __future__ import annotations
@@ -108,6 +120,11 @@ _FLAG_FIELDS = {
     "pipeline_gd": ("", "pipeline_gd"),
     "progressive": ("", "progressive"),
     "progressive_fade_steps": ("", "progressive_fade_steps"),
+    "profile_dir": ("", "profile_dir"),
+    "profile_start_step": ("", "profile_start_step"),
+    "profile_num_steps": ("", "profile_num_steps"),
+    "profile_trigger": ("", "profile_trigger"),
+    "timing_window": ("", "timing_window"),
     "arch": ("model", "arch"),
     "use_pallas": ("model", "use_pallas"),
     "pallas_fused": ("model", "pallas_fused"),
@@ -336,6 +353,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">0 with --progressive: linear fade-in over the "
                         "first N steps of each later phase (real images "
                         "blend toward their previous-resolution content)")
+    # trace capture (torch.profiler) and step timing
+    p.add_argument("--profile_dir",
+                   help="capture a torch.profiler trace into this dir")
+    p.add_argument("--profile_start_step", type=int)
+    p.add_argument("--profile_num_steps", type=int)
+    p.add_argument("--profile_trigger",
+                   help="on-demand tracing: touch this file mid-run to "
+                        "capture the next --profile_num_steps steps (the "
+                        "file is deleted as the ack; touch again for "
+                        "another capture); each capture is digested into "
+                        "perf/device/* events — compute/collective/"
+                        "idle-gap ms and the device's own step time")
+    p.add_argument("--timing_window", type=int,
+                   help="sliding window (steps) for step-time stats")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' must be asked for by name")
     return p

@@ -27,8 +27,25 @@ EVENT_KEYS: Dict[str, str] = {
     "perf/host_ms_mean": "always",
     "perf/dispatch_occupancy": "always",
 
+    # -- startup breakdown (StartupProfile) and the restore's verify
+    #    stats: one row at the first step. The port has no compile cache,
+    #    so the JAX gate "compile_cache_dir|aot_warmup" reads aot_warmup
+    "perf/startup/*": "compile_cache_dir|aot_warmup",
+    "perf/restore/verify_files": "compile_cache_dir|aot_warmup",
+    "perf/restore/verify_bytes": "compile_cache_dir|aot_warmup",
+    "perf/restore/verify_cached_bytes": "compile_cache_dir|aot_warmup",
+    "perf/restore/verify_ms": "compile_cache_dir|aot_warmup",
+
     # -- capture times of --aot_warmup's rows -----------------------------
     "perf/compile_ms/*": "aot_warmup",
+
+    # -- the trace digest of each closed capture window (utils/trace.py) --
+    "perf/device/compute_ms": "profile_dir|profile_trigger",
+    "perf/device/collective_ms": "profile_dir|profile_trigger",
+    "perf/device/idle_gap_ms": "profile_dir|profile_trigger",
+    "perf/device/span_ms": "profile_dir|profile_trigger",
+    "perf/device/step_ms": "profile_dir|profile_trigger",
+    "perf/device/overlap_frac": "profile_dir|profile_trigger",
 
     # -- recovery counters (absent until nonzero) --------------------------
     "anomaly/rollbacks": "nan_policy=rollback",

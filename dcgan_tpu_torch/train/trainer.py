@@ -62,7 +62,8 @@
   run, so a preemption resumes where it stopped;
 - a `scalars` event every `log_every_steps` steps in the JAX package's
   JSONL format (`<checkpoint_dir>/events.jsonl`: d_loss, d_loss_real,
-  d_loss_fake, g_loss and StepTimer's perf/* keys; data/corrupt_records
+  d_loss_fake, g_loss and StepTimer's perf/* keys over the last
+  `timing_window` steps; data/corrupt_records
   once nonzero), mirrored into TensorBoard files;
 - every `sample_every_steps` steps a grid PNG of the samples of the fixed
   `sample_z` (drawn once from seed + 1; a conditional model's row i of
@@ -105,7 +106,33 @@
   once the boundary step's save has copied its state. Inside a fade
   window the real batch is blended (`PhaseRuntime.fade_images`); the log
   rows carry `progressive/phase`, `progressive/resolution` and
-  `progressive/alpha`, none for a one-phase schedule.
+  `progressive/alpha`, none for a one-phase schedule;
+- the startup breakdown (utils/profiling.py::StartupProfile): the
+  `data`, `init`, `restore` and `warmup` phases and the time to the
+  first call's readback, printed as the `startup` line with the
+  restore's verify stats, and written as a `perf/startup/*` row under
+  --aot_warmup (the JAX trainer's warm-start gate; the port has no
+  compile cache); a run that dies before its first step dumps the phases
+  it completed as the flight record's `startup_partial`;
+- trace capture (utils/profiling.py::TraceCapture): a torch.profiler
+  window of `profile_num_steps` steps at `profile_start_step` (counted
+  from the step the run starts at) when `profile_dir` is set, and one
+  at the next call boundary after each touch of `profile_trigger` (the
+  file deleted at the window's end; traces in `profile_dir`, else
+  `<checkpoint_dir>/trace`). The window opens before a call's dispatch
+  with a warm-up call whose events are dropped, records the next
+  `profile_num_steps` steps and closes after a readback, the device
+  synchronized; the stop writes the trace on the dispatch thread, which
+  also finds the file; the services worker digests it (utils/trace.py)
+  into a `perf/device/*` row at the window's last step and the `trace
+  digest` line (with the stop's ms, the file's bytes and the digest's
+  seconds). The step time
+  is the busiest program's median over the largest call size in the
+  window, or under pipeline_gd the sum of the `d_update` and `g_update`
+  medians. A window may span a graph capture (a runner's first calls, a
+  progressive switch without --aot_warmup): the window stays open, and
+  on an H100 a run whose window spanned the warm-up and both captures
+  ended with the parameters of an unprofiled run, bit for bit.
 """
 
 from __future__ import annotations
@@ -113,8 +140,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import json
 import os
 import pprint
+import socket
 import time
 from typing import Dict, Iterator, Optional, Tuple, Union
 
@@ -148,7 +177,9 @@ from dcgan_tpu_torch.train.warmup import METRIC_KEYS  # noqa: F401
 from dcgan_tpu_torch.utils.checkpoint import Checkpointer
 from dcgan_tpu_torch.utils.images import save_sample_grid
 from dcgan_tpu_torch.utils.metrics import CounterRegistry, MetricWriter
-from dcgan_tpu_torch.utils.profiling import StepTimer
+from dcgan_tpu_torch.utils.profiling import StartupProfile, StepTimer, \
+    TraceCapture
+from dcgan_tpu_torch.utils.trace import digest, find_trace, stage_step_ms
 
 Pytree = dict
 
@@ -357,11 +388,15 @@ def _check_architecture(cfg: TrainConfig, ckpt: Checkpointer) -> None:
         "adopted), or point --checkpoint_dir at a fresh directory.")
 
 
-def _flight_context(cfg: TrainConfig) -> dict:
-    """The flight recorder's dump-time header context."""
+def _flight_context(cfg: TrainConfig, startup: StartupProfile) -> dict:
+    """The flight recorder's dump-time header context; a run that died
+    before its first step carries the startup phases it completed."""
     out = {"process": 0}
     if cfg.precision:
         out["precision"] = cfg.precision
+    if not startup.done:
+        out["startup_partial"] = {k: round(v, 1) for k, v in
+                                  startup.summary().items()}
     return out
 
 
@@ -389,13 +424,16 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     state. A run that dies (a NaN abort, an exhausted rollback budget, any
     exception) leaves the flight recorder's dump in its checkpoint
     directory, if it had written there."""
+    # the time to the first step is profiled from here
+    startup = StartupProfile()
     flight = FlightRecorder(
         recorder_path(cfg.checkpoint_dir),
         capacity=cfg.flight_recorder_steps,
-        context=lambda: _flight_context(cfg))
+        context=lambda: _flight_context(cfg, startup))
     try:
         return _train(cfg, synthetic_data=synthetic_data,
-                      max_steps=max_steps, device=device, flight=flight)
+                      max_steps=max_steps, device=device, flight=flight,
+                      startup=startup)
     except BaseException as e:
         # a run that failed before it wrote its checkpoint directory (no
         # card, a data_dir without shards) leaves nothing there
@@ -409,7 +447,7 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
 
 def _train(cfg: TrainConfig, *, synthetic_data: bool,
            max_steps: Optional[int], device: Union[str, torch.device],
-           flight: FlightRecorder) -> Pytree:
+           flight: FlightRecorder, startup: StartupProfile) -> Pytree:
     dev = resolve_device(device)
     total_steps = cfg.max_steps if max_steps is None else max_steps
     mcfg = cfg.model
@@ -448,7 +486,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
     sample_data = None
     rebucketer = None
     if prog is None:
-        data = make_data(cfg, dev, synthetic_data=synthetic_data)
+        with startup.phase("data"):
+            data = make_data(cfg, dev, synthetic_data=synthetic_data)
     else:
         # the phase's feeds, re-opened at every switch
         def open_phase(phase_cfg, held_out_skip):
@@ -467,10 +506,12 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         # the phase's held-out stream opened at its start: the loss probes
         # since then are the batches a resume skips
         done = latest or 0
-        data, sample_data = rebucketer.open(pcfg, held_out_skip(
-            pcfg, done) - held_out_skip(pcfg, prog.starts[prog.index]))
+        with startup.phase("data"):
+            data, sample_data = rebucketer.open(pcfg, held_out_skip(
+                pcfg, done) - held_out_skip(pcfg, prog.starts[prog.index]))
     writer = None
     runner = None
+    trace = None
     # the runners of the phases after the current one, warmed and
     # captured at startup under --aot_warmup
     later_runners: Dict[int, StepRunner] = {}
@@ -498,39 +539,44 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             svc.submit(lambda s=step, r=row: writer.write_scalars(s, r),
                        tag=tag)
 
-        fns = make_train_step(cfg) if prog is None else prog.fns
-        state = fns.init(seed=cfg.seed, device=dev)
         # fixed z for comparable sample grids across the run, drawn once
         rows, cols = cfg.sample_grid
         n_samples = max(cfg.sample_size, rows * cols)
-        sample_z = torch.rand(
-            (n_samples, mcfg.z_dim), device=dev,
-            generator=torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-        ) * 2.0 - 1.0
-        # the grid's classes: row i of class i mod K
-        sample_labels = grid_labels(n_samples, mcfg.num_classes, dev)
 
         def new_runner(phase_fns, phase_state, phase_cfg):
             return StepRunner(phase_fns, phase_state, phase_cfg, dev,
                               sample_z=sample_z, sample_labels=sample_labels)
 
-        runner = new_runner(fns, state, pcfg)
+        with startup.phase("init"):
+            fns = make_train_step(cfg) if prog is None else prog.fns
+            state = fns.init(seed=cfg.seed, device=dev)
+            sample_z = torch.rand(
+                (n_samples, mcfg.z_dim), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(
+                    cfg.seed + 1)) * 2.0 - 1.0
+            # the grid's classes: row i of class i mod K
+            sample_labels = grid_labels(n_samples, mcfg.num_classes, dev)
+            runner = new_runner(fns, state, pcfg)
         keys = metric_keys(cfg)
         eval_z = eval_z_of(sample_z, pcfg.batch_size)
-        restored = ckpt.restore_latest(state)
+        with startup.phase("restore"):
+            restored = ckpt.restore_latest(state)
+            if restored is not None:
+                runner.load(restored)
         if restored is not None:
-            runner.load(restored)
             del restored
             print(f"[dcgan_tpu_torch] restored checkpoint at step "
                   f"{int(state['step'])}", flush=True)
         if prog is None and (cfg.sample_every_steps or cfg.fid_every_steps):
             # the held-out stream from where the run that reached this
             # step left it
-            sample_data = make_sample_data(
-                cfg, dev, synthetic_data=synthetic_data,
-                skip_batches=held_out_skip(cfg, int(state["step"])))
+            with startup.phase("data"):
+                sample_data = make_sample_data(
+                    cfg, dev, synthetic_data=synthetic_data,
+                    skip_batches=held_out_skip(cfg, int(state["step"])))
         probe = FidProbe(cfg, dev) if cfg.fid_every_steps else None
-        timer = StepTimer(images_per_step=pcfg.batch_size)
+        timer = StepTimer(window=cfg.timing_window,
+                          images_per_step=pcfg.batch_size)
         t_start = time.time()
         logged_precision = False
         step_num = int(state["step"])
@@ -650,6 +696,93 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             step_draws = functools.partial(step_inputs, rekey=rekey)
             stage_draws = functools.partial(stage_inputs, rekey=rekey)
 
+        def report_startup(step: int) -> None:
+            """The startup breakdown, once, at the first call's readback:
+            the phases' ms and the restore's verify stats. Always printed;
+            written as a row only under --aot_warmup (the JAX trainer's
+            warm-start gate, whose compile cache the port does not
+            have)."""
+            row = startup.summary()
+            rs = ckpt.last_restore_stats
+            if rs is not None:
+                row.update({
+                    "perf/restore/verify_files": rs["files"],
+                    "perf/restore/verify_bytes": rs["bytes_read"],
+                    # no restore cache: every byte is read
+                    "perf/restore/verify_cached_bytes": 0.0,
+                    "perf/restore/verify_ms": rs["verify_ms"],
+                })
+            print("[dcgan_tpu_torch] startup "
+                  + json.dumps({k: round(v, 1) for k, v in row.items()}),
+                  flush=True)
+            if cfg.aot_warmup:
+                write_row(step, row, "startup")
+
+        # trace capture: the scheduled window when profile_dir is set, a
+        # window per touch of profile_trigger; a trigger-only run writes
+        # its traces under checkpoint_dir/trace
+        trace_dir = cfg.profile_dir or (
+            os.path.join(cfg.checkpoint_dir, "trace")
+            if cfg.profile_trigger else "")
+        # the call sizes the open window records (its warm-up call is
+        # not): the digest divides the busiest program's median by the
+        # largest, not by steps_per_call (a window inside a K=1 stretch
+        # would read K times too small)
+        capture_ks: list = []
+
+        def on_trace_capture(stop_step: int) -> None:
+            """A window closed: its file is resolved here, on the dispatch
+            thread (the newest of this host's), and digested on the
+            services worker into a perf/device/* row."""
+            ks = capture_ks[:]
+            del capture_ks[:]
+            spc = max(ks) if ks else max(1, cfg.steps_per_call)
+            try:
+                path = find_trace(trace_dir, host=socket.gethostname())
+            except OSError as e:
+                print(f"[dcgan_tpu_torch] trace capture ending at step "
+                      f"{stop_step} left no trace file: {e!r}", flush=True)
+                return
+
+            def digest_task(s=stop_step, path=path,
+                            stop_ms=trace.last_stop_ms):
+                t0 = time.perf_counter()
+                d = digest(path)
+                digest_s = time.perf_counter() - t0
+                if d["source"] == "none":
+                    print(f"[dcgan_tpu_torch] trace capture ending at step "
+                          f"{s} has no device events; nothing to digest",
+                          flush=True)
+                    return
+                step_ms = d["program_ms_median"] / spc
+                if cfg.pipeline_gd:
+                    # one step is a d_update and a g_update
+                    step_ms = stage_step_ms(d) or step_ms
+                row = {
+                    "perf/device/compute_ms": d["compute_ms"],
+                    "perf/device/collective_ms": d["collective_ms"],
+                    "perf/device/idle_gap_ms": d["idle_gap_ms"],
+                    "perf/device/span_ms": d["span_ms"],
+                    "perf/device/step_ms": step_ms,
+                    "perf/device/overlap_frac": d["overlap_frac"],
+                }
+                print(f"[dcgan_tpu_torch] trace digest (ending step {s}, "
+                      f"{d['source']} track, top program {d['program']!r} "
+                      f"x{d['program_n']}): "
+                      + " ".join(f"{k.rsplit('/', 1)[1]}={v:.3f}"
+                                 for k, v in row.items())
+                      + f" stop_ms={stop_ms:.1f} trace_bytes="
+                      f"{os.path.getsize(path)} digest_s={digest_s:.3f} "
+                      f"trace={path}", flush=True)
+                writer.write_scalars(s, row)
+            svc.submit(digest_task, tag="trace-digest")
+
+        trace = TraceCapture(trace_dir,
+                             start_step=step_num + cfg.profile_start_step,
+                             num_steps=cfg.profile_num_steps,
+                             schedule=bool(cfg.profile_dir),
+                             trigger_path=cfg.profile_trigger,
+                             on_capture=on_trace_capture, device=dev)
         if rollback is not None:
             # the first restore point: a fresh init or a verified restore
             rollback.snapshot(step_num, state)
@@ -696,7 +829,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                 ckpt.progressive_tag = prog.tag()
                 data, sample_data = rebucketer.reopen(pcfg)
                 eval_z = eval_z_of(sample_z, pcfg.batch_size)
-                timer = StepTimer(images_per_step=pcfg.batch_size)
+                timer = StepTimer(window=cfg.timing_window,
+                                  images_per_step=pcfg.batch_size)
                 if rollback is not None:
                     # a NaN right after the switch restores the new
                     # phase's tree
@@ -724,6 +858,9 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                         else "pipeline-fill"
                 watchdog.arm(phase, step_num)
             chaos.maybe_hang(step_num)
+            trace.maybe_start(step_num)
+            if trace.recording:
+                capture_ks.append(k)  # this call is recorded
             batches, labels = zip(*(split_batch(cfg, next(data))
                                     for _ in range(k)))
             if prog is not None:
@@ -743,22 +880,23 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                 # every row captured right after the warm-up, before the
                 # timer is armed; in a progressive run also every later
                 # phase's, on a runner warmed on zeros
-                if prog is None:
-                    warm_ms = aot_capture(runner, build_warmup_plan(
-                        cfg, sample=bool(cfg.sample_every_steps)))
-                else:
-                    for name, i, row in prog.build_warmup_plan(
-                            sample=bool(cfg.sample_every_steps)):
-                        r = runner if i == prog.index \
-                            else later_runners.get(i)
-                        if r is None:
-                            cfg_i, fns_i = prog.surface(i)
-                            r = later_runners[i] = new_runner(
-                                fns_i, fns_i.init(
-                                    seed=cfg.seed + PHASE_SEED_OFFSET + i,
-                                    device=dev), cfg_i)
-                            r.prime(start=prog.starts[i])
-                        warm_ms[name] = r.capture(row)
+                with startup.phase("warmup"):
+                    if prog is None:
+                        warm_ms = aot_capture(runner, build_warmup_plan(
+                            cfg, sample=bool(cfg.sample_every_steps)))
+                    else:
+                        for name, i, row in prog.build_warmup_plan(
+                                sample=bool(cfg.sample_every_steps)):
+                            r = runner if i == prog.index \
+                                else later_runners.get(i)
+                            if r is None:
+                                cfg_i, fns_i = prog.surface(i)
+                                seed_i = cfg.seed + PHASE_SEED_OFFSET + i
+                                r = later_runners[i] = new_runner(
+                                    fns_i, fns_i.init(seed=seed_i,
+                                                      device=dev), cfg_i)
+                                r.prime(start=prog.starts[i])
+                            warm_ms[name] = r.capture(row)
                 print("[dcgan_tpu_torch] aot warmup captured "
                       f"{len(warm_ms)} program(s): "
                       + ", ".join(f"{n} {ms:.0f}ms"
@@ -770,6 +908,10 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             # so each tick follows the call's completion; the log reports
             # the call's last step
             per_step = metrics.tolist()
+            if not startup.done:
+                # the first proven device progress: the time to first step
+                startup.first_step()
+                report_startup(step_num + k)
             if switched is not None:
                 line, before = switched
                 print(f"{line} captures_during_switch="
@@ -863,6 +1005,7 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                            writer.write_activations(s, a.get()),
                            tag="activations")
                 timer.note_host(time.perf_counter() - t0)
+            trace.maybe_stop(step, sync=metrics)
             if certify:
                 with watchdog.guard("snapshot-certify", step):
                     rollback.snapshot(step, state)
@@ -905,6 +1048,10 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                 pass
         if writer is not None:
             writer.close()
+        if trace is not None:
+            # last: a profiler that fails to stop raises after the rest
+            # is closed
+            trace.close()
     # the last step (also of a run a signal stopped), unless the cadence
     # saved it already
     try:

@@ -31,6 +31,9 @@ after the warm-up by `aot_capture` (--aot_warmup), which returns the
 `perf/compile_ms/<row>` capture times. A runner whose state a later
 `load` replaces (a progressive run's later phases) takes its warm-up on
 zeros (`prime`), so its rows can be captured before its phase starts.
+Every eager first call runs under a `record_function` range named after
+its row, as every replay does (graphs.py), so a profiler window names the
+programs whether or not they are captured yet.
 
 Lazy R1 (r1_interval k > 1) runs the penalty on the steps whose state step
 is a multiple of k. That is no branch inside a graph: the host knows each
@@ -73,6 +76,7 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.graphs import CapturedProgram, on_stream
@@ -387,7 +391,8 @@ class StepRunner:
         if name in (SAMPLER_ROW, FID_ROW):
             fn = self._sample_fn() if name == SAMPLER_ROW \
                 else self._fid_fn()
-            with on_stream(self.stream):   # the sampler's own warm-up
+            # the sampler's own warm-up
+            with on_stream(self.stream), record_function(name):
                 fn()
         elif base in STAGE_ROWS:
             fn = self._stage_fn(base, pattern)
@@ -472,7 +477,8 @@ class StepRunner:
         if not self.warm:
             if k != 1:
                 raise ValueError("the warm-up is one step")
-            with on_stream(self.stream):
+            with on_stream(self.stream), \
+                    record_function(pattern_row(TRAIN_ROW, pattern)):
                 out = self._steps_fn(1, pattern)()
             self.warm = True
             self.penalty_warm = pattern is None or pattern[0]
@@ -510,7 +516,8 @@ class StepRunner:
         """A stage row: eager on the capture stream in the warm-up step,
         a captured program after it."""
         if not self.warm:
-            with on_stream(self.stream):
+            with on_stream(self.stream), \
+                    record_function(pattern_row(base, pattern)):
                 return self._stage_fn(base, pattern)()
         return self._program(pattern_row(base, pattern)).run()
 

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
-package (the package, chip_smoke.py and tools/chaos_drill_torch.py), and
-its entry points refuse to run quietly on the CPU."""
+package (the package, chip_smoke.py, tools/chaos_drill_torch.py and
+tools/trace_summary_torch.py), and its entry points refuse to run quietly
+on the CPU."""
 
 import ast
 import os
@@ -18,8 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "dcgan_tpu")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tools" / "chaos_drill_torch.py"]
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "chaos_drill_torch.py",
+        ROOT / "tools" / "trace_summary_torch.py"]
 
 
 #: test_ast_imports' files, dealt round-robin over
@@ -60,8 +62,9 @@ def _clean_env():
 
 
 class TestNoJaxImports:
-    # test_ast_imports (every port file, chip_smoke.py and
-    # tools/chaos_drill_torch.py): test_torch_hygiene_{b,c,d,e}.py
+    # test_ast_imports (every port file, chip_smoke.py,
+    # tools/chaos_drill_torch.py and tools/trace_summary_torch.py):
+    # test_torch_hygiene_{b,c,d,e}.py
 
     def test_importing_every_module_loads_no_jax(self):
         """Import every module of the package in a fresh interpreter and

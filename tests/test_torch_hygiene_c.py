@@ -1,7 +1,7 @@
 """Continued from test_torch_hygiene.py: share 2 of 4 of
-`test_ast_imports`, which holds every file of the port, chip_smoke.py and
-tools/chaos_drill_torch.py to importing nothing of jax, jaxlib or
-dcgan_tpu."""
+`test_ast_imports`, which holds every file of the port, chip_smoke.py,
+tools/chaos_drill_torch.py and tools/trace_summary_torch.py to importing
+nothing of jax, jaxlib or dcgan_tpu."""
 
 import pytest
 

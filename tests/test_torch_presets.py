@@ -80,4 +80,6 @@ JAX_FLAGS = {"learning_rate": "3e-4", "d_learning_rate": "5e-4",
              "nan_policy": "rollback", "rollback_snapshot_steps": "20",
              "max_rollbacks": "5", "rollback_lr_backoff": "0.5",
              "async_services": "false", "flight_recorder_steps": "16",
-             "collective_timeout_secs": "30"}
+             "collective_timeout_secs": "30", "profile_dir": "traces",
+             "profile_start_step": "3", "profile_num_steps": "7",
+             "profile_trigger": "trace_now", "timing_window": "9"}

@@ -41,6 +41,12 @@ loudly with the right error; it never trains on garbage and never hangs.
                                                          replay and the
                                                          pre-switch losses
                                                          bit for bit
+    trace-trigger         the --profile_trigger file     a 2-step window,
+                          touched before the run         the file consumed,
+                                                         a `trace digest`
+                                                         line and a
+                                                         perf/device/* row
+                                                         with compute_ms > 0
     serve-drain           SIGTERM mid-load to the        every submitted
                           server                         request completes,
                                                          clean exit 0
@@ -48,9 +54,9 @@ loudly with the right error; it never trains on garbage and never hangs.
                           mid-trace, then a new step     survivors promoted,
                           lands on disk                  0 captures
 
-The JAX drill's `trace-trigger` (the port has no trace capture yet),
-`zero-rollback` and `elastic-*` (multi-GPU), `thread-checks` (the
-analyzer) and its multi-process matrix have no counterpart here.
+The JAX drill's `zero-rollback` and `elastic-*` (multi-GPU),
+`thread-checks` (the analyzer) and its multi-process matrix have no
+counterpart here.
 
     python tools/chaos_drill_torch.py                 # full matrix, on the card
     python tools/chaos_drill_torch.py --cpu --smoke   # corrupt-record,
@@ -345,6 +351,39 @@ def scenario_watchdog_dump(root: str) -> dict:
             "dump_records": len(records)}
 
 
+def scenario_trace_trigger(root: str) -> dict:
+    """A touched --profile_trigger file -> the next boundary opens an
+    N-step torch.profiler window, the services worker digests the trace
+    in-process, and perf/device/* attribution lands in the event stream;
+    the trigger file is consumed as the ack."""
+    trig = os.path.join(root, "trigger")
+    open(trig, "w").close()   # touched before the run: the first boundary
+    ck = os.path.join(root, "ck")
+    rc, out = _run_train(
+        dict(checkpoint_dir=ck, sample_dir=os.path.join(root, "sm"),
+             profile_trigger=trig, profile_num_steps=2, save_model_secs=1e9),
+        max_steps=6)
+    _check(rc == 0, f"trainer failed (rc={rc}): {out[-800:]}")
+    _check("TRAIN_DONE step=6" in out, f"run did not complete: {out[-400:]}")
+    _check(not os.path.exists(trig), "trigger file was not consumed")
+    _check("trace digest" in out, f"no digest log line: {out[-800:]}")
+    keys = ("perf/device/compute_ms", "perf/device/collective_ms",
+            "perf/device/idle_gap_ms", "perf/device/step_ms")
+    rows = [e["values"] for e in _events(ck) if e["kind"] == "scalars"
+            and "perf/device/compute_ms" in e["values"]]
+    _check(rows, "no perf/device/* events after the trigger capture")
+    missing = [k for k in keys if k not in rows[-1]]
+    _check(not missing, f"digest row missing {missing}")
+    _check(rows[-1]["perf/device/compute_ms"] > 0,
+           f"empty device attribution: {rows[-1]}")
+    track = "gpu" if DEVICE == "cuda" else "cpu"
+    _check(f"{track} track" in out,
+           f"the digest did not read the {track} track: {out[-800:]}")
+    return {"device_compute_ms": round(rows[-1][keys[0]], 3),
+            "device_idle_gap_ms": round(rows[-1][keys[2]], 3),
+            "track": track}
+
+
 def scenario_pipeline_rollback(root: str) -> dict:
     """NaN at step 3 under --pipeline_gd -> the rollback drains the
     in-flight fake stack, refills from the restored G, and completes; a
@@ -605,6 +644,7 @@ SCENARIOS = {
     "watchdog-dump": scenario_watchdog_dump,
     "pipeline-rollback": scenario_pipeline_rollback,
     "progressive-switch": scenario_progressive_switch,
+    "trace-trigger": scenario_trace_trigger,
     "serve-drain": scenario_serve_drain,
     "fleet-replica-kill": scenario_fleet_replica_kill,
 }
