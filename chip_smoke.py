@@ -406,9 +406,39 @@ The trainer's own trace capture (`trace`), celeba64 on the kernel route
    bytes and digest seconds, the host p50 inside and outside the windows
    and the group's seconds.
 
+Data parallelism over processes (`multi_gpu`, parallel/):
+
+24. multi_gpu: (a) celeba64 on the kernel route through
+   `initialize_multihost` (NCCL, one rank) and `make_parallel_train`,
+   through StepRunner at K=1 and K=CAPTURE_K beside the non-distributed
+   runner on the same seeded state, images and z: the losses and every
+   state leaf bit for bit after every call, kernels 1-4 at PER_STEP a
+   step on both, the collectives the step issues on the host in the
+   warm-up and in the capture and none in a replay; logs the NCCL kernels
+   a replay holds and each route's busy ms, host ms and idle share; (b)
+   `train.cli.main --preset sagan256-lc --synthetic` (256 px, batch 64,
+   attention at S 16384, the shard_map draws) for MG_SAGAN_STEPS steps
+   through the world-1 NCCL group, the counters set to 0 before and read
+   after (kernels 6-8 a whole number of times a step), the attention
+   shapes the path gave kernels 6-8 recorded, the kernels at the S 16384
+   one held against their plain versions over FLASH_ROWS rows and timed
+   beside their bound, then one step through the world-1 runner, captured
+   if it fits, with its host ms, busy ms, idle share and memory peak; (c)
+   lsun64-dp8 (use_pallas, pallas_fused, global batch 512) as 8 gloo
+   ranks sharing the card (`testing/multihost.py::run_world`, under
+   MG_DP8_TIMEOUT): the gradients at the seeded state in bf16 and f32
+   and MG_DP8_STEPS eager steps; every rank's state bit for bit equal,
+   kernels 1-4 at PER_STEP a step on every rank, a capture of the gloo
+   step refused by name; the 8-rank gradients against one rank's on the
+   global batch within TRAIN_GRAD_TOL, the losses within TRAIN_ROUTE_TOL
+   and the parameters within Adam's bound 2 * lr * steps. Logs whether
+   gloo took the CUDA tensors or the collectives staged through host
+   memory, and each part's seconds.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals, progressive, families, faults, trace) the garbage is collected and
+evals, progressive, families, faults, trace, multi_gpu) the garbage is
+collected and
 the cache emptied; the run fails if a CUDA graph's private pool is still
 reserved then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -418,7 +448,8 @@ Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
 the evals report, the progressive report, the families report, the
-faults report, the trace report, the memory report, the progressive
+faults report, the trace report, the multi_gpu report, the memory
+report, the progressive
 group's timing line (median step ms per phase, switch ms, graph pools,
 the group's peak reserved, the card), the families group's timing line
 (each preset's captured step ms, busy ms, idle share; the group's
@@ -428,8 +459,12 @@ ms, busy ms and idle share with the services async and inline; the
 group's seconds and peak reserved; the card), the trace group's timing
 line (each window's stop-and-export ms, trace bytes and digest seconds,
 the perf/device rows, the host p50 inside and outside the windows, the
-captured step's busy ms; the group's seconds; the card), the card's
-name and power limit (nvidia-smi), one JSON line
+captured step's busy ms; the group's seconds; the card), the multi_gpu
+group's timing line (each route's busy, host ms and idle share
+and the NCCL kernels per replay at world 1; sagan256-lc's step, memory and
+kernels 6-8 at S 16384; the 8 ranks' seconds, staging and gaps; the
+group's seconds; the card), the card's name and power limit
+(nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits nonzero, printing no result, when no GPU is available.
@@ -7502,6 +7537,576 @@ def trace_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# data parallelism over processes (`multi_gpu`)
+# ---------------------------------------------------------------------------
+
+# (a) celeba64 on the kernel route through the world-1 NCCL path: the
+# warm-up and the steps captured at K = 1, then calls at K = CAPTURE_K
+MG_STEPS = 3
+# (b) sagan256-lc through the trainer CLI at world size 1 (NCCL)
+MG_SAGAN_STEPS = 3
+# (c) lsun64-dp8's 8 ranks over gloo on the one card, eager steps, and
+# the world's deadline
+MG_DP8_STEPS = 2
+MG_DP8_TIMEOUT = 420.0
+# the kernels of the steps each path runs per step (PER_STEP: kernels 1-4)
+MG_KERNELS = ("channel_moments", "scale_shift_act", "scale_shift_act_bwd",
+              "gemm_bias_moments")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_per_call(torch, fn):
+    """(NCCL kernels, their device ms) in one call of fn() (after one
+    untraced call), from torch.profiler's device events. Over one rank
+    NCCL reduces in place without a launch, so a world-1 step shows
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.events() if device_op(e)
+             and "nccl" in e.name.lower()]
+    return len(found), sum(e.time_range.elapsed_us() for e in found) / 1e3
+
+
+def mg_world_one(torch, np, report, kernels):
+    """(a): the world-1 NCCL step against the non-distributed one, both
+    captured, bit for bit; kernels 1-4 per step on both; the NCCL kernels
+    a replay holds; each route's host, busy ms and idle share."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.parallel.api import make_parallel_train
+    from dcgan_tpu_torch.parallel.collectives import COUNTS
+    from dcgan_tpu_torch.parallel.distributed import initialize_multihost
+    from dcgan_tpu_torch.train.steps import make_train_step
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    # one card, one host: NCCL's bootstrap over the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    world = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                 device="cuda:0")
+    if (world.backend, world.size) != ("nccl", 1):
+        fail(f"multi_gpu (a): world {world}")
+    log(f"multi_gpu (a): initialize_multihost formed an NCCL world of "
+        f"{world.size} on {world.device}")
+    wrappers = all_wrappers()
+    overrides = {"use_pallas": True, "pallas_fused": True}
+    entry = {}
+    launches_total = dict.fromkeys(MG_KERNELS, 0)
+    for k in (1, CAPTURE_K):
+        cfg = capture_cfg("celeba64", overrides, k)
+        par = make_parallel_train(cfg, world)
+        fns = make_train_step(cfg)
+        runners = {"nccl": StepRunner(par.fns, seeded_state(torch, fns, cfg),
+                                      cfg, torch.device("cuda")),
+                   "plain": StepRunner(fns, seeded_state(torch, fns, cfg),
+                                       cfg, torch.device("cuda"))}
+        n = 1 + MG_STEPS * k
+        images, zs = step_inputs(torch, cfg, n)
+        calls = [(0, 1)] + [(1 + i * k, k) for i in range(MG_STEPS)]
+        per_call = {}
+        for start, size in calls:
+            got = {}
+            for name, runner in runners.items():
+                reset_counts(wrappers)
+                before = COUNTS["all_reduce"] + COUNTS["all_gather"]
+                losses = runner.step(images[start:start + size],
+                                     zs[start:start + size],
+                                     start=start).tolist()
+                torch.cuda.synchronize()
+                got[name] = (losses, {w: wrappers[w].launches
+                                      for w in MG_KERNELS},
+                             COUNTS["all_reduce"] + COUNTS["all_gather"]
+                             - before)
+            if got["nccl"][0] != got["plain"][0]:
+                fail(f"multi_gpu (a) K={k}: losses {got['nccl'][0]} vs "
+                     f"{got['plain'][0]} at step {start}")
+            same_state(torch, convert, f"multi_gpu (a) K={k} step {start}",
+                       runners["nccl"].state, runners["plain"].state)
+            for name in runners:
+                want = {w: PER_STEP[w] * size for w in MG_KERNELS}
+                if got[name][1] != want:
+                    fail(f"multi_gpu (a) K={k} {name}: kernels 1-4 "
+                         f"launched {got[name][1]}, expected {want}")
+            for w in MG_KERNELS:
+                launches_total[w] += got["nccl"][1][w]
+            per_call[start] = got["nccl"][2]
+        captured = sorted(runners["nccl"].programs)
+        if not captured:
+            fail(f"multi_gpu (a) K={k}: nothing was captured")
+        # the collectives the step issues: on the host in the warm-up and
+        # in the capture (K steps), none in a replay (they are the graph's)
+        per_step = per_call[0]
+        want = [per_step, per_step * k] + [0] * (MG_STEPS - 1)
+        if per_step < 1 or list(per_call.values()) != want:
+            fail(f"multi_gpu (a) K={k}: collectives issued per call "
+                 f"{per_call}, expected {want}")
+        prog = runners["nccl"].programs[runners["nccl"].row(k)]
+        n_nccl, nccl_ms = nccl_per_call(torch, prog.run)
+        prof = {name: replay_profile(torch, r, k)
+                for name, r in runners.items()}
+        e = entry[f"k{k}"] = {
+            "steps": 1 + MG_STEPS * k, "captured": captured,
+            "collectives_per_step": per_step,
+            "nccl_kernels_per_replay": n_nccl,
+            "nccl_ms_per_replay": nccl_ms,
+            "host_collectives_per_call": per_call,
+            **{f"{name}_{key}": p[key] for name, p in prof.items()
+               for key in ("busy_ms", "wall_ms", "idle_share")}}
+        log(f"multi_gpu (a) celeba64 K={k}: {e['steps']} steps of the "
+            f"world-1 NCCL runner equal the non-distributed runner bit for "
+            f"bit (losses and every state leaf), kernels 1-4 at "
+            f"{ {w: PER_STEP[w] for w in MG_KERNELS} } a step on both; the "
+            f"step issues {per_step} collectives (in the warm-up and the "
+            f"capture; none from the host in a replay); a replay "
+            f"({prog.name}) holds {n_nccl} NCCL kernels, {nccl_ms:.4f} ms "
+            f"(none over one rank); per step: NCCL route busy "
+            f"{e['nccl_busy_ms']:.3f} ms, host {e['nccl_wall_ms']:.3f} ms, "
+            f"idle {e['nccl_idle_share']:.3f}; non-distributed busy "
+            f"{e['plain_busy_ms']:.3f} ms, host {e['plain_wall_ms']:.3f} "
+            f"ms, idle {e['plain_idle_share']:.3f}")
+        for r in runners.values():
+            r.close()
+        del runners
+        torch.cuda.empty_cache()
+    report["celeba64_world1"] = entry
+    for e in kernels:
+        e.setdefault("launches_by_path", {})["multi_gpu_celeba64_w1"] = \
+            launches_total.get(e["name"], 0)
+    return world
+
+
+def mg_sagan256(torch, np, workdir, report, kernels):
+    """(b): `python -m dcgan_tpu_torch.train --preset sagan256-lc` at
+    world size 1 over NCCL (the world (a) formed), a few steps on the
+    synthetic feed; kernels 6-8 at the shapes the path gave them, held
+    against their plain versions over FLASH_ROWS rows and timed beside
+    their bound; the step captured (if it fits) and profiled."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch.ops import attention, flash_attention as fa
+    from dcgan_tpu_torch.parallel.api import make_parallel_train
+    from dcgan_tpu_torch.parallel.distributed import initialize_multihost
+    from dcgan_tpu_torch.train import cli
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    tdir = os.path.join(workdir, "sagan256_lc")
+    argv = ["--preset", "sagan256-lc", "--synthetic", "--max_steps",
+            str(MG_SAGAN_STEPS), "--device", "cuda", "--checkpoint_dir",
+            tdir, "--sample_dir", os.path.join(workdir, "sagan256_samples"),
+            "--seed", str(SEED), "--sample_every_steps", "0",
+            "--activation_summary_steps", "0", "--save_model_secs", "1e9"]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    m = cfg.model
+    if (m.output_size, cfg.batch_size, m.attn_res, cfg.backend) != \
+            (256, 64, 128, "shard_map"):
+        fail(f"multi_gpu (b): sagan256-lc is {m}, batch {cfg.batch_size}, "
+             f"{cfg.backend}")
+    shapes = set()
+    real = attention.flash_attention
+
+    def recording(q, k, v, scale):
+        shapes.add((tuple(q.shape), tuple(v.shape), str(q.dtype)[6:]))
+        return real(q, k, v, scale)
+
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    attention.flash_attention = recording
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_attention = real
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches[name] < MG_SAGAN_STEPS or \
+                launches[name] % MG_SAGAN_STEPS:
+            fail(f"multi_gpu (b): {name} launched {launches[name]} times "
+                 f"over {MG_SAGAN_STEPS} steps")
+    with open(os.path.join(tdir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    steps = [e for e in events if e["kind"] == "scalars"
+             and "d_loss" in e["values"]]
+    if [e["step"] for e in steps] != list(range(1, MG_SAGAN_STEPS + 1)) \
+            or not all(np.isfinite([e["values"][k] for k in (
+                "d_loss", "d_loss_real", "d_loss_fake", "g_loss")]).all()
+                       for e in steps):
+        fail(f"multi_gpu (b): events {[e['values'] for e in steps]}")
+    rows = steps[-1]["values"]
+    del state
+    for e in kernels:
+        e.setdefault("launches_by_path", {})["multi_gpu_sagan256_lc"] = \
+            launches[e["name"]]
+    long = sorted(s for s in shapes if s[0][1] == m.attn_res ** 2)
+    if not long:
+        fail(f"multi_gpu (b): no attention at S {m.attn_res ** 2}: {shapes}")
+    entry = {"train_s": train_s, "steps": MG_SAGAN_STEPS,
+             "launches": launches, "attention_shapes": sorted(shapes),
+             "cli_peak_allocated": torch.cuda.max_memory_allocated(),
+             "last": rows}
+    log(f"multi_gpu (b) sagan256-lc: the CLI trained {MG_SAGAN_STEPS} "
+        f"steps in {train_s:.1f} s through the world-1 NCCL path (256 px, "
+        f"batch {cfg.batch_size}), attention calls {sorted(shapes)}, "
+        f"launches {launches}; peak allocated "
+        f"{entry['cli_peak_allocated'] / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # kernels 6-8 at the path's S 16384 shape
+    (b, s, dk), (_, _, dv), dt_name = long[0][0], long[0][1], long[0][2]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    q, k, v = (torch.randn((b, s, d), generator=g, device="cuda").to(
+        torch.bfloat16) for d in (dk, dk, dv))
+    gout = torch.randn((b, s, dv), generator=g, device="cuda")
+    scale = dk ** -0.5
+    errs, (do, lse, delta) = flash_round(torch, q, k, v, gout, scale,
+                                         rows=FLASH_ROWS)
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale),
+             "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                             scale),
+             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                               scale)}
+    timed = {}
+    for name, fn in calls.items():
+        ms, _ = time_ms(torch, fn, 3, warmup=1,
+                        label=f"{name} sagan256-lc [{b}, {s}, {dk}, {dv}]")
+        bound, kind = flash_bound(name, b, s, dk, dv, 2)
+        timed[name] = {"ms": ms, "bound_ms": bound * 1e3, "bound_by": kind,
+                       "max_abs_err": errs[name]}
+        log(f"multi_gpu (b) {name} at [{b}, {s}, {dk}, {dv}] bf16: "
+            f"{ms:.4f} ms per launch vs bound {bound * 1e3:.4f} ms ({kind}); "
+            f"max |err| over {FLASH_ROWS} rows {errs[name]:.3g}")
+    entry["flash"] = timed
+    del q, k, v, gout, do, lse, delta
+    torch.cuda.empty_cache()
+
+    # the step through the world-1 runner: captured if it fits
+    world = initialize_multihost(device="cuda")
+    rcfg = dc.replace(cfg, batch_size=BATCH, seed=SEED)
+    par = make_parallel_train(rcfg, world)
+    runner = StepRunner(par.fns, seeded_state(torch, par.fns, rcfg), rcfg,
+                        torch.device("cuda"))
+    draw = par.step_draws(lambda c, st, d: (None, None))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    images = torch.rand((BATCH, 256, 256, 3), generator=gen,
+                        device="cuda") * 2 - 1
+    torch.cuda.reset_peak_memory_stats()
+    z, d = draw(rcfg, 0, torch.device("cuda"))
+    runner.step([images], [z], [d], start=0)
+    try:
+        z, d = draw(rcfg, 1, torch.device("cuda"))
+        runner.step([images], [z], [d], start=1)
+        captured = True
+    except torch.cuda.OutOfMemoryError as err:
+        captured = False
+        log(f"multi_gpu (b): the sagan256-lc step does not capture: "
+            f"{str(err).splitlines()[0][:160]}")
+    torch.cuda.synchronize()
+    entry["captured"] = captured
+    if captured:
+        t0 = time.perf_counter()
+        for i in range(2, 5):
+            z, d = draw(rcfg, i, torch.device("cuda"))
+            out = runner.step([images], [z], [d], start=i)
+        out.tolist()
+        entry["host_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        prof = replay_profile(torch, runner, 1)
+        entry.update({k: prof[k] for k in ("busy_ms", "wall_ms",
+                                           "idle_share")})
+        entry["graph_pool_bytes"] = sum(
+            p.pool_bytes for p in runner.programs.values())
+    entry["peak_allocated"] = torch.cuda.max_memory_allocated()
+    entry["peak_reserved"] = torch.cuda.max_memory_reserved()
+    log(f"multi_gpu (b) sagan256-lc step at batch {BATCH}: captured "
+        f"{captured}; host {entry.get('host_ms', float('nan')):.3f} ms, "
+        f"busy {entry.get('busy_ms', float('nan')):.3f} ms, idle "
+        f"{entry.get('idle_share', float('nan')):.3f}; peak allocated "
+        f"{entry['peak_allocated'] / 2 ** 30:.2f} GiB, reserved "
+        f"{entry['peak_reserved'] / 2 ** 30:.2f} GiB")
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+    report["sagan256_lc"] = entry
+
+
+def adam_move(t, b1, b2):
+    """The most one Adam update at step t can move a parameter, in units
+    of the learning rate: max |m_hat / sqrt(v_hat)| over every gradient
+    sequence (Cauchy-Schwarz over the EMA weights; 1 at t = 1, eps
+    aside)."""
+    a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    v = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return sum(x * x / y for x, y in zip(a, v)) ** 0.5
+
+
+def mg_dp8_cfg(precision="", shrink=None):
+    """lsun64-dp8 on the kernel route (the model flags chip_smoke's
+    celeba64 takes), at the preset's global batch; `shrink` ({"batch_size",
+    model fields}) cuts it for a rehearsal on the CPU."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch.presets import get_preset
+
+    shrink = dict(shrink or {})
+    cfg = get_preset("lsun64-dp8", seed=SEED,
+                     batch_size=shrink.pop("batch_size", 64 * 8))
+    cfg = dc.replace(cfg, model=dc.replace(cfg.model, use_pallas=True,
+                                           pallas_fused=True, **shrink))
+    return dc.replace(cfg, precision=precision) if precision else cfg
+
+
+def mg_dp8_images(torch, cfg, step, device):
+    """The global batch of step `step`, the same on every rank."""
+    m = cfg.model
+    g = torch.Generator(device=device).manual_seed(SEED + 31 + step)
+    return torch.rand((cfg.batch_size, m.output_size, m.output_size,
+                       m.c_dim), generator=g, device=device) * 2 - 1
+
+
+def mg_grads_flat(convert, grads):
+    return {f"{net}/{k}": v.float().cpu()
+            for net in ("gen", "disc")
+            for k, v in convert.flatten(grads[net]).items()}
+
+
+def mg_dp8_rank(world, *, steps, shrink=None):
+    """One rank of (c): the gradients at the seeded state in bf16 and f32,
+    `steps` eager steps in bf16 (the gspmd draws: the rank's rows of the
+    global step draws), the counts of kernels 1-4 over those steps, the
+    capture refused under gloo, and a digest of the final state. Rank 0
+    also returns the gradients and the state."""
+    import hashlib
+
+    import torch
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.parallel import collectives
+    from dcgan_tpu_torch.parallel.api import make_parallel_train
+    from dcgan_tpu_torch.train import trainer
+    from dcgan_tpu_torch.train.steps import tree_map
+    from dcgan_tpu_torch.train.warmup import StepRunner
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = world.device
+    out = {"rank": world.rank}
+    grads = {}
+    for precision in ("", "f32"):
+        cfg = mg_dp8_cfg(precision, shrink)
+        par = make_parallel_train(cfg, world)
+        state = par.fns.init(seed=SEED, device=dev)
+        z, d = par.step_draws(trainer.step_inputs)(cfg, 0, dev)
+        g, _ = par.fns.grads(state, par.rows(
+            mg_dp8_images(torch, cfg, 0, dev)), z, d)
+        grads[precision or "bf16"] = mg_grads_flat(convert, g)
+        del state, g
+    cfg = mg_dp8_cfg(shrink=shrink)
+    par = make_parallel_train(cfg, world)
+    state = par.fns.init(seed=SEED, device=dev)
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    losses, step_s = [], []
+    draws = par.step_draws(trainer.step_inputs)
+    for s in range(steps):
+        z, d = draws(cfg, s, dev)
+        t0 = time.perf_counter()
+        state, m = par.fns.train_step(
+            state, par.rows(mg_dp8_images(torch, cfg, s, dev)), z, d)
+        losses.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.perf_counter() - t0)
+    out["launches"] = {w: wrappers[w].launches for w in MG_KERNELS}
+    flat = convert.flatten(state)
+    digest = hashlib.sha256()
+    for k in sorted(flat):
+        digest.update(flat[k].detach().cpu().reshape(-1).contiguous().view(
+            torch.uint8).numpy().tobytes())
+    out.update({"digest": digest.hexdigest(), "losses": losses,
+                "step_s": step_s, "staged": dict(collectives.STAGED),
+                "gloo_cuda": [bool(v) for v in
+                              collectives._GLOO_CUDA.values()]})
+    if world.rank == 0:
+        out["grads"] = grads
+        out["state"] = {k: v.float().cpu() for k, v in flat.items()}
+    # a capture of the gloo step is refused by name, after the warm-up
+    # (a step of its own, on a copy of the state)
+    runner = StepRunner(par.fns, tree_map(torch.clone, state),
+                        par.local_cfg, dev)
+    z, d = draws(cfg, steps, dev)
+    runner.step([par.rows(mg_dp8_images(torch, cfg, steps, dev))], [z],
+                [d], start=steps)
+    try:
+        runner.capture("train_step")
+        out["capture"] = "captured"
+    except RuntimeError as err:
+        out["capture"] = str(err)
+    return out
+
+
+def mg_dp8(torch, np, report, kernels):
+    """(c): lsun64-dp8's 8 ranks over gloo on the one card (NCCL refuses
+    two ranks on one device), kernel route, global batch 512, eager: the
+    ranks bit for bit equal; the 8-rank gradients and steps against one
+    rank on the global batch (TRAIN_GRAD_TOL per dtype on the gradients,
+    TRAIN_ROUTE_TOL on the losses, and on the parameters Adam's bound, 2 *
+    lr * the sum of `adam_move` over the steps: two runs from one state
+    can differ by no more, whatever their gradients, and a bias that
+    feeds a BatchNorm, whose true gradient is 0, may reach it)."""
+    import dataclasses as dc
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.parallel.api import make_parallel_train
+    from dcgan_tpu_torch.parallel.distributed import single_process
+    from dcgan_tpu_torch.testing.multihost import run_world
+    from dcgan_tpu_torch.train import trainer
+
+    cfg = mg_dp8_cfg()
+    n = cfg.mesh.data
+    t0 = time.perf_counter()
+    outs = run_world("chip_smoke:mg_dp8_rank", n,
+                     kwargs={"steps": MG_DP8_STEPS}, backend="gloo",
+                     device="cuda:0", timeout=MG_DP8_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    digests = {o["digest"] for o in outs}
+    if len(digests) != 1:
+        fail(f"multi_gpu (c): the {n} ranks' states differ: "
+             f"{[o['digest'][:12] for o in outs]}")
+    for o in outs:
+        if "gloo" not in o["capture"] or "cannot capture" not in \
+                o["capture"]:
+            fail(f"multi_gpu (c) rank {o['rank']}: the gloo capture was "
+                 f"not refused by name: {o['capture']!r}")
+        want = {w: PER_STEP[w] * MG_DP8_STEPS for w in MG_KERNELS}
+        if o["launches"] != want:
+            fail(f"multi_gpu (c) rank {o['rank']}: kernels 1-4 launched "
+                 f"{o['launches']}, expected {want}")
+        if o["losses"] != outs[0]["losses"]:
+            fail(f"multi_gpu (c): rank {o['rank']}'s losses differ")
+    staged = sum(o["staged"]["host"] for o in outs)
+    how = ("staged through host memory (gloo refuses CUDA tensors here)"
+           if staged else "on the CUDA tensors (gloo takes them)")
+    log(f"multi_gpu (c) lsun64-dp8: {n} gloo ranks on one card in "
+        f"{world_s:.1f} s, every rank's state bit for bit equal; "
+        f"collectives {how}: {staged} staged calls over the ranks; rank 0 "
+        f"steps {[round(s * 1e3, 1) for s in outs[0]['step_s']]} ms; the "
+        f"capture refused: {outs[0]['capture'][:90]!r}")
+
+    # one rank on the global batch, the same init, images and draws
+    one = single_process("cuda")
+    dev = one.device
+    gaps = {}
+    for precision, dt_name in (("", "bfloat16"), ("f32", "float32")):
+        # one rank: the mesh's data axis over the world of one
+        pcfg = mg_dp8_cfg(precision)
+        pcfg = dc.replace(pcfg, mesh=dc.replace(pcfg.mesh, data=-1))
+        par = make_parallel_train(pcfg, one)
+        state = par.fns.init(seed=SEED, device=dev)
+        z, d = trainer.step_inputs(pcfg, 0, dev)
+        g, _ = par.fns.grads(state, mg_dp8_images(torch, pcfg, 0, dev), z,
+                             d)
+        want = mg_grads_flat(convert, g)
+        del state, g
+        got = outs[0]["grads"][precision or "bf16"]
+        rtol, atol = TRAIN_GRAD_TOL[dt_name]
+        worst = {}
+        for net in ("gen", "disc"):
+            names = [k for k in want if k.startswith(net + "/")]
+            top = max(float(want[k].norm()) for k in names)
+            for k in names:
+                worst[k] = float((got[k] - want[k]).norm()) / (
+                    rtol * float(want[k].norm()) + atol * top)
+        bad = {k: v for k, v in worst.items() if v > 1.0}
+        if bad:
+            fail(f"multi_gpu (c) {dt_name}: the 8-rank gradients differ "
+                 f"from one rank's on the global batch beyond "
+                 f"TRAIN_GRAD_TOL: {bad}")
+        gaps[dt_name] = max(worst.values())
+        log(f"multi_gpu (c) {dt_name}: the 8-rank gradients at the seeded "
+            f"state equal one rank's on the global batch of "
+            f"{pcfg.batch_size} within TRAIN_GRAD_TOL {TRAIN_GRAD_TOL[dt_name]}"
+            f" (largest gap {gaps[dt_name]:.3g} of 1)")
+    pcfg = dc.replace(cfg, mesh=dc.replace(cfg.mesh, data=-1))
+    par = make_parallel_train(pcfg, one)
+    state = par.fns.init(seed=SEED, device=dev)
+    losses = []
+    for s in range(MG_DP8_STEPS):
+        z, d = trainer.step_inputs(pcfg, s, dev)
+        state, m = par.fns.train_step(
+            state, mg_dp8_images(torch, pcfg, s, dev), z, d)
+        losses.append({k: float(v) for k, v in m.items()})
+    rtol, atol = TRAIN_ROUTE_TOL["bfloat16"]
+    for got, want in zip(outs[0]["losses"], losses):
+        for k, w in want.items():
+            if abs(got[k] - w) > rtol * abs(w) + atol:
+                fail(f"multi_gpu (c): loss {k} {got[k]} on 8 ranks vs {w} "
+                     f"on one")
+    # (1 + 1e-5): the f32 rounding of the updates themselves
+    bound = 2 * cfg.learning_rate * (1 + 1e-5) * sum(
+        adam_move(t, cfg.beta1, 0.999) for t in range(1, MG_DP8_STEPS + 1))
+    flat = {k: v.float().cpu() for k, v in convert.flatten(state).items()}
+    errs = {k: float((outs[0]["state"][k] - flat[k]).abs().max())
+            for k in flat if k.startswith("params/")}
+    param_err = max(errs.values())
+    worst = max(errs, key=errs.get)
+    # the biases that feed a BatchNorm (no true gradient) apart
+    rest = max(v for k, v in errs.items()
+               if not re.search(r"(proj|deconv[1-9]|conv[1-9])/b$", k))
+    if param_err > bound:
+        fail(f"multi_gpu (c): the 8-rank parameters are {param_err:.6g} "
+             f"from one rank's ({worst}), beyond Adam's bound "
+             f"{bound:.6g}")
+    log(f"multi_gpu (c): {MG_DP8_STEPS} steps on 8 ranks against one rank "
+        f"on the global batch: losses within TRAIN_ROUTE_TOL bfloat16, "
+        f"parameters {param_err:.6g} apart at most ({worst}; Adam's bound "
+        f"{bound:.6g}), {rest:.6g} but for the biases that feed a "
+        f"BatchNorm")
+    del state
+    report["lsun64_dp8"] = {
+        "ranks": n, "world_s": world_s, "staged_host_calls": staged,
+        "grad_gap": gaps, "param_err": param_err,
+        "param_err_not_pre_bn": rest, "losses_8": outs[0][
+            "losses"], "losses_1": losses,
+        "rank0_step_ms": [s * 1e3 for s in outs[0]["step_s"]]}
+    for e in kernels:
+        e.setdefault("launches_by_path", {})["multi_gpu_lsun64_dp8"] = sum(
+            o["launches"].get(e["name"], 0) for o in outs)
+    torch.cuda.empty_cache()
+
+
+def multi_gpu_and_check(torch, np, workdir, kernels):
+    """Phases (a)-(c) of the `multi_gpu` group. Returns its report."""
+    from dcgan_tpu_torch.parallel.distributed import shutdown
+
+    t0 = time.perf_counter()
+    report = {}
+    try:
+        mg_world_one(torch, np, report, kernels)
+        t1 = time.perf_counter()
+        mg_sagan256(torch, np, workdir, report, kernels)
+        t2 = time.perf_counter()
+    finally:
+        shutdown()
+    mg_dp8(torch, np, report, kernels)
+    t3 = time.perf_counter()
+    report["seconds"] = {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2,
+                         "total": t3 - t0}
+    log(f"multi_gpu: the group took {t3 - t0:.1f} s (a {t1 - t0:.1f}, b "
+        f"{t2 - t1:.1f}, c {t3 - t2:.1f})")
+    return report
+
+
 # the end of the last group (phase_memory logs each group's seconds)
 _PHASE_T = time.perf_counter()
 
@@ -7651,6 +8256,8 @@ def main() -> int:
         phase_memory(torch, "faults", memory)
         trace_report = trace_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "trace", memory)
+        mg_report = multi_gpu_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "multi_gpu", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -7668,6 +8275,7 @@ def main() -> int:
     print(json.dumps({"families": fam_report}), flush=True)
     print(json.dumps({"faults": faults_report}), flush=True)
     print(json.dumps({"trace": trace_report}), flush=True)
+    print(json.dumps({"multi_gpu": mg_report}, default=str), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
@@ -7713,6 +8321,20 @@ def main() -> int:
         "step_ms_p50_outside": trace_report["step_ms_p50_outside"],
         "busy_ms": trace_report["busy_ms"],
         "seconds": trace_report["seconds"], "card": card}}), flush=True)
+    a, b = mg_report["celeba64_world1"], mg_report["sagan256_lc"]
+    print(json.dumps({"multi_gpu_timing": {
+        "celeba64_world1": {f"k{k}": {key: a[f"k{k}"][key] for key in (
+            "nccl_kernels_per_replay", "nccl_ms_per_replay", "nccl_busy_ms",
+            "nccl_wall_ms", "nccl_idle_share", "plain_busy_ms",
+            "plain_wall_ms", "plain_idle_share")} for k in (1, CAPTURE_K)},
+        "sagan256_lc": {key: b.get(key) for key in (
+            "captured", "host_ms", "busy_ms", "wall_ms", "idle_share",
+            "peak_allocated", "peak_reserved", "graph_pool_bytes",
+            "train_s", "flash")},
+        "lsun64_dp8": {key: mg_report["lsun64_dp8"][key] for key in (
+            "world_s", "staged_host_calls", "grad_gap", "param_err",
+            "rank0_step_ms")},
+        "seconds": mg_report["seconds"], "card": card}}), flush=True)
     print(card, flush=True)
     for entry in kernels:
         entry["launches"] = sum(entry["launches_by_path"].values())

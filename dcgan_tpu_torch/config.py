@@ -25,6 +25,15 @@ critic is norm-free and G's kernels never see the penalty's double
 backward (D's loss takes G's images detached), so resnet and stylegan
 train their penalties under `use_pallas`. A sequence mesh for the
 attention does not exist in the port yet: `ops/attention.py` refuses one.
+
+`MeshConfig` and the TrainConfig fields `mesh`, `backend`, `comm_overlap`
+and `comm_bucket_mb` are the JAX package's, with its names, defaults and
+checks. The port trains data parallelism over processes
+(parallel/api.py, one process per GPU): a `(data, model)` mesh with
+`model` 1. Tensor and spatial parallelism (`model` > 1, `spatial`), the
+ZeRO stages (`shard_opt`, `zero_stage` >= 2) and the bucketed
+collectives (`comm_overlap` other than "off") raise
+`NotImplementedError` naming ROADMAP Queue A item 7.
 """
 
 from __future__ import annotations
@@ -165,6 +174,84 @@ class ModelConfig:
                     "wired")
 
 
+# what the port's data parallelism does not run yet, and where it waits
+MESH_UNPORTED = "not ported to dcgan_tpu_torch yet (ROADMAP Queue A item 7)"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshConfig:
+    """The device mesh (`dcgan_tpu/config.py:214-289`): a `data` axis of
+    ranks that split the batch and a second `model` axis. In the port
+    every rank is one process with one GPU (parallel/distributed.py), so
+    the mesh covers the world's ranks.
+
+    Equality is by field, also against the JAX package's MeshConfig, so
+    a config loaded from either package's `config.json` compares equal
+    to the one it was written from."""
+
+    data: int = -1                 # data-parallel axis size; -1 = every
+                                   # rank of the world
+    model: int = 1                 # second mesh axis size (1 = off)
+    spatial: bool = False          # the model axis shards image height
+    shard_opt: bool = False        # ZeRO-1: Adam moments sharded over data
+    zero_stage: int = 1            # 1: replicated state; 2, 3: ZeRO-2/3
+
+    def __post_init__(self):
+        # the JAX package's checks, with its messages
+        if self.zero_stage not in (1, 2, 3):
+            raise ValueError(
+                f"zero_stage must be 1, 2, or 3, got {self.zero_stage}")
+        if self.zero_stage >= 2 and self.spatial:
+            raise ValueError(
+                "zero_stage >= 2 does not compose with spatial meshes "
+                "(spatial mode replicates all weights by policy — there is "
+                "no per-leaf dim left for the data-axis state shards); use "
+                "zero_stage=1 with spatial=True")
+        if self.spatial and self.model <= 1:
+            raise ValueError(
+                "spatial=True repurposes the 'model' mesh axis to shard image "
+                f"height, which needs model > 1 (got model={self.model}); "
+                "with model=1 the run would silently be plain data "
+                "parallelism")
+        # then what the port's data parallelism does not run
+        unported = [f"{k}={v!r}" for k, v, default in (
+            ("model", self.model, 1), ("spatial", self.spatial, False),
+            ("shard_opt", self.shard_opt, False),
+            ("zero_stage", self.zero_stage, 1)) if v != default]
+        if unported:
+            raise NotImplementedError(
+                f"mesh {', '.join(unported)}: tensor and spatial "
+                f"parallelism and the ZeRO stages are {MESH_UNPORTED}")
+
+    def __eq__(self, other):
+        if type(other).__name__ != "MeshConfig" \
+                or not dataclasses.is_dataclass(other):
+            return NotImplemented
+        return dataclasses.asdict(self) == dataclasses.asdict(other)
+
+    def __hash__(self):
+        return hash(tuple(sorted(dataclasses.asdict(self).items())))
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        """(data, model) over `n_devices` ranks, as the JAX package
+        computes them: data=-1 takes every rank, a fixed data that does
+        not cover them raises."""
+        if self.model < 1:
+            raise ValueError(f"model axis must be >= 1, got {self.model}")
+        model = self.model
+        if self.data > 0:
+            data = self.data
+        else:
+            if n_devices % model != 0:
+                raise ValueError(
+                    f"model axis {model} does not divide {n_devices} devices")
+            data = n_devices // model
+        if data * model != n_devices:
+            raise ValueError(
+                f"mesh {data}x{model} does not cover {n_devices} devices")
+        return data, model
+
+
 def celeba64(**overrides) -> ModelConfig:
     """The model of the `celeba64` preset: DCGAN 64x64, z=100, gf_dim=64,
     bf16 compute over f32 params (the reference's headline workload)."""
@@ -177,6 +264,7 @@ class TrainConfig:
     defaults) the JAX `TrainConfig`'s."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     learning_rate: float = 2e-4
     d_learning_rate: Optional[float] = None  # None = learning_rate
     g_learning_rate: Optional[float] = None
@@ -327,6 +415,18 @@ class TrainConfig:
                                    # in profile_dir, or checkpoint_dir/
                                    # trace when that is unset
     timing_window: int = 50        # sliding window for step-time stats
+    # data parallelism over processes (parallel/api.py)
+    backend: str = "gspmd"         # "gspmd": every rank draws the global
+                                   # batch's randomness and takes its rows
+                                   # (JAX's single partitioned draw) |
+                                   # "shard_map": every rank draws from the
+                                   # step's seed folded with its rank; the
+                                   # per-rank program is the same
+    comm_overlap: str = "off"      # "bucket", "prefetch": the JAX
+                                   # package's bucketed ZeRO collectives
+                                   # (not ported)
+    comm_bucket_mb: int = 4        # bucket size cap in MiB for
+                                   # comm_overlap != "off"
 
     def __post_init__(self):
         # the JAX package's validation of these fields, with its messages
@@ -347,6 +447,19 @@ class TrainConfig:
             raise ValueError(
                 "model.quant is set by the precision policy — use "
                 "precision='fp8' rather than setting it directly")
+        if self.backend not in ("gspmd", "shard_map"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.comm_overlap not in ("off", "bucket", "prefetch"):
+            raise ValueError(
+                f"comm_overlap must be one of 'off', 'bucket', 'prefetch', "
+                f"got {self.comm_overlap!r}")
+        if self.comm_bucket_mb <= 0:
+            raise ValueError(
+                f"comm_bucket_mb must be > 0, got {self.comm_bucket_mb}")
+        if self.comm_overlap != "off":
+            raise NotImplementedError(
+                f"comm_overlap={self.comm_overlap!r}: the bucketed ZeRO "
+                f"collectives are {MESH_UNPORTED}")
         if self.loss not in ("gan", "wgan-gp", "hinge"):
             raise ValueError(f"unknown loss {self.loss!r}")
         if self.update_mode not in ("sequential", "fused"):
@@ -593,9 +706,10 @@ def config_to_dict(cfg: TrainConfig) -> Dict[str, Any]:
 def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a `config.json` dict of either package.
 
-    The JAX package's fields the port has no use for (its mesh, the
-    multi-process fault tolerance, the compile cache) are reported once
-    and dropped; one of
+    The mesh is read into the port's MeshConfig (whose unported settings
+    raise NotImplementedError). The JAX package's fields the port has no
+    use for (the multi-process fault tolerance, the compile cache) are
+    reported once and dropped; one of
     UNPORTED_TRAIN_FIELDS away from its default raises
     NotImplementedError, as the port's own unported values do."""
     d = dict(d)
@@ -614,6 +728,8 @@ def config_from_dict(d: Dict[str, Any]) -> TrainConfig:
     rest = {k: v for k, v in d.items() if k in names}
     if "sample_grid" in rest:  # JSON round-trips tuples as lists
         rest["sample_grid"] = tuple(rest["sample_grid"])
+    if isinstance(rest.get("mesh"), dict):
+        rest["mesh"] = MeshConfig(**rest["mesh"])
     return TrainConfig(model=model, **rest)
 
 

@@ -562,8 +562,21 @@ def _inline_feed(loader, device: torch.device,
         loader.close()
 
 
+def shard_for_process(paths: Sequence[str], process_index: int,
+                      process_count: int) -> List[str]:
+    """The shards process `process_index` of `process_count` reads: every
+    count-th from its index (`dcgan_tpu/data/pipeline.py:147-150`); with
+    fewer shards than processes every process reads them all, on its own
+    seed."""
+    mine = [p for i, p in enumerate(paths)
+            if i % process_count == process_index]
+    return mine or list(paths)
+
+
 def make_dataset(cfg: DataConfig,
-                 device: Union[str, torch.device, None] = None) -> Iterator:
+                 device: Union[str, torch.device, None] = None, *,
+                 process_index: int = 0, process_count: int = 1
+                 ) -> Iterator:
     """Endless (or one-epoch, cfg.loop=False) iterator of batches.
 
     Without `device`, yields host numpy batches straight from the loader.
@@ -571,9 +584,14 @@ def make_dataset(cfg: DataConfig,
     cfg.prefetch_device_batches > 0 (the default), else copied on the
     consumer's thread. Call `.close()` on the result to release its threads
     and the loader. With cfg.label_feature set, yields (images, labels).
+    A process of a data-parallel world reads its share of the shards
+    (`shard_for_process`) on seed + its index, in batches of its share
+    of the global batch (cfg.batch_size is the process's).
     """
     check_manifest(cfg.data_dir, cfg)
-    loader = _make_loader(cfg, list_shards(cfg.data_dir), cfg.seed)
+    paths = shard_for_process(list_shards(cfg.data_dir), process_index,
+                              process_count)
+    loader = _make_loader(cfg, paths, cfg.seed + process_index)
     if device is None:
         return iter(loader)
     num_classes = cfg.num_classes if cfg.label_feature else 0

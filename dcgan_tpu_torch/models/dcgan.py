@@ -199,18 +199,19 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool,
                     labels: Optional[torch.Tensor] = None,
-                    capture: Optional[dict] = None
+                    capture: Optional[dict] = None, group=None
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
     state), on z's device. train=False is the sampler path (running BN
     statistics, stored SN vectors, the state returned unchanged);
     train=True normalizes with batch statistics and returns the updated
-    state. A conditional model needs `labels` [B]."""
+    state, the moments averaged over the ranks of a process `group` (the
+    JAX `axis_name`). A conditional model needs `labels` [B]."""
     family = _family_g(cfg)
     if family is not None:
         return family.generator_apply(params, state, z, cfg=cfg,
                                       train=train, labels=labels,
-                                      capture=capture)
+                                      capture=capture, group=group)
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     top_ch = cfg.gf_dim * (2 ** (k - 1))
@@ -233,7 +234,7 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         return batch_norm_apply(params[name], state[name], h, train=train,
                                 momentum=cfg.bn_momentum, eps=cfg.bn_eps,
                                 act="relu", use_pallas=cfg.bn_use_pallas,
-                                labels=bn_labels)
+                                labels=bn_labels, group=group)
 
     if cfg.num_classes:
         if labels is None:
@@ -255,7 +256,7 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                 layer(f"deconv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                act="relu", compute_dtype=cdt, quant=quant)
+                act="relu", compute_dtype=cdt, quant=quant, group=group)
         else:
             h = deconv2d_apply(layer(f"deconv{i}"), h, compute_dtype=cdt,
                                quant=quant)
@@ -327,16 +328,17 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
 def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         *, cfg: ModelConfig, train: bool,
                         labels: Optional[torch.Tensor] = None,
-                        capture: Optional[dict] = None
+                        capture: Optional[dict] = None, group=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
-    state). A conditional model needs `labels` [B]."""
+    state); a process `group` as in generator_apply. A conditional model
+    needs `labels` [B]."""
     if cfg.arch in ("resnet", "stylegan"):
         from dcgan_tpu_torch.models import resnet
 
         return resnet.discriminator_apply(params, state, image, cfg=cfg,
                                           train=train, labels=labels,
-                                          capture=capture)
+                                          capture=capture, group=group)
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     new_state: Pytree = {}
@@ -366,14 +368,15 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                 layer(f"conv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=False, kernel=cfg.kernel_size, stride=2,
                 train=train, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                act="lrelu", leak=cfg.leak, compute_dtype=cdt, quant=quant)
+                act="lrelu", leak=cfg.leak, compute_dtype=cdt, quant=quant,
+                group=group)
         elif i > 0:
             h = conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt,
                              quant=quant)
             h, new_state[f"bn{i}"] = batch_norm_apply(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train,
                 momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="lrelu",
-                leak=cfg.leak, use_pallas=cfg.bn_use_pallas)
+                leak=cfg.leak, use_pallas=cfg.bn_use_pallas, group=group)
         else:
             h = lrelu(conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt),
                       cfg.leak)

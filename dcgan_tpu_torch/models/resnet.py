@@ -140,10 +140,11 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool,
                     labels: Optional[torch.Tensor] = None,
-                    capture: Optional[dict] = None
+                    capture: Optional[dict] = None, group=None
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
-    state), as models/dcgan.py's generator_apply."""
+    state), as models/dcgan.py's generator_apply (the BN moments averaged
+    over a process `group`'s ranks)."""
     from dcgan_tpu_torch.models.dcgan import _sn_layer, torch_dtype
 
     k = cfg.num_up_layers
@@ -165,7 +166,7 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         y, new_state[name] = batch_norm_apply(
             params[name], state[name], x, train=train,
             momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="relu",
-            use_pallas=cfg.bn_use_pallas, labels=bn_labels)
+            use_pallas=cfg.bn_use_pallas, labels=bn_labels, group=group)
         return y
 
     if cfg.num_classes:
@@ -239,10 +240,11 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
 def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         *, cfg: ModelConfig, train: bool,
                         labels: Optional[torch.Tensor] = None,
-                        capture: Optional[dict] = None
+                        capture: Optional[dict] = None, group=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
-    state)."""
+    state). The residual critic is norm-free: no collective, whatever
+    the `group`."""
     from dcgan_tpu_torch.models.dcgan import _sn_layer, torch_dtype
 
     k = cfg.num_up_layers

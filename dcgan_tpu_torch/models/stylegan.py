@@ -100,13 +100,14 @@ def _mod_conv(layer: Pytree, style_layer: Pytree, x: torch.Tensor,
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool,
                     labels: Optional[torch.Tensor] = None,
-                    capture: Optional[dict] = None
+                    capture: Optional[dict] = None, group=None
                     ) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range, {}).
-    `train` and `state` have no effect: nothing depends on the batch."""
+    `train`, `state` and `group` have no effect: nothing depends on the
+    batch."""
     from dcgan_tpu_torch.models.dcgan import torch_dtype
 
-    del train, state
+    del train, state, group
     k = cfg.num_up_layers
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.num_classes:

@@ -87,7 +87,8 @@ def attn_apply(params: Pytree, x: torch.Tensor, *,
     if seq_mesh is not None:
         raise NotImplementedError(
             "sequence-parallel attention (ring/ulysses over a device mesh) "
-            "is not ported to dcgan_tpu_torch yet")
+            "is not ported to dcgan_tpu_torch yet (ROADMAP Queue A item 7, "
+            "Queue B item 9)")
     b, hh, ww, c = x.shape
     seq = x.reshape(b, hh * ww, c)
     q, k, v = _project(params, seq, compute_dtype)

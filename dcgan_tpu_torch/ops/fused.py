@@ -55,6 +55,7 @@ from dcgan_tpu_torch.ops.kernels import DTYPE_CODES, bn_scale_shift, \
     scale_shift_act, sm_count, stream_of
 from dcgan_tpu_torch.ops.layers import fake_quant_fp8, same_pads
 from dcgan_tpu_torch.ops.norm import finish_batch_moments
+from dcgan_tpu_torch.parallel.collectives import synced_moments
 
 Pytree = dict
 
@@ -445,7 +446,8 @@ def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
                       momentum: float = 0.9, eps: float = 1e-5, act: str,
                       leak: float = LEAK,
                       compute_dtype: Optional[torch.dtype] = None,
-                      quant: str = "") -> Tuple[torch.Tensor, Pytree]:
+                      quant: str = "", group=None
+                      ) -> Tuple[torch.Tensor, Pytree]:
     """One G (transpose=True) or D (transpose=False) stage, conv ⊕ bias ⊕
     BN ⊕ act, returning (y NHWC, bn_state) with `batch_norm_apply`'s state
     contract.
@@ -455,7 +457,12 @@ def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
     state is the EMA update, detached. train=False: the running statistics
     are known before the GEMM, so the whole stage is the single
     gemm_bias_scale_act kernel. quant="fp8" quantizes the patch matrix
-    and W first. The patch matrix lives only inside this call (and in
+    and W first. With a process `group` (synced BN,
+    `dcgan_tpu/ops/pallas_fused.py:345-407`), the kernel's per-rank
+    (mean, mean_sq) are averaged over its ranks before kernel 2's scale
+    and shift, and kernel 4's backward (which folds 1/M and 2u/M with M
+    the rank's rows) receives their cotangents all-reduced
+    (parallel/collectives.py's `synced_moments`). The patch matrix lives only inside this call (and in
     autograd's graph, for dw = P^T du)."""
     cdt = compute_dtype if compute_dtype is not None else x.dtype
     w, b = conv_params["w"], conv_params["b"]
@@ -467,6 +474,7 @@ def fused_conv_bn_act(conv_params: Pytree, bn_params: Pytree,
     gamma, beta = bn_params["scale"], bn_params["bias"]
     if train:
         u, mean, mean_sq = gemm_bias_moments(p2d, w2d, b, cdt)
+        mean, mean_sq = synced_moments(group, mean, mean_sq)
         mean, var, new_state = finish_batch_moments(bn_state, mean, mean_sq,
                                                     momentum=momentum)
         scale, shift = bn_scale_shift(gamma, beta, mean, var, eps)

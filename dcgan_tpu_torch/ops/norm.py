@@ -11,6 +11,13 @@ and returns the EMA-updated state; train=False uses the running statistics
 and returns the state unchanged. The new state is returned detached: in JAX
 it is an auxiliary output, never differentiated.
 
+Synced BN (`dcgan_tpu/ops/norm.py:81-100, 150-175`): with a process
+`group`, the batch moments (plain, or kernel 1's) are averaged over its
+ranks before `finish_batch_moments` (parallel/collectives.py's
+`synced_moments`, whose backward all-reduces their cotangents), so every
+rank normalizes with the global batch's statistics and keeps the same
+running statistics.
+
 Two routes, each rounding where the JAX package rounds:
 - plain: the moments in f32, the normalization in `x.dtype` (bf16 under
   the default policy), op by op;
@@ -36,6 +43,7 @@ import torch
 
 from dcgan_tpu_torch.ops.activations import LEAK, act_fwd, check_act
 from dcgan_tpu_torch.ops.labels import class_rows
+from dcgan_tpu_torch.parallel.collectives import synced_moments
 
 Pytree = dict
 
@@ -86,7 +94,7 @@ def batch_norm_apply(params: Pytree, state: Pytree, x: torch.Tensor, *,
                      train: bool, momentum: float = 0.9, eps: float = 1e-5,
                      act: str = "none", leak: float = LEAK,
                      use_pallas: bool = False,
-                     labels: Optional[torch.Tensor] = None
+                     labels: Optional[torch.Tensor] = None, group=None
                      ) -> Tuple[torch.Tensor, Pytree]:
     """Normalize `x` over every axis but the last (channel) axis, then
     apply `act`; returns (y, state) — the EMA-updated state when
@@ -108,6 +116,7 @@ def batch_norm_apply(params: Pytree, state: Pytree, x: torch.Tensor, *,
             xf = x.float()
             mean = xf.mean(dim=axes)
             mean_sq = torch.square(xf).mean(dim=axes)
+        mean, mean_sq = synced_moments(group, mean, mean_sq)
         mean, var, new_state = finish_batch_moments(state, mean, mean_sq,
                                                     momentum=momentum)
     else:

@@ -1,6 +1,6 @@
 """Named training presets (the counterpart of `dcgan_tpu/presets.py`).
 
-Eight of the JAX package's ten presets, copied field for field (over the
+All ten of the JAX package's presets, copied field for field (over the
 fields both TrainConfigs have) from the JAX factories:
 - ``celeba64``: DCGAN 64x64 CelebA on one device, z=100, batch 64, bf16
   compute over f32 params, BCE non-saturating loss, Adam(2e-4, beta1 0.5)
@@ -32,9 +32,19 @@ fields both TrainConfigs have) from the JAX factories:
   residual critic, lazy R1 (gamma 10 every 16th step), G EMA 0.999,
   batch 64 (`dcgan_tpu/presets.py:191-202`).
 
-The other two raise a ValueError that names what each waits for
-(UNPORTED): ``lsun64-dp8`` and ``sagan256-lc`` multi-GPU (a data mesh
-of 8 devices; the shard_map backend).
+and the two that name a mesh, on the port's data parallelism over
+processes (parallel/api.py, one process per GPU):
+- ``lsun64-dp8``: DCGAN 64x64 on LSUN-bedroom over an 8-way data mesh,
+  global batch 512 (64 a rank) (`dcgan_tpu/presets.py:59-63`):
+  `torchrun --nproc_per_node 8 -m dcgan_tpu_torch.train --preset
+  lsun64-dp8`;
+- ``sagan256-lc``: the long-context configuration, 256x256 DCGAN stacks
+  with attention over the 128x128 map (a 16 384-token sequence) on the
+  flash kernels, spectral norm on D, hinge, TTUR, G EMA, batch 64, on
+  the shard_map backend (every rank draws from its own folded seed), at
+  any world size (`dcgan_tpu/presets.py:145-171`).
+
+UNPORTED lists the JAX presets the port does not run: none is left.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from dcgan_tpu_torch.config import ModelConfig, TrainConfig
+from dcgan_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 
 
 def celeba64(**overrides) -> TrainConfig:
@@ -102,6 +112,30 @@ def sagan128(**overrides) -> TrainConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def lsun64_dp8(**overrides) -> TrainConfig:
+    """DCGAN 64x64 LSUN-bedroom, data-parallel over an 8-way data mesh
+    (8 ranks), global batch 512. Keyword arguments override TrainConfig
+    fields."""
+    cfg = TrainConfig(model=ModelConfig(output_size=64),
+                      mesh=MeshConfig(data=8), batch_size=64 * 8)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def sagan256_lc(**overrides) -> TrainConfig:
+    """The long-context configuration: 256x256 DCGAN stacks with
+    attention over the 128x128 map (16 384 tokens) on the flash kernels,
+    BatchNorm on plain ops, SN on D, hinge, TTUR, beta1 0, G EMA, batch
+    64, the shard_map backend. Keyword arguments override TrainConfig
+    fields."""
+    cfg = TrainConfig(
+        model=ModelConfig(output_size=256, attn_res=128, spectral_norm="d",
+                          use_pallas=True, bn_pallas=False),
+        mesh=MeshConfig(), backend="shard_map", batch_size=64,
+        loss="hinge", beta1=0.0, d_learning_rate=4e-4,
+        g_learning_rate=1e-4, g_ema_decay=0.999)
+    return dataclasses.replace(cfg, **overrides)
+
+
 def sngan_cifar10(**overrides) -> TrainConfig:
     """SNGAN on CIFAR-10 (32x32): residual G and D, the norm-free critic
     spectrally normalized, hinge loss, Adam(2e-4, beta1 0), 5 critic
@@ -128,15 +162,11 @@ PRESETS: Dict[str, Callable[..., TrainConfig]] = {
     "celeba64": celeba64, "dcgan128": dcgan128,
     "cifar10-cond": cifar10_cond, "wgan-gp": wgan_gp, "sagan64": sagan64,
     "sagan128": sagan128, "sngan-cifar10": sngan_cifar10,
-    "stylegan64": stylegan64}
+    "stylegan64": stylegan64, "lsun64-dp8": lsun64_dp8,
+    "sagan256-lc": sagan256_lc}
 
 # the JAX package's presets the port does not run, and what each waits for
-UNPORTED = {
-    "lsun64-dp8": "multi-GPU (a data-parallel mesh over 8 devices; the "
-                  "port trains on one GPU)",
-    "sagan256-lc": "multi-GPU (its config names the shard_map mesh "
-                   "backend, which the port does not have)",
-}
+UNPORTED: Dict[str, str] = {}
 
 
 def get_preset(name: str, **overrides) -> TrainConfig:

@@ -45,7 +45,7 @@ import torch
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.convert import flatten, unflatten
 from dcgan_tpu_torch.progressive.schedule import ProgressiveSchedule
-from dcgan_tpu_torch.train.steps import TrainStepFns, make_train_step
+from dcgan_tpu_torch.train.steps import TrainStepFns
 from dcgan_tpu_torch.train.warmup import build_warmup_plan
 
 Pytree = dict
@@ -132,12 +132,17 @@ class PhaseRuntime:
     to resume in from the newest checkpoint's step."""
 
     def __init__(self, cfg: TrainConfig, schedule: ProgressiveSchedule,
-                 total_steps: int):
+                 total_steps: int, world=None):
+        from dcgan_tpu_torch.parallel.distributed import single_process
+        from dcgan_tpu_torch.parallel.mesh import make_mesh
+
         self.base_cfg = cfg
         self.schedule = schedule
         self.total_steps = int(total_steps)
-        # one device: no data-axis granule, no spatial split
-        schedule.validate_mesh({"data": 1, "model": 1}, spatial=False,
+        # the live world: every phase's batch over its data axis
+        self.world = world if world is not None else single_process("cpu")
+        mesh = make_mesh(cfg.mesh, self.world.size)
+        schedule.validate_mesh(mesh.shape, spatial=False,
                                grad_accum=cfg.grad_accum)
         self.starts = schedule.starts(self.total_steps)
         # the phases that run under this run length
@@ -145,18 +150,29 @@ class PhaseRuntime:
                             if s < self.total_steps) or 1
         self.index = 0
         self._surfaces: Dict[int, Tuple[TrainConfig, TrainStepFns]] = {}
+        self._pars: Dict[int, "ParallelTrain"] = {}
         self.last_switch_ms = 0.0
         self.last_carried = 0
 
     # -- per-phase configs and step functions -------------------------------
 
     def surface(self, i: int) -> Tuple[TrainConfig, TrainStepFns]:
-        """(the phase's TrainConfig, its step functions), built at the
-        first call and kept."""
+        """(the phase's TrainConfig, its step functions: the world's
+        per-rank programs, parallel/api.py), built at the first call and
+        kept."""
         if i not in self._surfaces:
+            from dcgan_tpu_torch.parallel.api import make_parallel_train
+
             cfg_i = self.schedule.config_for(self.base_cfg, i)
-            self._surfaces[i] = (cfg_i, make_train_step(cfg_i))
+            self._pars[i] = make_parallel_train(cfg_i, self.world)
+            self._surfaces[i] = (cfg_i, self._pars[i].fns)
         return self._surfaces[i]
+
+    @property
+    def par(self) -> "ParallelTrain":
+        """The current phase's ParallelTrain."""
+        self.surface(self.index)
+        return self._pars[self.index]
 
     @property
     def cfg(self) -> TrainConfig:

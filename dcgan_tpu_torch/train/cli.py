@@ -139,7 +139,20 @@ _FLAG_FIELDS = {
     "num_classes": ("model", "num_classes"),
     "conditional_bn": ("model", "conditional_bn"),
     "label_feature": ("", "label_feature"),
+    "mesh_data": ("mesh", "data"),
+    "mesh_model": ("mesh", "model"),
+    "mesh_spatial": ("mesh", "spatial"),
+    "mesh_shard_opt": ("mesh", "shard_opt"),
+    "zero_stage": ("mesh", "zero_stage"),
+    "backend": ("", "backend"),
+    "comm_overlap": ("", "comm_overlap"),
+    "comm_bucket_mb": ("", "comm_bucket_mb"),
 }
+
+# the JAX CLI's live-elastic flags: refused by name when given
+ELASTIC_UNPORTED = (
+    "live elasticity (--elastic_target_devices, --elastic_notice_file) is "
+    "not ported to dcgan_tpu_torch yet (ROADMAP Queue A item 10)")
 
 # --no_<x> flags -> the TrainConfig field they turn off
 _NEGATED_FLAGS = {"no_normalize": "normalize_inputs",
@@ -367,23 +380,73 @@ def build_parser() -> argparse.ArgumentParser:
                         "idle-gap ms and the device's own step time")
     p.add_argument("--timing_window", type=int,
                    help="sliding window (steps) for step-time stats")
+    # data parallelism over processes (one per GPU): the JAX mesh flags
+    p.add_argument("--mesh_data", type=int,
+                   help="data-parallel axis size (-1 = all devices)")
+    p.add_argument("--mesh_model", type=int,
+                   help="tensor-parallel axis size")
+    p.add_argument("--backend", choices=["gspmd", "shard_map"],
+                   help="collective strategy: gspmd = jit + sharding "
+                        "annotations; shard_map = explicit per-device "
+                        "psum/pmean (DP-only, composes with --use_pallas)")
+    p.add_argument("--mesh_shard_opt", action="store_true",
+                   help="ZeRO-1: shard optimizer state over the data axis "
+                        "(reduce-scatter/all-gather weight updates)")
+    p.add_argument("--zero_stage", type=int, choices=[1, 2, 3],
+                   help="state-sharding stage (both backends): 1 = today's "
+                        "behavior (parity); 2 = gradients + optimizer state "
+                        "shard over the data axis (reduce-scatter grads, "
+                        "shard-local Adam, one fused all-gather rebuilds "
+                        "params per update); 3 = params + EMA additionally "
+                        "stay resident sharded between steps with a just-"
+                        "in-time all-gather inside each forward. Stages "
+                        ">= 2 need a data axis of size > 1")
+    p.add_argument("--comm_overlap", choices=["off", "bucket", "prefetch"],
+                   help="collective overlap plane (DESIGN §6n): off = "
+                        "per-leaf ZeRO collectives (parity); bucket = pack "
+                        "leaves into dtype-grouped flat buffers, one large "
+                        "collective per bucket (bit-exact); prefetch "
+                        "(zero_stage=3 only) = bucket plus layer-ahead "
+                        "staged param gathers so gather i+1 overlaps "
+                        "compute i")
+    p.add_argument("--comm_bucket_mb", type=int,
+                   help="bucket size cap in MiB for --comm_overlap (per "
+                        "dtype group; an oversized leaf gets its own "
+                        "bucket)")
+    p.add_argument("--mesh_spatial", action="store_true",
+                   help="use the model axis to shard image height instead of "
+                        "weights (conv halo exchange; the sequence-parallel "
+                        "attention path)")
+    p.add_argument("--elastic_target_devices", type=int,
+                   help=">0 arms live in-run elasticity (not ported: "
+                        "refused)")
+    p.add_argument("--elastic_notice_file", type=str,
+                   help="with --elastic_target_devices: the notice file "
+                        "(not ported: refused)")
     p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' must be asked for by name")
+                   help="torch device; 'cpu' must be asked for by name "
+                        "(a process of a torchrun world takes "
+                        "cuda:LOCAL_RANK)")
     return p
 
 
 def config_from_args(args: argparse.Namespace):
     """The preset's TrainConfig with the explicitly given flags applied."""
-    top, model_kw = {}, {}
-    for flag, value in vars(args).items():
+    given = vars(args)
+    if given.get("elastic_target_devices") or \
+            given.get("elastic_notice_file"):
+        raise NotImplementedError(ELASTIC_UNPORTED)
+    top, sections = {}, {"model": {}, "mesh": {}}
+    for flag, value in given.items():
         if flag in _NEGATED_FLAGS:
             top[_NEGATED_FLAGS[flag]] = not value
         elif flag in _FLAG_FIELDS:
             section, field = _FLAG_FIELDS[flag]
-            (model_kw if section == "model" else top)[field] = value
+            (sections[section] if section else top)[field] = value
     cfg = get_preset(args.preset)
-    if model_kw:
-        top["model"] = dataclasses.replace(cfg.model, **model_kw)
+    for section, kw in sections.items():
+        if kw:
+            top[section] = dataclasses.replace(getattr(cfg, section), **kw)
     return dataclasses.replace(cfg, **top) if top else cfg
 
 

@@ -35,10 +35,13 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 
-def recorder_path(checkpoint_dir: str) -> str:
-    """The dump's path: one process owns the bare name (the JAX package's
-    chief path; its peers' `.p<i>` names come with multi-GPU training)."""
-    return os.path.join(checkpoint_dir, "flight_recorder.jsonl")
+def recorder_path(checkpoint_dir: str, process_index: int = 0) -> str:
+    """The dump's path: the chief owns the bare name, rank i > 0 of a
+    data-parallel world `flight_recorder.p<i>.jsonl` (the JAX package's
+    names)."""
+    name = "flight_recorder.jsonl" if process_index == 0 \
+        else f"flight_recorder.p{process_index}.jsonl"
+    return os.path.join(checkpoint_dir, name)
 
 
 class FlightRecorder:

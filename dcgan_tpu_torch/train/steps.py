@@ -52,6 +52,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from dcgan_tpu_torch.config import TrainConfig, parse_policy
@@ -59,6 +60,7 @@ from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.models.dcgan import discriminator_apply, gan_init, \
     generator_apply, sampler_apply
 from dcgan_tpu_torch.ops.augment import diff_augment, draw_augment
+from dcgan_tpu_torch.parallel.collectives import mean_scalars, mean_tree
 from dcgan_tpu_torch.train.losses import bce_gan_losses, \
     gradient_penalty, hinge_losses, r1_penalty, wgan_losses
 from dcgan_tpu_torch.utils.metrics import activation_stats
@@ -333,6 +335,23 @@ def penalty_due(cfg: TrainConfig, step: int) -> bool:
     return False
 
 
+# joins the rollback count to a rolled-back run's step-draw seeds
+_REKEY = 0x726F6C6C
+
+
+def step_generator(cfg: TrainConfig, step: int, device: torch.device,
+                   *tag: int, rekey: int = 0) -> torch.Generator:
+    """The generator of step `step`'s draws, seeded from (seed, step,
+    *tag), and from the rollback count `rekey` when it is > 0 (the JAX
+    trainer's `fold_in(key(seed + 2), rollbacks)`), so a run that never
+    rolls back draws what it always drew."""
+    entropy = [cfg.seed & 0xFFFFFFFFFFFFFFFF, step, *tag]
+    if rekey:
+        entropy += [_REKEY, rekey]
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(seed[0]))
+
+
 def draw_step(cfg: TrainConfig, gen: torch.Generator,
               batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The random inputs of one step besides z, drawn from `gen` on its
@@ -442,6 +461,8 @@ class TrainStepFns:
                           # {"g_loss"})
     lr_backoff: Optional[LrBackoff] = None  # both nets' base-rate cells
                                             # (make_lr_backoff)
+    group: Optional[object] = None  # the process group the step's
+                                    # collectives run over (None: none)
 
 
 def _leaves_with_grad(tree: Pytree) -> Pytree:
@@ -456,9 +477,14 @@ def _grad(loss: torch.Tensor, leaves: Pytree) -> Pytree:
     return tree_map(lambda p: by_id[id(p)], leaves)
 
 
-def make_train_step(cfg: TrainConfig) -> TrainStepFns:
+def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
     """The step functions of `cfg`, following `dcgan_tpu/train/steps.py`
-    line by line:
+    line by line; with a process `group`, the per-rank program of the
+    data-parallel step (the JAX step with `axis_name` set): every
+    BatchNorm's batch moments, both nets' gradients (each update's, after
+    the grad_accum mean) and the losses averaged over the ranks
+    (parallel/collectives.py), `summarize`'s statistics global. `cfg`'s
+    batch is then the rank's share (parallel/api.py):
 
     - D's loss (`:404-473`): the fake batch from G in train mode without
       gradients (G's state update discarded), D on the real batch, then on
@@ -542,7 +568,7 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         update discarded (D's fake batch)."""
         with torch.no_grad():
             return generator_apply(g_params, g_bn, z, cfg=mcfg, train=True,
-                                   labels=labels)[0]
+                                   labels=labels, group=group)[0]
 
     def d_loss_fn(d_params: Pytree, g_params: Pytree, bn: Pytree,
                   images: torch.Tensor, z: torch.Tensor,
@@ -569,10 +595,10 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
 
         _, real_logits, d_bn1 = discriminator_apply(
             d_params, bn["disc"], d_input(images, "real/"), cfg=mcfg,
-            train=True, labels=labels)
+            train=True, labels=labels, group=group)
         _, fake_logits, d_bn = discriminator_apply(
             d_params, d_bn1, d_input(fake, "fake/"), cfg=mcfg, train=True,
-            labels=labels)
+            labels=labels, group=group)
         d_loss, d_real, d_fake, _ = losses(real_logits, fake_logits)
         gp = None
         if wgan or (r1 and penalty):
@@ -630,7 +656,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             d_leaves = _leaves_with_grad(d_params)
             loss, d_bn, d_real, d_fake, gp = loss_of(d_leaves, bn, 0)
             # _grad frees the graph before the G step builds its own
-            return _grad(loss, d_leaves), d_bn, (loss, d_real, d_fake, gp)
+            return (mean_tree(group, _grad(loss, d_leaves)), d_bn,
+                    (loss, d_real, d_fake, gp))
         acc, d_bn, terms = None, bn["disc"], []
         for j in range(n_micro):
             d_leaves = _leaves_with_grad(d_params)
@@ -642,7 +669,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                             else []))
         means = [torch.stack(col).mean() for col in zip(*terms)]
         gp = means[3] if len(means) > 3 else None
-        return average(acc, d_params), d_bn, (*means[:3], gp)
+        return mean_tree(group, average(acc, d_params)), d_bn, \
+            (*means[:3], gp)
 
     def g_loss_fn(g_params: Pytree, g_bn: Pytree, disc: Pytree,
                   disc_bn: Pytree, z: torch.Tensor,
@@ -652,12 +680,13 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         """(G's loss, G's new BN state); appends G's images, detached, to
         `fakes` when given (`g_update`'s next fake stack)."""
         fake, new_g_bn = generator_apply(g_params, g_bn, z, cfg=mcfg,
-                                         train=True, labels=labels)
+                                         train=True, labels=labels,
+                                         group=group)
         if fakes is not None:
             fakes.append(fake.detach())
         _, fake_logits, _ = discriminator_apply(
             disc, disc_bn, aug(fake, draws) if augment else fake, cfg=mcfg,
-            train=True, labels=labels)
+            train=True, labels=labels, group=group)
         return losses(fake_logits, fake_logits)[3], new_g_bn
 
     def g_grads(g_params: Pytree, g_bn: Pytree, disc: Pytree,
@@ -672,7 +701,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, g_bn, disc, disc_bn, z,
                                          draws, fakes=fakes, labels=labels)
-            return _grad(g_loss, g_leaves), new_g_bn, g_loss
+            return mean_tree(group, _grad(g_loss, g_leaves)), new_g_bn, \
+                g_loss
         acc, new_g_bn, g_losses = None, g_bn, []
         for j in range(n_micro):
             g_leaves = _leaves_with_grad(g_params)
@@ -682,12 +712,14 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                                          labels=micro_labels(labels, j))
             acc = accumulate(acc, _grad(g_loss, g_leaves))
             g_losses.append(g_loss.detach())
-        return (average(acc, g_params), new_g_bn,
+        return (mean_tree(group, average(acc, g_params)), new_g_bn,
                 torch.stack(g_losses).mean())
 
-    def d_metrics_of(d_terms) -> Dict[str, torch.Tensor]:
+    def metrics_of(d_terms, g_loss=None) -> Dict[str, torch.Tensor]:
         """D's half of the metric row: the losses, and the penalty where
-        the config has one (0 on a lazy-R1 step without it)."""
+        the config has one (0 on a lazy-R1 step without it); with
+        `g_loss`, the whole row. Averaged over the ranks in one
+        collective."""
         out = {k: v.detach() for k, v in zip(
             ("d_loss", "d_loss_real", "d_loss_fake"), d_terms[:3])}
         if penalty_key is not None:
@@ -695,10 +727,9 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             out[penalty_key] = gp.detach() if gp is not None else \
                 torch.zeros((), dtype=torch.float32,
                             device=d_terms[0].device)
-        return out
-
-    def metrics_of(d_terms, g_loss) -> Dict[str, torch.Tensor]:
-        return {**d_metrics_of(d_terms), "g_loss": g_loss.detach()}
+        if g_loss is not None:
+            out["g_loss"] = g_loss.detach()
+        return dict(zip(out, mean_scalars(group, list(out.values()))))
 
     def resolve_penalty(state: Pytree, penalty: Optional[bool]) -> bool:
         if not lazy:
@@ -829,7 +860,7 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             "ema_gen": state["ema_gen"],
             "step": state["step"],
         }
-        return new_state, d_metrics_of(d_terms)
+        return new_state, metrics_of(d_terms)
 
     def g_update(state: Pytree, draws: Dict[str, torch.Tensor]
                  ) -> Tuple[Pytree, torch.Tensor, Dict[str, torch.Tensor]]:
@@ -857,7 +888,8 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
             "ema_gen": ema_of(state, new_gen),
             "step": state["step"] + 1,
         }
-        return new_state, torch.stack(stack), {"g_loss": g_loss.detach()}
+        return new_state, torch.stack(stack), \
+            {"g_loss": mean_scalars(group, [g_loss.detach()])[0]}
 
     def eval_losses(state: Pytree, images: torch.Tensor, z: torch.Tensor,
                     eps: Optional[torch.Tensor] = None,
@@ -897,18 +929,19 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
         g_cap: dict = {}
         d_cap: dict = {}
         fake, _ = generator_apply(params["gen"], bn["gen"], z, cfg=mcfg,
-                                  train=True, labels=labels, capture=g_cap)
+                                  train=True, labels=labels, capture=g_cap,
+                                  group=group)
         d_real_prob, _, _ = discriminator_apply(
             params["disc"], bn["disc"], images, cfg=mcfg, train=True,
-            labels=labels, capture=d_cap)
+            labels=labels, capture=d_cap, group=group)
         d_fake_prob, _, _ = discriminator_apply(
             params["disc"], bn["disc"], fake, cfg=mcfg, train=True,
-            labels=labels)
+            labels=labels, group=group)
         acts = {**{f"gen/{k}": v for k, v in g_cap.items()},
                 **{f"disc/{k}": v for k, v in d_cap.items()},
                 "z": z, "d_real_prob": d_real_prob,
                 "d_fake_prob": d_fake_prob}
-        return activation_stats(acts)
+        return activation_stats(acts, group=group)
 
     def sample(state: Pytree, z: torch.Tensor,
                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -926,4 +959,4 @@ def make_train_step(cfg: TrainConfig) -> TrainStepFns:
                         init=init, eval_losses=eval_losses,
                         summarize=summarize, gen_fakes=gen_fakes,
                         d_update=d_update, g_update=g_update,
-                        lr_backoff=backoff)
+                        lr_backoff=backoff, group=group)

@@ -132,13 +132,22 @@
   medians. A window may span a graph capture (a runner's first calls, a
   progressive switch without --aot_warmup): the window stays open, and
   on an H100 a run whose window spanned the warm-up and both captures
-  ended with the parameters of an unprofiled run, bit for bit.
+  ended with the parameters of an unprofiled run, bit for bit;
+- data parallelism over processes (`dcgan_tpu/train/trainer.py:117-272,
+  318-447`): the process joins the world its environment names
+  (parallel/distributed.py) and runs `make_parallel_train`'s per-rank
+  programs on its share of every global batch (its shards on seed + its
+  rank, its rows of the step's draws or its own folded draws); the
+  losses it reads are the global ones, so every rank takes the same
+  decisions; only the chief (rank 0) writes config.json, events, grids,
+  checkpoints and traces, and the ranks agree on the checkpoint they
+  restore. Above one rank the FID probe and the rollback NaN policy are
+  refused by name (`check_world`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import itertools
 import json
 import os
@@ -156,6 +165,8 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
     read_manifest
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
+from dcgan_tpu_torch.parallel.api import local_config, make_parallel_train
+from dcgan_tpu_torch.parallel.distributed import World, initialize_multihost
 from dcgan_tpu_torch.progressive import PhaseRuntime, Rebucketer, \
     parse_schedule
 from dcgan_tpu_torch.progressive.phases import PHASE_SEED_OFFSET
@@ -169,7 +180,7 @@ from dcgan_tpu_torch.train.flight_recorder import FlightRecorder, \
 from dcgan_tpu_torch.train.rollback import RollbackManager
 from dcgan_tpu_torch.train.services import make_services, stage
 from dcgan_tpu_torch.train.steps import draw_stages, draw_step, \
-    make_train_step, tree_leaves
+    step_generator, tree_leaves
 from dcgan_tpu_torch.train.warmup import StepRunner, aot_capture, \
     build_warmup_plan, call_size, metric_keys
 # the losses' keys, re-exported for the trainer's callers
@@ -184,21 +195,8 @@ from dcgan_tpu_torch.utils.trace import digest, find_trace, stage_step_ms
 Pytree = dict
 
 
-# joins the rollback count to a rolled-back run's step-draw seeds
-_REKEY = 0x726F6C6C
-
-
-def _step_generator(cfg: TrainConfig, step: int, device: torch.device,
-                    *tag: int, rekey: int = 0) -> torch.Generator:
-    """The generator of step `step`'s draws, seeded from (seed, step,
-    *tag), and from the rollback count `rekey` when it is > 0 (the JAX
-    trainer's `fold_in(key(seed + 2), rollbacks)`), so a run that never
-    rolls back draws what it always drew."""
-    entropy = [cfg.seed & 0xFFFFFFFFFFFFFFFF, step, *tag]
-    if rekey:
-        entropy += [_REKEY, rekey]
-    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(seed[0]))
+# the generator of a step's draws (train/steps.py; the trainer's name)
+_step_generator = step_generator
 
 
 def _draw_z(cfg: TrainConfig, gen: torch.Generator) -> torch.Tensor:
@@ -251,7 +249,7 @@ def _synthetic_feed(cfg: TrainConfig, device: torch.device,
                     skip_batches: int = 0) -> Iterator:
     """The synthetic stream on `device` from its batch `skip_batches`
     (skipped on the host): image batches, or (images, labels) pairs for a
-    conditional model."""
+    conditional model; cfg.batch_size and cfg.seed are the rank's."""
     mcfg = cfg.model
     batches = synthetic_batches(cfg.batch_size, mcfg.output_size,
                                 mcfg.c_dim, seed=cfg.seed,
@@ -278,7 +276,8 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
               synthetic_data: bool = False, data_dir: Optional[str] = None,
               seed_offset: int = 0, n_threads: Optional[int] = None,
               min_after_dequeue: Optional[int] = None,
-              skip_batches: int = 0) -> Iterator:
+              skip_batches: int = 0, world: Optional[World] = None
+              ) -> Iterator:
     """The trainer's batches on `device`: the synthetic stream, or the
     TFRecord shards of `data_dir` (cfg.data_dir by default; the native
     loader; the record dtype of their dataset.json, when they have one),
@@ -286,7 +285,15 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
     conditional model. `skip_batches` fast-forwards past batches an
     earlier run consumed: the synthetic stream skips on the host, the
     shards' stream discards batches (a threaded shuffle stream has no
-    exact position to restore). Close it when done."""
+    exact position to restore). Close it when done.
+
+    In a data-parallel `world` every rank reads its share of the shards
+    on seed + its rank, in batches of its share of cfg.batch_size (the
+    global batch); the synthetic stream likewise."""
+    if world is not None and world.size > 1:
+        cfg = dataclasses.replace(
+            local_config(cfg, world.size),
+            seed=cfg.seed + world.rank if synthetic_data else cfg.seed)
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
     if synthetic_data:
@@ -313,7 +320,9 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
         num_classes=cfg.model.num_classes,
         prefetch_device_batches=cfg.prefetch_device_batches,
         max_corrupt_records=cfg.max_corrupt_records)
-    ds = make_dataset(dcfg, device)
+    rank = (world.rank, world.size) if world is not None else (0, 1)
+    ds = make_dataset(dcfg, device, process_index=rank[0],
+                      process_count=rank[1])
     for _ in range(skip_batches):
         next(ds)
     return ds
@@ -321,7 +330,8 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
 
 def make_sample_data(cfg: TrainConfig, device: torch.device, *,
                      synthetic_data: bool = False,
-                     skip_batches: int = 0) -> Optional[Iterator]:
+                     skip_batches: int = 0,
+                     world: Optional[World] = None) -> Optional[Iterator]:
     """The held-out batches of the loss probe and of the FID probe's real
     side: the synthetic stream at seed + 100, or the shards of
     cfg.sample_image_dir (a light loader: 2 threads, a pool of 4 batches)
@@ -329,12 +339,12 @@ def make_sample_data(cfg: TrainConfig, device: torch.device, *,
     trainer). `skip_batches` as in make_data."""
     if synthetic_data:
         return make_data(cfg, device, synthetic_data=True, seed_offset=100,
-                         skip_batches=skip_batches)
+                         skip_batches=skip_batches, world=world)
     if os.path.isdir(cfg.sample_image_dir):
         return make_data(cfg, device, data_dir=cfg.sample_image_dir,
                          seed_offset=100, n_threads=2,
                          min_after_dequeue=4 * cfg.batch_size,
-                         skip_batches=skip_batches)
+                         skip_batches=skip_batches, world=world)
     return None
 
 
@@ -388,16 +398,61 @@ def _check_architecture(cfg: TrainConfig, ckpt: Checkpointer) -> None:
         "adopted), or point --checkpoint_dir at a fresh directory.")
 
 
-def _flight_context(cfg: TrainConfig, startup: StartupProfile) -> dict:
+def _flight_context(cfg: TrainConfig, startup: StartupProfile,
+                    process: int = 0) -> dict:
     """The flight recorder's dump-time header context; a run that died
     before its first step carries the startup phases it completed."""
-    out = {"process": 0}
+    out = {"process": process}
     if cfg.precision:
         out["precision"] = cfg.precision
     if not startup.done:
         out["startup_partial"] = {k: round(v, 1) for k, v in
                                   startup.summary().items()}
     return out
+
+
+class _NullWriter:
+    """The MetricWriter of a rank other than the chief: it writes
+    nothing (the chief alone writes events, grids and traces)."""
+
+    def write_scalars(self, step: int, row: dict) -> None:
+        pass
+
+    def write_image_event(self, step: int, tag: str, path: str) -> None:
+        pass
+
+    def write_activations(self, step: int, stats) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+# what the port's data parallelism does not run yet, at world size > 1
+WORLD_UNPORTED = {
+    "fid_every_steps": "--fid_every_steps at world size > 1: the probe's "
+                       "real side split over the ranks and its multi-"
+                       "process scoring are not ported to dcgan_tpu_torch "
+                       "yet (ROADMAP Queue A item 7)",
+    "nan_policy": "--nan_policy rollback at world size > 1: the anomaly "
+                  "consensus and the coordinated rollback over ranks are "
+                  "not ported to dcgan_tpu_torch yet (ROADMAP Queue A item "
+                  "9b)",
+}
+
+
+def check_world(cfg: TrainConfig, world: World) -> None:
+    """Refuse, naming its ROADMAP item, a setting the port runs in one
+    process only."""
+    if world.size <= 1:
+        return
+    if cfg.fid_every_steps:
+        raise NotImplementedError(WORLD_UNPORTED["fid_every_steps"])
+    if cfg.nan_policy == "rollback":
+        raise NotImplementedError(WORLD_UNPORTED["nan_policy"])
 
 
 class _QueuedWriter:
@@ -423,16 +478,27 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
     boundary; either way the last step is checkpointed. Returns the final
     state. A run that dies (a NaN abort, an exhausted rollback budget, any
     exception) leaves the flight recorder's dump in its checkpoint
-    directory, if it had written there."""
+    directory, if it had written there.
+
+    The process joins the data-parallel world its environment names
+    (torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
+    MASTER_PORT, or JAX_COORDINATOR_ADDRESS; parallel/distributed.py) and
+    trains its share of every global batch on `device` (an unindexed
+    "cuda" is cuda:LOCAL_RANK); a process that names no world trains
+    alone, as before."""
     # the time to the first step is profiled from here
     startup = StartupProfile()
+    # raises before anything else when the card is missing
+    resolve_device(device)
+    world = initialize_multihost(device=device)
+    check_world(cfg, world)
     flight = FlightRecorder(
-        recorder_path(cfg.checkpoint_dir),
+        recorder_path(cfg.checkpoint_dir, world.rank),
         capacity=cfg.flight_recorder_steps,
-        context=lambda: _flight_context(cfg, startup))
+        context=lambda: _flight_context(cfg, startup, world.rank))
     try:
         return _train(cfg, synthetic_data=synthetic_data,
-                      max_steps=max_steps, device=device, flight=flight,
+                      max_steps=max_steps, world=world, flight=flight,
                       startup=startup)
     except BaseException as e:
         # a run that failed before it wrote its checkpoint directory (no
@@ -446,9 +512,10 @@ def train(cfg: TrainConfig, *, synthetic_data: bool = False,
 
 
 def _train(cfg: TrainConfig, *, synthetic_data: bool,
-           max_steps: Optional[int], device: Union[str, torch.device],
+           max_steps: Optional[int], world: World,
            flight: FlightRecorder, startup: StartupProfile) -> Pytree:
-    dev = resolve_device(device)
+    dev = world.device
+    chief = world.is_chief
     total_steps = cfg.max_steps if max_steps is None else max_steps
     mcfg = cfg.model
     if cfg.fid_every_steps and not synthetic_data \
@@ -456,7 +523,7 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         raise ValueError(NEEDS_HELD_OUT)
     ckpt = Checkpointer(cfg.checkpoint_dir,
                         save_interval_secs=cfg.save_model_secs,
-                        max_to_keep=cfg.max_checkpoints)
+                        max_to_keep=cfg.max_checkpoints, world=world)
     _check_architecture(cfg, ckpt)
     # a progressive run: the phase that produced the newest checkpoint,
     # its tag checked (a schedule edited between runs fails here), and
@@ -468,17 +535,23 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             cfg.progressive, model=mcfg, batch_size=cfg.batch_size,
             max_steps=cfg.max_steps, steps_per_call=cfg.steps_per_call,
             grad_accum=cfg.grad_accum,
-            fade_steps=cfg.progressive_fade_steps), total_steps)
+            fade_steps=cfg.progressive_fade_steps), total_steps,
+            world=world)
         latest = ckpt.latest_step()
         prog.start(latest)
         if latest is not None:
             prog.check_resume_tag(ckpt.progressive_tag_of(latest), latest)
         ckpt.progressive_tag = prog.tag()
         pcfg = prog.cfg
-        print(f"[dcgan_tpu_torch] progressive schedule "
-              f"{cfg.progressive!r}: starting in phase {prog.index} "
-              f"(r{prog.resolution}, batch {pcfg.batch_size}, "
-              f"{prog.n_phases} phase(s) this run)", flush=True)
+        if chief:
+            print(f"[dcgan_tpu_torch] progressive schedule "
+                  f"{cfg.progressive!r}: starting in phase {prog.index} "
+                  f"(r{prog.resolution}, batch {pcfg.batch_size}, "
+                  f"{prog.n_phases} phase(s) this run)", flush=True)
+    # the world's per-rank programs of the current phase (pcfg), and the
+    # rank's share of its batch (lcfg): what the feeds and the runner take
+    par = make_parallel_train(cfg, world) if prog is None else prog.par
+    lcfg = par.local_cfg
     # this run's quarantine count is the process-wide tally's delta, taken
     # before the loader starts; a data_dir without shards fails here,
     # before anything is written
@@ -487,17 +560,19 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
     rebucketer = None
     if prog is None:
         with startup.phase("data"):
-            data = make_data(cfg, dev, synthetic_data=synthetic_data)
+            data = make_data(cfg, dev, synthetic_data=synthetic_data,
+                             world=world)
     else:
         # the phase's feeds, re-opened at every switch
         def open_phase(phase_cfg, held_out_skip):
-            d = make_data(phase_cfg, dev, synthetic_data=synthetic_data)
+            d = make_data(phase_cfg, dev, synthetic_data=synthetic_data,
+                          world=world)
             if not cfg.sample_every_steps:
                 return d, None
             try:
                 return d, make_sample_data(
                     phase_cfg, dev, synthetic_data=synthetic_data,
-                    skip_batches=held_out_skip)
+                    skip_batches=held_out_skip, world=world)
             except BaseException:
                 d.close()
                 raise
@@ -529,11 +604,14 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
     stop = CoordinatedStop()
     stop.install()
     try:
-        pprint.pprint(dataclasses.asdict(cfg))
-        save_config(cfg, cfg.checkpoint_dir)
-        writer = MetricWriter(cfg.checkpoint_dir,
-                              every_secs=cfg.save_summaries_secs,
-                              tensorboard=cfg.tensorboard)
+        if chief:
+            pprint.pprint(dataclasses.asdict(cfg))
+            save_config(cfg, cfg.checkpoint_dir)
+            writer = MetricWriter(cfg.checkpoint_dir,
+                                  every_secs=cfg.save_summaries_secs,
+                                  tensorboard=cfg.tensorboard)
+        else:
+            writer = _NullWriter()
 
         def write_row(step: int, row: dict, tag: str) -> None:
             svc.submit(lambda s=step, r=row: writer.write_scalars(s, r),
@@ -544,11 +622,13 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         n_samples = max(cfg.sample_size, rows * cols)
 
         def new_runner(phase_fns, phase_state, phase_cfg):
-            return StepRunner(phase_fns, phase_state, phase_cfg, dev,
+            # the rank's share of the phase's batch in every slot
+            return StepRunner(phase_fns, phase_state,
+                              local_config(phase_cfg, par.mesh.data), dev,
                               sample_z=sample_z, sample_labels=sample_labels)
 
         with startup.phase("init"):
-            fns = make_train_step(cfg) if prog is None else prog.fns
+            fns = par.fns
             state = fns.init(seed=cfg.seed, device=dev)
             sample_z = torch.rand(
                 (n_samples, mcfg.z_dim), device=dev,
@@ -565,15 +645,17 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                 runner.load(restored)
         if restored is not None:
             del restored
-            print(f"[dcgan_tpu_torch] restored checkpoint at step "
-                  f"{int(state['step'])}", flush=True)
+            if chief:
+                print(f"[dcgan_tpu_torch] restored checkpoint at step "
+                      f"{int(state['step'])}", flush=True)
         if prog is None and (cfg.sample_every_steps or cfg.fid_every_steps):
             # the held-out stream from where the run that reached this
             # step left it
             with startup.phase("data"):
                 sample_data = make_sample_data(
                     cfg, dev, synthetic_data=synthetic_data,
-                    skip_batches=held_out_skip(cfg, int(state["step"])))
+                    skip_batches=held_out_skip(cfg, int(state["step"])),
+                    world=world)
         probe = FidProbe(cfg, dev) if cfg.fid_every_steps else None
         timer = StepTimer(window=cfg.timing_window,
                           images_per_step=pcfg.batch_size)
@@ -665,7 +747,9 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         # the rollbacks so far, folded into the step draws' seeds when > 0
         # (the draw functions re-keyed with it)
         rekey = 0
-        step_draws, stage_draws = step_inputs, stage_inputs
+        step_draws = par.step_draws(step_inputs)
+        stage_draws = par.stage_draws(stage_inputs)
+        rank_summary_z = par.summary_z(summary_z)
 
         def do_rollback(e: FloatingPointError) -> None:
             """Restore the snapshot into the static state (raises
@@ -673,7 +757,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             inside the poisoned window, write anomaly/rollbacks, apply the
             LR backoff and re-key the step draws. The data iterator is not
             rewound: the offending batch window is skipped."""
-            nonlocal step_num, rekey, step_draws, stage_draws
+            nonlocal step_num, rekey, step_draws, stage_draws, \
+                rank_summary_z
             fail_step = getattr(e, "step", step_num)
             watchdog.arm("rollback-restore", fail_step)
             step_num = runner.restore(rollback, e)
@@ -693,8 +778,9 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                       f"scaled by {scale:.3g} (rate cells refilled, "
                       f"nothing captured)", flush=True)
             rekey = rollback.rollbacks
-            step_draws = functools.partial(step_inputs, rekey=rekey)
-            stage_draws = functools.partial(stage_inputs, rekey=rekey)
+            step_draws = par.step_draws(step_inputs, rekey)
+            stage_draws = par.stage_draws(stage_inputs, rekey)
+            rank_summary_z = par.summary_z(summary_z, rekey)
 
         def report_startup(step: int) -> None:
             """The startup breakdown, once, at the first call's readback:
@@ -712,9 +798,10 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                     "perf/restore/verify_cached_bytes": 0.0,
                     "perf/restore/verify_ms": rs["verify_ms"],
                 })
-            print("[dcgan_tpu_torch] startup "
-                  + json.dumps({k: round(v, 1) for k, v in row.items()}),
-                  flush=True)
+            if chief:
+                print("[dcgan_tpu_torch] startup "
+                      + json.dumps({k: round(v, 1)
+                                    for k, v in row.items()}), flush=True)
             if cfg.aot_warmup:
                 write_row(step, row, "startup")
 
@@ -724,6 +811,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         trace_dir = cfg.profile_dir or (
             os.path.join(cfg.checkpoint_dir, "trace")
             if cfg.profile_trigger else "")
+        if not chief:
+            trace_dir = ""   # the chief alone traces
         # the call sizes the open window records (its warm-up call is
         # not): the digest divides the busiest program's median by the
         # largest, not by steps_per_call (a window inside a K=1 stretch
@@ -815,7 +904,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                     ckpt.copy_event.synchronize()
                 old_res = prog.resolution
                 merged = prog.advance(runner.state)
-                pcfg, fns = prog.cfg, prog.fns
+                pcfg, fns, par = prog.cfg, prog.fns, prog.par
+                lcfg = par.local_cfg
                 old, runner = runner, later_runners.pop(prog.index, None)
                 if runner is None:
                     runner = new_runner(fns, merged, pcfg)
@@ -861,7 +951,7 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             trace.maybe_start(step_num)
             if trace.recording:
                 capture_ks.append(k)  # this call is recorded
-            batches, labels = zip(*(split_batch(cfg, next(data))
+            batches, labels = zip(*(split_batch(lcfg, next(data))
                                     for _ in range(k)))
             if prog is not None:
                 batches = tuple(prog.fade_images(b, step_num + i)
@@ -897,10 +987,12 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                                                       device=dev), cfg_i)
                                 r.prime(start=prog.starts[i])
                             warm_ms[name] = r.capture(row)
-                print("[dcgan_tpu_torch] aot warmup captured "
-                      f"{len(warm_ms)} program(s): "
-                      + ", ".join(f"{n} {ms:.0f}ms"
-                                  for n, ms in warm_ms.items()), flush=True)
+                if chief:
+                    print("[dcgan_tpu_torch] aot warmup captured "
+                          f"{len(warm_ms)} program(s): "
+                          + ", ".join(f"{n} {ms:.0f}ms"
+                                      for n, ms in warm_ms.items()),
+                          flush=True)
                 write_row(step_num + 1, {f"perf/compile_ms/{n}": ms
                                          for n, ms in warm_ms.items()},
                           "compile-ms")
@@ -955,16 +1047,19 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                         "perf/precision/master_f32_leaves":
                             float(master_f32)}, "precision")
                     logged_precision = True
-                print(f"[dcgan_tpu_torch] step {step} time "
-                      f"{time.time() - t_start:.1f}s d_loss "
-                      f"{values['d_loss']:.8f} g_loss "
-                      f"{values['g_loss']:.8f}", flush=True)
+                if chief:
+                    print(f"[dcgan_tpu_torch] step {step} time "
+                          f"{time.time() - t_start:.1f}s d_loss "
+                          f"{values['d_loss']:.8f} g_loss "
+                          f"{values['g_loss']:.8f}", flush=True)
                 timer.note_host(time.perf_counter() - t0)
             if cfg.sample_every_steps and step % cfg.sample_every_steps == 0:
                 t0 = time.perf_counter()
                 # the host copies start here, on the dispatch thread: the
                 # sampler's output is a static buffer its next replay
                 # overwrites
+                # every rank samples its rows and gathers the grid; the
+                # chief writes it
                 staged = stage(runner.sample())
                 path = os.path.join(cfg.sample_dir, f"train_{step:08d}.png")
 
@@ -972,11 +1067,12 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                     imgs = st.get().float().numpy()
                     save_sample_grid(p, imgs[:rows * cols], (rows, cols))
                     writer.write_image_event(s, "samples", p)
-                svc.submit(grid_task, tag="sample-grid")
+                if chief:
+                    svc.submit(grid_task, tag="sample-grid")
                 if sample_data is not None:
                     # the held-out loss probe with the fixed z (and the
                     # held-out batch's own labels)
-                    s_imgs, s_labels = split_batch(cfg, next(sample_data))
+                    s_imgs, s_labels = split_batch(lcfg, next(sample_data))
                     ev = stage(fns.eval_losses(state, s_imgs, eval_z,
                                                labels=s_labels))
 
@@ -987,7 +1083,8 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                               f"{vals['g_loss']:.8f}", flush=True)
                         writer.write_scalars(s, {f"sample/{k}": v
                                                  for k, v in vals.items()})
-                    svc.submit(probe_task, tag="sample-probe")
+                    if chief:
+                        svc.submit(probe_task, tag="sample-probe")
                 timer.note_host(time.perf_counter() - t0)
             if probe is not None and probe.due(step):
                 t0 = time.perf_counter()
@@ -999,7 +1096,7 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
                     step % cfg.activation_summary_steps == 0:
                 t0 = time.perf_counter()
                 acts = stage(fns.summarize(
-                    state, batches[-1], summary_z(pcfg, step, dev, rekey),
+                    state, batches[-1], rank_summary_z(pcfg, step, dev),
                     labels[-1]))
                 svc.submit(lambda s=step, a=acts:
                            writer.write_activations(s, a.get()),

@@ -68,6 +68,12 @@ copy-back, K steps per call), so the CPU tests cover all of it but the
 capture itself. The step reads only tensors (no value of the state
 reaches the host), and z is drawn outside the graph, so nothing of a
 replay is frozen at capture time.
+
+A data-parallel step (parallel/api.py) captures its NCCL collectives
+with it: the communicator is formed by initialize_multihost's eager
+all_reduce and the warm-up step, before any capture, and every buffer a
+collective reads or writes is the graph's own. A step whose collectives
+run over gloo cannot be captured: `_program` refuses it by name.
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ from torch.profiler import record_function
 
 from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.graphs import CapturedProgram, on_stream
+from dcgan_tpu_torch.parallel.collectives import capturable
 from dcgan_tpu_torch.train.gd_pipeline import GDPipeline
 from dcgan_tpu_torch.train.steps import TrainStepFns, draw_stages, \
     draw_step, lazy_r1, penalty_due, tree_leaves, tree_map
@@ -402,6 +409,12 @@ class StepRunner:
             fn = self._steps_fn(int(base[len("multi_step@k"):]), pattern)
         else:
             raise KeyError(f"no program {name!r}")
+        if self.device.type == "cuda" and not capturable(self.fns.group):
+            raise RuntimeError(
+                f"{name}: the step's collectives run over gloo, which a "
+                "CUDA graph cannot capture (the capture is refused, not "
+                "run eagerly); train on CUDA ranks over NCCL, one GPU per "
+                "rank")
         prog = CapturedProgram(name, fn, self.device, self.stream)
         prog.capture()
         self.programs[name] = prog

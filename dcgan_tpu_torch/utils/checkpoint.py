@@ -42,8 +42,15 @@ and the trainer makes the main stream wait on it (`stream.wait_event`,
 on the device, not the host) before the next step: the copy never reads
 a leaf that a later step is writing.
 
-Left out for now (ROADMAP): the JAX Checkpointer's sharding sidecars and
-resharding restores, multi-host saves and `delete_steps_after`.
+In a data-parallel world (`world=`, parallel/distributed.py) the state is
+replicated, so the format does not change: only the chief (rank 0)
+writes (`dcgan_tpu/utils/checkpoint.py:282, 335`), and every rank
+restores the same files, after the ranks have met at a collective that
+checks they see the same newest step (`:522`); a world-2 checkpoint thus
+loads at world 1 and in the JAX package.
+
+Left out for now (ROADMAP Queue A item 7): the JAX Checkpointer's
+sharding sidecars and resharding restores, and its sharded saves.
 """
 
 from __future__ import annotations
@@ -98,13 +105,17 @@ class Checkpointer:
     training state (a nested dict of tensors)."""
 
     def __init__(self, directory: str, *, save_interval_secs: float = 600.0,
-                 max_to_keep: int = 5, async_save: bool = True):
+                 max_to_keep: int = 5, async_save: bool = True,
+                 world=None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
         self.save_interval_secs = save_interval_secs
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        # a data-parallel world: the chief writes, every rank restores
+        self.world = world
+        self.chief = world is None or world.is_chief
         self._next_save = time.time() + save_interval_secs
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -134,8 +145,12 @@ class Checkpointer:
         """Write `state` as step `step`: the host copy is queued now, the
         file is written on a background thread (inline when async_save is
         off). Raises a failure of the previous save, and FileExistsError
-        if the step is on disk already."""
+        if the step is on disk already. A rank other than the chief writes
+        nothing."""
         self._join()
+        if not self.chief:
+            self.copy_event = None
+            return
         step = int(step)
         if os.path.exists(self._step_dir(step)):
             raise FileExistsError(
@@ -254,7 +269,10 @@ class Checkpointer:
 
     def maybe_save(self, step: int, state: Pytree) -> bool:
         """Save when save_interval_secs have passed since the last save (or
-        since construction); True if it saved."""
+        since construction); True if it saved (never on a rank other than
+        the chief)."""
+        if not self.chief:
+            return False
         now = time.time()
         if now < self._next_save:
             return False
@@ -388,9 +406,27 @@ class Checkpointer:
         print(f"[dcgan_tpu_torch] checkpoint step {step} failed integrity "
               f"check ({why}) — marking {dst} and falling back to the "
               f"newest intact checkpoint", flush=True)
+        if not self.chief:
+            # the chief renames it; every rank falls back alike
+            return
         retry_io(lambda: os.replace(src, dst), tag="ckpt-corrupt-mark")
 
     def restore_latest(self, template: Pytree) -> Optional[Pytree]:
+        """`_restore_latest` after the ranks of a world have met and
+        agreed on the newest step they see, and checked after it that they
+        restored the same step (a rank that sees other files raises)."""
+        world = self.world
+        if world is None or world.group is None:
+            return self._restore_latest(template)
+        from dcgan_tpu_torch.parallel.distributed import agree
+
+        agree(world, self.latest_step(), "the newest checkpoint step")
+        state = self._restore_latest(template)
+        agree(world, None if state is None else int(state["step"]),
+              "the restored checkpoint step")
+        return state
+
+    def _restore_latest(self, template: Pytree) -> Optional[Pytree]:
         """The newest intact checkpoint as a state shaped like `template`
         (pass the freshly initialized state), its tensors on the template
         leaves' devices; None if no checkpoint exists.

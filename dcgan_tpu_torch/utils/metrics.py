@@ -44,25 +44,40 @@ def _histogram(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return counts.float(), edges
 
 
-def activation_stats(acts: Mapping[str, torch.Tensor], bins: int = 30
-                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+def activation_stats(acts: Mapping[str, torch.Tensor], bins: int = 30,
+                     group=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """{name: {count, min, max, mean, std, zero_fraction, bin_counts,
     bin_edges}} of each activation tensor, in f32 on its device: the
     two-pass variance around the mean, the share of exact zeros (the
-    reference's sparsity), and a `bins`-bin histogram over [min, max]."""
+    reference's sparsity), and a `bins`-bin histogram over [min, max].
+
+    With a process `group` the statistics are global, as the JAX
+    function's under `axis_name` (`dcgan_tpu/utils/metrics.py:159-190`):
+    the min and max taken over the ranks first, so that every rank bins
+    against the same edges, the counts then summed, the mean, the zero
+    share and the variance around the global mean averaged; every rank
+    holds the same result."""
+    from dcgan_tpu_torch.parallel.collectives import all_reduce_sum_, \
+        mean_scalars, min_max, world_size
+
     out: Dict[str, Dict[str, torch.Tensor]] = {}
+    n = world_size(group)
     for name, x in acts.items():
         v = x.detach().float().reshape(-1)
-        lo, hi = v.min(), v.max()
-        mean = v.mean()
+        lo, hi = min_max(group, v.min(), v.max())
+        mean, zero = mean_scalars(group, [v.mean(),
+                                          (v == 0.0).float().mean()])
+        var = mean_scalars(group, [torch.square(v - mean).mean()])[0]
         counts, edges = _histogram(v, lo, hi, bins)
+        if group is not None:
+            counts = all_reduce_sum_(group, counts)
         out[name] = {
-            "count": v.numel(),
+            "count": v.numel() * n,
             "min": lo,
             "max": hi,
             "mean": mean,
-            "std": torch.sqrt(torch.square(v - mean).mean()),
-            "zero_fraction": (v == 0.0).float().mean(),
+            "std": torch.sqrt(var),
+            "zero_fraction": zero,
             "bin_counts": counts,
             "bin_edges": edges,
         }

@@ -1,8 +1,9 @@
 """The port's presets against the JAX package's factories: every preset
 the port registers equals the JAX one over the fields both TrainConfigs
-have, its model field for field; every JAX preset the port does not
-register raises a ValueError that names what it waits for; the CLI
-offers exactly the port's presets, and their overrides apply as in JAX.
+have, its model field for field, and the JAX package has no preset the
+port lacks (the two that name a mesh, lsun64-dp8 and sagan256-lc, pinned
+with their mesh and backend); the CLI offers exactly the port's presets,
+and their overrides apply as in JAX.
 The trainer CLI's flags that the JAX CLI also has (its names, types and
 choices) give the JAX CLI's TrainConfig for the same arguments.
 """
@@ -18,8 +19,14 @@ from dcgan_tpu_torch.train import cli
 from torch_jax_draws import one_torch_thread  # noqa: F401
 
 PORTED = ["celeba64", "dcgan128", "cifar10-cond", "wgan-gp", "sagan64",
-          "sagan128", "sngan-cifar10", "stylegan64"]
-UNPORTED = {"lsun64-dp8": "multi-GPU", "sagan256-lc": "multi-GPU"}
+          "sagan128", "sngan-cifar10", "stylegan64", "lsun64-dp8",
+          "sagan256-lc"]
+# the presets that name a mesh: (mesh fields, backend) of the JAX factory
+MESH_PRESETS = {
+    "lsun64-dp8": ({"data": 8, "model": 1, "spatial": False,
+                    "shard_opt": False, "zero_stage": 1}, "gspmd"),
+    "sagan256-lc": ({"data": -1, "model": 1, "spatial": False,
+                     "shard_opt": False, "zero_stage": 1}, "shard_map")}
 
 
 def _shared_fields():
@@ -31,8 +38,8 @@ def _shared_fields():
 
 def test_every_jax_preset_is_ported_or_refused():
     assert sorted(presets.PRESETS) == sorted(PORTED)
-    assert sorted(PORTED + list(UNPORTED)) == sorted(jpresets.PRESETS)
-    assert sorted(presets.UNPORTED) == ["lsun64-dp8", "sagan256-lc"]
+    assert sorted(PORTED) == sorted(jpresets.PRESETS)
+    assert presets.UNPORTED == {}
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -47,12 +54,21 @@ def test_preset_equals_jax_factory(name):
         jpresets.get_preset(name, batch_size=8).batch_size == 8
 
 
-@pytest.mark.parametrize("name,waits_for", sorted(UNPORTED.items()))
-def test_unported_preset_names_what_it_waits_for(name, waits_for):
-    jpresets.get_preset(name)   # the JAX package builds it
-    with pytest.raises(ValueError, match="not ported") as e:
-        presets.get_preset(name)
-    assert name in str(e.value) and waits_for in str(e.value)
+@pytest.mark.parametrize("name", sorted(MESH_PRESETS))
+def test_mesh_preset_pins_mesh_and_backend(name):
+    """The presets that name a mesh: every field both TrainConfigs have
+    equal to the JAX factory's, the mesh (field by field, and as the
+    MeshConfig both packages compare equal) and the backend the JAX
+    factory's values."""
+    want, got = jpresets.get_preset(name), presets.get_preset(name)
+    mesh, backend = MESH_PRESETS[name]
+    assert dataclasses.asdict(got.mesh) == dataclasses.asdict(want.mesh) \
+        == mesh
+    assert got.mesh == want.mesh and want.mesh == got.mesh
+    assert got.backend == want.backend == backend
+    for field in _shared_fields():
+        assert getattr(got, field) == getattr(want, field), field
+    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
 
 
 def test_unknown_preset_lists_the_ports():
