@@ -182,7 +182,7 @@ The rest of the training step (`a1`):
    shapes, bf16 and f32: a grad_fn, one launch, cotangents within
    GBSA_BWD_TOL of the plain version's autograd; (6) wgan-gp with
    use_pallas is refused; (7) one step of each configuration (and of the
-   bf16 policy at 128 px) timed eager and at K=1 (host-inclusive ms, busy
+   bf16 policy at 128 px) timed at K=1 (A1_TURNS: host-inclusive ms, busy
    ms, idle share), and the wgan-gp preset's eval_losses and summarize.
 
 The native feed, the pipelined G/D step and the trainer's guards
@@ -435,10 +435,40 @@ Data parallelism over processes (`multi_gpu`, parallel/):
    gloo took the CUDA tensors or the collectives staged through host
    memory, and each part's seconds.
 
+The spatial mesh and sequence-parallel attention (`spatial`,
+parallel/spatial.py, ops/attention.py, ops/flash_attention.py):
+
+25. spatial: (a) kernels 7 and 8 with f32 gradient outputs from bf16
+   operands (`out_dtype=torch.float32`, the ring backward's) at
+   SP_F32_SHAPES (sagan128's S 4096 at batch 64; sagan256-lc's S 16 384
+   over four blocks, the local ring's launch at [256, 4096]), launched
+   twice (the same bits) and held against their plain versions over
+   FLASH_ROWS rows within kernel_error_bounds, timed beside their bound;
+   (b) ring x flash over a LocalRing of n blocks (SP_RINGS: sagan128's
+   S 4096 at n = 2, 4 in bf16 and f32, sagan256-lc's S 16 384 at n = 2,
+   4, heads of 16/64 at n = 2) against flash over the whole sequence:
+   n flash_fwd, n flash_dq and n flash_dkv launches a forward and
+   backward, out, lse, dq, dk, dv over FLASH_ROWS rows within twice
+   kernel_error_bounds (one more bf16 ulp a side), every row finite,
+   both timed; (c) sagan128 with --mesh_model 2 --mesh_spatial (ring)
+   and (d) sagan64 with --mesh_data 2 --mesh_model 2 --mesh_spatial
+   --seq_strategy ulysses --attn_heads 2, as 2 and 4 gloo ranks sharing
+   the card (run_world, under SP_TIMEOUT): on every rank one f32 step of
+   the world's programs (TF32 off) on a seeded global batch, then
+   SP_STEPS bf16 steps through train.cli.main (eager: gloo), the counters
+   set to 0 before and read after; every rank's losses and states the
+   same; the f32 step's losses within 1e-4 relative of the world of
+   one's step on the same init, batch and draws and its parameters
+   within 2 * lr + 1e-5; kernels 6-8 at world 1's launches times the
+   ring's size (ring) or equal (Ulysses) in the f32 step and launched on
+   every rank by the trainer. Logs the staged calls, which collectives
+   gloo took on CUDA tensors, the host ms of each trainer step and each
+   part's seconds.
+
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
-evals, progressive, families, faults, trace, multi_gpu) the garbage is
-collected and
+evals, progressive, families, faults, trace, multi_gpu, spatial) the
+garbage is collected and
 the cache emptied; the run fails if a CUDA graph's private pool is still
 reserved then (every runner is closed, so a pool left over is a leak that would
 starve the phases after it), and it logs the group's peak and the bytes
@@ -448,8 +478,8 @@ Stdout ends with the serve reports, the sampler timing, the train
 reports, the resume report, the capture report, the a1 report, the
 feed_pipeline report, the serve_fleet report, the conditional report,
 the evals report, the progressive report, the families report, the
-faults report, the trace report, the multi_gpu report, the memory
-report, the progressive
+faults report, the trace report, the multi_gpu report, the spatial
+report, the memory report, the progressive
 group's timing line (median step ms per phase, switch ms, graph pools,
 the group's peak reserved, the card), the families group's timing line
 (each preset's captured step ms, busy ms, idle share; the group's
@@ -463,7 +493,11 @@ captured step's busy ms; the group's seconds; the card), the multi_gpu
 group's timing line (each route's busy, host ms and idle share
 and the NCCL kernels per replay at world 1; sagan256-lc's step, memory and
 kernels 6-8 at S 16384; the 8 ranks' seconds, staging and gaps; the
-group's seconds; the card), the card's name and power limit
+group's seconds; the card), the spatial group's timing line (the
+f32-output kernels' ms and bounds, the local ring's ms against whole
+flash, each world's seconds, staged calls, host ms a step, launches and
+parameter gaps; the group's seconds and peak reserved; the card), the
+card's name and power limit
 (nvidia-smi), one JSON line
 {"kernels": [...]} and, last, one JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2015,11 +2049,13 @@ FLASH_ROWS = 2
 # p and ds in registers, exp2)
 FLASH_DESIGN = {"flash_fwd": "v2", "flash_dq": "v2", "flash_dkv": "v2"}
 # the bf16 kernel of each on the sagan64 path: a part of its mangled name
-# (flash_fwd_kernel<16, 32>, flash_dq_kernel<16, 32>,
-# flash_dkv_kernel<16, 32>)
+# (flash_fwd_kernel<16, 32>, flash_dq_kernel<16, 32, bf16>,
+# flash_dkv_kernel<16, 32, bf16>; the <..., float> instantiations write
+# f32 gradients, the spatial group's)
 FLASH_ENTRIES = {"flash_fwd": "16flash_fwd_kernelILi16ELi32E",
-                 "flash_dq": "15flash_dq_kernelILi16ELi32E",
-                 "flash_dkv": "16flash_dkv_kernelILi16ELi32E"}
+                 "flash_dq": "15flash_dq_kernelILi16ELi32E13__nv_bfloat16E",
+                 "flash_dkv":
+                     "16flash_dkv_kernelILi16ELi32E13__nv_bfloat16E"}
 
 
 def flash_bound(name, b, s, dk, dv, itemsize):
@@ -2537,6 +2573,9 @@ RESUME_REQUESTS = 8
 RESUME_REPEATS = 3
 LOADER_BATCHES = 16
 FEED_STEPS = 8
+# the eager feed steps profiled for the idle share (each profiled eager
+# step's thousands of launches take the host about a second to digest)
+FEED_PROFILED = 2
 # the kernels that only the train step launches (kernel 2 also runs in the
 # sampler, kernel 5 only there)
 TRAIN_ONLY = ("channel_moments", "scale_shift_act_bwd", "gemm_bias_moments")
@@ -2619,7 +2658,8 @@ def feed_steps(torch, trainer, fns, state, cfg, synthetic):
     """Host-inclusive ms of FEED_STEPS train steps from `state`, each
     pulling its batch from the trainer's feed (the TFRecord loader and
     prefetcher, or the synthetic stream) and reading its loss back, after
-    two warm steps; and the profiled idle share of such steps."""
+    two warm steps; and the profiled idle share of FEED_PROFILED such
+    steps."""
     dev = torch.device("cuda", torch.cuda.current_device())
     data = trainer.make_data(cfg, dev, synthetic_data=synthetic)
     z, _ = trainer.step_inputs(cfg, 0, dev)
@@ -2634,7 +2674,7 @@ def feed_steps(torch, trainer, fns, state, cfg, synthetic):
         for _ in range(FEED_STEPS):
             step()
         ms = (time.perf_counter() - t0) * 1e3 / FEED_STEPS
-        split = profile_split(torch, step, steps=FEED_STEPS)
+        split = profile_split(torch, step, steps=FEED_PROFILED)
     finally:
         data.close()
     return ms, split
@@ -3583,9 +3623,10 @@ def capture_and_check(torch, np, workdir, kernels):
 # steps of each trainer run of the phase, and of each eager / captured
 # comparison; lazy R1's interval and its runs' steps (two intervals)
 A1_STEPS = 4
-# a1_timed's turns: one of each (each turn's profile of an eager step,
-# thousands of launches, takes seconds of the host)
-A1_TURNS = ("eager", "K=1")
+# a1_timed's turns: the captured step only (a profile of an eager step,
+# thousands of launches, takes seconds of the host; the eager turns were
+# cut to make room for the spatial group)
+A1_TURNS = ("K=1",)
 A1_COMPARE_STEPS = 3
 R1_INTERVAL = 4
 R1_STEPS = 8
@@ -3968,8 +4009,8 @@ def a1_route_grads(torch, name, cfg, report, state=None):
 
 
 def a1_timed(torch, name, cfg, report):
-    """One step's host-inclusive ms, busy ms and idle share, eager and
-    through the runner at K=1, one turn each (A1_TURNS)."""
+    """One step's host-inclusive ms, busy ms and idle share in the turns
+    of A1_TURNS ("eager": fns.train_step; "K=1": the runner), one each."""
     from dcgan_tpu_torch.train.steps import make_train_step
     from dcgan_tpu_torch.train.warmup import StepRunner
 
@@ -4006,7 +4047,7 @@ def a1_timed(torch, name, cfg, report):
         return {"step_ms": ms, "busy_ms": split["busy_ms"],
                 "idle_share": split["idle_share"],
                 "launches_per_step": split["launches_per_step"]}
-    turns = {"eager": [], "K=1": []}
+    turns = {label: [] for label in A1_TURNS}
     for label in A1_TURNS:
         turns[label].append(turn(eager if label == "eager" else captured,
                                  label != "eager"))
@@ -8107,6 +8148,456 @@ def multi_gpu_and_check(torch, np, workdir, kernels):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 25 (`spatial`): the spatial mesh and sequence-parallel attention
+# ---------------------------------------------------------------------------
+
+# (a) kernels 7 and 8 with f32 gradients from bf16 operands: sagan128's
+# attention (S 4096, one rank's hop at sagan256-lc's S 16 384 over four
+# ranks too) and the local ring's launch over sagan256-lc's four blocks
+SP_F32_SHAPES = {"sagan128 S 4096": (BATCH, 4096, 8, 32),
+                 "sagan256-lc S 16384 / 4 (4 blocks)": (4 * BATCH, 4096, 8,
+                                                        32)}
+# (b) ring x flash over a local ring against flash over the whole sequence:
+# (label, (B, S, d_qk, d_v), dtype, ring sizes)
+SP_RINGS = [("sagan128", (BATCH, 4096, 8, 32), "bfloat16", (2, 4)),
+            ("sagan128", (BATCH, 4096, 8, 32), "float32", (2, 4)),
+            ("sagan256-lc", (BATCH, 16384, 8, 32), "bfloat16", (2, 4)),
+            ("C 128 heads", (BATCH, 4096, 16, 64), "bfloat16", (2,))]
+# (c), (d): the trainer's steps per rank run
+SP_STEPS = 3
+SP_TIMEOUT = 600.0
+# (c), (d): (name, preset argv, ranks, the mesh and strategy flags)
+SP_WORLDS = (
+    ("sagan128", ["--preset", "sagan128"], 2,
+     ["--mesh_model", "2", "--mesh_spatial", "--seq_strategy", "ring"]),
+    ("sagan64", ["--preset", "sagan64", "--attn_heads", "2"], 4,
+     ["--mesh_data", "2", "--mesh_model", "2", "--mesh_spatial",
+      "--seq_strategy", "ulysses"]))
+# the flash kernels' wrappers
+SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def sp_f32_bound(name, b, s, dk, dv):
+    """flash_bound for bf16 operands whose gradients are written as f32
+    (4 bytes an output element, not 2)."""
+    t, by = flash_bound(name, b, s, dk, dv, 2)
+    outs = dk if name == "flash_dq" else dk + dv
+    bytes_ = 2.0 * b * s * (2 * dk + 2 * dv) + 4.0 * b * s * outs \
+        + 8.0 * b * s
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    return (t_bytes, "bytes") if t_bytes > t else (t, by)
+
+
+def sp_f32_kernels(torch, kernels, report):
+    """(a): flash_dq and flash_dkv with out_dtype=float32 on bf16
+    operands, launched twice (the same bits), against their plain versions
+    over FLASH_ROWS rows of the batch within kernel_error_bounds (no bf16
+    rounding of the output), timed beside their bound."""
+    from dcgan_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    f32 = torch.float32
+    rows = []
+    for label, (b, s, dk, dv) in SP_F32_SHAPES.items():
+        q, k, v = (torch.randn((b, s, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for d in (dk, dk, dv))
+        gout = torch.randn((b, s, dv), generator=g, device=dev)
+        scale = dk ** -0.5
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        do, delta = fa.bwd_stats(q, out, gout)
+        args = (q, k, v, do, lse, delta, scale)
+        dq = fa.flash_dq(*args, out_dtype=f32)
+        dkv = fa.flash_dkv(*args, out_dtype=f32)
+        again = (fa.flash_dq(*args, out_dtype=f32),
+                 *fa.flash_dkv(*args, out_dtype=f32))
+        torch.cuda.synchronize()
+        same_bits(torch, f"f32-output flash_dq, flash_dkv {label}",
+                  (dq, *dkv), again)
+        if dq.dtype != f32 or dkv[0].dtype != f32 or dkv[1].dtype != f32:
+            fail(f"spatial (a) {label}: the gradients are {dq.dtype}, "
+                 f"{dkv[0].dtype}, {dkv[1].dtype}, not float32")
+        n = FLASH_ROWS
+        sl = [t[:n] for t in (q, k, v, do, lse, delta)]
+        bounds = fa.kernel_error_bounds(*sl, scale)
+        errs = {"flash_dq": flash_close(
+            torch, f"f32-output flash_dq {label}", dq[:n],
+            fa.flash_dq_plain(*sl, scale, f32), bounds["dq"])}
+        want_dk, want_dv = fa.flash_dkv_plain(*sl, scale, f32)
+        errs["flash_dkv"] = max(
+            flash_close(torch, f"f32-output flash_dkv dk {label}",
+                        dkv[0][:n], want_dk, bounds["dk"]),
+            flash_close(torch, f"f32-output flash_dkv dv {label}",
+                        dkv[1][:n], want_dv, bounds["dv"]))
+        del again, want_dk, want_dv
+        calls = {"flash_dq": (lambda: fa.flash_dq(*args, out_dtype=f32),
+                              lambda: fa.flash_dq_plain(*sl, scale, f32)),
+                 "flash_dkv": (lambda: fa.flash_dkv(*args, out_dtype=f32),
+                               lambda: fa.flash_dkv_plain(*sl, scale,
+                                                          f32))}
+        for name, (kernel, plain) in calls.items():
+            ms, call_ms = time_ms(torch, kernel, 5, warmup=1,
+                                  label=f"{name} f32 out {label}")
+            plain_ms, _ = time_ms(torch, plain, 2, warmup=1,
+                                  label=f"{name} f32 out plain {label}")
+            bound, by = sp_f32_bound(name, b, s, dk, dv)
+            row = {"name": name, "shape": [b, s, dk, dv], "label": label,
+                   "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                   "plain_rows": n, "bound_ms": bound * 1e3,
+                   "bound_kind": by,
+                   "bound_by": "bytes" if by == "bytes" else "operations",
+                   "library_ms": None, "max_abs_err": errs[name]}
+            rows.append(row)
+            for entry in kernels:
+                if entry["name"] == name:
+                    entry.setdefault("f32_out", []).append(row)
+            log(f"spatial (a) {name} f32 out at {label} {[b, s, dk, dv]}: "
+                f"{ms:.4f} ms vs bound {bound * 1e3:.4f} ms ({by}); plain "
+                f"over {n} rows {plain_ms:.4f} ms; max |err| "
+                f"{errs[name]:.3g}")
+        del q, k, v, gout, out, lse, do, delta, dq, dkv, args, sl, bounds
+        torch.cuda.empty_cache()
+    report["f32_out"] = rows
+
+
+def sp_local_ring(torch, report):
+    """(b): ring x flash over a LocalRing of n blocks against flash over
+    the whole sequence, forward and backward: n flash_fwd, n flash_dq and
+    n flash_dkv launches a round; out, lse, dq, dk and dv over FLASH_ROWS
+    rows of the batch within twice kernel_error_bounds (each side's own
+    distance to the exact values; bf16 gradients one ulp more each), every
+    row finite; both timed."""
+    from dcgan_tpu_torch.ops import flash_attention as fa
+    from dcgan_tpu_torch.parallel.collectives import LocalRing
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    wrappers = all_wrappers()
+    rows = []
+    for label, (b, s, dk, dv), dt_name, ns in SP_RINGS:
+        dt = getattr(torch, dt_name)
+        q, k, v = (torch.randn((b, s, d), generator=g, device=dev).to(dt)
+                   for d in (dk, dk, dv))
+        gout = torch.randn((b, s, dv), generator=g, device=dev)
+        scale = dk ** -0.5
+
+        def whole():
+            out, lse = fa.flash_fwd(q, k, v, scale)
+            do, delta = fa.bwd_stats(q, out, gout)
+            return (out, lse, fa.flash_dq(q, k, v, do, lse, delta, scale),
+                    *fa.flash_dkv(q, k, v, do, lse, delta, scale))
+
+        want = whole()
+        do, delta = fa.bwd_stats(q, want[0], gout)
+        n_rows = FLASH_ROWS
+        bounds = fa.kernel_error_bounds(
+            *(t[:n_rows] for t in (q, k, v, do, want[1], delta)), scale)
+        whole_ms, _ = time_ms(torch, whole, 3, warmup=0,
+                              label=f"whole flash {label} {dt_name}")
+        for n in ns:
+            ring = LocalRing(n)
+            stacked = [ring.stack(t) for t in (q, k, v, gout)]
+
+            def ring_round():
+                out, lse = fa.ring_flash_forward(*stacked[:3], scale, ring)
+                return (out, lse, *fa.ring_flash_backward(
+                    *stacked[:3], out, lse, stacked[3], scale, ring))
+
+            reset_counts(wrappers)
+            got = [ring.unstack(t) for t in ring_round()]
+            torch.cuda.synchronize()
+            launches = {w: wrappers[w].launches for w in SP_KERNELS}
+            if launches != {w: n for w in SP_KERNELS}:
+                fail(f"spatial (b) {label} n={n}: launches {launches}, "
+                     f"expected {n} of each")
+            tag = f"{label} {[b, s, dk, dv]} {dt_name} n={n}"
+            errs = {}
+            for name, i, bound in (("out", 0, bounds["out"]),
+                                   ("lse", 1, 1e-5 * (1.0 + want[1][
+                                       :n_rows].abs())),
+                                   ("dq", 2, bounds["dq"]),
+                                   ("dk", 3, bounds["dk"]),
+                                   ("dv", 4, bounds["dv"])):
+                if not bool(torch.isfinite(got[i]).all()):
+                    fail(f"spatial (b) {tag}: non-finite {name}")
+                if got[i].dtype != want[i].dtype:
+                    fail(f"spatial (b) {tag}: {name} is {got[i].dtype}, "
+                         f"flash's {want[i].dtype}")
+                errs[name] = flash_close(
+                    torch, f"spatial (b) ring x flash {name} {tag}",
+                    got[i][:n_rows], want[i][:n_rows].to(got[i].dtype),
+                    2.0 * bound
+                    + (2.0 ** -7 * want[i][:n_rows].float().abs()
+                       if got[i].dtype == torch.bfloat16 else 0.0))
+            all_rows = {name: float((got[i].float() - want[i].float())
+                                    .abs().max())
+                        for name, i in (("out", 0), ("dq", 2), ("dk", 3),
+                                        ("dv", 4))}
+            ms, _ = time_ms(torch, ring_round, 3, warmup=0,
+                            label=f"ring x flash {tag}")
+            rows.append({"label": label, "shape": [b, s, dk, dv],
+                         "dtype": dt_name, "n": n, "launches": launches,
+                         "max_abs_err": errs, "max_abs_diff_all_rows":
+                         all_rows, "ms": ms, "whole_flash_ms": whole_ms})
+            log(f"spatial (b) ring x flash {tag}: {launches} launches; "
+                f"max |err| over {n_rows} rows {errs}, over all rows "
+                f"{all_rows}; {ms:.3f} ms fwd + bwd against whole-sequence "
+                f"flash {whole_ms:.3f} ms")
+            del got, stacked
+        del q, k, v, gout, want, do, delta, bounds
+        torch.cuda.empty_cache()
+    report["local_ring"] = rows
+
+
+def sp_hooked_main(argv):
+    """train.cli.main(argv) with the world's train_step timed and its
+    metrics read after every step (the readback ends the step on the
+    host). Returns (final state, [metrics], [host ms])."""
+    import torch
+
+    from dcgan_tpu_torch.train import cli, trainer
+
+    record = {"metrics": [], "ms": []}
+    orig = trainer.make_parallel_train
+
+    def hooked(cfg, world):
+        par = orig(cfg, world)
+        inner = par.fns.train_step
+
+        def timed(state, images, *args, **kwargs):
+            t0 = time.perf_counter()
+            state, m = inner(state, images, *args, **kwargs)
+            record["metrics"].append({k: float(v) for k, v in m.items()})
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+            return state, m
+        return dataclasses.replace(par, fns=dataclasses.replace(
+            par.fns, train_step=timed))
+
+    trainer.make_parallel_train = hooked
+    try:
+        state = cli.main(argv)
+    finally:
+        trainer.make_parallel_train = orig
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return state, record["metrics"], record["ms"]
+
+
+def sp_argv(workdir, name, preset, mesh, *, f32, steps, extra=()):
+    """The trainer's flags of a run of (c) or (d); `extra` last (a CPU
+    rehearsal's device and sizes)."""
+    tag = f"{name}_{'f32' if f32 else 'bf16'}_{'w' if mesh else 'one'}"
+    argv = preset + mesh + [
+        "--synthetic", "--max_steps", str(steps), "--seed", str(SEED),
+        "--device", "cuda", "--checkpoint_dir",
+        os.path.join(workdir, "spatial", tag), "--sample_every_steps", "0",
+        "--activation_summary_steps", "0"]
+    return argv + (["--precision", "f32"] if f32 else []) + list(extra)
+
+
+def sp_config(preset, mesh, extra, f32):
+    """The TrainConfig of a run of (c) or (d), as the trainer's CLI
+    builds it."""
+    from dcgan_tpu_torch.train import cli
+
+    argv = preset + mesh + ["--seed", str(SEED)] + list(extra) + (
+        ["--precision", "f32"] if f32 else [])
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+def sp_one_step(torch, cfg, world):
+    """One f32 step of `cfg`'s programs on `world` from the seeded init:
+    the global batch of SEED + 53 (every rank the same, each taking its
+    rows and the programs its rows of the images) and the trainer's draws
+    of step 0 (the gspmd rows). Returns (metrics, flat state, launches)."""
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.parallel.api import make_parallel_train
+    from dcgan_tpu_torch.train import trainer
+
+    dev = world.device
+    m = cfg.model
+    par = make_parallel_train(cfg, world)
+    state = par.fns.init(seed=SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    images = torch.rand((cfg.batch_size, m.output_size, m.output_size,
+                         m.c_dim), generator=g, device=dev) * 2 - 1
+    z, draws = par.step_draws(trainer.step_inputs)(cfg, 0, dev)
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    state, metrics = par.fns.train_step(state, par.rows(images), z, draws)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    launches = {w: wrappers[w].launches for w in SP_KERNELS}
+    flat = {k: v.float().cpu() for k, v in convert.flatten(state).items()}
+    return metrics, flat, launches
+
+
+def sp_digest(torch, flat):
+    import hashlib
+
+    digest = hashlib.sha256()
+    for key in sorted(flat):
+        digest.update(flat[key].detach().cpu().reshape(-1).contiguous()
+                      .view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def sp_rank(world, *, workdir, name, preset, mesh, extra=()):
+    """One rank of (c) or (d): one f32 step of the world's programs
+    (sp_one_step, TF32 off), then SP_STEPS bf16 steps through the trainer
+    with the counters set to 0 before and read after: the metrics and
+    host ms of every step, the staged and issued collectives, a digest of
+    each final state, and on rank 0 the f32 state."""
+    import torch
+
+    from dcgan_tpu_torch import convert
+    from dcgan_tpu_torch.parallel import collectives
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    metrics, flat, launches = sp_one_step(
+        torch, sp_config(preset, mesh, extra, f32=True), world)
+    out = {"rank": world.rank, "f32": {
+        "metrics": [metrics], "launches": launches,
+        "digest": sp_digest(torch, flat)}}
+    if world.rank == 0:
+        out["f32"]["state"] = flat
+    del flat
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+    before = dict(collectives.COUNTS)
+    staged = collectives.STAGED["host"]
+    t0 = time.perf_counter()
+    state, metrics, ms = sp_hooked_main(sp_argv(
+        workdir, name, preset, mesh, f32=False, steps=SP_STEPS,
+        extra=extra))
+    out["bf16"] = {
+        "train_s": time.perf_counter() - t0, "metrics": metrics,
+        "host_ms": ms,
+        "launches": {w: wrappers[w].launches for w in SP_KERNELS},
+        "collectives": {k: collectives.COUNTS[k] - before[k]
+                        for k in collectives.COUNTS},
+        "staged": collectives.STAGED["host"] - staged,
+        "digest": sp_digest(torch, convert.flatten(state))}
+    out["gloo_cuda"] = {kind: bool(v) for (_, kind), v in
+                        collectives._GLOO_CUDA.items()}
+    return out
+
+
+def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
+             extra=(), device="cuda:0"):
+    """(c) or (d): `n` gloo ranks sharing the card (sp_rank), against one
+    f32 step of the world of one on the same seeded init, global batch and
+    draws: every rank's metrics and states the same; the f32 step's losses
+    within 1e-4 relative of world 1's and its parameters within 2 * lr +
+    1e-5 (Adam's first step moves a parameter by at most lr whatever its
+    gradient, so two runs differ by at most 2 * lr where a gradient near 0
+    changes sign); kernels 6-8 in the f32 step at world 1's launches times
+    the ring's size (ring) or equal to them (Ulysses), and launched on
+    every rank by the trainer's bf16 steps."""
+    from dcgan_tpu_torch.parallel.distributed import single_process
+    from dcgan_tpu_torch.testing.multihost import run_world
+
+    cfg = sp_config(preset, [], extra, f32=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one_metrics, one, one_launches = sp_one_step(
+        torch, cfg, single_process(device))
+    torch.cuda.empty_cache() if torch.cuda.is_available() else None
+    t0 = time.perf_counter()
+    outs = run_world("chip_smoke:sp_rank", n, kwargs={
+        "workdir": workdir, "name": name, "preset": preset, "mesh": mesh,
+        "extra": list(extra)}, backend="gloo", device=device,
+        timeout=SP_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    ring = "ring" in mesh
+    model = int(mesh[mesh.index("--mesh_model") + 1])
+    for run in ("f32", "bf16"):
+        if len({o[run]["digest"] for o in outs}) != 1:
+            fail(f"spatial {name} {run}: the ranks' states differ")
+        for o in outs:
+            if o[run]["metrics"] != outs[0][run]["metrics"]:
+                fail(f"spatial {name} {run}: rank {o['rank']}'s losses "
+                     f"{o[run]['metrics']} differ from rank 0's "
+                     f"{outs[0][run]['metrics']}")
+            if not all(o[run]["launches"][w] > 0 for w in SP_KERNELS):
+                fail(f"spatial {name} {run} rank {o['rank']}: kernels 6-8 "
+                     f"launched {o[run]['launches']}")
+    want = {w: c * (model if ring else 1) for w, c in one_launches.items()}
+    for o in outs:
+        if o["f32"]["launches"] != want:
+            fail(f"spatial {name}: rank {o['rank']}'s f32 step launched "
+                 f"{o['f32']['launches']}, expected {want} (world 1's "
+                 f"{one_launches}{f' x {model}' if ring else ''})")
+    got_m = outs[0]["f32"]["metrics"][0]
+    for key, w in one_metrics.items():
+        if abs(got_m[key] - w) > 1e-4 * abs(w):
+            fail(f"spatial {name}: the f32 step's {key} {got_m[key]} vs "
+                 f"world 1's {w}, beyond 1e-4 relative")
+    lr = {"gen": cfg.g_learning_rate or cfg.learning_rate,
+          "disc": cfg.d_learning_rate or cfg.learning_rate}
+    state = outs[0]["f32"]["state"]
+    worst = {}
+    for key, w in one.items():
+        if not key.startswith("params/"):
+            continue
+        net = key.split("/")[1]
+        err = float((state[key] - w).abs().max())
+        if err > 2 * lr[net] + 1e-5:
+            fail(f"spatial {name}: {key} off world 1's by {err}, beyond "
+                 f"2 * lr + 1e-5 = {2 * lr[net] + 1e-5}")
+        worst[net] = max(worst.get(net, 0.0), err)
+    launches = {w: sum(o["bf16"]["launches"][w] for o in outs)
+                for w in SP_KERNELS}
+    for entry in kernels:
+        if entry["name"] in launches:
+            entry.setdefault("launches_by_path", {})[f"spatial {name}"] = \
+                launches[entry["name"]]
+    host_ms = [o["bf16"]["host_ms"] for o in outs]
+    report[name] = {
+        "ranks": n, "mesh": mesh, "world_s": world_s,
+        "metrics_f32": got_m, "metrics_world1": one_metrics,
+        "param_err": worst, "launches_world1_f32": one_launches,
+        "launches_f32_rank": outs[0]["f32"]["launches"],
+        "launches_bf16": launches,
+        "collectives_bf16_rank0": outs[0]["bf16"]["collectives"],
+        "staged_bf16": [o["bf16"]["staged"] for o in outs],
+        "gloo_cuda": outs[0]["gloo_cuda"], "host_ms_bf16": host_ms,
+        "train_s_bf16": [o["bf16"]["train_s"] for o in outs],
+        "losses_bf16": outs[0]["bf16"]["metrics"]}
+    log(f"spatial {name}: {n} gloo ranks on one card ({' '.join(mesh)}) "
+        f"in {world_s:.1f} s; losses equal on every rank; the f32 step "
+        f"{got_m} vs world 1's {one_metrics}, params within {worst}; "
+        f"kernels 6-8 {launches} over {SP_STEPS} bf16 trainer steps on the "
+        f"ranks; staged {report[name]['staged_bf16']} calls, gloo on CUDA "
+        f"{outs[0]['gloo_cuda']}; rank 0 host ms a bf16 step "
+        f"{[round(x, 1) for x in host_ms[0]]}")
+
+
+def spatial_and_check(torch, np, workdir, kernels):
+    """Phase 25 (`spatial`): (a) the f32-output kernels 7 and 8, (b) ring
+    x flash over a local ring at full size, (c) sagan128 on a 2-rank
+    spatial mesh with the ring, (d) sagan64 on a 2 x 2 mesh with Ulysses.
+    Returns the group's report."""
+    report = {}
+    t0 = time.perf_counter()
+    sp_f32_kernels(torch, kernels, report)
+    t1 = time.perf_counter()
+    sp_local_ring(torch, report)
+    t2 = time.perf_counter()
+    secs = {"a": t1 - t0, "b": t2 - t1}
+    for part, (name, preset, n, mesh) in zip("cd", SP_WORLDS):
+        t = time.perf_counter()
+        sp_world(torch, workdir, kernels, report, name, preset, n, mesh)
+        secs[part] = time.perf_counter() - t
+    secs["total"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    log(f"spatial: the group took {secs['total']:.1f} s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()
+                    if k != "total"))
+    return report
+
+
 # the end of the last group (phase_memory logs each group's seconds)
 _PHASE_T = time.perf_counter()
 
@@ -8258,6 +8749,8 @@ def main() -> int:
         phase_memory(torch, "trace", memory)
         mg_report = multi_gpu_and_check(torch, np, workdir, kernels)
         phase_memory(torch, "multi_gpu", memory)
+        sp_report = spatial_and_check(torch, np, workdir, kernels)
+        phase_memory(torch, "spatial", memory)
     print(json.dumps(row), flush=True)
     print(json.dumps({"sampler": timing}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
@@ -8276,6 +8769,7 @@ def main() -> int:
     print(json.dumps({"faults": faults_report}), flush=True)
     print(json.dumps({"trace": trace_report}), flush=True)
     print(json.dumps({"multi_gpu": mg_report}, default=str), flush=True)
+    print(json.dumps({"spatial": sp_report}, default=str), flush=True)
     print(json.dumps({"memory": memory}), flush=True)
 
     smi = subprocess.run(
@@ -8335,6 +8829,19 @@ def main() -> int:
             "world_s", "staged_host_calls", "grad_gap", "param_err",
             "rank0_step_ms")},
         "seconds": mg_report["seconds"], "card": card}}), flush=True)
+    print(json.dumps({"spatial_timing": {
+        "f32_out": [{k: r[k] for k in ("name", "shape", "ms", "bound_ms",
+                                       "plain_ms")}
+                    for r in sp_report["f32_out"]],
+        "local_ring": [{k: r[k] for k in ("label", "dtype", "n", "ms",
+                                          "whole_flash_ms")}
+                       for r in sp_report["local_ring"]],
+        **{name: {k: sp_report[name][k] for k in (
+            "world_s", "staged_bf16", "host_ms_bf16", "launches_bf16",
+            "param_err")} for name, *_ in SP_WORLDS},
+        "seconds": sp_report["seconds"],
+        "peak_reserved": memory["spatial"]["peak_reserved"],
+        "card": card}}), flush=True)
     print(card, flush=True)
     for entry in kernels:
         entry["launches"] = sum(entry["launches_by_path"].values())

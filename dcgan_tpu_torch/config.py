@@ -23,17 +23,18 @@ stacks' BatchNorm under `use_pallas` nor through an attention block on
 the flash kernels. The residual
 critic is norm-free and G's kernels never see the penalty's double
 backward (D's loss takes G's images detached), so resnet and stylegan
-train their penalties under `use_pallas`. A sequence mesh for the
-attention does not exist in the port yet: `ops/attention.py` refuses one.
+train their penalties under `use_pallas`.
 
 `MeshConfig` and the TrainConfig fields `mesh`, `backend`, `comm_overlap`
 and `comm_bucket_mb` are the JAX package's, with its names, defaults and
-checks. The port trains data parallelism over processes
-(parallel/api.py, one process per GPU): a `(data, model)` mesh with
-`model` 1. Tensor and spatial parallelism (`model` > 1, `spatial`), the
-ZeRO stages (`shard_opt`, `zero_stage` >= 2) and the bucketed
-collectives (`comm_overlap` other than "off") raise
-`NotImplementedError` naming ROADMAP Queue A item 7.
+checks. The port trains over processes, one per GPU (parallel/api.py):
+data parallelism (`model` 1), and the spatial mesh (`model` > 1 with
+`spatial`: the model axis splits image height, parallel/spatial.py, and
+the attention runs sequence-parallel over it, `attn_seq_strategy`). Tensor
+parallelism (`model` > 1 without `spatial`), the ZeRO stages (`shard_opt`,
+`zero_stage` >= 2) and the bucketed collectives (`comm_overlap` other than
+"off") raise `NotImplementedError` naming ROADMAP Queue A item 7, as do
+the settings the spatial step does not run yet (SPATIAL_UNPORTED).
 """
 
 from __future__ import annotations
@@ -174,8 +175,21 @@ class ModelConfig:
                     "wired")
 
 
-# what the port's data parallelism does not run yet, and where it waits
+# what the port's parallelism does not run yet, and where it waits
 MESH_UNPORTED = "not ported to dcgan_tpu_torch yet (ROADMAP Queue A item 7)"
+
+# what the JAX gspmd step runs under a spatial mesh and the port's spatial
+# step does not: (the TrainConfig's test, the setting's name)
+SPATIAL_UNPORTED = (
+    (lambda c: c.model.arch != "dcgan", "arch other than 'dcgan'"),
+    (lambda c: c.model.num_classes > 0, "class conditioning"),
+    (lambda c: bool(c.diffaug), "DiffAugment"),
+    (lambda c: c.loss == "wgan-gp" or c.r1_gamma > 0,
+     "the gradient penalties (WGAN-GP, R1)"),
+    (lambda c: bool(c.progressive), "a progressive schedule"),
+    (lambda c: c.pipeline_gd, "the pipelined G/D step"),
+    (lambda c: c.precision == "fp8", "the fp8 policy"),
+)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -213,15 +227,16 @@ class MeshConfig:
                 f"height, which needs model > 1 (got model={self.model}); "
                 "with model=1 the run would silently be plain data "
                 "parallelism")
-        # then what the port's data parallelism does not run
+        # then what the port's parallelism does not run
         unported = [f"{k}={v!r}" for k, v, default in (
-            ("model", self.model, 1), ("spatial", self.spatial, False),
             ("shard_opt", self.shard_opt, False),
             ("zero_stage", self.zero_stage, 1)) if v != default]
+        if self.model > 1 and not self.spatial:
+            unported.insert(0, f"model={self.model} without spatial")
         if unported:
             raise NotImplementedError(
-                f"mesh {', '.join(unported)}: tensor and spatial "
-                f"parallelism and the ZeRO stages are {MESH_UNPORTED}")
+                f"mesh {', '.join(unported)}: tensor parallelism and the "
+                f"ZeRO stages are {MESH_UNPORTED}")
 
     def __eq__(self, other):
         if type(other).__name__ != "MeshConfig" \
@@ -449,6 +464,15 @@ class TrainConfig:
                 "precision='fp8' rather than setting it directly")
         if self.backend not in ("gspmd", "shard_map"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.backend == "shard_map" and (self.mesh.model != 1
+                                            or self.mesh.spatial
+                                            or self.mesh.shard_opt):
+            raise ValueError(
+                "backend='shard_map' is data-parallel only (mesh.model must "
+                "be 1, spatial/shard_opt False — tensor/spatial/ZeRO-1 "
+                f"optimizer-state sharding live in the gspmd backend; "
+                f"ZeRO-2/3 is mesh.zero_stage, supported here); got "
+                f"mesh={self.mesh}")
         if self.comm_overlap not in ("off", "bucket", "prefetch"):
             raise ValueError(
                 f"comm_overlap must be one of 'off', 'bucket', 'prefetch', "
@@ -656,6 +680,12 @@ class TrainConfig:
                 "take through a Pallas kernel (the DCGAN stacks' BatchNorm "
                 "or an attention block under use_pallas); train the "
                 "penalty with use_pallas=False")
+        if self.mesh.spatial:
+            refused = [name for test, name in SPATIAL_UNPORTED if test(self)]
+            if refused:
+                raise NotImplementedError(
+                    f"{', '.join(refused)} under a spatial mesh: the "
+                    f"height-sharded step of these is {MESH_UNPORTED}")
 
 
 def model_config_from_dict(d: Dict[str, Any]) -> ModelConfig:

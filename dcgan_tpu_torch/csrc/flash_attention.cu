@@ -19,6 +19,10 @@
 // - dkv, one CTA per (batch, tile of keys), walking every q tile:
 //   dk = ((ds in the operand dtype)^T . q) * scale,
 //   dv = (p in the operand dtype)^T . do; dk, dv in k's and v's dtypes.
+// With bf16 operands dq and dkv may instead write their f32 accumulators
+// as f32 (out_dtype 0): the ring backward's per-hop terms, which it sums
+// across hops before one rounding (`_bwd_core(grad_dtype=jnp.float32)`);
+// the OutT template argument of the bf16 kernels.
 // dq and dkv stay two kernels and write disjoint outputs: no atomics, so two
 // launches give the same bits.
 //
@@ -1049,16 +1053,18 @@ __device__ __forceinline__ void dkv_tile(
   }
 }
 
-// vec: the 16-byte load path (see load_tile)
-template <int DKP, int DVP>
+// vec: the 16-byte load path (see load_tile). OutT: the gradients'
+// dtype, bf16 or float (the f32 accumulators written as they are, for the
+// ring backward's cross-hop sums)
+template <int DKP, int DVP, typename OutT>
 __global__ void __launch_bounds__(
     kDkvThreads,
     (MinBlocks<DKP, DVP, kDkvWarps, DkvLayout<DKP, DVP>::kMT>::value))
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk_out,
-                 bf16* __restrict__ dv_out, int S, int dk, int dv,
+                 const float* __restrict__ delta, OutT* __restrict__ dk_out,
+                 OutT* __restrict__ dv_out, int S, int dk, int dv,
                  float scale, int vec) {
   using L = DkvLayout<DKP, DVP>;
   constexpr int NK = DKP / 8, NV = DVP / 8, MT = L::kMT;
@@ -1160,8 +1166,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int key = row0 + 8 * r;
       if (key >= S) continue;
-      bf16* dk_row = dk_out + ((int64_t)b * S + key) * dk;
-      bf16* dv_row = dv_out + ((int64_t)b * S + key) * dv;
+      OutT* dk_row = dk_out + ((int64_t)b * S + key) * dk;
+      OutT* dv_row = dv_out + ((int64_t)b * S + key) * dv;
 #pragma unroll
       for (int n = 0; n < NK; ++n)
         store_pair(dk_row, n * 8 + 2 * t4, dk, dk_acc[mt][n][2 * r] * scale,
@@ -1269,15 +1275,15 @@ __device__ __forceinline__ void dq_tile(
   }
 }
 
-// vec: the 16-byte load path (see load_tile)
-template <int DKP, int DVP>
+// vec: the 16-byte load path (see load_tile); OutT as in flash_dkv_kernel
+template <int DKP, int DVP, typename OutT>
 __global__ void __launch_bounds__(
     kDqThreads,
     (MinBlocks<DKP, DVP, kDqWarps, DqLayout<DKP, DVP>::kMT>::value))
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
+                const float* __restrict__ delta, OutT* __restrict__ dq,
                 int S, int dk, int dv, float scale, int vec) {
   using L = DqLayout<DKP, DVP>;
   constexpr int MT = L::kMT;
@@ -1365,7 +1371,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= S) continue;
-      bf16* o = dq + ((int64_t)b * S + row) * dk;
+      OutT* o = dq + ((int64_t)b * S + row) * dk;
 #pragma unroll
       for (int n = 0; n < DKP / 8; ++n)
         store_pair(o, n * 8 + 2 * t4, dk, acc[mt][n][2 * r] * scale,
@@ -1394,11 +1400,40 @@ struct Args {
   int b, s, dk, dv;
   float scale;
   cudaStream_t stream;
+  int out_dtype;  // dq, dk, dv: the operands' dtype code, or kFloat32
 };
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 using dcgan::aligned16;
+
+// bf16 dq or dkv writing OutT gradients
+template <int DKP, int DVP, typename OutT>
+cudaError_t launch_bf16_bwd(Which which, const Args& a, int vec) {
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* d = static_cast<const bf16*>(a.dout);
+  cudaError_t err;
+  if (which == kDq) {
+    const int bytes = DqLayout<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_dq_kernel<DKP, DVP, OutT>, bytes))) return err;
+    constexpr int rows = DqLayout<DKP, DVP>::kRowsCta;
+    const dim3 grid((a.s + rows - 1) / rows, a.b);
+    flash_dq_kernel<DKP, DVP, OutT><<<grid, kDqThreads, bytes, a.stream>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<OutT*>(a.out0), a.s, a.dk,
+        a.dv, a.scale, vec);
+  } else {
+    const int bytes = DkvLayout<DKP, DVP>::kBytes;
+    if ((err = prepare(flash_dkv_kernel<DKP, DVP, OutT>, bytes))) return err;
+    constexpr int keys = DkvLayout<DKP, DVP>::kKeysCta;
+    const dim3 grid((a.s + keys - 1) / keys, a.b);
+    flash_dkv_kernel<DKP, DVP, OutT><<<grid, kDkvThreads, bytes, a.stream>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<OutT*>(a.out0),
+        static_cast<OutT*>(a.out1), a.s, a.dk, a.dv, a.scale, vec);
+  }
+  return cudaGetLastError();
+}
 
 // bf16 forward, dq and dkv
 template <int DKP, int DVP>
@@ -1419,23 +1454,10 @@ cudaError_t launch_bf16(Which which, const Args& a) {
     flash_fwd_kernel<DKP, DVP><<<grid, kFwdThreads, bytes, a.stream>>>(
         q, k, v, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
         a.s, a.dk, a.dv, a.scale * kLog2e, vec);
-  } else if (which == kDq) {
-    const int bytes = DqLayout<DKP, DVP>::kBytes;
-    if ((err = prepare(flash_dq_kernel<DKP, DVP>, bytes))) return err;
-    constexpr int rows = DqLayout<DKP, DVP>::kRowsCta;
-    const dim3 grid((a.s + rows - 1) / rows, a.b);
-    flash_dq_kernel<DKP, DVP><<<grid, kDqThreads, bytes, a.stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), a.s, a.dk, a.dv, a.scale, vec);
+  } else if (a.out_dtype == dcgan::kFloat32) {
+    return launch_bf16_bwd<DKP, DVP, float>(which, a, vec);
   } else {
-    const int bytes = DkvLayout<DKP, DVP>::kBytes;
-    if ((err = prepare(flash_dkv_kernel<DKP, DVP>, bytes))) return err;
-    constexpr int keys = DkvLayout<DKP, DVP>::kKeysCta;
-    const dim3 grid((a.s + keys - 1) / keys, a.b);
-    flash_dkv_kernel<DKP, DVP><<<grid, kDkvThreads, bytes, a.stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.s, a.dk,
-        a.dv, a.scale, vec);
+    return launch_bf16_bwd<DKP, DVP, bf16>(which, a, vec);
   }
   return cudaGetLastError();
 }
@@ -1495,6 +1517,9 @@ int run(Which which, const Args& a, int dtype) {
   if (a.b <= 0 || a.s <= 0) return (int)cudaSuccess;
   if (a.b > 65535 || a.dk < 1 || a.dk > 64 || a.dv < 1 || a.dv > 128)
     return (int)cudaErrorInvalidValue;
+  // gradients in the operands' dtype, or f32 from bf16 operands
+  if (a.out_dtype != dtype && a.out_dtype != dcgan::kFloat32)
+    return (int)cudaErrorInvalidValue;
   if (dtype == dcgan::kFloat32) return (int)dispatch<float>(which, a);
   if (dtype == dcgan::kBFloat16)
     return (int)dispatch<__nv_bfloat16>(which, a);
@@ -1513,28 +1538,30 @@ extern "C" int dcgan_flash_fwd(const void* q, const void* k, const void* v,
                                int dv, int dtype, float scale,
                                void* stream) {
   const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, b, s, dk, dv,
-               scale, static_cast<cudaStream_t>(stream)};
+               scale, static_cast<cudaStream_t>(stream), dtype};
   return run(kFwd, a, dtype);
 }
 
-// dq [b, s, dk] in the inputs' dtype
+// dq [b, s, dk] in out_dtype: the inputs' dtype, or 0 (float32) from
+// bfloat16 inputs
 extern "C" int dcgan_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dq, int b, int s,
-                              int dk, int dv, int dtype, float scale,
-                              void* stream) {
+                              int dk, int dv, int dtype, int out_dtype,
+                              float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, b, s, dk, dv, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), out_dtype};
   return run(kDq, a, dtype);
 }
 
-// dk [b, s, dk] and dv [b, s, dv] in the inputs' dtype
+// dk [b, s, dk] and dv [b, s, dv] in out_dtype, as dcgan_flash_dq
 extern "C" int dcgan_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dk_out,
                                void* dv_out, int b, int s, int dk, int dv,
-                               int dtype, float scale, void* stream) {
+                               int dtype, int out_dtype, float scale,
+                               void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk_out, dv_out, b, s, dk, dv,
-               scale, static_cast<cudaStream_t>(stream)};
+               scale, static_cast<cudaStream_t>(stream), out_dtype};
   return run(kDkv, a, dtype);
 }

@@ -52,6 +52,13 @@ feature maps reach _FP8_MIN_RES pixels quantize both GEMM operands
 D's first conv never do. No stage of a 64 px model reaches 64 px inside
 (its interior maps top out at 32), so the policy bites from 128 px up.
 
+Under a spatial mesh (`spatial=`, parallel/spatial.py; the DCGAN stacks
+only) every map is the rank's block of rows: G's projection keeps the
+rank's rows of its map, the convs and deconvs exchange halo rows, the
+attention runs sequence-parallel over the model axis
+(`cfg.attn_seq_strategy`), D's head sums its partial products over the
+model axis, and G returns the rank's rows of the images.
+
 `capture`, a dict, receives the post-activation tensors under the JAX
 names, for `summarize`: "h0".."hk" in G (hk the tanh output), "h0"..
 "h{k-1}" and "logit" in D.
@@ -97,9 +104,24 @@ def _stage_quant(cfg: ModelConfig, res: int) -> str:
     return cfg.quant if res >= _FP8_MIN_RES else ""
 
 
+def _no_spatial(cfg: ModelConfig, spatial) -> None:
+    if spatial is not None:
+        raise NotImplementedError(
+            f"arch={cfg.arch!r} under a spatial mesh is not ported to "
+            "dcgan_tpu_torch yet (ROADMAP Queue A item 7)")
+
+
 def _tree_to(tree: Pytree, device: torch.device) -> Pytree:
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _no_fused(spatial) -> None:
+    """The fused stages' kernels take whole channel vectors of whole maps;
+    the spatial step narrows pallas_fused off (parallel/api.py)."""
+    if spatial is not None:
+        raise ValueError("pallas_fused under a spatial mesh: the fused "
+                         "kernels need full channel vectors per shard")
 
 
 def _family_g(cfg: ModelConfig):
@@ -199,16 +221,18 @@ def generator_init(cfg: ModelConfig, *, seed: int = 0,
 def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                     cfg: ModelConfig, train: bool,
                     labels: Optional[torch.Tensor] = None,
-                    capture: Optional[dict] = None, group=None
-                    ) -> Tuple[torch.Tensor, Pytree]:
+                    capture: Optional[dict] = None, group=None,
+                    spatial=None) -> Tuple[torch.Tensor, Pytree]:
     """z [B, z_dim] -> (image [B, S, S, c_dim] float32 in tanh range,
     state), on z's device. train=False is the sampler path (running BN
     statistics, stored SN vectors, the state returned unchanged);
     train=True normalizes with batch statistics and returns the updated
     state, the moments averaged over the ranks of a process `group` (the
-    JAX `axis_name`). A conditional model needs `labels` [B]."""
+    JAX `axis_name`). A conditional model needs `labels` [B]. Under
+    `spatial` the image is the rank's rows [B, S / n, S, c_dim]."""
     family = _family_g(cfg)
     if family is not None:
+        _no_spatial(cfg, spatial)
         return family.generator_apply(params, state, z, cfg=cfg,
                                       train=train, labels=labels,
                                       capture=capture, group=group)
@@ -226,6 +250,8 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         p = _sn_attn(params["attn"], state, new_state, train) if sn \
             else params["attn"]
         return attn_apply(p, h, compute_dtype=cdt, num_heads=cfg.attn_heads,
+                          seq_mesh=None if spatial is None else spatial.ring,
+                          seq_strategy=cfg.attn_seq_strategy,
                           use_pallas=cfg.use_pallas)
 
     bn_labels = labels if cfg.conditional_bn else None
@@ -243,6 +269,8 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                       dim=-1)
     h = linear_apply(layer("proj"), z.to(cdt), compute_dtype=cdt)
     h = h.reshape(-1, cfg.base_size, cfg.base_size, top_ch)
+    if spatial is not None:
+        h = spatial.rows(h)
     h, new_state["bn0"] = bn("bn0", h)
     if cfg.attn_res == cfg.base_size:
         h = attend(h)
@@ -252,6 +280,7 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         quant = "" if i == k else _stage_quant(cfg,
                                                cfg.base_size * (2 ** i))
         if cfg.pallas_fused and i < k:
+            _no_fused(spatial)
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"deconv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
@@ -259,7 +288,7 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
                 act="relu", compute_dtype=cdt, quant=quant, group=group)
         else:
             h = deconv2d_apply(layer(f"deconv{i}"), h, compute_dtype=cdt,
-                               quant=quant)
+                               quant=quant, spatial=spatial)
             if i < k:
                 h, new_state[f"bn{i}"] = bn(f"bn{i}", h)
         if i < k:
@@ -276,11 +305,12 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
 
 @torch.inference_mode()
 def sampler_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
-                  cfg: ModelConfig,
-                  labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Inference-mode generation: generator_apply(train=False)."""
+                  cfg: ModelConfig, labels: Optional[torch.Tensor] = None,
+                  spatial=None) -> torch.Tensor:
+    """Inference-mode generation: generator_apply(train=False) (the
+    rank's rows under `spatial`)."""
     img, _ = generator_apply(params, state, z, cfg=cfg, train=False,
-                             labels=labels)
+                             labels=labels, spatial=spatial)
     return img
 
 
@@ -328,14 +358,17 @@ def discriminator_init(cfg: ModelConfig, *, seed: int = 0,
 def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                         *, cfg: ModelConfig, train: bool,
                         labels: Optional[torch.Tensor] = None,
-                        capture: Optional[dict] = None, group=None
+                        capture: Optional[dict] = None, group=None,
+                        spatial=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """image [B, S, S, c] -> (sigmoid(logit), logit [B, 1] float32,
     state); a process `group` as in generator_apply. A conditional model
-    needs `labels` [B]."""
+    needs `labels` [B]. Under `spatial` the image is the rank's rows and
+    the logit the whole image's, the same on every model rank."""
     if cfg.arch in ("resnet", "stylegan"):
         from dcgan_tpu_torch.models import resnet
 
+        _no_spatial(cfg, spatial)
         return resnet.discriminator_apply(params, state, image, cfg=cfg,
                                           train=train, labels=labels,
                                           capture=capture, group=group)
@@ -352,6 +385,8 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
         p = _sn_attn(params["attn"], state, new_state, train) if sn \
             else params["attn"]
         return attn_apply(p, h, compute_dtype=cdt, num_heads=cfg.attn_heads,
+                          seq_mesh=None if spatial is None else spatial.ring,
+                          seq_strategy=cfg.attn_seq_strategy,
                           use_pallas=cfg.use_pallas)
 
     h = image.to(cdt)
@@ -364,6 +399,7 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
     for i in range(k):
         quant = _stage_quant(cfg, cfg.output_size >> i)
         if cfg.pallas_fused and i > 0:
+            _no_fused(spatial)
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"conv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=False, kernel=cfg.kernel_size, stride=2,
@@ -372,21 +408,24 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
                 group=group)
         elif i > 0:
             h = conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt,
-                             quant=quant)
+                             quant=quant, spatial=spatial)
             h, new_state[f"bn{i}"] = batch_norm_apply(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train,
                 momentum=cfg.bn_momentum, eps=cfg.bn_eps, act="lrelu",
                 leak=cfg.leak, use_pallas=cfg.bn_use_pallas, group=group)
         else:
-            h = lrelu(conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt),
-                      cfg.leak)
+            h = lrelu(conv2d_apply(layer(f"conv{i}"), h, compute_dtype=cdt,
+                                   spatial=spatial), cfg.leak)
         if cfg.attn_res and cfg.attn_res == cfg.output_size >> (i + 1):
             h = attend(h)
         if capture is not None:
             capture[f"h{i}"] = h
     # the head's rows are laid out for the NHWC flatten
     h = h.reshape(h.shape[0], -1)
-    logit = linear_apply(layer("head"), h, compute_dtype=cdt).float()
+    if spatial is None:
+        logit = linear_apply(layer("head"), h, compute_dtype=cdt).float()
+    else:
+        logit = spatial.head(layer("head"), h, cdt).float()
     if capture is not None:
         capture["logit"] = logit
     return torch.sigmoid(logit), logit, new_state

@@ -1,5 +1,6 @@
-"""Flash attention: the forward, dq and dkv kernels and their wrappers (the
-counterpart of `dcgan_tpu/ops/pallas_attention.py:123-346`).
+"""Flash attention: the forward, dq and dkv kernels and their wrappers, and
+ring x flash over them (the counterpart of
+`dcgan_tpu/ops/pallas_attention.py:123-443`).
 
 `flash_attention(q, k, v, scale)` is softmax(q k^T * scale) v over [B, S, d]
 blocks, returned in f32, without an [S, S] score matrix in device memory.
@@ -13,7 +14,24 @@ as XLA runs it in JAX), then the dq kernel, then the dkv kernel.
 - `flash_dq(q, k, v, do, lse, delta, scale)` -> dq in q's dtype, replacing
   `_dq_kernel`;
 - `flash_dkv(...)` -> (dk, dv) in k's and v's dtypes, replacing
-  `_dkv_kernel`.
+  `_dkv_kernel`;
+- `out_dtype=torch.float32` asks dq and dkv for f32 gradients from bf16
+  operands, the accumulators written without a bf16 rounding (`_bwd_core`'s
+  `grad_dtype`, which the ring backward passes).
+
+`ring_flash_attention(q, k, v, scale=, ring=)` is exact attention over a
+sequence split into n blocks around a ring (`pallas_attention.py:351-443`):
+each rank's q stays, the (k, v) blocks rotate, and every hop's fold runs the
+flash kernels. The forward runs `flash_fwd` on the resident block and then
+on each of the n - 1 rotated ones, merging the normalized partials in f32:
+lse = logaddexp(lse, lse_b), out = out * e^(lse_old - lse) + out_b *
+e^(lse_b - lse). The backward computes `bwd_stats` once against the global
+lse, then takes n hops of `flash_dq` and `flash_dkv` with f32 outputs: dq
+sums on the rank, the f32 (dk, dv) sums travel with their blocks and are
+home after the full cycle, and each gradient is cast to its operand's
+dtype at the end. `ring` is parallel/collectives.py's `GroupRing` (one
+block per rank, `lax.ppermute`'s ring) or `LocalRing` (the n blocks
+stacked along dim 0 in one process, each hop one launch over all of them).
 
 Precision policy (the JAX one): the products take the operands in their
 dtype (bf16 on the sagan64 path, f32 in the f32 tests) and accumulate in
@@ -30,7 +48,7 @@ launches the kernel or raises. Each wrapper counts its launches in
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -79,22 +97,24 @@ def _probs_and_ds(q, k, v, do, lse, delta, scale):
 
 def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                   scale: float) -> torch.Tensor:
+                   scale: float, out_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
     """dq = ((ds in q's dtype) . k) * scale, ds = p * (do . v^T - delta),
-    p = exp(s - lse); returned in q's dtype."""
+    p = exp(s - lse); returned in `out_dtype` (q's dtype by default)."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
-    return (_mm(ds, k, q.dtype) * scale).to(q.dtype)
+    return (_mm(ds, k, q.dtype) * scale).to(out_dtype or q.dtype)
 
 
 def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                    scale: float, out_dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk = ((ds in k's dtype)^T . q) * scale and dv = (p in v's dtype)^T
-    . do, in k's and v's dtypes."""
+    . do, in `out_dtype` (k's and v's dtypes by default)."""
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
     dk = _mm(ds.transpose(-1, -2), q, k.dtype) * scale
     dv = _mm(p.transpose(-1, -2), do, v.dtype)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def kernel_error_bounds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,6 +189,16 @@ def _dims(q, v):
     return b, s, dk, v.shape[2], DTYPE_CODES[q.dtype]
 
 
+def _out_dtype(q: torch.Tensor, out_dtype: Optional[torch.dtype]
+               ) -> torch.dtype:
+    """The gradients' dtype: q's, or f32 (from bf16 operands too)."""
+    out = out_dtype or q.dtype
+    if out not in (q.dtype, torch.float32):
+        raise ValueError(f"the gradients come in the operands' dtype "
+                         f"({q.dtype}) or float32, not {out}")
+    return out
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out f32 [B, S, dv], lse f32 [B, S]). A CPU tensor takes the plain
@@ -203,20 +233,24 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-             scale: float) -> torch.Tensor:
-    """dq in q's dtype from the saved lse and delta. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (and raises if it
-    cannot). `flash_dq.launches` counts launches."""
+             scale: float, out_dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
+    """dq in `out_dtype` (q's dtype, or f32) from the saved lse and delta.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and raises if it cannot). `flash_dq.launches` counts launches."""
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, scale)
+        return flash_dq_plain(q, k, v, do, lse, delta, scale,
+                              _out_dtype(q, out_dtype))
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    out = _out_dtype(q, out_dtype)
     b, s, dk, dv, code = _dims(q, v)
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=out)
     fn = c_function("flash_attention", "dcgan_flash_dq")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, dk,
-                 dv, code, float(scale), stream_of(q.device))
+                 dv, code, DTYPE_CODES[out], float(scale),
+                 stream_of(q.device))
     check_launch("flash_dq", err)
     flash_dq.launches += 1
     return dq
@@ -227,21 +261,25 @@ flash_dq.launches = 0
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) in k's and v's dtypes. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (and raises if it cannot).
-    `flash_dkv.launches` counts launches."""
+              scale: float, out_dtype: Optional[torch.dtype] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in `out_dtype` (k's and v's dtypes, or f32). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (and raises
+    if it cannot). `flash_dkv.launches` counts launches."""
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale)
+        return flash_dkv_plain(q, k, v, do, lse, delta, scale,
+                               _out_dtype(q, out_dtype))
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    out = _out_dtype(q, out_dtype)
     b, s, dk, dv, code = _dims(q, v)
-    dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
+    dk_out = torch.empty_like(k, dtype=out)
+    dv_out = torch.empty_like(v, dtype=out)
     fn = c_function("flash_attention", "dcgan_flash_dkv")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk_out.data_ptr(),
-                 dv_out.data_ptr(), b, s, dk, dv, code, float(scale),
-                 stream_of(q.device))
+                 dv_out.data_ptr(), b, s, dk, dv, code, DTYPE_CODES[out],
+                 float(scale), stream_of(q.device))
     check_launch("flash_dkv", err)
     flash_dkv.launches += 1
     return dk_out, dv_out
@@ -279,3 +317,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q must be [B, S, d], got {tuple(q.shape)}")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), scale)
+
+
+# ---------------------------------------------------------------------------
+# Ring x flash
+# ---------------------------------------------------------------------------
+
+def ring_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, ring) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(out f32, lse f32) over the whole ring: the resident block's
+    `flash_fwd`, then n - 1 hops that rotate (k, v) and merge each block's
+    normalized partial (`_ring_flash_fwd_pass`)."""
+    out, lse = flash_fwd(q, k, v, scale)
+    k_blk, v_blk = k, v
+    for _ in range(ring.n - 1):
+        k_blk, v_blk = ring.rotate(k_blk, v_blk)
+        out_b, lse_b = flash_fwd(q, k_blk, v_blk, scale)
+        lse_new = torch.logaddexp(lse, lse_b)
+        out = (out * torch.exp(lse - lse_new).unsqueeze(-1)
+               + out_b * torch.exp(lse_b - lse_new).unsqueeze(-1))
+        lse = lse_new
+    return out, lse
+
+
+def ring_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, scale: float, ring
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) in the operands' dtypes (`_ring_flash_vjp_bwd`): the
+    hop-invariant stats once, against the global lse, then n hops of the
+    dq and dkv kernels with f32 outputs; (k, v) and their f32 gradient
+    sums rotate together and are home after the n-th rotation."""
+    do, delta = bwd_stats(q, out, g)
+    f32 = torch.float32
+    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    dk_c = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv_c = torch.zeros(v.shape, dtype=f32, device=v.device)
+    k_blk, v_blk = k, v
+    for hop in range(ring.n):
+        dq += flash_dq(q, k_blk, v_blk, do, lse, delta, scale, out_dtype=f32)
+        dk_h, dv_h = flash_dkv(q, k_blk, v_blk, do, lse, delta, scale,
+                               out_dtype=f32)
+        dk_c += dk_h
+        dv_c += dv_h
+        if hop < ring.n - 1:
+            k_blk, v_blk, dk_c, dv_c = ring.rotate(k_blk, v_blk, dk_c, dv_c)
+        else:   # the blocks themselves are not needed at home
+            dk_c, dv_c = ring.rotate(dk_c, dv_c)
+    return dq.to(q.dtype), dk_c.to(k.dtype), dv_c.to(v.dtype)
+
+
+class _RingFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, ring):
+        out, lse = ring_flash_forward(q, k, v, scale, ring)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.ring = scale, ring
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ring_flash_backward(q, k, v, out, lse,
+                                         g.contiguous(), ctx.scale, ctx.ring)
+        return dq, dk, dv, None, None
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: float, ring) -> torch.Tensor:
+    """Exact attention over the ring's whole sequence, f32 [B, S_local,
+    dv] for the rank's (or, over a LocalRing, every stacked shard's) q
+    rows, every hop's fold on the flash kernels; differentiable in q, k
+    and v. `ring.n == 1` is `flash_attention`."""
+    if ring.n == 1:
+        return flash_attention(q, k, v, scale)
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, S, d], got {tuple(q.shape)}")
+    return _RingFlash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                            scale, ring)

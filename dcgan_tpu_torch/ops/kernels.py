@@ -69,10 +69,12 @@ _SIGNATURES = {
     "dcgan_gemm_bias_moments_parts": [_I] * 5,  # m, c, in_dtype, splits, sms
     # q, k, v, out, lse, b, s, dk, dv, dtype, scale, stream
     "dcgan_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
-    # q, k, v, do, lse, delta, dq, b, s, dk, dv, dtype, scale, stream
-    "dcgan_flash_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
-    # q, k, v, do, lse, delta, dk, dv, b, s, dk, dv, dtype, scale, stream
-    "dcgan_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, delta, dq, b, s, dk, dv, dtype, out_dtype, scale,
+    # stream
+    "dcgan_flash_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # q, k, v, do, lse, delta, dk, dv, b, s, dk, dv, dtype, out_dtype,
+    # scale, stream
+    "dcgan_flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 

@@ -17,6 +17,12 @@ permuted to (Cin, Cout, kh, kw), with padding (k-1)//2 - 1 (1 for k=5) and
 the last row and column cropped; the textbook `padding=2, output_padding=1`
 is a different function (off by O(1) on random weights).
 
+Under a spatial mesh (`spatial=`, parallel/spatial.py) x is the rank's
+block of rows: the conv and the deconv take the rows their kernel reaches
+above and below it from the neighbours (`spatial.halo`, zeros past the
+image's edge, where the unsharded op pads) and convolve with no padding
+in H, so each rank computes its rows of the unsharded output.
+
 Under the fp8 precision policy a quantized stage (`quant="fp8"`, chosen by
 models/dcgan.py::_stage_quant) passes both GEMM operands through
 `fake_quant_fp8` first: fp8 numerics on any device, the products still in
@@ -233,28 +239,38 @@ def conv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, *,
 
 def conv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
                  compute_dtype: Optional[torch.dtype] = None,
-                 quant: str = "") -> torch.Tensor:
+                 quant: str = "", spatial=None) -> torch.Tensor:
     """NHWC [N, H, W, Cin] -> NHWC [N, ceil(H/s), ceil(W/s), Cout], the JAX
     `lax.conv_general_dilated(..., padding="SAME")` followed by the bias;
-    quant="fp8" quantizes both operands first."""
+    quant="fp8" quantizes both operands first; under `spatial` x and the
+    output are the rank's rows."""
     w, b = params["w"], params["b"]
     if compute_dtype is not None:
         x, w = x.to(compute_dtype), w.to(compute_dtype)
     if quant == "fp8":
         x, w = fake_quant_fp8(x), fake_quant_fp8(w)
-    y = conv2d(x, w, stride=stride)
+    y = conv2d(x, w, stride=stride, spatial=spatial)
     return y + b.to(y.dtype)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *,
-           stride: int = 2) -> torch.Tensor:
+           stride: int = 2, spatial=None) -> torch.Tensor:
     """The convolution of `conv2d_apply` without its bias: NHWC x HWIO ->
     NHWC, `lax.conv_general_dilated(..., padding="SAME")` in the operands'
     dtype (the modulated convs of models/stylegan.py add their bias after
-    the demodulation)."""
+    the demodulation). Under `spatial` the H padding is the halo of the
+    rank's rows (rows a multiple of the stride, so the blocks' outputs
+    tile the unsharded output)."""
     k = w.shape[0]
-    (top, bottom), (left, right) = (same_pads(x.shape[1], k, stride),
-                                    same_pads(x.shape[2], k, stride))
+    if spatial is None:
+        top, bottom = same_pads(x.shape[1], k, stride)
+    else:
+        if x.shape[1] % stride:
+            raise ValueError(f"a {x.shape[1]}-row block does not tile a "
+                             f"stride-{stride} conv's output")
+        x = spatial.halo(x, *same_pads(x.shape[1] * spatial.n, k, stride))
+        top = bottom = 0
+    left, right = same_pads(x.shape[2], k, stride)
     xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
     y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1)
@@ -272,12 +288,25 @@ def deconv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, *,
             "b": torch.zeros((out_ch,), dtype=dtype)}
 
 
+def deconv_halo(k: int) -> Tuple[int, int]:
+    """(rows above, rows below) of a rank's block that a stride-2 SAME
+    transposed conv of odd kernel k reaches: the dilated input is padded
+    (k + 1) / 2 before, and output row o reads dilated rows o - (k + 1) / 2
+    .. o + (k - 3) / 2 (at least one row below, so that the block's
+    dilated rows span its 2h outputs)."""
+    before = (k + 1) // 2
+    return before // 2, max(1, (k - 2 - before) // 2 + 1)
+
+
 def deconv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
                    compute_dtype: Optional[torch.dtype] = None,
-                   quant: str = "") -> torch.Tensor:
+                   quant: str = "", spatial=None) -> torch.Tensor:
     """NHWC [N, H, W, Cin] -> NHWC [N, H*s, W*s, Cout], the JAX
     `lax.conv_transpose(..., padding="SAME")` followed by the bias;
-    quant="fp8" quantizes both operands first."""
+    quant="fp8" quantizes both operands first; under `spatial` x and the
+    output are the rank's rows (`deconv_halo`'s rows around x, the
+    dilated block padded by the rest of the SAME padding before and
+    cropped to 2h rows)."""
     w, b = params["w"], params["b"]
     if compute_dtype is not None:
         x, w = x.to(compute_dtype), w.to(compute_dtype)
@@ -291,9 +320,22 @@ def deconv2d_apply(params: Pytree, x: torch.Tensor, *, stride: int = 2,
             f"deconv2d_apply supports odd kernels at stride 2, got "
             f"kernel={k} stride={stride}")
     w_t = w.flip(0, 1).permute(2, 3, 0, 1)          # [Cin, Cout, kh, kw]
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_t, stride=stride,
-                           padding=(k - 1) // 2 - 1)
-    y = y[..., :-1, :-1].permute(0, 2, 3, 1)
+    pad = (k - 1) // 2 - 1
+    if spatial is None:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_t, stride=stride,
+                               padding=pad)
+        y = y[..., :-1, :-1]
+    else:
+        h = x.shape[1]
+        top, bottom = deconv_halo(k)
+        x = spatial.halo(x, top, bottom)
+        # the dilated block starts 2 * top rows above the rank's first
+        # row; the unsharded op pads (k + 1) / 2 dilated rows before row 0
+        pad_h = k - 1 - ((k + 1) // 2 - 2 * top)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w_t, stride=stride,
+                               padding=(pad_h, pad))
+        y = y[..., :2 * h, :-1]
+    y = y.permute(0, 2, 3, 1)
     return y + b.to(y.dtype)
 
 

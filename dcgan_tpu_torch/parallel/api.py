@@ -1,4 +1,4 @@
-"""The data-parallel training programs (the counterpart of
+"""The training programs over processes (the counterpart of
 `dcgan_tpu/parallel/api.py:43-129, 131-364` and
 `parallel/shard_map_backend.py:61-324`).
 
@@ -21,6 +21,17 @@ randomness:
 - "shard_map": every rank draws its own rows from the step's seed folded
   with its rank (`shard_map_backend.py:216-219` folds `axis_index`).
 
+On a spatial mesh (`MeshConfig(model > 1, spatial=True)`, the gspmd
+backend) rank r sits at data index r // model and model index r % model;
+the rank's batch is its data index's share and its rows of the images
+(parallel/spatial.py: the programs take the data share's whole images
+and cut the rank's rows), its draws the rows of its data index, and the
+step is `make_train_step(local_cfg, world.group, spatial)`. JAX's routing
+holds: with attention the BN and fused kernels are narrowed off
+(`bn_pallas`, `pallas_fused`) and kernels 6-8 run as ring x flash; without
+attention `use_pallas` is refused (`api.py:140-164`). The sampler gathers
+the rows over the model axis, then the images over the data axis.
+
 `make_parallel_train` returns the programs under the JAX `programs`
 names: init, train_step, multi_step, sampler, summarize, eval_losses,
 gen_fakes, d_update, g_update. `fns` holds the same functions as a
@@ -42,6 +53,7 @@ from dcgan_tpu_torch.config import TrainConfig
 from dcgan_tpu_torch.parallel.collectives import gather_rows
 from dcgan_tpu_torch.parallel.distributed import World
 from dcgan_tpu_torch.parallel.mesh import Mesh, make_mesh
+from dcgan_tpu_torch.parallel.spatial import make_spatial
 from dcgan_tpu_torch.train.steps import TrainStepFns, draw_stages, \
     draw_step, make_train_step, step_generator
 
@@ -92,6 +104,12 @@ class ParallelTrain:
     programs: Dict[str, Callable] = dataclasses.field(default_factory=dict)
 
     @property
+    def data_index(self) -> int:
+        """The rank's index on the data axis (its rank without a model
+        axis)."""
+        return self.world.rank // self.mesh.model
+
+    @property
     def folds_rank(self) -> bool:
         """Whether the draws are the rank's own (shard_map) rather than its
         rows of the global draws (gspmd)."""
@@ -102,23 +120,23 @@ class ParallelTrain:
     def rows(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """This rank's rows of a global-batch tensor along `axis` (the
         gspmd draws' layout; the tensor itself at world size 1)."""
-        if self.world.size == 1:
+        if self.mesh.data == 1:
             return t
-        idx = rank_rows(t.shape[axis], self.world.rank, self.world.size,
+        idx = rank_rows(t.shape[axis], self.data_index, self.mesh.data,
                         self.cfg.grad_accum)
         return t.index_select(axis, idx.to(t.device))
 
     def share(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous share of `t` along dim 0 (the sampler's
         and the loss probe's inputs, JAX's batch sharding)."""
-        n = self.world.size
+        n = self.mesh.data
         if n == 1:
             return t
         if t.shape[0] % n:
             raise ValueError(f"{t.shape[0]} rows do not divide over the "
                              f"{n}-way data axis")
         per = t.shape[0] // n
-        return t.narrow(0, self.world.rank * per, per)
+        return t.narrow(0, self.data_index * per, per)
 
     def _draw_rows(self, draws: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -158,7 +176,7 @@ class ParallelTrain:
                 return z, draw_step(local_config(cfg, self.mesh.data), gen)
             return folded
         glob = self._global(base, rekey)
-        if self.world.size == 1:
+        if self.mesh.data == 1:
             return glob
 
         def rows(cfg, step, device):
@@ -175,7 +193,7 @@ class ParallelTrain:
                                                         rekey=rekey))
             return folded
         glob = self._global(base, rekey)
-        if self.world.size == 1:
+        if self.mesh.data == 1:
             return glob
 
         def rows(cfg, step, device):
@@ -190,7 +208,7 @@ class ParallelTrain:
                     cfg, step, device, 1, rekey=rekey), device)
             return folded
         glob = self._global(base, rekey)
-        if self.world.size == 1:
+        if self.mesh.data == 1:
             return glob
 
         def rows(cfg, step, device):
@@ -206,15 +224,60 @@ def local_config(cfg: TrainConfig, n_data: int) -> TrainConfig:
     return dataclasses.replace(cfg, batch_size=cfg.batch_size // n_data)
 
 
+def data_shard(cfg: TrainConfig, world: World) -> Tuple[int, int]:
+    """(the rank's data index, the data axis's size): whose share of the
+    global batch the rank's feed reads, the ranks of one model group
+    reading the same."""
+    data, model = cfg.mesh.axis_sizes(world.size)
+    return world.rank // model, data
+
+
+def spatial_route(cfg: TrainConfig, mesh: Mesh) -> TrainConfig:
+    """The gspmd backend's kernel routing on a mesh with a model axis
+    (`dcgan_tpu/parallel/api.py:140-164`): under spatial with attention
+    BatchNorm and the fused stages leave the kernels (bn_pallas and
+    pallas_fused off; the flash kernels run as ring x flash); anything
+    else with use_pallas raises the JAX error."""
+    if not (cfg.model.use_pallas and mesh.model > 1):
+        return cfg
+    if cfg.mesh.spatial and cfg.model.attn_res:
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, bn_pallas=False, pallas_fused=False))
+    raise ValueError(
+        "use_pallas under the gspmd backend composes with data-"
+        f"parallel meshes only, got mesh={dict(mesh.shape)} "
+        f"(spatial={cfg.mesh.spatial}); the fused kernels need "
+        "full channel vectors per shard")
+
+
+def check_spatial(cfg: TrainConfig, model: int) -> None:
+    """Every map of both nets must split into whole blocks of rows, of
+    even height where a stride-2 conv reads them."""
+    m = cfg.model
+    sizes = [m.base_size * 2 ** i for i in range(m.num_up_layers + 1)]
+    for size in sizes:
+        if size % model or (size > m.base_size and (size // model) % 2):
+            raise ValueError(
+                f"the {size}x{size} maps of a {m.output_size} px model do "
+                f"not split into even blocks of rows over a {model}-way "
+                "model axis")
+
+
 def make_parallel_train(cfg: TrainConfig, world: World) -> ParallelTrain:
     """The per-rank programs of `cfg` on `world`: the mesh over its ranks
     (a MeshConfig whose axes do not cover them raises, as in JAX), the
     batch and microbatch checked against the data axis, and `cfg` with the
-    rank's share of the batch."""
+    rank's share of the batch; on a spatial mesh the height-sharded step
+    (the module docstring)."""
     mesh = make_mesh(cfg.mesh, world.size)
     check_layout(cfg, mesh.data)
+    cfg = spatial_route(cfg, mesh)
     local_cfg = local_config(cfg, mesh.data)
-    inner = make_train_step(local_cfg, group=world.group)
+    sp = None
+    if cfg.mesh.spatial:
+        check_spatial(cfg, mesh.model)
+        sp = make_spatial(world, mesh.data, mesh.model)
+    inner = make_train_step(local_cfg, group=world.group, spatial=sp)
     wgan = cfg.loss == "wgan-gp"
     par: Optional[ParallelTrain] = None
 
@@ -222,7 +285,9 @@ def make_parallel_train(cfg: TrainConfig, world: World) -> ParallelTrain:
                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         imgs = inner.sample(state, par.share(z),
                             None if labels is None else par.share(labels))
-        return gather_rows(world.group, imgs)
+        if sp is None:
+            return gather_rows(world.group, imgs)
+        return gather_rows(sp.data_group, sp.gather(imgs))
 
     def eval_losses(state: Pytree, images: torch.Tensor, z: torch.Tensor,
                     eps: Optional[torch.Tensor] = None,
@@ -232,13 +297,14 @@ def make_parallel_train(cfg: TrainConfig, world: World) -> ParallelTrain:
         # batch's (drawn from a generator seeded 0 unless given), each
         # rank taking its share; shard_map: every rank draws its own from
         # the same seed, as each JAX shard draws from the same fixed key
-        if wgan and not par.folds_rank and world.size > 1:
+        if wgan and not par.folds_rank and mesh.data > 1:
             if eps is None:
                 gen = torch.Generator(device=images.device).manual_seed(0)
                 eps = torch.rand((cfg.batch_size,), generator=gen,
                                  device=images.device)
             eps = par.share(eps)
-        return inner.eval_losses(state, images, par.share(z), eps, labels)
+        return inner.eval_losses(state, rows(images), par.share(z), eps,
+                                 labels)
 
     def multi_step(state: Pytree, images: List[torch.Tensor],
                    zs: List[torch.Tensor], draws: List[dict],
@@ -249,12 +315,29 @@ def make_parallel_train(cfg: TrainConfig, world: World) -> ParallelTrain:
         trainer's runner reads every step's row)."""
         metrics: Dict[str, torch.Tensor] = {}
         for i, img in enumerate(images):
-            state, metrics = inner.train_step(
+            state, metrics = fns.train_step(
                 state, img, zs[i], draws[i],
                 None if labels is None else labels[i])
         return state, metrics
 
+    def rows(images: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of its data share's images (themselves without
+        a spatial mesh)."""
+        return images if sp is None else sp.rows(images)
+
+    def train_step(state: Pytree, images: torch.Tensor, *args, **kwargs):
+        return inner.train_step(state, rows(images), *args, **kwargs)
+
+    def grads(state: Pytree, images: torch.Tensor, *args, **kwargs):
+        return inner.grads(state, rows(images), *args, **kwargs)
+
+    def summarize(state: Pytree, images: torch.Tensor, *args, **kwargs):
+        return inner.summarize(state, rows(images), *args, **kwargs)
+
     fns = dataclasses.replace(inner, sample=sample, eval_losses=eval_losses)
+    if sp is not None:
+        fns = dataclasses.replace(fns, train_step=train_step, grads=grads,
+                                  summarize=summarize)
     programs = {"init": fns.init, "train_step": fns.train_step,
                 "multi_step": multi_step, "sampler": sample,
                 "summarize": fns.summarize, "eval_losses": eval_losses,

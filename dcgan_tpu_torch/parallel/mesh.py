@@ -2,9 +2,11 @@
 `dcgan_tpu/parallel/mesh.py:29-36`).
 
 A JAX mesh holds devices; here every rank is a process with one device,
-so the mesh is the (data, model) sizes over the world's ranks. The port
-runs the data axis only: MeshConfig refuses model > 1 and spatial by
-name (config.py), so every rank is a data shard."""
+so the mesh is the (data, model) sizes over the world's ranks, rank r at
+data index r // model and model index r % model (JAX's `reshape(data,
+model)`). A model axis runs only as the spatial mesh (parallel/spatial.py
+forms the process group of each axis); MeshConfig refuses tensor
+parallelism by name (config.py)."""
 
 from __future__ import annotations
 

@@ -27,6 +27,11 @@ port serves, plus --device.
         --pallas_fused --progressive "32:2000,64:2000,128:*" \
         --progressive_fade_steps 500 --aot_warmup --data_dir "D_{res}"
     python -m dcgan_tpu_torch.train --preset sagan128 --synthetic
+    torchrun --nproc_per_node 2 -m dcgan_tpu_torch.train --preset sagan128 \
+        --mesh_model 2 --mesh_spatial --synthetic
+    torchrun --nproc_per_node 4 -m dcgan_tpu_torch.train --preset sagan64 \
+        --mesh_data 2 --mesh_model 2 --mesh_spatial --seq_strategy ulysses \
+        --attn_heads 2 --synthetic
     python -m dcgan_tpu_torch.train --preset sngan-cifar10 --use_pallas \
         --data_dir D --checkpoint_dir C
     python -m dcgan_tpu_torch.train --preset stylegan64 --synthetic
@@ -135,6 +140,7 @@ _FLAG_FIELDS = {
     "z_dim": ("model", "z_dim"),
     "attn_res": ("model", "attn_res"),
     "attn_heads": ("model", "attn_heads"),
+    "seq_strategy": ("model", "attn_seq_strategy"),
     "spectral_norm": ("model", "spectral_norm"),
     "num_classes": ("model", "num_classes"),
     "conditional_bn": ("model", "conditional_bn"),
@@ -241,6 +247,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_heads", type=int,
                    help="attention heads (1 = SAGAN paper; apply-time "
                         "split, checkpoint-compatible across head counts)")
+    p.add_argument("--seq_strategy", choices=["ring", "ulysses"],
+                   help="sequence-parallel attention under --mesh_spatial: "
+                        "ppermute ring vs two all_to_alls (Ulysses; needs "
+                        "attn_heads divisible by the model axis)")
     p.add_argument("--spectral_norm", choices=["none", "d", "gd"],
                    help="spectral-normalize discriminator (d) or both nets' "
                         "(gd) weights — SN-GAN / SAGAN Lipschitz control")
@@ -384,7 +394,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int,
                    help="data-parallel axis size (-1 = all devices)")
     p.add_argument("--mesh_model", type=int,
-                   help="tensor-parallel axis size")
+                   help="second mesh axis size: with --mesh_spatial the "
+                        "ranks that split image height (tensor "
+                        "parallelism without it is not ported)")
     p.add_argument("--backend", choices=["gspmd", "shard_map"],
                    help="collective strategy: gspmd = jit + sharding "
                         "annotations; shard_map = explicit per-device "

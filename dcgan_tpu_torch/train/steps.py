@@ -477,7 +477,8 @@ def _grad(loss: torch.Tensor, leaves: Pytree) -> Pytree:
     return tree_map(lambda p: by_id[id(p)], leaves)
 
 
-def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
+def make_train_step(cfg: TrainConfig, group=None,
+                    spatial=None) -> TrainStepFns:
     """The step functions of `cfg`, following `dcgan_tpu/train/steps.py`
     line by line; with a process `group`, the per-rank program of the
     data-parallel step (the JAX step with `axis_name` set): every
@@ -504,6 +505,14 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
     - G's loss through D at train=True on the augmented fake batch, G's
       gradient flowing through the augmentation.
 
+    Under a spatial mesh (`spatial`, parallel/spatial.py) the images and
+    every map are the rank's rows, the nets run their height-sharded form,
+    and a gradient is summed over the world and divided by the data axis's
+    size (the sum over the model axis of the ranks' partial gradients, the
+    mean over the data axis); `summarize`'s statistics of the maps are the
+    world's, of z and D's outputs (the same on every model rank) the data
+    axis's.
+
     A config that uses none of these takes the step of n_critic 1 without
     accumulation, augmentation or penalty: the same operations as before
     they existed. The step's randomness comes in as `z` and the `draws` of
@@ -524,6 +533,10 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
     n_micro = cfg.grad_accum
     draw_names = frozenset(draw_step(cfg, torch.Generator(), batch=1))
     stage_names = frozenset(draw_stages(cfg, torch.Generator(), batch=1))
+    grad_count = None if spatial is None else spatial.grad_count
+
+    def reduce_grads(grads: Pytree) -> Pytree:
+        return mean_tree(group, grads, grad_count)
 
     def check_draws(draws: Optional[Dict[str, torch.Tensor]]
                     ) -> Dict[str, torch.Tensor]:
@@ -568,7 +581,8 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
         update discarded (D's fake batch)."""
         with torch.no_grad():
             return generator_apply(g_params, g_bn, z, cfg=mcfg, train=True,
-                                   labels=labels, group=group)[0]
+                                   labels=labels, group=group,
+                                   spatial=spatial)[0]
 
     def d_loss_fn(d_params: Pytree, g_params: Pytree, bn: Pytree,
                   images: torch.Tensor, z: torch.Tensor,
@@ -595,10 +609,10 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
 
         _, real_logits, d_bn1 = discriminator_apply(
             d_params, bn["disc"], d_input(images, "real/"), cfg=mcfg,
-            train=True, labels=labels, group=group)
+            train=True, labels=labels, group=group, spatial=spatial)
         _, fake_logits, d_bn = discriminator_apply(
             d_params, d_bn1, d_input(fake, "fake/"), cfg=mcfg, train=True,
-            labels=labels, group=group)
+            labels=labels, group=group, spatial=spatial)
         d_loss, d_real, d_fake, _ = losses(real_logits, fake_logits)
         gp = None
         if wgan or (r1 and penalty):
@@ -656,7 +670,7 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
             d_leaves = _leaves_with_grad(d_params)
             loss, d_bn, d_real, d_fake, gp = loss_of(d_leaves, bn, 0)
             # _grad frees the graph before the G step builds its own
-            return (mean_tree(group, _grad(loss, d_leaves)), d_bn,
+            return (reduce_grads(_grad(loss, d_leaves)), d_bn,
                     (loss, d_real, d_fake, gp))
         acc, d_bn, terms = None, bn["disc"], []
         for j in range(n_micro):
@@ -669,7 +683,7 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
                             else []))
         means = [torch.stack(col).mean() for col in zip(*terms)]
         gp = means[3] if len(means) > 3 else None
-        return mean_tree(group, average(acc, d_params)), d_bn, \
+        return reduce_grads(average(acc, d_params)), d_bn, \
             (*means[:3], gp)
 
     def g_loss_fn(g_params: Pytree, g_bn: Pytree, disc: Pytree,
@@ -681,12 +695,12 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
         `fakes` when given (`g_update`'s next fake stack)."""
         fake, new_g_bn = generator_apply(g_params, g_bn, z, cfg=mcfg,
                                          train=True, labels=labels,
-                                         group=group)
+                                         group=group, spatial=spatial)
         if fakes is not None:
             fakes.append(fake.detach())
         _, fake_logits, _ = discriminator_apply(
             disc, disc_bn, aug(fake, draws) if augment else fake, cfg=mcfg,
-            train=True, labels=labels, group=group)
+            train=True, labels=labels, group=group, spatial=spatial)
         return losses(fake_logits, fake_logits)[3], new_g_bn
 
     def g_grads(g_params: Pytree, g_bn: Pytree, disc: Pytree,
@@ -701,7 +715,7 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
             g_leaves = _leaves_with_grad(g_params)
             g_loss, new_g_bn = g_loss_fn(g_leaves, g_bn, disc, disc_bn, z,
                                          draws, fakes=fakes, labels=labels)
-            return mean_tree(group, _grad(g_loss, g_leaves)), new_g_bn, \
+            return reduce_grads(_grad(g_loss, g_leaves)), new_g_bn, \
                 g_loss
         acc, new_g_bn, g_losses = None, g_bn, []
         for j in range(n_micro):
@@ -712,7 +726,7 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
                                          labels=micro_labels(labels, j))
             acc = accumulate(acc, _grad(g_loss, g_leaves))
             g_losses.append(g_loss.detach())
-        return (mean_tree(group, average(acc, g_params)), new_g_bn,
+        return (reduce_grads(average(acc, g_params)), new_g_bn,
                 torch.stack(g_losses).mean())
 
     def metrics_of(d_terms, g_loss=None) -> Dict[str, torch.Tensor]:
@@ -930,18 +944,26 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
         d_cap: dict = {}
         fake, _ = generator_apply(params["gen"], bn["gen"], z, cfg=mcfg,
                                   train=True, labels=labels, capture=g_cap,
-                                  group=group)
+                                  group=group, spatial=spatial)
         d_real_prob, _, _ = discriminator_apply(
             params["disc"], bn["disc"], images, cfg=mcfg, train=True,
-            labels=labels, capture=d_cap, group=group)
+            labels=labels, capture=d_cap, group=group, spatial=spatial)
         d_fake_prob, _, _ = discriminator_apply(
             params["disc"], bn["disc"], fake, cfg=mcfg, train=True,
-            labels=labels, group=group)
+            labels=labels, group=group, spatial=spatial)
         acts = {**{f"gen/{k}": v for k, v in g_cap.items()},
                 **{f"disc/{k}": v for k, v in d_cap.items()},
                 "z": z, "d_real_prob": d_real_prob,
                 "d_fake_prob": d_fake_prob}
-        return activation_stats(acts, group=group)
+        if spatial is None:
+            return activation_stats(acts, group=group)
+        # the maps are the rank's rows; z and D's outputs the model axis's
+        shared = ("z", "d_real_prob", "d_fake_prob", "disc/logit")
+        stats = activation_stats({k: v for k, v in acts.items()
+                                  if k not in shared}, group=group)
+        stats.update(activation_stats({k: acts[k] for k in shared},
+                                      group=spatial.data_group))
+        return {k: stats[k] for k in acts}
 
     def sample(state: Pytree, z: torch.Tensor,
                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -949,7 +971,7 @@ def make_train_step(cfg: TrainConfig, group=None) -> TrainStepFns:
         g_params = (state["ema_gen"] if cfg.g_ema_decay > 0.0
                     else state["params"]["gen"])
         return sampler_apply(g_params, state["bn"]["gen"], z, cfg=mcfg,
-                             labels=labels)
+                             labels=labels, spatial=spatial)
 
     def init(seed: Optional[int] = None,
              device: Union[str, torch.device] = "cuda") -> Pytree:

@@ -142,7 +142,12 @@
   decisions; only the chief (rank 0) writes config.json, events, grids,
   checkpoints and traces, and the ranks agree on the checkpoint they
   restore. Above one rank the FID probe and the rollback NaN policy are
-  refused by name (`check_world`).
+  refused by name (`check_world`). On a spatial mesh (`--mesh_model N
+  --mesh_spatial`) the ranks of one model group read one data index's
+  share (parallel/api.py::data_shard) and the step splits its rows
+  (parallel/spatial.py). A world whose collectives run over gloo on CUDA
+  ranks (ranks sharing one card) cannot be captured: its runner runs
+  every step eagerly, and the chief says so.
 """
 
 from __future__ import annotations
@@ -165,7 +170,9 @@ from dcgan_tpu_torch.data.pipeline import DataConfig, make_dataset, \
     read_manifest
 from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
-from dcgan_tpu_torch.parallel.api import local_config, make_parallel_train
+from dcgan_tpu_torch.parallel.api import data_shard, local_config, \
+    make_parallel_train
+from dcgan_tpu_torch.parallel.collectives import capturable
 from dcgan_tpu_torch.parallel.distributed import World, initialize_multihost
 from dcgan_tpu_torch.progressive import PhaseRuntime, Rebucketer, \
     parse_schedule
@@ -287,13 +294,17 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
     shards' stream discards batches (a threaded shuffle stream has no
     exact position to restore). Close it when done.
 
-    In a data-parallel `world` every rank reads its share of the shards
-    on seed + its rank, in batches of its share of cfg.batch_size (the
-    global batch); the synthetic stream likewise."""
+    In a `world` of processes every rank reads its data index's share of
+    the shards on seed + that index, in batches of its share of
+    cfg.batch_size (the global batch); the synthetic stream likewise. On
+    a spatial mesh the ranks of one model group read the same batches
+    (parallel/api.py::data_shard)."""
+    shard = (0, 1)
     if world is not None and world.size > 1:
+        shard = data_shard(cfg, world)
         cfg = dataclasses.replace(
-            local_config(cfg, world.size),
-            seed=cfg.seed + world.rank if synthetic_data else cfg.seed)
+            local_config(cfg, shard[1]),
+            seed=cfg.seed + shard[0] if synthetic_data else cfg.seed)
     if seed_offset:
         cfg = dataclasses.replace(cfg, seed=cfg.seed + seed_offset)
     if synthetic_data:
@@ -320,9 +331,8 @@ def make_data(cfg: TrainConfig, device: torch.device, *,
         num_classes=cfg.model.num_classes,
         prefetch_device_batches=cfg.prefetch_device_batches,
         max_corrupt_records=cfg.max_corrupt_records)
-    rank = (world.rank, world.size) if world is not None else (0, 1)
-    ds = make_dataset(dcfg, device, process_index=rank[0],
-                      process_count=rank[1])
+    ds = make_dataset(dcfg, device, process_index=shard[0],
+                      process_count=shard[1])
     for _ in range(skip_batches):
         next(ds)
     return ds
@@ -621,11 +631,20 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         rows, cols = cfg.sample_grid
         n_samples = max(cfg.sample_size, rows * cols)
 
+        # gloo's collectives cannot be captured: its CUDA ranks (one card
+        # shared by the ranks of a rehearsal) run every step eagerly
+        eager = dev.type == "cuda" and not capturable(par.fns.group)
+        if eager and chief:
+            print("[dcgan_tpu_torch] the step's collectives run over gloo, "
+                  "which a CUDA graph cannot capture: every step runs "
+                  "eagerly", flush=True)
+
         def new_runner(phase_fns, phase_state, phase_cfg):
             # the rank's share of the phase's batch in every slot
             return StepRunner(phase_fns, phase_state,
                               local_config(phase_cfg, par.mesh.data), dev,
-                              sample_z=sample_z, sample_labels=sample_labels)
+                              sample_z=sample_z, sample_labels=sample_labels,
+                              eager=eager)
 
         with startup.phase("init"):
             fns = par.fns

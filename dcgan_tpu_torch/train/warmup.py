@@ -73,7 +73,10 @@ A data-parallel step (parallel/api.py) captures its NCCL collectives
 with it: the communicator is formed by initialize_multihost's eager
 all_reduce and the warm-up step, before any capture, and every buffer a
 collective reads or writes is the graph's own. A step whose collectives
-run over gloo cannot be captured: `_program` refuses it by name.
+run over gloo cannot be captured: `_program` refuses it by name, unless
+the runner was made with `eager=True` (the trainer's gloo ranks on CUDA),
+whose programs run their functions eagerly over the same static buffers,
+as on the CPU.
 """
 
 from __future__ import annotations
@@ -200,8 +203,10 @@ class StepRunner:
     def __init__(self, fns: TrainStepFns, state: Pytree, cfg: TrainConfig,
                  device: torch.device,
                  sample_z: Optional[torch.Tensor] = None,
-                 sample_labels: Optional[torch.Tensor] = None):
+                 sample_labels: Optional[torch.Tensor] = None,
+                 eager: bool = False):
         m = cfg.model
+        self.eager = eager
         k = cfg.steps_per_call
         self.fns = fns
         self.device = device
@@ -409,13 +414,15 @@ class StepRunner:
             fn = self._steps_fn(int(base[len("multi_step@k"):]), pattern)
         else:
             raise KeyError(f"no program {name!r}")
-        if self.device.type == "cuda" and not capturable(self.fns.group):
+        if self.device.type == "cuda" and not self.eager \
+                and not capturable(self.fns.group):
             raise RuntimeError(
                 f"{name}: the step's collectives run over gloo, which a "
                 "CUDA graph cannot capture (the capture is refused, not "
                 "run eagerly); train on CUDA ranks over NCCL, one GPU per "
                 "rank")
-        prog = CapturedProgram(name, fn, self.device, self.stream)
+        prog = CapturedProgram(name, fn, self.device, self.stream,
+                               eager=self.eager)
         prog.capture()
         self.programs[name] = prog
         self.captures += 1

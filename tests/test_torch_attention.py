@@ -307,8 +307,16 @@ class TestAttnApply:
         x = torch.zeros((1, 2, 2, 16))
         with pytest.raises(ValueError, match="num_heads"):
             tattn.attn_apply(p, x, num_heads=3)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tattn.attn_apply(p, x, seq_mesh=object())
+        # over a sequence mesh (since PR 20): JAX's refusals of an unknown
+        # strategy and of heads that do not divide over the axis
+        from dcgan_tpu_torch.parallel.collectives import LocalRing
+
+        with pytest.raises(ValueError, match="unknown seq_strategy"):
+            tattn.attn_apply(p, x, seq_mesh=LocalRing(2),
+                             seq_strategy="zigzag")
+        with pytest.raises(ValueError, match="divisible"):
+            tattn.attn_apply(p, x, seq_mesh=LocalRing(2),
+                             seq_strategy="ulysses")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
-package (the package, chip_smoke.py, tools/chaos_drill_torch.py and
-tools/trace_summary_torch.py), and its entry points refuse to run quietly
-on the CPU."""
+package (the package, chip_smoke.py, tools/chaos_drill_torch.py,
+tools/trace_summary_torch.py, and the modules the ranks of the
+multi-process tests run, tests/torch_dp_worker.py and
+tests/torch_spatial_worker.py), and its entry points refuse to run
+quietly on the CPU."""
 
 import ast
 import os
@@ -19,9 +21,13 @@ FORBIDDEN = ("jax", "jaxlib", "dcgan_tpu")
 
 
 def _port_files():
+    # the worker modules are what the spawned ranks of the multi-process
+    # tests import: they run the port without JAX
     return sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "chaos_drill_torch.py",
-        ROOT / "tools" / "trace_summary_torch.py"]
+        ROOT / "tools" / "trace_summary_torch.py",
+        ROOT / "tests" / "torch_dp_worker.py",
+        ROOT / "tests" / "torch_spatial_worker.py"]
 
 
 #: test_ast_imports' files, dealt round-robin over

@@ -291,7 +291,8 @@ def test_mesh_checks_carry_the_jax_messages(kw):
 
 
 @pytest.mark.parametrize("mesh,train", [
-    ({"model": 2}, {}), ({"model": 2, "spatial": True}, {}),
+    ({"model": 2}, {}), ({"model": 2, "spatial": True, "shard_opt": True},
+                         {}),
     ({"shard_opt": True}, {}), ({"zero_stage": 2}, {}),
     ({"zero_stage": 3}, {}), ({}, {"comm_overlap": "bucket"})])
 def test_unported_mesh_settings_refused_by_name(mesh, train):

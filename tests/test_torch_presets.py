@@ -98,4 +98,5 @@ JAX_FLAGS = {"learning_rate": "3e-4", "d_learning_rate": "5e-4",
              "async_services": "false", "flight_recorder_steps": "16",
              "collective_timeout_secs": "30", "profile_dir": "traces",
              "profile_start_step": "3", "profile_num_steps": "7",
-             "profile_trigger": "trace_now", "timing_window": "9"}
+             "profile_trigger": "trace_now", "timing_window": "9",
+             "seq_strategy": "ulysses"}
