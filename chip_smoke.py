@@ -428,12 +428,12 @@ Data parallelism over processes (`multi_gpu`, parallel/):
    ranks sharing the card (`testing/multihost.py::run_world`, under
    MG_DP8_TIMEOUT): the gradients at the seeded state in bf16 and f32
    and MG_DP8_STEPS eager steps; every rank's state bit for bit equal,
-   kernels 1-4 at PER_STEP a step on every rank, a capture of the gloo
-   step refused by name; the 8-rank gradients against one rank's on the
-   global batch within TRAIN_GRAD_TOL, the losses within TRAIN_ROUTE_TOL
-   and the parameters within Adam's bound 2 * lr * steps. Logs whether
-   gloo took the CUDA tensors or the collectives staged through host
-   memory, and each part's seconds.
+   kernels 1-4 at PER_STEP a step on every rank, the gloo step's runner
+   eager (its program records no graph); the 8-rank gradients against
+   one rank's on the global batch within TRAIN_GRAD_TOL, the losses
+   within TRAIN_ROUTE_TOL and the parameters within Adam's bound 2 * lr
+   * steps. Logs whether gloo took the CUDA tensors or the collectives
+   staged through host memory, and each part's seconds.
 
 The spatial mesh and sequence-parallel attention (`spatial`,
 parallel/spatial.py, ops/attention.py, ops/flash_attention.py):
@@ -458,12 +458,15 @@ parallel/spatial.py, ops/attention.py, ops/flash_attention.py):
    SP_STEPS bf16 steps through train.cli.main (eager: gloo), the counters
    set to 0 before and read after; every rank's losses and states the
    same; the f32 step's losses within 1e-4 relative of the world of
-   one's step on the same init, batch and draws and its parameters
-   within 2 * lr + 1e-5; kernels 6-8 at world 1's launches times the
-   ring's size (ring) or equal (Ulysses) in the f32 step and launched on
-   every rank by the trainer. Logs the staged calls, which collectives
-   gloo took on CUDA tensors, the host ms of each trainer step and each
-   part's seconds.
+   one's step on the same init, batch and draws; by sp_hold_step both
+   nets' gradients at the init (`fns.grads`) per leaf within
+   TRAIN_GRAD_TOL float32, and the parameters within SP_PARAM_ATOL where
+   the applied gradients (Adam's mu: beta1 is 0) agree in sign clear of
+   Adam's eps, 2 * lr + 1e-5 where one flips; kernels 6-8 at world 1's
+   launches times the ring's size (ring) or equal (Ulysses) in the f32
+   step and launched on every rank by the trainer. Logs the staged
+   calls, which collectives gloo took on CUDA tensors, the host ms of
+   each trainer step and each part's seconds.
 
 At the end of each group of phases (the kernel checks, serve, train,
 sagan64, resume, capture, a1, feed_pipeline, serve_fleet, conditional,
@@ -7927,8 +7930,8 @@ def mg_dp8_rank(world, *, steps, shrink=None):
     """One rank of (c): the gradients at the seeded state in bf16 and f32,
     `steps` eager steps in bf16 (the gspmd draws: the rank's rows of the
     global step draws), the counts of kernels 1-4 over those steps, the
-    capture refused under gloo, and a digest of the final state. Rank 0
-    also returns the gradients and the state."""
+    runner's program under gloo (eager, no graph), and a digest of the
+    final state. Rank 0 also returns the gradients and the state."""
     import hashlib
 
     import torch
@@ -7981,18 +7984,19 @@ def mg_dp8_rank(world, *, steps, shrink=None):
     if world.rank == 0:
         out["grads"] = grads
         out["state"] = {k: v.float().cpu() for k, v in flat.items()}
-    # a capture of the gloo step is refused by name, after the warm-up
-    # (a step of its own, on a copy of the state)
+    # the gloo step's runner records no graph: after the warm-up (a step
+    # of its own, on a copy of the state) its program runs eagerly
     runner = StepRunner(par.fns, tree_map(torch.clone, state),
                         par.local_cfg, dev)
     z, d = draws(cfg, steps, dev)
     runner.step([par.rows(mg_dp8_images(torch, cfg, steps, dev))], [z],
                 [d], start=steps)
-    try:
-        runner.capture("train_step")
-        out["capture"] = "captured"
-    except RuntimeError as err:
-        out["capture"] = str(err)
+    runner.capture("train_step")
+    prog = runner.programs["train_step"]
+    out["capture"] = {"eager": runner.eager,
+                      "graph": prog.graph is not None,
+                      "program": type(prog).__name__}
+    runner.close()
     return out
 
 
@@ -8025,10 +8029,9 @@ def mg_dp8(torch, np, report, kernels):
         fail(f"multi_gpu (c): the {n} ranks' states differ: "
              f"{[o['digest'][:12] for o in outs]}")
     for o in outs:
-        if "gloo" not in o["capture"] or "cannot capture" not in \
-                o["capture"]:
-            fail(f"multi_gpu (c) rank {o['rank']}: the gloo capture was "
-                 f"not refused by name: {o['capture']!r}")
+        if not o["capture"]["eager"] or o["capture"]["graph"]:
+            fail(f"multi_gpu (c) rank {o['rank']}: the gloo step's runner "
+                 f"is not eager: {o['capture']}")
         want = {w: PER_STEP[w] * MG_DP8_STEPS for w in MG_KERNELS}
         if o["launches"] != want:
             fail(f"multi_gpu (c) rank {o['rank']}: kernels 1-4 launched "
@@ -8042,7 +8045,7 @@ def mg_dp8(torch, np, report, kernels):
         f"{world_s:.1f} s, every rank's state bit for bit equal; "
         f"collectives {how}: {staged} staged calls over the ranks; rank 0 "
         f"steps {[round(s * 1e3, 1) for s in outs[0]['step_s']]} ms; the "
-        f"capture refused: {outs[0]['capture'][:90]!r}")
+        f"runner eager, no graph recorded: {outs[0]['capture']}")
 
     # one rank on the global batch, the same init, images and draws
     one = single_process("cuda")
@@ -8176,6 +8179,11 @@ SP_WORLDS = (
       "--seq_strategy", "ulysses"]))
 # the flash kernels' wrappers
 SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# (c), (d): a parameter element whose two applied gradients agree in sign and
+# are both above SP_CLEAR_OF_EPS (1000 x Adam's eps) takes Adam's first
+# step -lr * g / (|g| + eps) on both sides alike: the two differ by the
+# rounding of one f32 update, within SP_PARAM_ATOL
+SP_CLEAR_OF_EPS, SP_PARAM_ATOL = 1e-5, 1e-6
 
 
 def sp_f32_bound(name, b, s, dk, dv):
@@ -8410,7 +8418,9 @@ def sp_one_step(torch, cfg, world):
     """One f32 step of `cfg`'s programs on `world` from the seeded init:
     the global batch of SEED + 53 (every rank the same, each taking its
     rows and the programs its rows of the images) and the trainer's draws
-    of step 0 (the gspmd rows). Returns (metrics, flat state, launches)."""
+    of step 0 (the gspmd rows). Returns (metrics, flat state, launches,
+    both nets' gradients at the init against the pre-update D, from
+    `fns.grads`, flat as mg_grads_flat)."""
     from dcgan_tpu_torch import convert
     from dcgan_tpu_torch.parallel.api import make_parallel_train
     from dcgan_tpu_torch.train import trainer
@@ -8423,13 +8433,15 @@ def sp_one_step(torch, cfg, world):
     images = torch.rand((cfg.batch_size, m.output_size, m.output_size,
                          m.c_dim), generator=g, device=dev) * 2 - 1
     z, draws = par.step_draws(trainer.step_inputs)(cfg, 0, dev)
+    grads = mg_grads_flat(convert, par.fns.grads(state, par.rows(images), z,
+                                                 draws)[0])
     wrappers = all_wrappers()
     reset_counts(wrappers)
     state, metrics = par.fns.train_step(state, par.rows(images), z, draws)
     metrics = {k: float(v) for k, v in metrics.items()}
     launches = {w: wrappers[w].launches for w in SP_KERNELS}
     flat = {k: v.float().cpu() for k, v in convert.flatten(state).items()}
-    return metrics, flat, launches
+    return metrics, flat, launches, grads
 
 
 def sp_digest(torch, flat):
@@ -8455,14 +8467,14 @@ def sp_rank(world, *, workdir, name, preset, mesh, extra=()):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    metrics, flat, launches = sp_one_step(
+    metrics, flat, launches, grads = sp_one_step(
         torch, sp_config(preset, mesh, extra, f32=True), world)
     out = {"rank": world.rank, "f32": {
         "metrics": [metrics], "launches": launches,
         "digest": sp_digest(torch, flat)}}
     if world.rank == 0:
-        out["f32"]["state"] = flat
-    del flat
+        out["f32"]["state"], out["f32"]["grads"] = flat, grads
+    del flat, grads
     wrappers = all_wrappers()
     reset_counts(wrappers)
     before = dict(collectives.COUNTS)
@@ -8484,15 +8496,79 @@ def sp_rank(world, *, workdir, name, preset, mesh, extra=()):
     return out
 
 
+def sp_hold_step(name, cfg, got, want, want_grads):
+    """The f32 step of rank 0 of the world (`got`: its flat "state" and
+    "grads") against world 1's (`want`, `want_grads`), from one init.
+    The gradients: both nets' at the init, G's against the pre-update D
+    (`fns.grads`), every leaf within TRAIN_GRAD_TOL float32 (rtol on the
+    leaf's norm, atol times the net's largest leaf norm). The parameters:
+    Adam's first step moves each by lr * g / (|g| + eps), about lr whatever
+    the size of g, so they are held element by element against the
+    gradient each side applied, its Adam mu (beta1 is 0): within
+    SP_PARAM_ATOL where the two agree in sign clear of Adam's eps,
+    everywhere within 2 * lr + 1e-5 (a gradient zero to rounding whose
+    sign differs moves it 2 * lr apart). The sequential step takes G's
+    gradient at the updated D, whose first step turns D's rounding into
+    moves of 2 * lr, so the applied G gradients are compared by the
+    parameter rule only. Returns the gaps (in units of the limit for the
+    gradients), and the leaves with elements that flipped, each with the
+    largest |applied gradient| at a flipped element over the leaf's
+    largest and the leaf's norm over the net's largest (a bias that feeds
+    a BatchNorm has no true gradient: all of it is rounding)."""
+    if cfg.beta1 != 0.0:
+        fail(f"spatial {name}: the parameter rule reads Adam's mu as the "
+             f"applied gradient, which needs beta1 = 0, not {cfg.beta1}")
+    lr = {"gen": cfg.g_learning_rate or cfg.learning_rate,
+          "disc": cfg.d_learning_rate or cfg.learning_rate}
+    rtol, atol = TRAIN_GRAD_TOL["float32"]
+    grad_gap, param_err, wide_err, flipped = {}, {}, {}, {}
+    for net in ("gen", "disc"):
+        names = [k for k in want_grads if k.startswith(net + "/")]
+        top = max(float(want_grads[k].norm()) for k in names)
+        for key in names:
+            w = want_grads[key]
+            gap = float((got["grads"][key] - w).norm()) / (
+                rtol * float(w.norm()) + atol * top)
+            if gap > 1.0:
+                fail(f"spatial {name}: the gradient {key} at the init is "
+                     f"{gap:.3g} x TRAIN_GRAD_TOL float32 from world 1's")
+            grad_gap[net] = max(grad_gap.get(net, 0.0), gap)
+        head = f"opt/{net}/mu/"
+        mus = [k for k in want if k.startswith(head)]
+        top = max(float(want[k].norm()) for k in mus)
+        for key in mus:
+            g, w = got["state"][key], want[key]
+            param = f"params/{net}/" + key[len(head):]
+            diff = (got["state"][param] - want[param]).abs()
+            agree = (g.sign() == w.sign()) & (g.abs() > SP_CLEAR_OF_EPS) \
+                & (w.abs() > SP_CLEAR_OF_EPS)
+            close = float(diff[agree].max()) if agree.any() else 0.0
+            wide = float(diff.max())
+            if close > SP_PARAM_ATOL or wide > 2 * lr[net] + 1e-5:
+                fail(f"spatial {name}: {param} off world 1's by {close} "
+                     f"where the applied gradients agree (SP_PARAM_ATOL "
+                     f"{SP_PARAM_ATOL}), {wide} anywhere (2 * lr + 1e-5 = "
+                     f"{2 * lr[net] + 1e-5})")
+            param_err[net] = max(param_err.get(net, 0.0), close)
+            wide_err[net] = max(wide_err.get(net, 0.0), wide)
+            flips = g.sign() != w.sign()
+            if flips.any():
+                flipped[param] = {
+                    "elements": int(flips.sum()), "of": w.numel(),
+                    "max_applied_grad_over_leaf_max": float(
+                        w.abs()[flips].max() / w.abs().max()),
+                    "leaf_norm_over_net_top": float(w.norm()) / top}
+    return {"grad_gap": grad_gap, "param_err": param_err,
+            "param_err_any": wide_err, "flipped": flipped}
+
+
 def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
              extra=(), device="cuda:0"):
     """(c) or (d): `n` gloo ranks sharing the card (sp_rank), against one
     f32 step of the world of one on the same seeded init, global batch and
     draws: every rank's metrics and states the same; the f32 step's losses
-    within 1e-4 relative of world 1's and its parameters within 2 * lr +
-    1e-5 (Adam's first step moves a parameter by at most lr whatever its
-    gradient, so two runs differ by at most 2 * lr where a gradient near 0
-    changes sign); kernels 6-8 in the f32 step at world 1's launches times
+    within 1e-4 relative of world 1's, its gradients and parameters by
+    sp_hold_step; kernels 6-8 in the f32 step at world 1's launches times
     the ring's size (ring) or equal to them (Ulysses), and launched on
     every rank by the trainer's bf16 steps."""
     from dcgan_tpu_torch.parallel.distributed import single_process
@@ -8501,7 +8577,7 @@ def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
     cfg = sp_config(preset, [], extra, f32=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    one_metrics, one, one_launches = sp_one_step(
+    one_metrics, one, one_launches, one_grads = sp_one_step(
         torch, cfg, single_process(device))
     torch.cuda.empty_cache() if torch.cuda.is_available() else None
     t0 = time.perf_counter()
@@ -8534,19 +8610,7 @@ def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
         if abs(got_m[key] - w) > 1e-4 * abs(w):
             fail(f"spatial {name}: the f32 step's {key} {got_m[key]} vs "
                  f"world 1's {w}, beyond 1e-4 relative")
-    lr = {"gen": cfg.g_learning_rate or cfg.learning_rate,
-          "disc": cfg.d_learning_rate or cfg.learning_rate}
-    state = outs[0]["f32"]["state"]
-    worst = {}
-    for key, w in one.items():
-        if not key.startswith("params/"):
-            continue
-        net = key.split("/")[1]
-        err = float((state[key] - w).abs().max())
-        if err > 2 * lr[net] + 1e-5:
-            fail(f"spatial {name}: {key} off world 1's by {err}, beyond "
-                 f"2 * lr + 1e-5 = {2 * lr[net] + 1e-5}")
-        worst[net] = max(worst.get(net, 0.0), err)
+    held = sp_hold_step(name, cfg, outs[0]["f32"], one, one_grads)
     launches = {w: sum(o["bf16"]["launches"][w] for o in outs)
                 for w in SP_KERNELS}
     for entry in kernels:
@@ -8556,8 +8620,8 @@ def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
     host_ms = [o["bf16"]["host_ms"] for o in outs]
     report[name] = {
         "ranks": n, "mesh": mesh, "world_s": world_s,
-        "metrics_f32": got_m, "metrics_world1": one_metrics,
-        "param_err": worst, "launches_world1_f32": one_launches,
+        "metrics_f32": got_m, "metrics_world1": one_metrics, **held,
+        "launches_world1_f32": one_launches,
         "launches_f32_rank": outs[0]["f32"]["launches"],
         "launches_bf16": launches,
         "collectives_bf16_rank0": outs[0]["bf16"]["collectives"],
@@ -8567,7 +8631,11 @@ def sp_world(torch, workdir, kernels, report, name, preset, n, mesh,
         "losses_bf16": outs[0]["bf16"]["metrics"]}
     log(f"spatial {name}: {n} gloo ranks on one card ({' '.join(mesh)}) "
         f"in {world_s:.1f} s; losses equal on every rank; the f32 step "
-        f"{got_m} vs world 1's {one_metrics}, params within {worst}; "
+        f"{got_m} vs world 1's {one_metrics}; gradients within "
+        f"{held['grad_gap']} of TRAIN_GRAD_TOL float32; params within "
+        f"{held['param_err']} where the gradients agree, "
+        f"{held['param_err_any']} anywhere; sign flips "
+        f"{held['flipped']}; "
         f"kernels 6-8 {launches} over {SP_STEPS} bf16 trainer steps on the "
         f"ranks; staged {report[name]['staged_bf16']} calls, gloo on CUDA "
         f"{outs[0]['gloo_cuda']}; rank 0 host ms a bf16 step "
@@ -8838,7 +8906,8 @@ def main() -> int:
                        for r in sp_report["local_ring"]],
         **{name: {k: sp_report[name][k] for k in (
             "world_s", "staged_bf16", "host_ms_bf16", "launches_bf16",
-            "param_err")} for name, *_ in SP_WORLDS},
+            "grad_gap", "param_err", "param_err_any")}
+           for name, *_ in SP_WORLDS},
         "seconds": sp_report["seconds"],
         "peak_reserved": memory["spatial"]["peak_reserved"],
         "card": card}}), flush=True)

@@ -117,16 +117,12 @@ def on_stream(stream: Optional["torch.cuda.Stream"]):
 
 class CapturedProgram:
     """One function of static buffers, captured as a CUDA graph on a CUDA
-    device and replayed by `run()`; run eagerly on the CPU, and with
-    `eager=True` (a step whose collectives a graph cannot hold) on the
-    card too."""
+    device and replayed by `run()`; run eagerly on the CPU."""
 
     def __init__(self, name: str, fn: Callable[[], Any],
                  device: torch.device,
-                 stream: Optional["torch.cuda.Stream"] = None,
-                 eager: bool = False):
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.name = name
-        self.eager = eager
         self.fn = fn
         self.device = device
         self.stream = stream
@@ -147,7 +143,7 @@ class CapturedProgram:
         if self.captured:
             raise RuntimeError(f"{self.name} is captured already")
         t0 = time.perf_counter()
-        if self.device.type == "cuda" and not self.eager:
+        if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             before = launch_counts()
             # the collector stays off while the capture runs: a graph it

@@ -116,14 +116,6 @@ def _tree_to(tree: Pytree, device: torch.device) -> Pytree:
             for k, v in tree.items()}
 
 
-def _no_fused(spatial) -> None:
-    """The fused stages' kernels take whole channel vectors of whole maps;
-    the spatial step narrows pallas_fused off (parallel/api.py)."""
-    if spatial is not None:
-        raise ValueError("pallas_fused under a spatial mesh: the fused "
-                         "kernels need full channel vectors per shard")
-
-
 def _family_g(cfg: ModelConfig):
     """The module of cfg.arch's generator, None for the DCGAN stacks
     (`dcgan_tpu/models/dcgan.py:131-137, 199-213`)."""
@@ -280,7 +272,6 @@ def generator_apply(params: Pytree, state: Pytree, z: torch.Tensor, *,
         quant = "" if i == k else _stage_quant(cfg,
                                                cfg.base_size * (2 ** i))
         if cfg.pallas_fused and i < k:
-            _no_fused(spatial)
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"deconv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=True, kernel=cfg.kernel_size, stride=2,
@@ -399,7 +390,6 @@ def discriminator_apply(params: Pytree, state: Pytree, image: torch.Tensor,
     for i in range(k):
         quant = _stage_quant(cfg, cfg.output_size >> i)
         if cfg.pallas_fused and i > 0:
-            _no_fused(spatial)
             h, new_state[f"bn{i}"] = fused_conv_bn_act(
                 layer(f"conv{i}"), params[f"bn{i}"], state[f"bn{i}"], h,
                 transpose=False, kernel=cfg.kernel_size, stride=2,

@@ -147,7 +147,10 @@
   share (parallel/api.py::data_shard) and the step splits its rows
   (parallel/spatial.py). A world whose collectives run over gloo on CUDA
   ranks (ranks sharing one card) cannot be captured: its runner runs
-  every step eagerly, and the chief says so.
+  every step eagerly, and the chief says so. Over NCCL (one card per
+  rank) the runner captures the step with its collectives; for a
+  spatial step that means P2P and all_to_all inside a CUDA graph, which
+  has not yet run on several cards nor been held against the eager step.
 """
 
 from __future__ import annotations
@@ -172,7 +175,6 @@ from dcgan_tpu_torch.data.synthetic import synthetic_batches
 from dcgan_tpu_torch.device import resolve_device
 from dcgan_tpu_torch.parallel.api import data_shard, local_config, \
     make_parallel_train
-from dcgan_tpu_torch.parallel.collectives import capturable
 from dcgan_tpu_torch.parallel.distributed import World, initialize_multihost
 from dcgan_tpu_torch.progressive import PhaseRuntime, Rebucketer, \
     parse_schedule
@@ -631,20 +633,11 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
         rows, cols = cfg.sample_grid
         n_samples = max(cfg.sample_size, rows * cols)
 
-        # gloo's collectives cannot be captured: its CUDA ranks (one card
-        # shared by the ranks of a rehearsal) run every step eagerly
-        eager = dev.type == "cuda" and not capturable(par.fns.group)
-        if eager and chief:
-            print("[dcgan_tpu_torch] the step's collectives run over gloo, "
-                  "which a CUDA graph cannot capture: every step runs "
-                  "eagerly", flush=True)
-
         def new_runner(phase_fns, phase_state, phase_cfg):
             # the rank's share of the phase's batch in every slot
             return StepRunner(phase_fns, phase_state,
                               local_config(phase_cfg, par.mesh.data), dev,
-                              sample_z=sample_z, sample_labels=sample_labels,
-                              eager=eager)
+                              sample_z=sample_z, sample_labels=sample_labels)
 
         with startup.phase("init"):
             fns = par.fns
@@ -656,6 +649,10 @@ def _train(cfg: TrainConfig, *, synthetic_data: bool,
             # the grid's classes: row i of class i mod K
             sample_labels = grid_labels(n_samples, mcfg.num_classes, dev)
             runner = new_runner(fns, state, pcfg)
+            if runner.eager and chief:
+                print("[dcgan_tpu_torch] the step's collectives run over "
+                      "gloo, which a CUDA graph cannot capture: every step "
+                      "runs eagerly", flush=True)
         keys = metric_keys(cfg)
         eval_z = eval_z_of(sample_z, pcfg.batch_size)
         with startup.phase("restore"):

@@ -73,10 +73,9 @@ A data-parallel step (parallel/api.py) captures its NCCL collectives
 with it: the communicator is formed by initialize_multihost's eager
 all_reduce and the warm-up step, before any capture, and every buffer a
 collective reads or writes is the graph's own. A step whose collectives
-run over gloo cannot be captured: `_program` refuses it by name, unless
-the runner was made with `eager=True` (the trainer's gloo ranks on CUDA),
-whose programs run their functions eagerly over the same static buffers,
-as on the CPU.
+run over gloo (CUDA ranks sharing one card) cannot be captured: such a
+runner is `eager`, and its programs run their functions at every call
+over the same static buffers, as on the CPU.
 """
 
 from __future__ import annotations
@@ -196,6 +195,17 @@ def _copy_into(static: Pytree, new: Pytree) -> None:
             dst.copy_(src)
 
 
+class EagerProgram(CapturedProgram):
+    """A program whose function runs at every call, for a step whose
+    collectives a CUDA graph cannot hold: nothing is recorded."""
+
+    def capture(self) -> float:
+        if self.captured:
+            raise RuntimeError(f"{self.name} is captured already")
+        self.capture_ms = 0.0
+        return self.capture_ms
+
+
 class StepRunner:
     """The train step and the sampler as captured programs over static
     buffers (eager on the CPU); see the module docstring."""
@@ -203,10 +213,10 @@ class StepRunner:
     def __init__(self, fns: TrainStepFns, state: Pytree, cfg: TrainConfig,
                  device: torch.device,
                  sample_z: Optional[torch.Tensor] = None,
-                 sample_labels: Optional[torch.Tensor] = None,
-                 eager: bool = False):
+                 sample_labels: Optional[torch.Tensor] = None):
         m = cfg.model
-        self.eager = eager
+        # gloo's collectives on CUDA tensors: no graph can hold them
+        self.eager = device.type == "cuda" and not capturable(fns.group)
         k = cfg.steps_per_call
         self.fns = fns
         self.device = device
@@ -414,15 +424,8 @@ class StepRunner:
             fn = self._steps_fn(int(base[len("multi_step@k"):]), pattern)
         else:
             raise KeyError(f"no program {name!r}")
-        if self.device.type == "cuda" and not self.eager \
-                and not capturable(self.fns.group):
-            raise RuntimeError(
-                f"{name}: the step's collectives run over gloo, which a "
-                "CUDA graph cannot capture (the capture is refused, not "
-                "run eagerly); train on CUDA ranks over NCCL, one GPU per "
-                "rank")
-        prog = CapturedProgram(name, fn, self.device, self.stream,
-                               eager=self.eager)
+        prog = (EagerProgram if self.eager else CapturedProgram)(
+            name, fn, self.device, self.stream)
         prog.capture()
         self.programs[name] = prog
         self.captures += 1
